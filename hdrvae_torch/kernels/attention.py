@@ -1,0 +1,105 @@
+"""Spatial self-attention of the decoder's mid block, as
+``hdrvae/kernels/attention.py``.
+
+- :func:`spatial_attention_reference`: the plain version, scores
+  materialized, float32 softmax.
+- :func:`flash_attention_bf16` and :func:`flash_attention_f32` (K3): the
+  flash kernels of ``csrc/attention.cu``, one per dot mode.
+- :func:`spatial_attention`: the dispatch by tier.  Fast runs the bf16
+  kernel; parity and mixed run the exact float32 kernel (the mixed tier's
+  3-pass bf16x3 dot is replaced by exact float32, which is at least as
+  accurate).
+
+q, k, v are [B, H, W, C] (NHWC) at every public function; the output is
+float32 [B, H, W, C].  Each kernel wrapper runs the plain version only when
+q lies on the CPU; on a CUDA tensor it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hdrvae_torch.core.config import Precision, fp32_contractions
+from hdrvae_torch.kernels import _build
+
+_MAX_C = 512   # both kernels keep C / 64 <= 8 column tiles per thread group
+
+
+def spatial_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(C)) v over the flattened spatial dims, with the
+    N x N scores materialized: exact float32 (TF32 off), float32 softmax."""
+    b, h, w, c = q.shape
+    n = h * w
+    qf = q.reshape(b, n, c).float()
+    kf = k.reshape(b, n, c).float()
+    vf = v.reshape(b, n, c).float()
+    with fp32_contractions(Precision.parity()):
+        logits = (qf * c ** -0.5) @ kf.transpose(1, 2)
+        out = torch.softmax(logits, dim=-1) @ vf
+    return out.reshape(b, h, w, c)
+
+
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    if not q.is_cuda:
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    b, h, w, c = q.shape
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != dtype or tuple(t.shape) != (b, h, w, c):
+            raise ValueError(f"{name}: {nm} must be {dtype} {(b, h, w, c)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: q, k, v must share a device")
+    if c % 64 != 0 or c > _MAX_C:
+        raise ValueError(f"{name}: C must be a multiple of 64 up to "
+                         f"{_MAX_C}, got {c}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.empty(b, h, w, c, device=q.device, dtype=torch.float32)
+    fn = getattr(_build.library(), "hdrvae_" + name)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, h * w, c, float(c ** -0.5),
+                    torch.cuda.current_stream(q.device).cuda_stream), name)
+    return out
+
+
+def flash_attention_bf16(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Fast-tier flash attention (K3): bf16 q, k, v on the tensor cores
+    with float32 accumulation and an online float32 softmax; float32 out.
+    Runs the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return spatial_attention_reference(q, k, v)
+    out = _launch("flash_attention_bf16", q, k, v, torch.bfloat16)
+    flash_attention_bf16.launches += 1
+    return out
+
+
+flash_attention_bf16.launches = 0
+
+
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Parity/mixed-tier flash attention (K3): exact float32 dot products
+    on the CUDA cores (never TF32), online float32 softmax.  Runs the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return spatial_attention_reference(q, k, v)
+    out = _launch("flash_attention_f32", q, k, v, torch.float32)
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_f32.launches = 0
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      precision: Precision = Precision()) -> torch.Tensor:
+    """The mid attention in the tier's dot mode, chosen by its compute
+    dtype: the bf16 kernel for the fast tier's bf16, the float32 kernel for
+    parity and mixed (and a float32-compute fast tier).  Every size goes
+    through the kernel; there is no size gate."""
+    if precision.compute_dtype == torch.bfloat16:
+        cdt = torch.bfloat16
+        return flash_attention_bf16(q.to(cdt), k.to(cdt), v.to(cdt))
+    return flash_attention_f32(q.float(), k.float(), v.float())

@@ -1,0 +1,282 @@
+"""The decoder's fused 3x3 convolutions: CUDA kernels and their plain
+PyTorch versions, as ``hdrvae/kernels/conv3x3.py``.
+
+- :func:`fused_conv3x3` (K1): ``y = conv3x3(silu(x * gamma + beta)) + bias
+  [+ r | + r @ res_kernel]``, optionally with the per-group (sum, sumsq) of
+  y as stored.
+- :func:`upsample_conv3x3` (K2): ``y = conv3x3(nearest2x(x)) + bias`` from
+  the low-resolution map through the 2x2 phase decomposition, optionally
+  with the same statistics.
+
+Layouts are the JAX package's: x [B, H, W, C] NHWC, conv kernels HWIO
+[3, 3, Cin, Cout], ``res_kernel`` [Cr, Cout].  Statistics are per sample:
+(sum [B, G], sumsq [B, G]).
+
+Each wrapper runs its plain version only when ``x`` lies on the CPU.  On a
+CUDA tensor it launches the kernel (``csrc/conv3x3.cu``) or raises: the
+kernels take bf16 activations and weights (the fast tier) and nothing else.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hdrvae_torch.core.config import Precision, fp32_contractions
+from hdrvae_torch.kernels import _build
+
+Sums = Tuple[torch.Tensor, torch.Tensor]   # (sum [B, G], sumsq [B, G])
+
+_TH, _TW, _BN, _BK = 8, 16, 64, 16        # tile sizes of conv3x3.cu
+
+# Row/column tap sets of the phase decomposition: output pixel (2i+a, .) of
+# conv3x3(nearest2x(x)) reads input rows i-1+u, u in {0, 1}, with the 3x3
+# taps partitioned per phase (a=0: u=0 <- row 0, u=1 <- rows 1,2; a=1:
+# u=0 <- rows 0,1, u=1 <- row 2); the same along columns.
+_PHASE_SELECT = np.array(
+    [[[1, 0, 0], [0, 1, 1]],
+     [[1, 1, 0], [0, 0, 1]]], np.float32)
+
+
+def phase_kernels(kernel: torch.Tensor) -> torch.Tensor:
+    """[3, 3, Cin, Cout] -> the [2, 2, 2, 2, Cin, Cout] (a, b, u, v) phase
+    kernels of conv3x3 o nearest2x, summed in float32 and rounded to the
+    kernel's dtype (so in bf16 they differ from the bf16 taps' exact sums
+    by up to one bf16 ulp of the sum)."""
+    sel = torch.from_numpy(_PHASE_SELECT).to(kernel.device)
+    pk = torch.einsum("aud,bve,decf->abuvcf", sel, sel, kernel.float())
+    return pk.to(kernel.dtype)
+
+
+def _conv3x3_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 conv of a float32 NHWC map with an HWIO kernel, exact
+    float32 (TF32 off)."""
+    with fp32_contractions(Precision.parity()):
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     kernel.float().permute(3, 2, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def _group_sums(y: torch.Tensor, num_groups: int) -> Sums:
+    b, h, w, c = y.shape
+    g = y.float().reshape(b, h * w, num_groups, c // num_groups)
+    return g.sum(dim=(1, 3)), torch.square(g).sum(dim=(1, 3))
+
+
+def _per_sample(v: torch.Tensor, b: int) -> torch.Tensor:
+    """[C] or [B, C] float32 -> [B, C]."""
+    v = v.float()
+    return v.expand(b, v.shape[-1]) if v.dim() == 1 else v
+
+
+def fused_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
+                            bias: torch.Tensor, *,
+                            gamma: Optional[torch.Tensor] = None,
+                            beta: Optional[torch.Tensor] = None,
+                            residual: Optional[torch.Tensor] = None,
+                            res_kernel: Optional[torch.Tensor] = None,
+                            emit_stats: bool = False, num_groups: int = 32,
+                            out_dtype: Optional[torch.dtype] = None):
+    """Plain version of :func:`fused_conv3x3`, rounding where the kernel
+    does: the prologue output to x's dtype before the taps, y to
+    ``out_dtype`` before its statistics.  The SAME zeros are zeros of the
+    normalized activation."""
+    out_dtype = out_dtype or x.dtype
+    b = x.shape[0]
+    z = x.float()
+    if gamma is not None:
+        z = (z * _per_sample(gamma, b)[:, None, None, :]
+             + _per_sample(beta, b)[:, None, None, :])
+        z = (z * torch.sigmoid(z)).to(x.dtype).float()
+    y = _conv3x3_f32(z, kernel) + bias.float()
+    if residual is not None:
+        r = residual.float()
+        if res_kernel is not None:
+            with fp32_contractions(Precision.parity()):
+                r = r @ res_kernel.float()
+        y = y + r
+    y = y.to(out_dtype)
+    if emit_stats:
+        return y, _group_sums(y, num_groups)
+    return y
+
+
+def upsample_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
+                               bias: torch.Tensor, *,
+                               emit_stats: bool = False, num_groups: int = 32,
+                               out_dtype: Optional[torch.dtype] = None):
+    """Plain version of :func:`upsample_conv3x3`: the nearest 2x upsample
+    materialized, then the 3x3 conv in float32 from the same weights."""
+    out_dtype = out_dtype or x.dtype
+    up = x.float().repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    y = (_conv3x3_f32(up, kernel) + bias.float()).to(out_dtype)
+    if emit_stats:
+        return y, _group_sums(y, num_groups)
+    return y
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_bf16(name: str, t: torch.Tensor, shape) -> None:
+    _require(t.dtype == torch.bfloat16,
+             f"{name}: the CUDA kernel takes bf16, got {t.dtype}")
+    _require(tuple(t.shape) == tuple(shape),
+             f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+             f"{name}: must be contiguous and 16-byte aligned")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _group_stats(partial: torch.Tensor, num_groups: int) -> Sums:
+    b, t, _, c = partial.shape
+    out = torch.empty(b, 2, num_groups, device=partial.device,
+                      dtype=torch.float32)
+    _build.check(_build.library().hdrvae_group_stats(
+        partial.data_ptr(), out.data_ptr(), b, t, c, num_groups,
+        _stream(partial)), "hdrvae_group_stats")
+    return out[:, 0], out[:, 1]
+
+
+def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                  *, gamma: Optional[torch.Tensor] = None,
+                  beta: Optional[torch.Tensor] = None,
+                  residual: Optional[torch.Tensor] = None,
+                  res_kernel: Optional[torch.Tensor] = None,
+                  emit_stats: bool = False, num_groups: int = 32,
+                  out_dtype: Optional[torch.dtype] = None):
+    """One fused ResNet conv step (K1).
+
+    x [B, H, W, Cin]; kernel [3, 3, Cin, Cout]; bias [Cout] float32;
+    gamma/beta ([Cin] or [B, Cin] float32) enable the GroupNorm-apply +
+    SiLU prologue; residual [B, H, W, Cr] is added, or projected through
+    ``res_kernel`` [Cr, Cout] first (fold the projection's bias into
+    ``bias``).  Returns y [B, H, W, Cout], and with ``emit_stats`` also the
+    per-group (sum, sumsq) of y as stored, each [B, G] float32.
+
+    Launches ``csrc/conv3x3.cu`` for a CUDA ``x`` (bf16 x, kernel,
+    residual and output; Cin and Cr multiples of 16, Cout of 64); runs
+    :func:`fused_conv3x3_reference` for a CPU ``x``.
+    """
+    if x.device.type == "cpu":
+        return fused_conv3x3_reference(
+            x, kernel, bias, gamma=gamma, beta=beta, residual=residual,
+            res_kernel=res_kernel, emit_stats=emit_stats,
+            num_groups=num_groups, out_dtype=out_dtype)
+    _require(x.is_cuda, f"fused_conv3x3: unsupported device {x.device}")
+    _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    _require(cin % _BK == 0 and cout % _BN == 0,
+             f"fused_conv3x3: Cin % {_BK} and Cout % {_BN} must be 0, got "
+             f"{cin}, {cout}")
+    _require((out_dtype or x.dtype) == torch.bfloat16,
+             "fused_conv3x3: the CUDA kernel stores bf16")
+    _check_bf16("x", x, (b, h, w, cin))
+    _check_bf16("kernel", kernel, (3, 3, cin, cout))
+    bias = bias.float().contiguous()
+    _require(bias.shape == (cout,), f"bias must be [{cout}]")
+    if gamma is not None:
+        gamma = _per_sample(gamma, b).contiguous()
+        beta = _per_sample(beta, b).contiguous()
+        _require(gamma.shape == (b, cin) and beta.shape == (b, cin),
+                 f"gamma/beta must be [{cin}] or [{b}, {cin}]")
+    res_mode, cr = 0, 0
+    if residual is not None:
+        cr = residual.shape[-1]
+        _check_bf16("residual", residual, (b, h, w, cr))
+        if res_kernel is None:
+            _require(cr == cout, "an 'add' residual needs Cr == Cout")
+            res_mode = 1
+        else:
+            _require(cr % _BK == 0, f"residual channels % {_BK} must be 0")
+            _check_bf16("res_kernel", res_kernel, (cr, cout))
+            res_mode = 2
+    if emit_stats:
+        _require(cout % num_groups == 0, "Cout % num_groups must be 0")
+    for t in (kernel, bias, gamma, beta, residual, res_kernel):
+        _require(t is None or t.device == x.device,
+                 "fused_conv3x3: every operand must be on x's device")
+
+    y = torch.empty(b, h, w, cout, device=x.device, dtype=torch.bfloat16)
+    tiles = -(-h // _TH) * -(-w // _TW)
+    partial = (torch.empty(b, tiles, 2, cout, device=x.device,
+                           dtype=torch.float32) if emit_stats else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _build.check(_build.library().hdrvae_fused_conv3x3(
+        x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), ptr(gamma),
+        ptr(beta), ptr(residual), ptr(res_kernel), y.data_ptr(),
+        ptr(partial), b, h, w, cin, cout, cr, res_mode, _stream(x)),
+        "hdrvae_fused_conv3x3")
+    fused_conv3x3.launches += 1
+    if emit_stats:
+        return y, _group_stats(partial, num_groups)
+    return y
+
+
+fused_conv3x3.launches = 0
+
+
+def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+                     bias: torch.Tensor, *, emit_stats: bool = False,
+                     num_groups: int = 32,
+                     out_dtype: Optional[torch.dtype] = None):
+    """``conv3x3(nearest2x(x)) + bias`` as one kernel (K2): x [B, H, W, Cin]
+    -> [B, 2H, 2W, Cout]; ``kernel`` is the plain [3, 3, Cin, Cout] conv
+    kernel, collapsed here into phase kernels.  With ``emit_stats`` also
+    the per-group (sum, sumsq) of the output as stored, each [B, G].
+
+    Launches ``csrc/conv3x3.cu`` for a CUDA ``x`` (bf16 in and out; Cin a
+    multiple of 16, Cout of 64); runs :func:`upsample_conv3x3_reference`
+    for a CPU ``x``.
+    """
+    if x.device.type == "cpu":
+        return upsample_conv3x3_reference(
+            x, kernel, bias, emit_stats=emit_stats, num_groups=num_groups,
+            out_dtype=out_dtype)
+    _require(x.is_cuda, f"upsample_conv3x3: unsupported device {x.device}")
+    _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    _require(cin % _BK == 0 and cout % _BN == 0,
+             f"upsample_conv3x3: Cin % {_BK} and Cout % {_BN} must be 0, "
+             f"got {cin}, {cout}")
+    _require((out_dtype or x.dtype) == torch.bfloat16,
+             "upsample_conv3x3: the CUDA kernel stores bf16")
+    _check_bf16("x", x, (b, h, w, cin))
+    _check_bf16("kernel", kernel, (3, 3, cin, cout))
+    _require(kernel.device == x.device and bias.device == x.device,
+             "upsample_conv3x3: every operand must be on x's device")
+    bias = bias.float().contiguous()
+    _require(bias.shape == (cout,), f"bias must be [{cout}]")
+    if emit_stats:
+        _require(cout % num_groups == 0, "Cout % num_groups must be 0")
+    pk = phase_kernels(kernel).contiguous()
+
+    y = torch.empty(b, 2 * h, 2 * w, cout, device=x.device,
+                    dtype=torch.bfloat16)
+    tiles = 4 * -(-h // _TH) * -(-w // _TW)
+    partial = (torch.empty(b, tiles, 2, cout, device=x.device,
+                           dtype=torch.float32) if emit_stats else None)
+    _build.check(_build.library().hdrvae_upsample_conv3x3(
+        x.data_ptr(), pk.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(), b, h, w, cin, cout,
+        _stream(x)), "hdrvae_upsample_conv3x3")
+    upsample_conv3x3.launches += 1
+    if emit_stats:
+        return y, _group_stats(partial, num_groups)
+    return y
+
+
+upsample_conv3x3.launches = 0

@@ -1,0 +1,215 @@
+"""Flux.1 AutoencoderKL decoder on PyTorch, NHWC at the boundaries, as
+``hdrvae/models/decoder.py``.
+
+:class:`Decoder` is an ``nn.Module`` whose submodule names are the ldm
+checkpoint keys (``conv_in``, ``mid.block_1``, ``mid.attn_1.q``,
+``up.{i}.block.{j}``, ``up.{i}.upsample.conv``, ``norm_out``, ``conv_out``),
+so ``load_state_dict`` takes an ldm state dict (``decoder.`` prefix
+stripped) as it is.  The forward is written as functions over the modules,
+so the fused chain (``models/fused_tail.py``) and the layer path share the
+weights.
+
+One forward returns both the image and the pre-``conv_out`` feature map.
+In the fast tier, :func:`decoder_apply` runs conv_in, the mid and the up
+stack through the fused kernel chain and hands the chain's GroupNorm
+moments to ``norm_out``; the parity and mixed tiers run the layers, with
+the mid attention through the flash kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from hdrvae_torch.core.config import DecoderConfig, Precision
+from hdrvae_torch.kernels.attention import spatial_attention
+from hdrvae_torch.models.layers import (EPS, Moments, conv2d, group_norm,
+                                        group_norm_silu, nearest_upsample_2x)
+
+
+class DecodeOutput(NamedTuple):
+    rgb: Optional[torch.Tensor]       # [B, H, W, 3] in [0, 1], or None
+    pre_conv_out: torch.Tensor        # [B, H, W, 128] post norm_out + SiLU
+
+
+def _norm(c: int, cfg: DecoderConfig) -> nn.GroupNorm:
+    return nn.GroupNorm(cfg.num_groups, c, eps=EPS)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, cfg: DecoderConfig):
+        super().__init__()
+        self.norm1 = _norm(cin, cfg)
+        self.conv1 = nn.Conv2d(cin, cout, 3, padding=1)
+        self.norm2 = _norm(cout, cfg)
+        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
+        if cin != cout:
+            self.nin_shortcut = nn.Conv2d(cin, cout, 1)
+
+
+class AttnBlock(nn.Module):
+    def __init__(self, c: int, cfg: DecoderConfig):
+        super().__init__()
+        self.norm = _norm(c, cfg)
+        self.q = nn.Conv2d(c, c, 1)
+        self.k = nn.Conv2d(c, c, 1)
+        self.v = nn.Conv2d(c, c, 1)
+        self.proj_out = nn.Conv2d(c, c, 1)
+
+
+class Mid(nn.Module):
+    def __init__(self, c: int, cfg: DecoderConfig):
+        super().__init__()
+        self.block_1 = ResnetBlock(c, c, cfg)
+        if cfg.attn_mid:
+            self.attn_1 = AttnBlock(c, cfg)
+        self.block_2 = ResnetBlock(c, c, cfg)
+
+
+class Upsample(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3, padding=1)
+
+
+class UpLevel(nn.Module):
+    def __init__(self, cin: int, cout: int, level: int, cfg: DecoderConfig):
+        super().__init__()
+        self.block = nn.ModuleList(
+            ResnetBlock(cin if j == 0 else cout, cout, cfg)
+            for j in range(cfg.num_res_blocks + 1))
+        if level != 0:
+            self.upsample = Upsample(cout)
+
+
+class Decoder(nn.Module):
+    """The decoder's weights under ldm names; :func:`decoder_apply` runs
+    it."""
+
+    def __init__(self, cfg: DecoderConfig = DecoderConfig()):
+        super().__init__()
+        self.cfg = cfg
+        block_in = cfg.block_in
+        self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
+        self.mid = Mid(block_in, cfg)
+        # up[level] is built highest level first, as the forward visits it
+        levels = {}
+        cin = block_in
+        for level in reversed(range(cfg.num_levels)):
+            cout = cfg.ch * cfg.ch_mult[level]
+            levels[level] = UpLevel(cin, cout, level, cfg)
+            cin = cout
+        self.up = nn.ModuleList(levels[i] for i in range(cfg.num_levels))
+        c_final = cfg.pre_conv_out_channels
+        self.norm_out = _norm(c_final, cfg)
+        self.conv_out = nn.Conv2d(c_final, cfg.out_channels, 3, padding=1)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def resnet_block(x: torch.Tensor, blk: ResnetBlock, *, num_groups: int,
+                 precision: Precision) -> torch.Tensor:
+    h = group_norm_silu(x, blk.norm1, num_groups=num_groups,
+                        precision=precision)
+    h = conv2d(h, blk.conv1, precision=precision)
+    h = group_norm_silu(h, blk.norm2, num_groups=num_groups,
+                        precision=precision)
+    h = conv2d(h, blk.conv2, precision=precision)
+    if hasattr(blk, "nin_shortcut"):
+        x = conv2d(x, blk.nin_shortcut, precision=precision)
+    return x + h
+
+
+def attn_block(x: torch.Tensor, attn: AttnBlock, *, num_groups: int,
+               precision: Precision) -> torch.Tensor:
+    """Single-head spatial self-attention with residual; plain GroupNorm
+    (no SiLU) before the 1x1 q/k/v projections."""
+    h = group_norm(x, attn.norm, num_groups=num_groups, precision=precision)
+    q = conv2d(h, attn.q, precision=precision)
+    k = conv2d(h, attn.k, precision=precision)
+    v = conv2d(h, attn.v, precision=precision)
+    h = spatial_attention(q, k, v, precision=precision)
+    h = conv2d(h, attn.proj_out, precision=precision)
+    return x + h
+
+
+# ---------------------------------------------------------------------------
+# Decoder forward
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def decoder_head(dec: Decoder, z: torch.Tensor, *,
+                 precision: Precision = Precision()) -> torch.Tensor:
+    """Latent prescale, conv_in, the mid (with the global attention) and
+    every up level, on the layers' own ops: the pre-norm_out map."""
+    cfg = dec.cfg
+    x = conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
+               precision=precision)
+    x = resnet_block(x, dec.mid.block_1, num_groups=cfg.num_groups,
+                     precision=precision)
+    if cfg.attn_mid:
+        x = attn_block(x, dec.mid.attn_1, num_groups=cfg.num_groups,
+                       precision=precision)
+    x = resnet_block(x, dec.mid.block_2, num_groups=cfg.num_groups,
+                     precision=precision)
+    for level in reversed(range(cfg.num_levels)):
+        up = dec.up[level]
+        for blk in up.block:
+            x = resnet_block(x, blk, num_groups=cfg.num_groups,
+                             precision=precision)
+        if level != 0:
+            x = conv2d(nearest_upsample_2x(x), up.upsample.conv,
+                       precision=precision)
+    return x
+
+
+@torch.no_grad()
+def decoder_tail(dec: Decoder, x: torch.Tensor, *,
+                 precision: Precision = Precision(),
+                 apply_conv_out: bool = True,
+                 moments: Optional[Moments] = None) -> DecodeOutput:
+    """norm_out + SiLU (+ conv_out and the output mapping) on a
+    :func:`decoder_head` output.  ``moments`` are x's GroupNorm moments
+    when the producer already reduced them (the fused chain)."""
+    cfg = dec.cfg
+    x = group_norm_silu(x, dec.norm_out, num_groups=cfg.num_groups,
+                        precision=precision, moments=moments)
+    # Kept in the storage dtype (bf16 in the fast tier): the epilogue's
+    # passes over this map are bound by memory traffic.
+    pre_conv_out = x.to(precision.storage_dtype)
+    rgb = None
+    if apply_conv_out:
+        rgb = conv2d(pre_conv_out, dec.conv_out, precision=precision)
+        rgb = rgb * cfg.output_scale + cfg.output_shift
+        if cfg.output_clamp:
+            rgb = torch.clamp(rgb, 0.0, 1.0)
+        rgb = rgb.float()
+    return DecodeOutput(rgb=rgb, pre_conv_out=pre_conv_out)
+
+
+@torch.no_grad()
+def decoder_apply(dec: Decoder, z: torch.Tensor, *,
+                  precision: Precision = Precision(),
+                  apply_conv_out: bool = True) -> DecodeOutput:
+    """Decode a latent ``z`` [B, h, w, z_channels] (NHWC) to
+    ``DecodeOutput(rgb, pre_conv_out)`` in one forward.
+
+    Fast tier: the fused kernel chain (``models/fused_tail.py``) runs
+    conv_in, the mid and the up stack, and its moments of the pre-norm map
+    go to ``norm_out``.  Parity and mixed: the layers, with the mid
+    attention through the flash kernel.
+    """
+    if precision.mode == "fast":
+        from hdrvae_torch.models.fused_tail import forward
+        pre, moments = forward(dec, z, precision=precision)
+        return decoder_tail(dec, pre, precision=precision,
+                            apply_conv_out=apply_conv_out, moments=moments)
+    x = decoder_head(dec, z, precision=precision)
+    return decoder_tail(dec, x, precision=precision,
+                        apply_conv_out=apply_conv_out)

@@ -1,0 +1,111 @@
+"""Primitive layers as functions on NHWC tensors, as
+``hdrvae/models/layers.py``.
+
+Activations are NHWC at every function boundary.  A contiguous NHWC tensor
+permuted to NCHW is exactly a ``channels_last`` NCHW tensor, so
+``F.conv2d`` runs on it without a copy and its output permutes back to a
+contiguous NHWC tensor.  Weights stay in PyTorch's own modules
+(``nn.Conv2d`` OIHW, ``nn.GroupNorm``) so an ldm state dict loads as it is.
+
+Numerics per tier follow the JAX package: float32 accumulation and
+statistics, operands rounded to ``precision.compute_dtype`` and outputs to
+``precision.storage_dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hdrvae_torch.core.config import Precision, fp32_contractions
+
+Moments = Tuple[torch.Tensor, torch.Tensor]   # (mean [B, G], var [B, G])
+
+EPS = 1e-6   # GroupNorm epsilon of the ldm decoder
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, *,
+           precision: Precision = Precision()) -> torch.Tensor:
+    """SAME convolution of x [B, H, W, Cin] with ``conv``'s OIHW weight.
+
+    The operands are rounded to the compute dtype and convolved in float32
+    (bf16 products are exact in float32), the bias is added in float32 and
+    the result is rounded to the storage dtype: the JAX package's
+    ``preferred_element_type=float32`` contract.
+    """
+    cdt = precision.compute_dtype
+    w = conv.weight.to(cdt).float()
+    xin = x.to(cdt).float().permute(0, 3, 1, 2)
+    with fp32_contractions(precision):
+        y = F.conv2d(xin, w, padding=conv.kernel_size[0] // 2)
+    y = y.permute(0, 2, 3, 1) + conv.bias.float()
+    return y.to(precision.storage_dtype)
+
+
+def group_moments(xf: torch.Tensor, num_groups: int,
+                  two_pass: bool) -> Moments:
+    """Per-(batch, group) mean and variance of a float32 NHWC map.
+
+    ``two_pass`` is the stable parity form (mean, then the mean of squared
+    deviations); otherwise the one-pass E[x^2] - mean^2, clamped at 0.
+    """
+    b, h, w, c = xf.shape
+    g = xf.reshape(b, h * w, num_groups, c // num_groups)
+    mean = g.mean(dim=(1, 3))
+    if two_pass:
+        var = torch.square(g - mean[:, None, :, None]).mean(dim=(1, 3))
+    else:
+        var = torch.clamp(torch.square(g).mean(dim=(1, 3))
+                          - torch.square(mean), min=0.0)
+    return mean, var
+
+
+def gn_affine(moments: Moments, norm: nn.GroupNorm
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold the normalization and the learned scale/bias into one
+    per-channel (gamma, beta) pair, each [B, C] float32."""
+    mean, var = (m.float() for m in moments)
+    cpg = norm.weight.shape[0] // mean.shape[-1]
+    rstd_c = torch.rsqrt(var + EPS).repeat_interleave(cpg, dim=-1)
+    mean_c = mean.repeat_interleave(cpg, dim=-1)
+    gamma = norm.weight.float() * rstd_c
+    beta = norm.bias.float() - mean_c * gamma
+    return gamma, beta
+
+
+def _normalize(x: torch.Tensor, norm: nn.GroupNorm, num_groups: int,
+               precision: Precision,
+               moments: Optional[Moments]) -> torch.Tensor:
+    """x * gamma + beta in float32.  The moments are ``moments`` when the
+    caller already has them (the fused chain hands its output's moments to
+    ``norm_out`` this way), else computed here: two-pass in parity,
+    one-pass otherwise."""
+    xf = x.float()
+    if moments is None:
+        moments = group_moments(xf, num_groups,
+                                two_pass=precision.mode == "parity")
+    gamma, beta = gn_affine(moments, norm)
+    return xf * gamma[:, None, None, :] + beta[:, None, None, :]
+
+
+def group_norm(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
+               precision: Precision = Precision()) -> torch.Tensor:
+    """GroupNorm over NHWC; the output is rounded to the storage dtype."""
+    return _normalize(x, norm, num_groups, precision, None).to(
+        precision.storage_dtype)
+
+
+def group_norm_silu(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
+                    precision: Precision = Precision(),
+                    moments: Optional[Moments] = None) -> torch.Tensor:
+    """GroupNorm followed by SiLU, rounded to the storage dtype."""
+    y = _normalize(x, norm, num_groups, precision, moments)
+    return (y * torch.sigmoid(y)).to(precision.storage_dtype)
+
+
+def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x spatial upsample of an NHWC tensor."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
