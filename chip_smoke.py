@@ -10,17 +10,24 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 2. build: compile the kernels, print the build time and ptxas' register
    and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes of a 1024^2 decode, with its tolerance, and both timed with
-   CUDA events after a warm-up;
+   the shapes its path gives it (K1-K4: a 1024^2 decode; K6: one 512^2
+   tile of the full-width ESRGAN x4 net), with its tolerance, and both
+   timed with CUDA events after a warm-up;
 4. decode: the full-width Flux.1 decoder (random weights from a numpy
    seed) on a [1, 128, 128, 16] latent through ``hdr_decode`` +
    ``decode_summary`` in the fast, parity and mixed tiers, three requests
    each (the first warms cuDNN up); fast is held against the unfused fast
-   path, mixed against parity; then the epilogue in all four modes on one
-   decoder output;
+   path, mixed against parity; then one fast and one parity decode with
+   the fused epilogue (K4) held to the default path's; then the epilogue
+   in all four modes on one decoder output;
 5. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
-6. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
-   mixed.
+6. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
+   seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
+   512^2 tiles (9 tiles x 2 passes): two fast requests and one parity
+   request, the fused K6 chain held to the unfused fast layers on one
+   tile, and one fast request with small_blur and local_fix;
+7. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
+   mixed, K4 in the fused-epilogue decodes, K6 in the fast upscale.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -51,6 +58,19 @@ K1_SHAPES = [(128, 128, 512, 512, "add"), (256, 256, 512, 512, "add"),
 # (H, W, C) of the low-resolution input of each upsample conv
 K2_SHAPES = [(128, 128, 512), (256, 256, 512), (512, 512, 256)]
 N_TOKENS, C_ATTN = 128 * 128, 512
+# K6 at one 512^2 tile of the x4 net: (name, H, W, input widths, Cout,
+# act, residual scale or None, float32 out)
+K6_SHAPES = [("conv_first", 512, 512, (3,), 64, None, None, False)] + [
+    (f"conv{i}", 512, 512, (64,) + (32,) * (i - 1), 32, "lrelu", None, False)
+    for i in range(1, 5)] + [
+    ("conv5", 512, 512, (64, 32, 32, 32, 32), 64, None, 0.2, False),
+    ("conv_up1", 1024, 1024, (64,), 64, "lrelu", None, False),
+    ("conv_up2", 2048, 2048, (64,), 64, "lrelu", None, False),
+    ("conv_last", 2048, 2048, (64,), 3, None, None, True),
+    ("conv5 ragged", 128, 120, (64, 32, 32, 32, 32), 64, None, 0.2, False)]
+K4_SHAPE = (1, 1024, 1024, 128)
+K4_BUDGET = 1e-5            # relative, on mean and std
+FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
 STATS_BUDGET = 1e-3         # relative, on the emitted GroupNorm sums
@@ -98,6 +118,31 @@ def stats_err(got, ref, y) -> float:
     e_sum = ((got[0] - ref[0]).abs() / abs_sum).max().item()
     e_sq = ((got[1] - ref[1]).abs() / ref[1].abs()).max().item()
     return max(e_sum, e_sq)
+
+
+def flat_numbers(tree, prefix=""):
+    """(dotted key, number) of every leaf of a nested summary dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_numbers(v, f"{prefix}{k}.")
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield f"{prefix}{k}", float(v)
+
+
+def summary_rel_err(got: dict, ref: dict) -> float:
+    """Largest |got - ref| / max(|ref|, 1e-6) over the summary's
+    numbers."""
+    ref_n = dict(flat_numbers(ref))
+    return max(abs(v - ref_n[k]) / max(abs(ref_n[k]), 1e-6)
+               for k, v in flat_numbers(got))
+
+
+def p999(d: torch.Tensor) -> float:
+    """The 99.9th percentile of a tensor's values (kthvalue: quantile
+    refuses tensors this large)."""
+    flat = d.flatten().float()
+    return flat.kthvalue(max(1, int(np.ceil(0.999 * flat.numel())))
+                         ).values.item()
 
 
 def phase_device() -> str:
@@ -255,15 +300,105 @@ def phase_kernels() -> list:
                     "plain_ms": tp, "tiers": ["fast"]})
     del q, k, v, qb, kb, vb, ref, got
     torch.cuda.empty_cache()
+    entries.append(_check_k4())
+    entries.append(_check_k6(rng))
     return entries
+
+
+def _check_k4() -> dict:
+    from hdrvae_torch.kernels import epilogue
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(K4_SHAPE, generator=g, device="cuda") * 2.0
+    details, k_ms, p_ms, err, rel_err = [], 0.0, 0.0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        pre = torch.nn.functional.silu(x).to(dtype)   # a post-SiLU map
+        col, st = epilogue.collapse_and_stats_fused(pre)
+        rcol, rst = epilogue.collapse_and_stats_reference(pre)
+        torch.cuda.synchronize()
+        check(torch.equal(col, rcol), f"K4 {dtype}: collapse not bit-exact")
+        e_abs = max((col.float() - rcol.float()).abs().max().item(),
+                    *(abs(st[k].item() - rst[k].item()) for k in st))
+        for key in ("min", "max"):
+            check(st[key].item() == rst[key].item(),
+                  f"K4 {dtype}: {key} {st[key].item()} != "
+                  f"{rst[key].item()}")
+        rel = {key: abs(st[key].item() - rst[key].item())
+               / abs(rst[key].item()) for key in ("mean", "std")}
+        for key, e in rel.items():
+            check(e <= K4_BUDGET, f"K4 {dtype}: {key} rel err {e}")
+        t = cuda_ms(lambda: epilogue.collapse_and_stats_fused(pre))
+        tp = cuda_ms(lambda: epilogue.collapse_and_stats_reference(pre))
+        gbs = pre.numel() * pre.element_size() / (t * 1e6)
+        log(f"K4 collapse_and_stats {list(K4_SHAPE)} {dtype}: collapse "
+            f"bit-exact, min/max exact, mean rel {rel['mean']:.2e} std rel "
+            f"{rel['std']:.2e}  kernel {t:.3f} ms ({gbs:.0f} GB/s read)  "
+            f"plain {tp:.3f} ms")
+        details.append({"dtype": str(dtype), "max_abs_err": e_abs,
+                        "mean_rel_err": rel["mean"],
+                        "std_rel_err": rel["std"], "ms": t, "plain_ms": tp})
+        k_ms, p_ms = k_ms + t, p_ms + tp
+        err, rel_err = max(err, e_abs), max(rel_err, *rel.values())
+        del pre, col, rcol
+    del x
+    torch.cuda.empty_cache()
+    # max_abs_err: over the collapsed map and the four statistics
+    return {"name": "collapse_and_stats_fused", "route": "cuda",
+            "source": "hdrvae_torch/csrc/epilogue.cu",
+            "replaces": "hdrvae/kernels/epilogue.py:93", "max_abs_err": err,
+            "stats_rel_err": rel_err, "ms": k_ms, "plain_ms": p_ms,
+            "shapes": details}
+
+
+def _check_k6(rng) -> dict:
+    from hdrvae_torch.kernels import dense_conv
+    dev = torch.device("cuda")
+    details, k_ms, p_ms, err = [], 0.0, 0.0, 0.0
+    for name, h, w, cins, cout, act, rs, f32 in K6_SHAPES:
+        xs = [_bf16(rng, (1, h, w, c), 0.5) for c in cins]
+        kern = _bf16(rng, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5)
+        bias = torch.from_numpy(rng.uniform(-0.1, 0.1, cout)
+                                .astype(np.float32)).to(dev)
+        kw = dict(act=act, out_dtype=torch.float32 if f32 else None)
+        if rs is not None:
+            kw.update(residual=_bf16(rng, (1, h, w, cout), 0.5),
+                      res_scale=rs)
+        y = dense_conv.dense_conv3x3(xs, kern, bias, **kw)
+        ry = dense_conv.dense_conv3x3_reference(xs, kern, bias, **kw)
+        torch.cuda.synchronize()
+        check(y.dtype == ry.dtype and y.shape == ry.shape,
+              f"K6 {name}: {y.dtype} {tuple(y.shape)}")
+        check(torch.isfinite(y.float()).all().item(),
+              f"K6 {name}: output not finite")
+        e = (y.float() - ry.float()).abs().max().item()
+        check(e <= CONV_BUDGET, f"K6 {name} {h}x{w}: max-abs {e} > "
+              f"{CONV_BUDGET}")
+        t = cuda_ms(lambda: dense_conv.dense_conv3x3(xs, kern, bias, **kw))
+        tp = cuda_ms(lambda: dense_conv.dense_conv3x3_reference(
+            xs, kern, bias, **kw))
+        tflops = 2 * h * w * 9 * sum(cins) * cout / (t * 1e9)
+        log(f"K6 dense_conv3x3 {name} {h}x{w} {'+'.join(map(str, cins))}->"
+            f"{cout}: max-abs {e:.3e}  kernel {t:.3f} ms ({tflops:.1f} "
+            f"TFLOP/s)  plain {tp:.3f} ms")
+        details.append({"shape": [name, h, w, list(cins), cout],
+                        "max_abs_err": e, "ms": t, "plain_ms": tp,
+                        "tflops": tflops})
+        k_ms, p_ms, err = k_ms + t, p_ms + tp, max(err, e)
+        del xs, kern, y, ry, kw
+        torch.cuda.empty_cache()
+    return {"name": "dense_conv3x3", "route": "cuda",
+            "source": "hdrvae_torch/csrc/dense_conv.cu",
+            "replaces": "hdrvae/kernels/conv3x3.py:1306",
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "shapes": details}
 
 
 def _wrappers() -> dict:
     """The kernel wrappers, by name; each counts its own launches."""
-    from hdrvae_torch.kernels import attention, conv3x3
+    from hdrvae_torch.kernels import attention, conv3x3, dense_conv, epilogue
     return {fn.__name__: fn for fn in (
         conv3x3.fused_conv3x3, conv3x3.upsample_conv3x3,
-        attention.flash_attention_bf16, attention.flash_attention_f32)}
+        attention.flash_attention_bf16, attention.flash_attention_f32,
+        epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3)}
 
 
 def _counts() -> dict:
@@ -297,7 +432,7 @@ def phase_decode():
              "mixed": Precision.mixed()}
 
     _reset_counts()
-    results, per_tier, times = {}, {}, {}
+    results, summaries, per_tier, times = {}, {}, {}, {}
     for name, prec in tiers.items():
         before = _counts()
         walls = []
@@ -316,6 +451,7 @@ def phase_decode():
         after = _counts()
         per_tier[name] = {k: after[k] - before[k] for k in after}
         results[name] = res
+        summaries[name] = summary
         times[name] = walls
         check(tuple(res.image.shape) == (1, 1024, 1024, 3),
               f"{name}: image shape {tuple(res.image.shape)}")
@@ -348,6 +484,26 @@ def phase_decode():
         f"{e_cons:.3e} (<= 1e-3)")
     del x, unfused
 
+    # the fused epilogue (K4) in the fast and parity tiers, held to the
+    # default path's image and summary
+    fused_cfg = HDRDecodeConfig(hdr_mode="conservative",
+                                use_fused_epilogue=True)
+    _reset_counts()
+    for name in ("fast", "parity"):
+        res = hdr_decode(dec, z, fused_cfg, tiers[name])
+        summary = decode_summary(res)
+        e_img = (res.image - results[name].image).abs().max().item()
+        e_sum = summary_rel_err(summary, summaries[name])
+        check(e_img <= FUSED_EPI_BUDGET,
+              f"fused epilogue {name}: image max-abs {e_img}")
+        check(e_sum <= FUSED_EPI_BUDGET,
+              f"fused epilogue {name}: summary rel err {e_sum}")
+        log(f"decode[{name}, fused epilogue] image max-abs {e_img:.3e}, "
+            f"summary rel {e_sum:.3e} vs the default path (<= "
+            f"{FUSED_EPI_BUDGET})")
+    epi_counts = _counts()
+    del res
+
     out = decoder_apply(dec, z, precision=tiers["parity"])
     for mode in ("conservative", "exposure", "adaptive_recovery",
                  "mathematical_recovery"):
@@ -358,7 +514,8 @@ def phase_decode():
             f"{int((image > 1).sum().item())} fallback "
             f"{bool(fallback.item())} norm "
             f"{int(analysis.norm_kind.item())}")
-    return results["parity"].image, decode_counts, per_tier, times
+    return (results["parity"].image, decode_counts, per_tier, times,
+            epi_counts)
 
 
 def phase_exr(image: torch.Tensor) -> None:
@@ -377,6 +534,91 @@ def phase_exr(image: torch.Tensor) -> None:
         f"bit-exact in {dt:.2f} s")
 
 
+def _upscale_request(net, image, ucfg, prec):
+    """One hdr_upscale with its result synchronised: (result, device ms,
+    host wall ms, peak GiB)."""
+    from hdrvae_torch.upscale.pipeline import hdr_upscale
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    res = hdr_upscale(net, image, ucfg, precision=prec)
+    end.record()
+    torch.cuda.synchronize()
+    return (res, start.elapsed_time(end), 1e3 * (time.perf_counter() - h0),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_upscale(image: torch.Tensor):
+    from hdrvae_torch.core.config import Precision, UpscaleConfig
+    from hdrvae_torch.models.rrdbnet import (RRDBNetConfig, init_rrdbnet,
+                                             rrdbnet_layers)
+    from hdrvae_torch.models.rrdbnet_fused import rrdbnet_fused_apply
+
+    t0 = time.perf_counter()
+    net = init_rrdbnet(RRDBNetConfig(), seed=2, device="cuda")
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"upscaler: ESRGAN x4 {n_params} parameters, weights from numpy "
+        f"seed 2 in {time.perf_counter() - t0:.1f} s; input "
+        f"{list(image.shape)} max {image.max().item():.6g}, "
+        f"{int((image > 1).sum().item())} values > 1")
+    out_shape = (1, image.shape[1] * 4, image.shape[2] * 4, 3)
+    ucfg = UpscaleConfig()
+    results, times = {}, {}
+    _reset_counts()
+    for name, prec, n in (("fast", Precision.fast(), 2),
+                          ("parity", Precision.parity(), 1)):
+        walls = []
+        for _ in range(n):
+            res, dev_ms, wall_ms, peak = _upscale_request(net, image, ucfg,
+                                                          prec)
+            walls.append((dev_ms, wall_ms, peak))
+        results[name], times[name] = res, walls
+        check(tuple(res.image.shape) == out_shape,
+              f"upscale {name}: shape {tuple(res.image.shape)}")
+        check(torch.isfinite(res.image).all().item(),
+              f"upscale {name}: non-finite output")
+        log(f"upscale[{name}] device ms {[round(d, 3) for d, _, _ in walls]}"
+            f", host wall ms {[round(w, 3) for _, w, _ in walls]}, peak "
+            f"{walls[-1][2]:.3f} GiB; out max "
+            f"{res.image.max().item():.6g}")
+        if name == "fast":
+            fast_counts = _counts()
+            check(fast_counts["dense_conv3x3"] > 0,
+                  "fast upscale never ran dense_conv3x3")
+    log(f"launches in the fast upscale (2 requests): {fast_counts}")
+
+    d = (results["fast"].image - results["parity"].image).abs()
+    log(f"upscale fast vs parity image |diff| mean {d.mean().item():.4e} "
+        f"p99.9 {p999(d):.4e} (not gated: the atanh reversal)")
+    del d
+
+    # the K6 chain against the unfused fast layers on the first tile's raw
+    # model output (before the reversal)
+    tile = image[:, :512, :512, :].contiguous()
+    fused = rrdbnet_fused_apply(net, tile, precision=Precision.fast())
+    unfused = rrdbnet_layers(net, tile, precision=Precision.fast()).float()
+    e = (fused - unfused).abs().max().item()
+    bound = CONV_BUDGET * max(1.0, unfused.abs().max().item())
+    check(e <= bound, f"fused vs unfused raw tile max-abs {e} > {bound}")
+    log(f"upscale fused vs unfused fast raw 512^2 tile: max-abs {e:.4e} "
+        f"(<= {bound:.4e}; max|ref| {unfused.abs().max().item():.4e})")
+    del fused, unfused, results
+
+    res, dev_ms, wall_ms, peak = _upscale_request(
+        net, image, UpscaleConfig(local_fix=True, small_blur=True),
+        Precision.fast())
+    check(torch.isfinite(res.image).all().item(),
+          "upscale local_fix + small_blur: non-finite output")
+    log(f"upscale[fast, local_fix + small_blur] device ms {dev_ms:.3f}, "
+        f"peak {peak:.3f} GiB: finite")
+    del res, net
+    torch.cuda.empty_cache()
+    return fast_counts, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -392,8 +634,11 @@ def main() -> int:
     phase_device()
     phase_build()
     entries = phase_kernels()
-    image, counts, per_tier, times = phase_decode()
+    image, counts, per_tier, times, epi_counts = phase_decode()
     phase_exr(image)
+    t_up = time.perf_counter()
+    up_counts, up_times = phase_upscale(image)
+    log(f"upscale phase {time.perf_counter() - t_up:.1f} s")
 
     log(f"launches in the decode phase: {counts}")
     for name in ("fused_conv3x3", "upsample_conv3x3",
@@ -402,11 +647,20 @@ def main() -> int:
     for tier in ("parity", "mixed"):
         check(per_tier[tier]["flash_attention_f32"] > 0,
               f"{tier} decode never ran flash_attention_f32")
+    check(epi_counts["collapse_and_stats_fused"] > 0,
+          "fused-epilogue decodes never ran collapse_and_stats_fused")
+    # each kernel's launches in the run of the path it serves
+    main_path = dict(counts)
+    main_path["collapse_and_stats_fused"] = epi_counts[
+        "collapse_and_stats_fused"]
+    main_path["dense_conv3x3"] = up_counts["dense_conv3x3"]
     for entry in entries:
-        entry["launches"] = counts[entry["name"]]
+        entry["launches"] = main_path[entry["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries,
-                      "decode_ms": {k: v[-1][0] for k, v in times.items()}}))
+                      "decode_ms": {k: v[-1][0] for k, v in times.items()},
+                      "upscale_ms": {k: v[-1][0]
+                                     for k, v in up_times.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

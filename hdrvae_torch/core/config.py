@@ -1,7 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
 Mirrors ``hdrvae/core/config.py``: the decoder topology, the HDR decode
-parameters and the numerics policy, with torch dtypes in place of jnp ones.
+parameters, the numerics policy, and the tiling and upscale settings, with
+torch dtypes in place of jnp ones.
 The configs are frozen dataclasses; nothing global is switched when this
 module is imported.  :func:`fp32_contractions` is the one place that turns
 TF32 off for the float32 tiers.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -81,8 +82,7 @@ HDR_MODE_ALIASES = {
 @dataclasses.dataclass(frozen=True)
 class HDRDecodeConfig:
     """Parameters of the HDR decode pipeline (the JAX package's fields and
-    defaults; ``use_fused_epilogue`` is absent until its kernel is
-    ported)."""
+    defaults)."""
 
     hdr_mode: str = "mathematical_recovery"
     conservative_ev_multiplier: float = 1.0
@@ -102,6 +102,10 @@ class HDRDecodeConfig:
     sigmoid_eps: float = 1e-7      # inverse-activation epsilons
     tanh_eps: float = 1e-6
     ev_floor: float = 0.001        # clamp floor of the EV multipliers
+    # Run the MAX-pool collapse and the pre-map statistics as one fused
+    # kernel pass (K4, ``kernels/epilogue.py``) instead of the plain
+    # reductions.
+    use_fused_epilogue: bool = False
     # Return the plain (standard) decode next to the HDR image.
     keep_standard: bool = True
 
@@ -144,6 +148,41 @@ class Precision:
     @classmethod
     def mixed(cls) -> "Precision":
         return cls(mode="mixed")
+
+
+@dataclasses.dataclass(frozen=True)
+class TilingConfig:
+    """Overlap-tile plan of the upscaler.  ``tile`` and ``overlap`` are in
+    input pixels (ComfyUI ``tiled_scale`` semantics); the blend feather is
+    ``overlap * scale`` output pixels."""
+
+    tile: int = 512
+    overlap: int = 64
+    min_tile: int = 128            # floor of the budgeted tile size
+    # Device-memory budget (bytes) from which a tile size is picked; None
+    # keeps ``tile`` as it is.
+    hbm_budget_bytes: Optional[int] = None
+    # "comfy" (ComfyUI tiled_scale's grid and blend), "feather" (uniform
+    # grid) or "crop" (halo crop).
+    seam_mode: str = "comfy"
+
+
+UPSCALE_METHODS = ("nearest-exact", "bilinear", "area", "bicubic", "bislerp")
+
+
+@dataclasses.dataclass(frozen=True)
+class UpscaleConfig:
+    """The HDR upscale node's inputs (``HDRUpscaleWithModel``)."""
+
+    small_blur: bool = False
+    local_fix: bool = False
+    upscale_method: str = "bislerp"
+    # Clamp range of the colour-stable second pass.
+    color_stable_min: float = -1.0
+    color_stable_max: float = 1.0
+    luma_max: float = 8.0              # ceiling of the stabilized luma
+    local_fix_threshold: float = 0.1   # dark-area threshold of local_fix
+    tiling: TilingConfig = dataclasses.field(default_factory=TilingConfig)
 
 
 @contextlib.contextmanager

@@ -3,7 +3,19 @@
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def collapse_bounds(c: int) -> Tuple[int, int, int]:
+    """Ends of the three channel groups of a C >= 3 map (the first starts
+    at 0, each next one where the previous ends): 42/84/126 for C = 128,
+    thirds of C otherwise."""
+    if c == 128:
+        return 42, 84, 126
+    step = c // 3
+    return step, 2 * step, 3 * step
 
 
 def collapse_channels_maxpool(x: torch.Tensor) -> torch.Tensor:
@@ -22,10 +34,6 @@ def collapse_channels_maxpool(x: torch.Tensor) -> torch.Tensor:
         return torch.cat([x, x, x], dim=-1)
     if c == 2:
         return torch.cat([x, x[..., :1]], dim=-1)
-    if c == 128:
-        bounds = (0, 42, 84, 126)
-    else:
-        step = c // 3
-        bounds = (0, step, 2 * step, 3 * step)
+    bounds = (0, *collapse_bounds(c))
     parts = [x[..., bounds[i]:bounds[i + 1]].amax(dim=-1) for i in range(3)]
     return torch.stack(parts, dim=-1)

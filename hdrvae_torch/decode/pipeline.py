@@ -78,8 +78,11 @@ def hdr_epilogue_from_parts(rgb: torch.Tensor, pre_collapsed: torch.Tensor,
 def hdr_epilogue(rgb: torch.Tensor, pre_conv_out: torch.Tensor,
                  cfg: HDRDecodeConfig) -> Tuple[torch.Tensor, torch.Tensor,
                                                 ConvOutAnalysis]:
-    """Analysis + mode math + acceptance select on decoder outputs."""
-    pre_collapsed, pre_stats = collapse_and_stats(pre_conv_out)
+    """Analysis + mode math + acceptance select on decoder outputs; the
+    collapse and the pre-map statistics run as the fused K4 pass when
+    ``cfg.use_fused_epilogue`` is set."""
+    pre_collapsed, pre_stats = collapse_and_stats(
+        pre_conv_out, use_fused=cfg.use_fused_epilogue)
     pre_first3 = (pre_conv_out[..., :3].float()
                   if cfg.fallback_collapse == "first3" else None)
     return hdr_epilogue_from_parts(rgb, pre_collapsed.float(), pre_stats,

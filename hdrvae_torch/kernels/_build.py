@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``hdrvae_torch/csrc/*.cu`` is compiled by ``nvcc`` into one shared
+Every ``hdrvae_torch/csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all of them started together, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs at
 the first kernel launch (never at import: the CPU tests import every
 module), goes into ``hdrvae_torch/build/`` and is reused while a hash of
@@ -28,11 +29,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argument types (every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits).
@@ -46,6 +48,13 @@ SIGNATURES = {
     # attention.cu
     "hdrvae_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "hdrvae_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # dense_conv.cu
+    "hdrvae_dense_conv3x3": [_P] * 5 + [_I] * 5 + [_I, _P, _P, _P, _P,
+                                                   _I, _I, _I, _I, _I, _F,
+                                                   _I, _P],
+    # epilogue.cu
+    "hdrvae_collapse_and_stats": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                  _P],
 }
 
 
@@ -71,27 +80,41 @@ def find_nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
+def _run(procs) -> str:
+    """Wait for every (name, Popen), then raise on the first failure."""
+    done = [(name, *proc.communicate(), proc) for name, proc in procs]
+    for name, out, err, proc in done:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
+                               f"\n{out}\n{err}")
+    return "".join(out + err for _, out, err, _ in done)
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels if the library for the current sources is
-    missing; returns (library path, compiler log; empty when reused)."""
+    missing; returns (library path, compiler log; empty when reused).
+    One ``nvcc -c`` per source runs in parallel, then one link."""
     lib = BUILD_DIR / f"libhdrvae_kernels_{source_hash()}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        log = _run(procs)
+        tmp = os.path.join(tmpdir, "lib.so")
+        log += _run([("link", subprocess.Popen(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", tmp, *objs], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))])
         os.replace(tmp, lib)   # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
+    return lib, log
 
 
 @functools.cache

@@ -1,5 +1,6 @@
 """Decoder weights: topology inference, seeded initialization, and the
 JAX parameter pytree as an ldm state dict; as ``hdrvae/models/params.py``.
+Also the JAX package's RRDBNet pytree as a new-schema ESRGAN state dict.
 """
 
 from __future__ import annotations
@@ -140,6 +141,13 @@ def init_decoder(cfg: DecoderConfig = DecoderConfig(), seed: int = 0, *,
     return decoder_from_state_dict(sd, cfg, device=device)
 
 
+def _put_conv(sd: Dict[str, torch.Tensor], name: str, p) -> None:
+    """A JAX conv ({"kernel": HWIO, "bias"}) as OIHW weight + bias."""
+    w = np.transpose(np.asarray(p["kernel"], np.float32), (3, 2, 0, 1))
+    sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+    sd[f"{name}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+
+
 def state_dict_from_jax(params_np: Mapping[str, Any],
                         cfg: DecoderConfig = DecoderConfig()
                         ) -> Dict[str, torch.Tensor]:
@@ -150,10 +158,7 @@ def state_dict_from_jax(params_np: Mapping[str, Any],
     sd: Dict[str, torch.Tensor] = {}
 
     def put_conv(name: str, p):
-        w = np.transpose(np.asarray(p["kernel"], np.float32), (3, 2, 0, 1))
-        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
-        sd[f"{name}.bias"] = torch.from_numpy(
-            np.array(p["bias"], np.float32))
+        _put_conv(sd, name, p)
 
     def put_norm(name: str, p):
         sd[f"{name}.weight"] = torch.from_numpy(
@@ -185,4 +190,21 @@ def state_dict_from_jax(params_np: Mapping[str, Any],
             put_conv(f"up.{level}.upsample.conv", up["upsample"])
     put_norm("norm_out", params_np["norm_out"])
     put_conv("conv_out", params_np["conv_out"])
+    return sd
+
+
+def rrdbnet_state_dict_from_jax(params_np: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX package's RRDBNet pytree (numpy HWIO leaves) as a
+    new-schema ESRGAN state dict of float32 OIHW tensors (``conv_first``,
+    ``body.N.rdbJ.convK``, ``conv_body``, ``conv_upI``, ``conv_hr``,
+    ``conv_last``), which ``rrdbnet_from_state_dict`` loads."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params_np.items():
+        if name != "body":
+            _put_conv(sd, name, p)
+    for i, block in enumerate(params_np["body"]):
+        for rdb, convs in block.items():
+            for conv, p in convs.items():
+                _put_conv(sd, f"body.{i}.{rdb}.{conv}", p)
     return sd

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small and ragged shapes that ``chip_smoke.py`` (the decode's own shapes)
-does not reach: batch 2, image sizes that are not tile multiples, token
-counts that are not block multiples, and a small decoder end to end.
+small and ragged shapes that ``chip_smoke.py`` (the decode's and the
+upscaler's own shapes) does not reach: batch 2, image sizes that are not
+tile multiples, token counts that are not block multiples, odd channel
+counts, and a small decoder and upscaler end to end.
 
 Every test needs an NVIDIA GPU and skips without one.  The card's host has
 no JAX, so run this file there without the suite's conftest:
@@ -13,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from hdrvae_torch.core.config import DecoderConfig, HDRDecodeConfig, Precision
-from hdrvae_torch.decode.pipeline import hdr_decode
-from hdrvae_torch.kernels import attention, conv3x3
+from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
+                                      Precision, TilingConfig, UpscaleConfig)
+from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+from hdrvae_torch.kernels import attention, conv3x3, dense_conv, epilogue
 from hdrvae_torch.models.decoder import decoder_head, decoder_tail
 from hdrvae_torch.models.params import init_decoder
+from hdrvae_torch.models.rrdbnet import (RRDBNetConfig, init_rrdbnet,
+                                         rrdbnet_layers)
+from hdrvae_torch.models.rrdbnet_fused import rrdbnet_fused_apply
+from hdrvae_torch.upscale.pipeline import hdr_upscale
 
 pytestmark = pytest.mark.cuda
 
@@ -142,3 +148,132 @@ def test_small_decoder_on_card(dev):
                                atol=1e-4)
     torch.testing.assert_close(parity.image.cpu(), ref.image, rtol=0,
                                atol=1e-4)
+
+
+# (input widths, Cout, act, residual scale or None, float32 out): one to
+# five inputs as in a dense block, conv_first's 3 and 12 (unshuffled)
+# channels, conv_last's 3 outputs in float32, and narrow widths (4 is no
+# multiple of 8: element-wise loads)
+DENSE_CASES = [((64,), 32, "lrelu", None, False),
+               ((64, 32), 32, "lrelu", None, False),
+               ((64, 32, 32), 32, "lrelu", None, False),
+               ((64, 32, 32, 32), 32, "lrelu", None, False),
+               ((64, 32, 32, 32, 32), 64, None, 0.2, False),
+               ((3,), 64, None, None, False),
+               ((12,), 64, None, None, False),
+               ((64,), 3, None, None, True),
+               ((64,), 64, None, 1.0, False),
+               ((8, 4, 4), 8, "lrelu", 0.2, False),
+               ((24,), 128, "lrelu", None, True)]
+
+
+@pytest.mark.parametrize("cins,cout,act,res_scale,out_f32", DENSE_CASES)
+def test_dense_conv3x3(dev, cins, cout, act, res_scale, out_f32):
+    """Batch 2 at 10 x 37 (ragged in both tile dimensions): bf16 output
+    within two bf16 ulps of the largest value (kernel and plain version
+    round the same float32 sums, taken in different orders), float32
+    output within 1e-5 of it."""
+    b, h, w = 2, 10, 37
+    xs = [_rand(dev, (b, h, w, c), seed=i) for i, c in enumerate(cins)]
+    kern = _rand(dev, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5,
+                 seed=7)
+    bias = _rand(dev, (cout,), 0.1, torch.float32, seed=8)
+    kw = dict(act=act, out_dtype=torch.float32 if out_f32 else None)
+    if res_scale is not None:
+        kw.update(residual=_rand(dev, (b, h, w, cout), seed=9),
+                  res_scale=res_scale)
+    before = dense_conv.dense_conv3x3.launches
+    y = dense_conv.dense_conv3x3(xs, kern, bias, **kw)
+    assert dense_conv.dense_conv3x3.launches == before + 1
+    ref = dense_conv.dense_conv3x3_reference(xs, kern, bias, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == ref.dtype and y.shape == (b, h, w, cout)
+    err = (y.float() - ref.float()).abs().max().item()
+    if out_f32:
+        assert err <= 1e-5 * max(1.0, ref.abs().max().item()), err
+    else:
+        assert err <= 2 * _ulp_bound(ref), err
+
+
+def test_dense_conv3x3_refuses_what_it_does_not_take(dev):
+    x = _rand(dev, (1, 8, 16, 16))
+    k = _rand(dev, (3, 3, 16, 16))
+    bias = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        dense_conv.dense_conv3x3([x.float()], k, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_conv.dense_conv3x3([x[:, :, ::2]],
+                                 _rand(dev, (3, 3, 16, 16)), bias)
+    with pytest.raises(ValueError, match="Cout"):
+        dense_conv.dense_conv3x3([x], _rand(dev, (3, 3, 16, 144)),
+                                 torch.zeros(144, device=dev))
+    with pytest.raises(ValueError, match="inputs"):
+        dense_conv.dense_conv3x3([x] * 6, _rand(dev, (3, 3, 96, 16)), bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,shift", [((2, 33, 47, 128), 0.5),
+                                         ((1, 9, 7, 12), 0.0),
+                                         ((1, 64, 64, 128), 10.0)])
+def test_collapse_and_stats(dev, dtype, shape, shift):
+    """M = 3,102 and 63 rows (no multiple of the 256-row block) and a map
+    with |mean| >> std: the collapse and min / max exact, mean within
+    1e-5 relative, std within 1e-5 relative (1e-3 where std is 1e-4 of
+    the mean, the JAX package's bar for that case)."""
+    scale = 1e-3 if shift == 10.0 else 2.0
+    pre = (_rand(dev, shape, scale, torch.float32, seed=4) + shift).to(dtype)
+    before = epilogue.collapse_and_stats_fused.launches
+    col, got = epilogue.collapse_and_stats_fused(pre)
+    assert epilogue.collapse_and_stats_fused.launches == before + 1
+    rcol, ref = epilogue.collapse_and_stats_reference(pre)
+    torch.cuda.synchronize()
+    assert col.dtype == dtype and torch.equal(col, rcol)
+    assert got["min"].item() == ref["min"].item()
+    assert got["max"].item() == ref["max"].item()
+    torch.testing.assert_close(got["mean"], ref["mean"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got["std"], ref["std"],
+                               rtol=1e-3 if shift == 10.0 else 1e-5, atol=0)
+
+
+def test_fused_epilogue_decode_on_card(dev):
+    """A small decoder's fast and parity decodes with the fused epilogue
+    equal the default path's: the same image and summary."""
+    cfg = DecoderConfig(z_channels=4, ch=64, ch_mult=(1, 2),
+                        num_res_blocks=1)
+    dec = init_decoder(cfg, seed=3, device=dev)
+    z = _rand(dev, (1, 12, 12, 4), 2.0, torch.float32, seed=8)
+    for prec in (Precision.fast(), Precision.parity()):
+        base = hdr_decode(dec, z, HDRDecodeConfig(hdr_mode="conservative"),
+                          prec)
+        before = epilogue.collapse_and_stats_fused.launches
+        fused = hdr_decode(dec, z, HDRDecodeConfig(
+            hdr_mode="conservative", use_fused_epilogue=True), prec)
+        assert epilogue.collapse_and_stats_fused.launches == before + 1
+        torch.testing.assert_close(fused.image, base.image, rtol=0,
+                                   atol=1e-5)
+        a, b = decode_summary(fused), decode_summary(base)
+        for key in ("min", "max", "mean", "std"):
+            assert abs(a["pre"][key] - b["pre"][key]) <= \
+                1e-5 * abs(b["pre"][key]) + 1e-7, key
+
+
+@pytest.mark.parametrize("unshuffle,scale", [(1, 2), (2, 2)])
+def test_small_upscaler_on_card(dev, unshuffle, scale):
+    """A narrow RRDBNet (nf 8, gc 4: every channel count odd for the
+    kernel's vector path) through the K6 chain against the card's own
+    unfused fast layers, and a fast two-pass upscale end to end."""
+    cfg = RRDBNetConfig(nf=8, nb=2, gc=4, scale=scale, unshuffle=unshuffle)
+    net = init_rrdbnet(cfg, seed=2, device=dev)
+    x = _rand(dev, (1, 13, 22, 3), 0.5, torch.float32, seed=5)
+    fused = rrdbnet_fused_apply(net, x, precision=Precision.fast())
+    layers = rrdbnet_layers(net, x, precision=Precision.fast()).float()
+    assert fused.shape == layers.shape == (1, 13 * scale, 22 * scale, 3)
+    err = (fused - layers).abs().max().item()
+    assert err <= 5e-2 * max(1.0, layers.abs().max().item()), err
+    before = dense_conv.dense_conv3x3.launches
+    img = _rand(dev, (1, 24, 40, 3), 1.5, torch.float32, seed=6)
+    res = hdr_upscale(net, img, UpscaleConfig(
+        tiling=TilingConfig(tile=16, overlap=4)), precision=Precision.fast())
+    assert res.image.shape == (1, 24 * scale, 40 * scale, 3)
+    assert torch.isfinite(res.image).all()
+    assert dense_conv.dense_conv3x3.launches > before

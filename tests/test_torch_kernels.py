@@ -219,3 +219,56 @@ def test_cpu_tensors_never_launch():
              tattn.flash_attention_bf16.launches,
              tattn.flash_attention_f32.launches)
     assert before == after == (0, 0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# K4: fused collapse + statistics
+# ---------------------------------------------------------------------------
+
+
+class TestCollapseAndStats:
+    # C = 128 (the Flux pre map: 42/42/42, channels 126-127 dropped) with
+    # M = 35 rows; C = 12 (thirds); C = 16 (thirds of 15, channel 15
+    # dropped); M = 9 rows is no multiple of any block
+    @pytest.mark.parametrize("shape", [(1, 5, 7, 128), (1, 3, 3, 12),
+                                       (2, 4, 5, 16)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_pallas(self, shape, dtype):
+        """The port's K4 path (its plain version here) against the Pallas
+        kernel in interpret mode: the collapse is a max, exact; min and max
+        exact; mean and std <= 1e-5 relative (reduction order only)."""
+        from hdrvae.kernels.epilogue import collapse_and_stats_pallas
+        from hdrvae_torch.kernels import epilogue as tepi
+        pre = _np(30, shape, 2.0) + 0.5
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        jpre = jnp.asarray(pre, jdt)
+        pre = np.asarray(jpre.astype(jnp.float32))   # the stored values
+        col, stats = collapse_and_stats_pallas(jpre, interpret=True)
+        got_col, got = tepi.collapse_and_stats(_t(pre, tdt), use_fused=True)
+        assert got_col.dtype == tdt and got_col.shape == shape[:3] + (3,)
+        np.testing.assert_array_equal(got_col.float().numpy(),
+                                      np.asarray(col.astype(jnp.float32)))
+        for key in ("min", "max"):
+            assert float(got[key]) == float(stats[key]), key
+        for key in ("mean", "std"):
+            np.testing.assert_allclose(float(got[key]), float(stats[key]),
+                                       rtol=1e-5, err_msg=key)
+
+    def test_bounds_match_pallas(self):
+        from hdrvae.kernels.epilogue import _collapse_bounds
+        from hdrvae_torch.decode.formatting import collapse_bounds
+        for c in (3, 12, 16, 128, 129, 384):
+            assert (0, *collapse_bounds(c)) == _collapse_bounds(c)
+
+    def test_default_path_unchanged(self):
+        """use_fused=False and the fused wrapper on a CPU tensor both run
+        the plain reductions; the launch counter stays 0."""
+        from hdrvae_torch.kernels import epilogue as tepi
+        pre = _t(_np(31, (1, 4, 6, 128)))
+        before = tepi.collapse_and_stats_fused.launches
+        a = tepi.collapse_and_stats(pre)
+        b = tepi.collapse_and_stats(pre, use_fused=True)
+        assert torch.equal(a[0], b[0])
+        for key in a[1]:
+            assert torch.equal(a[1][key], b[1][key])
+        assert tepi.collapse_and_stats_fused.launches == before == 0

@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's decode on one NVIDIA GPU.
+"""Profile the PyTorch port's decode, or its upscale, on one NVIDIA GPU.
 
     python3 tools/profile_decode_torch.py [--latent 128 256]
                                           [--tiers fast parity mixed]
+    python3 tools/profile_decode_torch.py --upscale [--latent 128]
+                                          [--tiers fast parity]
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
 tier, the full-width Flux.1 decoder (``DecoderConfig()``, random weights
 from numpy seed 0, latent from seed 1) runs ``hdr_decode`` +
-``decode_summary`` in conservative mode, as ``chip_smoke.py`` does:
+``decode_summary`` in conservative mode, as ``chip_smoke.py`` does.  With
+``--upscale`` the parity decode's image instead goes through
+``hdr_upscale`` with the full-width ESRGAN x4 (``RRDBNetConfig()``, random
+weights from numpy seed 2) and ``UpscaleConfig()`` (512^2 tiles, overlap
+64, comfy seams), 1024^2 -> 4096^2 for latent 128, as ``chip_smoke.py``'s
+upscale phase does.  Either way:
 
-- three requests unprofiled: device ms from CUDA events, host wall ms, and
-  the peak of allocated device memory;
+- a few requests unprofiled (three decodes, two upscales): device ms from
+  CUDA events, host wall ms, and the peak of allocated device memory;
 - one more under ``torch.profiler``, reported over the device's own events
   only (kernels, memcpy, memset), never the operator rows that enclose
   them: their summed time, the time the device was busy (the union of
@@ -38,24 +45,26 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,  # noqa: E402
-                                      Precision)
+                                      Precision, UpscaleConfig)
 from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode  # noqa: E402
 from hdrvae_torch.models.params import init_decoder  # noqa: E402
+from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet  # noqa: E402
+from hdrvae_torch.upscale.pipeline import hdr_upscale  # noqa: E402
 
 TIERS = {"fast": Precision.fast, "parity": Precision.parity,
          "mixed": Precision.mixed}
+CONSERVATIVE = HDRDecodeConfig(hdr_mode="conservative")
 
 
-def request(dec, z, prec) -> tuple[float, float]:
-    """One decode with its summary fetched: (device ms, host wall ms)."""
+def request(fn) -> tuple[float, float]:
+    """One request ``fn()`` run to its end: (device ms, host wall ms)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     start.record()
-    res = hdr_decode(dec, z, HDRDecodeConfig(hdr_mode="conservative"), prec)
+    fn()
     end.record()
-    decode_summary(res)
     torch.cuda.synchronize()
     return start.elapsed_time(end), 1e3 * (time.perf_counter() - h0)
 
@@ -81,14 +90,43 @@ def device_rows(prof) -> tuple[dict, float, float]:
     return rows, total, busy / 1e3
 
 
+def report(label: str, fn, n: int, top: int) -> None:
+    """``n`` unprofiled requests of ``fn``, then one under the profiler;
+    prints the times, the peak memory and the top device rows."""
+    torch.cuda.reset_peak_memory_stats()
+    walls = [request(fn) for _ in range(n)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = request(fn)
+    rows, total, busy = device_rows(prof)
+    launches = sum(n for _, n in rows.values())
+    print(f"== {label}: device ms {[round(d, 3) for d, _ in walls]}, host "
+          f"wall ms {[round(h, 3) for _, h in walls]}, peak {peak:.3f} GiB; "
+          f"profiled: wall {wall:.3f} ms, kernels {total:.3f} ms summed, "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f} % of wall), "
+          f"{launches} device events", flush=True)
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, k) in ranked[:top]:
+        print(f"  {ms:10.3f} ms {100 * ms / total:5.1f} %  x{k:<5d} "
+              f"{name[:110]}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--latent", type=int, nargs="+", default=[128, 256])
-    ap.add_argument("--tiers", nargs="+", default=list(TIERS),
-                    choices=list(TIERS))
+    ap.add_argument("--latent", type=int, nargs="+", default=None,
+                    help="latent sides (default 128 256; 128 with "
+                         "--upscale)")
+    ap.add_argument("--tiers", nargs="+", default=None, choices=list(TIERS),
+                    help="default: all three; fast parity with --upscale")
+    ap.add_argument("--upscale", action="store_true",
+                    help="profile hdr_upscale of the parity decode's image")
     ap.add_argument("--top", type=int, default=12,
                     help="kernel names listed per run")
     args = ap.parse_args()
+    latents = args.latent or ([128] if args.upscale else [128, 256])
+    tiers = args.tiers or (["fast", "parity"] if args.upscale
+                           else list(TIERS))
     if not torch.cuda.is_available():
         print("profile_decode_torch: no CUDA device", file=sys.stderr)
         return 1
@@ -99,30 +137,28 @@ def main() -> int:
 
     cfg = DecoderConfig()
     dec = init_decoder(cfg, seed=0, device="cuda")
-    for side in args.latent:
+    net = (init_rrdbnet(RRDBNetConfig(), seed=2, device="cuda")
+           if args.upscale else None)
+    for side in latents:
         z = torch.from_numpy(np.random.default_rng(1).standard_normal(
             (1, side, side, cfg.z_channels)).astype(np.float32)).cuda()
-        for tier in args.tiers:
-            prec = TIERS[tier]()
-            torch.cuda.reset_peak_memory_stats()
-            walls = [request(dec, z, prec) for _ in range(3)]
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _, wall = request(dec, z, prec)
-            rows, total, busy = device_rows(prof)
-            launches = sum(n for _, n in rows.values())
-            print(f"== {side * 8}^2 {tier}: device ms "
-                  f"{[round(d, 3) for d, _ in walls]}, host wall ms "
-                  f"{[round(h, 3) for _, h in walls]}, peak {peak:.3f} GiB; "
-                  f"profiled: wall {wall:.3f} ms, kernels {total:.3f} ms "
-                  f"summed, busy {busy:.3f} ms ({100 * busy / wall:.1f} % "
-                  f"of wall), {launches} device events", flush=True)
-            ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])
-            for name, (ms, n) in ranked[:args.top]:
-                print(f"  {ms:10.3f} ms {100 * ms / total:5.1f} %  x{n:<4d} "
-                      f"{name[:110]}", flush=True)
-            del prof
+        if args.upscale:
+            image = hdr_decode(dec, z, CONSERVATIVE,
+                               Precision.parity()).image
+            for tier in tiers:
+                prec = TIERS[tier]()
+                report(f"upscale {side * 8}^2 -> {side * 32}^2 {tier}",
+                       lambda: hdr_upscale(net, image, UpscaleConfig(),
+                                           precision=prec), 2, args.top)
+            del image
+        else:
+            for tier in tiers:
+                prec = TIERS[tier]()
+                report(f"{side * 8}^2 {tier}",
+                       lambda: decode_summary(hdr_decode(dec, z,
+                                                         CONSERVATIVE,
+                                                         prec)),
+                       3, args.top)
         del z
         torch.cuda.empty_cache()
     return 0
