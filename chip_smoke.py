@@ -11,8 +11,10 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1-K4: a 1024^2 decode; K6: one 512^2
-   tile of the full-width ESRGAN x4 net), with its tolerance, and both
-   timed with CUDA events after a warm-up;
+   tile of the full-width ESRGAN x4 net; K7: one 512^2 tile of SwinIR-M,
+   unshifted and shifted, of HAT-M with its CAB residual, and a ragged
+   128 x 120 tile; K8: HAT-M's OCAB on a 512^2 tile), with its tolerance,
+   and both timed with CUDA events after a warm-up;
 4. decode: the full-width Flux.1 decoder (random weights from a numpy
    seed) on a [1, 128, 128, 16] latent through ``hdr_decode`` +
    ``decode_summary`` in the fast, parity and mixed tiers, three requests
@@ -26,8 +28,15 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    512^2 tiles (9 tiles x 2 passes): two fast requests and one parity
    request, the fused K6 chain held to the unfused fast layers on one
    tile, and one fast request with small_blur and local_fix;
-7. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
-   mixed, K4 in the fused-epilogue decodes, K6 in the fast upscale.
+7. SwinIR and HAT upscale: the full-width SwinIR-M x4 and HAT-M x4 (random
+   weights from numpy seeds) through ``hdr_upscale`` on a 768^2 crop of
+   the parity image (4 tiles x 2 passes), one fast and one parity request
+   each; the fast one must launch K7 once per block and K8 once per OCAB
+   of every tile run; the fused chain is held to the unfused fast layers
+   on the first tile's raw output;
+8. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
+   mixed, K4 in the fused-epilogue decodes, K6 in the fast ESRGAN upscale,
+   K7 in the fast SwinIR and HAT upscales, K8 in the fast HAT upscale.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -69,6 +78,17 @@ K6_SHAPES = [("conv_first", 512, 512, (3,), 64, None, None, False)] + [
     ("conv_last", 2048, 2048, (64,), 3, None, None, True),
     ("conv5 ragged", 128, 120, (64, 32, 32, 32, 32), 64, None, 0.2, False)]
 K4_SHAPE = (1, 1024, 1024, 128)
+# K7 at the full widths of SwinIR-M and HAT-M (C 180, 6 heads, hd 30):
+# (name, H, W, window, shift, with HAT's extra residual)
+SWIN_DIM, SWIN_HEADS = 180, 6
+K7_SHAPES = [("SwinIR-M", 512, 512, 8, 0, False),
+             ("SwinIR-M", 512, 512, 8, 4, False),
+             ("HAT-M", 512, 512, 16, 8, True),
+             ("ragged", 128, 120, 8, 4, False)]
+# K8 at HAT-M's 512^2-tile OCAB: (windows, heads, queries, keys)
+K8_SHAPE = (1024, 6, 256, 576)
+SWIN_BUDGET = 5e-2          # relative to max(1, max|ref|), K7 and K8
+SWIN_CROP = 768             # the SwinIR / HAT upscale input: 4 tiles a pass
 K4_BUDGET = 1e-5            # relative, on mean and std
 FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 
@@ -302,6 +322,8 @@ def phase_kernels() -> list:
     torch.cuda.empty_cache()
     entries.append(_check_k4())
     entries.append(_check_k6(rng))
+    entries.append(_check_k7(rng))
+    entries.append(_check_k8(rng))
     return entries
 
 
@@ -392,13 +414,130 @@ def _check_k6(rng) -> dict:
             "shapes": details}
 
 
+def _swin_block(rng, dim: int, heads: int, ws: int):
+    """A Swin block (SwinIR-M / HAT-M widths) on the card with weights from
+    numpy: linears N(0, 1/fan_in), biases, LayerNorm affines and the bias
+    table non-trivial."""
+    from hdrvae_torch.models.swinir import SwinBlock
+    blk = SwinBlock(dim, heads, ws, 2.0)
+    sd = {}
+    for k, v in blk.state_dict().items():
+        shape = tuple(v.shape)
+        if k.startswith("norm") and k.endswith("weight"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("weight"):
+            a = rng.standard_normal(shape) * shape[1] ** -0.5
+        else:
+            a = rng.standard_normal(shape) * 0.5
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    blk.load_state_dict(sd)
+    return blk.requires_grad_(False).cuda()
+
+
+def _check_k7(rng) -> dict:
+    """K7 against its plain version at SwinIR-M's and HAT-M's 512^2 tile
+    shapes and on a ragged 128 x 120 tile (15 windows across), with the
+    max-abs over the whole image and over the last window row and column,
+    where the shifted grid's masks act."""
+    from hdrvae_torch.core.config import Precision
+    from hdrvae_torch.kernels import swin_attention as ska
+    from hdrvae_torch.models.swinir import block_weights
+    fast = Precision.fast()
+    details, k_ms, p_ms, err, err_edge = [], 0.0, 0.0, 0.0, 0.0
+    for name, h, w, ws, shift, extra in K7_SHAPES:
+        blk = _swin_block(rng, SWIN_DIM, SWIN_HEADS, ws)
+        wts = block_weights(blk, SWIN_HEADS, ws, torch.bfloat16)
+        x = _bf16(rng, (1, h, w, SWIN_DIM))
+        # extra at the scale of x: a dropped or misplaced residual shows
+        e_in = _bf16(rng, (1, h, w, SWIN_DIM), 0.5) if extra else None
+        kw = dict(ws=ws, shift=shift, extra=e_in, precision=fast)
+        y = ska.swin_block_fused(x, wts, **kw)
+        ry = ska.swin_block_fused_reference(x, wts, **kw)
+        torch.cuda.synchronize()
+        check(y.dtype == ry.dtype and y.shape == ry.shape,
+              f"K7 {name}: {y.dtype} {tuple(y.shape)}")
+        check(torch.isfinite(y.float()).all().item(),
+              f"K7 {name}: output not finite")
+        d = (y.float() - ry.float()).abs()
+        e = d.max().item()
+        e_last = max(d[:, -ws:].max().item(), d[:, :, -ws:].max().item())
+        bound = SWIN_BUDGET * max(1.0, ry.float().abs().max().item())
+        check(e <= bound, f"K7 {name}: max-abs {e} > {bound}")
+        t = cuda_ms(lambda: ska.swin_block_fused(x, wts, **kw))
+        tp = cuda_ms(lambda: ska.swin_block_fused_reference(x, wts, **kw),
+                     iters=2, warmup=1)
+        tokens = h * w
+        n = ws * ws
+        flops = 2 * tokens * (SWIN_DIM * 3 * SWIN_DIM + 2 * n * SWIN_DIM
+                              + SWIN_DIM * SWIN_DIM
+                              + 2 * SWIN_DIM * 2 * SWIN_DIM)
+        log(f"K7 swin_block_fused {name} {h}x{w} ws {ws} shift {shift}"
+            f"{' +extra' if extra else ''}: max-abs {e:.3e} (last window "
+            f"row/col {e_last:.3e}, bound {bound:.3e})  kernel {t:.3f} ms "
+            f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms")
+        details.append({"shape": [name, h, w, SWIN_DIM, ws, shift,
+                                  bool(extra)],
+                        "max_abs_err": e, "max_abs_err_last_row_col": e_last,
+                        "bound": bound, "ms": t, "plain_ms": tp})
+        k_ms, p_ms = k_ms + t, p_ms + tp
+        err, err_edge = max(err, e), max(err_edge, e_last)
+        del x, e_in, y, ry, d, wts, blk
+        torch.cuda.empty_cache()
+    return {"name": "swin_block_fused", "route": "cuda",
+            "source": "hdrvae_torch/csrc/swin_block.cu",
+            "replaces": "hdrvae/kernels/swin_attention.py:672",
+            "max_abs_err": err, "max_abs_err_last_row_col": err_edge,
+            "ms": k_ms, "plain_ms": p_ms, "shapes": details}
+
+
+def _check_k8(rng) -> dict:
+    """K8 against its plain version at HAT-M's 512^2-tile OCAB shape: 1024
+    windows, 6 heads, 256 queries against 576 keys, head dim 30 padded to
+    32 with zeros."""
+    from hdrvae_torch.kernels import ocab
+    nwb, heads, nq, nk = K8_SHAPE
+
+    def qkv(n, scale):
+        t = _bf16(rng, (nwb, heads, n, 32), scale)
+        t[..., 30:] = 0
+        return t
+    q, k, v = qkv(nq, 30 ** -0.5), qkv(nk, 1.0), qkv(nk, 1.0)
+    bias = torch.from_numpy(rng.standard_normal((heads, nq, nk))
+                            .astype(np.float32)).cuda()
+    kw = dict(compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16)
+    o = ocab.ocab_attention(q, k, v, bias, **kw)
+    ro = ocab.ocab_attention_reference(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    check(o.dtype == ro.dtype and o.shape == ro.shape,
+          f"K8: {o.dtype} {tuple(o.shape)}")
+    e = (o.float() - ro.float()).abs().max().item()
+    bound = SWIN_BUDGET * max(1.0, ro.float().abs().max().item())
+    check(e <= bound, f"K8: max-abs {e} > {bound}")
+    t = cuda_ms(lambda: ocab.ocab_attention(q, k, v, bias, **kw))
+    tp = cuda_ms(lambda: ocab.ocab_attention_reference(q, k, v, bias, **kw),
+                 iters=2, warmup=1)
+    flops = 4 * nwb * heads * nq * nk * 32
+    log(f"K8 ocab_attention {list(K8_SHAPE)}: max-abs {e:.3e} (bound "
+        f"{bound:.3e})  kernel {t:.3f} ms ({flops / (t * 1e9):.1f} TFLOP/s)"
+        f"  plain {tp:.3f} ms")
+    del q, k, v, bias, o, ro
+    torch.cuda.empty_cache()
+    return {"name": "ocab_attention", "route": "cuda",
+            "source": "hdrvae_torch/csrc/ocab.cu",
+            "replaces": "hdrvae/kernels/ocab.py:95", "max_abs_err": e,
+            "bound": bound, "ms": t, "plain_ms": tp,
+            "shape": list(K8_SHAPE)}
+
+
 def _wrappers() -> dict:
     """The kernel wrappers, by name; each counts its own launches."""
-    from hdrvae_torch.kernels import attention, conv3x3, dense_conv, epilogue
+    from hdrvae_torch.kernels import (attention, conv3x3, dense_conv,
+                                      epilogue, ocab, swin_attention)
     return {fn.__name__: fn for fn in (
         conv3x3.fused_conv3x3, conv3x3.upsample_conv3x3,
         attention.flash_attention_bf16, attention.flash_attention_f32,
-        epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3)}
+        epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3,
+        swin_attention.swin_block_fused, ocab.ocab_attention)}
 
 
 def _counts() -> dict:
@@ -534,7 +673,7 @@ def phase_exr(image: torch.Tensor) -> None:
         f"bit-exact in {dt:.2f} s")
 
 
-def _upscale_request(net, image, ucfg, prec):
+def _upscale_request(net, image, ucfg, prec, architecture="ESRGAN"):
     """One hdr_upscale with its result synchronised: (result, device ms,
     host wall ms, peak GiB)."""
     from hdrvae_torch.upscale.pipeline import hdr_upscale
@@ -544,7 +683,8 @@ def _upscale_request(net, image, ucfg, prec):
     end = torch.cuda.Event(enable_timing=True)
     h0 = time.perf_counter()
     start.record()
-    res = hdr_upscale(net, image, ucfg, precision=prec)
+    res = hdr_upscale(net, image, ucfg, architecture=architecture,
+                      precision=prec)
     end.record()
     torch.cuda.synchronize()
     return (res, start.elapsed_time(end), 1e3 * (time.perf_counter() - h0),
@@ -619,6 +759,87 @@ def phase_upscale(image: torch.Tensor):
     return fast_counts, times
 
 
+def phase_swin_upscale(image: torch.Tensor, family: str):
+    """The full-width SwinIR-M or HAT-M x4 through ``hdr_upscale`` on a
+    768^2 crop of the decoded image (4 tiles a pass): one fast request,
+    whose K7 / K8 launches must be one per block / OCAB per tile run, and
+    one parity request; then the fused fast chain against the unfused fast
+    layers on the first tile's raw output."""
+    import dataclasses
+
+    from hdrvae_torch.core.config import Precision, UpscaleConfig
+    from hdrvae_torch.models.hat import HATConfig, hat_apply, init_hat
+    from hdrvae_torch.models.swinir import (SwinIRConfig, init_swinir,
+                                            swinir_apply)
+    from hdrvae_torch.upscale.pipeline import upscale_progress_total
+
+    if family == "SwinIR":
+        cfg, seed = SwinIRConfig(), 3
+        net = init_swinir(cfg, seed=seed, device="cuda")
+        apply = swinir_apply
+    else:
+        cfg, seed = HATConfig(), 4
+        net = init_hat(cfg, seed=seed, device="cuda")
+        apply = hat_apply
+    n_params = sum(p.numel() for p in net.parameters())
+    crop = image[:, :SWIN_CROP, :SWIN_CROP, :].contiguous()
+    ucfg = UpscaleConfig()
+    runs = upscale_progress_total(crop, cfg, ucfg)
+    blocks = sum(cfg.depths)
+    want = {"swin_block_fused": blocks * runs,
+            "ocab_attention": len(cfg.depths) * runs if family == "HAT"
+            else 0}
+    log(f"upscaler: {family} x4 ({cfg.embed_dim} wide, {blocks} blocks, "
+        f"window {cfg.window_size}) {n_params} parameters, weights from "
+        f"numpy seed {seed}; input {list(crop.shape)}, {runs} tile runs")
+    out_shape = (1, SWIN_CROP * 4, SWIN_CROP * 4, 3)
+    results, times = {}, {}
+    for name, prec in (("fast", Precision.fast()),
+                       ("parity", Precision.parity())):
+        _reset_counts()
+        res, dev_ms, wall_ms, peak = _upscale_request(
+            net, crop, ucfg, prec, architecture=family)
+        counts = _counts()
+        results[name], times[name] = res, (dev_ms, wall_ms, peak)
+        check(tuple(res.image.shape) == out_shape,
+              f"{family} {name}: shape {tuple(res.image.shape)}")
+        for t in res:
+            check(torch.isfinite(t).all().item(),
+                  f"{family} {name}: non-finite output")
+        log(f"upscale[{family}, {name}] device ms {dev_ms:.3f}, host wall "
+            f"ms {wall_ms:.3f}, peak {peak:.3f} GiB; out max "
+            f"{res.image.max().item():.6g}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if name == "fast":
+            fast_counts = counts
+            for kname, n in want.items():
+                check(counts[kname] == n, f"{family} fast: {kname} launched "
+                      f"{counts[kname]} times, want {n}")
+        else:
+            check(counts["swin_block_fused"] == 0
+                  and counts["ocab_attention"] == 0,
+                  f"{family} parity ran a fast-tier kernel: {counts}")
+    d = (results["fast"].image - results["parity"].image).abs()
+    log(f"upscale[{family}] fast vs parity image |diff| mean "
+        f"{d.mean().item():.4e} p99.9 {p999(d):.4e} (not gated: the atanh "
+        "reversal)")
+    del d, results
+
+    tile = crop[:, :512, :512, :].contiguous()
+    fused = apply(net, tile, precision=Precision.fast())
+    unfused = apply(net, tile, precision=dataclasses.replace(
+        Precision.fast(), swin_attn="xla"))
+    e = (fused - unfused).abs().max().item()
+    bound = SWIN_BUDGET * max(1.0, unfused.abs().max().item())
+    check(e <= bound, f"{family} fused vs unfused raw tile max-abs {e} > "
+          f"{bound}")
+    log(f"upscale[{family}] fused vs unfused fast raw 512^2 tile: max-abs "
+        f"{e:.4e} (<= {bound:.4e}; max|ref| {unfused.abs().max().item():.4e})")
+    del fused, unfused, net
+    torch.cuda.empty_cache()
+    return fast_counts, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -639,6 +860,12 @@ def main() -> int:
     t_up = time.perf_counter()
     up_counts, up_times = phase_upscale(image)
     log(f"upscale phase {time.perf_counter() - t_up:.1f} s")
+    swin_counts = {}
+    for family in ("SwinIR", "HAT"):
+        t_up = time.perf_counter()
+        swin_counts[family], up_times[family] = phase_swin_upscale(image,
+                                                                   family)
+        log(f"{family} upscale phase {time.perf_counter() - t_up:.1f} s")
 
     log(f"launches in the decode phase: {counts}")
     for name in ("fused_conv3x3", "upsample_conv3x3",
@@ -654,12 +881,16 @@ def main() -> int:
     main_path["collapse_and_stats_fused"] = epi_counts[
         "collapse_and_stats_fused"]
     main_path["dense_conv3x3"] = up_counts["dense_conv3x3"]
+    main_path["swin_block_fused"] = sum(c["swin_block_fused"]
+                                        for c in swin_counts.values())
+    main_path["ocab_attention"] = swin_counts["HAT"]["ocab_attention"]
     for entry in entries:
         entry["launches"] = main_path[entry["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries,
                       "decode_ms": {k: v[-1][0] for k, v in times.items()},
-                      "upscale_ms": {k: v[-1][0]
+                      "upscale_ms": {k: v[-1][0] if k in ("fast", "parity")
+                                     else {t: r[0] for t, r in v.items()}
                                      for k, v in up_times.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -130,11 +130,18 @@ class Precision:
       accurate, and the mid attention runs the float32 flash kernel.
     - ``fast``: bf16 operands and storage with float32 accumulation; the
       mid and up stack run through the fused CUDA kernel chain.
+
+    ``swin_attn`` picks the executor of the SwinIR / HAT blocks, with the
+    JAX package's names: "auto" runs the fused block (K7, and K8 for
+    HAT's OCAB) for CUDA tensors in the fast tier and the unfused layers
+    otherwise; "xla" always runs the unfused layers; "pallas" always runs
+    the fused block, which on a CPU tensor is the kernels' plain versions.
     """
 
     compute_dtype: torch.dtype = torch.float32
     storage_dtype: torch.dtype = torch.float32
     mode: str = "parity"
+    swin_attn: str = "auto"
 
     @classmethod
     def fast(cls) -> "Precision":

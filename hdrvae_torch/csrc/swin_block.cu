@@ -1,0 +1,393 @@
+// The whole Swin transformer block, one 512-thread block per window, on
+// Hopper's tensor cores (bf16 mma.sync and WMMA, float32 accumulation).
+//
+// Replaces the TPU kernel K7 of the JAX package:
+//   hdrvae/kernels/swin_attention.py::swin_block_fused (v1 body, with the
+//   optional `extra` residual of HAT's HAB)
+//   y = x2 + MLP(LN2(x2)),  x2 = x + proj(WindowMHA(LN1(x))) + bp [+ extra]
+// on an image [B, H, W, C] that is already rolled by -shift; the shifted
+// grid's masks are computed from each window's place in the grid.
+//
+// What bounds it on the H100: ~0.61 MFLOP per token at C = 180 (qkv 221k,
+// scores and values 49k at n = 64, proj 74k, MLP 283k, padded widths)
+// against ~4 bytes of feature map in and out, so the tensor cores bound it;
+// the weights (qkv 221 KB, proj 74 KB, fc1 / fc2 141 KB each in bf16) do
+// not fit shared memory beside a window's activations, so each weight GEMM
+// streams B through a two-buffer cp.async ring in shared memory (96 x 128
+// pieces, read from L2 by every window) into ldmatrix + mma.sync, each B
+// fragment serving two 16-row tiles; the attention products are WMMA.  One
+// window per block; wgmma and TMA are later work.
+//
+// Design (per window of n = ws * ws tokens, padded to n16 = 16 * ceil(n /
+// 16) rows; C padded to CP = 16 * ceil(C / 16), the MLP width to HP):
+//  * Phase 1, per 64-token row block: LN1 in float32 -> bf16 rows in
+//    shared memory (pad rows and columns zero) -> qkv = y @ Wqkv + bqkv in
+//    the head-major [head][q|k|v] 32-wide slot layout (head dim zero-padded
+//    to 32, the softmax scale folded into q) -> bf16 into the window's
+//    slice of a global scratch [nwin, n16, heads * 96], which stays in L2.
+//  * Phase 2, per row block and head: the head's q rows, K and V copied to
+//    shared memory (V arriving while the softmax runs; at n16 <= 64 the
+//    next head's while this one computes) -> S = q k^T
+//    (float32, shared) -> + the relative-position bias [heads, n, n] (read
+//    from global) + -100 band masks in the last window row / column of a
+//    shifted grid (a corner window takes both, as the JAX kernel does;
+//    identical after softmax) -> float32 softmax, 8 threads a row -> P
+//    in bf16 over S's own bytes -> O_h = P v -> bf16
+//    into the row block's [64, heads * 32] attention output.
+//  * Phase 3, per row block: x and extra read into shared memory a token
+//    row a warp -> proj (the padded head-major rows of Wp) -> x2 = x +
+//    proj + bp [+ extra] in float32 (shared) -> LN2 -> bf16 -> fc1 + b1 ->
+//    exact GELU (erff) -> bf16 hidden -> fc2 -> x2 + out + b2 -> bf16 rows
+//    in shared memory -> stored at the window's pixels a token row a warp.
+// Rounding points are those of the JAX kernel: LN outputs, q/k/v, P and
+// the attention output in bf16; scores, softmax (p as the exp times the
+// sum's reciprocal, within a float32 ulp of the JAX division), residuals,
+// LN and the MLP accumulation in float32.
+
+#include <algorithm>
+
+#include "window_attention.cuh"
+
+namespace {
+
+using namespace winattn;
+
+struct SwinArgs {
+  const bf16* x;       // [B, H, W, C] (rolled)
+  const bf16* extra;   // [B, H, W, C] or null
+  const bf16* wq;      // [CP, heads * 96]
+  const float* bq;     // [heads * 96]
+  const bf16* wp;      // [heads * 32, CP]
+  const float* bp;     // [C]
+  const float* g1;
+  const float* be1;
+  const float* g2;
+  const float* be2;
+  const bf16* w1;      // [CP, HP]
+  const float* b1;     // [HP]
+  const bf16* w2;      // [HP, CP]
+  const float* b2;     // [C]
+  const float* bias;   // [heads, n, n]
+  bf16* qkv;           // scratch [nwin, n16, heads * 96]
+  bf16* y;             // [B, H, W, C]
+  int H, W, C, CP, heads, hidden, HP, ws, shift, n, n16, nwh, nww;
+  int ldy, ldo, lds, ldh;              // shared-memory row strides
+  // byte offsets of the regions: attention output, LN / scores, hidden,
+  // weight ring or the head's q / K / V, per-warp fragment stages
+  int off_o, off_a, off_hid, off_ring, off_stage;
+};
+
+constexpr int LDQ = HDP + 8;   // row stride of the staged q / K / V
+
+constexpr int MAXC = 8;   // channels a lane holds: C <= 256
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// LayerNorm (eps 1e-5, two-pass variance) of nrows token rows into bf16
+// rows of `out` (stride ldo).  row(tok) points at the C values of a token
+// of the window (bf16 in global or float32 in shared memory); a lane keeps
+// its MAXC of them in registers.  Rows of tokens >= n and columns >= C are
+// zero.
+template <typename Row>
+__device__ __forceinline__ void layer_norm_rows(
+    Row row, int tok0, int nrows, int n, int C, int CP, const float* g,
+    const float* be, bf16* out, int ldo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < nrows; r += NWARPS) {
+    const int tok = tok0 + r;
+    bf16* o = out + static_cast<size_t>(r) * ldo;
+    if (tok >= n) {
+      for (int c = lane; c < CP; c += 32) o[c] = __float2bfloat16(0.0f);
+      continue;
+    }
+    const auto* src = row(tok);
+    float v[MAXC];
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C ? to_f32(src[c]) : 0.0f;
+      s += v[i];
+    }
+    const float mean = warp_sum(s) / C;
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const float d = v[i] - mean;
+      if (lane + 32 * i < C) q += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(q) / C + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < CP)
+        o[c] = __float2bfloat16(
+            c < C ? (v[i] - mean) * rstd * g[c] + be[c] : 0.0f);
+    }
+  }
+}
+
+constexpr int TPR = 8;   // threads a softmax row (the fastest of 8, 16, 32)
+
+__global__ void __launch_bounds__(NT)
+swin_block_kernel(const SwinArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* x2 = reinterpret_cast<float*>(smem);                   // [64, CP]
+  bf16* ob = reinterpret_cast<bf16*>(smem + a.off_o);           // [64, ldo]
+  bf16* ys = reinterpret_cast<bf16*>(smem + a.off_a);           // [64, ldy]
+  float* S = reinterpret_cast<float*>(smem + a.off_a);          // [64, lds]
+  bf16* hid = reinterpret_cast<bf16*>(smem + a.off_hid);        // [64, ldh]
+  bf16* ring = reinterpret_cast<bf16*>(smem + a.off_ring);
+  // a head's q [64, LDQ], K and V [n16, LDQ] in the ring's space: two
+  // heads' worth where they fit, so the next head loads during this one
+  const int head_elems = (RB + 2 * a.n16) * LDQ;
+  const int nbuf = 2 * head_elems <= RING_ELEMS ? 2 : 1;
+  float* stage = reinterpret_cast<float*>(smem + a.off_stage) +
+                 (threadIdx.x >> 5) * 256;
+
+  const int win = blockIdx.x;
+  const int wc = win % a.nww;
+  const int wr = (win / a.nww) % a.nwh;
+  const int b = win / (a.nww * a.nwh);
+  const int QW = a.heads * 96;
+  const int n = a.n, ws = a.ws, C = a.C;
+  bf16* qkv = a.qkv + static_cast<size_t>(win) * a.n16 * QW;
+  // element offset of token t's first channel in the image
+  auto pix = [&](int t) -> size_t {
+    const int hh = wr * ws + t / ws, ww = wc * ws + t % ws;
+    return ((static_cast<size_t>(b) * a.H + hh) * a.W + ww) * C;
+  };
+  const bool last_row = a.shift > 0 && wr == a.nwh - 1;
+  const bool last_col = a.shift > 0 && wc == a.nww - 1;
+  const int band = ws - a.shift;
+  // bit i: the key column k + TPR i (k = thread % TPR) of the softmax lies
+  // in the wrapped band of window rows (jrow) / columns (jcol)
+  unsigned jrow = 0, jcol = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {   // n16 <= 256 = 32 TPR columns
+    const int j = threadIdx.x % TPR + TPR * i;
+    jrow |= static_cast<unsigned>(j / ws >= band) << i;
+    jcol |= static_cast<unsigned>(j % ws >= band) << i;
+  }
+
+  // phase 1: LN1 + qkv of every row block into the scratch
+  for (int r0 = 0; r0 < a.n16; r0 += RB) {
+    const int nrt = min(4, (a.n16 - r0) / 16);
+    layer_norm_rows([&](int t) { return a.x + pix(t); }, r0, nrt * 16, n, C,
+                    a.CP, a.g1, a.be1, ys, a.ldy);
+    __syncthreads();
+    gemm_weights(ys, a.ldy, nrt, a.wq, QW, a.CP, QW, ring, stage,
+                 [&](int r, int c, const float* v) {
+      float o[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = v[i] + a.bq[c + i];
+      store_bf16x8(qkv + static_cast<size_t>(r0 + r) * QW + c, o);
+    });
+  }
+
+  for (int r0 = 0; r0 < a.n16; r0 += RB) {
+    const int nrt = min(4, (a.n16 - r0) / 16);
+    // phase 2: windowed attention, one head at a time.  Each head's copy
+    // is two cp.async groups, q + K then V.
+    auto fetch = [&](int h) {
+      bf16* qs = ring + (h % nbuf) * head_elems;
+      const bf16* qkv_h = qkv + h * 96;
+      copy_rows_async(qs, LDQ, qkv_h + static_cast<size_t>(r0) * QW, QW,
+                      nrt * 16, HDP);
+      copy_rows_async(qs + RB * LDQ, LDQ, qkv_h + HDP, QW, a.n16, HDP);
+      cp_async_commit();
+      copy_rows_async(qs + (RB + a.n16) * LDQ, LDQ, qkv_h + 2 * HDP, QW,
+                      a.n16, HDP);
+      cp_async_commit();
+    };
+    if (nbuf == 2) fetch(0);
+    for (int h = 0; h < a.heads; ++h) {
+      const bf16* qs = ring + (h % nbuf) * head_elems;
+      const bf16* ks = qs + RB * LDQ;
+      const bf16* vs = ks + a.n16 * LDQ;
+      // the next head's groups, if any, are behind this head's two
+      const bool ahead = nbuf == 2 && h + 1 < a.heads;
+      if (nbuf == 1) fetch(h);
+      if (ahead) fetch(h + 1);
+      if (ahead) cp_async_wait<3>(); else cp_async_wait<1>();
+      __syncthreads();
+      gemm_rows<true>(qs, LDQ, nrt, ks, LDQ, 2, a.n16 / 16,
+                      [&](int rt, int ct, const Acc& acc) {
+        wmma::store_matrix_sync(S + static_cast<size_t>(rt) * 16 * a.lds +
+                                    ct * 16, acc, a.lds, wmma::mem_row_major);
+      });
+      __syncthreads();
+      const float* bias_h = a.bias + static_cast<size_t>(h) * n * n;
+      softmax_rows<TPR>(S, a.lds, nrt * 16, n - r0, n, a.n16, [&](int r) {
+        const int q = min(r0 + r, n - 1);   // padded queries: any row
+        const unsigned qr = (q / ws) >= band, qc = (q % ws) >= band;
+        const float* brow = bias_h + static_cast<size_t>(q) * n;
+        return [=](int i, int j, float s) {
+          float t = brow[j];
+          if (last_row && qr != ((jrow >> i) & 1u)) t += -100.0f;
+          s += t;
+          if (last_col && qc != ((jcol >> i) & 1u)) s += -100.0f;
+          return s;
+        };
+      });
+      if (ahead) cp_async_wait<2>(); else cp_async_wait<0>();
+      __syncthreads();
+      gemm_rows<false>(reinterpret_cast<const bf16*>(S), 2 * a.lds, nrt,
+                       vs, LDQ, a.n16 / 16, 2,
+                       [&](int rt, int ct, const Acc& acc) {
+        each_run8(stage, rt, ct, acc, [&](int r, int c, const float* v) {
+          store_bf16x8(ob + static_cast<size_t>(r) * a.ldo + h * HDP + c, v);
+        });
+      });
+      __syncthreads();
+    }
+
+    // phase 3: proj + residuals, LN2, MLP, residual.  The row block's x
+    // (float32, into x2) and extra (bf16, into the hidden rows' space) are
+    // read first, a token row a warp; zero past the tokens and channels.
+    bf16* es = hid;
+    for (int r = threadIdx.x >> 5; r < nrt * 16; r += NWARPS) {
+      const int t = r0 + r;
+      const size_t p = t < n ? pix(t) : 0;
+      for (int c = threadIdx.x & 31; c < a.CP; c += 32) {
+        const bool in = t < n && c < C;
+        x2[static_cast<size_t>(r) * a.CP + c] =
+            in ? __bfloat162float(a.x[p + c]) : 0.0f;
+        if (a.extra != nullptr)
+          es[static_cast<size_t>(r) * a.CP + c] =
+              in ? a.extra[p + c] : __float2bfloat16(0.0f);
+      }
+    }
+    gemm_weights(ob, a.ldo, nrt, a.wp, a.CP, a.heads * HDP, a.CP, ring,
+                 stage, [&](int r, int c, const float* v) {
+      float* xr = x2 + static_cast<size_t>(r) * a.CP + c;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float o = xr[i] + v[i] + a.bp[c + i];
+        if (a.extra != nullptr)
+          o += __bfloat162float(es[static_cast<size_t>(r) * a.CP + c + i]);
+        xr[i] = c + i < C ? o : 0.0f;
+      }
+    });
+    layer_norm_rows([&](int t) { return x2 + static_cast<size_t>(t - r0) * a.CP; },
+                    r0, nrt * 16, n, C, a.CP, a.g2, a.be2, ys, a.ldy);
+    __syncthreads();
+    gemm_weights(ys, a.ldy, nrt, a.w1, a.HP, a.CP, a.HP, ring, stage,
+                 [&](int r, int c, const float* v) {
+      float g[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float u = v[i] + a.b1[c + i];
+        g[i] = c + i < a.hidden
+                   ? 0.5f * u * (1.0f + erff(u * 0.70710678118654752f))
+                   : 0.0f;
+      }
+      store_bf16x8(hid + static_cast<size_t>(r) * a.ldh + c, g);
+    });
+    // the block's output rows into ys (free once fc1 has read it), then
+    // out to the window's pixels, a token row a warp
+    gemm_weights(hid, a.ldh, nrt, a.w2, a.CP, a.HP, a.CP, ring, stage,
+                 [&](int r, int c, const float* v) {
+      const float* xr = x2 + static_cast<size_t>(r) * a.CP + c;
+      float o[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = xr[i] + v[i] + a.b2[c + i];
+      store_bf16x8(ys + static_cast<size_t>(r) * a.ldy + c, o);
+    });
+    for (int r = threadIdx.x >> 5; r < nrt * 16; r += NWARPS) {
+      const int t = r0 + r;
+      if (t >= n) continue;
+      bf16* dst = a.y + pix(t);
+      for (int c = threadIdx.x & 31; c < C; c += 32)
+        dst[c] = ys[static_cast<size_t>(r) * a.ldy + c];
+    }
+    __syncthreads();   // ys and x2 are the next row block's
+  }
+}
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+}  // namespace
+
+extern "C" {
+
+// x, extra (or null), y: [B, H, W, C] bf16, H and W multiples of ws;
+// wq [CP, heads*96], wp [heads*32, CP], w1 [CP, HP], w2 [HP, CP] bf16
+// (CP, HP: C and hidden rounded up to 16, pads zero); bq [heads*96], b1
+// [HP], bp, b2, g1, be1, g2, be2 [C], bias [heads, n, n] float32; scratch
+// [B * (H/ws) * (W/ws), n16, heads*96] bf16.  Returns
+// cudaErrorInvalidValue for shapes it does not take (n16 > 256, C > 256,
+// C > 32 * heads, or more than the block's shared memory).
+int hdrvae_swin_block(const void* x, const void* extra, const void* wq,
+                      const void* bq, const void* wp, const void* bp,
+                      const void* g1, const void* be1, const void* g2,
+                      const void* be2, const void* w1, const void* b1,
+                      const void* w2, const void* b2, const void* bias,
+                      void* scratch, void* y, int B, int H, int W, int C,
+                      int heads, int hidden, int ws, int shift,
+                      void* stream) {
+  SwinArgs a = {};
+  a.n = ws * ws;
+  a.n16 = round_up(a.n, 16);
+  if (ws < 1 || H % ws || W % ws || a.n16 > 256 || C > HDP * heads ||
+      C > MAXC * 32 ||
+      shift < 0 || shift >= ws || hidden < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const bf16*>(x);
+  a.extra = static_cast<const bf16*>(extra);
+  a.wq = static_cast<const bf16*>(wq);
+  a.bq = static_cast<const float*>(bq);
+  a.wp = static_cast<const bf16*>(wp);
+  a.bp = static_cast<const float*>(bp);
+  a.g1 = static_cast<const float*>(g1);
+  a.be1 = static_cast<const float*>(be1);
+  a.g2 = static_cast<const float*>(g2);
+  a.be2 = static_cast<const float*>(be2);
+  a.w1 = static_cast<const bf16*>(w1);
+  a.b1 = static_cast<const float*>(b1);
+  a.w2 = static_cast<const bf16*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.bias = static_cast<const float*>(bias);
+  a.qkv = static_cast<bf16*>(scratch);
+  a.y = static_cast<bf16*>(y);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.CP = round_up(C, 16);
+  a.heads = heads;
+  a.hidden = hidden;
+  a.HP = round_up(hidden, 16);
+  a.ws = ws;
+  a.shift = shift;
+  a.nwh = H / ws;
+  a.nww = W / ws;
+  a.ldy = a.CP + 8;
+  a.ldo = heads * HDP + 8;
+  a.lds = a.n16 + 4;
+  a.ldh = a.HP + 8;
+  const int x2_bytes = RB * a.CP * 4;
+  const int o_bytes = RB * a.ldo * 2;
+  const int y_bytes = RB * a.ldy * 2;
+  const int s_bytes = RB * a.lds * 4;
+  // the hidden rows, which first hold the row block's extra [64, CP]
+  const int mlp_bytes = round_up(y_bytes, 128) + RB * std::max(a.ldh, a.CP) * 2;
+  const int a_bytes = std::max(s_bytes, mlp_bytes);
+  // the weight ring, or one head's q rows, K and V
+  const int ring_bytes = std::max(RING_ELEMS, (RB + 2 * a.n16) * LDQ) * 2;
+  a.off_o = round_up(x2_bytes, 128);
+  a.off_a = a.off_o + round_up(o_bytes, 128);
+  a.off_hid = a.off_a + round_up(y_bytes, 128);
+  a.off_ring = a.off_a + round_up(a_bytes, 128);
+  a.off_stage = a.off_ring + round_up(ring_bytes, 128);
+  const int smem = a.off_stage + NWARPS * 256 * 4;
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      swin_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nwin = B * a.nwh * a.nww;
+  swin_block_kernel<<<nwin, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,321 @@
+// Building blocks shared by the Swin block kernel (K7, swin_block.cu) and
+// HAT's OCAB attention kernel (K8, ocab.cu), on bf16 tensor-core products
+// with float32 accumulation: cp.async copies of bf16 rows into shared
+// memory, a 64-row block GEMM with both operands in shared memory (WMMA),
+// one whose B operand (a weight matrix in global memory, read by every
+// window from L2) streams through a two-buffer cp.async ring (ldmatrix +
+// mma.sync m16n8k16), per-warp staging of accumulator tiles for
+// elementwise epilogues, and a softmax of score rows in shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace winattn {
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+constexpr int NT = 512;        // threads per block: 16 warps, four a scheduler
+constexpr int NWARPS = NT / 32;
+constexpr int RB = 64;         // rows per row block: four 16-row tiles
+constexpr int HDP = 32;        // padded head dim
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+
+// 16-byte global -> shared copy (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying rows x cols bf16 (cols a multiple of 8) from src (row
+// stride lds) to dst (row stride ldd); the caller commits and waits.
+__device__ __forceinline__ void copy_rows_async(bf16* dst, int ldd,
+                                                const bf16* src, int lds,
+                                                int rows, int cols) {
+  const int per_row = cols / 8;
+  for (int e = threadIdx.x; e < rows * per_row; e += NT) {
+    const int r = e / per_row, c = (e % per_row) * 8;
+    cp_async16(dst + r * ldd + c, src + static_cast<size_t>(r) * lds + c);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// C[nrt*16, nct*16] = A[nrt*16, ksteps*16] @ B[ksteps*16, nct*16] for one
+// row block of nrt (<= 4) row tiles, A and B in shared memory, A row major
+// (lda), B row major (ldb: B[k][n] at B + k * ldb + n) or, with B_COL,
+// column major (B[k][n] at B + n * ldb + k, i.e. the transpose of a
+// row-major [n, k] matrix such as K in q @ K^T).  Every warp takes whole
+// column tiles over all row tiles when there are at least as many column
+// tiles as warps (each B fragment is loaded once for four products), else
+// single (row, column) fragments.  epi(rt, ct, acc) consumes each finished
+// fragment.  Pointers must be 32-byte aligned and ld a multiple of 8.
+template <bool B_COL, typename Epi>
+__device__ __forceinline__ void gemm_rows(const bf16* A, int lda, int nrt,
+                                          const bf16* B, int ldb, int ksteps,
+                                          int nct, Epi epi) {
+  typedef typename std::conditional<B_COL, wmma::col_major,
+                                    wmma::row_major>::type BLayout;
+  const int warp = threadIdx.x >> 5;
+  const bool all_rows = nct >= NWARPS;
+  const int nwork = all_rows ? nct : nct * nrt;
+  for (int w = warp; w < nwork; w += NWARPS) {
+    const int ct = all_rows ? w : w / nrt;
+    const int rlo = all_rows ? 0 : w % nrt;
+    const int rhi = all_rows ? nrt : rlo + 1;
+    Acc acc[4];
+#pragma unroll
+    for (int rt = 0; rt < 4; ++rt) wmma::fill_fragment(acc[rt], 0.0f);
+    for (int k = 0; k < ksteps; ++k) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bf;
+      const bf16* bp = B_COL ? B + static_cast<size_t>(ct) * 16 * ldb + k * 16
+                             : B + static_cast<size_t>(k) * 16 * ldb + ct * 16;
+      wmma::load_matrix_sync(bf, bp, ldb);
+#pragma unroll
+      for (int rt = 0; rt < 4; ++rt) {
+        if (rt < rlo || rt >= rhi) continue;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+        wmma::load_matrix_sync(
+            af, A + static_cast<size_t>(rt) * 16 * lda + k * 16, lda);
+        wmma::mma_sync(acc[rt], af, bf, acc[rt]);
+      }
+    }
+#pragma unroll
+    for (int rt = 0; rt < 4; ++rt)
+      if (rt >= rlo && rt < rhi) epi(rt, ct, acc[rt]);
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory (lane l gives the address of
+// row l % 16, columns 8 * (l / 16) of a 16x16 tile): the A fragment of
+// mma.m16n8k16, or with .trans the B fragments of two n8 tiles of a
+// row-major [k][n] tile.
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d[16x8] += a[16x16] b[16x8], bf16 operands, float32 accumulation.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a,
+                                               const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The weight GEMM's ring: pieces of KP rows x NC columns of B, row stride
+// LDB (8 columns of pad: conflict-free ldmatrix rows), two buffers.  The
+// pieces are deep because each one costs a block-wide wait and barrier
+// (measured on the H100: 64-row pieces ran the same GEMMs at ~80 TFLOP/s,
+// 96-row ones at ~100).  CW warps share the columns of a piece, the other
+// NWARPS / CW the row tiles.
+constexpr int CW = 8, KP = 96, NC = 16 * CW, LDB = NC + 8, NSTAGE = 2;
+constexpr int RING_ELEMS = NSTAGE * KP * LDB;
+constexpr int RT_PER_WARP = 4 / (NWARPS / CW);   // row tiles of one warp
+
+// C[nrt*16, N] = A[nrt*16, K] @ B[K, N] for one row block of nrt (<= 4)
+// row tiles: A row major in shared memory (lda a multiple of 8), B a
+// row-major bf16 matrix in global memory (ldb a multiple of 8; K and N
+// multiples of 16) that streams through `ring` (RING_ELEMS of shared
+// memory) one KP x NC piece at a time, the next piece loading by cp.async
+// while this one multiplies.  Warp w owns the 16 columns w % CW of each
+// NC-wide chunk over row tiles [RT_PER_WARP * (w / CW), + RT_PER_WARP):
+// ldmatrix + mma.sync m16n8k16, each B fragment serving RT_PER_WARP row
+// tiles.  Each finished 16x16 tile goes through the warp's float32 stage
+// (256 floats) to epi(row within the row block, first column, v[8]), eight
+// consecutive values a lane.  Every thread of the block must call it; it
+// synchronizes the block.
+template <typename Epi>
+__device__ __forceinline__ void gemm_weights(const bf16* A, int lda, int nrt,
+                                             const bf16* __restrict__ B,
+                                             int ldb, int K, int N,
+                                             bf16* ring, float* stage,
+                                             Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wc = warp % CW, rt0 = (warp / CW) * RT_PER_WARP;
+  const int npk = (K + KP - 1) / KP;
+  const int total = npk * ((N + NC - 1) / NC);
+  auto load = [&](int i) {   // piece i, or an empty group past the end
+    if (i < total) {
+      const int c0 = (i / npk) * NC, k0 = (i % npk) * KP;
+      copy_rows_async(ring + (i % NSTAGE) * KP * LDB, LDB,
+                      B + static_cast<size_t>(k0) * ldb + c0, ldb,
+                      min(KP, K - k0), min(NC, N - c0));
+    }
+    cp_async_commit();
+  };
+  const int nr = min(RT_PER_WARP, nrt - rt0);   // this warp's row tiles
+  float acc[RT_PER_WARP][2][4];                 // [row tile][n8 tile]
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+  for (int i = 0; i < total; ++i) {
+    load(i + NSTAGE - 1);
+    cp_async_wait<NSTAGE - 1>();   // piece i has landed
+    __syncthreads();
+    const int p = i % npk, k0 = p * KP;
+    const int ct = (i / npk) * CW + wc;
+    if (p == 0) {
+#pragma unroll
+      for (int r = 0; r < RT_PER_WARP; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e / 4][e % 4] = 0.0f;
+    }
+    if (ct * 16 < N && nr > 0) {
+      const bf16* bp = ring + (i % NSTAGE) * KP * LDB + wc * 16 +
+                       (lane & 15) * LDB + (lane >> 4) * 8;
+      const bf16* ap = A + static_cast<size_t>(rt0 * 16 + (lane & 15)) * lda +
+                       k0 + (lane >> 4) * 8;
+      const int ksteps = min(KP, K - k0) / 16;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        unsigned bf[4];
+        ldsm_x4_trans(bf, bp + ks * 16 * LDB);
+#pragma unroll
+        for (int r = 0; r < RT_PER_WARP; ++r) {
+          if (r >= nr) continue;
+          unsigned af[4];
+          ldsm_x4(af, ap + static_cast<size_t>(r) * 16 * lda + ks * 16);
+          mma_bf16_16816(acc[r][0], af, bf);
+          mma_bf16_16816(acc[r][1], af, bf + 2);
+        }
+      }
+      if (p == npk - 1) {
+#pragma unroll
+        for (int r = 0; r < RT_PER_WARP; ++r) {
+          if (r >= nr) continue;
+          const int row = lane >> 2, col = (lane & 3) * 2;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float* s = stage + row * 16 + nt * 8 + col;
+            s[0] = acc[r][nt][0];
+            s[1] = acc[r][nt][1];
+            s[128] = acc[r][nt][2];     // row + 8
+            s[129] = acc[r][nt][3];
+          }
+          __syncwarp();
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = stage[lane * 8 + e];
+          epi((rt0 + r) * 16 + (lane >> 1), ct * 16 + (lane & 1) * 8, v);
+          __syncwarp();
+        }
+      }
+    }
+    __syncthreads();   // the next load overwrites this buffer
+  }
+}
+
+// Softmax of rows [0, nrows) of S in place (nrows a multiple of 32 / TPR),
+// TPR threads a row, each taking the row's columns j = k + TPR i in steps
+// i.  row_score(r) returns the scorer of row r, f(i, j, s) adding the bias
+// and masks of column j < ncols; rows r >= nvalid (padded queries) get zero
+// probabilities.  Three passes over the row in shared memory, so no
+// register array holds it: the scores and their max, the exps and their
+// sum, then the probabilities as bf16 over the row's own bytes (row r of
+// P, stride 2 * lds), zero for ncols <= j < ncols16.  Float32 max, exp and
+// sum; p is the exp times the sum's reciprocal, rounded to bf16 for the
+// value product.
+template <int TPR, typename RowScore>
+__device__ __forceinline__ void softmax_rows(float* S, int lds, int nrows,
+                                             int nvalid, int ncols,
+                                             int ncols16,
+                                             RowScore row_score) {
+  const int k = threadIdx.x % TPR;
+  for (int r = threadIdx.x / TPR; r < nrows; r += NT / TPR) {
+    float* srow = S + static_cast<size_t>(r) * lds;
+    const auto score = row_score(r);
+    float m = -CUDART_INF_F;
+    for (int i = 0, j = k; j < ncols; ++i, j += TPR) {
+      const float v = score(i, j, srow[j]);
+      srow[j] = v;
+      m = fmaxf(m, v);
+    }
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.0f;
+    for (int j = k; j < ncols; j += TPR) {
+      const float e = expf(srow[j] - m);
+      srow[j] = e;
+      l += e;
+    }
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, o);
+    const float il = r < nvalid ? 1.0f / l : 0.0f;
+    // bf16 p[j] lands on the bytes of float e[j / 2]: each step reads its
+    // columns, then writes, and the writes of a step only cover columns
+    // read in earlier steps or this one
+    bf16* P = reinterpret_cast<bf16*>(srow);
+    for (int j0 = 0; j0 < ncols16; j0 += TPR) {
+      const int j = j0 + k;
+      const float p = j < ncols ? srow[j] * il : 0.0f;
+      __syncwarp();
+      if (j < ncols16) P[j] = __float2bfloat16(p);
+    }
+    __syncwarp();
+  }
+}
+
+// Hand one fragment to its warp as eight consecutive values a lane
+// through the warp's 16x16 float32 stage: f(row within the row block,
+// first column, v[8]); lanes 2r and 2r + 1 take row r.
+template <typename F>
+__device__ __forceinline__ void each_run8(float* stage, int rt, int ct,
+                                          const Acc& acc, F f) {
+  wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = stage[lane * 8 + i];
+  f(rt * 16 + (lane >> 1), ct * 16 + (lane & 1) * 8, v);
+  __syncwarp();
+}
+
+// Eight float32 values as eight bf16 in one 16-byte store (dst 16-byte
+// aligned).
+__device__ __forceinline__ void store_bf16x8(bf16* dst, const float* v) {
+  __align__(16) bf16 t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = __float2bfloat16(v[i]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(t);
+}
+
+}  // namespace winattn

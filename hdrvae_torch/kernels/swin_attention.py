@@ -1,0 +1,310 @@
+"""The whole Swin transformer block (K7): the CUDA kernel and its plain
+PyTorch version, as ``hdrvae/kernels/swin_attention.py::swin_block_fused``
+(its v1 body, with HAT's optional ``extra`` residual).
+
+    x2 = x + proj(WindowMHA(LN1(x))) + bp [+ extra];  y = x2 + MLP(LN2(x2))
+
+on an image [B, H, W, C] already rolled by -shift: the shift only selects
+the masks, computed from each window's place in the grid (-100 between the
+band labels of ``band_masks`` in the last window row and column; a corner
+window takes both, as the JAX kernel does).
+
+The weights are prepared once per block (:func:`prepare_block`): the
+qkv projection in the head-major [head][q|k|v] layout of 32-wide slots
+(head dim zero-padded to 32, the softmax scale folded into q before the
+cast to the compute dtype), the proj rows scattered to the same padded
+layout, channel and MLP widths zero-padded to multiples of 16.  Zero pads
+are exact.  Both versions round where the JAX kernel does: LN outputs,
+q/k/v, the probabilities and the attention output in the storage dtype;
+scores, softmax, residuals, LN statistics and the MLP accumulation in
+float32.
+
+The wrapper runs the plain version only for a CPU tensor.  On a CUDA
+tensor it launches ``csrc/swin_block.cu`` or raises: the kernel takes bf16
+images and weights (the fast tier) and windows of at most 256 tokens.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hdrvae_torch.core.config import Precision, fp32_contractions
+from hdrvae_torch.kernels import _build
+
+HDP = 32          # padded head dim (30 at SwinIR-M / HAT-M)
+MAX_TOKENS = 256  # the kernel holds a score row of at most 256 columns
+MAX_CHANNELS = 256  # and a token's LayerNorm row of at most 256 channels
+MASK = -100.0     # the shifted-window mask of the official networks
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+class BlockWeights(NamedTuple):
+    """One Swin block's weights in the kernel's layout (see module doc)."""
+    wq: torch.Tensor     # [CP, heads * 96] compute dtype
+    bq: torch.Tensor     # [heads * 96] float32
+    wp: torch.Tensor     # [heads * 32, CP] compute dtype
+    bp: torch.Tensor     # [C] float32
+    g1: torch.Tensor     # LN1 / LN2 affine, [C] float32
+    be1: torch.Tensor
+    g2: torch.Tensor
+    be2: torch.Tensor
+    w1: torch.Tensor     # [CP, HP] compute dtype
+    b1: torch.Tensor     # [HP] float32
+    w2: torch.Tensor     # [HP, CP] compute dtype
+    b2: torch.Tensor     # [C] float32
+    bias: torch.Tensor   # [heads, n, n] float32 relative-position bias
+    heads: int
+    hidden: int
+
+
+def prep_qkv_weights(weight: torch.Tensor, bias: torch.Tensor, heads: int,
+                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nn.Linear(C, 3C)`` weight [3C, C] and bias [3C] -> ([CP, heads *
+    96] in ``dtype``, [heads * 96] float32): column (h * 3 + j) * 32 + d is
+    slot j (q, k, v) of head h, dim d < hd; the scale hd ** -0.5 is folded
+    into q in float32, before the cast (``_prep_qkv_weights``)."""
+    c = weight.shape[1]
+    hd = c // heads
+    w = weight.float().t().reshape(c, 3, heads, hd).clone()
+    b = bias.float().reshape(3, heads, hd).clone()
+    w[:, 0] *= hd ** -0.5
+    b[0] *= hd ** -0.5
+    w = F.pad(w, (0, HDP - hd)).permute(0, 2, 1, 3).reshape(c, heads * 96)
+    b = F.pad(b, (0, HDP - hd)).permute(1, 0, 2).reshape(heads * 96)
+    w = F.pad(w, (0, 0, 0, _round16(c) - c))
+    return w.to(dtype).contiguous(), b.contiguous()
+
+
+def prep_proj_weights(weight: torch.Tensor, heads: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """``nn.Linear(C, C)`` weight [C, C] -> [heads * 32, CP]: each head's
+    input rows at its padded slot, zero rows under the pad and zero columns
+    past C (``_prep_proj_weights``)."""
+    c = weight.shape[0]
+    hd = c // heads
+    w = weight.float().t().reshape(heads, hd, c)
+    w = F.pad(w, (0, _round16(c) - c, 0, HDP - hd))
+    return w.reshape(heads * HDP, _round16(c)).to(dtype).contiguous()
+
+
+def _pad2(w: torch.Tensor, rows: int, cols: int,
+          dtype: torch.dtype) -> torch.Tensor:
+    return F.pad(w.float(), (0, cols - w.shape[1], 0, rows - w.shape[0])).to(
+        dtype).contiguous()
+
+
+def prepare_block(attn, norm1, norm2, mlp, heads: int, bias: torch.Tensor,
+                  dtype: torch.dtype) -> BlockWeights:
+    """A block's modules (``attn.qkv`` / ``attn.proj`` and ``mlp.fc1`` /
+    ``mlp.fc2`` linears, the two LayerNorms) and its gathered bias
+    [heads, n, n] in the kernel's layout, matmul weights in ``dtype``."""
+    c = attn.qkv.weight.shape[1]
+    hidden = mlp.fc1.weight.shape[0]
+    cp, hp = _round16(c), _round16(hidden)
+    wq, bq = prep_qkv_weights(attn.qkv.weight, attn.qkv.bias, heads, dtype)
+    f32 = lambda t: t.detach().float().contiguous()   # noqa: E731
+    return BlockWeights(
+        wq=wq, bq=bq, wp=prep_proj_weights(attn.proj.weight, heads, dtype),
+        bp=f32(attn.proj.bias), g1=f32(norm1.weight), be1=f32(norm1.bias),
+        g2=f32(norm2.weight), be2=f32(norm2.bias),
+        w1=_pad2(mlp.fc1.weight.t(), cp, hp, dtype),
+        b1=F.pad(f32(mlp.fc1.bias), (0, hp - hidden)),
+        w2=_pad2(mlp.fc2.weight.t(), hp, cp, dtype),
+        b2=f32(mlp.fc2.bias), bias=f32(bias), heads=heads, hidden=hidden)
+
+
+@functools.lru_cache(maxsize=None)
+def _band_masks_np(ws: int, shift: int) -> Tuple[np.ndarray, np.ndarray]:
+    n = ws * ws
+    loc = np.arange(n)
+    row_band = (loc // ws >= ws - shift).astype(np.int32)
+    col_band = (loc % ws >= ws - shift).astype(np.int32)
+    mrow = np.where(row_band[:, None] != row_band[None, :], MASK, 0.0)
+    mcol = np.where(col_band[:, None] != col_band[None, :], MASK, 0.0)
+    return mrow.astype(np.float32), mcol.astype(np.float32)
+
+
+def band_masks(ws: int, shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mask_row, mask_col): [n, n] additive masks of the windows in the
+    last window row / column of a shifted grid (``_band_masks``).  After
+    the roll by -shift only those windows mix regions, and a token's region
+    depends only on its window-local row (column): below ws - shift it lies
+    in the pre-wrap band, else in the wrapped one."""
+    mrow, mcol = _band_masks_np(ws, shift)
+    return torch.from_numpy(mrow), torch.from_numpy(mcol)
+
+
+def use_swin_kernel(precision: Precision, x: torch.Tensor, h_img: int,
+                    w_img: int, ws: int, head_dim: int) -> bool:
+    """Whether a Swin block runs fused (``use_swin_kernel``): the fast
+    tier on a CUDA tensor, a window grid that divides the padded image and
+    head_dim <= 32.  The JAX gate's Mosaic conditions are gone: its
+    score-width lane alignment and ``pick_bwin``'s even window-grid width
+    (a 128 x 120 tile at window 8 has 15 windows across; there the JAX
+    package falls back to its XLA layers and the port runs K7: the same
+    function).  The kernel takes windows of up to 256 tokens and up to 256
+    channels (``x``'s last dimension; SwinIR-L has 240).
+    ``precision.swin_attn`` forces either path: "xla" the unfused layers,
+    "pallas" the fused block (on a CPU tensor: K7's plain version)."""
+    knob = precision.swin_attn
+    if knob == "xla":
+        return False
+    ok = (h_img % ws == 0 and w_img % ws == 0 and head_dim <= HDP
+          and ws * ws <= MAX_TOKENS and x.shape[-1] <= MAX_CHANNELS)
+    if knob == "pallas":
+        if not ok:
+            raise ValueError(
+                f"swin_attn='pallas' but the {h_img}x{w_img} grid (window "
+                f"{ws}, head_dim {head_dim}) is unsupported by the kernel")
+        return True
+    if knob != "auto":
+        raise ValueError(f"unknown swin_attn {knob!r}")
+    return precision.mode == "fast" and x.is_cuda and ok
+
+
+def _partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, c)
+
+
+def _merge(x: torch.Tensor, ws: int, b: int, h: int, w: int) -> torch.Tensor:
+    x = x.reshape(b, h // ws, w // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, -1)
+
+
+def _ln(x32: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + 1e-5) * g + b
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w on the operands' values, exact float32 (TF32 off)."""
+    with fp32_contractions(Precision.parity()):
+        return a.float() @ w.float()
+
+
+def swin_block_fused_reference(img: torch.Tensor, w: BlockWeights, *,
+                               ws: int, shift: int,
+                               extra: Optional[torch.Tensor] = None,
+                               precision: Precision = Precision()
+                               ) -> torch.Tensor:
+    """Plain version of :func:`swin_block_fused`, step for step the JAX
+    kernel's order and rounding, on batched windows."""
+    cdt, sdt = precision.compute_dtype, precision.storage_dtype
+    b, hh, ww, c = img.shape
+    heads, cp = w.heads, w.wq.shape[0]
+    n = ws * ws
+    xw = _partition(img, ws).float()                          # [nwb, n, C]
+    y = F.pad(_ln(xw, w.g1, w.be1), (0, cp - c)).to(cdt)
+    qkv = (_mm(y, w.wq.to(cdt)) + w.bq).to(sdt)
+    qkv = qkv.reshape(-1, n, heads, 3, HDP).permute(3, 0, 2, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]                        # [nwb, H, n, 32]
+    s = _mm(q, k.transpose(-1, -2))
+    nwh, nww = hh // ws, ww // ws
+    s = s.reshape(b, nwh, nww, heads, n, n)
+    if shift:
+        mrow, mcol = (m.to(s.device) for m in band_masks(ws, shift))
+        rows = torch.zeros(nwh, 1, 1, 1, 1, device=s.device)
+        rows[-1] = 1.0
+        cols = torch.zeros(1, nww, 1, 1, 1, device=s.device)
+        cols[:, -1] = 1.0
+        s = s + (w.bias + rows * mrow) + cols * mcol
+    else:
+        s = s + w.bias
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = (e / e.sum(dim=-1, keepdim=True)).to(sdt).reshape(-1, heads, n, n)
+    o = _mm(p, v).to(sdt)                                   # [nwb, H, n, 32]
+    o = o.permute(0, 2, 1, 3).reshape(-1, n, heads * HDP)
+    x2 = xw + _mm(o.to(cdt), w.wp.to(cdt))[..., :c] + w.bp
+    if extra is not None:
+        x2 = x2 + _partition(extra, ws).float()
+    y2 = F.pad(_ln(x2, w.g2, w.be2), (0, cp - c)).to(cdt)
+    h1 = _mm(y2, w.w1.to(cdt)) + w.b1
+    h1 = (0.5 * h1 * (1.0 + torch.erf(h1 * 2.0 ** -0.5))).to(cdt)
+    out = x2 + _mm(h1, w.w2.to(cdt))[..., :c] + w.b2
+    return _merge(out.to(sdt), ws, b, hh, ww)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
+                     shift: int, extra: Optional[torch.Tensor] = None,
+                     precision: Precision = Precision()) -> torch.Tensor:
+    """One whole Swin block (K7) on ``img`` [B, H, W, C], already rolled by
+    -shift, H and W multiples of ``ws``; ``extra`` an optional residual of
+    the same shape (HAT's ``conv_scale * CAB``, rolled).  Returns the
+    block's output, still rolled, in the storage dtype.
+
+    Launches ``csrc/swin_block.cu`` for CUDA inputs (bf16 image, extra and
+    matmul weights); runs :func:`swin_block_fused_reference` for CPU ones.
+    """
+    if img.device.type == "cpu":
+        return swin_block_fused_reference(img, w, ws=ws, shift=shift,
+                                          extra=extra, precision=precision)
+    _require(img.is_cuda, f"swin_block_fused: unsupported device {img.device}")
+    _require(img.dim() == 4, f"img must be [B, H, W, C], got "
+             f"{tuple(img.shape)}")
+    b, hh, ww, c = img.shape
+    heads = w.heads
+    _require(hh % ws == 0 and ww % ws == 0,
+             f"swin_block_fused: {hh}x{ww} is not a grid of {ws}-windows")
+    _require(ws * ws <= MAX_TOKENS,
+             f"swin_block_fused: window {ws} has more than {MAX_TOKENS} "
+             "tokens")
+    _require(c % heads == 0 and c // heads <= HDP,
+             f"swin_block_fused: head_dim {c / heads} must be an integer "
+             f"<= {HDP}")
+    _require(c <= MAX_CHANNELS,
+             f"swin_block_fused: {c} channels > {MAX_CHANNELS}")
+    _require(0 <= shift < ws, f"swin_block_fused: shift {shift} not in "
+             f"[0, {ws})")
+    for name, t in (("img", img), ("extra", extra), ("wq", w.wq),
+                    ("wp", w.wp), ("w1", w.w1), ("w2", w.w2)):
+        if t is None:
+            continue
+        _require(t.dtype == torch.bfloat16,
+                 f"swin_block_fused: the CUDA kernel takes bf16 {name}, "
+                 f"got {t.dtype}")
+        _require(t.is_contiguous(), f"swin_block_fused: {name} must be "
+                 "contiguous")
+        _require(t.device == img.device,
+                 f"swin_block_fused: {name} is not on {img.device}")
+    if extra is not None:
+        _require(extra.shape == img.shape,
+                 f"extra must be {tuple(img.shape)}, got "
+                 f"{tuple(extra.shape)}")
+    n = ws * ws
+    _require(tuple(w.bias.shape) == (heads, n, n),
+             f"bias must be [{heads}, {n}, {n}]")
+    nwin = b * (hh // ws) * (ww // ws)
+    scratch = torch.empty(nwin, _round16(n), heads * 96, device=img.device,
+                          dtype=torch.bfloat16)
+    y = torch.empty_like(img)
+    _build.check(_build.library().hdrvae_swin_block(
+        img.data_ptr(), None if extra is None else extra.data_ptr(),
+        w.wq.data_ptr(), w.bq.data_ptr(), w.wp.data_ptr(), w.bp.data_ptr(),
+        w.g1.data_ptr(), w.be1.data_ptr(), w.g2.data_ptr(), w.be2.data_ptr(),
+        w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(),
+        w.bias.data_ptr(), scratch.data_ptr(), y.data_ptr(), b, hh, ww, c,
+        heads, w.hidden, ws, shift,
+        torch.cuda.current_stream(img.device).cuda_stream),
+        "hdrvae_swin_block")
+    swin_block_fused.launches += 1
+    return y
+
+
+swin_block_fused.launches = 0

@@ -1,6 +1,7 @@
 """Decoder weights: topology inference, seeded initialization, and the
 JAX parameter pytree as an ldm state dict; as ``hdrvae/models/params.py``.
-Also the JAX package's RRDBNet pytree as a new-schema ESRGAN state dict.
+Also the JAX package's RRDBNet, SwinIR and HAT pytrees as the state dicts
+of their official PyTorch schemas.
 """
 
 from __future__ import annotations
@@ -207,4 +208,104 @@ def rrdbnet_state_dict_from_jax(params_np: Mapping[str, Any]
         for rdb, convs in block.items():
             for conv, p in convs.items():
                 _put_conv(sd, f"body.{i}.{rdb}.{conv}", p)
+    return sd
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _put_linear(sd: Dict[str, torch.Tensor], name: str, p) -> None:
+    """A JAX linear ({"kernel": [in, out], "bias"}) as torch's [out, in]
+    weight + bias."""
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"], np.float32).T)
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _put_norm(sd: Dict[str, torch.Tensor], name: str, p) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _put_swin_attention(sd: Dict[str, torch.Tensor], prefix: str,
+                        p) -> None:
+    """qkv, proj and the relative-position bias table under ``prefix``."""
+    _put_linear(sd, prefix + "qkv", p["qkv"])
+    _put_linear(sd, prefix + "proj", p["proj"])
+    sd[prefix + "relative_position_bias_table"] = _t(
+        p["relative_position_bias_table"])
+
+
+def _put_block(sd: Dict[str, torch.Tensor], prefix: str, blk) -> None:
+    """norm1, norm2 and mlp of a Swin block / HAB / OCAB under ``prefix``."""
+    _put_norm(sd, prefix + "norm1", blk["norm1"])
+    _put_norm(sd, prefix + "norm2", blk["norm2"])
+    _put_linear(sd, prefix + "mlp.fc1", blk["mlp"]["fc1"])
+    _put_linear(sd, prefix + "mlp.fc2", blk["mlp"]["fc2"])
+
+
+def _put_swin_trunk(sd: Dict[str, torch.Tensor], params_np) -> None:
+    """The keys SwinIR and HAT share: conv_first, patch norm, norm,
+    conv_after_body and a pixelshuffle stack (``upsample.{2i}``)."""
+    _put_conv(sd, "conv_first", params_np["conv_first"])
+    if "patch_norm" in params_np:
+        _put_norm(sd, "patch_embed.norm", params_np["patch_norm"])
+    _put_norm(sd, "norm", params_np["norm"])
+    _put_conv(sd, "conv_after_body", params_np["conv_after_body"])
+    for i, p in enumerate(params_np.get("upsample", ())):
+        _put_conv(sd, f"upsample.{2 * i}", p)
+    if "conv_before_upsample" in params_np:
+        _put_conv(sd, "conv_before_upsample.0",
+                  params_np["conv_before_upsample"])
+    for name in ("conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        if name in params_np:
+            _put_conv(sd, name, params_np[name])
+
+
+def swinir_state_dict_from_jax(params_np: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's SwinIR pytree (numpy leaves) as the official
+    SwinIR state dict: linear kernels [in, out] to [out, in], conv kernels
+    HWIO to OIHW, bias tables as they are; ``swinir_from_state_dict``
+    loads it."""
+    sd: Dict[str, torch.Tensor] = {}
+    _put_swin_trunk(sd, params_np)
+    for li, layer in enumerate(params_np["layers"]):
+        for bi, blk in enumerate(layer["blocks"]):
+            prefix = f"layers.{li}.residual_group.blocks.{bi}."
+            _put_swin_attention(sd, prefix + "attn.", blk["attn"])
+            _put_block(sd, prefix, blk)
+        if "conv" in layer:
+            _put_conv(sd, f"layers.{li}.conv", layer["conv"])
+        else:
+            for j in range(3):
+                _put_conv(sd, f"layers.{li}.conv.{2 * j}", layer[f"conv{j}"])
+    return sd
+
+
+def hat_state_dict_from_jax(params_np: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX package's HAT pytree (numpy leaves) as the official HAT
+    state dict, converted as :func:`swinir_state_dict_from_jax`; the CAB's
+    convs go to ``conv_block.cab.{0,2}`` and its channel attention to
+    ``cab.3.attention.{1,3}``; ``hat_from_state_dict`` loads it."""
+    sd: Dict[str, torch.Tensor] = {}
+    _put_swin_trunk(sd, params_np)
+    for li, layer in enumerate(params_np["layers"]):
+        group = f"layers.{li}.residual_group."
+        for bi, blk in enumerate(layer["blocks"]):
+            prefix = f"{group}blocks.{bi}."
+            _put_swin_attention(sd, prefix + "attn.", blk["attn"])
+            _put_block(sd, prefix, blk)
+            cab = blk["conv_block"]
+            _put_conv(sd, prefix + "conv_block.cab.0", cab["conv1"])
+            _put_conv(sd, prefix + "conv_block.cab.2", cab["conv2"])
+            _put_conv(sd, prefix + "conv_block.cab.3.attention.1",
+                      cab["attn"]["down"])
+            _put_conv(sd, prefix + "conv_block.cab.3.attention.3",
+                      cab["attn"]["up"])
+        ocab = layer["overlap_attn"]
+        _put_swin_attention(sd, group + "overlap_attn.", ocab)
+        _put_block(sd, group + "overlap_attn.", ocab)
+        _put_conv(sd, f"layers.{li}.conv", layer["conv"])
     return sd

@@ -2,24 +2,31 @@
 ``hdrvae/models/zoo.py``.
 
 The port runs the ESRGAN family (RRDBNet, both public key schemas: ESRGAN
-old-arch and RealESRGAN new-arch).  The other families the JAX package
-recognizes (SwinIR, HAT, Swin2SR, Compact, SPAN, RealPLKSR) are detected by
+old-arch and RealESRGAN new-arch), SwinIR and HAT.  The other families the
+JAX package recognizes (Swin2SR, Compact, SPAN, RealPLKSR) are detected by
 their keys and refused with ``NotImplementedError`` naming the family: the
 port never runs another model in their place.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Tuple, Union
 
 import torch
+from torch import nn
 
 from hdrvae_torch.core.config import Precision
+from hdrvae_torch.models.hat import (HAT, HATConfig, hat_apply,
+                                     hat_from_state_dict, is_hat_state_dict)
 from hdrvae_torch.models.rrdbnet import (RRDBNet, RRDBNetConfig,
                                          detect_architecture, rrdbnet_apply,
                                          rrdbnet_from_state_dict)
+from hdrvae_torch.models.swinir import (SwinIR, SwinIRConfig,
+                                        is_swinir_state_dict, swinir_apply,
+                                        swinir_from_state_dict)
 
-ModelConfig = RRDBNetConfig
+ModelConfig = Union[RRDBNetConfig, SwinIRConfig, HATConfig]
+UpscaleModel = Union[RRDBNet, SwinIR, HAT]
 
 
 def _load_state_dict(path: str) -> Mapping[str, Any]:
@@ -35,20 +42,17 @@ def _load_state_dict(path: str) -> Mapping[str, Any]:
     return sd
 
 
-def _family(sd: Mapping[str, Any]) -> str | None:
+def _unported_family(sd: Mapping[str, Any]) -> str | None:
     """The name of a recognized family the port does not run yet, from its
-    key fingerprint (the JAX package's detectors, in its order)."""
+    key fingerprint (the JAX package's detectors, in its order; HAT and
+    SwinIR, which the port runs, are detected before these)."""
     keys = list(sd)
     swin_spine = any(k.startswith("layers.") and ".residual_group.blocks."
                      in k for k in keys)
-    if any(".conv_block.cab." in k or ".overlap_attn." in k for k in keys):
-        return "HAT"
     if "swin2sr.first_convolution.weight" in sd or (
             swin_spine and any(k.endswith(".attn.logit_scale")
                                for k in keys)):
         return "Swin2SR"
-    if swin_spine:
-        return "SwinIR"
     if "feats.0.weight" in sd and "feats.1.lk.conv.weight" in sd:
         return "RealPLKSR"
     if "block_1.c1_r.sk.weight" in sd and "conv_cat.weight" in sd:
@@ -61,18 +65,25 @@ def _family(sd: Mapping[str, Any]) -> str | None:
 
 
 def load_upscale_model(path: str, *, device: torch.device | str = "cpu"
-                       ) -> Tuple[RRDBNet, ModelConfig, str]:
+                       ) -> Tuple[UpscaleModel, ModelConfig, str]:
     """Load an upscaler checkpoint (.pth or .safetensors, BasicSR
     ``params_ema`` / ``params`` wrappers unwrapped) onto ``device``.
     Returns (model, config, architecture name); the name picks the
     reversal of :func:`hdrvae_torch.upscale.pipeline.hdr_upscale`."""
     sd = _load_state_dict(path)
-    family = _family(sd)
+    # HAT first: its keys also match SwinIR's residual_group.blocks spine
+    if is_hat_state_dict(sd):
+        net, cfg = hat_from_state_dict(sd, device=device)
+        return net, cfg, "HAT"
+    family = _unported_family(sd)
     if family is not None:
         raise NotImplementedError(
             f"{family} checkpoint: this family is not yet ported to "
             "hdrvae_torch (the JAX package hdrvae runs it); the port runs "
-            "ESRGAN/RealESRGAN (RRDBNet)")
+            "ESRGAN/RealESRGAN (RRDBNet), SwinIR and HAT")
+    if is_swinir_state_dict(sd):
+        net, cfg = swinir_from_state_dict(sd, device=device)
+        return net, cfg, "SwinIR"
     if "body.0.rdb1.conv1.weight" in sd or \
             "model.1.sub.0.RDB1.conv1.0.weight" in sd:
         arch = ("ESRGAN" if detect_architecture(sd) == "esrgan-old"
@@ -81,12 +92,16 @@ def load_upscale_model(path: str, *, device: torch.device | str = "cpu"
         return net, cfg, arch
     raise ValueError(f"unsupported upscaler checkpoint schema (first keys: "
                      f"{', '.join(sorted(sd)[:3])}); the port runs "
-                     "ESRGAN/RealESRGAN (RRDBNet)")
+                     "ESRGAN/RealESRGAN (RRDBNet), SwinIR and HAT")
 
 
-def upscaler_apply(model: RRDBNet, x: torch.Tensor, *,
+def upscaler_apply(model: nn.Module, x: torch.Tensor, *,
                    precision: Precision = Precision()) -> torch.Tensor:
     """Unified NHWC [B, H, W, C] -> [B, sH, sW, C] forward."""
+    if isinstance(model, HAT):
+        return hat_apply(model, x, precision=precision)
+    if isinstance(model, SwinIR):
+        return swinir_apply(model, x, precision=precision)
     if isinstance(model, RRDBNet):
         return rrdbnet_apply(model, x, precision=precision)
     raise TypeError(f"unknown upscale model {type(model).__name__}")
@@ -94,9 +109,19 @@ def upscaler_apply(model: RRDBNet, x: torch.Tensor, *,
 
 def working_set_bytes_per_pixel(cfg: ModelConfig,
                                 precision: Precision) -> float:
-    """Rough activation bytes per input pixel, for the tile-size planner:
-    the densest RRDB concat (nf + 4 * gc channels) live twice, plus the
-    float32 output."""
+    """Rough activation bytes per input pixel, for the tile-size planner
+    (the JAX package's rows)."""
     elsize = torch.empty((), dtype=precision.storage_dtype).element_size()
     out_bytes = cfg.scale ** 2 * 3 * 4
+    if isinstance(cfg, HATConfig):
+        # qkv + MLP hidden as SwinIR, plus OCAB's unfolded k / v,
+        # (overlap window / window)^2 = 2.25x the tokens at overlap 0.5
+        ratio = (cfg.overlap_win_size / cfg.window_size) ** 2
+        width = cfg.embed_dim * (3 + cfg.mlp_ratio + 2 * ratio)
+        return float(width * 2 * elsize + out_bytes)
+    if isinstance(cfg, SwinIRConfig):
+        # qkv (3x dim) + MLP hidden, live beside the token stream
+        width = cfg.embed_dim * (3 + cfg.mlp_ratio)
+        return float(width * 2 * elsize + out_bytes)
+    # RRDBNet: the densest RRDB concat (nf + 4 * gc channels) live twice
     return float((cfg.nf + 4 * cfg.gc) * 2 * elsize + out_bytes)

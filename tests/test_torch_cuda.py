@@ -17,13 +17,15 @@ import torch
 from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
                                       Precision, TilingConfig, UpscaleConfig)
 from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
-from hdrvae_torch.kernels import attention, conv3x3, dense_conv, epilogue
+from hdrvae_torch.kernels import (attention, conv3x3, dense_conv, epilogue,
+                                  ocab, swin_attention)
+from hdrvae_torch.models import hat, swinir
 from hdrvae_torch.models.decoder import decoder_head, decoder_tail
 from hdrvae_torch.models.params import init_decoder
 from hdrvae_torch.models.rrdbnet import (RRDBNetConfig, init_rrdbnet,
                                          rrdbnet_layers)
 from hdrvae_torch.models.rrdbnet_fused import rrdbnet_fused_apply
-from hdrvae_torch.upscale.pipeline import hdr_upscale
+from hdrvae_torch.upscale.pipeline import hdr_upscale, upscale_progress_total
 
 pytestmark = pytest.mark.cuda
 
@@ -277,3 +279,134 @@ def test_small_upscaler_on_card(dev, unshuffle, scale):
     assert res.image.shape == (1, 24 * scale, 40 * scale, 3)
     assert torch.isfinite(res.image).all()
     assert dense_conv.dense_conv3x3.launches > before
+
+
+def _swin_block(dev, dim, heads, ws, seed):
+    """A Swin block with weights from numpy: linears N(0, 1/fan_in),
+    biases, LayerNorm affines and the bias table non-trivial."""
+    rng = np.random.default_rng(seed)
+    blk = swinir.SwinBlock(dim, heads, ws, 2.0)
+    sd = {}
+    for k, v in blk.state_dict().items():
+        shape = tuple(v.shape)
+        if k.startswith("norm") and k.endswith("weight"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("weight"):
+            a = rng.standard_normal(shape) * shape[1] ** -0.5
+        else:
+            a = rng.standard_normal(shape) * 0.5
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    blk.load_state_dict(sd)
+    return blk.requires_grad_(False).to(dev)
+
+
+# (batch, H, W, C, heads, window, shift, extra): n = 16, 49 (padded to 64
+# rows), 64 and 256 tokens; 3 and 5 windows across (odd grids the JAX
+# kernel refuses); C 48 and 180 (no multiple of 16: padded to 192)
+SWIN_CASES = [(2, 8, 12, 48, 2, 4, 0, False),
+              (2, 8, 12, 48, 2, 4, 2, True),
+              (1, 14, 21, 48, 3, 7, 3, False),
+              (1, 24, 40, 180, 6, 8, 4, False),
+              (2, 32, 48, 180, 6, 16, 8, True)]
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,ws,shift,extra", SWIN_CASES)
+def test_swin_block_fused(dev, b, h, w, c, heads, ws, shift, extra):
+    """K7 against its plain version: within two bf16 ulps of the largest
+    output, over the whole image and over the last window row and column,
+    where the shifted grid's masks act."""
+    blk = _swin_block(dev, c, heads, ws, seed=ws + shift)
+    wts = swinir.block_weights(blk, heads, ws, torch.bfloat16)
+    x = _rand(dev, (b, h, w, c), seed=1)
+    e = _rand(dev, (b, h, w, c), 0.5, seed=2) if extra else None
+    kw = dict(ws=ws, shift=shift, extra=e, precision=Precision.fast())
+    before = swin_attention.swin_block_fused.launches
+    y = swin_attention.swin_block_fused(x, wts, **kw)
+    assert swin_attention.swin_block_fused.launches == before + 1
+    ref = swin_attention.swin_block_fused_reference(x, wts, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    d = (y.float() - ref.float()).abs()
+    bound = 2 * _ulp_bound(ref)
+    assert d.max().item() <= bound, d.max().item()
+    assert d[:, -ws:].max().item() <= bound
+    assert d[:, :, -ws:].max().item() <= bound
+
+
+@pytest.mark.parametrize("nwb,heads,nq,nk", [(3, 2, 16, 36), (2, 3, 20, 36),
+                                             (2, 2, 64, 144),
+                                             (2, 6, 256, 576)])
+def test_ocab_attention(dev, nwb, heads, nq, nk):
+    """K8 against its plain version, token counts padded to 16 around the
+    launch (36 keys, 20 queries) or not: within two bf16 ulps of the
+    largest output."""
+    q = _rand(dev, (nwb, heads, nq, 32), 0.2, seed=1)
+    k, v = (_rand(dev, (nwb, heads, nk, 32), seed=s) for s in (2, 3))
+    bias = _rand(dev, (heads, nq, nk), 1.0, torch.float32, seed=4)
+    kw = dict(compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16)
+    before = ocab.ocab_attention.launches
+    o = ocab.ocab_attention(q, k, v, bias, **kw)
+    assert ocab.ocab_attention.launches == before + 1
+    ref = ocab.ocab_attention_reference(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert (o.float() - ref.float()).abs().max().item() <= \
+        2 * _ulp_bound(ref)
+
+
+def test_swin_kernels_refuse_what_they_do_not_take(dev):
+    """A fast CUDA request launches or raises, never falls back: float32
+    operands, a window grid that does not divide the image, keys past the
+    shared-memory bound."""
+    blk = _swin_block(dev, 48, 2, 4, seed=0)
+    w32 = swinir.block_weights(blk, 2, 4, torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        swin_attention.swin_block_fused(
+            torch.zeros(1, 8, 8, 48, device=dev), w32, ws=4, shift=0)
+    wb = swinir.block_weights(blk, 2, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="grid"):
+        swin_attention.swin_block_fused(
+            torch.zeros(1, 8, 10, 48, device=dev, dtype=torch.bfloat16), wb,
+            ws=4, shift=0)
+    q = torch.zeros(1, 2, 16, 32, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 880, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="keys"):
+        ocab.ocab_attention(q, k, k, torch.zeros(2, 16, 880, device=dev),
+                            compute_dtype=torch.bfloat16,
+                            storage_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("family", ["SwinIR", "HAT"])
+def test_small_swin_upscaler_on_card(dev, family):
+    """A with_small() SwinIR / HAT: the fused fast forward (K7, and K8 for
+    HAT's OCAB) against the card's own unfused fast layers, then a fast
+    two-pass upscale whose launches are one K7 per block and one K8 per
+    OCAB of every tile run."""
+    if family == "SwinIR":
+        cfg = swinir.SwinIRConfig().with_small()
+        net, apply = swinir.init_swinir(cfg, seed=2, device=dev), \
+            swinir.swinir_apply
+    else:
+        cfg = hat.HATConfig().with_small()
+        net, apply = hat.init_hat(cfg, seed=2, device=dev), hat.hat_apply
+    x = _rand(dev, (1, 13, 22, 3), 0.5, torch.float32, seed=5)
+    fused = apply(net, x, precision=Precision.fast())
+    layers = apply(net, x, precision=Precision(
+        compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16,
+        mode="fast", swin_attn="xla"))
+    assert fused.shape == layers.shape == (1, 26, 44, 3)
+    err = (fused - layers).abs().max().item()
+    assert err <= 5e-2 * max(1.0, layers.abs().max().item()), err
+    img = _rand(dev, (1, 24, 40, 3), 1.5, torch.float32, seed=6)
+    ucfg = UpscaleConfig(tiling=TilingConfig(tile=16, overlap=4))
+    runs = upscale_progress_total(img, cfg, ucfg)
+    k7, k8 = (swin_attention.swin_block_fused.launches,
+              ocab.ocab_attention.launches)
+    res = hdr_upscale(net, img, ucfg, architecture=family,
+                      precision=Precision.fast())
+    assert res.image.shape == (1, 48, 80, 3)
+    assert torch.isfinite(res.image).all()
+    assert swin_attention.swin_block_fused.launches - k7 == \
+        sum(cfg.depths) * runs
+    assert ocab.ocab_attention.launches - k8 == \
+        (len(cfg.depths) * runs if family == "HAT" else 0)

@@ -5,16 +5,18 @@
                                           [--tiers fast parity mixed]
     python3 tools/profile_decode_torch.py --upscale [--latent 128]
                                           [--tiers fast parity]
+                                          [--model esrgan swinir hat]
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
 tier, the full-width Flux.1 decoder (``DecoderConfig()``, random weights
 from numpy seed 0, latent from seed 1) runs ``hdr_decode`` +
 ``decode_summary`` in conservative mode, as ``chip_smoke.py`` does.  With
 ``--upscale`` the parity decode's image instead goes through
-``hdr_upscale`` with the full-width ESRGAN x4 (``RRDBNetConfig()``, random
-weights from numpy seed 2) and ``UpscaleConfig()`` (512^2 tiles, overlap
-64, comfy seams), 1024^2 -> 4096^2 for latent 128, as ``chip_smoke.py``'s
-upscale phase does.  Either way:
+``hdr_upscale`` with a full-width x4 upscaler, random weights from a numpy
+seed (``--model``: ESRGAN ``RRDBNetConfig()`` seed 2, SwinIR-M
+``SwinIRConfig()`` seed 3, HAT-M ``HATConfig()`` seed 4, as
+``chip_smoke.py``), and ``UpscaleConfig()`` (512^2 tiles, overlap 64, comfy
+seams), 1024^2 -> 4096^2 for latent 128.  Either way:
 
 - a few requests unprofiled (three decodes, two upscales): device ms from
   CUDA events, host wall ms, and the peak of allocated device memory;
@@ -47,13 +49,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,  # noqa: E402
                                       Precision, UpscaleConfig)
 from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode  # noqa: E402
+from hdrvae_torch.models.hat import HATConfig, init_hat  # noqa: E402
 from hdrvae_torch.models.params import init_decoder  # noqa: E402
 from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet  # noqa: E402
+from hdrvae_torch.models.swinir import SwinIRConfig, init_swinir  # noqa: E402
 from hdrvae_torch.upscale.pipeline import hdr_upscale  # noqa: E402
 
 TIERS = {"fast": Precision.fast, "parity": Precision.parity,
          "mixed": Precision.mixed}
 CONSERVATIVE = HDRDecodeConfig(hdr_mode="conservative")
+# --model: (architecture, network on the card)
+UPSCALERS = {
+    "esrgan": ("ESRGAN", lambda: init_rrdbnet(RRDBNetConfig(), seed=2,
+                                              device="cuda")),
+    "swinir": ("SwinIR", lambda: init_swinir(SwinIRConfig(), seed=3,
+                                             device="cuda")),
+    "hat": ("HAT", lambda: init_hat(HATConfig(), seed=4, device="cuda"))}
 
 
 def request(fn) -> tuple[float, float]:
@@ -121,6 +132,9 @@ def main() -> int:
                     help="default: all three; fast parity with --upscale")
     ap.add_argument("--upscale", action="store_true",
                     help="profile hdr_upscale of the parity decode's image")
+    ap.add_argument("--model", nargs="+", default=["esrgan"],
+                    choices=list(UPSCALERS),
+                    help="upscalers profiled with --upscale")
     ap.add_argument("--top", type=int, default=12,
                     help="kernel names listed per run")
     args = ap.parse_args()
@@ -137,19 +151,24 @@ def main() -> int:
 
     cfg = DecoderConfig()
     dec = init_decoder(cfg, seed=0, device="cuda")
-    net = (init_rrdbnet(RRDBNetConfig(), seed=2, device="cuda")
-           if args.upscale else None)
     for side in latents:
         z = torch.from_numpy(np.random.default_rng(1).standard_normal(
             (1, side, side, cfg.z_channels)).astype(np.float32)).cuda()
         if args.upscale:
             image = hdr_decode(dec, z, CONSERVATIVE,
                                Precision.parity()).image
-            for tier in tiers:
-                prec = TIERS[tier]()
-                report(f"upscale {side * 8}^2 -> {side * 32}^2 {tier}",
-                       lambda: hdr_upscale(net, image, UpscaleConfig(),
-                                           precision=prec), 2, args.top)
+            for model in args.model:
+                arch, make = UPSCALERS[model]
+                net = make()
+                for tier in tiers:
+                    prec = TIERS[tier]()
+                    report(f"upscale {arch} {side * 8}^2 -> {side * 32}^2 "
+                           f"{tier}",
+                           lambda: hdr_upscale(net, image, UpscaleConfig(),
+                                               architecture=arch,
+                                               precision=prec), 2, args.top)
+                del net
+                torch.cuda.empty_cache()
             del image
         else:
             for tier in tiers:
