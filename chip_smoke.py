@@ -13,8 +13,15 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    the shapes its path gives it (K1-K4: a 1024^2 decode; K6: one 512^2
    tile of the full-width ESRGAN x4 net; K7: one 512^2 tile of SwinIR-M,
    unshifted and shifted, of HAT-M with its CAB residual, and a ragged
-   128 x 120 tile; K8: HAT-M's OCAB on a 512^2 tile), with its tolerance,
-   and both timed with CUDA events after a warm-up;
+   128 x 120 tile; K7's SwinV2 body: one 512^2 tile of Swin2SR-M,
+   unshifted and shifted, a window-7 grid and the ragged tile; K8: HAT-M's
+   OCAB on a 512^2 tile), with its tolerance, and both timed with CUDA
+   events after a warm-up; beside them the least time the card could take
+   (bound_ms: the function's operations over the peak rate of their type,
+   or its bytes, each input read once and each output written once, over
+   the memory rate, whichever is larger) and, where one PyTorch call
+   computes the same function, that call's time (library_ms; the port
+   never calls it);
 4. decode: the full-width Flux.1 decoder (random weights from a numpy
    seed) on a [1, 128, 128, 16] latent through ``hdr_decode`` +
    ``decode_summary`` in the fast, parity and mixed tiers, three requests
@@ -28,15 +35,17 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    512^2 tiles (9 tiles x 2 passes): two fast requests and one parity
    request, the fused K6 chain held to the unfused fast layers on one
    tile, and one fast request with small_blur and local_fix;
-7. SwinIR and HAT upscale: the full-width SwinIR-M x4 and HAT-M x4 (random
-   weights from numpy seeds) through ``hdr_upscale`` on a 768^2 crop of
-   the parity image (4 tiles x 2 passes), one fast and one parity request
-   each; the fast one must launch K7 once per block and K8 once per OCAB
-   of every tile run; the fused chain is held to the unfused fast layers
-   on the first tile's raw output;
+7. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
+   and Swin2SR-M x4 (random weights from numpy seeds) through
+   ``hdr_upscale`` on a 768^2 crop of the parity image (4 tiles x 2
+   passes), one fast and one parity request each; the fast one must
+   launch K7 (Swin2SR: its v2 body) once per block and K8 once per OCAB
+   of every tile run, the parity one neither; the fused chain is held to
+   the unfused fast layers on the first tile's raw output;
 8. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
    mixed, K4 in the fused-epilogue decodes, K6 in the fast ESRGAN upscale,
-   K7 in the fast SwinIR and HAT upscales, K8 in the fast HAT upscale.
+   K7 in the fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR
+   upscale, K8 in the fast HAT upscale; every kernel of the table ran.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -55,8 +64,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, float32 outside
+# them, HBM3
+PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 
 # 1024^2 decode shapes (latent 128^2): (H, W, Cin, Cout, residual) of the
 # ResNet conv2s, which carry every fused part (prologue, residual, stats)
@@ -85,6 +99,13 @@ K7_SHAPES = [("SwinIR-M", 512, 512, 8, 0, False),
              ("SwinIR-M", 512, 512, 8, 4, False),
              ("HAT-M", 512, 512, 16, 8, True),
              ("ragged", 128, 120, 8, 4, False)]
+# K7's SwinV2 body at Swin2SR-M's widths: its 512^2 tile, a window-7 grid
+# (49 tokens padded to 64 rows; the JPEG-CAR family's window) and the
+# ragged tile
+K7_V2_SHAPES = [("Swin2SR-M", 512, 512, 8, 0, False),
+                ("Swin2SR-M", 512, 512, 8, 4, False),
+                ("window 7", 504, 504, 7, 3, False),
+                ("ragged", 128, 120, 8, 4, False)]
 # K8 at HAT-M's 512^2-tile OCAB: (windows, heads, queries, keys)
 K8_SHAPE = (1024, 6, 256, 576)
 SWIN_BUDGET = 5e-2          # relative to max(1, max|ref|), K7 and K8
@@ -165,6 +186,53 @@ def p999(d: torch.Tensor) -> float:
                          ).values.item()
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (None skipped), each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+class Bound:
+    """The least time the card could take for a kernel's work, summed over
+    its shapes: per shape the larger of its operations over the peak rate
+    of their type and its bytes over the memory rate."""
+
+    def __init__(self):
+        self.ms = self.ops_ms = self.bytes_ms = 0.0
+
+    def add(self, flops: float, nbytes_: float,
+            peak: float = PEAK_BF16) -> dict:
+        t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes_ / HBM_BYTES_S
+        self.ms += max(t_ops, t_bytes)
+        self.ops_ms += t_ops
+        self.bytes_ms += t_bytes
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def entry(self) -> dict:
+        return {"bound_ms": self.ms, "bound_by": "operations"
+                if self.ops_ms >= self.bytes_ms else "bytes"}
+
+
+CONV_ALONE = "F.conv2d, bf16, channels_last (the conv alone)"
+
+
+def sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> float:
+    """``F.scaled_dot_product_attention`` of the spatial attention's
+    [1, h, w, C] q, k, v as one head of h w tokens."""
+    q, k, v = (t.reshape(1, 1, -1, t.shape[-1]) for t in (q, k, v))
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=3)
+
+
+def conv_alone_ms(x: torch.Tensor, kern: torch.Tensor) -> float:
+    """``F.conv2d`` of NHWC ``x`` with the HWIO ``kern`` (3x3, SAME) alone,
+    bf16 and channels_last: the library's time for a kernel's conv."""
+    xc = x.permute(0, 3, 1, 2)     # a contiguous NHWC tensor: channels_last
+    wc = kern.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    return cuda_ms(lambda: F.conv2d(xc, wc, padding=1))
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -202,7 +270,7 @@ def phase_kernels() -> list:
     entries = []
 
     # K1 ---------------------------------------------------------------
-    details, k_ms, p_ms, err = [], 0.0, 0.0, 0.0
+    details, k_ms, p_ms, l_ms, err, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
     for h, w, cin, cout, res in K1_SHAPES:
         x = _bf16(rng, (1, h, w, cin))
         kern = _bf16(rng, (3, 3, cin, cout), (9 * cin) ** -0.5)
@@ -230,22 +298,29 @@ def phase_kernels() -> list:
         t = cuda_ms(lambda: conv3x3.fused_conv3x3(x, kern, bias, **kw))
         tp = cuda_ms(lambda: conv3x3.fused_conv3x3_reference(
             x, kern, bias, **kw))
-        tflops = 2 * h * w * 9 * cin * cout / (t * 1e9)
+        tl = conv_alone_ms(x, kern)
+        flops = 2 * h * w * cin * cout * (9 + (res == "proj"))
+        b = bnd.add(flops, nbytes(x, kern, bias, gamma, beta, y, *s,
+                                  None if res == "proj" else kw["residual"],
+                                  kw.get("res_kernel")))
         log(f"K1 fused_conv3x3 {h}x{w} {cin}->{cout} {res}: max-abs {e:.3e} "
-            f"stats {es:.2e}  kernel {t:.3f} ms ({tflops:.1f} TFLOP/s)  "
-            f"plain {tp:.3f} ms")
+            f"stats {es:.2e}  kernel {t:.3f} ms ({flops / (t * 1e9):.1f} "
+            f"TFLOP/s)  plain {tp:.3f} ms  conv alone {tl:.3f} ms  bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
         details.append({"shape": [h, w, cin, cout, res], "max_abs_err": e,
-                        "stats_rel_err": es, "ms": t, "plain_ms": tp})
-        k_ms, p_ms, err = k_ms + t, p_ms + tp, max(err, e)
+                        "stats_rel_err": es, "ms": t, "plain_ms": tp,
+                        "library_ms": tl, **b})
+        k_ms, p_ms, l_ms, err = k_ms + t, p_ms + tp, l_ms + tl, max(err, e)
         del x, kern, y, ry
     entries.append({"name": "fused_conv3x3", "route": "cuda",
                     "source": "hdrvae_torch/csrc/conv3x3.cu",
                     "replaces": "hdrvae/kernels/conv3x3.py:333",
                     "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                    "shapes": details})
+                    **bnd.entry(), "library_ms": l_ms,
+                    "library_call": CONV_ALONE, "shapes": details})
 
     # K2 ---------------------------------------------------------------
-    details, k_ms, p_ms, err = [], 0.0, 0.0, 0.0
+    details, k_ms, p_ms, l_ms, err, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
     for h, w, c in K2_SHAPES:
         x = _bf16(rng, (1, h, w, c), 0.5)
         kern = _bf16(rng, (3, 3, c, c), (9 * c) ** -0.5)
@@ -262,16 +337,28 @@ def phase_kernels() -> list:
         t = cuda_ms(lambda: conv3x3.upsample_conv3x3(x, kern, bias, **kw))
         tp = cuda_ms(lambda: conv3x3.upsample_conv3x3_reference(
             x, kern, bias, **kw))
+        # the conv alone, on the upsampled map made beforehand
+        up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        tl = conv_alone_ms(up, kern)
+        del up
+        # the phase-decomposed conv: four 2x2 taps per output pixel
+        flops = 2 * (4 * h * w) * 4 * c * c
+        b = bnd.add(flops, nbytes(x, kern, bias, y, *s))
         log(f"K2 upsample_conv3x3 {h}x{w}->{2 * h}x{2 * w} {c}: max-abs "
-            f"{e:.3e} stats {es:.2e}  kernel {t:.3f} ms  plain {tp:.3f} ms")
+            f"{e:.3e} stats {es:.2e}  kernel {t:.3f} ms  plain {tp:.3f} ms"
+            f"  conv alone {tl:.3f} ms  bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']})")
         details.append({"shape": [h, w, c, c], "max_abs_err": e,
-                        "stats_rel_err": es, "ms": t, "plain_ms": tp})
-        k_ms, p_ms, err = k_ms + t, p_ms + tp, max(err, e)
+                        "stats_rel_err": es, "ms": t, "plain_ms": tp,
+                        "library_ms": tl, **b})
+        k_ms, p_ms, l_ms, err = k_ms + t, p_ms + tp, l_ms + tl, max(err, e)
         del x, y, ry
     entries.append({"name": "upsample_conv3x3", "route": "cuda",
                     "source": "hdrvae_torch/csrc/conv3x3.cu",
                     "replaces": "hdrvae/kernels/conv3x3.py:653",
                     "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                    **bnd.entry(), "library_ms": l_ms,
+                    "library_call": CONV_ALONE + " (on the upsampled map)",
                     "shapes": details})
 
     # K3 ---------------------------------------------------------------
@@ -291,14 +378,21 @@ def phase_kernels() -> list:
     t = cuda_ms(lambda: attention.flash_attention_f32(q, k, v), iters=3)
     tp = cuda_ms(lambda: attention.spatial_attention_reference(q, k, v),
                  iters=3)
+    tl = sdpa_ms(q, k, v)
+    # q k^T and p v; exact float32 runs outside the tensor cores
+    attn_flops = 4 * N_TOKENS * N_TOKENS * C_ATTN
+    b = Bound().add(attn_flops, 4 * nbytes(q), PEAK_F32)
     log(f"K3 flash_attention_f32 N={N_TOKENS} C={C_ATTN}: parity max-abs "
         f"{f32_err['parity']:.3e} mixed {f32_err['mixed']:.3e}  kernel "
-        f"{t:.3f} ms  plain {tp:.3f} ms")
+        f"{t:.3f} ms  plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
     entries.append({"name": "flash_attention_f32", "route": "cuda",
                     "source": "hdrvae_torch/csrc/attention.cu",
                     "replaces": "hdrvae/kernels/attention.py:210",
                     "max_abs_err": max(f32_err.values()), "ms": t,
-                    "plain_ms": tp, "tiers": ["parity", "mixed"],
+                    "plain_ms": tp, **b, "library_ms": tl,
+                    "library_call": "F.scaled_dot_product_attention, float32",
+                    "tiers": ["parity", "mixed"],
                     "max_abs_err_by_tier": f32_err})
 
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -311,18 +405,24 @@ def phase_kernels() -> list:
     t = cuda_ms(lambda: attention.flash_attention_bf16(qb, kb, vb), iters=3)
     tp = cuda_ms(lambda: attention.spatial_attention_reference(qb, kb, vb),
                  iters=3)
+    tl = sdpa_ms(qb, kb, vb)
+    b = Bound().add(attn_flops, 4 * nbytes(qb))
     log(f"K3 flash_attention_bf16 N={N_TOKENS} C={C_ATTN}: max-abs {e:.3e} "
-        f"(bound {bound:.3e})  kernel {t:.3f} ms  plain {tp:.3f} ms")
+        f"(budget {bound:.3e})  kernel {t:.3f} ms  plain {tp:.3f} ms  SDPA "
+        f"{tl:.3f} ms  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
     entries.append({"name": "flash_attention_bf16", "route": "cuda",
                     "source": "hdrvae_torch/csrc/attention.cu",
                     "replaces": "hdrvae/kernels/attention.py:210",
-                    "max_abs_err": e, "bound": bound, "ms": t,
-                    "plain_ms": tp, "tiers": ["fast"]})
+                    "max_abs_err": e, "err_budget": bound, "ms": t,
+                    "plain_ms": tp, **b, "library_ms": tl,
+                    "library_call": "F.scaled_dot_product_attention, bf16",
+                    "tiers": ["fast"]})
     del q, k, v, qb, kb, vb, ref, got
     torch.cuda.empty_cache()
     entries.append(_check_k4())
     entries.append(_check_k6(rng))
-    entries.append(_check_k7(rng))
+    entries.append(_check_k7(rng, K7_SHAPES))
+    entries.append(_check_k7(rng, K7_V2_SHAPES, v2=True))
     entries.append(_check_k8(rng))
     return entries
 
@@ -332,6 +432,7 @@ def _check_k4() -> dict:
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(K4_SHAPE, generator=g, device="cuda") * 2.0
     details, k_ms, p_ms, err, rel_err = [], 0.0, 0.0, 0.0, 0.0
+    bnd = Bound()
     for dtype in (torch.float32, torch.bfloat16):
         pre = torch.nn.functional.silu(x).to(dtype)   # a post-SiLU map
         col, st = epilogue.collapse_and_stats_fused(pre)
@@ -351,13 +452,18 @@ def _check_k4() -> dict:
         t = cuda_ms(lambda: epilogue.collapse_and_stats_fused(pre))
         tp = cuda_ms(lambda: epilogue.collapse_and_stats_reference(pre))
         gbs = pre.numel() * pre.element_size() / (t * 1e6)
+        # a max over 128 channels and five statistics per pixel
+        b = bnd.add(pre.numel() + 5 * col.numel(),
+                    nbytes(pre, col, *st.values()), PEAK_F32)
         log(f"K4 collapse_and_stats {list(K4_SHAPE)} {dtype}: collapse "
             f"bit-exact, min/max exact, mean rel {rel['mean']:.2e} std rel "
             f"{rel['std']:.2e}  kernel {t:.3f} ms ({gbs:.0f} GB/s read)  "
-            f"plain {tp:.3f} ms")
+            f"plain {tp:.3f} ms  bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']})")
         details.append({"dtype": str(dtype), "max_abs_err": e_abs,
                         "mean_rel_err": rel["mean"],
-                        "std_rel_err": rel["std"], "ms": t, "plain_ms": tp})
+                        "std_rel_err": rel["std"], "ms": t, "plain_ms": tp,
+                        **b})
         k_ms, p_ms = k_ms + t, p_ms + tp
         err, rel_err = max(err, e_abs), max(rel_err, *rel.values())
         del pre, col, rcol
@@ -368,13 +474,16 @@ def _check_k4() -> dict:
             "source": "hdrvae_torch/csrc/epilogue.cu",
             "replaces": "hdrvae/kernels/epilogue.py:93", "max_abs_err": err,
             "stats_rel_err": rel_err, "ms": k_ms, "plain_ms": p_ms,
+            **bnd.entry(), "library_ms": None,
+            "library_call": "none: no one PyTorch call computes the collapse "
+                            "and its statistics",
             "shapes": details}
 
 
 def _check_k6(rng) -> dict:
     from hdrvae_torch.kernels import dense_conv
     dev = torch.device("cuda")
-    details, k_ms, p_ms, err = [], 0.0, 0.0, 0.0
+    details, k_ms, p_ms, l_ms, err, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
     for name, h, w, cins, cout, act, rs, f32 in K6_SHAPES:
         xs = [_bf16(rng, (1, h, w, c), 0.5) for c in cins]
         kern = _bf16(rng, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5)
@@ -397,33 +506,50 @@ def _check_k6(rng) -> dict:
         t = cuda_ms(lambda: dense_conv.dense_conv3x3(xs, kern, bias, **kw))
         tp = cuda_ms(lambda: dense_conv.dense_conv3x3_reference(
             xs, kern, bias, **kw))
-        tflops = 2 * h * w * 9 * sum(cins) * cout / (t * 1e9)
+        # the conv alone, on the concatenated input made beforehand
+        cat = torch.cat(xs, dim=-1)
+        tl = conv_alone_ms(cat, kern)
+        del cat
+        flops = 2 * h * w * 9 * sum(cins) * cout
+        tflops = flops / (t * 1e9)
+        b = bnd.add(flops, nbytes(*xs, kern, bias, y, kw.get("residual")))
         log(f"K6 dense_conv3x3 {name} {h}x{w} {'+'.join(map(str, cins))}->"
             f"{cout}: max-abs {e:.3e}  kernel {t:.3f} ms ({tflops:.1f} "
-            f"TFLOP/s)  plain {tp:.3f} ms")
+            f"TFLOP/s)  plain {tp:.3f} ms  conv alone {tl:.3f} ms  bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
         details.append({"shape": [name, h, w, list(cins), cout],
                         "max_abs_err": e, "ms": t, "plain_ms": tp,
-                        "tflops": tflops})
-        k_ms, p_ms, err = k_ms + t, p_ms + tp, max(err, e)
+                        "tflops": tflops, "library_ms": tl, **b})
+        k_ms, p_ms, l_ms, err = k_ms + t, p_ms + tp, l_ms + tl, max(err, e)
         del xs, kern, y, ry, kw
         torch.cuda.empty_cache()
     return {"name": "dense_conv3x3", "route": "cuda",
             "source": "hdrvae_torch/csrc/dense_conv.cu",
             "replaces": "hdrvae/kernels/conv3x3.py:1306",
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            **bnd.entry(), "library_ms": l_ms,
+            "library_call": CONV_ALONE + " (on the concatenated inputs)",
             "shapes": details}
 
 
-def _swin_block(rng, dim: int, heads: int, ws: int):
-    """A Swin block (SwinIR-M / HAT-M widths) on the card with weights from
-    numpy: linears N(0, 1/fan_in), biases, LayerNorm affines and the bias
-    table non-trivial."""
+def _swin_block(rng, dim: int, heads: int, ws: int, v2: bool = False):
+    """A Swin block (SwinIR-M / HAT-M widths), or with ``v2`` a SwinV2 one
+    (Swin2SR-M), on the card with weights from numpy: linears N(0,
+    1/fan_in), biases, LayerNorm affines and the bias table or position MLP
+    non-trivial; v2's logit scales from 10 to 150, past the clamp at 100."""
+    from hdrvae_torch.models.swin2sr import CPB_HIDDEN, Swin2Block
     from hdrvae_torch.models.swinir import SwinBlock
-    blk = SwinBlock(dim, heads, ws, 2.0)
+    blk = (Swin2Block if v2 else SwinBlock)(dim, heads, ws, 2.0)
     sd = {}
     for k, v in blk.state_dict().items():
         shape = tuple(v.shape)
-        if k.startswith("norm") and k.endswith("weight"):
+        if k.endswith("logit_scale"):
+            a = np.log(np.linspace(10.0, 150.0, heads)).reshape(shape)
+        elif k.startswith("attn.cpb_mlp.0"):
+            a = rng.standard_normal(shape)
+        elif k.startswith("attn.cpb_mlp.2"):
+            a = rng.standard_normal(shape) * CPB_HIDDEN ** -0.5
+        elif k.startswith("norm") and k.endswith("weight"):
             a = rng.uniform(0.5, 1.5, shape)
         elif k.endswith("weight"):
             a = rng.standard_normal(shape) * shape[1] ** -0.5
@@ -434,19 +560,29 @@ def _swin_block(rng, dim: int, heads: int, ws: int):
     return blk.requires_grad_(False).cuda()
 
 
-def _check_k7(rng) -> dict:
-    """K7 against its plain version at SwinIR-M's and HAT-M's 512^2 tile
-    shapes and on a ragged 128 x 120 tile (15 windows across), with the
-    max-abs over the whole image and over the last window row and column,
-    where the shifted grid's masks act."""
+def _swin_flops(tokens: int, n: int, c: int = SWIN_DIM) -> int:
+    """A Swin block's operations at width c, MLP 2c: qkv, scores and
+    values, proj, MLP."""
+    return 2 * tokens * (c * 3 * c + 2 * n * c + c * c + 2 * c * 2 * c)
+
+
+def _check_k7(rng, shapes, v2: bool = False) -> dict:
+    """K7 (or its SwinV2 body) against its plain version at the 512^2 tile
+    shapes of its models, a window-7 grid (v2) and a ragged 128 x 120 tile
+    (15 windows across), with the max-abs over the whole image and over
+    the last window row and column, where the shifted grid's masks act."""
     from hdrvae_torch.core.config import Precision
     from hdrvae_torch.kernels import swin_attention as ska
+    from hdrvae_torch.models.swin2sr import block_weights_v2
     from hdrvae_torch.models.swinir import block_weights
     fast = Precision.fast()
+    name_k = "K7 swin_block_fused" + (" v2" if v2 else "")
     details, k_ms, p_ms, err, err_edge = [], 0.0, 0.0, 0.0, 0.0
-    for name, h, w, ws, shift, extra in K7_SHAPES:
-        blk = _swin_block(rng, SWIN_DIM, SWIN_HEADS, ws)
-        wts = block_weights(blk, SWIN_HEADS, ws, torch.bfloat16)
+    bnd = Bound()
+    for name, h, w, ws, shift, extra in shapes:
+        blk = _swin_block(rng, SWIN_DIM, SWIN_HEADS, ws, v2)
+        wts = (block_weights_v2 if v2 else block_weights)(
+            blk, SWIN_HEADS, ws, torch.bfloat16)
         x = _bf16(rng, (1, h, w, SWIN_DIM))
         # extra at the scale of x: a dropped or misplaced residual shows
         e_in = _bf16(rng, (1, h, w, SWIN_DIM), 0.5) if extra else None
@@ -455,39 +591,43 @@ def _check_k7(rng) -> dict:
         ry = ska.swin_block_fused_reference(x, wts, **kw)
         torch.cuda.synchronize()
         check(y.dtype == ry.dtype and y.shape == ry.shape,
-              f"K7 {name}: {y.dtype} {tuple(y.shape)}")
+              f"{name_k} {name}: {y.dtype} {tuple(y.shape)}")
         check(torch.isfinite(y.float()).all().item(),
-              f"K7 {name}: output not finite")
+              f"{name_k} {name}: output not finite")
         d = (y.float() - ry.float()).abs()
         e = d.max().item()
         e_last = max(d[:, -ws:].max().item(), d[:, :, -ws:].max().item())
         bound = SWIN_BUDGET * max(1.0, ry.float().abs().max().item())
-        check(e <= bound, f"K7 {name}: max-abs {e} > {bound}")
+        check(e <= bound, f"{name_k} {name}: max-abs {e} > {bound}")
         t = cuda_ms(lambda: ska.swin_block_fused(x, wts, **kw))
         tp = cuda_ms(lambda: ska.swin_block_fused_reference(x, wts, **kw),
                      iters=2, warmup=1)
-        tokens = h * w
-        n = ws * ws
-        flops = 2 * tokens * (SWIN_DIM * 3 * SWIN_DIM + 2 * n * SWIN_DIM
-                              + SWIN_DIM * SWIN_DIM
-                              + 2 * SWIN_DIM * 2 * SWIN_DIM)
-        log(f"K7 swin_block_fused {name} {h}x{w} ws {ws} shift {shift}"
+        flops = _swin_flops(h * w, ws * ws)
+        b = bnd.add(flops, nbytes(x, e_in, y, *(
+            f for f in wts if isinstance(f, torch.Tensor))))
+        log(f"{name_k} {name} {h}x{w} ws {ws} shift {shift}"
             f"{' +extra' if extra else ''}: max-abs {e:.3e} (last window "
-            f"row/col {e_last:.3e}, bound {bound:.3e})  kernel {t:.3f} ms "
-            f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms")
+            f"row/col {e_last:.3e}, budget {bound:.3e})  kernel {t:.3f} ms "
+            f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms  bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
         details.append({"shape": [name, h, w, SWIN_DIM, ws, shift,
                                   bool(extra)],
                         "max_abs_err": e, "max_abs_err_last_row_col": e_last,
-                        "bound": bound, "ms": t, "plain_ms": tp})
+                        "err_budget": bound, "ms": t, "plain_ms": tp,
+                        "tflops": flops / (t * 1e9), **b})
         k_ms, p_ms = k_ms + t, p_ms + tp
         err, err_edge = max(err, e), max(err_edge, e_last)
         del x, e_in, y, ry, d, wts, blk
         torch.cuda.empty_cache()
-    return {"name": "swin_block_fused", "route": "cuda",
-            "source": "hdrvae_torch/csrc/swin_block.cu",
-            "replaces": "hdrvae/kernels/swin_attention.py:672",
+    return {"name": "swin_block_fused_v2" if v2 else "swin_block_fused",
+            "route": "cuda", "source": "hdrvae_torch/csrc/swin_block.cu",
+            # v2: the post_norm / cosine branches of the kernel body
+            "replaces": "hdrvae/kernels/swin_attention.py:501" if v2
+            else "hdrvae/kernels/swin_attention.py:672",
             "max_abs_err": err, "max_abs_err_last_row_col": err_edge,
-            "ms": k_ms, "plain_ms": p_ms, "shapes": details}
+            "ms": k_ms, "plain_ms": p_ms, **bnd.entry(), "library_ms": None,
+            "library_call": "none: no one PyTorch call computes a whole "
+                            "Swin block", "shapes": details}
 
 
 def _check_k8(rng) -> dict:
@@ -516,16 +656,27 @@ def _check_k8(rng) -> dict:
     t = cuda_ms(lambda: ocab.ocab_attention(q, k, v, bias, **kw))
     tp = cuda_ms(lambda: ocab.ocab_attention_reference(q, k, v, bias, **kw),
                  iters=2, warmup=1)
+    # the bias as SDPA's additive mask, in the queries' dtype (q carries
+    # the softmax scale already)
+    mask = bias.to(q.dtype)
+    tl = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=1.0))
+    del mask
     flops = 4 * nwb * heads * nq * nk * 32
-    log(f"K8 ocab_attention {list(K8_SHAPE)}: max-abs {e:.3e} (bound "
+    b = Bound().add(flops, nbytes(q, k, v, bias, o))
+    log(f"K8 ocab_attention {list(K8_SHAPE)}: max-abs {e:.3e} (budget "
         f"{bound:.3e})  kernel {t:.3f} ms ({flops / (t * 1e9):.1f} TFLOP/s)"
-        f"  plain {tp:.3f} ms")
+        f"  plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound {b['bound_ms']:.3f} "
+        f"ms ({b['bound_by']})")
     del q, k, v, bias, o, ro
     torch.cuda.empty_cache()
     return {"name": "ocab_attention", "route": "cuda",
             "source": "hdrvae_torch/csrc/ocab.cu",
             "replaces": "hdrvae/kernels/ocab.py:95", "max_abs_err": e,
-            "bound": bound, "ms": t, "plain_ms": tp,
+            "err_budget": bound, "ms": t, "plain_ms": tp, **b,
+            "library_ms": tl,
+            "library_call": "F.scaled_dot_product_attention, bf16, the bias "
+                            "as a bf16 attn_mask",
             "shape": list(K8_SHAPE)}
 
 
@@ -760,27 +911,28 @@ def phase_upscale(image: torch.Tensor):
 
 
 def phase_swin_upscale(image: torch.Tensor, family: str):
-    """The full-width SwinIR-M or HAT-M x4 through ``hdr_upscale`` on a
-    768^2 crop of the decoded image (4 tiles a pass): one fast request,
-    whose K7 / K8 launches must be one per block / OCAB per tile run, and
-    one parity request; then the fused fast chain against the unfused fast
-    layers on the first tile's raw output."""
+    """The full-width SwinIR-M, HAT-M or Swin2SR-M x4 through
+    ``hdr_upscale`` on a 768^2 crop of the decoded image (4 tiles a pass):
+    one fast request, whose K7 / K8 launches must be one per block / OCAB
+    per tile run, and one parity request, which must launch neither; then
+    the fused fast chain against the unfused fast layers on the first
+    tile's raw output."""
     import dataclasses
 
     from hdrvae_torch.core.config import Precision, UpscaleConfig
     from hdrvae_torch.models.hat import HATConfig, hat_apply, init_hat
+    from hdrvae_torch.models.swin2sr import (Swin2SRConfig, init_swin2sr,
+                                             swin2sr_apply)
     from hdrvae_torch.models.swinir import (SwinIRConfig, init_swinir,
                                             swinir_apply)
     from hdrvae_torch.upscale.pipeline import upscale_progress_total
 
-    if family == "SwinIR":
-        cfg, seed = SwinIRConfig(), 3
-        net = init_swinir(cfg, seed=seed, device="cuda")
-        apply = swinir_apply
-    else:
-        cfg, seed = HATConfig(), 4
-        net = init_hat(cfg, seed=seed, device="cuda")
-        apply = hat_apply
+    cfg, seed, init, apply = {
+        "SwinIR": (SwinIRConfig(), 3, init_swinir, swinir_apply),
+        "HAT": (HATConfig(), 4, init_hat, hat_apply),
+        "Swin2SR": (Swin2SRConfig(), 5, init_swin2sr, swin2sr_apply),
+    }[family]
+    net = init(cfg, seed=seed, device="cuda")
     n_params = sum(p.numel() for p in net.parameters())
     crop = image[:, :SWIN_CROP, :SWIN_CROP, :].contiguous()
     ucfg = UpscaleConfig()
@@ -807,7 +959,7 @@ def phase_swin_upscale(image: torch.Tensor, family: str):
             check(torch.isfinite(t).all().item(),
                   f"{family} {name}: non-finite output")
         log(f"upscale[{family}, {name}] device ms {dev_ms:.3f}, host wall "
-            f"ms {wall_ms:.3f}, peak {peak:.3f} GiB; out max "
+            f"ms {wall_ms:.3f}, peak {peak:.6f} GiB; out max "
             f"{res.image.max().item():.6g}; launches "
             f"{ {k: v for k, v in counts.items() if v} }")
         if name == "fast":
@@ -816,13 +968,12 @@ def phase_swin_upscale(image: torch.Tensor, family: str):
                 check(counts[kname] == n, f"{family} fast: {kname} launched "
                       f"{counts[kname]} times, want {n}")
         else:
-            check(counts["swin_block_fused"] == 0
-                  and counts["ocab_attention"] == 0,
+            check(not any(counts.values()),
                   f"{family} parity ran a fast-tier kernel: {counts}")
     d = (results["fast"].image - results["parity"].image).abs()
     log(f"upscale[{family}] fast vs parity image |diff| mean "
-        f"{d.mean().item():.4e} p99.9 {p999(d):.4e} (not gated: the atanh "
-        "reversal)")
+        f"{d.mean().item():.4e} p99.9 {p999(d):.4e} (not gated: the "
+        f"{'logit' if family == 'Swin2SR' else 'atanh'} reversal)")
     del d, results
 
     tile = crop[:, :512, :512, :].contiguous()
@@ -861,7 +1012,7 @@ def main() -> int:
     up_counts, up_times = phase_upscale(image)
     log(f"upscale phase {time.perf_counter() - t_up:.1f} s")
     swin_counts = {}
-    for family in ("SwinIR", "HAT"):
+    for family in ("SwinIR", "HAT", "Swin2SR"):
         t_up = time.perf_counter()
         swin_counts[family], up_times[family] = phase_swin_upscale(image,
                                                                    family)
@@ -881,11 +1032,16 @@ def main() -> int:
     main_path["collapse_and_stats_fused"] = epi_counts[
         "collapse_and_stats_fused"]
     main_path["dense_conv3x3"] = up_counts["dense_conv3x3"]
-    main_path["swin_block_fused"] = sum(c["swin_block_fused"]
-                                        for c in swin_counts.values())
+    main_path["swin_block_fused"] = sum(swin_counts[f]["swin_block_fused"]
+                                        for f in ("SwinIR", "HAT"))
+    # the v2 body is the same wrapper's, in the Swin2SR upscale
+    main_path["swin_block_fused_v2"] = \
+        swin_counts["Swin2SR"]["swin_block_fused"]
     main_path["ocab_attention"] = swin_counts["HAT"]["ocab_attention"]
     for entry in entries:
         entry["launches"] = main_path[entry["name"]]
+        check(entry["launches"] > 0,
+              f"{entry['name']} never launched on its main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries,
                       "decode_ms": {k: v[-1][0] for k, v in times.items()},

@@ -2,9 +2,11 @@
 // Hopper's tensor cores (bf16 mma.sync and WMMA, float32 accumulation).
 //
 // Replaces the TPU kernel K7 of the JAX package:
-//   hdrvae/kernels/swin_attention.py::swin_block_fused (v1 body, with the
-//   optional `extra` residual of HAT's HAB)
-//   y = x2 + MLP(LN2(x2)),  x2 = x + proj(WindowMHA(LN1(x))) + bp [+ extra]
+//   hdrvae/kernels/swin_attention.py::swin_block_fused, both bodies:
+//   v1 (SwinIR, HAT's HAB with the optional `extra` residual)
+//     y = x2 + MLP(LN2(x2)),  x2 = x + proj(WindowMHA(LN1(x))) + bp [+ extra]
+//   v2 (Swin2SR's SwinV2 block: `post_norm` with cosine attention)
+//     y = x2 + LN2(MLP(x2)),  x2 = x + LN1(proj(CosineMHA(x)) + bp) [+ extra]
 // on an image [B, H, W, C] that is already rolled by -shift; the shifted
 // grid's masks are computed from each window's place in the grid.
 //
@@ -15,34 +17,46 @@
 // not fit shared memory beside a window's activations, so each weight GEMM
 // streams B through a two-buffer cp.async ring in shared memory (96 x 128
 // pieces, read from L2 by every window) into ldmatrix + mma.sync, each B
-// fragment serving two 16-row tiles; the attention products are WMMA.  One
-// window per block; wgmma and TMA are later work.
+// fragment serving the warp's row tiles; the attention products are WMMA.
+// One window per block; wgmma and TMA are later work.
 //
 // Design (per window of n = ws * ws tokens, padded to n16 = 16 * ceil(n /
 // 16) rows; C padded to CP = 16 * ceil(C / 16), the MLP width to HP):
-//  * Phase 1, per 64-token row block: LN1 in float32 -> bf16 rows in
-//    shared memory (pad rows and columns zero) -> qkv = y @ Wqkv + bqkv in
-//    the head-major [head][q|k|v] 32-wide slot layout (head dim zero-padded
-//    to 32, the softmax scale folded into q) -> bf16 into the window's
-//    slice of a global scratch [nwin, n16, heads * 96], which stays in L2.
+//  * Phase 1, per 64-token row block: LN1 in float32 (v2: the raw input)
+//    -> bf16 rows in shared memory (pad rows and columns zero) -> qkv = y @
+//    Wqkv + bqkv in the head-major [head][q|k|v] 32-wide slot layout (head
+//    dim zero-padded to 32, the softmax scale folded into q) -> bf16 into
+//    the window's slice of a global scratch [nwin, n16, heads * 96], which
+//    stays in L2.  v2: each warp owns whole 32-wide slots, so a q or k row
+//    lies on the four lanes of a quad of its accumulator fragments; two
+//    quad shuffles give the row's float32 norm, the row is divided by
+//    max(norm, 1e-12) and q times its head's clamped logit scale before
+//    the bf16 store, as the JAX kernel rounds (the zero pad lanes keep the
+//    norm exact; the normalization cancels the folded softmax scale).
 //  * Phase 2, per row block and head: the head's q rows, K and V copied to
 //    shared memory (V arriving while the softmax runs; at n16 <= 64 the
 //    next head's while this one computes) -> S = q k^T
-//    (float32, shared) -> + the relative-position bias [heads, n, n] (read
-//    from global) + -100 band masks in the last window row / column of a
-//    shifted grid (a corner window takes both, as the JAX kernel does;
-//    identical after softmax) -> float32 softmax, 8 threads a row -> P
-//    in bf16 over S's own bytes -> O_h = P v -> bf16
-//    into the row block's [64, heads * 32] attention output.
+//    (float32, shared) -> + the position bias [heads, n, n] (v1's table,
+//    v2's continuous position bias; read from global) + -100 band masks
+//    in the last window row / column of a shifted grid (a corner window
+//    takes both, as the JAX kernel does; identical after softmax) ->
+//    float32 softmax, 8 threads a row -> P in bf16 over S's own bytes ->
+//    O_h = P v -> bf16 into the row block's [64, heads * 32] attention
+//    output.
 //  * Phase 3, per row block: x and extra read into shared memory a token
-//    row a warp -> proj (the padded head-major rows of Wp) -> x2 = x +
+//    row a warp -> proj (the padded head-major rows of Wp) -> v1: x2 = x +
 //    proj + bp [+ extra] in float32 (shared) -> LN2 -> bf16 -> fc1 + b1 ->
 //    exact GELU (erff) -> bf16 hidden -> fc2 -> x2 + out + b2 -> bf16 rows
 //    in shared memory -> stored at the window's pixels a token row a warp.
-// Rounding points are those of the JAX kernel: LN outputs, q/k/v, P and
-// the attention output in bf16; scores, softmax (p as the exp times the
-// sum's reciprocal, within a float32 ulp of the JAX division), residuals,
-// LN and the MLP accumulation in float32.
+//    v2: proj + bp as whole float32 rows in x2's space, then a warp a row:
+//    x2 = x + LN1(row) [+ extra] and its bf16 copy as fc1's input (no
+//    LN2); fc2 + b2 as whole float32 rows over the attention output's and
+//    LN rows' space (both free by then), then a warp a row: x2 + LN2(row)
+//    -> bf16 -> the window's pixels.
+// Rounding points are those of the JAX kernel: LN outputs (v2: the input),
+// q/k/v, P and the attention output in bf16; scores, softmax (p as the exp
+// times the sum's reciprocal, within a float32 ulp of the JAX division),
+// q/k norms, residuals, LN and the MLP accumulation in float32.
 
 #include <algorithm>
 
@@ -57,6 +71,7 @@ struct SwinArgs {
   const bf16* extra;   // [B, H, W, C] or null
   const bf16* wq;      // [CP, heads * 96]
   const float* bq;     // [heads * 96]
+  const float* qs;     // [heads] v2's q scales, or null
   const bf16* wp;      // [heads * 32, CP]
   const float* bp;     // [C]
   const float* g1;
@@ -84,12 +99,30 @@ constexpr int MAXC = 8;   // channels a lane holds: C <= 256
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-// LayerNorm (eps 1e-5, two-pass variance) of nrows token rows into bf16
-// rows of `out` (stride ldo).  row(tok) points at the C values of a token
-// of the window (bf16 in global or float32 in shared memory); a lane keeps
-// its MAXC of them in registers.  Rows of tokens >= n and columns >= C are
-// zero.
-template <typename Row>
+// The mean and 1 / sqrt(var + 1e-5) (two-pass variance) of a row of C
+// values that a warp holds MAXC a lane (lane + 32 i; zero past C).
+__device__ __forceinline__ void row_stats(const float (&v)[MAXC], int C,
+                                          float& mean, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) s += v[i];
+  mean = warp_sum(s) / C;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) {
+    const float d = v[i] - mean;
+    if (lane + 32 * i < C) q += d * d;
+  }
+  rstd = rsqrtf(warp_sum(q) / C + 1e-5f);
+}
+
+// LayerNorm (eps 1e-5) of nrows token rows into bf16 rows of `out`
+// (stride ldo), or with NORM false the rows as they are (v2's attention
+// input).  row(tok) points at the C values of a token of the window (bf16
+// in global or float32 in shared memory); a lane keeps its MAXC of them in
+// registers.  Rows of tokens >= n and columns >= C are zero.
+template <bool NORM, typename Row>
 __device__ __forceinline__ void layer_norm_rows(
     Row row, int tok0, int nrows, int n, int C, int CP, const float* g,
     const float* be, bf16* out, int ldo) {
@@ -103,33 +136,58 @@ __device__ __forceinline__ void layer_norm_rows(
     }
     const auto* src = row(tok);
     float v[MAXC];
-    float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < MAXC; ++i) {
       const int c = lane + 32 * i;
       v[i] = c < C ? to_f32(src[c]) : 0.0f;
-      s += v[i];
     }
-    const float mean = warp_sum(s) / C;
-    float q = 0.0f;
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const float d = v[i] - mean;
-      if (lane + 32 * i < C) q += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(q) / C + 1e-5f);
+    float mean = 0.0f, rstd = 1.0f;
+    if constexpr (NORM) row_stats(v, C, mean, rstd);
 #pragma unroll
     for (int i = 0; i < MAXC; ++i) {
       const int c = lane + 32 * i;
-      if (c < CP)
-        o[c] = __float2bfloat16(
-            c < C ? (v[i] - mean) * rstd * g[c] + be[c] : 0.0f);
+      const float t = NORM ? (v[i] - mean) * rstd * g[c] + be[c] : v[i];
+      if (c < CP) o[c] = __float2bfloat16(c < C ? t : 0.0f);
     }
   }
 }
 
+// v2's qkv epilogue on a warp's finished 16 x 32 fragment, one head slot
+// (columns c0 .. c0 + 31): + the bias, and for a q or k slot each row
+// divided by max(its L2 norm, 1e-12), q then times its head's scale, all
+// in float32 (the JAX kernel's order).  Lane l holds rows l / 4 (e = 0, 1)
+// and l / 4 + 8 (e = 2, 3); a row's 32 values lie on one quad.
+__device__ __forceinline__ void cosine_slot(float (&acc)[4][4], int c0,
+                                            const float* bq,
+                                            const float* qs) {
+  const int lane = threadIdx.x & 31;
+  const int slot = c0 / HDP, j = slot % 3;
+  float ss[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[t][e] += bq[c0 + 8 * t + 2 * (lane & 3) + (e & 1)];
+      ss[e >> 1] += acc[t][e] * acc[t][e];
+    }
+  if (j == 2) return;   // v: the bias only (the same j for the whole warp)
+  float d[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 1);
+    ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 2);
+    d[h] = fmaxf(sqrtf(ss[h]), 1e-12f);
+  }
+  const float m = j == 0 ? qs[slot / 3] : 1.0f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = acc[t][e] / d[e >> 1] * m;
+}
+
 constexpr int TPR = 8;   // threads a softmax row (the fastest of 8, 16, 32)
 
+template <bool V2>
 __global__ void __launch_bounds__(NT)
 swin_block_kernel(const SwinArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -138,6 +196,9 @@ swin_block_kernel(const SwinArgs a) {
   bf16* ys = reinterpret_cast<bf16*>(smem + a.off_a);           // [64, ldy]
   float* S = reinterpret_cast<float*>(smem + a.off_a);          // [64, lds]
   bf16* hid = reinterpret_cast<bf16*>(smem + a.off_hid);        // [64, ldh]
+  // v2: fc2 + b2 as float32 rows [64, CP] over ob and ys (free once proj
+  // and fc1 have read them)
+  float* f2 = reinterpret_cast<float*>(smem + a.off_o);
   bf16* ring = reinterpret_cast<bf16*>(smem + a.off_ring);
   // a head's q [64, LDQ], K and V [n16, LDQ] in the ring's space: two
   // heads' worth where they fit, so the next head loads during this one
@@ -152,6 +213,7 @@ swin_block_kernel(const SwinArgs a) {
   const int b = win / (a.nww * a.nwh);
   const int QW = a.heads * 96;
   const int n = a.n, ws = a.ws, C = a.C;
+  const int lane = threadIdx.x & 31;
   bf16* qkv = a.qkv + static_cast<size_t>(win) * a.n16 * QW;
   // element offset of token t's first channel in the image
   auto pix = [&](int t) -> size_t {
@@ -171,19 +233,30 @@ swin_block_kernel(const SwinArgs a) {
     jcol |= static_cast<unsigned>(j % ws >= band) << i;
   }
 
-  // phase 1: LN1 + qkv of every row block into the scratch
+  // phase 1: LN1 (v2: the raw input) + qkv of every row block into the
+  // scratch
   for (int r0 = 0; r0 < a.n16; r0 += RB) {
     const int nrt = min(4, (a.n16 - r0) / 16);
-    layer_norm_rows([&](int t) { return a.x + pix(t); }, r0, nrt * 16, n, C,
-                    a.CP, a.g1, a.be1, ys, a.ldy);
+    layer_norm_rows<!V2>([&](int t) { return a.x + pix(t); }, r0, nrt * 16,
+                         n, C, a.CP, a.g1, a.be1, ys, a.ldy);
     __syncthreads();
-    gemm_weights(ys, a.ldy, nrt, a.wq, QW, a.CP, QW, ring, stage,
-                 [&](int r, int c, const float* v) {
-      float o[8];
+    bf16* dst = qkv + static_cast<size_t>(r0) * QW;
+    if constexpr (V2) {
+      gemm_weights<32>(ys, a.ldy, nrt, a.wq, QW, a.CP, QW, ring, stage,
+                       [&](int r, int c, const float* v) {
+        store_bf16x8(dst + static_cast<size_t>(r) * QW + c, v);
+      }, [&](int, int c0, float (&acc)[4][4]) {
+        cosine_slot(acc, c0, a.bq, a.qs);
+      });
+    } else {
+      gemm_weights(ys, a.ldy, nrt, a.wq, QW, a.CP, QW, ring, stage,
+                   [&](int r, int c, const float* v) {
+        float o[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = v[i] + a.bq[c + i];
-      store_bf16x8(qkv + static_cast<size_t>(r0 + r) * QW + c, o);
-    });
+        for (int i = 0; i < 8; ++i) o[i] = v[i] + a.bq[c + i];
+        store_bf16x8(dst + static_cast<size_t>(r) * QW + c, o);
+      });
+    }
   }
 
   for (int r0 = 0; r0 < a.n16; r0 += RB) {
@@ -243,17 +316,19 @@ swin_block_kernel(const SwinArgs a) {
       __syncthreads();
     }
 
-    // phase 3: proj + residuals, LN2, MLP, residual.  The row block's x
-    // (float32, into x2) and extra (bf16, into the hidden rows' space) are
-    // read first, a token row a warp; zero past the tokens and channels.
+    // phase 3: proj + residuals, LN, MLP, residual.  The row block's x
+    // (v1: float32, into x2) and extra (bf16, into the hidden rows' space)
+    // are read first, a token row a warp; zero past the tokens and
+    // channels.
     bf16* es = hid;
     for (int r = threadIdx.x >> 5; r < nrt * 16; r += NWARPS) {
       const int t = r0 + r;
       const size_t p = t < n ? pix(t) : 0;
-      for (int c = threadIdx.x & 31; c < a.CP; c += 32) {
+      for (int c = lane; c < a.CP; c += 32) {
         const bool in = t < n && c < C;
-        x2[static_cast<size_t>(r) * a.CP + c] =
-            in ? __bfloat162float(a.x[p + c]) : 0.0f;
+        if constexpr (!V2)
+          x2[static_cast<size_t>(r) * a.CP + c] =
+              in ? __bfloat162float(a.x[p + c]) : 0.0f;
         if (a.extra != nullptr)
           es[static_cast<size_t>(r) * a.CP + c] =
               in ? a.extra[p + c] : __float2bfloat16(0.0f);
@@ -264,14 +339,56 @@ swin_block_kernel(const SwinArgs a) {
       float* xr = x2 + static_cast<size_t>(r) * a.CP + c;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        float o = xr[i] + v[i] + a.bp[c + i];
-        if (a.extra != nullptr)
-          o += __bfloat162float(es[static_cast<size_t>(r) * a.CP + c + i]);
-        xr[i] = c + i < C ? o : 0.0f;
+        if constexpr (V2) {
+          // LN1's input; the residuals follow
+          xr[i] = c + i < C ? v[i] + a.bp[c + i] : 0.0f;
+        } else {
+          float o = xr[i] + v[i] + a.bp[c + i];
+          if (a.extra != nullptr)
+            o += __bfloat162float(es[static_cast<size_t>(r) * a.CP + c + i]);
+          xr[i] = c + i < C ? o : 0.0f;
+        }
       }
     });
-    layer_norm_rows([&](int t) { return x2 + static_cast<size_t>(t - r0) * a.CP; },
-                    r0, nrt * 16, n, C, a.CP, a.g2, a.be2, ys, a.ldy);
+    if constexpr (V2) {
+      // x2 = x + LN1(proj + bp) [+ extra], and x2 in bf16 as fc1's input
+      for (int r = threadIdx.x >> 5; r < nrt * 16; r += NWARPS) {
+        const int t = r0 + r;
+        float* xr = x2 + static_cast<size_t>(r) * a.CP;
+        bf16* o = ys + static_cast<size_t>(r) * a.ldy;
+        if (t >= n) {
+          for (int c = lane; c < a.CP; c += 32) o[c] = __float2bfloat16(0.0f);
+          continue;
+        }
+        float v[MAXC];
+#pragma unroll
+        for (int i = 0; i < MAXC; ++i) {
+          const int c = lane + 32 * i;
+          v[i] = c < C ? xr[c] : 0.0f;
+        }
+        float mean, rstd;
+        row_stats(v, C, mean, rstd);
+        const bf16* xin = a.x + pix(t);
+        const bf16* er = es + static_cast<size_t>(r) * a.CP;
+#pragma unroll
+        for (int i = 0; i < MAXC; ++i) {
+          const int c = lane + 32 * i;
+          if (c >= a.CP) continue;
+          float z = 0.0f;
+          if (c < C) {
+            z = __bfloat162float(xin[c]) +
+                ((v[i] - mean) * rstd * a.g1[c] + a.be1[c]);
+            if (a.extra != nullptr) z += __bfloat162float(er[c]);
+          }
+          xr[c] = z;
+          o[c] = __float2bfloat16(z);
+        }
+      }
+    } else {
+      layer_norm_rows<true>(
+          [&](int t) { return x2 + static_cast<size_t>(t - r0) * a.CP; },
+          r0, nrt * 16, n, C, a.CP, a.g2, a.be2, ys, a.ldy);
+    }
     __syncthreads();
     gemm_weights(ys, a.ldy, nrt, a.w1, a.HP, a.CP, a.HP, ring, stage,
                  [&](int r, int c, const float* v) {
@@ -285,28 +402,66 @@ swin_block_kernel(const SwinArgs a) {
       }
       store_bf16x8(hid + static_cast<size_t>(r) * a.ldh + c, g);
     });
-    // the block's output rows into ys (free once fc1 has read it), then
-    // out to the window's pixels, a token row a warp
+    // v1: the block's output rows into ys (free once fc1 has read it),
+    // then out to the window's pixels, a token row a warp.  v2: fc2 + b2
+    // into f2, then x2 + LN2 of each row out to the pixels.
     gemm_weights(hid, a.ldh, nrt, a.w2, a.CP, a.HP, a.CP, ring, stage,
                  [&](int r, int c, const float* v) {
-      const float* xr = x2 + static_cast<size_t>(r) * a.CP + c;
-      float o[8];
+      if constexpr (V2) {
+        float* fr = f2 + static_cast<size_t>(r) * a.CP + c;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = xr[i] + v[i] + a.b2[c + i];
-      store_bf16x8(ys + static_cast<size_t>(r) * a.ldy + c, o);
+        for (int i = 0; i < 8; ++i)
+          fr[i] = c + i < C ? v[i] + a.b2[c + i] : 0.0f;
+      } else {
+        const float* xr = x2 + static_cast<size_t>(r) * a.CP + c;
+        float o[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[i] = xr[i] + v[i] + a.b2[c + i];
+        store_bf16x8(ys + static_cast<size_t>(r) * a.ldy + c, o);
+      }
     });
     for (int r = threadIdx.x >> 5; r < nrt * 16; r += NWARPS) {
       const int t = r0 + r;
       if (t >= n) continue;
       bf16* dst = a.y + pix(t);
-      for (int c = threadIdx.x & 31; c < C; c += 32)
-        dst[c] = ys[static_cast<size_t>(r) * a.ldy + c];
+      if constexpr (V2) {
+        const float* fr = f2 + static_cast<size_t>(r) * a.CP;
+        const float* xr = x2 + static_cast<size_t>(r) * a.CP;
+        float v[MAXC];
+#pragma unroll
+        for (int i = 0; i < MAXC; ++i) {
+          const int c = lane + 32 * i;
+          v[i] = c < C ? fr[c] : 0.0f;
+        }
+        float mean, rstd;
+        row_stats(v, C, mean, rstd);
+#pragma unroll
+        for (int i = 0; i < MAXC; ++i) {
+          const int c = lane + 32 * i;
+          if (c < C)
+            dst[c] = __float2bfloat16(
+                xr[c] + ((v[i] - mean) * rstd * a.g2[c] + a.be2[c]));
+        }
+      } else {
+        for (int c = lane; c < C; c += 32)
+          dst[c] = ys[static_cast<size_t>(r) * a.ldy + c];
+      }
     }
-    __syncthreads();   // ys and x2 are the next row block's
+    __syncthreads();   // ys, x2 (and v2's f2) are the next row block's
   }
 }
 
 int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+template <bool V2>
+int launch(const SwinArgs& a, int nwin, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      swin_block_kernel<V2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  swin_block_kernel<V2><<<nwin, NT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -316,28 +471,30 @@ extern "C" {
 // wq [CP, heads*96], wp [heads*32, CP], w1 [CP, HP], w2 [HP, CP] bf16
 // (CP, HP: C and hidden rounded up to 16, pads zero); bq [heads*96], b1
 // [HP], bp, b2, g1, be1, g2, be2 [C], bias [heads, n, n] float32; scratch
-// [B * (H/ws) * (W/ws), n16, heads*96] bf16.  Returns
-// cudaErrorInvalidValue for shapes it does not take (n16 > 256, C > 256,
-// C > 32 * heads, or more than the block's shared memory).
+// [B * (H/ws) * (W/ws), n16, heads*96] bf16.  post_norm selects the v2
+// body, whose q scales qs [heads] float32 are given exactly then (null for
+// v1).  Returns cudaErrorInvalidValue for shapes it does not take (n16 >
+// 256, C > 256, C > 32 * heads, or more than the block's shared memory).
 int hdrvae_swin_block(const void* x, const void* extra, const void* wq,
-                      const void* bq, const void* wp, const void* bp,
-                      const void* g1, const void* be1, const void* g2,
-                      const void* be2, const void* w1, const void* b1,
-                      const void* w2, const void* b2, const void* bias,
-                      void* scratch, void* y, int B, int H, int W, int C,
-                      int heads, int hidden, int ws, int shift,
-                      void* stream) {
+                      const void* bq, const void* qs, const void* wp,
+                      const void* bp, const void* g1, const void* be1,
+                      const void* g2, const void* be2, const void* w1,
+                      const void* b1, const void* w2, const void* b2,
+                      const void* bias, void* scratch, void* y, int B, int H,
+                      int W, int C, int heads, int hidden, int ws, int shift,
+                      int post_norm, void* stream) {
   SwinArgs a = {};
   a.n = ws * ws;
   a.n16 = round_up(a.n, 16);
   if (ws < 1 || H % ws || W % ws || a.n16 > 256 || C > HDP * heads ||
-      C > MAXC * 32 ||
-      shift < 0 || shift >= ws || hidden < 1)
+      C > MAXC * 32 || shift < 0 || shift >= ws || hidden < 1 ||
+      (post_norm != 0) != (qs != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   a.x = static_cast<const bf16*>(x);
   a.extra = static_cast<const bf16*>(extra);
   a.wq = static_cast<const bf16*>(wq);
   a.bq = static_cast<const float*>(bq);
+  a.qs = static_cast<const float*>(qs);
   a.wp = static_cast<const bf16*>(wp);
   a.bp = static_cast<const float*>(bp);
   a.g1 = static_cast<const float*>(g1);
@@ -381,13 +538,13 @@ int hdrvae_swin_block(const void* x, const void* extra, const void* wq,
   a.off_ring = a.off_a + round_up(a_bytes, 128);
   a.off_stage = a.off_ring + round_up(ring_bytes, 128);
   const int smem = a.off_stage + NWARPS * 256 * 4;
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      swin_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // v2's float32 fc2 rows span the attention output and the LN rows
+  if (smem > 232448 || (post_norm && a.off_o + x2_bytes > a.off_hid))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int nwin = B * a.nwh * a.nww;
-  swin_block_kernel<<<nwin, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return post_norm ? launch<true>(a, nwin, smem, s)
+                   : launch<false>(a, nwin, smem, s);
 }
 
 }  // extern "C"

@@ -144,30 +144,43 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a,
 // LDB (8 columns of pad: conflict-free ldmatrix rows), two buffers.  The
 // pieces are deep because each one costs a block-wide wait and barrier
 // (measured on the H100: 64-row pieces ran the same GEMMs at ~80 TFLOP/s,
-// 96-row ones at ~100).  CW warps share the columns of a piece, the other
-// NWARPS / CW the row tiles.
-constexpr int CW = 8, KP = 96, NC = 16 * CW, LDB = NC + 8, NSTAGE = 2;
+// 96-row ones at ~100).
+constexpr int KP = 96, NC = 128, LDB = NC + 8, NSTAGE = 2;
 constexpr int RING_ELEMS = NSTAGE * KP * LDB;
-constexpr int RT_PER_WARP = 4 / (NWARPS / CW);   // row tiles of one warp
+
+// No change to a warp's finished accumulator fragments.
+struct NoFrag {
+  template <typename T>
+  __device__ __forceinline__ void operator()(int, int, T&) const {}
+};
 
 // C[nrt*16, N] = A[nrt*16, K] @ B[K, N] for one row block of nrt (<= 4)
 // row tiles: A row major in shared memory (lda a multiple of 8), B a
-// row-major bf16 matrix in global memory (ldb a multiple of 8; K and N
-// multiples of 16) that streams through `ring` (RING_ELEMS of shared
-// memory) one KP x NC piece at a time, the next piece loading by cp.async
-// while this one multiplies.  Warp w owns the 16 columns w % CW of each
-// NC-wide chunk over row tiles [RT_PER_WARP * (w / CW), + RT_PER_WARP):
-// ldmatrix + mma.sync m16n8k16, each B fragment serving RT_PER_WARP row
-// tiles.  Each finished 16x16 tile goes through the warp's float32 stage
-// (256 floats) to epi(row within the row block, first column, v[8]), eight
-// consecutive values a lane.  Every thread of the block must call it; it
-// synchronizes the block.
-template <typename Epi>
+// row-major bf16 matrix in global memory (ldb a multiple of 8; K a
+// multiple of 16, N of WC) that streams through `ring` (RING_ELEMS of
+// shared memory) one KP x NC piece at a time, the next piece loading by
+// cp.async while this one multiplies.  NC / WC warps share the columns of
+// a piece, the other NWARPS * WC / NC the four row tiles: warp w owns the
+// WC (16 or 32) columns w % (NC / WC) of each NC-wide chunk over two row
+// tiles (WC 16) or one (WC 32); ldmatrix + mma.sync m16n8k16, each B
+// fragment serving every row tile of the warp.  Once a row tile's sums are
+// whole, frag(row of its first row, first column, acc[WC / 8][4]) may
+// change them in registers (mma's C layout: lane l holds rows l / 4 and
+// l / 4 + 8, columns 8 t + 2 (l % 4) + {0, 1} of n8 tile t; the four lanes
+// of a quad hold one row's WC columns), then each 16x16 tile goes through
+// the warp's float32 stage (256 floats) to epi(row within the row block,
+// first column, v[8]), eight consecutive values a lane.  Every thread of
+// the block must call it; it synchronizes the block.
+template <int WC = 16, typename Frag = NoFrag, typename Epi>
 __device__ __forceinline__ void gemm_weights(const bf16* A, int lda, int nrt,
                                              const bf16* __restrict__ B,
                                              int ldb, int K, int N,
                                              bf16* ring, float* stage,
-                                             Epi epi) {
+                                             Epi epi, Frag frag = Frag()) {
+  constexpr int CW = NC / WC;                      // warps across a chunk
+  constexpr int RT_PER_WARP = 4 / (NWARPS / CW);   // row tiles of one warp
+  constexpr int NT8 = WC / 8;                      // n8 tiles of one warp
+  static_assert(NWARPS % CW == 0 && RT_PER_WARP >= 1, "warp grid");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wc = warp % CW, rt0 = (warp / CW) * RT_PER_WARP;
   const int npk = (K + KP - 1) / KP;
@@ -182,7 +195,7 @@ __device__ __forceinline__ void gemm_weights(const bf16* A, int lda, int nrt,
     cp_async_commit();
   };
   const int nr = min(RT_PER_WARP, nrt - rt0);   // this warp's row tiles
-  float acc[RT_PER_WARP][2][4];                 // [row tile][n8 tile]
+  float acc[RT_PER_WARP][NT8][4];               // [row tile][n8 tile]
 #pragma unroll
   for (int i = 0; i < NSTAGE - 1; ++i) load(i);
   for (int i = 0; i < total; ++i) {
@@ -190,50 +203,60 @@ __device__ __forceinline__ void gemm_weights(const bf16* A, int lda, int nrt,
     cp_async_wait<NSTAGE - 1>();   // piece i has landed
     __syncthreads();
     const int p = i % npk, k0 = p * KP;
-    const int ct = (i / npk) * CW + wc;
+    const int ct = (i / npk) * CW + wc;   // the warp's WC-wide column group
     if (p == 0) {
 #pragma unroll
       for (int r = 0; r < RT_PER_WARP; ++r)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[r][e / 4][e % 4] = 0.0f;
+        for (int e = 0; e < NT8 * 4; ++e) acc[r][e / 4][e % 4] = 0.0f;
     }
-    if (ct * 16 < N && nr > 0) {
-      const bf16* bp = ring + (i % NSTAGE) * KP * LDB + wc * 16 +
+    if (ct * WC < N && nr > 0) {
+      const bf16* bp = ring + (i % NSTAGE) * KP * LDB + wc * WC +
                        (lane & 15) * LDB + (lane >> 4) * 8;
       const bf16* ap = A + static_cast<size_t>(rt0 * 16 + (lane & 15)) * lda +
                        k0 + (lane >> 4) * 8;
       const int ksteps = min(KP, K - k0) / 16;
       for (int ks = 0; ks < ksteps; ++ks) {
-        unsigned bf[4];
-        ldsm_x4_trans(bf, bp + ks * 16 * LDB);
+        unsigned bf[NT8 / 2][4];
+#pragma unroll
+        for (int j = 0; j < NT8 / 2; ++j)
+          ldsm_x4_trans(bf[j], bp + ks * 16 * LDB + j * 16);
 #pragma unroll
         for (int r = 0; r < RT_PER_WARP; ++r) {
           if (r >= nr) continue;
           unsigned af[4];
           ldsm_x4(af, ap + static_cast<size_t>(r) * 16 * lda + ks * 16);
-          mma_bf16_16816(acc[r][0], af, bf);
-          mma_bf16_16816(acc[r][1], af, bf + 2);
+#pragma unroll
+          for (int j = 0; j < NT8 / 2; ++j) {
+            mma_bf16_16816(acc[r][2 * j], af, bf[j]);
+            mma_bf16_16816(acc[r][2 * j + 1], af, bf[j] + 2);
+          }
         }
       }
       if (p == npk - 1) {
 #pragma unroll
         for (int r = 0; r < RT_PER_WARP; ++r) {
           if (r >= nr) continue;
+          frag((rt0 + r) * 16, ct * WC, acc[r]);
           const int row = lane >> 2, col = (lane & 3) * 2;
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            float* s = stage + row * 16 + nt * 8 + col;
-            s[0] = acc[r][nt][0];
-            s[1] = acc[r][nt][1];
-            s[128] = acc[r][nt][2];     // row + 8
-            s[129] = acc[r][nt][3];
-          }
-          __syncwarp();
-          float v[8];
+          for (int hh = 0; hh < NT8 / 2; ++hh) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = stage[lane * 8 + e];
-          epi((rt0 + r) * 16 + (lane >> 1), ct * 16 + (lane & 1) * 8, v);
-          __syncwarp();
+            for (int nt = 0; nt < 2; ++nt) {
+              float* s = stage + row * 16 + nt * 8 + col;
+              s[0] = acc[r][2 * hh + nt][0];
+              s[1] = acc[r][2 * hh + nt][1];
+              s[128] = acc[r][2 * hh + nt][2];     // row + 8
+              s[129] = acc[r][2 * hh + nt][3];
+            }
+            __syncwarp();
+            float v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = stage[lane * 8 + e];
+            epi((rt0 + r) * 16 + (lane >> 1),
+                ct * WC + hh * 16 + (lane & 1) * 8, v);
+            __syncwarp();
+          }
         }
       }
     }

@@ -56,7 +56,7 @@ SIGNATURES = {
     "hdrvae_collapse_and_stats": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                   _P],
     # swin_block.cu
-    "hdrvae_swin_block": [_P] * 17 + [_I] * 8 + [_P],
+    "hdrvae_swin_block": [_P] * 18 + [_I] * 9 + [_P],
     # ocab.cu
     "hdrvae_ocab_attention": [_P] * 5 + [_I] * 4 + [_P],
 }

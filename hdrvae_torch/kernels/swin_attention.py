@@ -1,13 +1,23 @@
 """The whole Swin transformer block (K7): the CUDA kernel and its plain
 PyTorch version, as ``hdrvae/kernels/swin_attention.py::swin_block_fused``
-(its v1 body, with HAT's optional ``extra`` residual).
+(both bodies, with HAT's optional ``extra`` residual).
 
-    x2 = x + proj(WindowMHA(LN1(x))) + bp [+ extra];  y = x2 + MLP(LN2(x2))
+    v1: x2 = x + proj(WindowMHA(LN1(x))) + bp [+ extra]
+        y = x2 + MLP(LN2(x2))
+    v2: x2 = x + LN1(proj(CosineMHA(x)) + bp) [+ extra]
+        y = x2 + LN2(MLP(x2))
 
-on an image [B, H, W, C] already rolled by -shift: the shift only selects
-the masks, computed from each window's place in the grid (-100 between the
-band labels of ``band_masks`` in the last window row and column; a corner
-window takes both, as the JAX kernel does).
+v2 is Swin2SR's SwinV2 block (``post_norm`` with ``qk_scale``): qkv on the
+raw input, the q and k rows L2-normalized in float32 after the bias add
+and q times its head's clamped logit scale, before the rounding to the
+storage dtype; the position bias is the continuous one, given as v1's
+table is.  The v1 scale hd ** -0.5 stays folded into the q weights (the
+normalization cancels it), so the bf16 weights are the JAX kernel's.
+
+Both act on an image [B, H, W, C] already rolled by -shift: the shift
+only selects the masks, computed from each window's place in the grid
+(-100 between the band labels of ``band_masks`` in the last window row
+and column; a corner window takes both, as the JAX kernel does).
 
 The weights are prepared once per block (:func:`prepare_block`): the
 qkv projection in the head-major [head][q|k|v] layout of 32-wide slots
@@ -60,9 +70,11 @@ class BlockWeights(NamedTuple):
     b1: torch.Tensor     # [HP] float32
     w2: torch.Tensor     # [HP, CP] compute dtype
     b2: torch.Tensor     # [C] float32
-    bias: torch.Tensor   # [heads, n, n] float32 relative-position bias
+    bias: torch.Tensor   # [heads, n, n] float32 position bias
     heads: int
     hidden: int
+    post_norm: bool = False                   # v2: LN on the branch outputs
+    qk_scale: Optional[torch.Tensor] = None   # v2: [heads] float32 q scales
 
 
 def prep_qkv_weights(weight: torch.Tensor, bias: torch.Tensor, heads: int,
@@ -102,14 +114,20 @@ def _pad2(w: torch.Tensor, rows: int, cols: int,
 
 
 def prepare_block(attn, norm1, norm2, mlp, heads: int, bias: torch.Tensor,
-                  dtype: torch.dtype) -> BlockWeights:
+                  dtype: torch.dtype, *,
+                  qkv_bias: Optional[torch.Tensor] = None,
+                  post_norm: bool = False,
+                  qk_scale: Optional[torch.Tensor] = None) -> BlockWeights:
     """A block's modules (``attn.qkv`` / ``attn.proj`` and ``mlp.fc1`` /
     ``mlp.fc2`` linears, the two LayerNorms) and its gathered bias
-    [heads, n, n] in the kernel's layout, matmul weights in ``dtype``."""
+    [heads, n, n] in the kernel's layout, matmul weights in ``dtype``.
+    ``qkv_bias`` [3C] stands in for ``attn.qkv.bias`` (SwinV2's qkv has
+    none); ``post_norm`` and ``qk_scale`` [heads] select the v2 body."""
     c = attn.qkv.weight.shape[1]
     hidden = mlp.fc1.weight.shape[0]
     cp, hp = _round16(c), _round16(hidden)
-    wq, bq = prep_qkv_weights(attn.qkv.weight, attn.qkv.bias, heads, dtype)
+    wq, bq = prep_qkv_weights(attn.qkv.weight, attn.qkv.bias
+                              if qkv_bias is None else qkv_bias, heads, dtype)
     f32 = lambda t: t.detach().float().contiguous()   # noqa: E731
     return BlockWeights(
         wq=wq, bq=bq, wp=prep_proj_weights(attn.proj.weight, heads, dtype),
@@ -118,7 +136,9 @@ def prepare_block(attn, norm1, norm2, mlp, heads: int, bias: torch.Tensor,
         w1=_pad2(mlp.fc1.weight.t(), cp, hp, dtype),
         b1=F.pad(f32(mlp.fc1.bias), (0, hp - hidden)),
         w2=_pad2(mlp.fc2.weight.t(), hp, cp, dtype),
-        b2=f32(mlp.fc2.bias), bias=f32(bias), heads=heads, hidden=hidden)
+        b2=f32(mlp.fc2.bias), bias=f32(bias), heads=heads, hidden=hidden,
+        post_norm=post_norm,
+        qk_scale=None if qk_scale is None else f32(qk_scale.reshape(heads)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,15 +219,22 @@ def swin_block_fused_reference(img: torch.Tensor, w: BlockWeights, *,
                                precision: Precision = Precision()
                                ) -> torch.Tensor:
     """Plain version of :func:`swin_block_fused`, step for step the JAX
-    kernel's order and rounding, on batched windows."""
+    kernel's order and rounding (v1 or v2 body), on batched windows."""
     cdt, sdt = precision.compute_dtype, precision.storage_dtype
     b, hh, ww, c = img.shape
     heads, cp = w.heads, w.wq.shape[0]
     n = ws * ws
     xw = _partition(img, ws).float()                          # [nwb, n, C]
-    y = F.pad(_ln(xw, w.g1, w.be1), (0, cp - c)).to(cdt)
-    qkv = (_mm(y, w.wq.to(cdt)) + w.bq).to(sdt)
-    qkv = qkv.reshape(-1, n, heads, 3, HDP).permute(3, 0, 2, 1, 4)
+    y = xw if w.post_norm else _ln(xw, w.g1, w.be1)
+    y = F.pad(y, (0, cp - c)).to(cdt)
+    qkv = (_mm(y, w.wq.to(cdt)) + w.bq).reshape(-1, n, heads, 3, HDP)
+    if w.qk_scale is not None:   # cosine: float32 q / k rows normalized
+        qk = qkv[..., :2, :]
+        qk = qk / torch.linalg.vector_norm(qk, dim=-1,
+                                           keepdim=True).clamp_min(1e-12)
+        q = qk[..., 0, :] * w.qk_scale.to(qk.device)[:, None]
+        qkv = torch.stack([q, qk[..., 1, :], qkv[..., 2, :]], dim=3)
+    qkv = qkv.to(sdt).permute(3, 0, 2, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]                        # [nwb, H, n, 32]
     s = _mm(q, k.transpose(-1, -2))
     nwh, nww = hh // ws, ww // ws
@@ -226,13 +253,22 @@ def swin_block_fused_reference(img: torch.Tensor, w: BlockWeights, *,
     p = (e / e.sum(dim=-1, keepdim=True)).to(sdt).reshape(-1, heads, n, n)
     o = _mm(p, v).to(sdt)                                   # [nwb, H, n, 32]
     o = o.permute(0, 2, 1, 3).reshape(-1, n, heads * HDP)
-    x2 = xw + _mm(o.to(cdt), w.wp.to(cdt))[..., :c] + w.bp
+    proj = _mm(o.to(cdt), w.wp.to(cdt))[..., :c]
+    if w.post_norm:
+        x2 = xw + _ln(proj + w.bp, w.g1, w.be1)
+    else:
+        x2 = xw + proj + w.bp
     if extra is not None:
         x2 = x2 + _partition(extra, ws).float()
-    y2 = F.pad(_ln(x2, w.g2, w.be2), (0, cp - c)).to(cdt)
+    y2 = x2 if w.post_norm else _ln(x2, w.g2, w.be2)
+    y2 = F.pad(y2, (0, cp - c)).to(cdt)
     h1 = _mm(y2, w.w1.to(cdt)) + w.b1
     h1 = (0.5 * h1 * (1.0 + torch.erf(h1 * 2.0 ** -0.5))).to(cdt)
-    out = x2 + _mm(h1, w.w2.to(cdt))[..., :c] + w.b2
+    fc2 = _mm(h1, w.w2.to(cdt))[..., :c]
+    if w.post_norm:
+        out = x2 + _ln(fc2 + w.b2, w.g2, w.be2)
+    else:
+        out = x2 + fc2 + w.b2
     return _merge(out.to(sdt), ws, b, hh, ww)
 
 
@@ -290,17 +326,27 @@ def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
     n = ws * ws
     _require(tuple(w.bias.shape) == (heads, n, n),
              f"bias must be [{heads}, {n}, {n}]")
+    _require(w.post_norm == (w.qk_scale is not None),
+             "swin_block_fused: the CUDA kernel takes the v2 body whole "
+             "(post_norm with qk_scale) or v1")
+    if w.qk_scale is not None:
+        _require(w.qk_scale.dtype == torch.float32
+                 and tuple(w.qk_scale.shape) == (heads,)
+                 and w.qk_scale.device == img.device,
+                 f"qk_scale must be float32 [{heads}] on {img.device}")
     nwin = b * (hh // ws) * (ww // ws)
     scratch = torch.empty(nwin, _round16(n), heads * 96, device=img.device,
                           dtype=torch.bfloat16)
     y = torch.empty_like(img)
     _build.check(_build.library().hdrvae_swin_block(
         img.data_ptr(), None if extra is None else extra.data_ptr(),
-        w.wq.data_ptr(), w.bq.data_ptr(), w.wp.data_ptr(), w.bp.data_ptr(),
+        w.wq.data_ptr(), w.bq.data_ptr(),
+        None if w.qk_scale is None else w.qk_scale.data_ptr(),
+        w.wp.data_ptr(), w.bp.data_ptr(),
         w.g1.data_ptr(), w.be1.data_ptr(), w.g2.data_ptr(), w.be2.data_ptr(),
         w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(),
         w.bias.data_ptr(), scratch.data_ptr(), y.data_ptr(), b, hh, ww, c,
-        heads, w.hidden, ws, shift,
+        heads, w.hidden, ws, shift, int(w.post_norm),
         torch.cuda.current_stream(img.device).cuda_stream),
         "hdrvae_swin_block")
     swin_block_fused.launches += 1

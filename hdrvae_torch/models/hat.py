@@ -34,7 +34,7 @@ from hdrvae_torch.kernels.swin_attention import use_swin_kernel
 from hdrvae_torch.models.layers import conv2d
 from hdrvae_torch.models.swinir import (Mlp, PatchEmbed, WindowAttention,
                                         _conv, _shape, _shuffle_stack,
-                                        finish_output,
+                                        block_weights, finish_output,
                                         fused_block, gather_bias, gelu,
                                         init_weights, layer_norm, linear,
                                         load_module, lrelu, matmul, mlp,
@@ -217,8 +217,9 @@ def _hab(x: torch.Tensor, blk: HAB, cfg: HATConfig, heads: int, shift: int,
         # past the CAB convs every piece is pointwise per token, so the
         # rest of the HAB runs as K7 in rolled space, the scaled CAB branch
         # its extra residual
-        return fused_block(x, blk, heads, ws, shift, precision,
-                           extra=(conv_x * cfg.conv_scale).to(x.dtype))
+        return fused_block(
+            x, block_weights(blk, heads, ws, precision.compute_dtype), ws,
+            shift, precision, extra=(conv_x * cfg.conv_scale).to(x.dtype))
     ya = torch.roll(y, (-shift, -shift), dims=(1, 2)) if shift else y
     mask = shift_attn_mask(h, w, ws, shift, x.device) if shift else None
     ya = window_merge(window_attention(window_partition(ya, ws), blk.attn,
@@ -321,7 +322,7 @@ def hat_apply(net: HAT, x: torch.Tensor, *,
 
 
 def init_hat(cfg: HATConfig = HATConfig(), seed: int = 0, *,
-             device: torch.device | str = "cpu") -> HAT:
+             device: torch.device | str = "cuda") -> HAT:
     """A randomly initialized HAT (``models.swinir.init_weights``)."""
     return init_weights(HAT, cfg, seed, device)
 
@@ -333,7 +334,7 @@ def is_hat_state_dict(sd: Mapping[str, Any]) -> bool:
 
 
 def hat_from_state_dict(sd: Mapping[str, Any], *,
-                        device: torch.device | str = "cpu"
+                        device: torch.device | str = "cuda"
                         ) -> Tuple[HAT, HATConfig]:
     """(network on ``device``, config) from the official HAT schema, every
     hyperparameter inferred from shapes as the JAX loader does; the

@@ -1,7 +1,7 @@
 """Decoder weights: topology inference, seeded initialization, and the
 JAX parameter pytree as an ldm state dict; as ``hdrvae/models/params.py``.
-Also the JAX package's RRDBNet, SwinIR and HAT pytrees as the state dicts
-of their official PyTorch schemas.
+Also the JAX package's RRDBNet, SwinIR, Swin2SR and HAT pytrees as the
+state dicts of their official PyTorch schemas.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from hdrvae_torch.core.config import DecoderConfig
 from hdrvae_torch.models.decoder import Decoder
+from hdrvae_torch.models.swin2sr import geometry_buffers
 
 
 def _strip_prefix(sd: Mapping[str, Any]) -> Dict[str, Any]:
@@ -104,7 +105,7 @@ def infer_decoder_config(state_dict: Mapping[str, Any]) -> DecoderConfig:
 
 def decoder_from_state_dict(state_dict: Mapping[str, Any],
                             cfg: DecoderConfig | None = None, *,
-                            device: torch.device | str = "cpu") -> Decoder:
+                            device: torch.device | str = "cuda") -> Decoder:
     """A :class:`Decoder` on ``device`` holding an ldm state dict (numpy
     arrays or tensors; ``cfg=None`` infers the topology).  Gradients are
     off: nothing in the decode needs them."""
@@ -121,7 +122,7 @@ def decoder_from_state_dict(state_dict: Mapping[str, Any],
 
 
 def init_decoder(cfg: DecoderConfig = DecoderConfig(), seed: int = 0, *,
-                 device: torch.device | str = "cpu") -> Decoder:
+                 device: torch.device | str = "cuda") -> Decoder:
     """A randomly initialized decoder, its weights drawn with numpy from
     ``seed``: convs from PyTorch's default U(+-sqrt(1/fan_in)), GroupNorm
     scale 1 and bias 0."""
@@ -275,11 +276,62 @@ def swinir_state_dict_from_jax(params_np: Mapping[str, Any]
             prefix = f"layers.{li}.residual_group.blocks.{bi}."
             _put_swin_attention(sd, prefix + "attn.", blk["attn"])
             _put_block(sd, prefix, blk)
-        if "conv" in layer:
-            _put_conv(sd, f"layers.{li}.conv", layer["conv"])
-        else:
-            for j in range(3):
-                _put_conv(sd, f"layers.{li}.conv.{2 * j}", layer[f"conv{j}"])
+        _put_rstb_conv(sd, li, layer)
+    return sd
+
+
+def _put_rstb_conv(sd: Dict[str, torch.Tensor], li: int, layer) -> None:
+    """An RSTB's '1conv' (``layers.{li}.conv``) or '3conv' bottleneck
+    (``layers.{li}.conv.{0,2,4}``)."""
+    if "conv" in layer:
+        _put_conv(sd, f"layers.{li}.conv", layer["conv"])
+    else:
+        for j in range(3):
+            _put_conv(sd, f"layers.{li}.conv.{2 * j}", layer[f"conv{j}"])
+
+
+def swin2sr_state_dict_from_jax(params_np: Mapping[str, Any],
+                                window_size: int
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX package's Swin2SR pytree (numpy leaves) as the official
+    Swin2SR state dict, converted as :func:`swinir_state_dict_from_jax`:
+    the qkv kernel to ``attn.qkv.weight`` with its bias cut into
+    ``attn.q_bias`` and ``attn.v_bias`` (the k third must be zero), the
+    CPB MLP to ``attn.cpb_mlp.{0,2}``, ``logit_scale`` as it is, and the
+    aux head's ``conv_bicubic``, ``conv_aux`` and ``conv_after_aux.0``;
+    ``swin2sr_from_state_dict`` loads it.  The pytree does not hold the
+    window: each block also gets the geometry buffers of an official
+    checkpoint at ``window_size``, from which the loader reads it."""
+    geometry = geometry_buffers(window_size)
+    sd: Dict[str, torch.Tensor] = {}
+    _put_swin_trunk(sd, params_np)
+    for name in ("conv_bicubic", "conv_aux"):
+        if name in params_np:
+            _put_conv(sd, name, params_np[name])
+    if "conv_after_aux" in params_np:
+        _put_conv(sd, "conv_after_aux.0", params_np["conv_after_aux"])
+    for li, layer in enumerate(params_np["layers"]):
+        for bi, blk in enumerate(layer["blocks"]):
+            prefix = f"layers.{li}.residual_group.blocks.{bi}."
+            attn = blk["attn"]
+            bias = np.asarray(attn["qkv"]["bias"], np.float32)
+            c = bias.shape[0] // 3
+            if np.any(bias[c:2 * c] != 0):
+                raise ValueError(f"{prefix}attn: a SwinV2 qkv bias has no k "
+                                 "part, but this one's is not zero")
+            sd[prefix + "attn.qkv.weight"] = _t(
+                np.asarray(attn["qkv"]["kernel"], np.float32).T)
+            sd[prefix + "attn.q_bias"] = _t(bias[:c])
+            sd[prefix + "attn.v_bias"] = _t(bias[2 * c:])
+            _put_linear(sd, prefix + "attn.proj", attn["proj"])
+            sd[prefix + "attn.logit_scale"] = _t(attn["logit_scale"])
+            _put_linear(sd, prefix + "attn.cpb_mlp.0", attn["cpb_fc1"])
+            sd[prefix + "attn.cpb_mlp.2.weight"] = _t(
+                np.asarray(attn["cpb_fc2"]["kernel"], np.float32).T)
+            for name, buf in geometry.items():
+                sd[prefix + "attn." + name] = buf.clone()
+            _put_block(sd, prefix, blk)
+        _put_rstb_conv(sd, li, layer)
     return sd
 
 

@@ -178,7 +178,7 @@ def rrdbnet_apply(net: RRDBNet, x: torch.Tensor, *,
 
 
 def init_rrdbnet(cfg: RRDBNetConfig = RRDBNetConfig(), seed: int = 0, *,
-                 device: torch.device | str = "cpu") -> RRDBNet:
+                 device: torch.device | str = "cuda") -> RRDBNet:
     """A randomly initialized network, its weights drawn with numpy from
     ``seed`` in PyTorch's default U(+-sqrt(1/fan_in)) for weight and
     bias."""
@@ -250,7 +250,7 @@ def _old_to_new(sd: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def rrdbnet_from_state_dict(sd: Mapping[str, Any], *,
-                            device: torch.device | str = "cpu"
+                            device: torch.device | str = "cuda"
                             ) -> Tuple[RRDBNet, RRDBNetConfig]:
     """(network on ``device``, config) from either public ESRGAN key schema
     (tensors or numpy arrays), with the width, depth, growth, upscale

@@ -42,7 +42,8 @@ UPSAMPLERS = ("pixelshuffle", "pixelshuffledirect", "nearest+conv", "")
 
 # checkpoint entries that are recomputed statics, not weights
 STATIC_KEYS = ("relative_position_index", "relative_position_index_SA",
-               "relative_position_index_OCA", "attn_mask")
+               "relative_position_index_OCA", "attn_mask",
+               "relative_coords_table")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +110,14 @@ def _conv(cin: int, cout: int, k: int = 3) -> nn.Conv2d:
 
 
 class RSTB(nn.Module):
-    def __init__(self, cfg: SwinIRConfig, li: int):
+    """A group of ``block`` modules (SwinIR's, or Swin2SR's SwinV2 one)
+    and its trailing conv."""
+
+    def __init__(self, cfg, li: int, block=SwinBlock):
         super().__init__()
         dim = cfg.embed_dim
         self.residual_group = _Blocks(
-            SwinBlock(dim, cfg.num_heads[li], cfg.window_size, cfg.mlp_ratio)
+            block(dim, cfg.num_heads[li], cfg.window_size, cfg.mlp_ratio)
             for _ in range(cfg.depths[li]))
         if cfg.resi_connection == "1conv":
             self.conv = _conv(dim, dim)
@@ -321,16 +325,15 @@ def block_weights(blk: nn.Module, heads: int, ws: int,
     return cache[key]
 
 
-def fused_block(x: torch.Tensor, blk: nn.Module, heads: int, ws: int,
-                shift: int, precision: Precision,
+def fused_block(x: torch.Tensor, w: BlockWeights, ws: int, shift: int,
+                precision: Precision,
                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block through K7 in rolled image space: LN is pointwise, so it
-    commutes with the roll, and the rolled x is both the kernel's input
-    and its residual (``swinir._swin_block_kernel``).  ``extra`` is rolled
-    here too."""
+    """One block (its K7 weights ``w``) through K7 in rolled image space:
+    LN is pointwise, so it commutes with the roll, and the rolled x is both
+    the kernel's input and its residual (``swinir._swin_block_kernel``).
+    ``extra`` is rolled here too."""
     def roll(t, s):
         return torch.roll(t, (s, s), dims=(1, 2)) if shift else t
-    w = block_weights(blk, heads, ws, precision.compute_dtype)
     y = swin_block_fused(roll(x, -shift).contiguous(), w, ws=ws, shift=shift,
                          extra=None if extra is None
                          else roll(extra, -shift).contiguous(),
@@ -343,7 +346,9 @@ def swin_block(x: torch.Tensor, blk: SwinBlock, heads: int, ws: int,
     """One Swin block on an NHWC grid (H, W multiples of ws)."""
     b, h, w, c = x.shape
     if use_swin_kernel(precision, x, h, w, ws, c // heads):
-        return fused_block(x, blk, heads, ws, shift, precision)
+        return fused_block(
+            x, block_weights(blk, heads, ws, precision.compute_dtype), ws,
+            shift, precision)
     y = layer_norm(x, blk.norm1)
     if shift:
         y = torch.roll(y, (-shift, -shift), dims=(1, 2))
@@ -484,11 +489,12 @@ def load_module(module: nn.Module, sd: Mapping[str, Any], family: str,
     return module.requires_grad_(False).eval()
 
 
-def init_weights(module_cls, cfg, seed: int,
-                 device: torch.device | str) -> nn.Module:
+def init_weights(module_cls, cfg, seed: int, device: torch.device | str,
+                 draw=None) -> nn.Module:
     """A network with weights drawn with numpy from ``seed``: linears and
     bias tables N(0, 0.02) with zero linear biases (the official init),
-    LayerNorms 1 / 0, convs PyTorch's U(+-sqrt(1/fan_in))."""
+    LayerNorms 1 / 0, convs PyTorch's U(+-sqrt(1/fan_in)).  ``draw(name,
+    shape, rng)``, where given, is asked first and may return an array."""
     rng = np.random.default_rng(seed)
     with torch.device("meta"):
         net = module_cls(cfg)
@@ -499,7 +505,10 @@ def init_weights(module_cls, cfg, seed: int,
         shape = tuple(t.shape)
         owner, leaf = name.rsplit(".", 1)
         mod = mods[owner]
-        if isinstance(mod, nn.LayerNorm):
+        own = None if draw is None else draw(name, shape, rng)
+        if own is not None:
+            sd[name] = np.asarray(own, np.float32)
+        elif isinstance(mod, nn.LayerNorm):
             sd[name] = np.full(shape, 1.0 if leaf == "weight" else 0.0,
                                np.float32)
         elif isinstance(mod, nn.Linear):
@@ -515,7 +524,7 @@ def init_weights(module_cls, cfg, seed: int,
 
 
 def init_swinir(cfg: SwinIRConfig = SwinIRConfig(), seed: int = 0, *,
-                device: torch.device | str = "cpu") -> SwinIR:
+                device: torch.device | str = "cuda") -> SwinIR:
     """A randomly initialized SwinIR (see :func:`init_weights`)."""
     return init_weights(SwinIR, cfg, seed, device)
 
@@ -572,7 +581,7 @@ def shuffle_scale(sd: Mapping[str, Any], num_feat: int) -> int:
 
 def swinir_from_state_dict(sd: Mapping[str, Any],
                            img_range: Optional[float] = None, *,
-                           device: torch.device | str = "cpu"
+                           device: torch.device | str = "cuda"
                            ) -> Tuple[SwinIR, SwinIRConfig]:
     """(network on ``device``, config) from the official SwinIR schema,
     every hyperparameter inferred from shapes and keys as the JAX loader

@@ -19,7 +19,7 @@ from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
 from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
 from hdrvae_torch.kernels import (attention, conv3x3, dense_conv, epilogue,
                                   ocab, swin_attention)
-from hdrvae_torch.models import hat, swinir
+from hdrvae_torch.models import hat, swin2sr, swinir
 from hdrvae_torch.models.decoder import decoder_head, decoder_tail
 from hdrvae_torch.models.params import init_decoder
 from hdrvae_torch.models.rrdbnet import (RRDBNetConfig, init_rrdbnet,
@@ -134,7 +134,7 @@ def test_small_decoder_on_card(dev):
     parity decode on the card against the same decode on the CPU."""
     cfg = DecoderConfig(z_channels=4, ch=64, ch_mult=(1, 2),
                         num_res_blocks=1)
-    dec_cpu = init_decoder(cfg, seed=3)
+    dec_cpu = init_decoder(cfg, seed=3, device="cpu")
     dec = init_decoder(cfg, seed=3, device=dev)
     z = _rand("cpu", (1, 12, 12, 4), 2.0, torch.float32, seed=8)
     fast = hdr_decode(dec, z.to(dev), HDRDecodeConfig(), Precision.fast())
@@ -333,6 +333,39 @@ def test_swin_block_fused(dev, b, h, w, c, heads, ws, shift, extra):
     assert d[:, :, -ws:].max().item() <= bound
 
 
+@pytest.mark.parametrize("b,h,w,c,heads,ws,shift,extra", SWIN_CASES)
+def test_swin_block_fused_v2(dev, b, h, w, c, heads, ws, shift, extra):
+    """K7's SwinV2 body (Swin2SR: cosine attention with per-head scales up
+    to the clamp's 100, a continuous-position bias in [0, 16], LayerNorm on
+    the branch outputs) against its plain version: within 5e-2 * max(1,
+    max|ref|) (the scales multiply a q rounding difference by up to 100),
+    over the whole image and over the last window row and column."""
+    blk = _swin_block(dev, c, heads, ws, seed=ws + shift + 1)
+    n = ws * ws
+    qkv_bias = _rand(dev, (3 * c,), 0.5, torch.float32, seed=3)
+    qkv_bias[c:2 * c] = 0.0          # SwinV2: no k bias
+    scale = torch.linspace(1.0, 100.0, heads, device=dev)
+    bias = 16.0 * torch.sigmoid(_rand(dev, (heads, n, n), 2.0, torch.float32,
+                                      seed=4))
+    wts = swin_attention.prepare_block(
+        blk.attn, blk.norm1, blk.norm2, blk.mlp, heads, bias, torch.bfloat16,
+        qkv_bias=qkv_bias, post_norm=True, qk_scale=scale)
+    x = _rand(dev, (b, h, w, c), seed=1)
+    e = _rand(dev, (b, h, w, c), 0.5, seed=2) if extra else None
+    kw = dict(ws=ws, shift=shift, extra=e, precision=Precision.fast())
+    before = swin_attention.swin_block_fused.launches
+    y = swin_attention.swin_block_fused(x, wts, **kw)
+    assert swin_attention.swin_block_fused.launches == before + 1
+    ref = swin_attention.swin_block_fused_reference(x, wts, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    d = (y.float() - ref.float()).abs()
+    bound = 5e-2 * max(1.0, ref.float().abs().max().item())
+    assert d.max().item() <= bound, d.max().item()
+    assert d[:, -ws:].max().item() <= bound
+    assert d[:, :, -ws:].max().item() <= bound
+
+
 @pytest.mark.parametrize("nwb,heads,nq,nk", [(3, 2, 16, 36), (2, 3, 20, 36),
                                              (2, 2, 64, 144),
                                              (2, 6, 256, 576)])
@@ -376,16 +409,20 @@ def test_swin_kernels_refuse_what_they_do_not_take(dev):
                             storage_dtype=torch.bfloat16)
 
 
-@pytest.mark.parametrize("family", ["SwinIR", "HAT"])
+@pytest.mark.parametrize("family", ["SwinIR", "HAT", "Swin2SR"])
 def test_small_swin_upscaler_on_card(dev, family):
-    """A with_small() SwinIR / HAT: the fused fast forward (K7, and K8 for
-    HAT's OCAB) against the card's own unfused fast layers, then a fast
-    two-pass upscale whose launches are one K7 per block and one K8 per
-    OCAB of every tile run."""
+    """A with_small() SwinIR / HAT / Swin2SR: the fused fast forward (K7,
+    its v2 body for Swin2SR, and K8 for HAT's OCAB) against the card's own
+    unfused fast layers, then a fast two-pass upscale whose launches are
+    one K7 per block and one K8 per OCAB of every tile run."""
     if family == "SwinIR":
         cfg = swinir.SwinIRConfig().with_small()
         net, apply = swinir.init_swinir(cfg, seed=2, device=dev), \
             swinir.swinir_apply
+    elif family == "Swin2SR":
+        cfg = swin2sr.Swin2SRConfig().with_small()
+        net, apply = swin2sr.init_swin2sr(cfg, seed=2, device=dev), \
+            swin2sr.swin2sr_apply
     else:
         cfg = hat.HATConfig().with_small()
         net, apply = hat.init_hat(cfg, seed=2, device=dev), hat.hat_apply

@@ -42,7 +42,8 @@ def pair():
     params = jdec.init_decoder(jax.random.PRNGKey(0), jcfg)
     params_np = jax.tree_util.tree_map(np.asarray, params)
     cfg = DecoderConfig().with_small()
-    dec = decoder_from_state_dict(state_dict_from_jax(params_np, cfg), cfg)
+    dec = decoder_from_state_dict(state_dict_from_jax(params_np, cfg), cfg,
+                                  device="cpu")
     return jcfg, params, dec
 
 
@@ -175,7 +176,8 @@ def test_infer_small_config_matches_jax(pair):
 
 def test_init_decoder_is_seeded():
     cfg = DecoderConfig().with_small()
-    a, b, c = (init_decoder(cfg, s).state_dict() for s in (7, 7, 8))
+    a, b, c = (init_decoder(cfg, s, device="cpu").state_dict()
+               for s in (7, 7, 8))
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["conv_in.weight"], c["conv_in.weight"])
     assert torch.all(a["norm_out.weight"] == 1)

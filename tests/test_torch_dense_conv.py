@@ -140,7 +140,7 @@ def test_cpu_tensors_never_launch():
 def _pair(jcfg, seed=0):
     params = jrrdb.init_rrdbnet(jax.random.PRNGKey(seed), jcfg)
     net, cfg = rrdbnet_from_state_dict(rrdbnet_state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, params)))
+        jax.tree_util.tree_map(np.asarray, params)), device="cpu")
     return params, net
 
 

@@ -44,7 +44,7 @@ def pair():
     cfg = DecoderConfig().with_small()
     dec = decoder_from_state_dict(
         state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg),
-        cfg)
+        cfg, device="cpu")
     return jcfg, params, dec, _latent(2)
 
 
@@ -181,14 +181,14 @@ def test_port_never_imports_jax():
         "import hdrvae_torch\n"
         "from hdrvae_torch.core import config, color, stats\n"
         "from hdrvae_torch.models import layers, decoder, params, "
-        "fused_tail\n"
+        "fused_tail, swin2sr, zoo\n"
         "from hdrvae_torch.kernels import _build, attention, conv3x3, "
         "epilogue\n"
         "from hdrvae_torch.decode import formatting, analysis, modes, "
         "pipeline\n"
         "from hdrvae_torch.io import exr\n"
         "cfg = config.DecoderConfig().with_small()\n"
-        "dec = params.init_decoder(cfg, 0)\n"
+        "dec = params.init_decoder(cfg, 0, device='cpu')\n"
         "z = torch.zeros(1, 4, 4, 4)\n"
         "r = pipeline.hdr_decode(dec, z, precision=config.Precision.fast())\n"
         "pipeline.decode_summary(r)\n"

@@ -290,14 +290,15 @@ def _swinir_pair(seed=0, **kw):
     official state dict (the JAX init makes no '3conv' RSTB), and carried
     back with ``swinir_state_dict_from_jax``: the round trip is exact."""
     sd = tswin.init_swinir(dataclasses.replace(
-        tswin.SwinIRConfig().with_small(), **kw), seed=seed).state_dict()
+        tswin.SwinIRConfig().with_small(), **kw), seed=seed,
+        device="cpu").state_dict()
     params, jcfg = jswin.swinir_from_state_dict(sd)
     back = swinir_state_dict_from_jax(jax.tree_util.tree_map(np.asarray,
                                                              params))
     assert back.keys() == sd.keys()
     for k, v in back.items():
         assert torch.equal(v, sd[k]), k
-    net, cfg = tswin.swinir_from_state_dict(back)
+    net, cfg = tswin.swinir_from_state_dict(back, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     return params, jcfg, net
 
@@ -306,7 +307,7 @@ def _hat_pair(seed=0):
     jcfg = jhat.HATConfig().with_small()
     params = jhat.init_hat(jax.random.PRNGKey(seed), jcfg)
     net, cfg = thatm.hat_from_state_dict(hat_state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, params)))
+        jax.tree_util.tree_map(np.asarray, params)), device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     return params, jcfg, net
 
@@ -409,7 +410,7 @@ def test_swinir_oracle_checkpoint_loads_in_both(kw):
     if cfg.upsampler == "pixelshuffledirect":
         # the head has no num_feat; both loaders report the width
         cfg = dataclasses.replace(cfg, num_feat=cfg.embed_dim)
-    net, tcfg = tswin.swinir_from_state_dict(sd)
+    net, tcfg = tswin.swinir_from_state_dict(sd, device="cpu")
     _, jcfg = jswin.swinir_from_state_dict(sd)
     assert tcfg == cfg
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
@@ -429,7 +430,7 @@ def test_hat_oracle_checkpoint_loads_and_is_not_swinir(tmp_path):
     cfg = thatm.HATConfig().with_small()
     oracle = TorchHAT(cfg)
     sd = _oracle_sd(oracle)
-    net, tcfg = thatm.hat_from_state_dict(sd)
+    net, tcfg = thatm.hat_from_state_dict(sd, device="cpu")
     _, jcfg = jhat.hat_from_state_dict(sd)
     assert tcfg == cfg
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
@@ -440,41 +441,28 @@ def test_hat_oracle_checkpoint_loads_and_is_not_swinir(tmp_path):
     assert _err(got, ref) <= 1e-4
     assert tswin.is_swinir_state_dict(sd) and thatm.is_hat_state_dict(sd)
     with pytest.raises(ValueError, match="SwinIR"):
-        tswin.swinir_from_state_dict(sd)
+        tswin.swinir_from_state_dict(sd, device="cpu")
     path = tmp_path / "hat.pth"
     torch.save({"params_ema": sd}, path)
-    model, zcfg, arch = tzoo.load_upscale_model(str(path))
+    model, zcfg, arch = tzoo.load_upscale_model(str(path), device="cpu")
     assert (arch, zcfg) == ("HAT", cfg) and isinstance(model, thatm.HAT)
 
 
 def test_load_swinir_through_zoo(tmp_path):
     cfg = tswin.SwinIRConfig().with_small()
-    sd = tswin.init_swinir(cfg, seed=4).state_dict()
+    sd = tswin.init_swinir(cfg, seed=4, device="cpu").state_dict()
     path = tmp_path / "swinir.pth"
     torch.save({"params": sd}, path)
-    model, zcfg, arch = tzoo.load_upscale_model(str(path))
+    model, zcfg, arch = tzoo.load_upscale_model(str(path), device="cpu")
     assert (arch, zcfg) == ("SwinIR", cfg) and isinstance(model, tswin.SwinIR)
     _, jcfg, jarch = jzoo.load_upscale_model(str(path))
     assert jarch == "SwinIR"
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
 
 
-def test_swin2sr_is_still_refused(tmp_path):
-    """Swin2SR shares the spine but has a continuous position MLP: named
-    and refused, never run as SwinIR."""
-    sd = tswin.init_swinir(tswin.SwinIRConfig().with_small()).state_dict()
-    sd["layers.0.residual_group.blocks.0.attn.logit_scale"] = torch.zeros(
-        2, 1, 1)
-    path = tmp_path / "swin2sr.pth"
-    torch.save(sd, path)
-    with pytest.raises(NotImplementedError, match="Swin2SR"):
-        tzoo.load_upscale_model(str(path))
-    assert not tswin.is_swinir_state_dict(sd)
-
-
 def test_init_is_seeded():
     cfg = thatm.HATConfig().with_small()
-    a, b = thatm.init_hat(cfg, seed=5), thatm.init_hat(cfg, seed=5)
+    a, b = (thatm.init_hat(cfg, seed=5, device="cpu") for _ in range(2))
     for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(v, w), k
     assert not any(p.requires_grad for p in a.parameters())

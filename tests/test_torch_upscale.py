@@ -219,7 +219,7 @@ def test_select_tile_size():
 def _pair(jcfg, seed=0):
     params = jrrdb.init_rrdbnet(jax.random.PRNGKey(seed), jcfg)
     net, cfg = rrdbnet_from_state_dict(rrdbnet_state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, params)))
+        jax.tree_util.tree_map(np.asarray, params)), device="cpu")
     return params, net, cfg
 
 
@@ -264,12 +264,12 @@ def test_both_schemas_load_the_same_network():
     the same config, the same parameters and the same output; numpy
     values load as tensors do, and the JAX loader agrees on the config."""
     cfg = RRDBNetConfig().with_small()
-    net = init_rrdbnet(cfg, seed=3)
+    net = init_rrdbnet(cfg, seed=3, device="cpu")
     sd = net.state_dict()
     old = _old_schema(sd, cfg.nb)
-    net_new, cfg_new = rrdbnet_from_state_dict(sd)
+    net_new, cfg_new = rrdbnet_from_state_dict(sd, device="cpu")
     net_old, cfg_old = rrdbnet_from_state_dict(
-        {k: v.numpy() for k, v in old.items()})
+        {k: v.numpy() for k, v in old.items()}, device="cpu")
     assert cfg_new == cfg_old == cfg
     _, jcfg = jrrdb.rrdbnet_from_state_dict(old)
     assert jcfg == jrrdb.RRDBNetConfig().with_small()
@@ -283,7 +283,7 @@ def test_both_schemas_load_the_same_network():
 def test_init_rrdbnet_is_seeded():
     """numpy-seeded U(+-sqrt(1/fan_in)) weights: one seed, one network."""
     cfg = RRDBNetConfig().with_small()
-    a, b = init_rrdbnet(cfg, seed=7), init_rrdbnet(cfg, seed=7)
+    a, b = (init_rrdbnet(cfg, seed=7, device="cpu") for _ in range(2))
     for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(v, w), k
     w = a.conv_first.weight
@@ -302,17 +302,17 @@ def test_load_upscale_model_pth_round_trip(tmp_path, wrap):
     loads to the same network, named RealESRGAN; the old schema is
     named ESRGAN."""
     cfg = RRDBNetConfig().with_small()
-    net = init_rrdbnet(cfg, seed=1)
+    net = init_rrdbnet(cfg, seed=1, device="cpu")
     sd = net.state_dict()
     path = tmp_path / "model.pth"
     torch.save(sd if wrap is None else {wrap: sd}, path)
-    got, got_cfg, arch = tzoo.load_upscale_model(str(path))
+    got, got_cfg, arch = tzoo.load_upscale_model(str(path), device="cpu")
     assert (got_cfg, arch) == (cfg, "RealESRGAN")
     assert isinstance(got, RRDBNet)
     for k, v in got.state_dict().items():
         assert torch.equal(v, sd[k]), k
     torch.save(_old_schema(sd, cfg.nb), path)
-    _, _, arch = tzoo.load_upscale_model(str(path))
+    _, _, arch = tzoo.load_upscale_model(str(path), device="cpu")
     assert arch == "ESRGAN"
 
 
@@ -327,16 +327,17 @@ def test_load_upscale_model_pth_round_trip(tmp_path, wrap):
 ])
 def test_unported_families_raise(tmp_path, family, keys):
     """Families the JAX package runs and the port does not yet are named
-    and refused, never run as another model.  HAT and SwinIR are ported:
-    their fingerprint alone is detected as that family and refused as an
-    incomplete checkpoint of it (tests/test_torch_swin.py loads whole
-    ones)."""
+    and refused, never run as another model.  HAT, Swin2SR and SwinIR are
+    ported: their fingerprint alone is detected as that family and refused
+    as an incomplete checkpoint of it (tests/test_torch_swin.py and
+    tests/test_torch_swin2sr.py load whole ones)."""
     sd = {k: torch.zeros(4, 3, 3, 3) for k in keys}
     path = tmp_path / "m.pth"
     torch.save(sd, path)
-    error = ValueError if family in ("HAT", "SwinIR") else NotImplementedError
+    error = (ValueError if family in ("HAT", "Swin2SR", "SwinIR")
+             else NotImplementedError)
     with pytest.raises(error, match=family):
-        tzoo.load_upscale_model(str(path))
+        tzoo.load_upscale_model(str(path), device="cpu")
 
 
 def test_zoo_sizing_matches_jax():
