@@ -15,7 +15,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    unshifted and shifted, of HAT-M with its CAB residual, and a ragged
    128 x 120 tile; K7's SwinV2 body: one 512^2 tile of Swin2SR-M,
    unshifted and shifted, a window-7 grid and the ragged tile; K8: HAT-M's
-   OCAB on a 512^2 tile), with its tolerance, and both timed with CUDA
+   OCAB on a 512^2 tile; K2's stats_only mode, its sums bit-equal to K2's
+   with y written, and K5: the 2048^2 decode's top-level junction and a
+   ragged map), with its tolerance, and both timed with CUDA
    events after a warm-up; beside them the least time the card could take
    (bound_ms: the function's operations over the peak rate of their type,
    or its bytes, each input read once and each output written once, over
@@ -29,23 +31,33 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    path, mixed against parity; then one fast and one parity decode with
    the fused epilogue (K4) held to the default path's; then the epilogue
    in all four modes on one decoder output;
-5. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
-6. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
+5. large frames: fast decodes at 2048^2 and 4096^2 with the whole-image
+   and the streamed top level (``LOWMEM_MIN_PIXELS`` set in-process), the
+   streamed one launching K5 and K2 stats_only once a request and the
+   whole-image one neither, held to each other (and at 2048^2 to the
+   unfused fast path); a mixed 2048^2 decode through the staged executor
+   (its route forced by the test hook) held to the whole-image one; and
+   one mixed request that ``hdr_decode`` routes to the staged executor by
+   itself, at the smallest latent side whose frame reaches
+   ``STAGED_MIN_PIXELS``; each with its time and peak memory;
+6. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
+7. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
    seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
    512^2 tiles (9 tiles x 2 passes): two fast requests and one parity
    request, the fused K6 chain held to the unfused fast layers on one
    tile, and one fast request with small_blur and local_fix;
-7. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
+8. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
    and Swin2SR-M x4 (random weights from numpy seeds) through
    ``hdr_upscale`` on a 768^2 crop of the parity image (4 tiles x 2
    passes), one fast and one parity request each; the fast one must
    launch K7 (Swin2SR: its v2 body) once per block and K8 once per OCAB
    of every tile run, the parity one neither; the fused chain is held to
    the unfused fast layers on the first tile's raw output;
-8. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
-   mixed, K4 in the fused-epilogue decodes, K6 in the fast ESRGAN upscale,
-   K7 in the fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR
-   upscale, K8 in the fast HAT upscale; every kernel of the table ran.
+9. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
+   mixed, K4 in the fused-epilogue decodes, K5 and K2 stats_only in the
+   low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
+   fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR upscale,
+   K8 in the fast HAT upscale; every kernel of the table ran.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -116,6 +128,16 @@ FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
 STATS_BUDGET = 1e-3         # relative, on the emitted GroupNorm sums
 ATTN_BUDGET = {"parity": 1e-5, "mixed": 1e-4}
+
+# K5 at the 2048^2 decode's junction and at a ragged map: (H, W) of the
+# low-resolution x [1, H, W, 256] -> y [1, 2H, 2W, 128], middle width 256
+K5_SHAPES = [(1024, 1024), (36, 60)]
+K5_CIN, K5_CM, K5_COUT = 256, 256, 128
+# K2 stats_only at the same junction: x [1, 1024, 1024, 256]
+K2_STATS_SHAPE = (1024, 1024, 256)
+# the large-frame phase: staged vs whole-image mixed budgets (rgb and the
+# conservative image max-abs, the pre-map statistics relative)
+STAGED_RGB, STAGED_CONS, STAGED_PRE = 1e-4, 1e-3, 1e-4
 
 
 def bf16_ulp(t: torch.Tensor) -> float:
@@ -242,7 +264,9 @@ def phase_device() -> str:
     line = smi.stdout.strip().splitlines()[0]
     log(line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"devices {torch.cuda.device_count()}")
+        f"devices {torch.cuda.device_count()} memory "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} "
+        "GiB")
     return line
 
 
@@ -424,7 +448,116 @@ def phase_kernels() -> list:
     entries.append(_check_k7(rng, K7_SHAPES))
     entries.append(_check_k7(rng, K7_V2_SHAPES, v2=True))
     entries.append(_check_k8(rng))
+    rng5 = np.random.default_rng(5)
+    entries.append(_check_k2_stats_only(rng5))
+    entries.append(_check_k5(rng5))
     return entries
+
+
+def _uniform(rng, lo, hi, shape) -> torch.Tensor:
+    return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+        np.float32)).cuda()
+
+
+def _check_k2_stats_only(rng) -> dict:
+    """K2's stats_only mode at the 2048^2 junction: its sums bit-equal to
+    those of the same launch with y written, and within STATS_BUDGET of
+    the plain version."""
+    from hdrvae_torch.kernels import conv3x3
+    h, w, c = K2_STATS_SHAPE
+    x = _bf16(rng, (1, h, w, c), 0.5)
+    kern = _bf16(rng, (3, 3, c, c), (9 * c) ** -0.5)
+    bias = _uniform(rng, -0.1, 0.1, c)
+    kw = dict(emit_stats=True, num_groups=32)
+    y, s = conv3x3.upsample_conv3x3(x, kern, bias, **kw)
+    so = conv3x3.upsample_conv3x3(x, kern, bias, stats_only=True, **kw)
+    rs = conv3x3.upsample_conv3x3_reference(x, kern, bias, stats_only=True,
+                                            **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(so[0], s[0]) and torch.equal(so[1], s[1]),
+          "K2 stats_only: sums differ from the launch that writes y")
+    es = stats_err(so, rs, y)
+    check(es <= STATS_BUDGET, f"K2 stats_only: stats rel err {es}")
+    t = cuda_ms(lambda: conv3x3.upsample_conv3x3(x, kern, bias,
+                                                 stats_only=True, **kw))
+    t_y = cuda_ms(lambda: conv3x3.upsample_conv3x3(x, kern, bias, **kw))
+    tp = cuda_ms(lambda: conv3x3.upsample_conv3x3_reference(
+        x, kern, bias, stats_only=True, **kw), iters=2, warmup=1)
+    del y
+    up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    tl = conv_alone_ms(up, kern)
+    del up
+    flops = 2 * (4 * h * w) * 4 * c * c
+    b = Bound().add(flops, nbytes(x, kern, bias, *so))
+    log(f"K2 upsample_conv3x3 stats_only {h}x{w}->{2 * h}x{2 * w} {c}: sums "
+        f"bit-equal to K2's with y written; stats {es:.2e}  kernel {t:.3f} "
+        f"ms (with y written {t_y:.3f} ms)  plain {tp:.3f} ms  conv alone "
+        f"{tl:.3f} ms  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    del x
+    torch.cuda.empty_cache()
+    return {"name": "upsample_conv3x3_stats_only", "route": "cuda",
+            "source": "hdrvae_torch/csrc/conv3x3.cu",
+            "replaces": "hdrvae/kernels/conv3x3.py:653 (stats_only, :666)",
+            "max_abs_err": 0.0, "stats_rel_err": es, "ms": t,
+            "ms_with_y": t_y, "plain_ms": tp, **b, "library_ms": tl,
+            "library_call": CONV_ALONE + " (on the upsampled map)",
+            "shape": [h, w, c, c]}
+
+
+def _check_k5(rng) -> dict:
+    """K5 against its plain version at the 2048^2 decode's junction and at
+    a ragged map whose output width is no multiple of the 16-pixel tile;
+    y max-abs within CONV_BUDGET, the statistics within STATS_BUDGET."""
+    from hdrvae_torch.kernels import conv3x3
+    cin, cm, cout = K5_CIN, K5_CM, K5_COUT
+    details, k_ms, p_ms, err, err_s, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
+    for h, w in K5_SHAPES:
+        x = _bf16(rng, (1, h, w, cin), 0.5)
+        args = (x, _bf16(rng, (3, 3, cin, cm), (9 * cin) ** -0.5),
+                _uniform(rng, -0.1, 0.1, cm),
+                _uniform(rng, 0.5, 1.5, (1, cm)),
+                _uniform(rng, -0.5, 0.5, (1, cm)),
+                _bf16(rng, (3, 3, cm, cout), (9 * cm) ** -0.5),
+                _uniform(rng, -0.1, 0.1, cout))
+        kw = dict(emit_stats=True, num_groups=32)
+        y, s = conv3x3.upconv_gn_conv3x3(*args, **kw)
+        ry, rs = conv3x3.upconv_gn_conv3x3_reference(*args, **kw)
+        torch.cuda.synchronize()
+        check(y.shape == (1, 2 * h, 2 * w, cout) and y.dtype == ry.dtype,
+              f"K5 {h}x{w}: {y.dtype} {tuple(y.shape)}")
+        check(torch.isfinite(y.float()).all().item(),
+              f"K5 {h}x{w}: output not finite")
+        e = (y.float() - ry.float()).abs().max().item()
+        es = stats_err(s, rs, ry)
+        check(e <= CONV_BUDGET, f"K5 {h}x{w}: max-abs {e} > {CONV_BUDGET}")
+        check(es <= STATS_BUDGET, f"K5 {h}x{w}: stats rel err {es}")
+        del ry
+        t = cuda_ms(lambda: conv3x3.upconv_gn_conv3x3(*args, **kw))
+        tp = cuda_ms(lambda: conv3x3.upconv_gn_conv3x3_reference(
+            *args, **kw), iters=2, warmup=1)
+        # the phase-decomposed up-conv (16 taps over the low-resolution
+        # map) and conv1 (9 taps at the doubled resolution)
+        flops = 2 * h * w * 16 * cin * cm + 2 * (4 * h * w) * 9 * cm * cout
+        b = bnd.add(flops, nbytes(*args, y, *s))
+        log(f"K5 upconv_gn_conv3x3 {h}x{w}->{2 * h}x{2 * w} {cin}->{cm}->"
+            f"{cout}: max-abs {e:.3e} stats {es:.2e}  kernel {t:.3f} ms "
+            f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms  bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+        details.append({"shape": [h, w, cin, cm, cout], "max_abs_err": e,
+                        "stats_rel_err": es, "ms": t, "plain_ms": tp,
+                        "tflops": flops / (t * 1e9), **b})
+        k_ms, p_ms = k_ms + t, p_ms + tp
+        err, err_s = max(err, e), max(err_s, es)
+        del x, args, y, s
+        torch.cuda.empty_cache()
+    return {"name": "upconv_gn_conv3x3", "route": "cuda",
+            "source": "hdrvae_torch/csrc/upconv.cu",
+            "replaces": "hdrvae/kernels/conv3x3.py:1059",
+            "max_abs_err": err, "stats_rel_err": err_s, "ms": k_ms,
+            "plain_ms": p_ms, **bnd.entry(), "library_ms": None,
+            "library_call": "none: no one PyTorch call computes the up-conv, "
+                            "the GroupNorm affine + SiLU and the next conv",
+            "shapes": details}
 
 
 def _check_k4() -> dict:
@@ -686,18 +819,24 @@ def _wrappers() -> dict:
                                       epilogue, ocab, swin_attention)
     return {fn.__name__: fn for fn in (
         conv3x3.fused_conv3x3, conv3x3.upsample_conv3x3,
+        conv3x3.upconv_gn_conv3x3,
         attention.flash_attention_bf16, attention.flash_attention_f32,
         epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3,
         swin_attention.swin_block_fused, ocab.ocab_attention)}
 
 
 def _counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Every counter; K2's stats_only launches under their own name."""
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    counts["upsample_conv3x3_stats_only"] = \
+        _wrappers()["upsample_conv3x3"].stats_only_launches
+    return counts
 
 
 def _reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["upsample_conv3x3"].stats_only_launches = 0
 
 
 def phase_decode():
@@ -805,7 +944,162 @@ def phase_decode():
             f"{bool(fallback.item())} norm "
             f"{int(analysis.norm_kind.item())}")
     return (results["parity"].image, decode_counts, per_tier, times,
-            epi_counts)
+            epi_counts, dec)
+
+
+def _decode_request(dec, z, hcfg, prec):
+    """One hdr_decode with its summary fetched: (result, summary, device
+    ms, host wall ms, peak GiB of allocated memory)."""
+    from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    res = hdr_decode(dec, z, hcfg, prec)
+    end.record()
+    summary = decode_summary(res)
+    torch.cuda.synchronize()
+    return (res, summary, start.elapsed_time(end),
+            1e3 * (time.perf_counter() - h0),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _latent(side: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, side, side, 16)).astype(np.float32)).cuda()
+
+
+def phase_large_frames(dec):
+    """The large-frame routes of hdr_decode on the full-width decoder:
+    the fast tier's streamed top level (K2 stats_only + K5) and the mixed
+    tier's staged executor, each held to the whole-image decode, with
+    their times and peaks.  Returns (the low-memory 2048^2 request's
+    launch counts, the records)."""
+    from hdrvae_torch.core.config import HDRDecodeConfig, Precision
+    from hdrvae_torch.decode import pipeline, staged
+    from hdrvae_torch.models import fused_tail
+    from hdrvae_torch.models.decoder import decoder_head, decoder_tail
+    cons = HDRDecodeConfig(hdr_mode="conservative")
+    fast, mixed = Precision.fast(), Precision.mixed()
+    records = {}
+    lowmem_min = fused_tail.LOWMEM_MIN_PIXELS
+
+    def run(label, z, prec, n=1):
+        """n requests; the last one's result, counts, times and peak."""
+        for _ in range(n):
+            res = None      # no earlier result in this request's peak
+            _reset_counts()
+            res, summary, dev_ms, wall_ms, peak = _decode_request(
+                dec, z, cons, prec)
+        counts = _counts()
+        check(tuple(res.image.shape) == (1, 8 * z.shape[1], 8 * z.shape[2],
+                                         3), f"{label}: image shape "
+              f"{tuple(res.image.shape)}")
+        check(torch.isfinite(res.image).all().item()
+              and torch.isfinite(res.standard).all().item(),
+              f"{label}: non-finite output")
+        records[label] = {"device_ms": dev_ms, "wall_ms": wall_ms,
+                          "peak_gib": peak}
+        log(f"large[{label}] device ms {dev_ms:.3f}, host wall ms "
+            f"{wall_ms:.3f}, peak {peak:.3f} GiB; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        return res, counts
+
+    def host(res):
+        """The standard and HDR images and the pre statistics on the host,
+        so that no result of one route stays in the next one's peak."""
+        return (res.standard.cpu(), res.image.cpu(),
+                {k: v.item() for k, v in res.stats["pre"].items()})
+
+    try:
+        for side in (256, 512):
+            z = _latent(side)
+            px = f"{8 * side}^2"
+            fused_tail.LOWMEM_MIN_PIXELS = 1 << 62
+            res, cw = run(f"fast {px} whole-image", z, fast, 2)
+            whole = host(res)
+            del res
+            check(cw["upconv_gn_conv3x3"] == 0
+                  and cw["upsample_conv3x3_stats_only"] == 0,
+                  f"whole-image fast {px} ran the streamed top level: {cw}")
+            fused_tail.LOWMEM_MIN_PIXELS = 1
+            res, cl = run(f"fast {px} low-memory", z, fast, 2)
+            low = host(res)
+            del res
+            check(cl["upconv_gn_conv3x3"] == 1
+                  and cl["upsample_conv3x3_stats_only"] == 1,
+                  f"low-memory fast {px}: K5 / K2 stats_only launched "
+                  f"{cl['upconv_gn_conv3x3']} / "
+                  f"{cl['upsample_conv3x3_stats_only']} times, want 1 / 1")
+            e = (low[0] - whole[0]).abs().max().item()
+            check(e <= CONV_BUDGET, f"fast {px} low-memory vs whole-image "
+                  f"rgb max-abs {e} > {CONV_BUDGET}")
+            records[f"fast {px} low-memory"]["rgb_vs_whole"] = e
+            if side == 256:
+                main_counts = cl
+                unfused = decoder_tail(dec, decoder_head(dec, z,
+                                                         precision=fast),
+                                       precision=fast).rgb.cpu()
+                e_u = (low[0] - unfused).abs().max().item()
+                check(e_u <= CONV_BUDGET, f"fast {px} low-memory vs unfused "
+                      f"rgb max-abs {e_u} > {CONV_BUDGET}")
+                records[f"fast {px} low-memory"]["rgb_vs_unfused"] = e_u
+                del unfused
+            log(f"large[fast {px}] low-memory vs whole-image rgb max-abs "
+                f"{e:.3e} (<= {CONV_BUDGET})")
+            del whole, low, z
+            torch.cuda.empty_cache()
+    finally:
+        fused_tail.LOWMEM_MIN_PIXELS = lowmem_min
+
+    # the mixed tier at 2048^2: staged (routed by the test hook) against
+    # whole-image
+    z = _latent(256)
+    try:
+        pipeline._STAGED_MIN_PIXELS_OVERRIDE = 1 << 62
+        whole = host(run("mixed 2048^2 whole-image", z, mixed)[0])
+        pipeline._STAGED_MIN_PIXELS_OVERRIDE = 1
+        st = host(run("mixed 2048^2 staged", z, mixed)[0])
+    finally:
+        pipeline._STAGED_MIN_PIXELS_OVERRIDE = None
+    e_rgb = (st[0] - whole[0]).abs().max().item()
+    e_cons = (st[1] - whole[1]).abs().max().item()
+    e_pre = max(abs(st[2][k] - whole[2][k]) / max(abs(whole[2][k]), 1e-6)
+                for k in whole[2])
+    check(e_rgb <= STAGED_RGB, f"staged vs whole-image mixed rgb max-abs "
+          f"{e_rgb} > {STAGED_RGB}")
+    check(e_cons <= STAGED_CONS, f"staged vs whole-image mixed conservative "
+          f"max-abs {e_cons} > {STAGED_CONS}")
+    check(e_pre <= STAGED_PRE, f"staged vs whole-image mixed pre statistics "
+          f"rel {e_pre} > {STAGED_PRE}")
+    records["mixed 2048^2 staged"].update(
+        rgb_vs_whole=e_rgb, conservative_vs_whole=e_cons,
+        pre_stats_rel_vs_whole=e_pre)
+    log(f"large[mixed 2048^2] staged vs whole-image rgb max-abs {e_rgb:.3e} "
+        f"(<= {STAGED_RGB}), conservative {e_cons:.3e} (<= {STAGED_CONS}), "
+        f"pre statistics rel {e_pre:.3e} (<= {STAGED_PRE})")
+    del whole, st, z
+    torch.cuda.empty_cache()
+
+    # one request hdr_decode routes by itself: the smallest latent side (a
+    # multiple of 8) whose output reaches STAGED_MIN_PIXELS
+    side = 8
+    while (8 * side) ** 2 < staged.STAGED_MIN_PIXELS:
+        side += 8
+    calls = []
+    real = staged.staged_hdr_decode
+    staged.staged_hdr_decode = lambda *a, **k: calls.append(1) or real(*a,
+                                                                        **k)
+    try:
+        run(f"mixed {8 * side}^2 auto-routed", _latent(side), mixed)
+    finally:
+        staged.staged_hdr_decode = real
+    check(calls == [1], f"a mixed {8 * side}^2 decode was not routed to the "
+          "staged executor")
+    torch.cuda.empty_cache()
+    return main_counts, records
 
 
 def phase_exr(image: torch.Tensor) -> None:
@@ -1006,7 +1300,11 @@ def main() -> int:
     phase_device()
     phase_build()
     entries = phase_kernels()
-    image, counts, per_tier, times, epi_counts = phase_decode()
+    image, counts, per_tier, times, epi_counts, dec = phase_decode()
+    t_lf = time.perf_counter()
+    lf_counts, lf_records = phase_large_frames(dec)
+    del dec
+    log(f"large-frame phase {time.perf_counter() - t_lf:.1f} s")
     phase_exr(image)
     t_up = time.perf_counter()
     up_counts, up_times = phase_upscale(image)
@@ -1038,6 +1336,9 @@ def main() -> int:
     main_path["swin_block_fused_v2"] = \
         swin_counts["Swin2SR"]["swin_block_fused"]
     main_path["ocab_attention"] = swin_counts["HAT"]["ocab_attention"]
+    # the streamed top level's kernels: the low-memory fast 2048^2 request
+    for name in ("upconv_gn_conv3x3", "upsample_conv3x3_stats_only"):
+        main_path[name] = lf_counts[name]
     for entry in entries:
         entry["launches"] = main_path[entry["name"]]
         check(entry["launches"] > 0,
@@ -1047,7 +1348,8 @@ def main() -> int:
                       "decode_ms": {k: v[-1][0] for k, v in times.items()},
                       "upscale_ms": {k: v[-1][0] if k in ("fast", "parity")
                                      else {t: r[0] for t, r in v.items()}
-                                     for k, v in up_times.items()}}))
+                                     for k, v in up_times.items()},
+                      "large_frames": lf_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,16 +10,23 @@ import torch
 
 def tensor_stats(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """min/max/mean/std of ``x`` as 0-d float32 tensors; ``std`` is the
-    unbiased (ddof=1) estimator, zero for a single element."""
+    unbiased (ddof=1) estimator, zero for a single element.
+
+    The squared deviations are formed in place on one float32 copy of x,
+    after the float32 view of x is released: one full-size float32
+    temporary at a time, where ``square(xf - mean)`` holds three (the same
+    values, bit for bit)."""
     xf = x.float()
     n = xf.numel()
-    mean = xf.mean()
+    mean, mn, mx = xf.mean(), xf.min(), xf.max()
+    del xf
     if n > 1:
-        var = torch.sum(torch.square(xf - mean)) / (n - 1)
+        dev = x.to(torch.float32, copy=True).sub_(mean).square_()
+        var = torch.sum(dev) / (n - 1)
+        del dev
     else:
         var = torch.zeros((), dtype=torch.float32, device=x.device)
-    return {"min": xf.min(), "max": xf.max(), "mean": mean,
-            "std": torch.sqrt(var)}
+    return {"min": mn, "max": mx, "mean": mean, "std": torch.sqrt(var)}
 
 
 def hdr_stats(x: torch.Tensor) -> Dict[str, torch.Tensor]:

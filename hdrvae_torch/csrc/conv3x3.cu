@@ -41,6 +41,15 @@
 //    no order, so each block writes per-channel partial sums of its tile
 //    and a second kernel (hdrvae_group_stats) reduces them per (batch,
 //    group) in a fixed order: the sums are deterministic, no atomics.
+//  * K2's stats_only mode (y null) computes and rounds y exactly as with y
+//    written but stores only the partials: the GroupNorm moments of an
+//    upsampled map that is never allocated (the streaming top level,
+//    upconv.cu).  Same tiles, same order: the sums are bit for bit those
+//    of the launch that writes y.
+//  * An identity residual may be y's own storage (the chain writes a
+//    block's output over a residual it no longer needs): each element of
+//    res is read by the thread that then writes that element of y, and by
+//    no other, so res and y carry no __restrict__.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,8 +173,8 @@ template <int MODE>
 __global__ void __launch_bounds__(NTHREADS) conv_tile_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const bf16* __restrict__ res,
-    const bf16* __restrict__ res_w, bf16* __restrict__ y,
+    const float* __restrict__ beta, const bf16* res,
+    const bf16* __restrict__ res_w, bf16* y,
     float* __restrict__ partial, int H, int W, int Cin, int Cout, int Cr,
     int res_mode) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -290,7 +299,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_tile_kernel(
       if (MODE == MODE_CONV && res_mode == RES_ADD)
         v += __bfloat162float(res[o]);
       const bf16 yb = __float2bfloat16(v);
-      y[o] = yb;
+      if (y != nullptr) y[o] = yb;   // K2 stats_only: no y at all
       v = __bfloat162float(yb);   // statistics of y as stored
     }
     stage[p * OLD + co] = v;
@@ -378,7 +387,8 @@ int hdrvae_fused_conv3x3(const void* x, const void* w, const void* bias,
 }
 
 // x [B,H,W,Cin] bf16; pw [2,2,2,2,Cin,Cout] bf16 phase weights (a,b,u,v);
-// bias [Cout] f32; y [B,2H,2W,Cout] bf16; partial [B,4T,2,Cout] f32 or null.
+// bias [Cout] f32; y [B,2H,2W,Cout] bf16, or null (stats_only: partial
+// must then be given); partial [B,4T,2,Cout] f32 or null.
 int hdrvae_upsample_conv3x3(const void* x, const void* pw, const void* bias,
                             void* y, void* partial, int B, int H, int W,
                             int Cin, int Cout, void* stream) {

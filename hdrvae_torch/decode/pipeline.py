@@ -27,6 +27,10 @@ from hdrvae_torch.kernels.epilogue import collapse_and_stats
 from hdrvae_torch.models.decoder import Decoder, decoder_apply
 from hdrvae_torch.models.layers import conv2d
 
+# Test hook: replaces decode.staged.STAGED_MIN_PIXELS as hdr_decode's
+# threshold for the staged route (None: the real constant).
+_STAGED_MIN_PIXELS_OVERRIDE = None
+
 
 class HDRDecodeResult(NamedTuple):
     image: torch.Tensor                   # [B, H, W, 3] float32 linear HDR
@@ -113,8 +117,22 @@ def hdr_decode(decoder: Decoder, latent: torch.Tensor,
     ``latent`` is [B, h, w, z_channels] NHWC (or [B, z, h, w] NCHW) on the
     decoder's device.  Returns an :class:`HDRDecodeResult` whose ``stats``
     are still device tensors.
+
+    Large frames: a batch-1 mixed decode of at least
+    ``decode.staged.STAGED_MIN_PIXELS`` output pixels goes through the
+    staged executor (the same function in bounded memory); a fast decode
+    streams its top level from ``models.fused_tail.LOWMEM_MIN_PIXELS``.
     """
     latent = _to_nhwc(latent, decoder.cfg.z_channels)
+    dcfg = decoder.cfg
+    if (precision.mode == "mixed" and latent.shape[0] == 1
+            and dcfg.num_levels >= 2):
+        from hdrvae_torch.decode import staged as _staged
+        s = dcfg.spatial_scale
+        threshold = (_STAGED_MIN_PIXELS_OVERRIDE
+                     or _staged.STAGED_MIN_PIXELS)
+        if (latent.shape[1] * s) * (latent.shape[2] * s) >= threshold:
+            return _staged.staged_hdr_decode(decoder, latent, cfg, precision)
     out = decoder_apply(decoder, latent, precision=precision)
     image, used_fallback, analysis = hdr_epilogue(out.rgb, out.pre_conv_out,
                                                   cfg)

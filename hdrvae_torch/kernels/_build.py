@@ -45,6 +45,8 @@ SIGNATURES = {
     "hdrvae_upsample_conv3x3": [_P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P],
     "hdrvae_group_stats": [_P, _P, _I, _I, _I, _I, _P],
+    # upconv.cu
+    "hdrvae_upconv_gn_conv3x3": [_P] * 9 + [_I] * 6 + [_P],
     # attention.cu
     "hdrvae_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "hdrvae_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],

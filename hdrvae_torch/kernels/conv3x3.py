@@ -6,15 +6,19 @@ PyTorch versions, as ``hdrvae/kernels/conv3x3.py``.
   y as stored.
 - :func:`upsample_conv3x3` (K2): ``y = conv3x3(nearest2x(x)) + bias`` from
   the low-resolution map through the 2x2 phase decomposition, optionally
-  with the same statistics.
+  with the same statistics, or (``stats_only``) the statistics alone.
+- :func:`upconv_gn_conv3x3` (K5): ``conv3x3(silu(gn_affine(
+  conv3x3(nearest2x(x)) + up_bias))) + bias`` and its statistics, with the
+  upsampled map held only on chip: the streaming top level of the decoder.
 
 Layouts are the JAX package's: x [B, H, W, C] NHWC, conv kernels HWIO
 [3, 3, Cin, Cout], ``res_kernel`` [Cr, Cout].  Statistics are per sample:
 (sum [B, G], sumsq [B, G]).
 
 Each wrapper runs its plain version only when ``x`` lies on the CPU.  On a
-CUDA tensor it launches the kernel (``csrc/conv3x3.cu``) or raises: the
-kernels take bf16 activations and weights (the fast tier) and nothing else.
+CUDA tensor it launches the kernel (``csrc/conv3x3.cu``, ``csrc/upconv.cu``)
+or raises: the kernels take bf16 activations and weights (the fast tier)
+and nothing else.
 """
 
 from __future__ import annotations
@@ -79,11 +83,12 @@ def fused_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
                             residual: Optional[torch.Tensor] = None,
                             res_kernel: Optional[torch.Tensor] = None,
                             emit_stats: bool = False, num_groups: int = 32,
-                            out_dtype: Optional[torch.dtype] = None):
+                            out_dtype: Optional[torch.dtype] = None,
+                            out: Optional[torch.Tensor] = None):
     """Plain version of :func:`fused_conv3x3`, rounding where the kernel
     does: the prologue output to x's dtype before the taps, y to
     ``out_dtype`` before its statistics.  The SAME zeros are zeros of the
-    normalized activation."""
+    normalized activation.  ``out`` receives y when given."""
     out_dtype = out_dtype or x.dtype
     b = x.shape[0]
     z = x.float()
@@ -99,6 +104,8 @@ def fused_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
                 r = r @ res_kernel.float()
         y = y + r
     y = y.to(out_dtype)
+    if out is not None:
+        y = out.copy_(y)
     if emit_stats:
         return y, _group_sums(y, num_groups)
     return y
@@ -107,12 +114,42 @@ def fused_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
 def upsample_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
                                bias: torch.Tensor, *,
                                emit_stats: bool = False, num_groups: int = 32,
-                               out_dtype: Optional[torch.dtype] = None):
+                               out_dtype: Optional[torch.dtype] = None,
+                               stats_only: bool = False):
     """Plain version of :func:`upsample_conv3x3`: the nearest 2x upsample
-    materialized, then the 3x3 conv in float32 from the same weights."""
+    materialized, then the 3x3 conv in float32 from the same weights.
+    ``stats_only`` returns only the (sum, sumsq) of y as stored."""
     out_dtype = out_dtype or x.dtype
     up = x.float().repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     y = (_conv3x3_f32(up, kernel) + bias.float()).to(out_dtype)
+    if stats_only:
+        return _group_sums(y, num_groups)
+    if emit_stats:
+        return y, _group_sums(y, num_groups)
+    return y
+
+
+def upconv_gn_conv3x3_reference(x: torch.Tensor, up_kernel: torch.Tensor,
+                                up_bias: torch.Tensor, gamma: torch.Tensor,
+                                beta: torch.Tensor, kernel: torch.Tensor,
+                                bias: torch.Tensor, *,
+                                emit_stats: bool = True, num_groups: int = 32,
+                                out_dtype: Optional[torch.dtype] = None,
+                                store_dtype: Optional[torch.dtype] = None):
+    """Plain version of :func:`upconv_gn_conv3x3`, rounding where the
+    kernel does: ``z = store_dtype(upconv(x) + up_bias)``; the band
+    ``x.dtype(silu(z * gamma + beta))``, zero outside the image (the SAME
+    padding of the band); ``y = out_dtype(conv3x3(band) + bias)``, with the
+    statistics of y as stored."""
+    out_dtype = out_dtype or x.dtype
+    store_dtype = store_dtype or x.dtype
+    b = x.shape[0]
+    z = upsample_conv3x3_reference(x, up_kernel, up_bias,
+                                   out_dtype=store_dtype).float()
+    a = (z * _per_sample(gamma, b)[:, None, None, :]
+         + _per_sample(beta, b)[:, None, None, :])
+    band = (a * torch.sigmoid(a)).to(x.dtype).float()
+    y = (_conv3x3_f32(band, kernel) + bias.float()).to(out_dtype)
     if emit_stats:
         return y, _group_sums(y, num_groups)
     return y
@@ -152,7 +189,8 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                   residual: Optional[torch.Tensor] = None,
                   res_kernel: Optional[torch.Tensor] = None,
                   emit_stats: bool = False, num_groups: int = 32,
-                  out_dtype: Optional[torch.dtype] = None):
+                  out_dtype: Optional[torch.dtype] = None,
+                  out: Optional[torch.Tensor] = None):
     """One fused ResNet conv step (K1).
 
     x [B, H, W, Cin]; kernel [3, 3, Cin, Cout]; bias [Cout] float32;
@@ -162,6 +200,11 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     ``bias``).  Returns y [B, H, W, Cout], and with ``emit_stats`` also the
     per-group (sum, sumsq) of y as stored, each [B, G] float32.
 
+    ``out`` is y's storage when given, and may be an identity-add
+    ``residual`` itself: each output element reads only its own residual
+    element, so the block's output can overwrite a residual that is not
+    used again (one full-resolution map less).
+
     Launches ``csrc/conv3x3.cu`` for a CUDA ``x`` (bf16 x, kernel,
     residual and output; Cin and Cr multiples of 16, Cout of 64); runs
     :func:`fused_conv3x3_reference` for a CPU ``x``.
@@ -170,7 +213,7 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         return fused_conv3x3_reference(
             x, kernel, bias, gamma=gamma, beta=beta, residual=residual,
             res_kernel=res_kernel, emit_stats=emit_stats,
-            num_groups=num_groups, out_dtype=out_dtype)
+            num_groups=num_groups, out_dtype=out_dtype, out=out)
     _require(x.is_cuda, f"fused_conv3x3: unsupported device {x.device}")
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
@@ -202,11 +245,17 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
             res_mode = 2
     if emit_stats:
         _require(cout % num_groups == 0, "Cout % num_groups must be 0")
-    for t in (kernel, bias, gamma, beta, residual, res_kernel):
+    for t in (kernel, bias, gamma, beta, residual, res_kernel, out):
         _require(t is None or t.device == x.device,
                  "fused_conv3x3: every operand must be on x's device")
+    if out is not None:
+        _check_bf16("out", out, (b, h, w, cout))
+        _require(out.data_ptr() != x.data_ptr()
+                 and (res_mode == 1 or out is not residual),
+                 "fused_conv3x3: out may alias an 'add' residual only")
 
-    y = torch.empty(b, h, w, cout, device=x.device, dtype=torch.bfloat16)
+    y = (out if out is not None else
+         torch.empty(b, h, w, cout, device=x.device, dtype=torch.bfloat16))
     tiles = -(-h // _TH) * -(-w // _TW)
     partial = (torch.empty(b, tiles, 2, cout, device=x.device,
                            dtype=torch.float32) if emit_stats else None)
@@ -231,20 +280,29 @@ fused_conv3x3.launches = 0
 def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor, *, emit_stats: bool = False,
                      num_groups: int = 32,
-                     out_dtype: Optional[torch.dtype] = None):
+                     out_dtype: Optional[torch.dtype] = None,
+                     stats_only: bool = False):
     """``conv3x3(nearest2x(x)) + bias`` as one kernel (K2): x [B, H, W, Cin]
     -> [B, 2H, 2W, Cout]; ``kernel`` is the plain [3, 3, Cin, Cout] conv
     kernel, collapsed here into phase kernels.  With ``emit_stats`` also
     the per-group (sum, sumsq) of the output as stored, each [B, G].
 
+    ``stats_only`` (with ``emit_stats``) returns only that (sum, sumsq):
+    y is computed and rounded tile by tile but never allocated, the
+    GroupNorm moments of the streaming top level's absent upsampled map.
+    Those launches count in ``upsample_conv3x3.stats_only_launches``, the
+    others in ``upsample_conv3x3.launches``.
+
     Launches ``csrc/conv3x3.cu`` for a CUDA ``x`` (bf16 in and out; Cin a
     multiple of 16, Cout of 64); runs :func:`upsample_conv3x3_reference`
     for a CPU ``x``.
     """
+    _require(not stats_only or emit_stats,
+             "upsample_conv3x3: stats_only needs emit_stats")
     if x.device.type == "cpu":
         return upsample_conv3x3_reference(
             x, kernel, bias, emit_stats=emit_stats, num_groups=num_groups,
-            out_dtype=out_dtype)
+            out_dtype=out_dtype, stats_only=stats_only)
     _require(x.is_cuda, f"upsample_conv3x3: unsupported device {x.device}")
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
@@ -264,15 +322,20 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
         _require(cout % num_groups == 0, "Cout % num_groups must be 0")
     pk = phase_kernels(kernel).contiguous()
 
-    y = torch.empty(b, 2 * h, 2 * w, cout, device=x.device,
-                    dtype=torch.bfloat16)
+    y = (None if stats_only else
+         torch.empty(b, 2 * h, 2 * w, cout, device=x.device,
+                     dtype=torch.bfloat16))
     tiles = 4 * -(-h // _TH) * -(-w // _TW)
     partial = (torch.empty(b, tiles, 2, cout, device=x.device,
                            dtype=torch.float32) if emit_stats else None)
     _build.check(_build.library().hdrvae_upsample_conv3x3(
-        x.data_ptr(), pk.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        x.data_ptr(), pk.data_ptr(), bias.data_ptr(),
+        None if y is None else y.data_ptr(),
         None if partial is None else partial.data_ptr(), b, h, w, cin, cout,
         _stream(x)), "hdrvae_upsample_conv3x3")
+    if stats_only:
+        upsample_conv3x3.stats_only_launches += 1
+        return _group_stats(partial, num_groups)
     upsample_conv3x3.launches += 1
     if emit_stats:
         return y, _group_stats(partial, num_groups)
@@ -280,3 +343,82 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
 
 
 upsample_conv3x3.launches = 0
+upsample_conv3x3.stats_only_launches = 0
+
+
+def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,
+                      up_bias: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, kernel: torch.Tensor,
+                      bias: torch.Tensor, *, emit_stats: bool = True,
+                      num_groups: int = 32,
+                      out_dtype: Optional[torch.dtype] = None,
+                      store_dtype: Optional[torch.dtype] = None):
+    """The streaming upsample junction as one kernel (K5): x [B, H, W, Cin]
+    -> y [B, 2H, 2W, Cout] = conv3x3(silu(z * gamma + beta)) + bias with z
+    = conv3x3(nearest2x(x)) + up_bias, the [B, 2H, 2W, Cm] map z never
+    leaving the chip.  ``up_kernel`` [3, 3, Cin, Cm] and ``up_bias`` [Cm]
+    are the upsample conv's; ``gamma``/``beta`` ([Cm] or [B, Cm] float32)
+    the folded GroupNorm affine of z (its moments from
+    ``upsample_conv3x3(stats_only=True)``); ``kernel`` [3, 3, Cm, Cout] and
+    ``bias`` [Cout] the next conv's.  z is rounded to ``store_dtype`` (the
+    chain's storage, as the unfused pair would store it) and the band to
+    x's dtype.  With ``emit_stats`` also the per-group (sum, sumsq) of y as
+    stored, each [B, G].
+
+    Launches ``csrc/upconv.cu`` for a CUDA ``x`` (bf16 throughout; Cin a
+    multiple of 16 up to 512, Cm 128 or 256, Cout 64 or 128); runs
+    :func:`upconv_gn_conv3x3_reference` for a CPU ``x``.
+    """
+    if x.device.type == "cpu":
+        return upconv_gn_conv3x3_reference(
+            x, up_kernel, up_bias, gamma, beta, kernel, bias,
+            emit_stats=emit_stats, num_groups=num_groups,
+            out_dtype=out_dtype, store_dtype=store_dtype)
+    _require(x.is_cuda, f"upconv_gn_conv3x3: unsupported device {x.device}")
+    _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    b, h, w, cin = x.shape
+    cm, cout = up_kernel.shape[-1], kernel.shape[-1]
+    _require(cin % _BK == 0 and cin <= 512,
+             f"upconv_gn_conv3x3: Cin must be a multiple of {_BK} up to 512, "
+             f"got {cin}")
+    _require(cm in (128, 256) and cout in (64, 128),
+             f"upconv_gn_conv3x3: Cm must be 128 or 256 and Cout 64 or 128, "
+             f"got {cm}, {cout}")
+    _require((out_dtype or x.dtype) == torch.bfloat16
+             and (store_dtype or x.dtype) == torch.bfloat16,
+             "upconv_gn_conv3x3: the CUDA kernel stores bf16")
+    _check_bf16("x", x, (b, h, w, cin))
+    _check_bf16("up_kernel", up_kernel, (3, 3, cin, cm))
+    _check_bf16("kernel", kernel, (3, 3, cm, cout))
+    up_bias = up_bias.float().contiguous()
+    bias = bias.float().contiguous()
+    gamma = _per_sample(gamma, b).contiguous()
+    beta = _per_sample(beta, b).contiguous()
+    _require(up_bias.shape == (cm,) and bias.shape == (cout,),
+             f"up_bias must be [{cm}] and bias [{cout}]")
+    _require(gamma.shape == (b, cm) and beta.shape == (b, cm),
+             f"gamma/beta must be [{cm}] or [{b}, {cm}]")
+    if emit_stats:
+        _require(cout % num_groups == 0, "Cout % num_groups must be 0")
+    for t in (up_kernel, up_bias, gamma, beta, kernel, bias):
+        _require(t.device == x.device,
+                 "upconv_gn_conv3x3: every operand must be on x's device")
+    pk = phase_kernels(up_kernel).contiguous()
+
+    y = torch.empty(b, 2 * h, 2 * w, cout, device=x.device,
+                    dtype=torch.bfloat16)
+    tiles = -(-2 * h // _TH) * -(-2 * w // _TW)
+    partial = (torch.empty(b, tiles, 2, cout, device=x.device,
+                           dtype=torch.float32) if emit_stats else None)
+    _build.check(_build.library().hdrvae_upconv_gn_conv3x3(
+        x.data_ptr(), pk.data_ptr(), up_bias.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(), b, h, w, cin, cm,
+        cout, _stream(x)), "hdrvae_upconv_gn_conv3x3")
+    upconv_gn_conv3x3.launches += 1
+    if emit_stats:
+        return y, _group_stats(partial, num_groups)
+    return y
+
+
+upconv_gn_conv3x3.launches = 0

@@ -114,6 +114,9 @@ class Decoder(nn.Module):
 
 def resnet_block(x: torch.Tensor, blk: ResnetBlock, *, num_groups: int,
                  precision: Precision) -> torch.Tensor:
+    """One ResNet block on the layers' own ops, whole image: x [B, H, W,
+    Cin] -> [B, H, W, Cout] (the staged decode runs the head's last level
+    through it)."""
     h = group_norm_silu(x, blk.norm1, num_groups=num_groups,
                         precision=precision)
     h = conv2d(h, blk.conv1, precision=precision)
@@ -143,11 +146,28 @@ def attn_block(x: torch.Tensor, attn: AttnBlock, *, num_groups: int,
 # ---------------------------------------------------------------------------
 
 
+def _up_level(dec: Decoder, x: torch.Tensor, level: int,
+              precision: Precision) -> torch.Tensor:
+    """Up level ``level``: its ResNet blocks, then (above level 0) the
+    nearest 2x upsample and its conv."""
+    up = dec.up[level]
+    for blk in up.block:
+        x = resnet_block(x, blk, num_groups=dec.cfg.num_groups,
+                         precision=precision)
+    if level != 0:
+        x = conv2d(nearest_upsample_2x(x), up.upsample.conv,
+                   precision=precision)
+    return x
+
+
 @torch.no_grad()
 def decoder_head(dec: Decoder, z: torch.Tensor, *,
-                 precision: Precision = Precision()) -> torch.Tensor:
+                 precision: Precision = Precision(),
+                 tail_levels: int = 0) -> torch.Tensor:
     """Latent prescale, conv_in, the mid (with the global attention) and
-    every up level, on the layers' own ops: the pre-norm_out map."""
+    the up levels above ``tail_levels``, on the layers' own ops.  With the
+    default 0 that is every level: the pre-norm_out map.  Output
+    resolution: latent x 2^(num_levels - max(tail_levels, 1))."""
     cfg = dec.cfg
     x = conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
                precision=precision)
@@ -158,26 +178,24 @@ def decoder_head(dec: Decoder, z: torch.Tensor, *,
                        precision=precision)
     x = resnet_block(x, dec.mid.block_2, num_groups=cfg.num_groups,
                      precision=precision)
-    for level in reversed(range(cfg.num_levels)):
-        up = dec.up[level]
-        for blk in up.block:
-            x = resnet_block(x, blk, num_groups=cfg.num_groups,
-                             precision=precision)
-        if level != 0:
-            x = conv2d(nearest_upsample_2x(x), up.upsample.conv,
-                       precision=precision)
+    for level in reversed(range(tail_levels, cfg.num_levels)):
+        x = _up_level(dec, x, level, precision)
     return x
 
 
 @torch.no_grad()
 def decoder_tail(dec: Decoder, x: torch.Tensor, *,
                  precision: Precision = Precision(),
+                 tail_levels: int = 0,
                  apply_conv_out: bool = True,
                  moments: Optional[Moments] = None) -> DecodeOutput:
-    """norm_out + SiLU (+ conv_out and the output mapping) on a
-    :func:`decoder_head` output.  ``moments`` are x's GroupNorm moments
-    when the producer already reduced them (the fused chain)."""
+    """Up levels ``tail_levels - 1 .. 0`` (none by default) and norm_out +
+    SiLU (+ conv_out and the output mapping) on a :func:`decoder_head`
+    output of the same ``tail_levels``.  ``moments`` are norm_out's input
+    moments when the producer already reduced them (the fused chain)."""
     cfg = dec.cfg
+    for level in reversed(range(tail_levels)):
+        x = _up_level(dec, x, level, precision)
     x = group_norm_silu(x, dec.norm_out, num_groups=cfg.num_groups,
                         precision=precision, moments=moments)
     # Kept in the storage dtype (bf16 in the fast tier): the epilogue's

@@ -10,6 +10,11 @@ attention is the bf16 flash kernel (K3).  Between kernels only [B, G]
 moment arithmetic remains; the chain entry and the attention output are
 reduced once by a plain one-pass reduction (``layers.group_moments``).
 
+Above ``LOWMEM_MIN_PIXELS`` output pixels the top level streams its
+upsampled map (the largest map of the decode, [B, H, W, 256]) instead of
+storing it: K2's stats_only pass, K5 ``upconv_gn_conv3x3`` for level 0's
+first conv, and a folded shortcut (:func:`top_level_apply`).
+
 Numerics are the fast tier's: float32 statistics through the one-pass
 E[x^2] - mean^2 over the stored activations, float32 accumulation, storage
 in ``precision.storage_dtype``.  Activations are [B, H, W, C] and moments
@@ -19,17 +24,29 @@ plain versions, so the chain is testable without a card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
-from hdrvae_torch.core.config import DecoderConfig, Precision
+from hdrvae_torch.core.config import (DecoderConfig, Precision,
+                                      fp32_contractions)
 from hdrvae_torch.kernels.attention import spatial_attention
 from hdrvae_torch.kernels.conv3x3 import (Sums, fused_conv3x3,
+                                          upconv_gn_conv3x3,
                                           upsample_conv3x3)
 from hdrvae_torch.models.decoder import AttnBlock, Decoder, ResnetBlock
 from hdrvae_torch.models.layers import (Moments, conv2d, gn_affine,
                                         group_moments)
+
+# Output pixels from which upstack_apply streams the top level: where the
+# whole-image fast decode's peak, linear in pixels, passes 90 % of the
+# card's memory.  On an NVIDIA H100 80GB HBM3 (700 W power limit; 79.18
+# GiB total) the whole-image fast 4096^2 decode peaked at 20.232 GiB,
+# 1294.8 B a pixel (tools/profile_decode_torch.py --lowmem), and 0.9 *
+# 79.18 GiB / 1294.8 B = 59.1M pixels (~7690^2).  2048^2 (4.2M) stays
+# whole-image.
+LOWMEM_MIN_PIXELS = 59_000_000
 
 
 def _entry_moments(x: torch.Tensor, num_groups: int) -> Moments:
@@ -48,59 +65,166 @@ def _hwio(conv, dtype: torch.dtype) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
 
 
+def _folded_shortcut(x: torch.Tensor, up_kernel: torch.Tensor,
+                     up_bias: torch.Tensor, nin: nn.Conv2d,
+                     precision: Precision) -> torch.Tensor:
+    """``nin(conv_up(nearest2x(x)) + up_bias)`` from the low-resolution x
+    as one upsample conv: both maps are linear, so the 1x1 projection Wp
+    folds into the upsample's weights, ``w_fold = up_kernel @ Wp`` and
+    ``b_fold = up_bias @ Wp + b_p``, summed in float32 and then cast."""
+    wp = nin.weight[:, :, 0, 0].t().float()          # [Cm, Cout]
+    with fp32_contractions(Precision.parity()):
+        w_fold = torch.einsum("ijab,bc->ijac", up_kernel.float(), wp)
+        b_fold = up_bias.float() @ wp + nin.bias.float()
+    return upsample_conv3x3(
+        x, w_fold.to(precision.compute_dtype).contiguous(), b_fold,
+        out_dtype=precision.storage_dtype)
+
+
 def _resnet_block(x: torch.Tensor, blk: ResnetBlock, moments: Moments,
-                  cfg: DecoderConfig, precision: Precision
+                  cfg: DecoderConfig, precision: Precision, *,
+                  owned: bool = False, stream_upsample=None
                   ) -> Tuple[torch.Tensor, Moments]:
     """One ResNet block as two fused convs; returns the block output and
-    its GroupNorm moments."""
+    its GroupNorm moments.
+
+    ``owned``: x is the chain's own map, so an identity residual's storage
+    may take the block's output (K1 writes each output element over the
+    residual element it has just read).
+
+    ``stream_upsample`` = (up_kernel [3, 3, Cm, Cm] float32 HWIO, up_bias):
+    x is the LOW-resolution map feeding the level's upsample and
+    ``moments`` are the absent upsampled map's (K2's stats_only pass).
+    conv1 runs as K5 (the upsampled map lives only as per-tile bands on
+    chip), and the shortcut ``nin_shortcut(conv_up(nearest2x(x)))`` is one
+    folded upsample conv of x (K2), whose only reader is conv2's residual
+    add, so conv2 writes its output there."""
     g = cfg.num_groups
     cdt, sdt = precision.compute_dtype, precision.storage_dtype
     b, h, w, _ = x.shape
     g1, b1 = gn_affine(moments, blk.norm1)
-    h1, s1 = fused_conv3x3(
-        x, _hwio(blk.conv1, cdt), blk.conv1.bias.float(), gamma=g1,
-        beta=b1, emit_stats=True, num_groups=g, out_dtype=sdt)
+    if stream_upsample is not None:
+        up_kernel, up_bias = stream_upsample
+        h, w = 2 * h, 2 * w
+        h1, s1 = upconv_gn_conv3x3(
+            x, up_kernel.to(cdt).contiguous(), up_bias, g1, b1,
+            _hwio(blk.conv1, cdt), blk.conv1.bias.float(), emit_stats=True,
+            num_groups=g, out_dtype=sdt, store_dtype=sdt)
+    else:
+        h1, s1 = fused_conv3x3(
+            x, _hwio(blk.conv1, cdt), blk.conv1.bias.float(), gamma=g1,
+            beta=b1, emit_stats=True, num_groups=g, out_dtype=sdt)
     c1 = h1.shape[-1]
     g2, b2 = gn_affine(_finalize(s1, h * w * (c1 // g)), blk.norm2)
 
     bias2 = blk.conv2.bias.float()
     res_kernel = None
-    if hasattr(blk, "nin_shortcut"):
+    residual = x
+    if stream_upsample is not None:
+        residual = _folded_shortcut(x, up_kernel, up_bias, blk.nin_shortcut,
+                                    precision)
+        owned = True
+    elif hasattr(blk, "nin_shortcut"):
         # the 1x1 projection runs in the second conv's epilogue; its bias
         # folds into the conv bias
         res_kernel = (blk.nin_shortcut.weight[:, :, 0, 0].t()
                       .to(cdt).contiguous())
         bias2 = bias2 + blk.nin_shortcut.bias.float()
+    donate = owned and res_kernel is None and residual.dtype == sdt
     y, s2 = fused_conv3x3(
-        h1, _hwio(blk.conv2, cdt), bias2, gamma=g2, beta=b2, residual=x,
-        res_kernel=res_kernel, emit_stats=True, num_groups=g,
-        out_dtype=sdt)
+        h1, _hwio(blk.conv2, cdt), bias2, gamma=g2, beta=b2,
+        residual=residual, res_kernel=res_kernel, emit_stats=True,
+        num_groups=g, out_dtype=sdt, out=residual if donate else None)
     c2 = y.shape[-1]
     return y, _finalize(s2, h * w * (c2 // g))
 
 
+def _upsample(x: torch.Tensor, conv: nn.Conv2d, cfg: DecoderConfig,
+              precision: Precision) -> Tuple[torch.Tensor, Moments]:
+    """Nearest 2x upsample fused into its conv (K2); statistics at the
+    doubled resolution."""
+    x, sums = upsample_conv3x3(
+        x, _hwio(conv, precision.compute_dtype), conv.bias.float(),
+        emit_stats=True, num_groups=cfg.num_groups,
+        out_dtype=precision.storage_dtype)
+    _, h, w, c = x.shape
+    return x, _finalize(sums, h * w * (c // cfg.num_groups))
+
+
+def upper_levels_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
+                       precision: Precision = Precision.fast()
+                       ) -> Tuple[torch.Tensor, Moments]:
+    """Up levels num_levels - 1 .. 1, highest first, and the upsamples
+    between them, stopping before level 1's upsample (the top level's
+    junction, :func:`top_level_apply`).  x is the mid output; the caller's
+    x is never written."""
+    cfg = dec.cfg
+    owned = False
+    for level in reversed(range(1, cfg.num_levels)):
+        up = dec.up[level]
+        for blk in up.block:
+            x, moments = _resnet_block(x, blk, moments, cfg, precision,
+                                       owned=owned)
+            owned = True
+        if level > 1:
+            x, moments = _upsample(x, up.upsample.conv, cfg, precision)
+    return x, moments
+
+
+def top_level_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
+                    precision: Precision = Precision.fast(),
+                    lowmem: bool = False, owned: bool = False
+                    ) -> Tuple[torch.Tensor, Moments]:
+    """Level 1's upsample and level 0's blocks: the full-resolution part
+    of the chain, on the output of :func:`upper_levels_apply`.
+
+    ``lowmem`` streams the upsampled map instead of storing it, when
+    level 0's block 0 has a nin_shortcut (as in Flux.1: 256 -> 128): K2's
+    stats_only pass gives its GroupNorm moments, K5 runs block 0's conv1
+    from the low-resolution map, and the shortcut is one folded upsample
+    conv (``_resnet_block``).  ``owned``: x is the chain's own map."""
+    cfg = dec.cfg
+    stream = None
+    if cfg.num_levels > 1:
+        conv = dec.up[1].upsample.conv
+        if lowmem and hasattr(dec.up[0].block[0], "nin_shortcut"):
+            _, h, w, _ = x.shape
+            sums = upsample_conv3x3(
+                x, _hwio(conv, precision.compute_dtype), conv.bias.float(),
+                emit_stats=True, num_groups=cfg.num_groups,
+                out_dtype=precision.storage_dtype, stats_only=True)
+            moments = _finalize(
+                sums, 4 * h * w * (conv.out_channels // cfg.num_groups))
+            stream = (conv.weight.permute(2, 3, 1, 0), conv.bias)
+        else:
+            x, moments = _upsample(x, conv, cfg, precision)
+            owned = True
+    for j, blk in enumerate(dec.up[0].block):
+        x, moments = _resnet_block(
+            x, blk, moments, cfg, precision, owned=owned,
+            stream_upsample=stream if j == 0 else None)
+        owned = True
+    return x, moments
+
+
 def upstack_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
-                  precision: Precision = Precision.fast()
+                  precision: Precision = Precision.fast(),
+                  lowmem: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, Moments]:
     """Every up level, highest first, on x [B, H, W, block_in] (the mid
     output) with its GroupNorm ``moments``.  Returns the pre-norm_out map
-    [B, 8H, 8W, ch] and its moments, for ``norm_out``."""
+    [B, 8H, 8W, ch] and its moments, for ``norm_out``.
+
+    ``lowmem``: stream the top level's upsampled map
+    (:func:`top_level_apply`); None chooses it when the output has at
+    least ``LOWMEM_MIN_PIXELS`` pixels."""
     cfg = dec.cfg
-    cdt, sdt = precision.compute_dtype, precision.storage_dtype
-    for level in reversed(range(cfg.num_levels)):
-        up = dec.up[level]
-        for blk in up.block:
-            x, moments = _resnet_block(x, blk, moments, cfg, precision)
-        if level != 0:
-            # nearest 2x upsample fused into the conv; statistics at the
-            # doubled resolution
-            conv = up.upsample.conv
-            x, sums = upsample_conv3x3(
-                x, _hwio(conv, cdt), conv.bias.float(), emit_stats=True,
-                num_groups=cfg.num_groups, out_dtype=sdt)
-            _, h, w, c = x.shape
-            moments = _finalize(sums, h * w * (c // cfg.num_groups))
-    return x, moments
+    if lowmem is None:
+        f = 2 ** (cfg.num_levels - 1)
+        lowmem = (x.shape[1] * f) * (x.shape[2] * f) >= LOWMEM_MIN_PIXELS
+    x, moments = upper_levels_apply(dec, x, moments, precision=precision)
+    return top_level_apply(dec, x, moments, precision=precision,
+                           lowmem=lowmem, owned=cfg.num_levels > 1)
 
 
 def _attn_block(x: torch.Tensor, attn: AttnBlock, moments: Moments,
@@ -140,7 +264,8 @@ def midstack_apply(dec: Decoder, x: torch.Tensor, *,
     if cfg.attn_mid:
         x = _attn_block(x, dec.mid.attn_1, moments, cfg, precision)
         moments = _entry_moments(x, cfg.num_groups)
-    return _resnet_block(x, dec.mid.block_2, moments, cfg, precision)
+    return _resnet_block(x, dec.mid.block_2, moments, cfg, precision,
+                         owned=True)
 
 
 @torch.no_grad()
@@ -149,7 +274,8 @@ def forward(dec: Decoder, z: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Moments]:
     """Latent [B, h, w, zc] -> (pre-norm_out map [B, H, W, ch], its
     GroupNorm moments): the latent prescale and conv_in on the layers'
-    conv, then the mid and every up level as the fused chain."""
+    conv, then the mid and every up level as the fused chain (the top
+    level streamed from ``LOWMEM_MIN_PIXELS`` output pixels)."""
     cfg = dec.cfg
     x = conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
                precision=precision)

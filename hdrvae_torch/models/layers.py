@@ -79,16 +79,20 @@ def gn_affine(moments: Moments, norm: nn.GroupNorm
 def _normalize(x: torch.Tensor, norm: nn.GroupNorm, num_groups: int,
                precision: Precision,
                moments: Optional[Moments]) -> torch.Tensor:
-    """x * gamma + beta in float32.  The moments are ``moments`` when the
-    caller already has them (the fused chain hands its output's moments to
-    ``norm_out`` this way), else computed here: two-pass in parity,
-    one-pass otherwise."""
-    xf = x.float()
+    """x * gamma + beta in float32, as a new tensor.  The moments are
+    ``moments`` when the caller already has them (the fused chain hands its
+    output's moments to ``norm_out`` this way), else computed here:
+    two-pass in parity, one-pass otherwise.
+
+    The affine runs in place on one float32 copy of x, so a full-resolution
+    map costs one float32 temporary here, not three (the same products and
+    sums, bit for bit)."""
+    xf = x.to(torch.float32, copy=True)
     if moments is None:
         moments = group_moments(xf, num_groups,
                                 two_pass=precision.mode == "parity")
     gamma, beta = gn_affine(moments, norm)
-    return xf * gamma[:, None, None, :] + beta[:, None, None, :]
+    return xf.mul_(gamma[:, None, None, :]).add_(beta[:, None, None, :])
 
 
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
@@ -101,9 +105,10 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
 def group_norm_silu(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
                     precision: Precision = Precision(),
                     moments: Optional[Moments] = None) -> torch.Tensor:
-    """GroupNorm followed by SiLU, rounded to the storage dtype."""
+    """GroupNorm followed by SiLU, rounded to the storage dtype; y * sigmoid
+    (y) in place, so only the sigmoid is live beside y."""
     y = _normalize(x, norm, num_groups, precision, moments)
-    return (y * torch.sigmoid(y)).to(precision.storage_dtype)
+    return y.mul_(torch.sigmoid(y)).to(precision.storage_dtype)
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:

@@ -100,6 +100,62 @@ def test_upsample_conv3x3_ragged(dev):
     torch.testing.assert_close(sq, rsq, rtol=1e-2, atol=0)
 
 
+def test_upsample_conv3x3_stats_only(dev):
+    """K2's stats_only launch: its own counter, and the sums of the launch
+    that writes y, bit for bit."""
+    b, h, w, cin, cout = 2, 5, 20, 32, 64
+    x = _rand(dev, (b, h, w, cin), 0.5)
+    kern = _rand(dev, (3, 3, cin, cout), (9 * cin) ** -0.5, seed=1)
+    bias = _rand(dev, (cout,), 0.1, torch.float32, seed=2)
+    _, (s, sq) = conv3x3.upsample_conv3x3(x, kern, bias, emit_stats=True,
+                                          num_groups=16)
+    before = (conv3x3.upsample_conv3x3.launches,
+              conv3x3.upsample_conv3x3.stats_only_launches)
+    so, sqo = conv3x3.upsample_conv3x3(x, kern, bias, emit_stats=True,
+                                       num_groups=16, stats_only=True)
+    assert (conv3x3.upsample_conv3x3.launches,
+            conv3x3.upsample_conv3x3.stats_only_launches) == (
+                before[0], before[1] + 1)
+    assert torch.equal(so, s) and torch.equal(sqo, sq)
+
+
+@pytest.mark.parametrize("cm,cout", [(256, 128), (256, 64), (128, 128),
+                                     (128, 64)])
+def test_upconv_gn_conv3x3_ragged(dev, cm, cout):
+    """K5 at batch 2 with per-sample GroupNorm affines and an 18 x 40
+    output (rows and columns end in part tiles), for every (Cm, Cout) it
+    takes: y within four bf16 ulps of the largest output (z and the band
+    are rounded to bf16 from phase weights rounded after summing, as K2's
+    output is), sumsq within 1e-2."""
+    b, h, w, cin = 2, 9, 20, 48
+    args = (_rand(dev, (b, h, w, cin), 0.5),
+            _rand(dev, (3, 3, cin, cm), (9 * cin) ** -0.5, seed=1),
+            _rand(dev, (cm,), 0.1, torch.float32, seed=2),
+            _rand(dev, (b, cm), 0.3, torch.float32, seed=3) + 1.0,
+            _rand(dev, (b, cm), 0.3, torch.float32, seed=4),
+            _rand(dev, (3, 3, cm, cout), (9 * cm) ** -0.5, seed=5),
+            _rand(dev, (cout,), 0.1, torch.float32, seed=6))
+    before = conv3x3.upconv_gn_conv3x3.launches
+    y, (s, sq) = conv3x3.upconv_gn_conv3x3(*args, num_groups=32)
+    assert conv3x3.upconv_gn_conv3x3.launches == before + 1
+    ry, (rs, rsq) = conv3x3.upconv_gn_conv3x3_reference(*args,
+                                                        num_groups=32)
+    torch.cuda.synchronize()
+    assert y.shape == (b, 2 * h, 2 * w, cout) and y.dtype == torch.bfloat16
+    assert (y.float() - ry.float()).abs().max().item() <= 4 * _ulp_bound(ry)
+    torch.testing.assert_close(sq, rsq, rtol=1e-2, atol=0)
+
+
+def test_upconv_gn_conv3x3_refuses(dev):
+    x = torch.zeros(1, 4, 8, 32, device=dev, dtype=torch.bfloat16)
+    upk = torch.zeros(3, 3, 32, 96, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(3, 3, 96, 64, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(96, device=dev)
+    with pytest.raises(ValueError, match="Cm must be"):
+        conv3x3.upconv_gn_conv3x3(x, upk, v, v, v, k,
+                                  torch.zeros(64, device=dev))
+
+
 @pytest.mark.parametrize("hw,c", [((10, 13), 64), ((7, 9), 512)])
 def test_flash_attention_ragged(dev, hw, c):
     q, k, v = (_rand(dev, (2, *hw, c), 1.0, torch.float32, seed=s)
@@ -150,6 +206,36 @@ def test_small_decoder_on_card(dev):
                                atol=1e-4)
     torch.testing.assert_close(parity.image.cpu(), ref.image, rtol=0,
                                atol=1e-4)
+
+
+def test_small_decoder_large_frame_routes(dev, monkeypatch):
+    """The same narrow decoder through the large-frame routes, their
+    thresholds lowered: the fast decode with the streamed top level (one
+    K5 and one K2 stats_only launch) against the whole-image one, <= 5e-2
+    rgb; the staged mixed decode against the whole-image mixed one,
+    <= 1e-4 rgb and conservative image."""
+    from hdrvae_torch.decode import pipeline
+    from hdrvae_torch.models import fused_tail
+    cfg = DecoderConfig(z_channels=4, ch=64, ch_mult=(1, 2),
+                        num_res_blocks=1)
+    dec = init_decoder(cfg, seed=3, device=dev)
+    z = _rand(dev, (1, 12, 20, 4), 2.0, torch.float32, seed=8)
+    cons = HDRDecodeConfig(hdr_mode="conservative")
+    whole = hdr_decode(dec, z, cons, Precision.fast())
+    monkeypatch.setattr(fused_tail, "LOWMEM_MIN_PIXELS", 1)
+    before = (conv3x3.upconv_gn_conv3x3.launches,
+              conv3x3.upsample_conv3x3.stats_only_launches)
+    low = hdr_decode(dec, z, cons, Precision.fast())
+    assert (conv3x3.upconv_gn_conv3x3.launches,
+            conv3x3.upsample_conv3x3.stats_only_launches) == (
+                before[0] + 1, before[1] + 1)
+    assert (low.standard - whole.standard).abs().max().item() <= 5e-2
+    mixed = hdr_decode(dec, z, cons, Precision.mixed())
+    monkeypatch.setattr(pipeline, "_STAGED_MIN_PIXELS_OVERRIDE", 1)
+    staged = hdr_decode(dec, z, cons, Precision.mixed())
+    torch.testing.assert_close(staged.standard, mixed.standard, rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(staged.image, mixed.image, rtol=0, atol=1e-4)
 
 
 # (input widths, Cout, act, residual scale or None, float32 out): one to

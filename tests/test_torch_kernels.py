@@ -204,21 +204,28 @@ class TestUpsampleConv:
 def test_cpu_tensors_never_launch():
     """On CPU tensors every wrapper runs its plain version: the launch
     counters stay 0."""
-    before = (tconv.fused_conv3x3.launches, tconv.upsample_conv3x3.launches,
-              tattn.flash_attention_bf16.launches,
-              tattn.flash_attention_f32.launches)
+    def counts():
+        return (tconv.fused_conv3x3.launches,
+                tconv.upsample_conv3x3.launches,
+                tconv.upsample_conv3x3.stats_only_launches,
+                tconv.upconv_gn_conv3x3.launches,
+                tattn.flash_attention_bf16.launches,
+                tattn.flash_attention_f32.launches)
+    before = counts()
     x = torch.zeros(1, 8, 16, 16)
     k = torch.zeros(3, 3, 16, 64)
     b = torch.zeros(64)
     tconv.fused_conv3x3(x, k, b, emit_stats=True, num_groups=4)
     tconv.upsample_conv3x3(x, k, b, emit_stats=True, num_groups=4)
+    tconv.upsample_conv3x3(x, k, b, emit_stats=True, num_groups=4,
+                           stats_only=True)
+    tconv.upconv_gn_conv3x3(x, torch.zeros(3, 3, 16, 16), torch.zeros(16),
+                            torch.ones(16), torch.zeros(16), k, b,
+                            num_groups=4)
     q = torch.zeros(1, 4, 4, 64)
     tattn.flash_attention_bf16(q.bfloat16(), q.bfloat16(), q.bfloat16())
     tattn.flash_attention_f32(q, q, q)
-    after = (tconv.fused_conv3x3.launches, tconv.upsample_conv3x3.launches,
-             tattn.flash_attention_bf16.launches,
-             tattn.flash_attention_f32.launches)
-    assert before == after == (0, 0, 0, 0)
+    assert before == counts() == (0,) * 6
 
 
 # ---------------------------------------------------------------------------

@@ -185,12 +185,16 @@ def test_port_never_imports_jax():
         "from hdrvae_torch.kernels import _build, attention, conv3x3, "
         "epilogue\n"
         "from hdrvae_torch.decode import formatting, analysis, modes, "
-        "pipeline\n"
+        "pipeline, staged\n"
         "from hdrvae_torch.io import exr\n"
         "cfg = config.DecoderConfig().with_small()\n"
         "dec = params.init_decoder(cfg, 0, device='cpu')\n"
         "z = torch.zeros(1, 4, 4, 4)\n"
         "r = pipeline.hdr_decode(dec, z, precision=config.Precision.fast())\n"
+        "staged.staged_hdr_decode(dec, z)\n"
+        "m = fused_tail._entry_moments(torch.zeros(1, 4, 4, 32), 4)\n"
+        "fused_tail.upstack_apply(dec, torch.zeros(1, 4, 4, 32), m, "
+        "lowmem=True)\n"
         "pipeline.decode_summary(r)\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    exr.write_exr(os.path.join(d, 'a.exr'), r.image[0])\n"

@@ -6,6 +6,8 @@
     python3 tools/profile_decode_torch.py --upscale [--latent 128]
                                           [--tiers fast parity]
                                           [--model esrgan swinir hat swin2sr]
+    python3 tools/profile_decode_torch.py --lowmem [--latent 256 512]
+    python3 tools/profile_decode_torch.py --staged [--latent 256 512]
     python3 tools/profile_decode_torch.py --ab-tree DIR
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
@@ -29,6 +31,18 @@ Either way:
   share of the summed time, and the share of each of the port's own CUDA
   kernels (``hdrvae_torch/csrc``).
 
+``--lowmem`` runs the fast tier twice per latent side (default 256 and
+512: 2048^2 and 4096^2), with the whole-image top level and with the
+low-memory one (K2 ``stats_only`` + K5, ``models/fused_tail.py``), each
+forced whatever ``LOWMEM_MIN_PIXELS`` says; ``--staged`` runs the mixed
+tier whole-image and through the staged executor (``decode/staged.py``).
+For each it adds one more request run stage by stage (the calls
+``hdr_decode`` makes, in its order): the device ms and the peak of
+allocated memory within each stage (the head, the top level, the tail,
+the epilogue; for the staged executor its front through level 0's first
+block, level 0's other blocks, and the streamed tail with the epilogue).
+A run that exhausts the card's memory is reported as such.
+
 With ``--ab-tree DIR`` it instead compares this tree with another copy of
 the repository (an older commit unpacked into DIR) in turns: this, DIR,
 DIR, this.  Each turn is a subprocess from its tree's root, which builds
@@ -45,6 +59,7 @@ device it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -60,7 +75,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,  # noqa: E402
                                       Precision, UpscaleConfig)
-from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode  # noqa: E402
+from hdrvae_torch.decode import pipeline, staged  # noqa: E402
+from hdrvae_torch.decode.pipeline import (decode_summary, hdr_decode,  # noqa: E402
+                                          hdr_epilogue)
+from hdrvae_torch.models import decoder as tdecoder, fused_tail  # noqa: E402
+from hdrvae_torch.models.layers import conv2d  # noqa: E402
 from hdrvae_torch.models.hat import HATConfig, init_hat  # noqa: E402
 from hdrvae_torch.models.params import init_decoder  # noqa: E402
 from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet  # noqa: E402
@@ -80,8 +99,10 @@ UPSCALERS = {
     "hat": ("HAT", lambda: init_hat(HATConfig(), seed=4, device="cuda")),
     "swin2sr": ("Swin2SR", lambda: init_swin2sr(Swin2SRConfig(), seed=5,
                                                 device="cuda"))}
-# the __global__ functions of hdrvae_torch/csrc (K1/K2, K3, K4, K6, K7, K8)
-PORT_KERNELS = ("conv_tile_kernel", "group_stats_kernel", "flash_bf16_kernel",
+# the __global__ functions of hdrvae_torch/csrc (K1/K2, K3, K4, K5, K6, K7,
+# K8)
+PORT_KERNELS = ("conv_tile_kernel", "group_stats_kernel",
+                "upconv_gn_conv_kernel", "flash_bf16_kernel",
                 "flash_f32_kernel", "collapse_stats_kernel",
                 "stats_finalize_kernel", "dense_conv_kernel",
                 "swin_block_kernel", "ocab_kernel")
@@ -148,6 +169,107 @@ def report(label: str, fn, n: int, top: int) -> None:
             print(f"  port kernel {kname}: {ms:.3f} ms, "
                   f"{100 * ms / total:.1f} % of kernel time, x{k}",
                   flush=True)
+
+
+@contextlib.contextmanager
+def route(variant: str):
+    """Force hdr_decode's large-frame route: "whole" (whole-image top
+    level, whole-image mixed), "lowmem" (the streamed top level) or
+    "staged" (the staged executor); the thresholds are restored after."""
+    saved = fused_tail.LOWMEM_MIN_PIXELS, pipeline._STAGED_MIN_PIXELS_OVERRIDE
+    fused_tail.LOWMEM_MIN_PIXELS = 1 if variant == "lowmem" else 1 << 62
+    pipeline._STAGED_MIN_PIXELS_OVERRIDE = (1 if variant == "staged"
+                                            else 1 << 62)
+    try:
+        yield
+    finally:
+        (fused_tail.LOWMEM_MIN_PIXELS,
+         pipeline._STAGED_MIN_PIXELS_OVERRIDE) = saved
+
+
+class Stages:
+    """Device ms (CUDA events) and peak allocated GiB within each stage."""
+
+    def __init__(self):
+        self.rows = []
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        torch.cuda.synchronize()
+        self.rows.append((name, start.elapsed_time(end),
+                          torch.cuda.max_memory_allocated() / 2 ** 30))
+
+
+def decode_stages(dec, z, variant: str) -> list:
+    """One decode as the calls ``hdr_decode`` makes for ``variant``, stage
+    by stage: [(stage, device ms, peak GiB)]."""
+    cfg, st = dec.cfg, Stages()
+    if variant == "staged":
+        mixed = Precision.mixed()
+        with st("front: head, level 1, level-0 block 0"):
+            buf, m = staged.staged_front(dec, z, mixed)
+        with st("level 0, blocks 1.."):
+            buf, m = staged.staged_level0(dec, buf, m, mixed)
+        with st("tail + epilogue"):
+            staged.staged_tail(dec, buf, m, z, CONSERVATIVE, mixed)
+        return st.rows
+    if variant == "mixed":
+        mixed = Precision.mixed()
+        with st("head"):
+            x = tdecoder.decoder_head(dec, z, precision=mixed, tail_levels=1)
+        with st("top level"):
+            x = tdecoder._up_level(dec, x, 0, mixed)
+        with st("tail"):
+            out = tdecoder.decoder_tail(dec, x, precision=mixed)
+    else:   # the fast tier, "whole" or "lowmem"
+        fast = Precision.fast()
+        with st("head"):
+            x = conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
+                       precision=fast)
+            x, m = fused_tail.midstack_apply(dec, x, precision=fast)
+            x, m = fused_tail.upper_levels_apply(dec, x, m, precision=fast)
+        with st("top level"):
+            x, m = fused_tail.top_level_apply(dec, x, m, precision=fast,
+                                              lowmem=variant == "lowmem",
+                                              owned=True)
+        with st("tail"):
+            out = tdecoder.decoder_tail(dec, x, precision=fast, moments=m)
+    with st("epilogue"):
+        hdr_epilogue(out.rgb, out.pre_conv_out, CONSERVATIVE)
+    return st.rows
+
+
+def large_frames(dec, latents, variants, n: int, top: int) -> None:
+    """``--lowmem`` / ``--staged``: each variant at each latent side, as
+    requests, one profiled request and one run stage by stage."""
+    for side in latents:
+        z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (1, side, side, dec.cfg.z_channels)).astype(np.float32)).cuda()
+        for variant in variants:
+            tier = "fast" if variant in ("whole", "lowmem") else "mixed"
+            label = f"{side * 8}^2 {tier} {variant}"
+            prec = TIERS[tier]()
+            try:
+                with route("whole" if variant == "mixed" else variant):
+                    report(label, lambda: decode_summary(hdr_decode(
+                        dec, z, CONSERVATIVE, prec)), n, top)
+                    rows = decode_stages(dec, z, variant)
+                for name, ms, peak in rows:
+                    print(f"  stage {name}: {ms:.3f} ms, peak {peak:.3f} GiB",
+                          flush=True)
+            except torch.cuda.OutOfMemoryError as exc:
+                print(f"== {label}: out of device memory: "
+                      f"{str(exc).splitlines()[0]}", flush=True)
+            torch.cuda.empty_cache()
+        del z
+        torch.cuda.empty_cache()
 
 
 AB_TURN = r'''
@@ -220,7 +342,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--latent", type=int, nargs="+", default=None,
                     help="latent sides (default 128 256; 128 with "
-                         "--upscale)")
+                         "--upscale; 256 512 with --lowmem or --staged)")
     ap.add_argument("--tiers", nargs="+", default=None, choices=list(TIERS),
                     help="default: all three; fast parity with --upscale")
     ap.add_argument("--upscale", action="store_true",
@@ -228,6 +350,14 @@ def main() -> int:
     ap.add_argument("--model", nargs="+", default=["esrgan"],
                     choices=list(UPSCALERS),
                     help="upscalers profiled with --upscale")
+    ap.add_argument("--lowmem", action="store_true",
+                    help="fast tier: whole-image against the low-memory "
+                         "top level, with per-stage peaks")
+    ap.add_argument("--staged", action="store_true",
+                    help="mixed tier: whole-image against the staged "
+                         "executor, with per-stage peaks")
+    ap.add_argument("--requests", type=int, default=3,
+                    help="unprofiled decode requests per run")
     ap.add_argument("--top", type=int, default=12,
                     help="kernel names listed per run")
     ap.add_argument("--ab-tree", metavar="DIR",
@@ -249,6 +379,12 @@ def main() -> int:
 
     cfg = DecoderConfig()
     dec = init_decoder(cfg, seed=0, device="cuda")
+    if args.lowmem or args.staged:
+        variants = ((["whole", "lowmem"] if args.lowmem else [])
+                    + (["mixed", "staged"] if args.staged else []))
+        large_frames(dec, args.latent or [256, 512], variants,
+                     args.requests, args.top)
+        return 0
     for side in latents:
         z = torch.from_numpy(np.random.default_rng(1).standard_normal(
             (1, side, side, cfg.z_channels)).astype(np.float32)).cuda()
@@ -275,7 +411,7 @@ def main() -> int:
                        lambda: decode_summary(hdr_decode(dec, z,
                                                          CONSERVATIVE,
                                                          prec)),
-                       3, args.top)
+                       args.requests, args.top)
         del z
         torch.cuda.empty_cache()
     return 0
