@@ -17,7 +17,10 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    unshifted and shifted, a window-7 grid and the ragged tile; K8: HAT-M's
    OCAB on a 512^2 tile; K2's stats_only mode, its sums bit-equal to K2's
    with y written, and K5: the 2048^2 decode's top-level junction and a
-   ragged map), with its tolerance, and both timed with CUDA
+   ragged map; the staged Swin chain's K10, K9 and K11 at K7's v1 shapes,
+   each on the previous kernel's output, and the chain against K7 on the
+   same inputs and weights; K12 at the probe's 8192 x 256 x 256 in its
+   three precisions), with its tolerance, and both timed with CUDA
    events after a warm-up; beside them the least time the card could take
    (bound_ms: the function's operations over the peak rate of their type,
    or its bytes, each input read once and each output written once, over
@@ -53,11 +56,21 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    launch K7 (Swin2SR: its v2 body) once per block and K8 once per OCAB
    of every tile run, the parity one neither; the fused chain is held to
    the unfused fast layers on the first tile's raw output;
-9. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
+9. Swin chain: the body of the full-width SwinIR-M (seed 3) on one 512^2
+   tile of the decoded image, walked twice, each block through the staged
+   chain (K10 -> K9 -> K11, 36 launches each), then through K7 (36), each
+   group's conv + residual after its blocks; the two bodies held to each
+   other, and both walks timed;
+10. f32 dot probe: ``tools/f32_dot_probe_torch.py``'s measurement, K12's
+   main path: each precision's time and error against a float64 product,
+   held to its class, beside ``torch.matmul`` in float32 (TF32 off and on)
+   and bf16;
+11. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
    mixed, K4 in the fused-epilogue decodes, K5 and K2 stats_only in the
    low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
    fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR upscale,
-   K8 in the fast HAT upscale; every kernel of the table ran.
+   K8 in the fast HAT upscale, K9-K11 in the Swin chain phase, K12 in the
+   probe; every kernel of the table ran.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -67,6 +80,8 @@ non-zero before printing a result.
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -138,6 +153,13 @@ K2_STATS_SHAPE = (1024, 1024, 256)
 # the large-frame phase: staged vs whole-image mixed budgets (rgb and the
 # conservative image max-abs, the pre-map statistics relative)
 STAGED_RGB, STAGED_CONS, STAGED_PRE = 1e-4, 1e-3, 1e-4
+# K12 at the probe's shape (M, K, N): each precision against its plain
+# version (float32 sums in another order), and its class against a
+# float64 product, relative to max|exact|; bf16 passes a precision makes
+K12_SHAPE = (8192, 256, 256)
+K12_BUDGET = 1e-5
+K12_CLASSES = {"highest": 1e-5, "high": 1e-4, "default": 2e-2}
+K12_PASSES = {"highest": 1, "high": 3, "default": 1}
 
 
 def bf16_ulp(t: torch.Tensor) -> float:
@@ -451,7 +473,10 @@ def phase_kernels() -> list:
     rng5 = np.random.default_rng(5)
     entries.append(_check_k2_stats_only(rng5))
     entries.append(_check_k5(rng5))
-    return entries
+    chain_entries, chain_ab = _check_chain(np.random.default_rng(6))
+    entries += chain_entries
+    entries.append(_check_k12())
+    return entries, chain_ab
 
 
 def _uniform(rng, lo, hi, shape) -> torch.Tensor:
@@ -813,16 +838,216 @@ def _check_k8(rng) -> dict:
             "shape": list(K8_SHAPE)}
 
 
+def _window_edge_err(d: torch.Tensor, grid: tuple) -> float:
+    """Max of a per-window error d [nwin, ...] (one image) over the windows
+    of the last window row and column, where a shifted grid's masks act."""
+    e = d.reshape(*grid, -1).amax(dim=-1)
+    return max(e[-1].max().item(), e[:, -1].max().item())
+
+
+def _window_mask(bias: torch.Tensor, ws: int, shift: int,
+                 grid: tuple) -> torch.Tensor:
+    """The position bias [heads, n, n] plus the band masks of a shifted
+    grid of windows, per window [nwin, heads, n, n] in bf16: SDPA's
+    additive mask for the attention core."""
+    from hdrvae_torch.kernels.swin_attention import band_masks
+    mask = bias.expand(*grid, *bias.shape).clone()
+    if shift:
+        mrow, mcol = (m.to(bias.device) for m in band_masks(ws, shift))
+        mask[-1] += mrow
+        mask[:, -1] += mcol
+    return mask.reshape(-1, *bias.shape).to(torch.bfloat16)
+
+
+def _check_chain(rng) -> tuple:
+    """The staged Swin chain at K7's v1 shapes: K10, K9 and K11 each against
+    its plain version on the same input, each kernel's input the previous
+    kernel's output, with the max-abs over the last window row and column
+    apart; then the chain against K7 on the same inputs and weights, with
+    both times.  Returns the three kernels' entries and the A/B records."""
+    from hdrvae_torch.core.config import Precision
+    from hdrvae_torch.kernels import swin_attention as ska
+    from hdrvae_torch.models.swinir import block_weights
+    fast = Precision.fast()
+    keys = ("swin_ln_qkv", "swin_attn_core", "swin_proj_mlp")
+    acc = {k: {"details": [], "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "err": 0.0, "edge": 0.0, "bound": Bound()} for k in keys}
+    ab = []
+    c = SWIN_DIM
+    for name, h, w, ws, shift, extra in K7_SHAPES:
+        blk = _swin_block(rng, c, SWIN_HEADS, ws)
+        wts = block_weights(blk, SWIN_HEADS, ws, torch.bfloat16)
+        x = _bf16(rng, (1, h, w, c))
+        e_in = _bf16(rng, (1, h, w, c), 0.5) if extra else None
+        grid, n, tokens = (h // ws, w // ws), ws * ws, h * w
+        kc = dict(heads=SWIN_HEADS, ws=ws, shift=shift, grid=grid)
+        qkv = ska.ln_qkv(x, wts, ws=ws, precision=fast)
+        o = ska.window_attention_core(qkv, wts.bias, **kc)
+        y = ska.proj_mlp(o, x, wts, ws=ws, extra=e_in, precision=fast)
+        kernels = {
+            "swin_ln_qkv": lambda: ska.ln_qkv(x, wts, ws=ws, precision=fast),
+            "swin_attn_core": lambda: ska.window_attention_core(
+                qkv, wts.bias, **kc),
+            "swin_proj_mlp": lambda: ska.proj_mlp(o, x, wts, ws=ws,
+                                                  extra=e_in,
+                                                  precision=fast)}
+        plains = {
+            "swin_ln_qkv": lambda: ska.ln_qkv_reference(x, wts, ws=ws,
+                                                        precision=fast),
+            "swin_attn_core": lambda: ska.window_attention_core_reference(
+                qkv, wts.bias, **kc),
+            "swin_proj_mlp": lambda: ska.proj_mlp_reference(
+                o, x, wts, ws=ws, extra=e_in, precision=fast)}
+        work = {   # (operations, bytes): each input read once, output once
+            "swin_ln_qkv": (2 * tokens * c * 3 * c, nbytes(
+                x, qkv, wts.wq, wts.bq, wts.g1, wts.be1)),
+            "swin_attn_core": (4 * tokens * n * c, nbytes(qkv, wts.bias, o)),
+            "swin_proj_mlp": (2 * tokens * (c * c + 2 * c * 2 * c), nbytes(
+                o, x, e_in, y, wts.wp, wts.bp, wts.g2, wts.be2, wts.w1,
+                wts.b1, wts.w2, wts.b2))}
+        for key, got in zip(keys, (qkv, o, y)):
+            ref = plains[key]()
+            torch.cuda.synchronize()
+            check(got.dtype == ref.dtype and got.shape == ref.shape,
+                  f"{key} {name}: {got.dtype} {tuple(got.shape)}")
+            check(torch.isfinite(got.float()).all().item(),
+                  f"{key} {name}: output not finite")
+            d = (got.float() - ref.float()).abs()
+            e = d.max().item()
+            e_last = (max(d[:, -ws:].max().item(), d[:, :, -ws:].max().item())
+                      if key == "swin_proj_mlp" else _window_edge_err(d, grid))
+            bound = SWIN_BUDGET * max(1.0, ref.float().abs().max().item())
+            check(e <= bound, f"{key} {name}: max-abs {e} > {bound}")
+            del ref, d
+            t = cuda_ms(kernels[key])
+            tp = cuda_ms(plains[key], iters=2, warmup=1)
+            tl = None
+            if key == "swin_attn_core":
+                # SDPA on q, k, v [nwin, heads, n, 32] copied out of the
+                # slot layout, the bias and masks as its bf16 mask
+                q, k, v = (qkv[:, :n].reshape(-1, n, SWIN_HEADS, 3, 32)
+                           [:, :, :, j].transpose(1, 2).contiguous()
+                           for j in range(3))
+                mask = _window_mask(wts.bias, ws, shift, grid)
+                tl = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=1.0))
+                del q, k, v, mask
+            b = acc[key]["bound"].add(*work[key])
+            log(f"{key} {name} {h}x{w} ws {ws} shift {shift}"
+                f"{' +extra' if extra else ''}: max-abs {e:.3e} (last window "
+                f"row/col {e_last:.3e}, budget {bound:.3e})  kernel {t:.3f} "
+                f"ms  plain {tp:.3f} ms"
+                + (f"  SDPA {tl:.3f} ms" if tl is not None else "")
+                + f"  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+            acc[key]["details"].append({
+                "shape": [name, h, w, c, ws, shift, bool(extra)],
+                "max_abs_err": e, "max_abs_err_last_row_col": e_last,
+                "err_budget": bound, "ms": t, "plain_ms": tp,
+                "library_ms": tl, **b})
+            a = acc[key]
+            a["ms"] += t
+            a["plain_ms"] += tp
+            a["library_ms"] += tl or 0.0
+            a["err"], a["edge"] = max(a["err"], e), max(a["edge"], e_last)
+        # the chain against K7, same inputs and weights
+        kw = dict(ws=ws, shift=shift, extra=e_in, precision=fast)
+        yc = ska.swin_block_chain(x, wts, **kw)
+        y7 = ska.swin_block_fused(x, wts, **kw)
+        torch.cuda.synchronize()
+        e = (yc.float() - y7.float()).abs().max().item()
+        bound = SWIN_BUDGET * max(1.0, y7.float().abs().max().item())
+        check(e <= bound, f"chain vs K7 {name}: max-abs {e} > {bound}")
+        t_chain = cuda_ms(lambda: ska.swin_block_chain(x, wts, **kw))
+        t_k7 = cuda_ms(lambda: ska.swin_block_fused(x, wts, **kw))
+        t_sum = sum(acc[k]["details"][-1]["ms"] for k in keys)
+        log(f"chain vs K7 {name} {h}x{w} ws {ws} shift {shift}: max-abs "
+            f"{e:.3e} (budget {bound:.3e}, bit-equal "
+            f"{bool(torch.equal(yc, y7))})  K10 + K9 + K11 {t_sum:.3f} ms "
+            f"(chain call {t_chain:.3f} ms)  K7 {t_k7:.3f} ms")
+        ab.append({"shape": [name, h, w, c, ws, shift, bool(extra)],
+                   "max_abs_err": e, "err_budget": bound,
+                   "bit_equal": bool(torch.equal(yc, y7)),
+                   "kernels_sum_ms": t_sum, "chain_ms": t_chain,
+                   "k7_ms": t_k7})
+        del x, e_in, qkv, o, y, yc, y7, wts, blk
+        torch.cuda.empty_cache()
+    replaces = {"swin_ln_qkv": 359, "swin_attn_core": 187,
+                "swin_proj_mlp": 411}
+    entries = []
+    for key in keys:
+        a = acc[key]
+        core = key == "swin_attn_core"
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": "hdrvae_torch/csrc/swin_chain.cu",
+            "replaces": f"hdrvae/kernels/swin_attention.py:{replaces[key]}",
+            "max_abs_err": a["err"], "max_abs_err_last_row_col": a["edge"],
+            "ms": a["ms"], "plain_ms": a["plain_ms"], **a["bound"].entry(),
+            "library_ms": a["library_ms"] if core else None,
+            "library_call": "F.scaled_dot_product_attention, bf16, the bias "
+                            "and masks as a bf16 attn_mask" if core else
+                            "none: no one PyTorch call computes it",
+            "shapes": a["details"]})
+    return entries, ab
+
+
+@functools.cache
+def _probe():
+    """``tools/f32_dot_probe_torch.py``, loaded from the checkout."""
+    spec = importlib.util.spec_from_file_location(
+        "f32_dot_probe_torch", os.path.join(REPO, "tools",
+                                            "f32_dot_probe_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_k12() -> dict:
+    """K12 at the probe's shape in its three precisions, each against its
+    plain version on the probe's operands within K12_BUDGET * max|ref|.
+    Its times come from the probe's run (``phase_f32_probe``)."""
+    from hdrvae_torch.kernels import f32_dot
+    m, k, n = K12_SHAPE
+    x, w = _probe().operands(m, k, n)
+    details, err, bnd = [], 0.0, Bound()
+    for mode in f32_dot.PRECISIONS:
+        y = f32_dot.f32_dot(x, w, precision=mode)
+        ref = f32_dot.f32_dot_reference(x, w, precision=mode)
+        torch.cuda.synchronize()
+        check(torch.isfinite(y).all().item(), f"K12 {mode}: not finite")
+        e = (y - ref).abs().max().item()
+        bound = K12_BUDGET * ref.abs().max().item()
+        check(e <= bound, f"K12 {mode}: max-abs {e} > {bound}")
+        # FFMA outside the tensor cores; bf16 passes on them
+        b = bnd.add(2 * m * n * k * K12_PASSES[mode], nbytes(x, w, y),
+                    PEAK_F32 if mode == "highest" else PEAK_BF16)
+        log(f"K12 f32_dot {mode} {m}x{k}x{n}: max-abs vs plain {e:.3e} "
+            f"(budget {bound:.3e})  bound {b['bound_ms'] * 1e3:.2f} us "
+            f"({b['bound_by']})")
+        details.append({"precision": mode, "shape": [m, k, n],
+                        "max_abs_err": e, "err_budget": bound, **b})
+        err = max(err, e)
+    return {"name": "f32_dot", "route": "cuda",
+            "source": "hdrvae_torch/csrc/f32_dot.cu",
+            "replaces": "tools/perf/pallas_f32_dot_probe.py:45",
+            "max_abs_err": err, **bnd.entry(),
+            "library_call": "torch.matmul, float32, TF32 off, once a "
+                            "precision", "shapes": details}
+
+
 def _wrappers() -> dict:
     """The kernel wrappers, by name; each counts its own launches."""
     from hdrvae_torch.kernels import (attention, conv3x3, dense_conv,
-                                      epilogue, ocab, swin_attention)
+                                      epilogue, f32_dot, ocab,
+                                      swin_attention)
     return {fn.__name__: fn for fn in (
         conv3x3.fused_conv3x3, conv3x3.upsample_conv3x3,
         conv3x3.upconv_gn_conv3x3,
         attention.flash_attention_bf16, attention.flash_attention_f32,
         epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3,
-        swin_attention.swin_block_fused, ocab.ocab_attention)}
+        swin_attention.swin_block_fused, ocab.ocab_attention,
+        swin_attention.ln_qkv, swin_attention.window_attention_core,
+        swin_attention.proj_mlp, f32_dot.f32_dot)}
 
 
 def _counts() -> dict:
@@ -1285,6 +1510,116 @@ def phase_swin_upscale(image: torch.Tensor, family: str):
     return fast_counts, times
 
 
+def phase_swin_chain(image: torch.Tensor):
+    """The staged chain on the full-width SwinIR-M's path: its body (6
+    residual groups of 6 blocks) on one 512^2 tile of the decoded image,
+    walked once with every block through ``chain_block`` (K10 -> K9 -> K11)
+    and once through ``fused_block`` (K7), each block's input the previous
+    block's output and each group's conv + residual after its blocks.
+    Each walk must launch its kernels once a block and the other's never;
+    the two bodies are held to each other.  Both walks are timed in turns
+    (chain, K7, K7, chain).  Returns the chain walk's launch counts and the
+    record."""
+    from hdrvae_torch.core.config import Precision
+    from hdrvae_torch.models.layers import conv2d
+    from hdrvae_torch.models.swinir import (SwinIRConfig, _rstb_conv,
+                                            block_weights, chain_block,
+                                            fused_block, init_swinir,
+                                            layer_norm, prepare_input)
+    cfg = SwinIRConfig()
+    net = init_swinir(cfg, seed=3, device="cuda")
+    n_params = sum(p.numel() for p in net.parameters())
+    fast, ws = Precision.fast(), cfg.window_size
+    blocks = sum(cfg.depths)
+    tile = image[:, :512, :512, :].contiguous()
+    x = prepare_input(tile, ws, cfg.in_channels, cfg.img_range, fast)
+    tok = layer_norm(conv2d(x, net.conv_first, precision=fast),
+                     net.patch_embed.norm)
+    weights = [[block_weights(blk, cfg.num_heads[li], ws, torch.bfloat16)
+                for blk in layer.residual_group.blocks]
+               for li, layer in enumerate(net.layers)]
+    log(f"swin chain: SwinIR-M {n_params} parameters, weights from numpy "
+        f"seed 3; body input {list(tok.shape)}, {blocks} blocks")
+
+    def walk(block):
+        """(body output, device ms, launch counts) of one walk."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        _reset_counts()
+        start.record()
+        t = tok
+        for layer, wts in zip(net.layers, weights):
+            y = t
+            for bi, w in enumerate(wts):
+                y = block(y, w, ws, 0 if bi % 2 == 0 else ws // 2, fast)
+            t = _rstb_conv(y, layer.conv, fast) + t
+        end.record()
+        torch.cuda.synchronize()
+        return t, start.elapsed_time(end), _counts()
+
+    chain_out, chain_ms, cc = walk(chain_block)
+    fused_out, fused_ms, cf = walk(fused_block)
+    chain_kernels = ("ln_qkv", "window_attention_core", "proj_mlp")
+    for name in chain_kernels:
+        check(cc[name] == blocks and cf[name] == 0,
+              f"swin chain: {name} launched {cc[name]} / {cf[name]} times "
+              f"in the chain / K7 walks, want {blocks} / 0")
+    check(cf["swin_block_fused"] == blocks and cc["swin_block_fused"] == 0,
+          f"swin chain: K7 launched {cf['swin_block_fused']} / "
+          f"{cc['swin_block_fused']} times in the K7 / chain walks, want "
+          f"{blocks} / 0")
+    check(torch.isfinite(chain_out.float()).all().item(),
+          "swin chain: body output not finite")
+    e = (chain_out.float() - fused_out.float()).abs().max().item()
+    ref_max = fused_out.float().abs().max().item()
+    bound = SWIN_BUDGET * max(1.0, ref_max)
+    check(e <= bound, f"swin chain vs K7 body: max-abs {e} > {bound}")
+    fused_ms2 = walk(fused_block)[1]
+    chain_ms2 = walk(chain_block)[1]
+    record = {"blocks": blocks, "body_shape": list(tok.shape),
+              "max_abs_err": e, "err_budget": bound, "max_abs_ref": ref_max,
+              "bit_equal": bool(torch.equal(chain_out, fused_out)),
+              "chain_walk_ms": [chain_ms, chain_ms2],
+              "k7_walk_ms": [fused_ms, fused_ms2]}
+    log(f"swin chain: body max-abs vs K7 {e:.3e} (budget {bound:.3e}, "
+        f"bit-equal {record['bit_equal']}); device ms a walk: chain "
+        f"{chain_ms:.3f}, {chain_ms2:.3f}  K7 {fused_ms:.3f}, "
+        f"{fused_ms2:.3f}; launches {dict((k, cc[k]) for k in chain_kernels)}")
+    del net, chain_out, fused_out, tok, x, weights
+    torch.cuda.empty_cache()
+    return cc, record
+
+
+def phase_f32_probe(entry: dict):
+    """K12's main path: the probe's measurement (``tools/
+    f32_dot_probe_torch.py``) at K12_SHAPE, each precision's error against
+    a float64 product held to its class; its times fill K12's entry.
+    Returns the probe's launch counts and rows."""
+    _reset_counts()
+    rows = _probe().measure(*K12_SHAPE)
+    counts = _counts()
+    lib = rows["library"]["matmul_f32"]["ms"]
+    for d in entry["shapes"]:
+        r = rows["modes"][d["precision"]]
+        check(r["rel_vs_exact"] <= K12_CLASSES[d["precision"]],
+              f"K12 {d['precision']}: error {r['rel_vs_exact']} of "
+              f"max|exact| > {K12_CLASSES[d['precision']]}")
+        d.update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=lib,
+                 rel_vs_exact=r["rel_vs_exact"],
+                 max_abs_vs_exact=r["max_abs_vs_exact"])
+        log(f"K12 f32_dot {d['precision']}: kernel {r['ms'] * 1e3:.2f} us "
+            f"(bound {d['bound_ms'] * 1e3:.2f} us)  plain "
+            f"{r['plain_ms'] * 1e3:.2f} us  vs float64 {r['rel_vs_exact']:.3e}"
+            f" of max|exact| (<= {K12_CLASSES[d['precision']]})")
+    for key in ("ms", "plain_ms", "library_ms"):
+        entry[key] = sum(d[key] for d in entry["shapes"])
+    log("f32 dot probe library rows: " + ", ".join(
+        f"{k} {r['ms'] * 1e3:.2f} us ({r['rel_vs_exact']:.3e})"
+        for k, r in rows["library"].items()))
+    return counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1299,7 +1634,7 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    entries = phase_kernels()
+    entries, chain_ab = phase_kernels()
     image, counts, per_tier, times, epi_counts, dec = phase_decode()
     t_lf = time.perf_counter()
     lf_counts, lf_records = phase_large_frames(dec)
@@ -1315,6 +1650,11 @@ def main() -> int:
         swin_counts[family], up_times[family] = phase_swin_upscale(image,
                                                                    family)
         log(f"{family} upscale phase {time.perf_counter() - t_up:.1f} s")
+    t_ch = time.perf_counter()
+    chain_counts, chain_record = phase_swin_chain(image)
+    log(f"swin chain phase {time.perf_counter() - t_ch:.1f} s")
+    by_name = {e["name"]: e for e in entries}
+    probe_counts, probe_rows = phase_f32_probe(by_name["f32_dot"])
 
     log(f"launches in the decode phase: {counts}")
     for name in ("fused_conv3x3", "upsample_conv3x3",
@@ -1339,6 +1679,13 @@ def main() -> int:
     # the streamed top level's kernels: the low-memory fast 2048^2 request
     for name in ("upconv_gn_conv3x3", "upsample_conv3x3_stats_only"):
         main_path[name] = lf_counts[name]
+    # the staged Swin chain's kernels: the chain walk of the Swin chain
+    # phase; K12: the probe
+    for entry_name, wrapper in (("swin_ln_qkv", "ln_qkv"),
+                                ("swin_attn_core", "window_attention_core"),
+                                ("swin_proj_mlp", "proj_mlp")):
+        main_path[entry_name] = chain_counts[wrapper]
+    main_path["f32_dot"] = probe_counts["f32_dot"]
     for entry in entries:
         entry["launches"] = main_path[entry["name"]]
         check(entry["launches"] > 0,
@@ -1349,7 +1696,10 @@ def main() -> int:
                       "upscale_ms": {k: v[-1][0] if k in ("fast", "parity")
                                      else {t: r[0] for t, r in v.items()}
                                      for k, v in up_times.items()},
-                      "large_frames": lf_records}))
+                      "large_frames": lf_records,
+                      "swin_chain_vs_k7": chain_ab,
+                      "swin_chain": chain_record,
+                      "f32_dot_probe": probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -94,64 +94,6 @@ struct SwinArgs {
 
 constexpr int LDQ = HDP + 8;   // row stride of the staged q / K / V
 
-constexpr int MAXC = 8;   // channels a lane holds: C <= 256
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-// The mean and 1 / sqrt(var + 1e-5) (two-pass variance) of a row of C
-// values that a warp holds MAXC a lane (lane + 32 i; zero past C).
-__device__ __forceinline__ void row_stats(const float (&v)[MAXC], int C,
-                                          float& mean, float& rstd) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) s += v[i];
-  mean = warp_sum(s) / C;
-  float q = 0.0f;
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) {
-    const float d = v[i] - mean;
-    if (lane + 32 * i < C) q += d * d;
-  }
-  rstd = rsqrtf(warp_sum(q) / C + 1e-5f);
-}
-
-// LayerNorm (eps 1e-5) of nrows token rows into bf16 rows of `out`
-// (stride ldo), or with NORM false the rows as they are (v2's attention
-// input).  row(tok) points at the C values of a token of the window (bf16
-// in global or float32 in shared memory); a lane keeps its MAXC of them in
-// registers.  Rows of tokens >= n and columns >= C are zero.
-template <bool NORM, typename Row>
-__device__ __forceinline__ void layer_norm_rows(
-    Row row, int tok0, int nrows, int n, int C, int CP, const float* g,
-    const float* be, bf16* out, int ldo) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < nrows; r += NWARPS) {
-    const int tok = tok0 + r;
-    bf16* o = out + static_cast<size_t>(r) * ldo;
-    if (tok >= n) {
-      for (int c = lane; c < CP; c += 32) o[c] = __float2bfloat16(0.0f);
-      continue;
-    }
-    const auto* src = row(tok);
-    float v[MAXC];
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < C ? to_f32(src[c]) : 0.0f;
-    }
-    float mean = 0.0f, rstd = 1.0f;
-    if constexpr (NORM) row_stats(v, C, mean, rstd);
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int c = lane + 32 * i;
-      const float t = NORM ? (v[i] - mean) * rstd * g[c] + be[c] : v[i];
-      if (c < CP) o[c] = __float2bfloat16(c < C ? t : 0.0f);
-    }
-  }
-}
-
 // v2's qkv epilogue on a warp's finished 16 x 32 fragment, one head slot
 // (columns c0 .. c0 + 31): + the bias, and for a q or k slot each row
 // divided by max(its L2 norm, 1e-12), q then times its head's scale, all
@@ -220,18 +162,7 @@ swin_block_kernel(const SwinArgs a) {
     const int hh = wr * ws + t / ws, ww = wc * ws + t % ws;
     return ((static_cast<size_t>(b) * a.H + hh) * a.W + ww) * C;
   };
-  const bool last_row = a.shift > 0 && wr == a.nwh - 1;
-  const bool last_col = a.shift > 0 && wc == a.nww - 1;
-  const int band = ws - a.shift;
-  // bit i: the key column k + TPR i (k = thread % TPR) of the softmax lies
-  // in the wrapped band of window rows (jrow) / columns (jcol)
-  unsigned jrow = 0, jcol = 0;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {   // n16 <= 256 = 32 TPR columns
-    const int j = threadIdx.x % TPR + TPR * i;
-    jrow |= static_cast<unsigned>(j / ws >= band) << i;
-    jcol |= static_cast<unsigned>(j % ws >= band) << i;
-  }
+  const BandMasks<TPR> masks(ws, a.shift, wr == a.nwh - 1, wc == a.nww - 1);
 
   // phase 1: LN1 (v2: the raw input) + qkv of every row block into the
   // scratch
@@ -294,15 +225,7 @@ swin_block_kernel(const SwinArgs a) {
       const float* bias_h = a.bias + static_cast<size_t>(h) * n * n;
       softmax_rows<TPR>(S, a.lds, nrt * 16, n - r0, n, a.n16, [&](int r) {
         const int q = min(r0 + r, n - 1);   // padded queries: any row
-        const unsigned qr = (q / ws) >= band, qc = (q % ws) >= band;
-        const float* brow = bias_h + static_cast<size_t>(q) * n;
-        return [=](int i, int j, float s) {
-          float t = brow[j];
-          if (last_row && qr != ((jrow >> i) & 1u)) t += -100.0f;
-          s += t;
-          if (last_col && qc != ((jcol >> i) & 1u)) s += -100.0f;
-          return s;
-        };
+        return masks.row(q, bias_h + static_cast<size_t>(q) * n);
       });
       if (ahead) cp_async_wait<2>(); else cp_async_wait<0>();
       __syncthreads();
@@ -396,9 +319,7 @@ swin_block_kernel(const SwinArgs a) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float u = v[i] + a.b1[c + i];
-        g[i] = c + i < a.hidden
-                   ? 0.5f * u * (1.0f + erff(u * 0.70710678118654752f))
-                   : 0.0f;
+        g[i] = c + i < a.hidden ? gelu_erf(u) : 0.0f;
       }
       store_bf16x8(hid + static_cast<size_t>(r) * a.ldh + c, g);
     });

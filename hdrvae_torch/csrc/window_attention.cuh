@@ -1,11 +1,13 @@
-// Building blocks shared by the Swin block kernel (K7, swin_block.cu) and
+// Building blocks shared by the Swin block kernel (K7, swin_block.cu),
+// the three kernels of the staged Swin chain (K9-K11, swin_chain.cu) and
 // HAT's OCAB attention kernel (K8, ocab.cu), on bf16 tensor-core products
 // with float32 accumulation: cp.async copies of bf16 rows into shared
 // memory, a 64-row block GEMM with both operands in shared memory (WMMA),
 // one whose B operand (a weight matrix in global memory, read by every
 // window from L2) streams through a two-buffer cp.async ring (ldmatrix +
 // mma.sync m16n8k16), per-warp staging of accumulator tiles for
-// elementwise epilogues, and a softmax of score rows in shared memory.
+// elementwise epilogues, a softmax of score rows in shared memory, and
+// the LayerNorm rows and exact GELU of the block's MLP half.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -316,6 +318,45 @@ __device__ __forceinline__ void softmax_rows(float* S, int lds, int nrows,
   }
 }
 
+// The -100 band masks of a window in a shifted grid (the wrapper's
+// band_masks): in the last window row (column) a score is masked between
+// a query and a key on either side of window row (column) ws - shift; a
+// corner window takes both, -200 in total, which the softmax treats as it
+// treats -100.  The bits of the key columns a softmax thread visits (k +
+// TPR i, k = thread % TPR, n16 <= 256) are computed once a block.
+template <int TPR>
+struct BandMasks {
+  bool last_row, last_col;
+  int ws, band;
+  unsigned jrow = 0, jcol = 0;   // bit i: column k + TPR i in the band
+
+  __device__ __forceinline__ BandMasks(int ws_, int shift, bool in_last_row,
+                                       bool in_last_col)
+      : last_row(shift > 0 && in_last_row),
+        last_col(shift > 0 && in_last_col), ws(ws_), band(ws_ - shift) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = threadIdx.x % TPR + TPR * i;
+      jrow |= static_cast<unsigned>(j / ws >= band) << i;
+      jcol |= static_cast<unsigned>(j % ws >= band) << i;
+    }
+  }
+
+  // softmax_rows' scorer of query q: s + the bias row brow [n] + masks
+  __device__ __forceinline__ auto row(int q, const float* brow) const {
+    const unsigned qr = (q / ws) >= band, qc = (q % ws) >= band;
+    const bool lr = last_row, lc = last_col;
+    const unsigned jr = jrow, jc = jcol;
+    return [=](int i, int j, float s) {
+      float t = brow[j];
+      if (lr && qr != ((jr >> i) & 1u)) t += -100.0f;
+      s += t;
+      if (lc && qc != ((jc >> i) & 1u)) s += -100.0f;
+      return s;
+    };
+  }
+};
+
 // Hand one fragment to its warp as eight consecutive values a lane
 // through the warp's 16x16 float32 stage: f(row within the row block,
 // first column, v[8]); lanes 2r and 2r + 1 take row r.
@@ -339,6 +380,69 @@ __device__ __forceinline__ void store_bf16x8(bf16* dst, const float* v) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) t[i] = __float2bfloat16(v[i]);
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(t);
+}
+
+constexpr int MAXC = 8;   // channels a lane holds: C <= 256
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// The mean and 1 / sqrt(var + 1e-5) (two-pass variance) of a row of C
+// values that a warp holds MAXC a lane (lane + 32 i; zero past C).
+__device__ __forceinline__ void row_stats(const float (&v)[MAXC], int C,
+                                          float& mean, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) s += v[i];
+  mean = warp_sum(s) / C;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) {
+    const float d = v[i] - mean;
+    if (lane + 32 * i < C) q += d * d;
+  }
+  rstd = rsqrtf(warp_sum(q) / C + 1e-5f);
+}
+
+// LayerNorm (eps 1e-5) of nrows token rows into bf16 rows of `out`
+// (stride ldo), or with NORM false the rows as they are (v2's attention
+// input).  row(tok) points at the C values of a token of the window (bf16
+// in global or float32 in shared memory); a lane keeps its MAXC of them in
+// registers.  Rows of tokens >= n and columns >= C are zero.
+template <bool NORM, typename Row>
+__device__ __forceinline__ void layer_norm_rows(
+    Row row, int tok0, int nrows, int n, int C, int CP, const float* g,
+    const float* be, bf16* out, int ldo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < nrows; r += NWARPS) {
+    const int tok = tok0 + r;
+    bf16* o = out + static_cast<size_t>(r) * ldo;
+    if (tok >= n) {
+      for (int c = lane; c < CP; c += 32) o[c] = __float2bfloat16(0.0f);
+      continue;
+    }
+    const auto* src = row(tok);
+    float v[MAXC];
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C ? to_f32(src[c]) : 0.0f;
+    }
+    float mean = 0.0f, rstd = 1.0f;
+    if constexpr (NORM) row_stats(v, C, mean, rstd);
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      const float t = NORM ? (v[i] - mean) * rstd * g[c] + be[c] : v[i];
+      if (c < CP) o[c] = __float2bfloat16(c < C ? t : 0.0f);
+    }
+  }
+}
+
+// Exact (erf) GELU of x in float32.
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
 }  // namespace winattn

@@ -61,6 +61,12 @@ SIGNATURES = {
     "hdrvae_swin_block": [_P] * 18 + [_I] * 9 + [_P],
     # ocab.cu
     "hdrvae_ocab_attention": [_P] * 5 + [_I] * 4 + [_P],
+    # swin_chain.cu
+    "hdrvae_swin_ln_qkv": [_P] * 6 + [_I] * 6 + [_P],
+    "hdrvae_swin_attn_core": [_P] * 3 + [_I] * 6 + [_P],
+    "hdrvae_swin_proj_mlp": [_P] * 12 + [_I] * 7 + [_P],
+    # f32_dot.cu
+    "hdrvae_f32_dot": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 

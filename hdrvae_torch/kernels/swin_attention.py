@@ -29,9 +29,19 @@ q/k/v, the probabilities and the attention output in the storage dtype;
 scores, softmax, residuals, LN statistics and the MLP accumulation in
 float32.
 
-The wrapper runs the plain version only for a CPU tensor.  On a CUDA
-tensor it launches ``csrc/swin_block.cu`` or raises: the kernel takes bf16
-images and weights (the fast tier) and windows of at most 256 tokens.
+The staged chain computes the v1 block in three kernels, as the JAX
+module's debugging tier does: K10 :func:`ln_qkv` (LN1 + qkv into the
+[nwb, n16, heads * 96] layout of K7's scratch), K9
+:func:`window_attention_core` (the attention core, into [nwb, n16, heads *
+32]) and K11 :func:`proj_mlp` (proj + residuals, LN2, MLP, back to the
+image); :func:`swin_block_chain` runs the three, and
+:func:`swin_window_attention` runs K9 between plain qkv and proj products.
+No model takes the chain: it is reached through these functions.
+
+Each wrapper runs its plain version only for a CPU tensor.  On a CUDA
+tensor it launches ``csrc/swin_block.cu`` (``csrc/swin_chain.cu`` for the
+chain) or raises: the kernels take bf16 images, q/k/v and weights (the
+fast tier), windows of at most 256 tokens and C <= 256, head_dim <= 32.
 """
 
 from __future__ import annotations
@@ -213,6 +223,41 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return a.float() @ w.float()
 
 
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: torch.Tensor, *, ws: int, shift: int,
+               grid: Tuple[int, int]) -> torch.Tensor:
+    """softmax(q k^T + bias + masks) v of every (window, head): q, k, v
+    [nwb, heads, n, 32] (the windows of each image in row-major order on a
+    ``grid`` of (nwh, nww) windows), bias [heads, n, n] float32; the band
+    masks act in the last window row and column of a shifted grid.  Float32
+    scores and softmax; P and the output rounded to v's dtype."""
+    nwb, heads, n, _ = q.shape
+    nwh, nww = grid
+    s = _mm(q, k.transpose(-1, -2)).reshape(-1, nwh, nww, heads, n, n)
+    if shift:
+        mrow, mcol = (m.to(s.device) for m in band_masks(ws, shift))
+        rows = torch.zeros(nwh, 1, 1, 1, 1, device=s.device)
+        rows[-1] = 1.0
+        cols = torch.zeros(1, nww, 1, 1, 1, device=s.device)
+        cols[:, -1] = 1.0
+        s = s + (bias + rows * mrow) + cols * mcol
+    else:
+        s = s + bias
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).reshape(nwb, heads, n, n)
+    return _mm(p, v).to(v.dtype)
+
+
+def _mlp(y: torch.Tensor, w: BlockWeights, cdt: torch.dtype,
+         c: int) -> torch.Tensor:
+    """fc2(GELU(fc1(y))) of rows y [..., CP] in the compute dtype, the
+    first c columns: float32 sums, the exact GELU rounded to ``cdt``."""
+    h1 = _mm(y, w.w1.to(cdt)) + w.b1
+    h1 = (0.5 * h1 * (1.0 + torch.erf(h1 * 2.0 ** -0.5))).to(cdt)
+    return _mm(h1, w.w2.to(cdt))[..., :c]
+
+
 def swin_block_fused_reference(img: torch.Tensor, w: BlockWeights, *,
                                ws: int, shift: int,
                                extra: Optional[torch.Tensor] = None,
@@ -234,24 +279,9 @@ def swin_block_fused_reference(img: torch.Tensor, w: BlockWeights, *,
                                            keepdim=True).clamp_min(1e-12)
         q = qk[..., 0, :] * w.qk_scale.to(qk.device)[:, None]
         qkv = torch.stack([q, qk[..., 1, :], qkv[..., 2, :]], dim=3)
-    qkv = qkv.to(sdt).permute(3, 0, 2, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]                        # [nwb, H, n, 32]
-    s = _mm(q, k.transpose(-1, -2))
-    nwh, nww = hh // ws, ww // ws
-    s = s.reshape(b, nwh, nww, heads, n, n)
-    if shift:
-        mrow, mcol = (m.to(s.device) for m in band_masks(ws, shift))
-        rows = torch.zeros(nwh, 1, 1, 1, 1, device=s.device)
-        rows[-1] = 1.0
-        cols = torch.zeros(1, nww, 1, 1, 1, device=s.device)
-        cols[:, -1] = 1.0
-        s = s + (w.bias + rows * mrow) + cols * mcol
-    else:
-        s = s + w.bias
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    p = (e / e.sum(dim=-1, keepdim=True)).to(sdt).reshape(-1, heads, n, n)
-    o = _mm(p, v).to(sdt)                                   # [nwb, H, n, 32]
+    q, k, v = qkv.to(sdt).permute(3, 0, 2, 1, 4)           # [nwb, H, n, 32]
+    o = _attention(q, k, v, w.bias, ws=ws, shift=shift,
+                   grid=(hh // ws, ww // ws))
     o = o.permute(0, 2, 1, 3).reshape(-1, n, heads * HDP)
     proj = _mm(o.to(cdt), w.wp.to(cdt))[..., :c]
     if w.post_norm:
@@ -261,10 +291,7 @@ def swin_block_fused_reference(img: torch.Tensor, w: BlockWeights, *,
     if extra is not None:
         x2 = x2 + _partition(extra, ws).float()
     y2 = x2 if w.post_norm else _ln(x2, w.g2, w.be2)
-    y2 = F.pad(y2, (0, cp - c)).to(cdt)
-    h1 = _mm(y2, w.w1.to(cdt)) + w.b1
-    h1 = (0.5 * h1 * (1.0 + torch.erf(h1 * 2.0 ** -0.5))).to(cdt)
-    fc2 = _mm(h1, w.w2.to(cdt))[..., :c]
+    fc2 = _mlp(F.pad(y2, (0, cp - c)).to(cdt), w, cdt, c)
     if w.post_norm:
         out = x2 + _ln(fc2 + w.b2, w.g2, w.be2)
     else:
@@ -275,6 +302,46 @@ def swin_block_fused_reference(img: torch.Tensor, w: BlockWeights, *,
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _require_bf16(name: str, device: torch.device, tensors) -> None:
+    """Raise unless every (label, tensor) of ``tensors`` (None skipped) is
+    a contiguous bf16 tensor on ``device``."""
+    for label, t in tensors:
+        if t is None:
+            continue
+        _require(t.dtype == torch.bfloat16,
+                 f"{name}: the CUDA kernel takes bf16 {label}, got {t.dtype}")
+        _require(t.is_contiguous(), f"{name}: {label} must be contiguous")
+        _require(t.device == device, f"{name}: {label} is not on {device}")
+
+
+def _require_cuda_block(name: str, img: torch.Tensor, w: BlockWeights,
+                        ws: int, tensors) -> None:
+    """Raise unless the CUDA kernels of a Swin block take ``img`` [B, H, W,
+    C] with weights ``w``: a CUDA tensor on a grid of ws-windows of at most
+    MAX_TOKENS tokens, C <= MAX_CHANNELS, head_dim <= 32, the bias [heads,
+    n, n], and the bf16 ``tensors`` (an ``extra`` of img's shape)."""
+    _require(img.is_cuda, f"{name}: unsupported device {img.device}")
+    _require(img.dim() == 4, f"img must be [B, H, W, C], got "
+             f"{tuple(img.shape)}")
+    _, hh, ww, c = img.shape
+    heads, n = w.heads, ws * ws
+    _require(hh % ws == 0 and ww % ws == 0,
+             f"{name}: {hh}x{ww} is not a grid of {ws}-windows")
+    _require(n <= MAX_TOKENS,
+             f"{name}: window {ws} has more than {MAX_TOKENS} tokens")
+    _require(c % heads == 0 and c // heads <= HDP,
+             f"{name}: head_dim {c / heads} must be an integer <= {HDP}")
+    _require(c <= MAX_CHANNELS, f"{name}: {c} channels > {MAX_CHANNELS}")
+    _require_bf16(name, img.device, tensors)
+    extra = dict(tensors).get("extra")
+    if extra is not None:
+        _require(extra.shape == img.shape,
+                 f"extra must be {tuple(img.shape)}, got "
+                 f"{tuple(extra.shape)}")
+    _require(tuple(w.bias.shape) == (heads, n, n),
+             f"bias must be [{heads}, {n}, {n}]")
 
 
 def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
@@ -291,41 +358,13 @@ def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
     if img.device.type == "cpu":
         return swin_block_fused_reference(img, w, ws=ws, shift=shift,
                                           extra=extra, precision=precision)
-    _require(img.is_cuda, f"swin_block_fused: unsupported device {img.device}")
-    _require(img.dim() == 4, f"img must be [B, H, W, C], got "
-             f"{tuple(img.shape)}")
-    b, hh, ww, c = img.shape
-    heads = w.heads
-    _require(hh % ws == 0 and ww % ws == 0,
-             f"swin_block_fused: {hh}x{ww} is not a grid of {ws}-windows")
-    _require(ws * ws <= MAX_TOKENS,
-             f"swin_block_fused: window {ws} has more than {MAX_TOKENS} "
-             "tokens")
-    _require(c % heads == 0 and c // heads <= HDP,
-             f"swin_block_fused: head_dim {c / heads} must be an integer "
-             f"<= {HDP}")
-    _require(c <= MAX_CHANNELS,
-             f"swin_block_fused: {c} channels > {MAX_CHANNELS}")
+    _require_cuda_block("swin_block_fused", img, w, ws, (
+        ("img", img), ("extra", extra), ("wq", w.wq), ("wp", w.wp),
+        ("w1", w.w1), ("w2", w.w2)))
     _require(0 <= shift < ws, f"swin_block_fused: shift {shift} not in "
              f"[0, {ws})")
-    for name, t in (("img", img), ("extra", extra), ("wq", w.wq),
-                    ("wp", w.wp), ("w1", w.w1), ("w2", w.w2)):
-        if t is None:
-            continue
-        _require(t.dtype == torch.bfloat16,
-                 f"swin_block_fused: the CUDA kernel takes bf16 {name}, "
-                 f"got {t.dtype}")
-        _require(t.is_contiguous(), f"swin_block_fused: {name} must be "
-                 "contiguous")
-        _require(t.device == img.device,
-                 f"swin_block_fused: {name} is not on {img.device}")
-    if extra is not None:
-        _require(extra.shape == img.shape,
-                 f"extra must be {tuple(img.shape)}, got "
-                 f"{tuple(extra.shape)}")
-    n = ws * ws
-    _require(tuple(w.bias.shape) == (heads, n, n),
-             f"bias must be [{heads}, {n}, {n}]")
+    b, hh, ww, c = img.shape
+    heads, n = w.heads, ws * ws
     _require(w.post_norm == (w.qk_scale is not None),
              "swin_block_fused: the CUDA kernel takes the v2 body whole "
              "(post_norm with qk_scale) or v1")
@@ -354,3 +393,222 @@ def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
 
 
 swin_block_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The staged chain: K10 -> K9 -> K11, the v1 block in three kernels
+# ---------------------------------------------------------------------------
+
+
+def _require_v1(name: str, w: BlockWeights) -> None:
+    _require(not w.post_norm and w.qk_scale is None,
+             f"{name}: the staged chain takes the v1 body only")
+
+
+def _require_bf16_tier(name: str, precision: Precision) -> None:
+    _require(precision.compute_dtype == torch.bfloat16
+             and precision.storage_dtype == torch.bfloat16,
+             f"{name}: the CUDA kernel takes bf16 (the fast tier), got "
+             f"{precision.compute_dtype} / {precision.storage_dtype}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ln_qkv_reference(img: torch.Tensor, w: BlockWeights, *, ws: int,
+                     precision: Precision = Precision()) -> torch.Tensor:
+    """Plain version of :func:`ln_qkv` (the JAX ``_ln_qkv_kernel``'s order
+    and rounding): LN1 in float32 rounded to the compute dtype, float32
+    sums + the bias, rounded to the storage dtype; pad rows zero."""
+    cdt = precision.compute_dtype
+    c, n, cp = img.shape[-1], ws * ws, w.wq.shape[0]
+    y = _ln(_partition(img, ws).float(), w.g1, w.be1)
+    qkv = _mm(F.pad(y, (0, cp - c)).to(cdt), w.wq.to(cdt)) + w.bq
+    return F.pad(qkv.to(precision.storage_dtype), (0, 0, 0, _round16(n) - n))
+
+
+def ln_qkv(img: torch.Tensor, w: BlockWeights, *, ws: int,
+           precision: Precision = Precision()) -> torch.Tensor:
+    """K10: LN1 and the qkv projection of every window of ``img`` [B, H, W,
+    C] (rolled by -shift, H and W multiples of ``ws``), as
+    ``hdrvae/kernels/swin_attention.py::ln_qkv``.  Returns qkv [nwb, n16,
+    heads * 96] in the storage dtype: column h * 96 + j * 32 + d is slot j
+    (q, k, v) of head h, dim d (the softmax scale folded into q), n16 the
+    window's tokens rounded up to 16, pad rows zero.  The window partition
+    happens in the kernel's addressing.
+
+    Launches ``csrc/swin_chain.cu`` for CUDA inputs (bf16, the fast tier);
+    runs :func:`ln_qkv_reference` for CPU ones."""
+    _require_v1("ln_qkv", w)
+    if img.device.type == "cpu":
+        return ln_qkv_reference(img, w, ws=ws, precision=precision)
+    _require_cuda_block("ln_qkv", img, w, ws, (("img", img), ("wq", w.wq)))
+    _require_bf16_tier("ln_qkv", precision)
+    b, hh, ww, c = img.shape
+    qkv = torch.empty(b * (hh // ws) * (ww // ws), _round16(ws * ws),
+                      w.heads * 96, device=img.device, dtype=torch.bfloat16)
+    _build.check(_build.library().hdrvae_swin_ln_qkv(
+        img.data_ptr(), w.wq.data_ptr(), w.bq.data_ptr(), w.g1.data_ptr(),
+        w.be1.data_ptr(), qkv.data_ptr(), b, hh, ww, c, w.heads, ws,
+        _stream(img)), "hdrvae_swin_ln_qkv")
+    ln_qkv.launches += 1
+    return qkv
+
+
+ln_qkv.launches = 0
+
+
+def window_attention_core_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                                    *, heads: int, ws: int, shift: int,
+                                    grid: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of :func:`window_attention_core`."""
+    nwb, n16, _ = qkv.shape
+    n = ws * ws
+    q, k, v = qkv[:, :n].reshape(nwb, n, heads, 3, HDP).permute(3, 0, 2, 1, 4)
+    o = _attention(q, k, v, bias.to(qkv.device), ws=ws, shift=shift,
+                   grid=grid)
+    o = o.permute(0, 2, 1, 3).reshape(nwb, n, heads * HDP)
+    return F.pad(o, (0, 0, 0, n16 - n))
+
+
+def window_attention_core(qkv: torch.Tensor, bias: torch.Tensor, *,
+                          heads: int, ws: int, shift: int,
+                          grid: Tuple[int, int]) -> torch.Tensor:
+    """K9: softmax(q k^T + bias + masks) v of every (window, head), as
+    ``hdrvae/kernels/swin_attention.py::_attn_core``.  ``qkv`` [nwb, n16,
+    heads * 96] is :func:`ln_qkv`'s layout (the windows of each image in
+    row-major order on a ``grid`` of (nwh, nww) windows), ``bias`` [heads,
+    n, n] float32; the -100 band masks of ``band_masks(ws, shift)`` act in
+    the last window row and column of a shifted grid (a corner window takes
+    both).  Float32 scores and softmax, P rounded to qkv's dtype.  Returns
+    [nwb, n16, heads * 32] in qkv's dtype, head h at columns h * 32 ..
+    h * 32 + 31, pad rows zero.
+
+    Launches ``csrc/swin_chain.cu`` for CUDA inputs (bf16 qkv); runs
+    :func:`window_attention_core_reference` for CPU ones."""
+    if qkv.device.type == "cpu":
+        return window_attention_core_reference(qkv, bias, heads=heads, ws=ws,
+                                               shift=shift, grid=grid)
+    name = "window_attention_core"
+    _require(qkv.is_cuda, f"{name}: unsupported device {qkv.device}")
+    n = ws * ws
+    nwh, nww = grid
+    _require(n <= MAX_TOKENS,
+             f"{name}: window {ws} has more than {MAX_TOKENS} tokens")
+    _require(qkv.dim() == 3 and qkv.shape[1:] == (_round16(n), heads * 96),
+             f"{name}: qkv must be [nwb, {_round16(n)}, {heads * 96}], got "
+             f"{tuple(qkv.shape)}")
+    nwb = qkv.shape[0]
+    _require(nwb > 0 and nwh > 0 and nww > 0 and nwb % (nwh * nww) == 0,
+             f"{name}: {nwb} windows are no batch of {nwh}x{nww} grids")
+    _require(0 <= shift < ws, f"{name}: shift {shift} not in [0, {ws})")
+    _require(tuple(bias.shape) == (heads, n, n),
+             f"bias must be [{heads}, {n}, {n}]")
+    _require(bias.device == qkv.device, f"{name}: bias is not on "
+             f"{qkv.device}")
+    _require_bf16(name, qkv.device, (("qkv", qkv),))
+    bias = bias.float().contiguous()
+    out = torch.empty(nwb, _round16(n), heads * HDP, device=qkv.device,
+                      dtype=torch.bfloat16)
+    _build.check(_build.library().hdrvae_swin_attn_core(
+        qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), nwb, heads, ws,
+        shift, nwh, nww, _stream(qkv)), "hdrvae_swin_attn_core")
+    window_attention_core.launches += 1
+    return out
+
+
+window_attention_core.launches = 0
+
+
+def proj_mlp_reference(attn_out: torch.Tensor, img: torch.Tensor,
+                       w: BlockWeights, *, ws: int,
+                       extra: Optional[torch.Tensor] = None,
+                       precision: Precision = Precision()) -> torch.Tensor:
+    """Plain version of :func:`proj_mlp` (the JAX ``_proj_mlp_kernel``'s
+    order and rounding, the exact GELU)."""
+    cdt = precision.compute_dtype
+    b, hh, ww, c = img.shape
+    n, cp = ws * ws, w.wq.shape[0]
+    proj = _mm(attn_out[:, :n].to(cdt), w.wp.to(cdt))[..., :c]
+    x2 = _partition(img, ws).float() + proj + w.bp
+    if extra is not None:
+        x2 = x2 + _partition(extra, ws).float()
+    y2 = F.pad(_ln(x2, w.g2, w.be2), (0, cp - c)).to(cdt)
+    out = x2 + _mlp(y2, w, cdt, c) + w.b2
+    return _merge(out.to(precision.storage_dtype), ws, b, hh, ww)
+
+
+def proj_mlp(attn_out: torch.Tensor, img: torch.Tensor, w: BlockWeights, *,
+             ws: int, extra: Optional[torch.Tensor] = None,
+             precision: Precision = Precision()) -> torch.Tensor:
+    """K11: the proj of the attention output ``attn_out`` [nwb, n16, heads
+    * 32] (:func:`window_attention_core`'s layout) + bp + the block's input
+    ``img`` [B, H, W, C] (rolled) [+ ``extra``, HAT's CAB term], then LN2,
+    fc1, the exact GELU, fc2 and the residual, as
+    ``hdrvae/kernels/swin_attention.py::proj_mlp``.  Returns [B, H, W, C]
+    in the storage dtype, still rolled: the window merge happens in the
+    kernel's addressing.
+
+    Launches ``csrc/swin_chain.cu`` for CUDA inputs (bf16, the fast tier);
+    runs :func:`proj_mlp_reference` for CPU ones."""
+    _require_v1("proj_mlp", w)
+    if img.device.type == "cpu":
+        return proj_mlp_reference(attn_out, img, w, ws=ws, extra=extra,
+                                  precision=precision)
+    _require_cuda_block("proj_mlp", img, w, ws, (
+        ("img", img), ("attn_out", attn_out), ("extra", extra),
+        ("wp", w.wp), ("w1", w.w1), ("w2", w.w2)))
+    _require_bf16_tier("proj_mlp", precision)
+    b, hh, ww, c = img.shape
+    nwb = b * (hh // ws) * (ww // ws)
+    _require(attn_out.shape == (nwb, _round16(ws * ws), w.heads * HDP),
+             f"proj_mlp: attn_out must be [{nwb}, {_round16(ws * ws)}, "
+             f"{w.heads * HDP}], got {tuple(attn_out.shape)}")
+    y = torch.empty_like(img)
+    _build.check(_build.library().hdrvae_swin_proj_mlp(
+        attn_out.data_ptr(), img.data_ptr(),
+        None if extra is None else extra.data_ptr(), w.wp.data_ptr(),
+        w.bp.data_ptr(), w.g2.data_ptr(), w.be2.data_ptr(), w.w1.data_ptr(),
+        w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(), y.data_ptr(), b,
+        hh, ww, c, w.heads, w.hidden, ws, _stream(img)),
+        "hdrvae_swin_proj_mlp")
+    proj_mlp.launches += 1
+    return y
+
+
+proj_mlp.launches = 0
+
+
+def swin_block_chain(img: torch.Tensor, w: BlockWeights, *, ws: int,
+                     shift: int, extra: Optional[torch.Tensor] = None,
+                     precision: Precision = Precision()) -> torch.Tensor:
+    """The v1 block of :func:`swin_block_fused` as the staged chain K10 ->
+    K9 -> K11 on ``img`` [B, H, W, C], already rolled by -shift: the same
+    function, each stage rounding where K7 rounds."""
+    _, hh, ww, _ = img.shape
+    qkv = ln_qkv(img, w, ws=ws, precision=precision)
+    o = window_attention_core(qkv, w.bias, heads=w.heads, ws=ws, shift=shift,
+                              grid=(hh // ws, ww // ws))
+    return proj_mlp(o, img, w, ws=ws, extra=extra, precision=precision)
+
+
+def swin_window_attention(wins: torch.Tensor, w: BlockWeights, *, ws: int,
+                          grid_hw: Tuple[int, int], shift: int,
+                          precision: Precision = Precision()
+                          ) -> torch.Tensor:
+    """The window attention of post-LN windows ``wins`` [nwb, n, C] (in
+    (batch, row, col) order on an image of ``grid_hw`` pixels) with K9 as
+    its core, as ``hdrvae/kernels/swin_attention.py::swin_window_attention``
+    (the drop-in for ``models/swinir.py::window_attention``): the qkv and
+    proj products are plain float32 matmuls of operands in the compute
+    dtype, as the JAX function leaves them to XLA.  Returns [nwb, n, C] in
+    the storage dtype (proj applied)."""
+    cdt, sdt = precision.compute_dtype, precision.storage_dtype
+    _, n, c = wins.shape
+    qkv = (_mm(wins.to(cdt), w.wq[:c].to(cdt)) + w.bq).to(sdt)
+    qkv = F.pad(qkv, (0, 0, 0, _round16(n) - n)).contiguous()
+    o = window_attention_core(qkv, w.bias, heads=w.heads, ws=ws, shift=shift,
+                              grid=(grid_hw[0] // ws, grid_hw[1] // ws))
+    y = _mm(o[:, :n].to(cdt), w.wp.to(cdt))[..., :c] + w.bp
+    return y.to(sdt)

@@ -31,6 +31,7 @@ from torch import nn
 
 from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels.swin_attention import (BlockWeights, prepare_block,
+                                                 swin_block_chain,
                                                  swin_block_fused,
                                                  use_swin_kernel)
 from hdrvae_torch.models.layers import conv2d, nearest_upsample_2x
@@ -325,20 +326,36 @@ def block_weights(blk: nn.Module, heads: int, ws: int,
     return cache[key]
 
 
-def fused_block(x: torch.Tensor, w: BlockWeights, ws: int, shift: int,
-                precision: Precision,
-                extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block (its K7 weights ``w``) through K7 in rolled image space:
-    LN is pointwise, so it commutes with the roll, and the rolled x is both
-    the kernel's input and its residual (``swinir._swin_block_kernel``).
+def _rolled_block(block_fn, x: torch.Tensor, w: BlockWeights, ws: int,
+                  shift: int, precision: Precision,
+                  extra: Optional[torch.Tensor]) -> torch.Tensor:
+    """``block_fn`` (K7 or the staged chain) in rolled image space: LN is
+    pointwise, so it commutes with the roll, and the rolled x is both the
+    kernels' input and their residual (``swinir._swin_block_kernel``).
     ``extra`` is rolled here too."""
     def roll(t, s):
         return torch.roll(t, (s, s), dims=(1, 2)) if shift else t
-    y = swin_block_fused(roll(x, -shift).contiguous(), w, ws=ws, shift=shift,
-                         extra=None if extra is None
-                         else roll(extra, -shift).contiguous(),
-                         precision=precision)
+    y = block_fn(roll(x, -shift).contiguous(), w, ws=ws, shift=shift,
+                 extra=None if extra is None
+                 else roll(extra, -shift).contiguous(),
+                 precision=precision)
     return roll(y, shift)
+
+
+def fused_block(x: torch.Tensor, w: BlockWeights, ws: int, shift: int,
+                precision: Precision,
+                extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block (its K7 weights ``w``) through K7."""
+    return _rolled_block(swin_block_fused, x, w, ws, shift, precision, extra)
+
+
+def chain_block(x: torch.Tensor, w: BlockWeights, ws: int, shift: int,
+                precision: Precision,
+                extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One v1 block (its K7 weights ``w``) through the staged chain K10 ->
+    K9 -> K11: :func:`fused_block`'s function in three kernels.  No
+    forward takes it; it is the chain's A/B against K7."""
+    return _rolled_block(swin_block_chain, x, w, ws, shift, precision, extra)
 
 
 def swin_block(x: torch.Tensor, blk: SwinBlock, heads: int, ws: int,

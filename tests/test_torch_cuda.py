@@ -18,7 +18,7 @@ from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
                                       Precision, TilingConfig, UpscaleConfig)
 from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
 from hdrvae_torch.kernels import (attention, conv3x3, dense_conv, epilogue,
-                                  ocab, swin_attention)
+                                  f32_dot, ocab, swin_attention)
 from hdrvae_torch.models import hat, swin2sr, swinir
 from hdrvae_torch.models.decoder import decoder_head, decoder_tail
 from hdrvae_torch.models.params import init_decoder
@@ -533,3 +533,109 @@ def test_small_swin_upscaler_on_card(dev, family):
         sum(cfg.depths) * runs
     assert ocab.ocab_attention.launches - k8 == \
         (len(cfg.depths) * runs if family == "HAT" else 0)
+
+
+def _window_edges(d, b, h, w, ws):
+    """Max of a per-window error d [nwin, ...] over the windows of the last
+    window row and column (where a shifted grid's masks act)."""
+    e = d.reshape(b, h // ws, w // ws, -1).amax(dim=-1)
+    return max(e[:, -1].max().item(), e[:, :, -1].max().item())
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,ws,shift,extra", SWIN_CASES)
+def test_swin_chain(dev, b, h, w, c, heads, ws, shift, extra):
+    """The staged chain's kernels, each against its plain version on the
+    same input (K9 and K11 on the kernel's own qkv and o): within two bf16
+    ulps of the largest output, K9 also over the windows of the last window
+    row and column; the chain's output equals K7's (they round at the same
+    points), within one ulp."""
+    blk = _swin_block(dev, c, heads, ws, seed=ws + shift)
+    wts = swinir.block_weights(blk, heads, ws, torch.bfloat16)
+    x = _rand(dev, (b, h, w, c), seed=1)
+    e = _rand(dev, (b, h, w, c), 0.5, seed=2) if extra else None
+    fast = Precision.fast()
+    sa = swin_attention
+    before = (sa.ln_qkv.launches, sa.window_attention_core.launches,
+              sa.proj_mlp.launches)
+    qkv = sa.ln_qkv(x, wts, ws=ws, precision=fast)
+    kw = dict(heads=heads, ws=ws, shift=shift, grid=(h // ws, w // ws))
+    o = sa.window_attention_core(qkv, wts.bias, **kw)
+    y = sa.proj_mlp(o, x, wts, ws=ws, extra=e, precision=fast)
+    assert (sa.ln_qkv.launches, sa.window_attention_core.launches,
+            sa.proj_mlp.launches) == tuple(n + 1 for n in before)
+    ref_qkv = sa.ln_qkv_reference(x, wts, ws=ws, precision=fast)
+    ref_o = sa.window_attention_core_reference(qkv, wts.bias, **kw)
+    ref_y = sa.proj_mlp_reference(o, x, wts, ws=ws, extra=e, precision=fast)
+    torch.cuda.synchronize()
+    n16 = -(-ws * ws // 16) * 16
+    assert qkv.shape == ref_qkv.shape == (b * (h // ws) * (w // ws), n16,
+                                          heads * 96)
+    assert o.shape == ref_o.shape and y.shape == x.shape
+    assert all(t.dtype == torch.bfloat16 for t in (qkv, o, y))
+    for got, ref in ((qkv, ref_qkv), (o, ref_o), (y, ref_y)):
+        d = (got.float() - ref.float()).abs()
+        assert d.max().item() <= 2 * _ulp_bound(ref), d.max().item()
+    d = (o.float() - ref_o.float()).abs()
+    assert _window_edges(d, b, h, w, ws) <= 2 * _ulp_bound(ref_o)
+    k7 = sa.swin_block_fused(x, wts, ws=ws, shift=shift, extra=e,
+                             precision=fast)
+    assert (y.float() - k7.float()).abs().max().item() <= _ulp_bound(k7)
+
+
+def test_swin_chain_refuses_what_it_does_not_take(dev):
+    """float32 operands, the SwinV2 body, a qkv of the wrong layout and a
+    shift past the window raise; nothing falls back."""
+    blk = _swin_block(dev, 48, 2, 4, seed=0)
+    wb = swinir.block_weights(blk, 2, 4, torch.bfloat16)
+    x = torch.zeros(1, 8, 8, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        swin_attention.ln_qkv(x.float(), wb, ws=4,
+                              precision=Precision.fast())
+    with pytest.raises(ValueError, match="bf16"):
+        swin_attention.ln_qkv(x, wb, ws=4, precision=Precision.parity())
+    with pytest.raises(ValueError, match="v1 body"):
+        swin_attention.proj_mlp(
+            torch.zeros(4, 16, 64, device=dev, dtype=torch.bfloat16), x,
+            wb._replace(post_norm=True), ws=4, precision=Precision.fast())
+    qkv = torch.zeros(4, 16, 2 * 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="qkv must be"):
+        swin_attention.window_attention_core(qkv[:, :8], wb.bias, heads=2,
+                                             ws=4, shift=0, grid=(2, 2))
+    with pytest.raises(ValueError, match="shift"):
+        swin_attention.window_attention_core(qkv, wb.bias, heads=2, ws=4,
+                                             shift=4, grid=(2, 2))
+    with pytest.raises(ValueError, match="grids"):
+        swin_attention.window_attention_core(qkv, wb.bias, heads=2, ws=4,
+                                             shift=0, grid=(3, 1))
+
+
+@pytest.mark.parametrize("precision", f32_dot.PRECISIONS)
+@pytest.mark.parametrize("m,k,n", [(64, 32, 64), (192, 96, 128),
+                                   (1024, 256, 256)])
+def test_f32_dot(dev, m, k, n, precision):
+    """K12 against its plain version within 1e-5 * max|ref| (float32 sums
+    in another order), and within its class of a float64 product: highest
+    1e-5, high 1e-4, default 2e-2 of max|exact|."""
+    x = _rand(dev, (m, k), 1.0, torch.float32, seed=1)
+    w = _rand(dev, (k, n), 0.05, torch.float32, seed=2)
+    before = f32_dot.f32_dot.launches
+    y = f32_dot.f32_dot(x, w, precision=precision)
+    assert f32_dot.f32_dot.launches == before + 1
+    ref = f32_dot.f32_dot_reference(x, w, precision=precision)
+    exact = x.double() @ w.double()
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and y.dtype == torch.float32
+    assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    bound = {"highest": 1e-5, "high": 1e-4, "default": 2e-2}[precision]
+    assert (y.double() - exact).abs().max().item() <= \
+        bound * exact.abs().max().item()
+
+
+def test_f32_dot_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(64, 32, device=dev)
+    with pytest.raises(ValueError, match="multiples"):
+        f32_dot.f32_dot(x[:48], torch.zeros(32, 64, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        f32_dot.f32_dot(x.double(), torch.zeros(32, 64, device=dev).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        f32_dot.f32_dot(x, torch.zeros(64, 32, device=dev).t())
