@@ -10,7 +10,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 2. build: compile the kernels, print the build time and ptxas' register
    and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes its path gives it (K1-K4: a 1024^2 decode; K6: one 512^2
+   the shapes its path gives it (K1-K4: a 1024^2 decode, K3 in its three
+   dot modes, the 3-pass one also against exact float32 and on a ragged
+   input with peaked scores; K6: one 512^2
    tile of the full-width ESRGAN x4 net; K7: one 512^2 tile of SwinIR-M,
    unshifted and shifted, of HAT-M with its CAB residual, and a ragged
    128 x 120 tile; K7's SwinV2 body: one 512^2 tile of Swin2SR-M,
@@ -28,12 +30,16 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    computes the same function, that call's time (library_ms; the port
    never calls it);
 4. decode: the full-width Flux.1 decoder (random weights from a numpy
-   seed) on a [1, 128, 128, 16] latent through ``hdr_decode`` +
+   seed), written to a safetensors file and read back by ``load_decoder``
+   bit for bit, on a [1, 128, 128, 16] latent through ``hdr_decode`` +
    ``decode_summary`` in the fast, parity and mixed tiers, three requests
-   each (the first warms cuDNN up); fast is held against the unfused fast
-   path, mixed against parity; then one fast and one parity decode with
-   the fused epilogue (K4) held to the default path's; then the epilogue
-   in all four modes on one decoder output;
+   each (the first warms cuDNN up), each tier launching its own attention
+   kernel (bf16, exact float32, 3-pass) and no other; fast is held against
+   the unfused fast path (upstack "xla"), mixed against parity; one mixed
+   decode with ``fast_head_levels=2`` (its head's attention the bf16
+   kernel) held to parity at the fast tier's budget; then one fast and
+   one parity decode with the fused epilogue (K4) held to the default
+   path's; then the epilogue in all four modes on one decoder output;
 5. large frames: fast decodes at 2048^2 and 4096^2 with the whole-image
    and the streamed top level (``LOWMEM_MIN_PIXELS`` set in-process), the
    streamed one launching K5 and K2 stats_only once a request and the
@@ -42,7 +48,8 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    (its route forced by the test hook) held to the whole-image one; and
    one mixed request that ``hdr_decode`` routes to the staged executor by
    itself, at the smallest latent side whose frame reaches
-   ``STAGED_MIN_PIXELS``; each with its time and peak memory;
+   ``STAGED_MIN_PIXELS``, its mid attention one 3-pass launch; each with
+   its time and peak memory;
 6. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
 7. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
    seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
@@ -65,8 +72,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    main path: each precision's time and error against a float64 product,
    held to its class, beside ``torch.matmul`` in float32 (TF32 off and on)
    and bf16;
-11. launch counts: K1, K2 and K3 ran in the fast decode, K3 in parity and
-   mixed, K4 in the fused-epilogue decodes, K5 and K2 stats_only in the
+11. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K3's 3-pass
+   mode in mixed, K3 f32 in parity, K4 in the fused-epilogue decodes, K5
+   and K2 stats_only in the
    low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
    fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR upscale,
    K8 in the fast HAT upscale, K9-K11 in the Swin chain phase, K12 in the
@@ -108,6 +116,12 @@ K1_SHAPES = [(128, 128, 512, 512, "add"), (256, 256, 512, 512, "add"),
 # (H, W, C) of the low-resolution input of each upsample conv
 K2_SHAPES = [(128, 128, 512), (256, 256, 512), (512, 512, 256)]
 N_TOKENS, C_ATTN = 128 * 128, 512
+ATTN_FLOPS = 4 * N_TOKENS * N_TOKENS * C_ATTN   # q k^T and p v, one pass
+# K3's 3-pass mode on a second input: ragged N (100 x 100 = 10,000 tokens,
+# no multiple of the 64 queries or 32 keys of a step) with q scaled by 8,
+# so the scores have std ~8 and the softmax is peaked: there the order of
+# the scale and the split (2^-16 of each score) reaches the output
+K3_SHARP_HW, K3_SHARP_QSCALE = 100, 8.0
 # K6 at one 512^2 tile of the x4 net: (name, H, W, input widths, Cout,
 # act, residual scale or None, float32 out)
 K6_SHAPES = [("conv_first", 512, 512, (3,), 64, None, None, False)] + [
@@ -143,6 +157,11 @@ FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
 STATS_BUDGET = 1e-3         # relative, on the emitted GroupNorm sums
 ATTN_BUDGET = {"parity": 1e-5, "mixed": 1e-4}
+# K3's 3-pass kernel against its plain version, relative to max|ref|: both
+# take the same bf16 products, so they differ by float32 sum order and by
+# where P is split (the kernel against the running row max, the plain
+# version against the final one), each p's hi + lo off by up to 2^-16 of p
+K3_3PASS_REL = 2.0 ** -16
 
 # K5 at the 2048^2 decode's junction and at a ragged map: (H, W) of the
 # low-resolution x [1, H, W, 256] -> y [1, 2H, 2W, 128], middle width 256
@@ -153,6 +172,10 @@ K2_STATS_SHAPE = (1024, 1024, 256)
 # the large-frame phase: staged vs whole-image mixed budgets (rgb and the
 # conservative image max-abs, the pre-map statistics relative)
 STAGED_RGB, STAGED_CONS, STAGED_PRE = 1e-4, 1e-3, 1e-4
+# the auto-routed staged 3968^2 mixed request when its mid attention ran
+# the exact float32 kernel: device ms and peak GiB on one H100 80GB HBM3 at
+# 700 W, as PERF.md records them; printed beside this run's
+F32_AUTO_ROUTED = (13897.0, 13.500)
 # K12 at the probe's shape (M, K, N): each precision against its plain
 # version (float32 sums in another order), and its class against a
 # float64 product, relative to max|exact|; bf16 passes a precision makes
@@ -409,37 +432,31 @@ def phase_kernels() -> list:
 
     # K3 ---------------------------------------------------------------
     from hdrvae_torch.core.config import Precision
-    hw = int(N_TOKENS ** 0.5)
-    q, k, v = (torch.from_numpy(rng.standard_normal(
-        (1, hw, hw, C_ATTN)).astype(np.float32)).to(dev) for _ in range(3))
+    q, k, v = _k3_inputs(rng)
     ref = attention.spatial_attention_reference(q, k, v)
-    f32_err = {}
-    for tier in ("parity", "mixed"):
-        got = attention.spatial_attention(q, k, v,
-                                          precision=Precision(mode=tier))
-        torch.cuda.synchronize()
-        f32_err[tier] = (got - ref).abs().max().item()
-        check(f32_err[tier] <= ATTN_BUDGET[tier],
-              f"K3 {tier}: max-abs {f32_err[tier]} > {ATTN_BUDGET[tier]}")
+    got = attention.spatial_attention(q, k, v, precision=Precision.parity())
+    torch.cuda.synchronize()
+    e = (got - ref).abs().max().item()
+    check(e <= ATTN_BUDGET["parity"],
+          f"K3 parity: max-abs {e} > {ATTN_BUDGET['parity']}")
     t = cuda_ms(lambda: attention.flash_attention_f32(q, k, v), iters=3)
     tp = cuda_ms(lambda: attention.spatial_attention_reference(q, k, v),
                  iters=3)
     tl = sdpa_ms(q, k, v)
     # q k^T and p v; exact float32 runs outside the tensor cores
-    attn_flops = 4 * N_TOKENS * N_TOKENS * C_ATTN
-    b = Bound().add(attn_flops, 4 * nbytes(q), PEAK_F32)
+    b = Bound().add(ATTN_FLOPS, 4 * nbytes(q), PEAK_F32)
     log(f"K3 flash_attention_f32 N={N_TOKENS} C={C_ATTN}: parity max-abs "
-        f"{f32_err['parity']:.3e} mixed {f32_err['mixed']:.3e}  kernel "
-        f"{t:.3f} ms  plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+        f"{e:.3e}  kernel {t:.3f} ms  plain {tp:.3f} ms  SDPA {tl:.3f} ms  "
+        f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
     entries.append({"name": "flash_attention_f32", "route": "cuda",
                     "source": "hdrvae_torch/csrc/attention.cu",
                     "replaces": "hdrvae/kernels/attention.py:210",
-                    "max_abs_err": max(f32_err.values()), "ms": t,
-                    "plain_ms": tp, **b, "library_ms": tl,
+                    "max_abs_err": e, "ms": t, "plain_ms": tp, **b,
+                    "library_ms": tl,
                     "library_call": "F.scaled_dot_product_attention, float32",
-                    "tiers": ["parity", "mixed"],
-                    "max_abs_err_by_tier": f32_err})
+                    "tiers": ["parity"]})
+    del got
+    entries.append(_check_k3_3pass(q, k, v, ref))
 
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     got = attention.spatial_attention(qb, kb, vb, precision=Precision.fast())
@@ -452,7 +469,7 @@ def phase_kernels() -> list:
     tp = cuda_ms(lambda: attention.spatial_attention_reference(qb, kb, vb),
                  iters=3)
     tl = sdpa_ms(qb, kb, vb)
-    b = Bound().add(attn_flops, 4 * nbytes(qb))
+    b = Bound().add(ATTN_FLOPS, 4 * nbytes(qb))
     log(f"K3 flash_attention_bf16 N={N_TOKENS} C={C_ATTN}: max-abs {e:.3e} "
         f"(budget {bound:.3e})  kernel {t:.3f} ms  plain {tp:.3f} ms  SDPA "
         f"{tl:.3f} ms  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
@@ -482,6 +499,73 @@ def phase_kernels() -> list:
 def _uniform(rng, lo, hi, shape) -> torch.Tensor:
     return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
         np.float32)).cuda()
+
+
+def _k3_inputs(rng, hw: int = int(N_TOKENS ** 0.5), qscale: float = 1.0):
+    """K3's float32 q, k, v [1, hw, hw, C_ATTN] ~ N(0, 1) on the card,
+    q times ``qscale``."""
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, hw, hw, C_ATTN)).astype(np.float32)).cuda() for _ in range(3))
+    return q * qscale, k, v
+
+
+def _check_k3_3pass(q, k, v, ref=None) -> dict:
+    """K3's 3-pass mode (the mixed tier) at K3's inputs: within
+    ATTN_BUDGET["mixed"] of the exact plain version ``ref`` and within
+    K3_3PASS_REL * max|ref3| of its own plain version ref3; then the same
+    against its plain version on the ragged, peaked input.  Times the
+    kernel, its plain version and SDPA float32 at K3's inputs."""
+    from hdrvae_torch.kernels import attention
+    if ref is None:
+        ref = attention.spatial_attention_reference(q, k, v)
+    got = attention.flash_attention_3pass(q, k, v)
+    ref3 = attention.spatial_attention_3pass_reference(q, k, v)
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), "K3 3-pass: output not finite")
+    e_exact = (got - ref).abs().max().item()
+    e = (got - ref3).abs().max().item()
+    bar = K3_3PASS_REL * ref3.abs().max().item()
+    check(e <= bar and e_exact <= ATTN_BUDGET["mixed"],
+          f"K3 3-pass: max-abs {e} against its plain version (<= {bar}), "
+          f"{e_exact} against exact float32 (<= {ATTN_BUDGET['mixed']})")
+    del got, ref3
+    torch.cuda.empty_cache()
+    qs, ks, vs = _k3_inputs(np.random.default_rng(7), K3_SHARP_HW,
+                            K3_SHARP_QSCALE)
+    got = attention.flash_attention_3pass(qs, ks, vs)
+    ref3 = attention.spatial_attention_3pass_reference(qs, ks, vs)
+    torch.cuda.synchronize()
+    e_sharp = (got - ref3).abs().max().item()
+    bar_sharp = K3_3PASS_REL * ref3.abs().max().item()
+    check(e_sharp <= bar_sharp, f"K3 3-pass ragged N = {K3_SHARP_HW ** 2}, "
+          f"q x {K3_SHARP_QSCALE}: max-abs {e_sharp} against its plain "
+          f"version > {bar_sharp}")
+    del qs, ks, vs, got, ref3
+    torch.cuda.empty_cache()
+    t = cuda_ms(lambda: attention.flash_attention_3pass(q, k, v), iters=3)
+    tp = cuda_ms(lambda: attention.spatial_attention_3pass_reference(q, k, v),
+                 iters=3)
+    tl = sdpa_ms(q, k, v)
+    # three bf16 passes of q k^T and of p v on the tensor cores
+    b = Bound().add(3 * ATTN_FLOPS, 4 * nbytes(q), PEAK_BF16)
+    log(f"K3 flash_attention_3pass N={N_TOKENS} C={C_ATTN}: max-abs "
+        f"{e_exact:.3e} vs exact (<= {ATTN_BUDGET['mixed']}), {e:.3e} vs "
+        f"plain 3-pass (<= {bar:.3e}); ragged N={K3_SHARP_HW ** 2} q x "
+        f"{K3_SHARP_QSCALE}: {e_sharp:.3e} vs plain (<= {bar_sharp:.3e})  "
+        f"kernel {t:.3f} ms ({3 * ATTN_FLOPS / (t * 1e9):.1f} TFLOP/s)  "
+        f"plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']})")
+    return {"name": "flash_attention_3pass", "route": "cuda",
+            "source": "hdrvae_torch/csrc/attention.cu",
+            "replaces": "hdrvae/kernels/attention.py:210 (HIGH: _dot3, :43)",
+            "max_abs_err": e, "err_budget": bar,
+            "max_abs_err_vs_exact": e_exact,
+            "ragged_peaked": {"n": K3_SHARP_HW ** 2,
+                              "qscale": K3_SHARP_QSCALE,
+                              "max_abs_err": e_sharp, "err_budget": bar_sharp},
+            "ms": t, "plain_ms": tp, **b, "library_ms": tl,
+            "library_call": "F.scaled_dot_product_attention, float32",
+            "tiers": ["mixed"]}
 
 
 def _check_k2_stats_only(rng) -> dict:
@@ -1043,7 +1127,8 @@ def _wrappers() -> dict:
     return {fn.__name__: fn for fn in (
         conv3x3.fused_conv3x3, conv3x3.upsample_conv3x3,
         conv3x3.upconv_gn_conv3x3,
-        attention.flash_attention_bf16, attention.flash_attention_f32,
+        attention.flash_attention_bf16, attention.flash_attention_3pass,
+        attention.flash_attention_f32,
         epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3,
         swin_attention.swin_block_fused, ocab.ocab_attention,
         swin_attention.ln_qkv, swin_attention.window_attention_core,
@@ -1064,21 +1149,50 @@ def _reset_counts() -> None:
     _wrappers()["upsample_conv3x3"].stats_only_launches = 0
 
 
+def _unfused_fast():
+    """The fast tier on the layers (upstack "xla"): what the fused fast
+    chain is held to."""
+    import dataclasses
+
+    from hdrvae_torch.core.config import Precision
+    return dataclasses.replace(Precision.fast(), upstack="xla")
+
+
 def phase_decode():
     from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
                                           Precision)
     from hdrvae_torch.decode.pipeline import (decode_summary, hdr_decode,
                                               hdr_epilogue)
-    from hdrvae_torch.models.decoder import (decoder_apply, decoder_head,
-                                             decoder_tail)
-    from hdrvae_torch.models.params import init_decoder
+    from safetensors.torch import save_file
+
+    from hdrvae_torch.models.decoder import decoder_apply
+    from hdrvae_torch.models.params import init_decoder, load_decoder
 
     cfg = DecoderConfig()
     t0 = time.perf_counter()
-    dec = init_decoder(cfg, seed=0, device="cuda")
-    n_params = sum(p.numel() for p in dec.parameters())
+    seeded = init_decoder(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in seeded.parameters())
     log(f"decoder: {n_params} parameters, weights from numpy seed 0 in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the decode starts from a checkpoint file, as a user's does: the seeded
+    # decoder under the ldm "decoder." prefix, read back by load_decoder
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ae.safetensors")
+        save_file({"decoder." + k: t.cpu().contiguous()
+                   for k, t in seeded.state_dict().items()}, path)
+        size = os.path.getsize(path)
+        dec = load_decoder(path)
+    want, got = seeded.state_dict(), dec.state_dict()
+    check(dec.cfg == cfg and set(got) == set(want)
+          and all(torch.equal(got[k], want[k]) for k in want),
+          "load_decoder: the loaded decoder is not bit-equal to the one "
+          "written")
+    check(next(dec.parameters()).is_cuda, "load_decoder: not on the card")
+    log(f"load_decoder: {size} bytes of safetensors written and loaded in "
+        f"{time.perf_counter() - t0:.1f} s; config inferred, weights "
+        "bit-equal")
+    del seeded, want, got
     z = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (1, 128, 128, cfg.z_channels)).astype(np.float32)).cuda()
     hcfg = HDRDecodeConfig(hdr_mode="conservative")
@@ -1118,11 +1232,21 @@ def phase_decode():
         log(f"decode[{name}] summary {json.dumps(summary, sort_keys=True)}")
     decode_counts = _counts()
 
+    # each tier's mid attention: fast the bf16 kernel, mixed the 3-pass one,
+    # parity the exact float32 one, and no other
+    attn = ("flash_attention_bf16", "flash_attention_3pass",
+            "flash_attention_f32")
+    for name, want in (("fast", attn[0]), ("mixed", attn[1]),
+                       ("parity", attn[2])):
+        for kname in attn:
+            ran = per_tier[name][kname]
+            check(ran > 0 if kname == want else ran == 0,
+                  f"{name} decode launched {kname} {ran} times")
+
     # fast tier: the fused chain vs the port's unfused fast path (the
-    # layers' own ops), the way the JAX chain was held to its XLA layers
-    fast = tiers["fast"]
-    x = decoder_head(dec, z, precision=fast)
-    unfused = decoder_tail(dec, x, precision=fast)
+    # layers' own ops, upstack "xla"), the way the JAX chain was held to
+    # its XLA layers
+    unfused = decoder_apply(dec, z, precision=_unfused_fast())
     e_fast = (results["fast"].standard - unfused.rgb).abs().max().item()
     check(e_fast <= CONV_BUDGET,
           f"fast fused vs unfused rgb max-abs {e_fast} > {CONV_BUDGET}")
@@ -1136,7 +1260,27 @@ def phase_decode():
     log(f"fast fused vs unfused rgb max-abs {e_fast:.3e} (<= {CONV_BUDGET});"
         f" mixed vs parity rgb {e_rgb:.3e} (<= 3e-4), conservative "
         f"{e_cons:.3e} (<= 1e-3)")
-    del x, unfused
+    del unfused
+
+    # the mixed tier with its low-resolution half in the fast tier's bf16:
+    # the head's mid attention is the bf16 kernel's, on the layers
+    head2 = Precision.mixed(fast_head_levels=2)
+    before = _counts()
+    res, summary, dev_ms, wall_ms, peak = _decode_request(dec, z, hcfg, head2)
+    ran = {kname: _counts()[kname] - before[kname] for kname in attn}
+    check(ran == {attn[0]: 1, attn[1]: 0, attn[2]: 0},
+          f"mixed fast_head_levels=2 decode: attention launches {ran}, want "
+          "one flash_attention_bf16")
+    check(torch.isfinite(res.image).all().item(),
+          "mixed fast_head_levels=2: non-finite output")
+    e_head = (res.standard - results["parity"].standard).abs().max().item()
+    check(e_head <= CONV_BUDGET, f"mixed fast_head_levels=2 vs parity rgb "
+          f"max-abs {e_head} > {CONV_BUDGET}")
+    times["mixed fast_head_levels=2"] = [(dev_ms, wall_ms)]
+    log(f"decode[mixed fast_head_levels=2] device ms {dev_ms:.3f}, host wall "
+        f"ms {wall_ms:.3f}, peak {peak:.3f} GiB; vs parity rgb max-abs "
+        f"{e_head:.3e} (<= {CONV_BUDGET}); attention launches {ran}")
+    del res
 
     # the fused epilogue (K4) in the fast and parity tiers, held to the
     # default path's image and summary
@@ -1205,7 +1349,7 @@ def phase_large_frames(dec):
     from hdrvae_torch.core.config import HDRDecodeConfig, Precision
     from hdrvae_torch.decode import pipeline, staged
     from hdrvae_torch.models import fused_tail
-    from hdrvae_torch.models.decoder import decoder_head, decoder_tail
+    from hdrvae_torch.models.decoder import decoder_apply
     cons = HDRDecodeConfig(hdr_mode="conservative")
     fast, mixed = Precision.fast(), Precision.mixed()
     records = {}
@@ -1264,9 +1408,8 @@ def phase_large_frames(dec):
             records[f"fast {px} low-memory"]["rgb_vs_whole"] = e
             if side == 256:
                 main_counts = cl
-                unfused = decoder_tail(dec, decoder_head(dec, z,
-                                                         precision=fast),
-                                       precision=fast).rgb.cpu()
+                unfused = decoder_apply(dec, z,
+                                        precision=_unfused_fast()).rgb.cpu()
                 e_u = (low[0] - unfused).abs().max().item()
                 check(e_u <= CONV_BUDGET, f"fast {px} low-memory vs unfused "
                       f"rgb max-abs {e_u} > {CONV_BUDGET}")
@@ -1317,12 +1460,23 @@ def phase_large_frames(dec):
     real = staged.staged_hdr_decode
     staged.staged_hdr_decode = lambda *a, **k: calls.append(1) or real(*a,
                                                                         **k)
+    label = f"mixed {8 * side}^2 auto-routed"
     try:
-        run(f"mixed {8 * side}^2 auto-routed", _latent(side), mixed)
+        ca = run(label, _latent(side), mixed)[1]
     finally:
         staged.staged_hdr_decode = real
     check(calls == [1], f"a mixed {8 * side}^2 decode was not routed to the "
           "staged executor")
+    # its mid attention (N = side^2 tokens) is the mixed tier's 3-pass one
+    check(ca["flash_attention_3pass"] == 1 and ca["flash_attention_f32"] == 0,
+          f"{label}: flash_attention_3pass / _f32 launched "
+          f"{ca['flash_attention_3pass']} / {ca['flash_attention_f32']} "
+          "times, want 1 / 0")
+    r = records[label]
+    log(f"large[{label}] mid attention over N = {side * side} tokens: "
+        f"device ms {r['device_ms']:.3f}, peak {r['peak_gib']:.3f} GiB "
+        f"(with the exact float32 attention, as PERF.md records it: "
+        f"{F32_AUTO_ROUTED[0]} ms, {F32_AUTO_ROUTED[1]} GiB)")
     torch.cuda.empty_cache()
     return main_counts, records
 
@@ -1660,9 +1814,10 @@ def main() -> int:
     for name in ("fused_conv3x3", "upsample_conv3x3",
                  "flash_attention_bf16"):
         check(per_tier["fast"][name] > 0, f"fast decode never ran {name}")
-    for tier in ("parity", "mixed"):
-        check(per_tier[tier]["flash_attention_f32"] > 0,
-              f"{tier} decode never ran flash_attention_f32")
+    check(per_tier["mixed"]["flash_attention_3pass"] > 0,
+          "mixed decode never ran flash_attention_3pass")
+    check(per_tier["parity"]["flash_attention_f32"] > 0,
+          "parity decode never ran flash_attention_f32")
     check(epi_counts["collapse_and_stats_fused"] > 0,
           "fused-epilogue decodes never ran collapse_and_stats_fused")
     # each kernel's launches in the run of the path it serves

@@ -118,30 +118,52 @@ class HDRDecodeConfig:
         return mode
 
 
+UPSTACK_EXECUTORS = ("auto", "xla", "pallas")
+
+
 @dataclasses.dataclass(frozen=True)
 class Precision:
     """Numerics policy: the three tiers of the JAX package.
 
     - ``parity``: float32 everywhere, exact float32 contractions (TF32 off),
       two-pass GroupNorm variance.
-    - ``mixed``: float32 activations, one-pass GroupNorm variance.  The JAX
-      package runs its contractions as 3-pass bf16x3; here the convs and
-      matmuls run in exact float32 with TF32 off, which is at least as
-      accurate, and the mid attention runs the float32 flash kernel.
+    - ``mixed``: float32 activations, one-pass GroupNorm variance.  The mid
+      attention runs the JAX package's 3-pass bf16x3 arithmetic (each
+      float32 operand split into bf16 hi + lo, hi.hi + hi.lo + lo.hi summed
+      in float32) in its own flash kernel.  The convs and matmuls, which
+      the JAX package leaves to XLA at HIGH, run in exact float32 with TF32
+      off, which is at least as accurate.
     - ``fast``: bf16 operands and storage with float32 accumulation; the
       mid and up stack run through the fused CUDA kernel chain.
 
-    ``swin_attn`` picks the executor of the SwinIR / HAT blocks, with the
-    JAX package's names: "auto" runs the fused block (K7, and K8 for
-    HAT's OCAB) for CUDA tensors in the fast tier and the unfused layers
-    otherwise; "xla" always runs the unfused layers; "pallas" always runs
-    the fused block, which on a CPU tensor is the kernels' plain versions.
+    ``fast_head_levels`` (mixed only; 0 = off): conv_in, the mid and the up
+    levels at or above it run in the fast tier's bf16 on the layers, the
+    levels below it, norm_out and conv_out in mixed
+    (:meth:`head_precision`, :meth:`for_level`).
+
+    ``upstack`` picks the decoder's (and ESRGAN's) executor, with the JAX
+    package's names: "auto" runs the fused CUDA chain in the fast tier and
+    the layers otherwise; "xla" always runs the layers; "pallas" always
+    runs the fused chain and refuses any other tier.
+
+    ``swin_attn`` picks the executor of the SwinIR / HAT blocks the same
+    way: "auto" runs the fused block (K7, and K8 for HAT's OCAB) for CUDA
+    tensors in the fast tier and the unfused layers otherwise; "xla" always
+    runs the unfused layers; "pallas" always runs the fused block, which on
+    a CPU tensor is the kernels' plain versions.
     """
 
     compute_dtype: torch.dtype = torch.float32
     storage_dtype: torch.dtype = torch.float32
     mode: str = "parity"
+    fast_head_levels: int = 0
+    upstack: str = "auto"
     swin_attn: str = "auto"
+
+    def __post_init__(self):
+        if self.upstack not in UPSTACK_EXECUTORS:
+            raise ValueError(f"unknown upstack {self.upstack!r}; expected "
+                             f"one of {UPSTACK_EXECUTORS}")
 
     @classmethod
     def fast(cls) -> "Precision":
@@ -153,8 +175,26 @@ class Precision:
         return cls(mode="parity")
 
     @classmethod
-    def mixed(cls) -> "Precision":
-        return cls(mode="mixed")
+    def mixed(cls, fast_head_levels: int = 0) -> "Precision":
+        return cls(mode="mixed", fast_head_levels=fast_head_levels)
+
+    def head_precision(self) -> "Precision":
+        """The precision of conv_in, the mid and the up levels at or above
+        ``fast_head_levels``: the fast tier's bf16 compute and storage in a
+        mixed tier with ``fast_head_levels > 0``, else this one."""
+        if self.mode != "mixed" or self.fast_head_levels <= 0:
+            return self
+        return dataclasses.replace(
+            self, compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16,
+            mode="fast", fast_head_levels=0)
+
+    def for_level(self, level: int) -> "Precision":
+        """The precision of up level ``level``: :meth:`head_precision` at or
+        above ``fast_head_levels`` (when it is set), else this one."""
+        if (self.mode == "mixed" and self.fast_head_levels > 0
+                and level >= self.fast_head_levels):
+            return self.head_precision()
+        return self
 
 
 @dataclasses.dataclass(frozen=True)

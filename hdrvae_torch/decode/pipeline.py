@@ -120,13 +120,15 @@ def hdr_decode(decoder: Decoder, latent: torch.Tensor,
 
     Large frames: a batch-1 mixed decode of at least
     ``decode.staged.STAGED_MIN_PIXELS`` output pixels goes through the
-    staged executor (the same function in bounded memory); a fast decode
-    streams its top level from ``models.fused_tail.LOWMEM_MIN_PIXELS``.
+    staged executor (the same function in bounded memory) unless it sets
+    ``fast_head_levels`` (the staged executor runs the whole decoder in the
+    mixed tier); a fast decode streams its top level from
+    ``models.fused_tail.LOWMEM_MIN_PIXELS``.
     """
     latent = _to_nhwc(latent, decoder.cfg.z_channels)
     dcfg = decoder.cfg
-    if (precision.mode == "mixed" and latent.shape[0] == 1
-            and dcfg.num_levels >= 2):
+    if (precision.mode == "mixed" and precision.fast_head_levels == 0
+            and latent.shape[0] == 1 and dcfg.num_levels >= 2):
         from hdrvae_torch.decode import staged as _staged
         s = dcfg.spatial_scale
         threshold = (_STAGED_MIN_PIXELS_OVERRIDE

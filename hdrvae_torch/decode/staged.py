@@ -471,14 +471,17 @@ def staged_hdr_decode(decoder: Decoder, latent: torch.Tensor,
 
     Requirements: batch 1, ``precision.mode == "mixed"`` (parity's two-pass
     variance does not decompose into one streamed accumulation; the fast
-    tier streams its top level in ``models/fused_tail.py`` instead), and
-    ``num_levels >= 2``.
+    tier streams its top level in ``models/fused_tail.py`` instead) with
+    ``fast_head_levels == 0``, and ``num_levels >= 2``.
     """
     if precision.mode != "mixed":
         raise ValueError(
             f"staged decode serves the mixed (contract) tier; got mode="
             f"{precision.mode!r}.  Fast mode uses the streaming top level "
             "instead (models/fused_tail.py lowmem).")
+    if precision.fast_head_levels != 0:
+        raise ValueError("staged decode runs the whole decoder in the "
+                         "mixed tier (fast_head_levels must be 0)")
     latent = _to_nhwc(latent, decoder.cfg.z_channels)
     if latent.shape[0] != 1:
         raise ValueError("staged decode is batch-1 (a 4K-class frame is "

@@ -2,16 +2,19 @@
 ``hdrvae/kernels/attention.py``.
 
 - :func:`spatial_attention_reference`: the plain version, scores
-  materialized, float32 softmax.
-- :func:`flash_attention_bf16` and :func:`flash_attention_f32` (K3): the
-  flash kernels of ``csrc/attention.cu``, one per dot mode.
+  materialized, exact float32 dots, float32 softmax.
+- :func:`spatial_attention_3pass_reference`: the plain version of the mixed
+  tier's arithmetic, the JAX kernel's ``HIGH`` mode (``_dot3``): both dots
+  as three bf16 passes (hi.hi + hi.lo + lo.hi) summed in float32.
+- :func:`flash_attention_bf16`, :func:`flash_attention_3pass` and
+  :func:`flash_attention_f32` (K3): the flash kernels of
+  ``csrc/attention.cu``, one per dot mode.
 - :func:`spatial_attention`: the dispatch by tier.  Fast runs the bf16
-  kernel; parity and mixed run the exact float32 kernel (the mixed tier's
-  3-pass bf16x3 dot is replaced by exact float32, which is at least as
-  accurate).
+  kernel, mixed the 3-pass bf16x3 kernel, parity (and a float32-compute
+  fast tier) the exact float32 kernel.
 
 q, k, v are [B, H, W, C] (NHWC) at every public function; the output is
-float32 [B, H, W, C].  Each kernel wrapper runs the plain version only when
+float32 [B, H, W, C].  Each kernel wrapper runs its plain version only when
 q lies on the CPU; on a CUDA tensor it launches its kernel or raises.
 """
 
@@ -21,8 +24,9 @@ import torch
 
 from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels import _build
+from hdrvae_torch.kernels.f32_dot import f32_dot_reference
 
-_MAX_C = 512   # both kernels keep C / 64 <= 8 column tiles per thread group
+_MAX_C = 512   # the kernels keep C / 64 <= 8 column tiles per thread group
 
 
 def spatial_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -37,6 +41,28 @@ def spatial_attention_reference(q: torch.Tensor, k: torch.Tensor,
     with fp32_contractions(Precision.parity()):
         logits = (qf * c ** -0.5) @ kf.transpose(1, 2)
         out = torch.softmax(logits, dim=-1) @ vf
+    return out.reshape(b, h, w, c)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the JAX package's ``_dot3`` (K12's plain "high" mode): each
+    float32 operand split into bf16 hi + lo, hi.hi + hi.lo + lo.hi as
+    float32 matmuls of the bf16 values, TF32 off."""
+    return f32_dot_reference(a, b, precision="high")
+
+
+def spatial_attention_3pass_reference(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor) -> torch.Tensor:
+    """The mixed tier's attention as ``_flash_kernel`` computes it in HIGH,
+    scores materialized: q scaled by C^-1/2 in float32, then split; s =
+    _dot3(q, k^T); p = exp(s - rowmax), split the same way for _dot3(p, v);
+    divided by the row sum."""
+    b, h, w, c = q.shape
+    n = h * w
+    qs = q.reshape(b, n, c).float() * c ** -0.5
+    s = _dot3(qs, k.reshape(b, n, c).float().transpose(1, 2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = _dot3(p, v.reshape(b, n, c).float()) / p.sum(dim=-1, keepdim=True)
     return out.reshape(b, h, w, c)
 
 
@@ -78,11 +104,28 @@ def flash_attention_bf16(q: torch.Tensor, k: torch.Tensor,
 flash_attention_bf16.launches = 0
 
 
+def flash_attention_3pass(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Mixed-tier flash attention (K3 in HIGH): float32 q, k, v, each split
+    once into bf16 hi + lo; both dots as hi.hi + hi.lo + lo.hi on the
+    tensor cores into float32 accumulators, an online float32 softmax whose
+    probabilities are split the same way.  Runs
+    :func:`spatial_attention_3pass_reference` for CPU tensors."""
+    if q.device.type == "cpu":
+        return spatial_attention_3pass_reference(q, k, v)
+    out = _launch("flash_attention_3pass", q, k, v, torch.float32)
+    flash_attention_3pass.launches += 1
+    return out
+
+
+flash_attention_3pass.launches = 0
+
+
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
-    """Parity/mixed-tier flash attention (K3): exact float32 dot products
-    on the CUDA cores (never TF32), online float32 softmax.  Runs the plain
-    version for CPU tensors."""
+    """Parity-tier flash attention (K3 in HIGHEST): exact float32 dot
+    products on the CUDA cores (never TF32), online float32 softmax.  Runs
+    the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return spatial_attention_reference(q, k, v)
     out = _launch("flash_attention_f32", q, k, v, torch.float32)
@@ -95,11 +138,13 @@ flash_attention_f32.launches = 0
 
 def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       precision: Precision = Precision()) -> torch.Tensor:
-    """The mid attention in the tier's dot mode, chosen by its compute
-    dtype: the bf16 kernel for the fast tier's bf16, the float32 kernel for
-    parity and mixed (and a float32-compute fast tier).  Every size goes
-    through the kernel; there is no size gate."""
+    """The mid attention in the tier's dot mode: the bf16 kernel for a bf16
+    compute dtype (the fast tier), the 3-pass kernel for the mixed tier,
+    the exact float32 kernel otherwise (parity, a float32-compute fast
+    tier).  Every size goes through the kernel; there is no size gate."""
     if precision.compute_dtype == torch.bfloat16:
         cdt = torch.bfloat16
         return flash_attention_bf16(q.to(cdt), k.to(cdt), v.to(cdt))
+    if precision.mode == "mixed":
+        return flash_attention_3pass(q.float(), k.float(), v.float())
     return flash_attention_f32(q.float(), k.float(), v.float())

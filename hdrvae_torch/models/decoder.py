@@ -10,10 +10,13 @@ so the fused chain (``models/fused_tail.py``) and the layer path share the
 weights.
 
 One forward returns both the image and the pre-``conv_out`` feature map.
-In the fast tier, :func:`decoder_apply` runs conv_in, the mid and the up
-stack through the fused kernel chain and hands the chain's GroupNorm
-moments to ``norm_out``; the parity and mixed tiers run the layers, with
-the mid attention through the flash kernel.
+``precision.upstack`` picks the route of :func:`decoder_apply`: the fused
+kernel chain ("auto" in the fast tier, or "pallas") runs conv_in, the mid
+and the up stack and hands the chain's GroupNorm moments to ``norm_out``;
+the layers ("auto" in parity and mixed, or "xla") run them on PyTorch's
+ops with the mid attention through the tier's flash kernel: exact float32
+in parity, the 3-pass bf16x3 kernel in mixed, the bf16 one in the fast
+tier and in a mixed head with ``fast_head_levels``.
 """
 
 from __future__ import annotations
@@ -167,19 +170,24 @@ def decoder_head(dec: Decoder, z: torch.Tensor, *,
     """Latent prescale, conv_in, the mid (with the global attention) and
     the up levels above ``tail_levels``, on the layers' own ops.  With the
     default 0 that is every level: the pre-norm_out map.  Output
-    resolution: latent x 2^(num_levels - max(tail_levels, 1))."""
+    resolution: latent x 2^(num_levels - max(tail_levels, 1)).
+
+    conv_in and the mid run at ``precision.head_precision()`` and each up
+    level at ``precision.for_level(level)``: all at ``precision`` unless a
+    mixed tier sets ``fast_head_levels``."""
     cfg = dec.cfg
+    hp = precision.head_precision()
     x = conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
-               precision=precision)
+               precision=hp)
     x = resnet_block(x, dec.mid.block_1, num_groups=cfg.num_groups,
-                     precision=precision)
+                     precision=hp)
     if cfg.attn_mid:
         x = attn_block(x, dec.mid.attn_1, num_groups=cfg.num_groups,
-                       precision=precision)
+                       precision=hp)
     x = resnet_block(x, dec.mid.block_2, num_groups=cfg.num_groups,
-                     precision=precision)
+                     precision=hp)
     for level in reversed(range(tail_levels, cfg.num_levels)):
-        x = _up_level(dec, x, level, precision)
+        x = _up_level(dec, x, level, precision.for_level(level))
     return x
 
 
@@ -189,13 +197,14 @@ def decoder_tail(dec: Decoder, x: torch.Tensor, *,
                  tail_levels: int = 0,
                  apply_conv_out: bool = True,
                  moments: Optional[Moments] = None) -> DecodeOutput:
-    """Up levels ``tail_levels - 1 .. 0`` (none by default) and norm_out +
-    SiLU (+ conv_out and the output mapping) on a :func:`decoder_head`
-    output of the same ``tail_levels``.  ``moments`` are norm_out's input
-    moments when the producer already reduced them (the fused chain)."""
+    """Up levels ``tail_levels - 1 .. 0`` (none by default), each at
+    ``precision.for_level(level)``, and norm_out + SiLU (+ conv_out and the
+    output mapping) at ``precision``, on a :func:`decoder_head` output of
+    the same ``tail_levels``.  ``moments`` are norm_out's input moments
+    when the producer already reduced them (the fused chain)."""
     cfg = dec.cfg
     for level in reversed(range(tail_levels)):
-        x = _up_level(dec, x, level, precision)
+        x = _up_level(dec, x, level, precision.for_level(level))
     x = group_norm_silu(x, dec.norm_out, num_groups=cfg.num_groups,
                         precision=precision, moments=moments)
     # Kept in the storage dtype (bf16 in the fast tier): the epilogue's
@@ -218,12 +227,20 @@ def decoder_apply(dec: Decoder, z: torch.Tensor, *,
     """Decode a latent ``z`` [B, h, w, z_channels] (NHWC) to
     ``DecodeOutput(rgb, pre_conv_out)`` in one forward.
 
-    Fast tier: the fused kernel chain (``models/fused_tail.py``) runs
-    conv_in, the mid and the up stack, and its moments of the pre-norm map
-    go to ``norm_out``.  Parity and mixed: the layers, with the mid
-    attention through the flash kernel.
+    ``precision.upstack`` "auto": the fast tier runs the fused kernel chain
+    (``models/fused_tail.py``: conv_in, the mid and the up stack, its
+    moments of the pre-norm map going to ``norm_out``), parity and mixed
+    the layers, with the mid attention through the tier's flash kernel
+    (exact float32 in parity; the 3-pass bf16x3 kernel in mixed, or the
+    bf16 one in a head with ``fast_head_levels``).  "xla": the layers in
+    every tier.  "pallas": the fused chain, which takes only the fast tier
+    (on a CPU tensor its kernels' plain versions run).
     """
-    if precision.mode == "fast":
+    if precision.upstack == "pallas" and precision.mode != "fast":
+        raise ValueError(
+            "precision.upstack='pallas' runs the fused chain, which takes "
+            f"only the fast tier (got mode={precision.mode!r})")
+    if precision.mode == "fast" and precision.upstack != "xla":
         from hdrvae_torch.models.fused_tail import forward
         pre, moments = forward(dec, z, precision=precision)
         return decoder_tail(dec, pre, precision=precision,

@@ -114,11 +114,34 @@ def decoder_from_state_dict(state_dict: Mapping[str, Any],
     sd = {k: torch.as_tensor(np.asarray(v, np.float32))
           if not isinstance(v, torch.Tensor) else v.float()
           for k, v in _strip_prefix(state_dict).items()}
+    for name in ("q", "k", "v", "proj_out"):
+        # the mid attention's projections as linears [O, I] (diffusers)
+        key = f"mid.attn_1.{name}.weight"
+        if key in sd and sd[key].dim() == 2:
+            sd[key] = sd[key][:, :, None, None]
     with torch.device("meta"):
         dec = Decoder(cfg)
     dec = dec.to_empty(device=device)
     dec.load_state_dict(sd)
     return dec.requires_grad_(False).eval()
+
+
+def load_decoder(path: str, cfg: DecoderConfig | None = None, *,
+                 device: torch.device | str = "cuda") -> Decoder:
+    """The AutoencoderKL decoder of a safetensors checkpoint file (Flux.1's
+    ``ae.safetensors``, an SD / SDXL VAE) on ``device``, as the JAX
+    package's ``load_decoder``: ``cfg=None`` infers the topology, the
+    ``decoder.`` (or ``first_stage_model.decoder.`` / ``vae.decoder.``)
+    prefix is stripped, and keys outside the decoder (the encoder, the
+    quant convs) are left out."""
+    from safetensors.torch import load_file
+    sd = _strip_prefix(load_file(path))
+    if cfg is None:
+        cfg = infer_decoder_config(sd)
+    with torch.device("meta"):
+        keys = set(Decoder(cfg).state_dict())
+    return decoder_from_state_dict({k: v for k, v in sd.items() if k in keys},
+                                   cfg, device=device)
 
 
 def init_decoder(cfg: DecoderConfig = DecoderConfig(), seed: int = 0, *,

@@ -162,11 +162,19 @@ def rrdbnet_apply(net: RRDBNet, x: torch.Tensor, *,
                   precision: Precision = Precision()) -> torch.Tensor:
     """Upscale NHWC [B, H, W, C] -> [B, scale*H, scale*W, C].
 
-    A CUDA input in the fast tier runs the fused chain (every conv one
-    ``dense_conv3x3`` launch, K6); otherwise the layers run, as the JAX
-    package runs its XLA layers off the TPU.
+    ``precision.upstack`` "auto": a CUDA input in the fast tier runs the
+    fused chain (every conv one ``dense_conv3x3`` launch, K6); otherwise
+    the layers run, as the JAX package runs its XLA layers off the TPU.
+    "xla": the layers always.  "pallas": the fused chain (on a CPU tensor
+    K6's plain version), which takes only the fast tier.
     """
-    if precision.mode == "fast" and x.is_cuda:
+    if precision.upstack == "pallas" and precision.mode != "fast":
+        raise ValueError(
+            "precision.upstack='pallas' runs the fused chain, which takes "
+            f"only the fast tier (got mode={precision.mode!r})")
+    if precision.mode == "fast" and (
+            precision.upstack == "pallas"
+            or (precision.upstack == "auto" and x.is_cuda)):
         from hdrvae_torch.models.rrdbnet_fused import rrdbnet_fused_apply
         return rrdbnet_fused_apply(net, x, precision=precision)
     return rrdbnet_layers(net, x, precision=precision)

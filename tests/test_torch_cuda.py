@@ -171,6 +171,48 @@ def test_flash_attention_ragged(dev, hw, c):
     assert (gotb - refb).abs().max().item() <= _ulp_bound(refb)
 
 
+# (h, w), C, q's scale: ragged N (130 and 63 tokens: no multiple of the 64
+# queries or 32 keys of a step), C = 512, and scores of std ~8, where the
+# softmax is peaked and the order of scale and split shows
+@pytest.mark.parametrize("hw,c,qscale", [((10, 13), 64, 1.0),
+                                         ((7, 9), 512, 1.0),
+                                         ((10, 13), 128, 8.0)])
+def test_flash_attention_3pass(dev, hw, c, qscale):
+    """K3's 3-pass mode against its plain version on the same bf16 parts:
+    they differ by float32 sum order and by where P is split (the running
+    row max against the final one), each p's hi + lo off by up to 2^-16 of
+    p, so within 2^-16 of the largest output; against exact float32 within
+    the 3-pass budget, 1e-4, at unit-scale scores."""
+    q, k, v = (_rand(dev, (2, *hw, c), 1.0, torch.float32, seed=s)
+               for s in range(3))
+    q = q * qscale
+    before = attention.flash_attention_3pass.launches
+    got = attention.flash_attention_3pass(q, k, v)
+    assert attention.flash_attention_3pass.launches == before + 1
+    ref = attention.spatial_attention_3pass_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    bar = 2.0 ** -16 * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= bar
+    if qscale == 1.0:
+        exact = attention.spatial_attention_reference(q, k, v)
+        torch.testing.assert_close(got, exact, rtol=0, atol=1e-4)
+
+
+def test_mixed_tier_attention_routes(dev):
+    """On the card the mixed tier launches the 3-pass kernel, parity the
+    exact float32 one, a mixed head with fast_head_levels the bf16 one."""
+    q = _rand(dev, (1, 8, 8, 64), 1.0, torch.float32)
+    kernels = (attention.flash_attention_bf16, attention.flash_attention_3pass,
+               attention.flash_attention_f32)
+    for prec, want in ((Precision.mixed(), (0, 1, 0)),
+                       (Precision.parity(), (0, 0, 1)),
+                       (Precision.mixed(1).head_precision(), (1, 0, 0))):
+        before = [fn.launches for fn in kernels]
+        attention.spatial_attention(q, q, q, precision=prec)
+        assert tuple(fn.launches - b for fn, b in zip(kernels, before)) == want
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 8, 16, 16, device=dev)      # float32, not bf16
     k = torch.zeros(3, 3, 16, 64, device=dev)
@@ -182,6 +224,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 4, 4, 48, device=dev)
     with pytest.raises(ValueError, match="multiple of 64"):
         attention.flash_attention_f32(q, q, q)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        attention.flash_attention_3pass(q, q, q)
+    with pytest.raises(ValueError, match="float32"):
+        q64 = torch.zeros(1, 4, 4, 64, device=dev)
+        attention.flash_attention_3pass(q64.bfloat16(), q64, q64)
 
 
 def test_small_decoder_on_card(dev):

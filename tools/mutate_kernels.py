@@ -2,19 +2,21 @@
 """Mutation check of a kernel's test in ``chip_smoke.py``, on one NVIDIA
 GPU.
 
-    python3 tools/mutate_kernels.py [k5|chain ...]   (default: both)
+    python3 tools/mutate_kernels.py [k5|chain|k3_3pass ...]   (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
 ``chip_smoke.py`` into a temporary directory, breaks one CUDA source
-there, builds that copy's kernels and runs the
+there (one or more edits), builds that copy's kernels and runs the
 target's check of ``chip_smoke`` (k5: ``_check_k5``, K5 against its plain
 version at the 2048^2 decode's junction and a ragged map; chain:
 ``_check_chain``, K10, K9 and K11 of the staged Swin chain at K7's v1
-shapes and the chain against K7), then reports whether the check refused
-the broken kernel.  The checkout itself is never changed.  Exits non-zero
-if a mutant the check must catch survives; one marked ``sub-ulp`` moves
-each value by less than one bf16 ulp, below what the 5e-2 budgets can see,
-and is reported only.
+shapes and the chain against K7; k3_3pass: ``_check_k3_3pass``, K3's
+3-pass mode against exact float32 and its plain version at N = 16,384, C
+= 512, and against its plain version on a ragged input with peaked
+scores), then reports whether the check refused the broken kernel.  The
+checkout itself is never changed.  Exits non-zero if a mutant the check
+must catch survives; one marked ``sub-ulp`` moves each value by less than
+one bf16 ulp, below what the 5e-2 budgets can see, and is reported only.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # target: (chip_smoke call, log prefixes, mutations); each mutation name:
 # (CUDA source under csrc/, text of it, its broken form, must the check
-# catch it)
+# catch it); text and broken form may be tuples of edits made together
 TARGETS = {
     "k5": ("_check_k5(np.random.default_rng(5))", ("K5",), {
         "band not zeroed outside the image": (
@@ -76,6 +78,35 @@ TARGETS = {
             "swin_chain.cu", "xr[i] + v[i] + a.b2[c + i]", "xr[i] + v[i]",
             True),
     }),
+    "k3_3pass": ("_check_k3_3pass(*chip_smoke._k3_inputs("
+                 "np.random.default_rng(0)))", ("K3",), {
+        "S: hi.lo dropped": (
+            "attention.cu",
+            "winattn::mma_bf16_16816(part, ah, bl + 2 * j);", "", True),
+        "S: lo.hi dropped": (
+            "attention.cu",
+            "winattn::mma_bf16_16816(part, al, bh + 2 * j);", "", True),
+        "P v: hi.lo dropped": (
+            "attention.cu",
+            "winattn::mma_bf16_16816(t[jj], pa_h[ks], vl + 2 * jj);", "",
+            True),
+        "P v: lo.hi dropped": (
+            "attention.cu",
+            "winattn::mma_bf16_16816(t[jj], pa_l[ks], vh + 2 * jj);", "",
+            True),
+        # q split unscaled, the scores scaled after the three passes
+        "split before the scale": (
+            "attention.cu",
+            ("split_rows(qh, ql, q + base, q0, BQ3, N, C, ld, scale);",
+             "      // mma's C layout: lane holds rows g and g + 8"),
+            ("split_rows(qh, ql, q + base, q0, BQ3, N, C, ld, 1.0f);",
+             "      for (int j = 0; j < 2; ++j)\n"
+             "        for (int e = 0; e < 4; ++e) sacc[j][e] *= scale;\n"
+             "      // mma's C layout: lane holds rows g and g + 8"), True),
+        "last key tile dropped": (
+            "attention.cu", "for (int kv0 = 0; kv0 < N; kv0 += BKV3) {",
+            "for (int kv0 = 0; kv0 < N - BKV3; kv0 += BKV3) {", True),
+    }),
 }
 
 CHECK = """
@@ -100,10 +131,14 @@ def run_target(target: str) -> bool:
     ok = True
     for name, (source, text, broken, must_catch) in mutations.items():
         src = open(os.path.join(csrc, source)).read()
-        if src.count(text) != 1:
-            print(f"== {name}: {source} does not hold the mutated text once",
-                  file=sys.stderr)
-            return False
+        edits = (zip(text, broken) if isinstance(text, tuple)
+                 else [(text, broken)])
+        for old, new in edits:
+            if src.count(old) != 1:
+                print(f"== {name}: {source} does not hold the mutated text "
+                      "once", file=sys.stderr)
+                return False
+            src = src.replace(old, new)
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copytree(os.path.join(REPO, "hdrvae_torch"),
                             os.path.join(tmp, "hdrvae_torch"),
@@ -112,7 +147,7 @@ def run_target(target: str) -> bool:
             shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
             with open(os.path.join(tmp, "hdrvae_torch", "csrc", source),
                       "w") as f:
-                f.write(src.replace(text, broken))
+                f.write(src)
             proc = subprocess.run(
                 [sys.executable, "-c", CHECK.format(call=call)], cwd=tmp,
                 capture_output=True, text=True, timeout=900)

@@ -99,11 +99,12 @@ UPSCALERS = {
     "hat": ("HAT", lambda: init_hat(HATConfig(), seed=4, device="cuda")),
     "swin2sr": ("Swin2SR", lambda: init_swin2sr(Swin2SRConfig(), seed=5,
                                                 device="cuda"))}
-# the __global__ functions of hdrvae_torch/csrc (K1/K2, K3, K4, K5, K6, K7,
-# K8)
+# the __global__ functions of hdrvae_torch/csrc (K1/K2, K5, K3 in its three
+# dot modes, K4, K6, K7, K8)
 PORT_KERNELS = ("conv_tile_kernel", "group_stats_kernel",
                 "upconv_gn_conv_kernel", "flash_bf16_kernel",
-                "flash_f32_kernel", "collapse_stats_kernel",
+                "flash_3pass_kernel", "flash_f32_kernel",
+                "collapse_stats_kernel",
                 "stats_finalize_kernel", "dense_conv_kernel",
                 "swin_block_kernel", "ocab_kernel")
 
