@@ -8,9 +8,12 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 
 1. device: the card's name and power limit, as the line nvidia-smi prints;
 2. build: compile the kernels, print the build time and ptxas' register
-   and spill report;
+   and spill report, and the count of HGMMA (wgmma) instructions in the
+   SASS of K1/K2's kernel (``cuobjdump --dump-sass``), which must not be 0;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes its path gives it (K1-K4: a 1024^2 decode, K3 in its three
+   the shapes its path gives it (K1-K4: a 1024^2 decode, and K1 and K2
+   each at one ragged shape of an 832 x 1216 frame, logged apart and out
+   of the rows' sums, K2 also timed as the launch alone; K3 in its three
    dot modes, the 3-pass one also against exact float32 and on a ragged
    input with peaked scores; K6: one 512^2
    tile of the full-width ESRGAN x4 net; K7: one 512^2 tile of SwinIR-M,
@@ -115,6 +118,11 @@ K1_SHAPES = [(128, 128, 512, 512, "add"), (256, 256, 512, 512, "add"),
              (1024, 1024, 128, 128, "add")]
 # (H, W, C) of the low-resolution input of each upsample conv
 K2_SHAPES = [(128, 128, 512), (256, 256, 512), (512, 512, 256)]
+# one ragged shape each from an 832 x 1216 Flux frame (latent 152 x 104,
+# W x 8 = 832): widths 104 and 208 are no multiple of K1/K2's 64-pixel
+# tile; checked and logged on their own, out of the rows' sums
+K1_RAGGED = (152, 104, 512, 512, "add")
+K2_RAGGED = (304, 208, 512)
 N_TOKENS, C_ATTN = 128 * 128, 512
 ATTN_FLOPS = 4 * N_TOKENS * N_TOKENS * C_ATTN   # q k^T and p v, one pass
 # K3's 3-pass mode on a second input: ragged N (100 x 100 = 10,000 tokens,
@@ -325,6 +333,30 @@ def phase_build() -> None:
     for line in compiler_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
+    n, funcs = hgmma_count(path, "conv_wgmma_kernel")
+    log(f"SASS: {n} HGMMA instructions in K1/K2's conv_wgmma_kernel "
+        f"({funcs} instances)")
+    check(n > 0, "K1/K2's kernel issues no wgmma (no HGMMA in its SASS)")
+
+
+def hgmma_count(lib: str, kernel: str) -> tuple:
+    """(HGMMA instructions, functions) in the SASS of every instance of
+    ``kernel`` in the built library, from ``cuobjdump --dump-sass``."""
+    import shutil
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin",
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    n, funcs, inside = 0, 0, False
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            funcs += inside
+        elif inside and "HGMMA" in line:
+            n += 1
+    return n, funcs
 
 
 def _bf16(rng, shape, scale=1.0):
@@ -333,102 +365,9 @@ def _bf16(rng, shape, scale=1.0):
 
 
 def phase_kernels() -> list:
-    from hdrvae_torch.kernels import attention, conv3x3
+    from hdrvae_torch.kernels import attention
     rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
-    entries = []
-
-    # K1 ---------------------------------------------------------------
-    details, k_ms, p_ms, l_ms, err, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
-    for h, w, cin, cout, res in K1_SHAPES:
-        x = _bf16(rng, (1, h, w, cin))
-        kern = _bf16(rng, (3, 3, cin, cout), (9 * cin) ** -0.5)
-        bias = torch.from_numpy(rng.uniform(-0.1, 0.1, cout)
-                                .astype(np.float32)).to(dev)
-        gamma = torch.from_numpy(rng.uniform(0.5, 1.5, (1, cin))
-                                 .astype(np.float32)).to(dev)
-        beta = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, cin))
-                                .astype(np.float32)).to(dev)
-        kw = dict(gamma=gamma, beta=beta, emit_stats=True, num_groups=32)
-        if res == "add":
-            kw.update(residual=_bf16(rng, (1, h, w, cout), 0.5))
-        else:
-            kw.update(residual=x,
-                      res_kernel=_bf16(rng, (cin, cout), cin ** -0.5))
-        y, s = conv3x3.fused_conv3x3(x, kern, bias, **kw)
-        ry, rs = conv3x3.fused_conv3x3_reference(x, kern, bias, **kw)
-        torch.cuda.synchronize()
-        e = (y.float() - ry.float()).abs().max().item()
-        es = stats_err(s, rs, ry)
-        check(torch.isfinite(y.float()).all().item(), "K1 output not finite")
-        check(e <= CONV_BUDGET, f"K1 {h}x{w} {cin}->{cout} {res}: "
-              f"max-abs {e} > {CONV_BUDGET}")
-        check(es <= STATS_BUDGET, f"K1 {h}x{w} stats rel err {es}")
-        t = cuda_ms(lambda: conv3x3.fused_conv3x3(x, kern, bias, **kw))
-        tp = cuda_ms(lambda: conv3x3.fused_conv3x3_reference(
-            x, kern, bias, **kw))
-        tl = conv_alone_ms(x, kern)
-        flops = 2 * h * w * cin * cout * (9 + (res == "proj"))
-        b = bnd.add(flops, nbytes(x, kern, bias, gamma, beta, y, *s,
-                                  None if res == "proj" else kw["residual"],
-                                  kw.get("res_kernel")))
-        log(f"K1 fused_conv3x3 {h}x{w} {cin}->{cout} {res}: max-abs {e:.3e} "
-            f"stats {es:.2e}  kernel {t:.3f} ms ({flops / (t * 1e9):.1f} "
-            f"TFLOP/s)  plain {tp:.3f} ms  conv alone {tl:.3f} ms  bound "
-            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
-        details.append({"shape": [h, w, cin, cout, res], "max_abs_err": e,
-                        "stats_rel_err": es, "ms": t, "plain_ms": tp,
-                        "library_ms": tl, **b})
-        k_ms, p_ms, l_ms, err = k_ms + t, p_ms + tp, l_ms + tl, max(err, e)
-        del x, kern, y, ry
-    entries.append({"name": "fused_conv3x3", "route": "cuda",
-                    "source": "hdrvae_torch/csrc/conv3x3.cu",
-                    "replaces": "hdrvae/kernels/conv3x3.py:333",
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                    **bnd.entry(), "library_ms": l_ms,
-                    "library_call": CONV_ALONE, "shapes": details})
-
-    # K2 ---------------------------------------------------------------
-    details, k_ms, p_ms, l_ms, err, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
-    for h, w, c in K2_SHAPES:
-        x = _bf16(rng, (1, h, w, c), 0.5)
-        kern = _bf16(rng, (3, 3, c, c), (9 * c) ** -0.5)
-        bias = torch.from_numpy(rng.uniform(-0.1, 0.1, c)
-                                .astype(np.float32)).to(dev)
-        kw = dict(emit_stats=True, num_groups=32)
-        y, s = conv3x3.upsample_conv3x3(x, kern, bias, **kw)
-        ry, rs = conv3x3.upsample_conv3x3_reference(x, kern, bias, **kw)
-        torch.cuda.synchronize()
-        e = (y.float() - ry.float()).abs().max().item()
-        es = stats_err(s, rs, ry)
-        check(e <= CONV_BUDGET, f"K2 {h}x{w} {c}: max-abs {e}")
-        check(es <= STATS_BUDGET, f"K2 {h}x{w} stats rel err {es}")
-        t = cuda_ms(lambda: conv3x3.upsample_conv3x3(x, kern, bias, **kw))
-        tp = cuda_ms(lambda: conv3x3.upsample_conv3x3_reference(
-            x, kern, bias, **kw))
-        # the conv alone, on the upsampled map made beforehand
-        up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        tl = conv_alone_ms(up, kern)
-        del up
-        # the phase-decomposed conv: four 2x2 taps per output pixel
-        flops = 2 * (4 * h * w) * 4 * c * c
-        b = bnd.add(flops, nbytes(x, kern, bias, y, *s))
-        log(f"K2 upsample_conv3x3 {h}x{w}->{2 * h}x{2 * w} {c}: max-abs "
-            f"{e:.3e} stats {es:.2e}  kernel {t:.3f} ms  plain {tp:.3f} ms"
-            f"  conv alone {tl:.3f} ms  bound {b['bound_ms']:.3f} ms "
-            f"({b['bound_by']})")
-        details.append({"shape": [h, w, c, c], "max_abs_err": e,
-                        "stats_rel_err": es, "ms": t, "plain_ms": tp,
-                        "library_ms": tl, **b})
-        k_ms, p_ms, l_ms, err = k_ms + t, p_ms + tp, l_ms + tl, max(err, e)
-        del x, y, ry
-    entries.append({"name": "upsample_conv3x3", "route": "cuda",
-                    "source": "hdrvae_torch/csrc/conv3x3.cu",
-                    "replaces": "hdrvae/kernels/conv3x3.py:653",
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                    **bnd.entry(), "library_ms": l_ms,
-                    "library_call": CONV_ALONE + " (on the upsampled map)",
-                    "shapes": details})
+    entries = [_check_k1(rng), _check_k2(rng)]
 
     # K3 ---------------------------------------------------------------
     from hdrvae_torch.core.config import Precision
@@ -494,6 +433,142 @@ def phase_kernels() -> list:
     entries += chain_entries
     entries.append(_check_k12())
     return entries, chain_ab
+
+
+def _k1_case(rng, bnd, h, w, cin, cout, res):
+    """K1 at one shape against its plain version, its bound added to
+    ``bnd``: (log text, record)."""
+    from hdrvae_torch.kernels import conv3x3
+    dev = torch.device("cuda")
+    x = _bf16(rng, (1, h, w, cin))
+    kern = _bf16(rng, (3, 3, cin, cout), (9 * cin) ** -0.5)
+    bias = torch.from_numpy(rng.uniform(-0.1, 0.1, cout)
+                            .astype(np.float32)).to(dev)
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, (1, cin))
+                             .astype(np.float32)).to(dev)
+    beta = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, cin))
+                            .astype(np.float32)).to(dev)
+    kw = dict(gamma=gamma, beta=beta, emit_stats=True, num_groups=32)
+    if res == "add":
+        kw.update(residual=_bf16(rng, (1, h, w, cout), 0.5))
+    else:
+        kw.update(residual=x,
+                  res_kernel=_bf16(rng, (cin, cout), cin ** -0.5))
+    y, s = conv3x3.fused_conv3x3(x, kern, bias, **kw)
+    ry, rs = conv3x3.fused_conv3x3_reference(x, kern, bias, **kw)
+    torch.cuda.synchronize()
+    e = (y.float() - ry.float()).abs().max().item()
+    es = stats_err(s, rs, ry)
+    check(torch.isfinite(y.float()).all().item(), "K1 output not finite")
+    check(e <= CONV_BUDGET, f"K1 {h}x{w} {cin}->{cout} {res}: "
+          f"max-abs {e} > {CONV_BUDGET}")
+    check(es <= STATS_BUDGET, f"K1 {h}x{w} stats rel err {es}")
+    t = cuda_ms(lambda: conv3x3.fused_conv3x3(x, kern, bias, **kw))
+    tp = cuda_ms(lambda: conv3x3.fused_conv3x3_reference(
+        x, kern, bias, **kw))
+    tl = conv_alone_ms(x, kern)
+    flops = 2 * h * w * cin * cout * (9 + (res == "proj"))
+    b = bnd.add(flops, nbytes(x, kern, bias, gamma, beta, y, *s,
+                              None if res == "proj" else kw["residual"],
+                              kw.get("res_kernel")))
+    text = (f"{h}x{w} {cin}->{cout} {res}: max-abs {e:.3e} stats {es:.2e}  "
+            f"kernel {t:.3f} ms ({flops / (t * 1e9):.1f} TFLOP/s)  plain "
+            f"{tp:.3f} ms  conv alone {tl:.3f} ms  bound {b['bound_ms']:.3f}"
+            f" ms ({b['bound_by']})")
+    return text, {"shape": [h, w, cin, cout, res], "max_abs_err": e,
+                  "stats_rel_err": es, "ms": t, "plain_ms": tp,
+                  "library_ms": tl, "tflops": flops / (t * 1e9), **b}
+
+
+def _check_k1(rng) -> dict:
+    """K1 at the 1024^2 decode's six conv shapes (the row's sums) and at
+    the ragged Flux shape (its own line, out of the sums)."""
+    details, bnd = [], Bound()
+    for shape in K1_SHAPES:
+        text, rec = _k1_case(rng, bnd, *shape)
+        log("K1 fused_conv3x3 " + text)
+        details.append(rec)
+    text, ragged = _k1_case(rng, Bound(), *K1_RAGGED)
+    log("K1 fused_conv3x3 ragged (out of the sums) " + text)
+    return {"name": "fused_conv3x3", "route": "cuda",
+            "source": "hdrvae_torch/csrc/conv3x3.cu",
+            "replaces": "hdrvae/kernels/conv3x3.py:333",
+            "max_abs_err": max(d["max_abs_err"] for d in details),
+            **_summed(details), **bnd.entry(), "library_call": CONV_ALONE,
+            "shapes": details, "ragged": ragged}
+
+
+def _k2_case(rng, bnd, h, w, c):
+    """K2 at one shape against its plain version, its bound added to
+    ``bnd``: (log text, record).  Besides the wrapper's time (which
+    collapses the kernel into phase kernels on every call) the launch
+    alone, on phase kernels made beforehand."""
+    from hdrvae_torch.kernels import _build, conv3x3
+    x = _bf16(rng, (1, h, w, c), 0.5)
+    kern = _bf16(rng, (3, 3, c, c), (9 * c) ** -0.5)
+    bias = _uniform(rng, -0.1, 0.1, c)
+    kw = dict(emit_stats=True, num_groups=32)
+    y, s = conv3x3.upsample_conv3x3(x, kern, bias, **kw)
+    ry, rs = conv3x3.upsample_conv3x3_reference(x, kern, bias, **kw)
+    torch.cuda.synchronize()
+    e = (y.float() - ry.float()).abs().max().item()
+    es = stats_err(s, rs, ry)
+    check(torch.isfinite(y.float()).all().item(), "K2 output not finite")
+    check(e <= CONV_BUDGET, f"K2 {h}x{w} {c}: max-abs {e}")
+    check(es <= STATS_BUDGET, f"K2 {h}x{w} stats rel err {es}")
+    t = cuda_ms(lambda: conv3x3.upsample_conv3x3(x, kern, bias, **kw))
+    pk = conv3x3.phase_kernels(kern).contiguous()
+    part = torch.empty(1, 4 * conv3x3.conv_tiles(h, w), 2, c,
+                       device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    t_launch = cuda_ms(lambda: _build.check(lib.hdrvae_upsample_conv3x3(
+        x.data_ptr(), pk.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        part.data_ptr(), 1, h, w, c, c, stream), "hdrvae_upsample_conv3x3"))
+    tp = cuda_ms(lambda: conv3x3.upsample_conv3x3_reference(
+        x, kern, bias, **kw))
+    # the conv alone, on the upsampled map made beforehand
+    up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    tl = conv_alone_ms(up, kern)
+    del up
+    # the phase-decomposed conv: four 2x2 taps per output pixel
+    flops = 2 * (4 * h * w) * 4 * c * c
+    b = bnd.add(flops, nbytes(x, kern, bias, y, *s))
+    text = (f"{h}x{w}->{2 * h}x{2 * w} {c}: max-abs {e:.3e} stats "
+            f"{es:.2e}  kernel {t:.3f} ms (the launch alone {t_launch:.3f} "
+            f"ms, {flops / (t_launch * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms"
+            f"  conv alone {tl:.3f} ms  bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']})")
+    return text, {"shape": [h, w, c, c], "max_abs_err": e,
+                  "stats_rel_err": es, "ms": t, "launch_ms": t_launch,
+                  "plain_ms": tp, "library_ms": tl,
+                  "tflops": flops / (t_launch * 1e9), **b}
+
+
+def _check_k2(rng) -> dict:
+    """K2 at the 1024^2 decode's three upsample convs (the row's sums) and
+    at the ragged Flux shape (its own line, out of the sums)."""
+    details, bnd = [], Bound()
+    for shape in K2_SHAPES:
+        text, rec = _k2_case(rng, bnd, *shape)
+        log("K2 upsample_conv3x3 " + text)
+        details.append(rec)
+    text, ragged = _k2_case(rng, Bound(), *K2_RAGGED)
+    log("K2 upsample_conv3x3 ragged (out of the sums) " + text)
+    return {"name": "upsample_conv3x3", "route": "cuda",
+            "source": "hdrvae_torch/csrc/conv3x3.cu",
+            "replaces": "hdrvae/kernels/conv3x3.py:653",
+            "max_abs_err": max(d["max_abs_err"] for d in details),
+            **_summed(details), **bnd.entry(),
+            "launch_ms": sum(d["launch_ms"] for d in details),
+            "library_call": CONV_ALONE + " (on the upsampled map)",
+            "shapes": details, "ragged": ragged}
+
+
+def _summed(details) -> dict:
+    """The row's times: each summed over its shapes."""
+    return {k: sum(d[k] for d in details)
+            for k in ("ms", "plain_ms", "library_ms")}
 
 
 def _uniform(rng, lo, hi, shape) -> torch.Tensor:

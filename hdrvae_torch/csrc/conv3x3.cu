@@ -15,310 +15,588 @@
 // What bounds it on the H100: at the decoder's shapes (Cin, Cout of
 // 128..512) a conv does 2*9*Cin flops per output value against a few bytes
 // moved, far above the card's ~295 flops/byte ridge, so the bound is the
-// tensor-core rate.  This version feeds the tensor cores with WMMA
-// (16x16x16 mma.sync fragments) from shared memory through a two-stage
-// cp.async pipeline (the next K chunk loads while this one multiplies);
-// wgmma, TMA and a deeper ring are later work.
+// tensor-core rate, which only wgmma reaches.
 //
-// Design:
-//  * A block computes an 8 x 16 pixel tile (8 output rows of 16 pixels,
-//    one WMMA M dimension per row) for 64 output channels; 4 warps each own
-//    2 rows x 64 channels (8 accumulator fragments).
-//  * K loops over input channels in chunks of 16.  Per chunk the block
-//    copies the halo'd input slab [10 x 18 pixels x 16 channels] and the
-//    chunk's weights of every tap into one of two shared-memory stages;
-//    once a thread's copies land it applies the GroupNorm affine + SiLU
-//    prologue to them in place, rounded to bf16.  The 9 taps (4 per phase
-//    for K2) are shifted 16-pixel windows of that slab, so each input
-//    value is normalized once per chunk, not once per tap.
-//  * The SAME zeros are written AFTER the prologue: an out-of-image pixel is
-//    a zero of the normalized activation, never silu(beta).  Halo loads are
-//    bounds-masked on the plain [B, H, W, C] tensor; no padded layout.
-//  * The residual add happens in float32 before the bf16 store; the
-//    nin_shortcut projection r @ Wr runs as extra K steps into the same
-//    accumulators (its bias is folded into `bias` by the caller).
-//  * Statistics are of y as stored (after bf16 rounding).  Blocks run in
-//    no order, so each block writes per-channel partial sums of its tile
-//    and a second kernel (hdrvae_group_stats) reduces them per (batch,
-//    group) in a fixed order: the sums are deterministic, no atomics.
-//  * K2's stats_only mode (y null) computes and rounds y exactly as with y
-//    written but stores only the partials: the GroupNorm moments of an
-//    upsampled map that is never allocated (the streaming top level,
-//    upconv.cu).  Same tiles, same order: the sums are bit for bit those
-//    of the launch that writes y.
-//  * An identity residual may be y's own storage (the chain writes a
-//    block's output over a residual it no longer needs): each element of
-//    res is read by the thread that then writes that element of y, and by
-//    no other, so res and y carry no __restrict__.
+// Design: one warp-specialized implicit-GEMM mainloop for both kernels.
+//  * GEMM view: M = output pixels, N = Cout, K = taps x Cin (+ Cr for the
+//    nin_shortcut).  A work item is a tile of TR = 4 image rows x TWP = 64
+//    pixels (K2: of the low-resolution map, for one output phase) and BN =
+//    128 output channels (64 when Cout % 128 != 0).  The grid is
+//    persistent: one block an SM walks the work items, so the next item's
+//    copies overlap this one's epilogue.
+//  * 288 threads: two consumer warpgroups, each owning two tile rows (two
+//    m64 blocks, each one contiguous run of 64 pixels), and a producer warp
+//    of which one thread issues every copy by TMA, each completing on an
+//    mbarrier; the consumers hand slots back through "empty" mbarriers.
+//  * K runs in chunks of BK = 64 input channels.  Per chunk TMA brings the
+//    halo'd slab [(TR+2) x (TWP+2) pixels x 64 channels] into one of two
+//    slab buffers (4-D box at (c0, w0-1, h0-1, b): pixels outside the image
+//    and channels past Cin arrive as zeros), then each tap's 64 x BN weight
+//    slice, read from the HWIO tensor as it is (no repack), into a ring of
+//    NSTAGE stages.  Both use the 128-byte swizzle.  The next chunk's slab
+//    is issued after this chunk's first weight slices, so it lands while
+//    this one multiplies.
+//  * The GroupNorm affine + SiLU prologue runs once per chunk, in place on
+//    the slab, rounded to bf16 and only on in-image pixels (masked by
+//    coordinate: a TMA zero is a zero before the prologue, and the SAME
+//    zeros must stay zeros of the normalized activation).  For every chunk
+//    but a work item's first it runs in slices while taps PRO_TAP.. of the
+//    previous chunk multiply.
+//  * Both operands from shared memory: the taps (9; 4 per phase for K2) are
+//    shifted 64-pixel windows of the slab, each an A descriptor (K-major,
+//    128-byte swizzle, any pixel start); B is the weight slice, MN-major.
+//    wgmma m64n128k16 (m64n64k16 at BN 64), one commit group a tap, one
+//    group left in flight while the next tap issues.  A from registers
+//    (ldmatrix) was the first design: it held 160 accumulator and fragment
+//    registers, ptxas serialized its wgmmas for want of registers, and every
+//    tap had to wait for its own group: K1 took 14.1 ms over the decode's
+//    six convs against 9.5 on an H100 80GB HBM3 at 700 W.
+//  * The nin_shortcut projection r @ Wr runs as extra one-tap chunks through
+//    the same ring (r loaded with the slab's halo'd geometry, so its tile
+//    pixels sit at the centre window); its bias is folded into `bias` by
+//    the caller.
+//  * Epilogue from the accumulators: bias and the residual added in float32,
+//    rounded to bf16, stored.  An identity residual is read by the thread
+//    that then writes that element, so y may be the residual's own storage
+//    (res and y carry no __restrict__).  Statistics of y as stored (after the
+//    rounding): a shuffle reduction per column over the warp's rows, per-warp
+//    partials in shared memory, a fixed-order sum over the eight warps into
+//    per-tile partials [B, T, 2, Cout] that hdrvae_group_stats reduces in a
+//    fixed order.  No atomics, so K2's stats_only mode (y null, the same
+//    code with the store predicated off) gives sums bit-equal to the launch
+//    that writes y.
+//  * K2's phases are separate work items, neighbours in the walk: a slab of
+//    all Cin channels, which would let one block run the four phases
+//    against one load, does not fit in shared memory (405 KB at Cin 512),
+//    so each phase reads its slab chunks, from L2 after the first, and the
+//    128^2 decode level gets four times the work items (64 -> 256).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TH = 8;              // output rows per tile
-constexpr int TW = 16;             // output pixels per row (WMMA M)
-constexpr int BN = 64;             // output channels per block
-constexpr int BK = 16;             // input channels per K step
-constexpr int SH = TH + 2;         // slab rows (1-pixel halo)
-constexpr int SW = TW + 2;         // slab columns
-constexpr int WLD = BN + 8;        // weight tile row stride (bf16)
-constexpr int OLD = BN + 4;        // float32 staging row stride
-constexpr int NTHREADS = 128;
+constexpr int TR = 4;                    // tile rows
+constexpr int TWP = 64;                  // tile pixels a row (one m64 block)
+constexpr int SROWS = TR + 2;            // slab rows (1-pixel halo)
+constexpr int SWID = TWP + 2;            // slab pixels a row
+constexpr int SPIX = SROWS * SWID;       // 396 slab pixels
+constexpr int BK = 64;                   // input channels a chunk (128 B)
+constexpr int NSTAGE = 6;                // weight ring stages
+constexpr int NCONSUMER = 256;           // two warpgroups
+constexpr int NTHREADS = NCONSUMER + 32; // + the producer warp
+constexpr int NCWARPS = NCONSUMER / 32;
+constexpr int PRO_TAP = 3;               // K1: the first tap that hides a
+                                         // slice of the next prologue
 
-constexpr int SLAB_BYTES = SH * SW * BK * 2;           // 5,760
-constexpr int W_BYTES = 9 * BK * WLD * 2;              // 20,736
-constexpr int PIPE_BYTES = SLAB_BYTES + W_BYTES;       // one stage
-constexpr int OUT_BYTES = TH * TW * OLD * 4;           // 34,816
-constexpr int SMEM_BYTES =
-    OUT_BYTES > 2 * PIPE_BYTES ? OUT_BYTES : 2 * PIPE_BYTES;   // 52,992
+constexpr int SLAB_BYTES = 51200;        // SPIX * 128 = 50,688, 1 KB aligned
+constexpr int STAGE_BYTES = 16384;       // 64 x 128 bf16
+constexpr int HALF_BYTES = 8192;         // one 64-channel half of a stage
+constexpr int RED_BYTES = NCWARPS * 2 * 128 * 4;
+constexpr int OFF_RING = 2 * SLAB_BYTES;
+constexpr int OFF_RED = OFF_RING + NSTAGE * STAGE_BYTES;
+constexpr int OFF_BAR = OFF_RED + RED_BYTES;
+constexpr int SMEM_BYTES = OFF_BAR + (4 + 2 * NSTAGE) * 8 + 1024;
+static_assert(SPIX * 128 <= SLAB_BYTES, "slab");
+static_assert(SMEM_BYTES <= 232448, "shared memory");
 
 enum { MODE_CONV = 0, MODE_UP = 1 };
 enum { RES_NONE = 0, RES_ADD = 1, RES_PROJ = 2 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ float silu(float z) {
   return z * (1.0f / (1.0f + expf(-z)));
 }
 
-// 16-byte global -> shared copy; zero-fills when !valid (no bytes read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+// One arrival that also expects `bytes` of TMA transfers on `bar`.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
 }
 
-// One 8-channel vector of x at pixel (hh, ww), zero outside the image.
-__device__ __forceinline__ uint4 load_vec(const bf16* __restrict__ x, int b,
-                                          int hh, int ww, int H, int W,
-                                          int C, int c) {
-  if (hh < 0 || hh >= H || ww < 0 || ww >= W)
-    return make_uint4(0u, 0u, 0u, 0u);
-  return *reinterpret_cast<const uint4*>(
-      x + ((static_cast<size_t>(b) * H + hh) * W + ww) * C + c);
+// TMA tile loads into shared memory, completing on `bar`; out-of-bounds
+// elements (negative coordinates included) are zero-filled.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
 }
 
-// Issue the copies of K chunk c0 into one pipeline stage: the halo'd slab
-// (out-of-image pixels zero-filled) and the chunk's weights of every tap.
-template <int MODE>
-__device__ __forceinline__ void issue_chunk(
-    bf16* slab, bf16* wsm, const bf16* __restrict__ x,
-    const bf16* __restrict__ w, int b, int h0, int w0, int H, int W,
-    int Cin, int Cout, int c0, int n0, int phase) {
-  constexpr int NTAPS = (MODE == MODE_UP) ? 4 : 9;
-  for (int i = threadIdx.x; i < SH * SW * 2; i += NTHREADS) {
-    const int s = i >> 1, half = i & 1;
-    const int hh = h0 - 1 + s / SW, ww = w0 - 1 + s % SW;
-    const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
-    const bf16* src =
-        in ? x + ((static_cast<size_t>(b) * H + hh) * W + ww) * Cin + c0 +
-                 half * 8
-           : x;
-    cp_async16(slab + s * BK + half * 8, src, in);
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Waits for the phase of `bar` with the given parity to complete.  A wait
+// that never ends (a schedule fault) traps, failing the launch, instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
   }
-  for (int i = threadIdx.x; i < NTAPS * BK * (BN / 8); i += NTHREADS) {
-    const int vc = i % (BN / 8), row = i / (BN / 8);
-    const int tap = row / BK, k = row % BK;
-    const int wtap = (MODE == MODE_UP) ? phase * 4 + tap : tap;
-    cp_async16(wsm + row * WLD + vc * 8,
-               w + (static_cast<size_t>(wtap) * Cin + c0 + k) * Cout + n0 +
-                   vc * 8,
-               true);
-  }
 }
 
-// GroupNorm affine + SiLU, rounded to bf16, in place on the slab vectors
-// this thread copied (the same index walk as issue_chunk, so a thread only
-// reads copies it has waited for); out-of-image pixels stay zero.
-__device__ __forceinline__ void prologue_chunk(
-    bf16* slab, const float* __restrict__ gamma,
-    const float* __restrict__ beta, int b, int h0, int w0, int H, int W,
-    int Cin, int c0) {
-  for (int i = threadIdx.x; i < SH * SW * 2; i += NTHREADS) {
-    const int s = i >> 1, half = i & 1;
-    const int hh = h0 - 1 + s / SW, ww = w0 - 1 + s % SW;
-    if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-    uint4* p = reinterpret_cast<uint4*>(slab + s * BK + half * 8);
-    uint4 v = *p;
-    bf16* e = reinterpret_cast<bf16*>(&v);
-    const int c = c0 + half * 8;
-    const float* g = gamma + static_cast<size_t>(b) * Cin + c;
-    const float* bt = beta + static_cast<size_t>(b) * Cin + c;
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCONSUMER) : "memory");
+}
+
+// wgmma descriptor of a K-major 64-row A window of the slab: rows are
+// pixels of 128 B (64 channels) with the 128-byte swizzle, which the
+// hardware applies to the address bits (as TMA wrote them), so a window may
+// start at any pixel with a base offset of 0.
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of a weight slice [64 k][64 or 128 n], stored N-major
+// with the 128-byte swizzle as TMA writes it: the leading offset is the
+// 8 KB between the two 64-channel MN atoms, the stride the 1 KB between
+// groups of 8 k rows.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(HALF_BYTES >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x 64] += A[64 x 16] (shared, K-major) * B[16 x 64] (shared,
+// MN-major, trans-b); d as wgmma's accumulator fragment.
+__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] (shared, K-major) * B[16 x 128] (shared,
+// MN-major, trans-b); d as wgmma's accumulator fragment.
+__device__ __forceinline__ void wgmma_ss128(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
+      "0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+struct ConvArgs {
+  const bf16* x;        // [B, H, W, Cin]
+  const bf16* w;        // [3,3,Cin,Cout] (K1) or [2,2,2,2,Cin,Cout] (K2)
+  const float* bias;    // [Cout]
+  const float* gamma;   // [B, Cin] or null (K1's prologue)
+  const float* beta;
+  const bf16* res;      // [B, H, W, Cr] or null
+  const bf16* res_w;    // [Cr, Cout] or null
+  bf16* y;              // [B, Ho, Wo, Cout], or null (K2 stats_only)
+  float* partial;       // [B, T, 2, Cout] or null
+  int B, H, W, Cin, Cout, Cr, res_mode;
+};
+
+// GroupNorm affine + SiLU, rounded to bf16, in place on the slab's
+// in-image pixels and real channels (zero-filled ones stay zero); slice
+// `part` of `parts` of the slab's 16-byte vectors.
+__device__ __forceinline__ void prologue_chunk(unsigned char* slab,
+                                               const ConvArgs& a, int b,
+                                               int h0, int w0, int c0,
+                                               int ctid, int part,
+                                               int parts) {
+  for (int idx = ctid + part * NCONSUMER; idx < SPIX * 8;
+       idx += NCONSUMER * parts) {
+    const int p = idx >> 3, j = idx & 7, c = c0 + 8 * j;
+    const int hh = h0 - 1 + p / SWID, ww = w0 - 1 + p % SWID;
+    if (c >= a.Cin || hh < 0 || hh >= a.H || ww < 0 || ww >= a.W) continue;
+    uint4* ptr = reinterpret_cast<uint4*>(slab + p * 128 +
+                                          ((j ^ (p & 7)) << 4));
+    uint4 v = *ptr;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+    const float4* g = reinterpret_cast<const float4*>(
+        a.gamma + static_cast<size_t>(b) * a.Cin + c);
+    const float4* bt = reinterpret_cast<const float4*>(
+        a.beta + static_cast<size_t>(b) * a.Cin + c);
+    const float4 g0 = g[0], g1 = g[1], b0 = bt[0], b1 = bt[1];
+    const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float z = __bfloat162float(e[j]) * g[j] + bt[j];
-      e[j] = __float2bfloat16(silu(z));
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(e[k]);
+      e[k] = __floats2bfloat162_rn(silu(f.x * gs[2 * k] + bs[2 * k]),
+                                   silu(f.y * gs[2 * k + 1] + bs[2 * k + 1]));
     }
-    *p = v;
+    *ptr = v;
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(NTHREADS) conv_tile_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const bf16* res,
-    const bf16* __restrict__ res_w, bf16* y,
-    float* __restrict__ partial, int H, int W, int Cin, int Cout, int Cr,
-    int res_mode) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* stage = reinterpret_cast<float*>(smem);
+// One block an SM, walking work items of a TR x TWP pixel tile and BN = 64 *
+// NH output channels; K1 one pass, K2 one pass per output phase.  See the
+// head of this file.
+template <int MODE, int NH>
+__global__ void __launch_bounds__(NTHREADS, 1) conv_wgmma_kernel(
+    const ConvArgs a, const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap rmap,
+    const __grid_constant__ CUtensorMap rwmap) {
+  constexpr int BN = 64 * NH;
+  constexpr int NPH = (MODE == MODE_UP) ? 4 : 1;   // output phases
+  constexpr int NTAPS = (MODE == MODE_UP) ? 4 : 9;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base_s = smem_u32(smem);
+  const uint32_t ring_s = base_s + OFF_RING;
+  float* red = reinterpret_cast<float*>(smem + OFF_RED);
+  const uint32_t bar_s = base_s + OFF_BAR;
+  // barriers: slab full [0,2), slab empty [2,4), ring full, ring empty
+  auto slab_full = [&](int i) { return bar_s + 8 * i; };
+  auto slab_empty = [&](int i) { return bar_s + 8 * (2 + i); };
+  auto w_full = [&](int s) { return bar_s + 8 * (4 + s); };
+  auto w_empty = [&](int s) { return bar_s + 8 * (4 + NSTAGE + s); };
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tile = blockIdx.x;
-  const int h0 = (tile / tiles_w) * TH;
-  const int w0 = (tile % tiles_w) * TW;
-  const int n0 = blockIdx.y * BN;
-  const int b = (MODE == MODE_UP) ? blockIdx.z / 4 : blockIdx.z;
-  const int phase = (MODE == MODE_UP) ? blockIdx.z % 4 : 0;
-  const int pa = phase / 2, pb = phase % 2;
-  constexpr int NTAPS = (MODE == MODE_UP) ? 4 : 9;
-  const int r0 = warp * 2;   // this warp's first tile row
-  const bool prologue = MODE == MODE_CONV && gamma != nullptr;
+  const int tiles_w = (a.W + TWP - 1) / TWP;
+  const int tiles = ((a.H + TR - 1) / TR) * tiles_w;
+  const int nblk = a.Cout / BN;
+  const int nwork = tiles * NPH * nblk * a.B;
+  // work item -> (output-channel block, K2's phase, tile, sample); the items
+  // of one tile are neighbours, so its slabs are read from L2 after the
+  // first
+  struct Work { int tile, ph, h0, w0, n0, b; };
+  auto work = [&](int wi) {
+    Work r;
+    r.n0 = (wi % nblk) * BN;
+    r.ph = (wi / nblk) % NPH;
+    r.tile = (wi / nblk / NPH) % tiles;
+    r.b = wi / nblk / NPH / tiles;
+    r.h0 = (r.tile / tiles_w) * TR;
+    r.w0 = (r.tile % tiles_w) * TWP;
+    return r;
+  };
+  const int nmain = (a.Cin + BK - 1) / BK;
+  const int nproj = (MODE == MODE_CONV && a.res_mode == RES_PROJ)
+                        ? (a.Cr + BK - 1) / BK : 0;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int nf = 0; nf < 4; ++nf) wmma::fill_fragment(acc[r][nf], 0.0f);
-
-  const int nchunks = Cin / BK;
-  issue_chunk<MODE>(reinterpret_cast<bf16*>(smem),
-                    reinterpret_cast<bf16*>(smem + SLAB_BYTES), x, w, b, h0,
-                    w0, H, W, Cin, Cout, 0, n0, phase);
-  cp_async_commit();
-  for (int ci = 0; ci < nchunks; ++ci) {
-    unsigned char* cur = smem + (ci & 1) * PIPE_BYTES;
-    bf16* slab = reinterpret_cast<bf16*>(cur);
-    bf16* wsm = reinterpret_cast<bf16*>(cur + SLAB_BYTES);
-    if (ci + 1 < nchunks) {
-      unsigned char* nxt = smem + ((ci + 1) & 1) * PIPE_BYTES;
-      issue_chunk<MODE>(reinterpret_cast<bf16*>(nxt),
-                        reinterpret_cast<bf16*>(nxt + SLAB_BYTES), x, w, b,
-                        h0, w0, H, W, Cin, Cout, (ci + 1) * BK, n0, phase);
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(slab_full(i), 1);
+      mbar_init(slab_empty(i), NCWARPS);
     }
-    cp_async_commit();
-    cp_async_wait<1>();   // this chunk's copies (not the next one's) landed
-    if (prologue)
-      prologue_chunk(slab, gamma, beta, b, h0, w0, H, W, Cin, ci * BK);
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < NTAPS; ++tap) {
-      const int di = (MODE == MODE_UP) ? pa + tap / 2 : tap / 3;
-      const int dj = (MODE == MODE_UP) ? pb + tap % 2 : tap % 3;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
-#pragma unroll
-      for (int nf = 0; nf < 4; ++nf)
-        wmma::load_matrix_sync(bfr[nf], wsm + tap * BK * WLD + nf * 16, WLD);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, slab + ((r0 + r + di) * SW + dj) * BK, BK);
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
-          wmma::mma_sync(acc[r][nf], af, bfr[nf], acc[r][nf]);
-      }
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), NCWARPS);
     }
-    __syncthreads();   // the next iteration refills the other stage
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
-  bf16* slab = reinterpret_cast<bf16*>(smem);
-  bf16* wsm = reinterpret_cast<bf16*>(smem + SLAB_BYTES);
-
-  if (MODE == MODE_CONV && res_mode == RES_PROJ) {
-    // nin_shortcut: acc += r[tile pixels] @ Wr, 16 residual channels a step
-    for (int c0 = 0; c0 < Cr; c0 += BK) {
-      for (int i = tid; i < TH * TW * 2; i += NTHREADS) {
-        const int p = i >> 1, half = i & 1;
-        const uint4 v = load_vec(res, b, h0 + p / TW, w0 + p % TW, H, W, Cr,
-                                 c0 + half * 8);
-        *reinterpret_cast<uint4*>(slab + p * BK + half * 8) = v;
-      }
-      for (int i = tid; i < BK * (BN / 8); i += NTHREADS) {
-        const int vc = i % (BN / 8), k = i / (BN / 8);
-        *reinterpret_cast<uint4*>(wsm + k * WLD + vc * 8) =
-            *reinterpret_cast<const uint4*>(
-                res_w + static_cast<size_t>(c0 + k) * Cout + n0 + vc * 8);
-      }
-      __syncthreads();
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
-#pragma unroll
-      for (int nf = 0; nf < 4; ++nf)
-        wmma::load_matrix_sync(bfr[nf], wsm + nf * 16, WLD);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, slab + (r0 + r) * TW * BK, BK);
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
-          wmma::mma_sync(acc[r][nf], af, bfr[nf], acc[r][nf]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // epilogue: stage the accumulators (the main-loop buffers are dead)
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int nf = 0; nf < 4; ++nf)
-      wmma::store_matrix_sync(stage + (r0 + r) * TW * OLD + nf * 16,
-                              acc[r][nf], OLD, wmma::mem_row_major);
   __syncthreads();
 
-  const int Ho = (MODE == MODE_UP) ? 2 * H : H;
-  const int Wo = (MODE == MODE_UP) ? 2 * W : W;
-  for (int i = tid; i < TH * TW * BN; i += NTHREADS) {
-    const int p = i / BN, co = i % BN;
-    const int hh = h0 + p / TW, ww = w0 + p % TW;
-    float v = 0.0f;
-    if (hh < H && ww < W) {
-      const int oh = (MODE == MODE_UP) ? 2 * hh + pa : hh;
-      const int ow = (MODE == MODE_UP) ? 2 * ww + pb : ww;
-      const size_t o =
-          ((static_cast<size_t>(b) * Ho + oh) * Wo + ow) * Cout + n0 + co;
-      v = stage[p * OLD + co] + bias[n0 + co];
-      if (MODE == MODE_CONV && res_mode == RES_ADD)
-        v += __bfloat162float(res[o]);
-      const bf16 yb = __float2bfloat16(v);
-      if (y != nullptr) y[o] = yb;   // K2 stats_only: no y at all
-      v = __bfloat162float(yb);   // statistics of y as stored
+  // warp-uniform as far as the compiler can see (a divergent-looking role
+  // branch makes ptxas serialize the wgmmas)
+  if (__shfl_sync(0xffffffffu, tid / 32, 0) >= NCWARPS) {
+    // ---- producer: one thread issues every TMA copy, in the consumers'
+    // order.  The slab of chunk i + 1 is issued after chunk i's first three
+    // weight slices, so it lands while chunk i multiplies (K1 runs its
+    // prologue then).
+    if (tid != NCONSUMER) return;
+    const int nchunks = nmain + nproj;
+    int nslab = 0, nw = 0;
+    auto issue_slab = [&](const Work& wk, int ci) {   // into buffer nslab % 2
+      const bool proj = ci >= nmain;
+      const int buf = nslab & 1;
+      mbar_wait(slab_empty(buf), ((nslab >> 1) & 1) ^ 1);
+      mbar_expect_tx(slab_full(buf), SPIX * 128);
+      // the residual of a projection chunk comes with the same halo'd
+      // geometry, so its tile pixels sit at the slab's centre window
+      tma_load_4d(base_s + buf * SLAB_BYTES, proj ? &rmap : &xmap,
+                  slab_full(buf), (proj ? ci - nmain : ci) * BK, wk.w0 - 1,
+                  wk.h0 - 1, wk.b);
+      ++nslab;
+    };
+    if (blockIdx.x < nwork) issue_slab(work(blockIdx.x), 0);
+    for (int wi = blockIdx.x; wi < nwork; wi += gridDim.x) {
+      const Work wk = work(wi);
+      for (int ci = 0; ci < nchunks; ++ci) {
+        const bool proj = ci >= nmain;
+        const int c0 = (proj ? ci - nmain : ci) * BK;
+        const int ntaps = proj ? 1 : NTAPS;
+        for (int tap = 0; tap < ntaps; ++tap) {
+          const int s = nw % NSTAGE;
+          mbar_wait(w_empty(s), ((nw / NSTAGE) & 1) ^ 1);
+          mbar_expect_tx(w_full(s), NH * HALF_BYTES);
+          const int wtap = proj ? 0 : (MODE == MODE_UP) ? wk.ph * 4 + tap : tap;
+#pragma unroll
+          for (int nh = 0; nh < NH; ++nh)
+            tma_load_3d(ring_s + s * STAGE_BYTES + nh * HALF_BYTES,
+                        proj ? &rwmap : &wmap, w_full(s), wk.n0 + 64 * nh,
+                        c0, wtap);
+          ++nw;
+          if (tap == (ntaps < 3 ? ntaps - 1 : 2)) {   // the next slab
+            if (ci + 1 < nchunks)
+              issue_slab(wk, ci + 1);
+            else if (wi + gridDim.x < nwork)
+              issue_slab(work(wi + gridDim.x), 0);
+          }
+        }
+      }
     }
-    stage[p * OLD + co] = v;
+    return;
   }
 
-  if (partial != nullptr) {
-    __syncthreads();
-    // per-channel partial (sum, sumsq) of this tile; thread -> (channel, which)
-    const int tiles = gridDim.x * ((MODE == MODE_UP) ? 4 : 1);
-    const int t = (MODE == MODE_UP) ? blockIdx.x * 4 + phase : blockIdx.x;
-    for (int j = tid; j < 2 * BN; j += NTHREADS) {
-      const int ch = j % BN, sq = j / BN;
-      float s = 0.0f;
-      for (int p = 0; p < TH * TW; ++p) {
-        const float v = stage[p * OLD + ch];
-        s += sq ? v * v : v;
+  // ---- consumers: two warpgroups, each two tile rows x BN ----
+  const int ctid = tid, cw = ctid >> 5, wg = ctid >> 7, wl = cw & 3;
+  const int lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const bool prologue = MODE == MODE_CONV && a.gamma != nullptr;
+  float acc[2][NH * 32];
+  int ns = 0, nw = 0;
+  for (int wi = blockIdx.x; wi < nwork; wi += gridDim.x) {
+    const Work wk = work(wi);
+    const int tile = wk.tile, h0 = wk.h0, w0 = wk.w0, n0 = wk.n0, b = wk.b;
+    const int ph = wk.ph, pa = ph >> 1, pb = ph & 1;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int q = 0; q < NH * 32; ++q) acc[mb][q] = 0.0f;
+
+#pragma unroll 1
+    for (int ci = 0; ci < nmain + nproj; ++ci) {
+      const bool proj = ci >= nmain;
+      const int c0 = (proj ? ci - nmain : ci) * BK;
+      const int buf = ns & 1;
+      mbar_wait(slab_full(buf), (ns >> 1) & 1);
+      if (prologue && ci == 0)   // later chunks' ran during their previous
+        prologue_chunk(smem + buf * SLAB_BYTES, a, b, h0, w0, c0, ctid, 0, 1);
+      const bool early = prologue && ci + 1 < nmain;
+      // the prologue's generic writes, before wgmma reads the slab
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumer_sync();   // the slab (and its prologue) is complete
+      int prev_s = 0;
+      const uint32_t slab_s = base_s + buf * SLAB_BYTES;
+      const int ntaps = proj ? 1 : NTAPS;
+#pragma unroll 1
+      for (int tap = 0; tap < ntaps; ++tap) {
+        int di, dj;
+        if (proj) {
+          di = 1; dj = 1;
+        } else if (MODE == MODE_UP) {
+          di = pa + (tap >> 1); dj = pb + (tap & 1);
+        } else {
+          di = tap / 3; dj = tap % 3;
+        }
+        const int s = nw % NSTAGE;
+        mbar_wait(w_full(s), (nw / NSTAGE) & 1);
+        const uint32_t st = ring_s + s * STAGE_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) {
+            const uint64_t da = a_desc(
+                slab_s + ((2 * wg + mb + di) * SWID + dj) * 128 +
+                ks * 32);
+            if constexpr (NH == 2)
+              wgmma_ss128(acc[mb], da, b_desc(st + ks * 2048));
+            else
+              wgmma_ss64(acc[mb], da, b_desc(st + ks * 2048));
+          }
+        wgmma_commit();
+        if (early && tap >= PRO_TAP) {
+          // a slice of the next chunk's prologue, on the other slab buffer,
+          // while this tap multiplies
+          if (tap == PRO_TAP)
+            mbar_wait(slab_full(buf ^ 1), ((ns + 1) >> 1) & 1);
+          prologue_chunk(smem + (buf ^ 1) * SLAB_BYTES, a, b, h0, w0,
+                         c0 + BK, ctid, tap - PRO_TAP, NTAPS - PRO_TAP);
+        }
+        // keep this tap's group in flight; the previous tap's is done
+        wgmma_wait<1>();
+        if (tap > 0 && lane == 0) mbar_arrive(w_empty(prev_s));
+        prev_s = s;
+        ++nw;
       }
-      partial[((static_cast<size_t>(b) * tiles + t) * 2 + sq) * Cout + n0 +
-              ch] = s;
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(w_empty(prev_s));
+      // the prologue wrote the slab through the generic proxy; order that
+      // before the next TMA write into it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(slab_empty(buf));
+      ++ns;
+    }
+
+    // ---- epilogue: bias (+ residual) in float32, bf16 store, statistics
+    const int Ho = (MODE == MODE_UP) ? 2 * a.H : a.H;
+    const int Wo = (MODE == MODE_UP) ? 2 * a.W : a.W;
+    // this thread's pixels: rows (mb, i) of its m64 blocks
+    size_t orow[2][2];
+    bool ok[2][2];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int hh = h0 + 2 * wg + mb, ww = w0 + 16 * wl + g + 8 * i;
+        const int oh = (MODE == MODE_UP) ? 2 * hh + pa : hh;
+        const int ow = (MODE == MODE_UP) ? 2 * ww + pb : ww;
+        ok[mb][i] = hh < a.H && ww < a.W;
+        orow[mb][i] =
+            ((static_cast<size_t>(b) * Ho + oh) * Wo + ow) * a.Cout + n0;
+      }
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) {
+      // the residual of this channel half, all loads issued together
+      __nv_bfloat162 rr[2][2][8];
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            rr[mb][i][j] =
+                (MODE == MODE_CONV && a.res_mode == RES_ADD && ok[mb][i])
+                    ? *reinterpret_cast<const __nv_bfloat162*>(
+                          a.res + orow[mb][i] + nh * 64 + 8 * j + 2 * t)
+                    : __floats2bfloat162_rn(0.0f, 0.0f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = nh * 64 + 8 * j + 2 * t;
+        const float b0 = a.bias[n0 + n], b1 = a.bias[n0 + n + 1];
+        float s0 = 0.0f, s1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (ok[mb][i]) {
+              const size_t o = orow[mb][i] + n;
+              float v0 = acc[mb][nh * 32 + 4 * j + 2 * i] + b0;
+              float v1 = acc[mb][nh * 32 + 4 * j + 2 * i + 1] + b1;
+              if (MODE == MODE_CONV && a.res_mode == RES_ADD) {
+                v0 += __low2float(rr[mb][i][j]);
+                v1 += __high2float(rr[mb][i][j]);
+              }
+              const __nv_bfloat162 yb = __floats2bfloat162_rn(v0, v1);
+              if (a.y != nullptr)   // K2 stats_only: no y at all
+                *reinterpret_cast<__nv_bfloat162*>(a.y + o) = yb;
+              v0 = __low2float(yb);   // statistics of y as stored
+              v1 = __high2float(yb);
+              s0 += v0; s1 += v1; q0 += v0 * v0; q1 += v1 * v1;
+            }
+          }
+        if (a.partial != nullptr) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+            q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+            q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+          }
+          if (g == 0) {
+            red[(cw * 2) * 128 + n] = s0;
+            red[(cw * 2) * 128 + n + 1] = s1;
+            red[(cw * 2 + 1) * 128 + n] = q0;
+            red[(cw * 2 + 1) * 128 + n + 1] = q1;
+          }
+        }
+      }
+    }
+    if (a.partial != nullptr) {
+      consumer_sync();
+      if (ctid < 2 * BN) {
+        const int ch = ctid % BN, sq = ctid / BN;
+        float v = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NCWARPS; ++k) v += red[(k * 2 + sq) * 128 + ch];
+        const int T = tiles * NPH;
+        const int tt = (MODE == MODE_UP) ? tile * 4 + ph : tile;
+        a.partial[((static_cast<size_t>(b) * T + tt) * 2 + sq) * a.Cout +
+                  n0 + ch] = v;
+      }
+      consumer_sync();   // red is free for the next work item
     }
   }
 }
@@ -354,8 +632,101 @@ __global__ void __launch_bounds__(256) group_stats_kernel(
   }
 }
 
-inline int tiles_of(int H, int W) {
-  return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime (the
+// library links no libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// bf16 tensor map with the 128-byte swizzle and zero fill out of bounds;
+// dims innermost first, `box` elements a copy.  0 on success.
+int make_map(CUtensorMap* map, const void* ptr, int rank,
+             const uint64_t* dims, const uint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4], es[4];
+  uint64_t stride = 2;
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    es[i] = 1;
+    if (i > 0) st[i - 1] = stride;
+    stride *= dims[i];
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(ptr), d, st, bx, es,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Maps of x [B,H,W,Cin] (the halo'd slab box), the weights [taps,Cin,Cout]
+// (a 64 x 64 slice), and for a projection r [B,H,W,Cr] and Wr [Cr,Cout].
+template <int MODE, int NH>
+int launch(const ConvArgs& a, cudaStream_t stream) {
+  const int taps = (MODE == MODE_UP) ? 16 : 9;
+  CUtensorMap xmap, wmap, rmap, rwmap;
+  const uint32_t slab_box[4] = {BK, SWID, SROWS, 1};
+  const uint32_t w_box[3] = {64, BK, 1};
+  const uint64_t xd[4] = {uint64_t(a.Cin), uint64_t(a.W), uint64_t(a.H),
+                          uint64_t(a.B)};
+  const uint64_t wd[3] = {uint64_t(a.Cout), uint64_t(a.Cin),
+                          uint64_t(taps)};
+  int err = make_map(&xmap, a.x, 4, xd, slab_box);
+  if (err == 0) err = make_map(&wmap, a.w, 3, wd, w_box);
+  rmap = xmap;
+  rwmap = wmap;
+  if (err == 0 && a.res_mode == RES_PROJ) {
+    const uint64_t rd[4] = {uint64_t(a.Cr), uint64_t(a.W), uint64_t(a.H),
+                            uint64_t(a.B)};
+    const uint64_t rwd[3] = {uint64_t(a.Cout), uint64_t(a.Cr), 1};
+    err = make_map(&rmap, a.res, 4, rd, slab_box);
+    if (err == 0) err = make_map(&rwmap, a.res_w, 3, rwd, w_box);
+  }
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_wgmma_kernel<MODE, NH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // persistent: one block an SM walks the work items
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int nwork = ((a.H + TR - 1) / TR) * ((a.W + TWP - 1) / TWP) *
+                    (MODE == MODE_UP ? 4 : 1) * (a.Cout / (64 * NH)) * a.B;
+  const dim3 grid(nwork < sms ? nwork : sms);
+  conv_wgmma_kernel<MODE, NH><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+      a, xmap, wmap, rmap, rwmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_n(const ConvArgs& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.Cout % 128 == 0 ? launch<MODE, 2>(a, s) : launch<MODE, 1>(a, s);
 }
 
 }  // namespace
@@ -365,25 +736,21 @@ extern "C" {
 // x [B,H,W,Cin] bf16; w [3,3,Cin,Cout] bf16 (HWIO); bias [Cout] f32;
 // gamma/beta [B,Cin] f32 or null; res [B,H,W,Cr] bf16 or null; res_w
 // [Cr,Cout] bf16 or null; y [B,H,W,Cout] bf16; partial [B,T,2,Cout] f32 or
-// null, T = ceil(H/8) * ceil(W/16).  Cin, Cr % 16 == 0, Cout % 64 == 0.
+// null, T = ceil(H/4) * ceil(W/64).  Cin, Cr % 16 == 0, Cout % 64 == 0.
 int hdrvae_fused_conv3x3(const void* x, const void* w, const void* bias,
                          const void* gamma, const void* beta, const void* res,
                          const void* res_w, void* y, void* partial, int B,
                          int H, int W, int Cin, int Cout, int Cr,
                          int res_mode, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_tile_kernel<MODE_CONV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(tiles_of(H, W), Cout / BN, B);
-  conv_tile_kernel<MODE_CONV><<<grid, NTHREADS, SMEM_BYTES,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const bf16*>(res),
-      static_cast<const bf16*>(res_w), static_cast<bf16*>(y),
-      static_cast<float*>(partial), H, W, Cin, Cout, Cr, res_mode);
-  return static_cast<int>(cudaGetLastError());
+  const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   static_cast<const float*>(bias),
+                   static_cast<const float*>(gamma),
+                   static_cast<const float*>(beta),
+                   static_cast<const bf16*>(res),
+                   static_cast<const bf16*>(res_w), static_cast<bf16*>(y),
+                   static_cast<float*>(partial), B, H, W, Cin, Cout, Cr,
+                   res_mode};
+  return launch_n<MODE_CONV>(a, stream);
 }
 
 // x [B,H,W,Cin] bf16; pw [2,2,2,2,Cin,Cout] bf16 phase weights (a,b,u,v);
@@ -392,18 +759,12 @@ int hdrvae_fused_conv3x3(const void* x, const void* w, const void* bias,
 int hdrvae_upsample_conv3x3(const void* x, const void* pw, const void* bias,
                             void* y, void* partial, int B, int H, int W,
                             int Cin, int Cout, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_tile_kernel<MODE_UP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(tiles_of(H, W), Cout / BN, B * 4);
-  conv_tile_kernel<MODE_UP><<<grid, NTHREADS, SMEM_BYTES,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(pw),
-      static_cast<const float*>(bias), nullptr, nullptr, nullptr, nullptr,
-      static_cast<bf16*>(y), static_cast<float*>(partial), H, W, Cin, Cout, 0,
-      RES_NONE);
-  return static_cast<int>(cudaGetLastError());
+  const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(pw),
+                   static_cast<const float*>(bias), nullptr, nullptr,
+                   nullptr, nullptr, static_cast<bf16*>(y),
+                   static_cast<float*>(partial), B, H, W, Cin, Cout, 0,
+                   RES_NONE};
+  return launch_n<MODE_UP>(a, stream);
 }
 
 // partial [B,T,2,C] f32 -> out [B,2,G] f32 (per-group sum and sum of squares)

@@ -23,6 +23,7 @@ and nothing else.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,7 +35,13 @@ from hdrvae_torch.kernels import _build
 
 Sums = Tuple[torch.Tensor, torch.Tensor]   # (sum [B, G], sumsq [B, G])
 
-_TH, _TW, _BN, _BK = 8, 16, 64, 16        # tile sizes of conv3x3.cu
+# conv3x3.cu (K1, K2): a work item's tile is _TR rows x _TWP pixels (K2: of
+# the low-resolution map, for one output phase); the kernels take Cin and Cr
+# multiples of _CIN_STEP and Cout of _COUT_STEP
+_TR, _TWP, _CIN_STEP, _COUT_STEP = 4, 64, 16, 64
+# upconv.cu (K5): its own 8 x 16 output tile, one statistics partial each,
+# and its Cin step
+_K5_TH, _K5_TW, _K5_CIN_STEP = 8, 16, 16
 
 # Row/column tap sets of the phase decomposition: output pixel (2i+a, .) of
 # conv3x3(nearest2x(x)) reads input rows i-1+u, u in {0, 1}, with the 3x3
@@ -45,14 +52,60 @@ _PHASE_SELECT = np.array(
      [[1, 1, 0], [0, 0, 1]]], np.float32)
 
 
+@functools.cache
+def _phase_select(device: torch.device) -> torch.Tensor:
+    """_PHASE_SELECT on ``device``, copied there once: a copy from pageable
+    host memory on every call would wait for the device's queued work."""
+    return torch.from_numpy(_PHASE_SELECT).to(device)
+
+
 def phase_kernels(kernel: torch.Tensor) -> torch.Tensor:
     """[3, 3, Cin, Cout] -> the [2, 2, 2, 2, Cin, Cout] (a, b, u, v) phase
     kernels of conv3x3 o nearest2x, summed in float32 and rounded to the
     kernel's dtype (so in bf16 they differ from the bf16 taps' exact sums
     by up to one bf16 ulp of the sum)."""
-    sel = torch.from_numpy(_PHASE_SELECT).to(kernel.device)
+    sel = _phase_select(kernel.device)
     pk = torch.einsum("aud,bve,decf->abuvcf", sel, sel, kernel.float())
     return pk.to(kernel.dtype)
+
+
+def conv_tiles(h: int, w: int) -> int:
+    """Tiles of conv3x3.cu's K1 / K2 over an [h, w] (K2: low-resolution)
+    map: the partial count T of K1's statistics (K2's is 4 T, one a
+    phase)."""
+    return -(-h // _TR) * -(-w // _TWP)
+
+
+def conv_partials(y: torch.Tensor, upsampled: bool = False) -> torch.Tensor:
+    """Plain version of the kernels' statistics partials: y [B, Ho, Wo, C]
+    (K2: the upsampled map) -> [B, T, 2, C] float32, the per-channel (sum,
+    sumsq) of each tile, indexed as conv3x3.cu writes them (K1: tile t; K2:
+    4 t + the phase 2 a + b of output pixels (2 i + a, 2 j + b))."""
+    b, ho, wo, c = y.shape
+    y = y.float()
+    if upsampled:
+        y = y.reshape(b, ho // 2, 2, wo // 2, 2, c).permute(0, 2, 4, 1, 3, 5)
+    else:
+        y = y[:, None, None]
+    _, pa, pb, h, w, _ = y.shape
+    th, tw = -(-h // _TR), -(-w // _TWP)
+    y = F.pad(y, (0, 0, 0, tw * _TWP - w, 0, th * _TR - h))
+    y = y.reshape(b, pa * pb, th, _TR, tw, _TWP, c)
+    y = y.permute(0, 2, 4, 1, 3, 5, 6).reshape(b, th * tw * pa * pb, -1, c)
+    return torch.stack([y.sum(dim=2), torch.square(y).sum(dim=2)], dim=2)
+
+
+def conv3x3_as_gemm(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The kernels' GEMM view of a SAME 3x3 conv, in float32: A [pixels,
+    9 Cin] (each tap a shifted window of the zero-padded map), B the HWIO
+    kernel as it is stored, viewed as [9 Cin, Cout] (no repack)."""
+    b, h, w, cin = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    a = torch.cat([xp[:, di:di + h, dj:dj + w] for di in range(3)
+                   for dj in range(3)], dim=-1)
+    with fp32_contractions(Precision.parity()):
+        y = a.reshape(-1, 9 * cin) @ kernel.float().reshape(9 * cin, -1)
+    return y.reshape(b, h, w, -1)
 
 
 def _conv3x3_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -218,9 +271,9 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
     cout = kernel.shape[-1]
-    _require(cin % _BK == 0 and cout % _BN == 0,
-             f"fused_conv3x3: Cin % {_BK} and Cout % {_BN} must be 0, got "
-             f"{cin}, {cout}")
+    _require(cin % _CIN_STEP == 0 and cout % _COUT_STEP == 0,
+             f"fused_conv3x3: Cin % {_CIN_STEP} and Cout % {_COUT_STEP} "
+             f"must be 0, got {cin}, {cout}")
     _require((out_dtype or x.dtype) == torch.bfloat16,
              "fused_conv3x3: the CUDA kernel stores bf16")
     _check_bf16("x", x, (b, h, w, cin))
@@ -240,7 +293,8 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
             _require(cr == cout, "an 'add' residual needs Cr == Cout")
             res_mode = 1
         else:
-            _require(cr % _BK == 0, f"residual channels % {_BK} must be 0")
+            _require(cr % _CIN_STEP == 0,
+                     f"residual channels % {_CIN_STEP} must be 0")
             _check_bf16("res_kernel", res_kernel, (cr, cout))
             res_mode = 2
     if emit_stats:
@@ -256,8 +310,7 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
     y = (out if out is not None else
          torch.empty(b, h, w, cout, device=x.device, dtype=torch.bfloat16))
-    tiles = -(-h // _TH) * -(-w // _TW)
-    partial = (torch.empty(b, tiles, 2, cout, device=x.device,
+    partial = (torch.empty(b, conv_tiles(h, w), 2, cout, device=x.device,
                            dtype=torch.float32) if emit_stats else None)
 
     def ptr(t):
@@ -307,9 +360,9 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
     cout = kernel.shape[-1]
-    _require(cin % _BK == 0 and cout % _BN == 0,
-             f"upsample_conv3x3: Cin % {_BK} and Cout % {_BN} must be 0, "
-             f"got {cin}, {cout}")
+    _require(cin % _CIN_STEP == 0 and cout % _COUT_STEP == 0,
+             f"upsample_conv3x3: Cin % {_CIN_STEP} and Cout % {_COUT_STEP} "
+             f"must be 0, got {cin}, {cout}")
     _require((out_dtype or x.dtype) == torch.bfloat16,
              "upsample_conv3x3: the CUDA kernel stores bf16")
     _check_bf16("x", x, (b, h, w, cin))
@@ -325,8 +378,7 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     y = (None if stats_only else
          torch.empty(b, 2 * h, 2 * w, cout, device=x.device,
                      dtype=torch.bfloat16))
-    tiles = 4 * -(-h // _TH) * -(-w // _TW)
-    partial = (torch.empty(b, tiles, 2, cout, device=x.device,
+    partial = (torch.empty(b, 4 * conv_tiles(h, w), 2, cout, device=x.device,
                            dtype=torch.float32) if emit_stats else None)
     _build.check(_build.library().hdrvae_upsample_conv3x3(
         x.data_ptr(), pk.data_ptr(), bias.data_ptr(),
@@ -378,9 +430,9 @@ def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
     cm, cout = up_kernel.shape[-1], kernel.shape[-1]
-    _require(cin % _BK == 0 and cin <= 512,
-             f"upconv_gn_conv3x3: Cin must be a multiple of {_BK} up to 512, "
-             f"got {cin}")
+    _require(cin % _K5_CIN_STEP == 0 and cin <= 512,
+             f"upconv_gn_conv3x3: Cin must be a multiple of {_K5_CIN_STEP} "
+             f"up to 512, got {cin}")
     _require(cm in (128, 256) and cout in (64, 128),
              f"upconv_gn_conv3x3: Cm must be 128 or 256 and Cout 64 or 128, "
              f"got {cm}, {cout}")
@@ -407,7 +459,7 @@ def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,
 
     y = torch.empty(b, 2 * h, 2 * w, cout, device=x.device,
                     dtype=torch.bfloat16)
-    tiles = -(-2 * h // _TH) * -(-2 * w // _TW)
+    tiles = -(-2 * h // _K5_TH) * -(-2 * w // _K5_TW)
     partial = (torch.empty(b, tiles, 2, cout, device=x.device,
                            dtype=torch.float32) if emit_stats else None)
     _build.check(_build.library().hdrvae_upconv_gn_conv3x3(

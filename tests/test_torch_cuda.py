@@ -74,6 +74,62 @@ def test_fused_conv3x3_ragged(dev, res):
                                atol=1e-3 * ry.float().abs().sum().item())
 
 
+# the edges of K1's tile (4 rows x 64 pixels, 64-channel K chunks, 64 or
+# 128 output channels a block): (b, h, w, cin, cout, residual, Cr)
+K1_EDGES = {
+    "width 100 (a part 64-pixel run)": (2, 9, 100, 64, 128, "add", 0),
+    "Cin 48 (a part K chunk)": (2, 7, 70, 48, 64, "proj", 48),
+    "Cin 512 at a small map (deep K)": (1, 6, 10, 512, 128, "proj", 512),
+    "Cout 64": (2, 5, 66, 128, 64, "add", 0),
+    "Cout 192 (an N-tile edge)": (2, 5, 66, 64, 192, "none", 0),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_EDGES))
+def test_fused_conv3x3_tile_edges(dev, case):
+    """K1 at its tile's edges, batch 2 with per-sample gamma/beta: y
+    within two bf16 ulps of the largest output, as above."""
+    b, h, w, cin, cout, res, cr = K1_EDGES[case]
+    x = _rand(dev, (b, h, w, cin))
+    kern = _rand(dev, (3, 3, cin, cout), (9 * cin) ** -0.5, seed=1)
+    bias = _rand(dev, (cout,), 0.1, torch.float32, seed=2)
+    gamma = _rand(dev, (b, cin), 0.3, torch.float32, seed=3) + 1.0
+    beta = _rand(dev, (b, cin), 0.3, torch.float32, seed=4)
+    kw = dict(gamma=gamma, beta=beta, emit_stats=True, num_groups=32)
+    if res == "add":
+        kw["residual"] = _rand(dev, (b, h, w, cout), 0.5, seed=5)
+    elif res == "proj":
+        kw["residual"] = _rand(dev, (b, h, w, cr), seed=6)
+        kw["res_kernel"] = _rand(dev, (cr, cout), cr ** -0.5, seed=7)
+    y, (s, sq) = conv3x3.fused_conv3x3(x, kern, bias, **kw)
+    ry, (rs, rsq) = conv3x3.fused_conv3x3_reference(x, kern, bias, **kw)
+    torch.cuda.synchronize()
+    assert (y.float() - ry.float()).abs().max().item() <= 2 * _ulp_bound(ry)
+    torch.testing.assert_close(sq, rsq, rtol=1e-3, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0,
+                               atol=1e-3 * ry.float().abs().sum().item())
+
+
+def test_fused_conv3x3_out_aliases_residual(dev):
+    """``out=residual``: each element's residual is read before the same
+    thread writes it, so y over its own residual equals y elsewhere."""
+    b, h, w, c = 2, 9, 100, 128
+    x = _rand(dev, (b, h, w, c))
+    kern = _rand(dev, (3, 3, c, c), (9 * c) ** -0.5, seed=1)
+    bias = _rand(dev, (c,), 0.1, torch.float32, seed=2)
+    gamma = _rand(dev, (b, c), 0.3, torch.float32, seed=3) + 1.0
+    beta = _rand(dev, (b, c), 0.3, torch.float32, seed=4)
+    r = _rand(dev, (b, h, w, c), 0.5, seed=5)
+    kw = dict(gamma=gamma, beta=beta, emit_stats=True, num_groups=32)
+    y, s = conv3x3.fused_conv3x3(x, kern, bias, residual=r, **kw)
+    r2 = r.clone()
+    y2, s2 = conv3x3.fused_conv3x3(x, kern, bias, residual=r2, out=r2, **kw)
+    torch.cuda.synchronize()
+    assert y2.data_ptr() == r2.data_ptr()
+    assert torch.equal(y2, y)
+    assert torch.equal(s2[0], s[0]) and torch.equal(s2[1], s[1])
+
+
 def test_fused_conv3x3_plain_conv(dev):
     """No prologue, no residual, no statistics: a bare bf16 conv."""
     x = _rand(dev, (1, 17, 16, 16))
@@ -116,6 +172,25 @@ def test_upsample_conv3x3_stats_only(dev):
     assert (conv3x3.upsample_conv3x3.launches,
             conv3x3.upsample_conv3x3.stats_only_launches) == (
                 before[0], before[1] + 1)
+    assert torch.equal(so, s) and torch.equal(sqo, sq)
+
+
+@pytest.mark.parametrize("cin,cout", [(48, 192), (512, 128)])
+def test_upsample_conv3x3_tile_edges(dev, cin, cout):
+    """K2 at a ragged 13 x 100 map (a part 4-row tile and a part 64-pixel
+    run) with a part K chunk and Cout 192, or a deep K: y within four bf16
+    ulps as above, and its stats_only sums bit-equal to these."""
+    b, h, w = 2, 13, 100
+    x = _rand(dev, (b, h, w, cin), 0.5)
+    kern = _rand(dev, (3, 3, cin, cout), (9 * cin) ** -0.5, seed=1)
+    bias = _rand(dev, (cout,), 0.1, torch.float32, seed=2)
+    kw = dict(emit_stats=True, num_groups=32)
+    y, (s, sq) = conv3x3.upsample_conv3x3(x, kern, bias, **kw)
+    so, sqo = conv3x3.upsample_conv3x3(x, kern, bias, stats_only=True, **kw)
+    ry, (rs, rsq) = conv3x3.upsample_conv3x3_reference(x, kern, bias, **kw)
+    torch.cuda.synchronize()
+    assert (y.float() - ry.float()).abs().max().item() <= 4 * _ulp_bound(ry)
+    torch.testing.assert_close(sq, rsq, rtol=1e-2, atol=0)
     assert torch.equal(so, s) and torch.equal(sqo, sq)
 
 

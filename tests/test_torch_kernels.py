@@ -201,6 +201,54 @@ class TestUpsampleConv:
             np.testing.assert_array_equal(got, ref)
 
 
+class TestConvPlan:
+    """The host-side plan of csrc/conv3x3.cu's K1 / K2: the GEMM view of
+    the HWIO kernel (read as [9 Cin, Cout], no repack) and the partial
+    layout of the statistics, held to the plain versions."""
+
+    # (h, w, cin, cout): one part tile, the Flux 832 x 1216 latent (widths
+    # 104 and 152 no multiple of 64), a partial K chunk (Cin 48), Cout 192
+    @pytest.mark.parametrize("h,w,cin,cout", [(3, 5, 16, 64),
+                                              (13, 19, 32, 64),
+                                              (6, 70, 48, 192)])
+    def test_gemm_view_matches_reference(self, h, w, cin, cout):
+        x, kern = _t(_np(40, (2, h, w, cin))), _t(_np(41, (3, 3, cin, cout),
+                                                     0.2))
+        got = tconv.conv3x3_as_gemm(x, kern)
+        ref = tconv.fused_conv3x3_reference(x, kern, torch.zeros(cout))
+        # float32 sums of 9 Cin products in another order
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-6 * ref.abs().max().item())
+
+    @pytest.mark.parametrize("h,w", [(4, 64), (13, 19), (104, 152),
+                                     (9, 130)])
+    @pytest.mark.parametrize("upsampled", [False, True])
+    def test_partials_sum_to_group_stats(self, h, w, upsampled):
+        """T is the kernel's tile count (4 T for K2: one partial a phase),
+        and the partials add up to each group's (sum, sumsq)."""
+        side = 2 if upsampled else 1
+        y = _t(_np(42, (2, side * h, side * w, 64)))
+        part = tconv.conv_partials(y, upsampled=upsampled)
+        t = tconv.conv_tiles(h, w) * (4 if upsampled else 1)
+        assert part.shape == (2, t, 2, 64)
+        assert tconv.conv_tiles(h, w) == -(-h // 4) * -(-w // 64)
+        g = part.sum(dim=1).reshape(2, 2, 16, 4).sum(dim=-1)
+        ref = tconv._group_sums(y, 16)
+        # float32 sums in another order; the signed sum against sum |y|
+        torch.testing.assert_close(g[:, 0], ref[0], rtol=0,
+                                   atol=1e-6 * y.abs().sum().item())
+        torch.testing.assert_close(g[:, 1], ref[1], rtol=1e-5, atol=0)
+
+    def test_partials_follow_tile_order(self):
+        """K2's partial 4 t + 2 a + b holds output pixels (2 i + a, 2 j +
+        b) of low-resolution tile t only."""
+        y = torch.zeros(1, 2 * 5, 2 * 70, 64)
+        y[0, 2 * 4 + 1, 2 * 65 + 0] = 1.0     # tile (1, 1), phase (1, 0)
+        part = tconv.conv_partials(y, upsampled=True)
+        hit = part[0, :, 0].sum(dim=-1).nonzero().flatten().tolist()
+        assert hit == [4 * (1 * 2 + 1) + 2]
+
+
 def test_cpu_tensors_never_launch():
     """On CPU tensors every wrapper runs its plain version: the launch
     counters stay 0."""

@@ -2,12 +2,16 @@
 """Mutation check of a kernel's test in ``chip_smoke.py``, on one NVIDIA
 GPU.
 
-    python3 tools/mutate_kernels.py [k5|chain|k3_3pass ...]   (default: all)
+    python3 tools/mutate_kernels.py [k1|k2|k5|chain|k3_3pass ...]
+                                    (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
 ``chip_smoke.py`` into a temporary directory, breaks one CUDA source
 there (one or more edits), builds that copy's kernels and runs the
-target's check of ``chip_smoke`` (k5: ``_check_k5``, K5 against its plain
+target's check of ``chip_smoke`` (k1: ``_check_k1``, K1 against its
+plain version at the 1024^2 decode's six conv shapes and a ragged one;
+k2: ``_check_k2``, K2 at the decode's three upsample convs and a ragged
+one; k5: ``_check_k5``, K5 against its plain
 version at the 2048^2 decode's junction and a ragged map; chain:
 ``_check_chain``, K10, K9 and K11 of the staged Swin chain at K7's v1
 shapes and the chain against K7; k3_3pass: ``_check_k3_3pass``, K3's
@@ -33,6 +37,43 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (CUDA source under csrc/, text of it, its broken form, must the check
 # catch it); text and broken form may be tuples of edits made together
 TARGETS = {
+    # K1 and K2 share conv3x3.cu's mainloop: each mutant keeps the producer
+    # and consumer schedules in step (a broken schedule would trap, not
+    # compute a wrong y)
+    "k1": ("_check_k1(np.random.default_rng(0))", ("K1",), {
+        "one tap skipped": (
+            "conv3x3.cu", "            if constexpr (NH == 2)\n",
+            "            if (tap == 4 && !proj) {\n"
+            "            } else if constexpr (NH == 2)\n", True),
+        "last K chunk skipped": (
+            "conv3x3.cu", "            if constexpr (NH == 2)\n",
+            "            if (ci == nmain - 1) {\n"
+            "            } else if constexpr (NH == 2)\n", True),
+        "prologue on halo pixels outside the image": (
+            "conv3x3.cu",
+            "if (c >= a.Cin || hh < 0 || hh >= a.H || ww < 0 || ww >= a.W) "
+            "continue;", "if (c >= a.Cin) continue;", True),
+        "identity residual dropped": (
+            "conv3x3.cu", "                v0 += __low2float(rr[mb][i][j]);\n"
+            "                v1 += __high2float(rr[mb][i][j]);\n", "", True),
+        "last nin_shortcut chunk skipped": (
+            "conv3x3.cu", "? (a.Cr + BK - 1) / BK : 0;",
+            "? (a.Cr + BK - 1) / BK - 1 : 0;", True),
+        "statistics before the bf16 rounding (sub-ulp)": (
+            "conv3x3.cu", "              v0 = __low2float(yb);   // statistics "
+            "of y as stored\n              v1 = __high2float(yb);\n", "",
+            False),
+    }),
+    "k2": ("_check_k2(np.random.default_rng(0))", ("K2",), {
+        "phase 3 with phase 2's weights": (
+            "conv3x3.cu", "(MODE == MODE_UP) ? wk.ph * 4 + tap : tap;",
+            "(MODE == MODE_UP) ? (wk.ph == 3 ? 2 : wk.ph) * 4 + tap : tap;",
+            True),
+        "one tap skipped": (
+            "conv3x3.cu", "            if constexpr (NH == 2)\n",
+            "            if (tap == 3) {\n"
+            "            } else if constexpr (NH == 2)\n", True),
+    }),
     "k5": ("_check_k5(np.random.default_rng(5))", ("K5",), {
         "band not zeroed outside the image": (
             "upconv.cu", "o[e] = in ? silu(zn) : 0.0f;", "o[e] = silu(zn);",

@@ -50,7 +50,10 @@ and loads that tree's kernels: K7 ``swin_block_fused`` (v1 body) at
 SwinIR-M's 512^2 tile (C 180, 6 heads, window 8), unshifted and shifted,
 CUDA events over 20 launches after 3 warm-ups, then two fast
 ``hdr_upscale`` requests of SwinIR-M x4 (seed 3) on a 768^2 HDR image from
-numpy seed 1.
+numpy seed 1; then K1 and K2 at ``chip_smoke.py``'s phase-3 shapes and
+its ragged ones, K2 ``stats_only`` at the 2048^2 junction (CUDA events over
+10 launches after 2 warm-ups, 5 for stats_only), and three requests each of
+fast decodes at 1024^2 and 2048^2 and of parity and mixed ones at 1024^2.
 
 The script only reads: it changes nothing in the package.  Without a CUDA
 device it exits non-zero.
@@ -101,7 +104,7 @@ UPSCALERS = {
                                                 device="cuda"))}
 # the __global__ functions of hdrvae_torch/csrc (K1/K2, K5, K3 in its three
 # dot modes, K4, K6, K7, K8)
-PORT_KERNELS = ("conv_tile_kernel", "group_stats_kernel",
+PORT_KERNELS = ("conv_wgmma_kernel", "group_stats_kernel",
                 "upconv_gn_conv_kernel", "flash_bf16_kernel",
                 "flash_3pass_kernel", "flash_f32_kernel",
                 "collapse_stats_kernel",
@@ -323,6 +326,93 @@ for i in range(2):
           f"{1e3 * (time.perf_counter() - h0):.3f} ms", flush=True)
 '''
 
+# K1 and K2 at chip_smoke.py's phase-3 shapes (and its ragged ones), K2
+# stats_only at the 2048^2 junction, then fast decodes at 1024^2 and 2048^2
+# and parity and mixed ones at 1024^2 (which launch neither kernel)
+AB_CONV = r'''
+import time
+import numpy as np
+import torch
+from hdrvae_torch.core.config import DecoderConfig, HDRDecodeConfig, Precision
+from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+from hdrvae_torch.kernels import conv3x3
+from hdrvae_torch.models.params import init_decoder
+
+K1 = [(128, 128, 512, 512, "add"), (256, 256, 512, 512, "add"),
+      (512, 512, 256, 256, "add"), (512, 512, 512, 256, "proj"),
+      (1024, 1024, 256, 128, "proj"), (1024, 1024, 128, 128, "add"),
+      (152, 104, 512, 512, "add")]
+K2 = [(128, 128, 512), (256, 256, 512), (512, 512, 256), (304, 208, 512)]
+
+
+def ms(fn, iters=10):
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rand(rng, shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+        np.float32)).cuda().bfloat16()
+
+
+rng = np.random.default_rng(0)
+for h, w, cin, cout, res in K1:
+    x = rand(rng, (1, h, w, cin))
+    kern = rand(rng, (3, 3, cin, cout), (9 * cin) ** -0.5)
+    bias = torch.zeros(cout, device="cuda")
+    kw = dict(gamma=torch.ones(1, cin, device="cuda"),
+              beta=torch.zeros(1, cin, device="cuda"), emit_stats=True,
+              num_groups=32)
+    if res == "add":
+        kw["residual"] = rand(rng, (1, h, w, cout), 0.5)
+    else:
+        kw.update(residual=x, res_kernel=rand(rng, (cin, cout), cin ** -0.5))
+    t = ms(lambda: conv3x3.fused_conv3x3(x, kern, bias, **kw))
+    flops = 2 * h * w * cin * cout * (9 + (res == "proj"))
+    print(f"  K1 {h}x{w} {cin}->{cout} {res}: {t:.3f} ms "
+          f"({flops / (t * 1e9):.1f} TFLOP/s)", flush=True)
+for h, w, c in K2:
+    x = rand(rng, (1, h, w, c), 0.5)
+    kern = rand(rng, (3, 3, c, c), (9 * c) ** -0.5)
+    bias = torch.zeros(c, device="cuda")
+    t = ms(lambda: conv3x3.upsample_conv3x3(x, kern, bias, emit_stats=True))
+    print(f"  K2 {h}x{w} {c}: {t:.3f} ms "
+          f"({32 * h * w * c * c / (t * 1e9):.1f} TFLOP/s)", flush=True)
+x = rand(rng, (1, 1024, 1024, 256), 0.5)
+kern = rand(rng, (3, 3, 256, 256), (9 * 256) ** -0.5)
+bias = torch.zeros(256, device="cuda")
+t = ms(lambda: conv3x3.upsample_conv3x3(x, kern, bias, emit_stats=True,
+                                        stats_only=True), iters=5)
+print(f"  K2 stats_only 1024x1024 256: {t:.3f} ms", flush=True)
+del x
+dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
+cons = HDRDecodeConfig(hdr_mode="conservative")
+for side, tier in ((128, "fast"), (256, "fast"), (128, "parity"),
+                   (128, "mixed")):
+    z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, side, side, 16)).astype(np.float32)).cuda()
+    prec = getattr(Precision, tier)()
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        decode_summary(hdr_decode(dec, z, cons, prec))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(round(start.elapsed_time(end), 3))
+    print(f"  decode {side * 8}^2 {tier}: device ms {times}", flush=True)
+    torch.cuda.empty_cache()
+'''
+
 
 def ab(other: str) -> int:
     """The turns of ``--ab-tree``: this tree, ``other``, ``other``, this."""
@@ -331,11 +421,12 @@ def ab(other: str) -> int:
     for label, root in (("this", here), ("other", there), ("other", there),
                         ("this", here)):
         print(f"== {label}: {root}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", AB_TURN], cwd=root,
-                              env=dict(os.environ, PYTHONPATH=root),
-                              timeout=900)
-        if proc.returncode != 0:
-            return proc.returncode
+        for turn in (AB_TURN, AB_CONV):
+            proc = subprocess.run([sys.executable, "-c", turn], cwd=root,
+                                  env=dict(os.environ, PYTHONPATH=root),
+                                  timeout=900)
+            if proc.returncode != 0:
+                return proc.returncode
     return 0
 
 
@@ -362,8 +453,8 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=12,
                     help="kernel names listed per run")
     ap.add_argument("--ab-tree", metavar="DIR",
-                    help="compare K7 and a SwinIR-M upscale with the tree "
-                         "in DIR instead")
+                    help="compare K7, a SwinIR-M upscale, K1, K2 and "
+                         "decodes with the tree in DIR instead")
     args = ap.parse_args()
     latents = args.latent or ([128] if args.upscale else [128, 256])
     tiers = args.tiers or (["fast", "parity"] if args.upscale
