@@ -9,14 +9,19 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 1. device: the card's name and power limit, as the line nvidia-smi prints;
 2. build: compile the kernels, print the build time and ptxas' register
    and spill report, and the count of HGMMA (wgmma) instructions in the
-   SASS of K1/K2's kernel (``cuobjdump --dump-sass``), which must not be 0;
+   SASS of K1/K2's and K6's kernels (``cuobjdump --dump-sass``), which must
+   not be 0;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1-K4: a 1024^2 decode, and K1 and K2
    each at one ragged shape of an 832 x 1216 frame, logged apart and out
    of the rows' sums, K2 also timed as the launch alone; K3 in its three
    dot modes, the 3-pass one also against exact float32 and on a ragged
-   input with peaked scores; K6: one 512^2
-   tile of the full-width ESRGAN x4 net; K7: one 512^2 tile of SwinIR-M,
+   input with peaked scores; K2 also with act="lrelu", logged apart; K6:
+   one 512^2 tile of the full-width ESRGAN x4 net, each shape once in the
+   row's sums, with weights prepared as the chain passes them (and the
+   HWIO call bit-equal), conv_body and conv_first of unshuffle 2 and 4
+   logged apart, and the launch-weighted time of one tile forward (351
+   launches) beside cuDNN's conv alone; K7: one 512^2 tile of SwinIR-M,
    unshifted and shifted, of HAT-M with its CAB residual, and a ragged
    128 x 120 tile; K7's SwinV2 body: one 512^2 tile of Swin2SR-M,
    unshifted and shifted, a window-7 grid and the ragged tile; K8: HAT-M's
@@ -123,6 +128,8 @@ K2_SHAPES = [(128, 128, 512), (256, 256, 512), (512, 512, 256)]
 # tile; checked and logged on their own, out of the rows' sums
 K1_RAGGED = (152, 104, 512, 512, "add")
 K2_RAGGED = (304, 208, 512)
+# K2 with act="lrelu" (no decode path takes it), logged apart
+K2_ACT = (256, 256, 512)
 N_TOKENS, C_ATTN = 128 * 128, 512
 ATTN_FLOPS = 4 * N_TOKENS * N_TOKENS * C_ATTN   # q k^T and p v, one pass
 # K3's 3-pass mode on a second input: ragged N (100 x 100 = 10,000 tokens,
@@ -140,6 +147,17 @@ K6_SHAPES = [("conv_first", 512, 512, (3,), 64, None, None, False)] + [
     ("conv_up2", 2048, 2048, (64,), 64, "lrelu", None, False),
     ("conv_last", 2048, 2048, (64,), 3, None, None, True),
     ("conv5 ragged", 128, 120, (64, 32, 32, 32, 32), 64, None, 0.2, False)]
+# more K6 shapes, checked and logged apart, out of the row's sums: the
+# tile's conv_body, and conv_first of RealESRGAN x2 / x1 (unshuffle 2 and
+# 4: 12 and 48 channels at the unshuffled tile)
+K6_EXTRA = [("conv_body", 512, 512, (64,), 64, None, 1.0, False),
+            ("conv_first x2", 256, 256, (12,), 64, None, None, False),
+            ("conv_first x1", 128, 128, (48,), 64, None, None, False)]
+# launches of each shape in one RRDBNetConfig() tile forward (351): 23
+# RRDBs of three dense blocks, conv_hr at conv_up2's shape
+K6_FORWARD = {"conv_first": 1, "conv1": 69, "conv2": 69, "conv3": 69,
+              "conv4": 69, "conv5": 69, "conv_body": 1, "conv_up1": 1,
+              "conv_up2": 2, "conv_last": 1}
 K4_SHAPE = (1, 1024, 1024, 128)
 # K7 at the full widths of SwinIR-M and HAT-M (C 180, 6 heads, hd 30):
 # (name, H, W, window, shift, with HAT's extra residual)
@@ -333,10 +351,13 @@ def phase_build() -> None:
     for line in compiler_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
-    n, funcs = hgmma_count(path, "conv_wgmma_kernel")
-    log(f"SASS: {n} HGMMA instructions in K1/K2's conv_wgmma_kernel "
-        f"({funcs} instances)")
-    check(n > 0, "K1/K2's kernel issues no wgmma (no HGMMA in its SASS)")
+    for name, kernel in (("K1/K2", "conv_wgmma_kernel"),
+                         ("K6", "dense_wgmma_kernel")):
+        n, funcs = hgmma_count(path, kernel)
+        log(f"SASS: {n} HGMMA instructions in {name}'s {kernel} "
+            f"({funcs} instances)")
+        check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
+              "SASS)")
 
 
 def hgmma_count(lib: str, kernel: str) -> tuple:
@@ -498,7 +519,7 @@ def _check_k1(rng) -> dict:
             "shapes": details, "ragged": ragged}
 
 
-def _k2_case(rng, bnd, h, w, c):
+def _k2_case(rng, bnd, h, w, c, act=None):
     """K2 at one shape against its plain version, its bound added to
     ``bnd``: (log text, record).  Besides the wrapper's time (which
     collapses the kernel into phase kernels on every call) the launch
@@ -507,7 +528,7 @@ def _k2_case(rng, bnd, h, w, c):
     x = _bf16(rng, (1, h, w, c), 0.5)
     kern = _bf16(rng, (3, 3, c, c), (9 * c) ** -0.5)
     bias = _uniform(rng, -0.1, 0.1, c)
-    kw = dict(emit_stats=True, num_groups=32)
+    kw = dict(emit_stats=True, num_groups=32, act=act)
     y, s = conv3x3.upsample_conv3x3(x, kern, bias, **kw)
     ry, rs = conv3x3.upsample_conv3x3_reference(x, kern, bias, **kw)
     torch.cuda.synchronize()
@@ -524,7 +545,8 @@ def _k2_case(rng, bnd, h, w, c):
     lib = _build.library()
     t_launch = cuda_ms(lambda: _build.check(lib.hdrvae_upsample_conv3x3(
         x.data_ptr(), pk.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        part.data_ptr(), 1, h, w, c, c, stream), "hdrvae_upsample_conv3x3"))
+        part.data_ptr(), 1, h, w, c, c, int(act == "lrelu"), stream),
+        "hdrvae_upsample_conv3x3"))
     tp = cuda_ms(lambda: conv3x3.upsample_conv3x3_reference(
         x, kern, bias, **kw))
     # the conv alone, on the upsampled map made beforehand
@@ -555,6 +577,8 @@ def _check_k2(rng) -> dict:
         details.append(rec)
     text, ragged = _k2_case(rng, Bound(), *K2_RAGGED)
     log("K2 upsample_conv3x3 ragged (out of the sums) " + text)
+    text, act = _k2_case(rng, Bound(), *K2_ACT, act="lrelu")
+    log("K2 upsample_conv3x3 act=lrelu (out of the sums) " + text)
     return {"name": "upsample_conv3x3", "route": "cuda",
             "source": "hdrvae_torch/csrc/conv3x3.cu",
             "replaces": "hdrvae/kernels/conv3x3.py:653",
@@ -562,7 +586,7 @@ def _check_k2(rng) -> dict:
             **_summed(details), **bnd.entry(),
             "launch_ms": sum(d["launch_ms"] for d in details),
             "library_call": CONV_ALONE + " (on the upsampled map)",
-            "shapes": details, "ragged": ragged}
+            "shapes": details, "ragged": ragged, "act": act}
 
 
 def _summed(details) -> dict:
@@ -797,56 +821,89 @@ def _check_k4() -> dict:
             "shapes": details}
 
 
-def _check_k6(rng) -> dict:
+def _k6_case(rng, bnd, name, h, w, cins, cout, act, rs, f32):
+    """K6 at one shape against its plain version, its bound added to
+    ``bnd``: (log text, record).  Timed with weights prepared beforehand,
+    as the chain passes them; the HWIO call (prepared on the fly) must
+    give the same y."""
     from hdrvae_torch.kernels import dense_conv
-    dev = torch.device("cuda")
-    details, k_ms, p_ms, l_ms, err, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
-    for name, h, w, cins, cout, act, rs, f32 in K6_SHAPES:
-        xs = [_bf16(rng, (1, h, w, c), 0.5) for c in cins]
-        kern = _bf16(rng, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5)
-        bias = torch.from_numpy(rng.uniform(-0.1, 0.1, cout)
-                                .astype(np.float32)).to(dev)
-        kw = dict(act=act, out_dtype=torch.float32 if f32 else None)
-        if rs is not None:
-            kw.update(residual=_bf16(rng, (1, h, w, cout), 0.5),
-                      res_scale=rs)
-        y = dense_conv.dense_conv3x3(xs, kern, bias, **kw)
-        ry = dense_conv.dense_conv3x3_reference(xs, kern, bias, **kw)
-        torch.cuda.synchronize()
-        check(y.dtype == ry.dtype and y.shape == ry.shape,
-              f"K6 {name}: {y.dtype} {tuple(y.shape)}")
-        check(torch.isfinite(y.float()).all().item(),
-              f"K6 {name}: output not finite")
-        e = (y.float() - ry.float()).abs().max().item()
-        check(e <= CONV_BUDGET, f"K6 {name} {h}x{w}: max-abs {e} > "
-              f"{CONV_BUDGET}")
-        t = cuda_ms(lambda: dense_conv.dense_conv3x3(xs, kern, bias, **kw))
-        tp = cuda_ms(lambda: dense_conv.dense_conv3x3_reference(
-            xs, kern, bias, **kw))
-        # the conv alone, on the concatenated input made beforehand
-        cat = torch.cat(xs, dim=-1)
-        tl = conv_alone_ms(cat, kern)
-        del cat
-        flops = 2 * h * w * 9 * sum(cins) * cout
-        tflops = flops / (t * 1e9)
-        b = bnd.add(flops, nbytes(*xs, kern, bias, y, kw.get("residual")))
-        log(f"K6 dense_conv3x3 {name} {h}x{w} {'+'.join(map(str, cins))}->"
-            f"{cout}: max-abs {e:.3e}  kernel {t:.3f} ms ({tflops:.1f} "
-            f"TFLOP/s)  plain {tp:.3f} ms  conv alone {tl:.3f} ms  bound "
-            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
-        details.append({"shape": [name, h, w, list(cins), cout],
-                        "max_abs_err": e, "ms": t, "plain_ms": tp,
-                        "tflops": tflops, "library_ms": tl, **b})
-        k_ms, p_ms, l_ms, err = k_ms + t, p_ms + tp, l_ms + tl, max(err, e)
-        del xs, kern, y, ry, kw
+    xs = [_bf16(rng, (1, h, w, c), 0.5) for c in cins]
+    kern = _bf16(rng, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5)
+    bias = _uniform(rng, -0.1, 0.1, cout)
+    kw = dict(act=act, out_dtype=torch.float32 if f32 else None)
+    if rs is not None:
+        kw.update(residual=_bf16(rng, (1, h, w, cout), 0.5), res_scale=rs)
+    pw = dense_conv.prepare_weights(kern, bias, cins)
+    y = dense_conv.dense_conv3x3(xs, pw, **kw)
+    ry = dense_conv.dense_conv3x3_reference(xs, kern, bias, **kw)
+    yh = dense_conv.dense_conv3x3(xs, kern, bias, **kw)
+    torch.cuda.synchronize()
+    check(y.dtype == ry.dtype and y.shape == ry.shape,
+          f"K6 {name}: {y.dtype} {tuple(y.shape)}")
+    check(torch.isfinite(y.float()).all().item(),
+          f"K6 {name}: output not finite")
+    check(torch.equal(y, yh), f"K6 {name}: HWIO call differs")
+    e = (y.float() - ry.float()).abs().max().item()
+    check(e <= CONV_BUDGET, f"K6 {name} {h}x{w}: max-abs {e} > "
+          f"{CONV_BUDGET}")
+    t = cuda_ms(lambda: dense_conv.dense_conv3x3(xs, pw, **kw))
+    tp = cuda_ms(lambda: dense_conv.dense_conv3x3_reference(
+        xs, kern, bias, **kw))
+    # the conv alone, on the concatenated input made beforehand
+    cat = torch.cat(xs, dim=-1)
+    tl = conv_alone_ms(cat, kern)
+    del cat
+    flops = 2 * h * w * 9 * sum(cins) * cout
+    tflops = flops / (t * 1e9)
+    moved = nbytes(*xs, kern, bias, y, kw.get("residual"))
+    b = bnd.add(flops, moved)
+    text = (f"{name} {h}x{w} {'+'.join(map(str, cins))}->{cout}: max-abs "
+            f"{e:.3e}  kernel {t:.3f} ms ({tflops:.1f} TFLOP/s)  plain "
+            f"{tp:.3f} ms  conv alone {tl:.3f} ms  bound {b['bound_ms']:.3f}"
+            f" ms ({b['bound_by']})")
+    return text, {"shape": [name, h, w, list(cins), cout], "max_abs_err": e,
+                  "ms": t, "plain_ms": tp, "tflops": tflops,
+                  "library_ms": tl, "flops": flops,
+                  "ops_ms": 1e3 * flops / PEAK_BF16,
+                  "bytes_ms": 1e3 * moved / HBM_BYTES_S, **b}
+
+
+def _check_k6(rng) -> dict:
+    """K6 at one 512^2 tile's shapes of the ESRGAN x4 net (the row's sums,
+    each shape once), more shapes logged apart, and the launch-weighted
+    time of one RRDBNetConfig() tile forward."""
+    details, extra, bnd = [], [], Bound()
+    for shape in K6_SHAPES:
+        text, rec = _k6_case(rng, bnd, *shape)
+        log("K6 dense_conv3x3 " + text)
+        details.append(rec)
         torch.cuda.empty_cache()
+    for shape in K6_EXTRA:
+        text, rec = _k6_case(rng, Bound(), *shape)
+        log("K6 dense_conv3x3 (out of the sums) " + text)
+        extra.append(rec)
+        torch.cuda.empty_cache()
+    # one tile forward: each shape times its launches
+    recs = {d["shape"][0]: d for d in details + extra}
+    forward = {k: sum(n * recs[name][k] for name, n in K6_FORWARD.items())
+               for k in ("ms", "library_ms", "flops", "bound_ms", "ops_ms",
+                         "bytes_ms")}
+    forward["launches"] = sum(K6_FORWARD.values())
+    forward["bound_by"] = ("operations" if forward["ops_ms"]
+                           >= forward["bytes_ms"] else "bytes")
+    log(f"K6 dense_conv3x3 one RRDBNetConfig() 512^2 tile forward "
+        f"({forward['launches']} launches, launch-weighted): kernel "
+        f"{forward['ms']:.3f} ms ({forward['flops'] / (forward['ms'] * 1e9):.1f}"
+        f" TFLOP/s)  conv alone {forward['library_ms']:.3f} ms  bound "
+        f"{forward['bound_ms']:.3f} ms (operations {forward['ops_ms']:.3f}, "
+        f"bytes {forward['bytes_ms']:.3f})")
     return {"name": "dense_conv3x3", "route": "cuda",
             "source": "hdrvae_torch/csrc/dense_conv.cu",
             "replaces": "hdrvae/kernels/conv3x3.py:1306",
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            **bnd.entry(), "library_ms": l_ms,
+            "max_abs_err": max(d["max_abs_err"] for d in details),
+            **_summed(details), **bnd.entry(),
             "library_call": CONV_ALONE + " (on the concatenated inputs)",
-            "shapes": details}
+            "shapes": details, "extra": extra, "forward": forward}
 
 
 def _swin_block(rng, dim: int, heads: int, ws: int, v2: bool = False):

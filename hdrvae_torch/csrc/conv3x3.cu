@@ -7,7 +7,7 @@
 //       and the per-group (sum, sumsq) of y as stored, for the next
 //       GroupNorm.
 //   K2  hdrvae/kernels/conv3x3.py::upsample_conv3x3
-//       y = conv3x3_SAME(nearest2x(x)) + bias through the 2x2 phase
+//       y = act(conv3x3_SAME(nearest2x(x)) + bias) through the 2x2 phase
 //       decomposition: each output phase (a, b) is a 2x2 conv of the
 //       low-resolution map with pre-summed weights, so the upsampled map is
 //       never written to memory and the MACs drop 2.25x.
@@ -55,10 +55,10 @@
 //    the same ring (r loaded with the slab's halo'd geometry, so its tile
 //    pixels sit at the centre window); its bias is folded into `bias` by
 //    the caller.
-//  * Epilogue from the accumulators: bias and the residual added in float32,
-//    rounded to bf16, stored.  An identity residual is read by the thread
-//    that then writes that element, so y may be the residual's own storage
-//    (res and y carry no __restrict__).  Statistics of y as stored (after the
+//  * Epilogue from the accumulators: bias and the residual (K1) or K2's
+//    LeakyReLU applied in float32, rounded to bf16, stored.  An identity
+//    residual is read by the thread that then writes that element, so y may
+//    be the residual's own storage (res and y carry no __restrict__).  Statistics of y as stored (after the
 //    rounding): a shuffle reduction per column over the warp's rows, per-warp
 //    partials in shared memory, a fixed-order sum over the eight warps into
 //    per-tile partials [B, T, 2, Cout] that hdrvae_group_stats reduces in a
@@ -71,14 +71,15 @@
 //    so each phase reads its slab chunks, from L2 after the first, and the
 //    128^2 decode level gets four times the work items (64 -> 256).
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using namespace hopper;
 
 constexpr int TR = 4;                    // tile rows
 constexpr int TWP = 64;                  // tile pixels a row (one m64 block)
@@ -107,76 +108,8 @@ static_assert(SMEM_BYTES <= 232448, "shared memory");
 enum { MODE_CONV = 0, MODE_UP = 1 };
 enum { RES_NONE = 0, RES_ADD = 1, RES_PROJ = 2 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ float silu(float z) {
   return z * (1.0f / (1.0f + expf(-z)));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// One arrival that also expects `bytes` of TMA transfers on `bar`.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// TMA tile loads into shared memory, completing on `bar`; out-of-bounds
-// elements (negative coordinates included) are zero-filled.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Waits for the phase of `bar` with the given parity to complete.  A wait
-// that never ends (a schedule fault) traps, failing the launch, instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
 }
 
 __device__ __forceinline__ void consumer_sync() {
@@ -188,9 +121,7 @@ __device__ __forceinline__ void consumer_sync() {
 // hardware applies to the address bits (as TMA wrote them), so a window may
 // start at any pixel with a base offset of 0.
 __device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+  return make_desc(addr, 16, 1024, LAYOUT_B128);
 }
 
 // wgmma descriptor of a weight slice [64 k][64 or 128 n], stored N-major
@@ -198,75 +129,7 @@ __device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
 // 8 KB between the two 64-channel MN atoms, the stride the 1 KB between
 // groups of 8 k rows.
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(HALF_BYTES >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d[64 x 64] += A[64 x 16] (shared, K-major) * B[16 x 64] (shared,
-// MN-major, trans-b); d as wgmma's accumulator fragment.
-__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] (shared, K-major) * B[16 x 128] (shared,
-// MN-major, trans-b); d as wgmma's accumulator fragment.
-__device__ __forceinline__ void wgmma_ss128(float* d, uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
-      "0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+  return make_desc(addr, HALF_BYTES, 1024, LAYOUT_B128);
 }
 
 struct ConvArgs {
@@ -280,6 +143,7 @@ struct ConvArgs {
   bf16* y;              // [B, Ho, Wo, Cout], or null (K2 stats_only)
   float* partial;       // [B, T, 2, Cout] or null
   int B, H, W, Cin, Cout, Cr, res_mode;
+  int act;              // K2: 0 none, 1 LeakyReLU(0.2) before the rounding
 };
 
 // GroupNorm affine + SiLU, rounded to bf16, in place on the slab's
@@ -480,10 +344,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv_wgmma_kernel(
             const uint64_t da = a_desc(
                 slab_s + ((2 * wg + mb + di) * SWID + dj) * 128 +
                 ks * 32);
-            if constexpr (NH == 2)
-              wgmma_ss128(acc[mb], da, b_desc(st + ks * 2048));
-            else
-              wgmma_ss64(acc[mb], da, b_desc(st + ks * 2048));
+            wgmma_ss<BN, 1>(acc[mb], da, b_desc(st + ks * 2048));
           }
         wgmma_commit();
         if (early && tap >= PRO_TAP) {
@@ -555,6 +416,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv_wgmma_kernel(
               const size_t o = orow[mb][i] + n;
               float v0 = acc[mb][nh * 32 + 4 * j + 2 * i] + b0;
               float v1 = acc[mb][nh * 32 + 4 * j + 2 * i + 1] + b1;
+              if (MODE == MODE_UP && a.act) {
+                v0 = v0 >= 0.0f ? v0 : __fmul_rn(0.2f, v0);
+                v1 = v1 >= 0.0f ? v1 : __fmul_rn(0.2f, v1);
+              }
               if (MODE == MODE_CONV && a.res_mode == RES_ADD) {
                 v0 += __low2float(rr[mb][i][j]);
                 v1 += __high2float(rr[mb][i][j]);
@@ -632,57 +497,6 @@ __global__ void __launch_bounds__(256) group_stats_kernel(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime (the
-// library links no libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// bf16 tensor map with the 128-byte swizzle and zero fill out of bounds;
-// dims innermost first, `box` elements a copy.  0 on success.
-int make_map(CUtensorMap* map, const void* ptr, int rank,
-             const uint64_t* dims, const uint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  cuuint64_t d[4], st[3];
-  cuuint32_t bx[4], es[4];
-  uint64_t stride = 2;
-  for (int i = 0; i < rank; ++i) {
-    d[i] = dims[i];
-    bx[i] = box[i];
-    es[i] = 1;
-    if (i > 0) st[i - 1] = stride;
-    stride *= dims[i];
-  }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(ptr), d, st, bx, es,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // Maps of x [B,H,W,Cin] (the halo'd slab box), the weights [taps,Cin,Cout]
 // (a 64 x 64 slice), and for a projection r [B,H,W,Cr] and Wr [Cr,Cout].
 template <int MODE, int NH>
@@ -695,16 +509,19 @@ int launch(const ConvArgs& a, cudaStream_t stream) {
                           uint64_t(a.B)};
   const uint64_t wd[3] = {uint64_t(a.Cout), uint64_t(a.Cin),
                           uint64_t(taps)};
-  int err = make_map(&xmap, a.x, 4, xd, slab_box);
-  if (err == 0) err = make_map(&wmap, a.w, 3, wd, w_box);
+  int err = make_map(&xmap, a.x, 4, xd, slab_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_map(&wmap, a.w, 3, wd, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
   rmap = xmap;
   rwmap = wmap;
   if (err == 0 && a.res_mode == RES_PROJ) {
     const uint64_t rd[4] = {uint64_t(a.Cr), uint64_t(a.W), uint64_t(a.H),
                             uint64_t(a.B)};
     const uint64_t rwd[3] = {uint64_t(a.Cout), uint64_t(a.Cr), 1};
-    err = make_map(&rmap, a.res, 4, rd, slab_box);
-    if (err == 0) err = make_map(&rwmap, a.res_w, 3, rwd, w_box);
+    err = make_map(&rmap, a.res, 4, rd, slab_box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == 0)
+      err = make_map(&rwmap, a.res_w, 3, rwd, w_box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err != 0) return err;
   cudaError_t e = cudaFuncSetAttribute(
@@ -749,21 +566,23 @@ int hdrvae_fused_conv3x3(const void* x, const void* w, const void* bias,
                    static_cast<const bf16*>(res),
                    static_cast<const bf16*>(res_w), static_cast<bf16*>(y),
                    static_cast<float*>(partial), B, H, W, Cin, Cout, Cr,
-                   res_mode};
+                   res_mode, 0};
   return launch_n<MODE_CONV>(a, stream);
 }
 
 // x [B,H,W,Cin] bf16; pw [2,2,2,2,Cin,Cout] bf16 phase weights (a,b,u,v);
 // bias [Cout] f32; y [B,2H,2W,Cout] bf16, or null (stats_only: partial
-// must then be given); partial [B,4T,2,Cout] f32 or null.
+// must then be given); partial [B,4T,2,Cout] f32 or null; act 0 none, 1
+// LeakyReLU(0.2) after the bias (the statistics are of y after it, as
+// stored).
 int hdrvae_upsample_conv3x3(const void* x, const void* pw, const void* bias,
                             void* y, void* partial, int B, int H, int W,
-                            int Cin, int Cout, void* stream) {
+                            int Cin, int Cout, int act, void* stream) {
   const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(pw),
                    static_cast<const float*>(bias), nullptr, nullptr,
                    nullptr, nullptr, static_cast<bf16*>(y),
                    static_cast<float*>(partial), B, H, W, Cin, Cout, 0,
-                   RES_NONE};
+                   RES_NONE, act};
   return launch_n<MODE_UP>(a, stream);
 }
 

@@ -1,308 +1,568 @@
 // ESRGAN's dense 3x3 convolution as one implicit GEMM on Hopper's tensor
-// cores (bf16 operands, float32 accumulation), the concat never formed.
+// cores (wgmma, bf16 operands, float32 accumulation), the concat never
+// formed.
 //
 // Replaces the TPU kernel K6 of the JAX package:
 //   hdrvae/kernels/conv3x3.py::dense_conv3x3
 //   y = [r + res_scale *] act(conv3x3_SAME(concat(x_1 .. x_n)) + bias)
-//   with 1 <= n <= 5 inputs, act none or LeakyReLU(0.2), Cout <= 128.
+//   with 1 <= n <= 5 inputs of any width, act none or LeakyReLU(0.2),
+//   Cout <= 128, bf16 or float32 out, any B, H and W.
 // It carries every conv of RRDBNet (models/rrdbnet_fused.py): the dense
 // blocks' 64 / 96 / 128 / 160 / 192-channel concats, conv_first (3, 12 or
-// 48 channels), the upsample convs and conv_last (3 channels, float32 out).
+// 48 channels), conv_body, the upsample convs, conv_hr and conv_last (3
+// channels, float32 out).
 //
-// What bounds it on the H100: 2 * 9 * Cin flops per output value with Cin
-// 64..192 against ~(Cin + 2 * Cout) * 2 bytes per pixel moved is far above
-// the card's ~295 flops/byte ridge, so the bound is the tensor-core rate;
-// but the narrow Cout (32 or 64) gives each A fragment little reuse.  This
-// first version uses WMMA (16x16x16 mma.sync fragments) from shared memory
-// through a two-stage cp.async pipeline; wgmma, TMA and a deeper ring are
-// later work.
+// What bounds it on the H100: a body conv does 2 * 9 * Cin * Cout flops a
+// pixel against (Cin + Cout [+ Cout of residual]) * 2 bytes: conv1 (64 ->
+// 32) 192 flop/B, conv4 (160 -> 32) 240, conv5 (192 -> 64, residual) 346,
+// the 64 -> 64 tail convs 576 (with the upsample's input) - around the
+// card's ~295 flop/B ridge.  So the activations must stream near the HBM
+// rate and the tensor cores stay fed at once.  At n32 a wgmma reads 2 KB of
+// A and 1 KB of B from shared memory per 64 x 32 x 16 product, which
+// bounds the body's conv1-4 below the tensor-core peak; conv_last (n8) is
+// bound by its bytes.
 //
-// Design:
-//  * A block computes a TH x 16 pixel tile (TH = 4 * RPW rows, one WMMA M
-//    dimension per row) for all Cout channels, padded to NF * 16 columns.
-//    4 warps each own RPW rows x NF fragments; RPW shrinks as NF grows so
-//    every instantiation holds ~8 accumulator fragments (cout 32: 16 rows,
-//    cout 64: 8 rows, cout 128: 4 rows).
-//  * K walks input by input and, within an input, in 16-channel steps.
-//    Each step copies that input's halo'd slab [TH+2 x 18 pixels x 16
-//    channels] and the step's weight rows of all nine taps (rows
-//    koff_i + c0 .. koff_i + c0 + 15 of the [9, Cin, NP] weights) into one
-//    of two shared-memory stages, so the concat exists only as the order
-//    of the K loop.  Channels past an input's end are zero in both the slab
-//    and the weight tile (smem garbage could be NaN, and NaN * 0 is NaN):
-//    that pads conv_first's 3 channels, and any width that is not a
-//    multiple of 16, to a whole K step.
-//  * Inputs whose width is a multiple of 8 (and 16-byte aligned) copy with
-//    16-byte cp.async; others (3, 12 channels) load element by element.
-//  * Every row and column is bounds-masked: out-of-image halo pixels are
-//    the SAME zeros of the input, and stores past H or W are skipped, so no
-//    shape needs W % 8 == 0 or a multiple of the tile.
-//  * The epilogue runs in float32 before the one storage cast: + bias,
-//    LeakyReLU, then r + res_scale * v, each rounded as the plain version
-//    rounds (no fused multiply-add).  The output is bf16 or float32.
+// Design (the mainloop of conv3x3.cu's conv_wgmma_kernel, K1 / K2,
+// reshaped for narrow N and many narrow inputs):
+//  * GEMM view: M = output pixels, N = Cout padded to NP in {8, 16, 32, 64,
+//    128} (wgmma m64nNPk16), K = 9 taps x the inputs' channels, walked input
+//    by input in chunks of KC = 16 channels (one k16 step), each input's
+//    last chunk zero-padded.  A work item is a tile of TR rows x 64 pixels
+//    and all NP channels, one m64 block a row: TR = 16 at NP <= 32, 8 at
+//    64, 4 at 128, so each thread holds 128 accumulators.  The grid is
+//    persistent: one block an SM walks the work items and the copy ring
+//    runs on across them, so the next item's loads overlap this one's
+//    epilogue.
+//  * 384 threads: two consumer warpgroups, each owning half the tile rows,
+//    and a producer warpgroup behind "full" / "empty" mbarriers on a ring
+//    of NSTAGE = 4 stages.  A stage is one chunk: its halo'd slab [(TR+2) x
+//    66 pixels x 16 channels] and its weights for all nine taps.  One
+//    producer thread issues the copies; the producer's four warps gather
+//    what TMA cannot load (with one warp, conv_first was gather-bound).
+//  * The slab is stored as two 8-channel planes, pixel-major with 16 bytes a
+//    pixel (no swizzle): each 8 x 8 wgmma core matrix of an A window is 8
+//    consecutive pixels, 128 contiguous bytes, so a tap's window may start
+//    at any pixel.  A descriptor: leading (K) offset = the plane stride,
+//    stride (M) offset = 128 B.  This layout holds any channel count: the
+//    body's 32-channel inputs (64-byte rows) need no 64-byte swizzle.
+//  * Feeds: an input whose width is a multiple of 8 (and whose pointer is
+//    16-byte aligned) loads by TMA, one 4-D box a plane at (c0, w0-1, h0-1,
+//    b) with zero fill outside the image; a plane wholly past the input's
+//    channels is zeroed by the producer.  Other widths (with_small's 4 and
+//    12, conv_first's 3 and 12) are gathered by the producer into the same
+//    layout.  conv_first (one input narrower than 16 channels) packs K
+//    across taps: the gathered planes hold the im2col'd row (tap-major, 9 c
+//    values, zero-padded to a multiple of 16) and the chunk runs as one tap,
+//    so 3 channels take 2 k16 steps, not 9.
+//  * Weights: prepared once per model on the host (kernels/dense_conv.py
+//    `prepare_weights`) in the order the kernel reads them, [chunk][tap]
+//    [NP/8][2][8 n][8 k]: each (chunk, tap) slice is K-major core matrices
+//    (leading offset 128 B, stride 256 B), one contiguous bulk copy a chunk.
+//    They stream through the ring from L2; bias comes zero-padded to NP.
+//  * One commit group a chunk (9 taps x the warpgroup's m64 blocks), one
+//    group left in flight while the next chunk issues; a stage is handed
+//    back once its group has retired.
+//  * Epilogue from the accumulators, in float32 before the one storage
+//    cast, rounded as the plain version rounds (no fused multiply-add):
+//    + bias and LeakyReLU in straight-line code (a read of the wgmma
+//    results on a path ptxas sees as divergent serializes the wgmmas), then
+//    r + res_scale * v; pairs of channels load and store as one vector
+//    where Cout is even.  Rows past H or W and columns past Cout are masked
+//    by coordinate.  The epilogue runs with the tensor cores idle; its
+//    stores are what they wait for (tools/k6_variants.py no-stores), not
+//    their width: 16-byte stores after a transpose within each quad were no
+//    faster.
+//  * Tried and not kept: a ping-pong of the two warpgroups over alternate
+//    items of half the rows (faster on the 64 -> 64 tail convs, slower on
+//    the body's n32 convs, and 168 registers a thread spilled), and a
+//    coalesced epilogue through shared memory (slower; its __syncwarp made
+//    ptxas serialize the wgmmas).  tools/k6_variants.py times what each
+//    part of this kernel costs.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
+using namespace hopper;
+
 constexpr int MAX_IN = 5;
-constexpr int TW = 16;         // output pixels per tile row (WMMA M)
-constexpr int BK = 16;         // channels per K step
-constexpr int SW = TW + 2;     // slab columns (1-pixel halo)
-constexpr int NTHREADS = 128;  // 4 warps
+constexpr int TWP = 64;                  // tile pixels a row (one m64 block)
+constexpr int SWID = TWP + 2;            // slab pixels a row (1-pixel halo)
+constexpr int KC = 16;                   // channels a K chunk
+constexpr int NCONSUMER = 256;           // two warpgroups
+constexpr int NTHREADS = NCONSUMER + 128; // + the producer warpgroup
+constexpr int NCWARPS = NCONSUMER / 32;
+constexpr int NSTAGE = 4;                // copy ring stages
+
+template <int NP>
+struct Cfg {
+  static constexpr int MB = NP <= 32 ? 8 : (NP == 64 ? 4 : 2);
+  static constexpr int TR = 2 * MB;                // tile rows
+  static constexpr int SPIX = (TR + 2) * SWID;     // slab pixels
+  static constexpr int PLANE_TX = SPIX * 16;       // one plane's bytes
+  static constexpr int PLANE = (PLANE_TX + 127) / 128 * 128;
+  static constexpr int W_TAP = NP * KC * 2;        // one tap's [16 x NP]
+  static constexpr int STAGE = 2 * PLANE + 9 * W_TAP;
+  static constexpr int OFF_BAR = NSTAGE * STAGE;
+  static constexpr int SMEM = OFF_BAR + 2 * NSTAGE * 8 + 128;
+  static_assert(SMEM <= 232448, "shared memory");
+};
 
 struct DenseArgs {
-  const bf16* x[MAX_IN];
-  int c[MAX_IN];      // channels of input i
-  int koff[MAX_IN];   // first weight row of input i
-  int vec[MAX_IN];    // 1 when input i takes 16-byte copies
+  const bf16* x[MAX_IN];   // [B, H, W, c_i]
+  int c[MAX_IN];           // channels of input i
+  int tma[MAX_IN];         // 1: TMA boxes; 0: gathered by the producer
   int n_in;
-  int nsteps;         // sum over inputs of ceil(c_i / 16)
-  const bf16* w;      // [9, Cin, NP] bf16, columns past Cout zero
-  const float* bias;  // [Cout]
-  const bf16* res;    // [B, H, W, Cout] or null
-  void* y;            // [B, H, W, Cout] bf16 or float32
-  int H, W, Cin, Cout;
-  int act;            // 0 none, 1 LeakyReLU(0.2)
+  int nchunks;             // sum of ceil(c_i / 16); packed: ceil(9 c / 16)
+  int packed;              // conv_first: K packed across taps, one "tap"
+  const bf16* w;           // prepared [nchunks][taps][NP/8][2][8][8]
+  const float* bias;       // [NP], zero past Cout
+  const bf16* res;         // [B, H, W, Cout] or null
+  void* y;                 // [B, H, W, Cout] bf16 or float32
+  int B, H, W, Cout;
+  int act;                 // 0 none, 1 LeakyReLU(0.2)
   float res_scale;
   int out_f32;
 };
 
-template <int NF>
-struct Tile {
-  static constexpr int RPW = NF <= 2 ? 4 : (NF <= 4 ? 2 : 1);
-  static constexpr int TH = 4 * RPW;
-  static constexpr int SH = TH + 2;
-  static constexpr int NP = NF * 16;
-  static constexpr int WLD = NP + 8;   // weight tile row stride (bf16)
-  static constexpr int OLD = NP + 4;   // float32 staging row stride
-  static constexpr int SLAB_BYTES = SH * SW * BK * 2;
-  static constexpr int W_BYTES = 9 * BK * WLD * 2;
-  static constexpr int PIPE_BYTES = SLAB_BYTES + W_BYTES;
-  static constexpr int OUT_BYTES = TH * TW * OLD * 4;
-  static constexpr int SMEM_BYTES =
-      OUT_BYTES > 2 * PIPE_BYTES ? OUT_BYTES : 2 * PIPE_BYTES;
+struct Maps {
+  CUtensorMap m[MAX_IN];
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+// K-major A window of 64 pixels: core matrices 8 pixels x 16 B, the next 8
+// channels one plane further.
+template <int NP>
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  return make_desc(addr, Cfg<NP>::PLANE, 128, LAYOUT_INTERLEAVE);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// K-major [16 k x NP] weight slice: core matrices [8 n][8 k], the second k
+// group 128 B on, the next 8 n 256 B on.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return make_desc(addr, 128, 256, LAYOUT_INTERLEAVE);
 }
 
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-// Start the copies of K step s into one pipeline stage: input i's slab for
-// channels [c0, c0 + 16) and the matching weight rows of every tap.
-template <int NF>
-__device__ __forceinline__ void issue_step(bf16* slab, bf16* wsm,
-                                           const DenseArgs& a, int s, int b,
-                                           int h0, int w0) {
-  using T = Tile<NF>;
-  int i = 0;
-  while (s >= (a.c[i] + BK - 1) / BK) {
-    s -= (a.c[i] + BK - 1) / BK;
-    ++i;
+// Input and first channel (packed: first K index) of chunk ci.
+__device__ __forceinline__ void chunk_src(const DenseArgs& a, int ci, int& i,
+                                          int& c0) {
+  i = 0;
+  if (!a.packed) {
+    while (ci >= (a.c[i] + KC - 1) / KC) {
+      ci -= (a.c[i] + KC - 1) / KC;
+      ++i;
+    }
   }
-  const int c0 = s * BK;
+  c0 = ci * KC;
+}
+
+// The producer warpgroup's gathers, written through the generic proxy.
+// Each thread loads GB (pixel, plane) vectors before it stores any, so
+// their loads are in flight together (a store between them would order
+// them).
+constexpr int GB = 4;
+
+union Vec8 {
+  uint4 u;
+  bf16 h[8];
+};
+
+// Channels [c0, c0 + 16) of input i into both planes of a slab.
+template <int NP>
+__device__ __forceinline__ void gather_slab(unsigned char* st,
+                                            const DenseArgs& a, int i, int c0,
+                                            int b, int h0, int w0, int ptid) {
+  using C = Cfg<NP>;
   const int ci = a.c[i];
-  const bf16* __restrict__ xi = a.x[i];
-  for (int j = threadIdx.x; j < T::SH * SW * 2; j += NTHREADS) {
-    const int p = j >> 1, half = j & 1;
-    const int hh = h0 - 1 + p / SW, ww = w0 - 1 + p % SW;
-    const int ch = c0 + half * 8;
-    const bool in = hh >= 0 && hh < a.H && ww >= 0 && ww < a.W;
-    const size_t pix = (static_cast<size_t>(b) * a.H + hh) * a.W + ww;
-    bf16* dst = slab + p * BK + half * 8;
-    if (a.vec[i]) {
-      const bool valid = in && ch < ci;
-      cp_async16(dst, valid ? xi + pix * ci + ch : xi, valid);
-    } else {
+  const bf16* __restrict__ x = a.x[i];
+  for (int base = ptid; base < C::SPIX * 2; base += 128 * GB) {
+    Vec8 v[GB];
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (in && ch + e < ci) ? xi[pix * ci + ch + e]
-                                     : __float2bfloat16(0.0f);
-    }
-  }
-  for (int j = threadIdx.x; j < 9 * BK * (T::NP / 8); j += NTHREADS) {
-    const int vc = j % (T::NP / 8), row = j / (T::NP / 8);
-    const int tap = row / BK, k = row % BK;
-    const bool valid = c0 + k < ci;
-    const bf16* src =
-        a.w + (static_cast<size_t>(tap) * a.Cin + a.koff[i] + c0 + k) * T::NP +
-        vc * 8;
-    cp_async16(wsm + row * T::WLD + vc * 8, valid ? src : a.w, valid);
-  }
-}
-
-template <int NF>
-__global__ void __launch_bounds__(NTHREADS) dense_conv_kernel(DenseArgs a) {
-  using T = Tile<NF>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* stage = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int tiles_w = (a.W + TW - 1) / TW;
-  const int h0 = (blockIdx.x / tiles_w) * T::TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int b = blockIdx.z;
-  const int r0 = warp * T::RPW;   // this warp's first tile row
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::RPW][NF];
+    for (int u = 0; u < GB; ++u) {
+      const int idx = base + 128 * u;
+      const int p = idx >> 1, pl = idx & 1;
+      const int hh = h0 - 1 + p / SWID, ww = w0 - 1 + p % SWID;
+      const bool in = idx < C::SPIX * 2 && hh >= 0 && hh < a.H && ww >= 0 &&
+                      ww < a.W;
+      const size_t pix = (static_cast<size_t>(b) * a.H + hh) * a.W + ww;
 #pragma unroll
-  for (int r = 0; r < T::RPW; ++r)
-#pragma unroll
-    for (int nf = 0; nf < NF; ++nf) wmma::fill_fragment(acc[r][nf], 0.0f);
-
-  issue_step<NF>(reinterpret_cast<bf16*>(smem),
-                 reinterpret_cast<bf16*>(smem + T::SLAB_BYTES), a, 0, b, h0,
-                 w0);
-  cp_async_commit();
-  for (int s = 0; s < a.nsteps; ++s) {
-    unsigned char* cur = smem + (s & 1) * T::PIPE_BYTES;
-    const bf16* slab = reinterpret_cast<const bf16*>(cur);
-    const bf16* wsm = reinterpret_cast<const bf16*>(cur + T::SLAB_BYTES);
-    if (s + 1 < a.nsteps) {
-      unsigned char* nxt = smem + ((s + 1) & 1) * T::PIPE_BYTES;
-      issue_step<NF>(reinterpret_cast<bf16*>(nxt),
-                     reinterpret_cast<bf16*>(nxt + T::SLAB_BYTES), a, s + 1,
-                     b, h0, w0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();   // this step's copies (not the next one's) landed
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int di = tap / 3, dj = tap % 3;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          bfr[NF];
-#pragma unroll
-      for (int nf = 0; nf < NF; ++nf)
-        wmma::load_matrix_sync(bfr[nf], wsm + tap * BK * T::WLD + nf * 16,
-                               T::WLD);
-#pragma unroll
-      for (int r = 0; r < T::RPW; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, slab + ((r0 + r + di) * SW + dj) * BK,
-                               BK);
-#pragma unroll
-        for (int nf = 0; nf < NF; ++nf)
-          wmma::mma_sync(acc[r][nf], af, bfr[nf], acc[r][nf]);
+      for (int e = 0; e < 8; ++e) {
+        const int ch = c0 + 8 * pl + e;
+        v[u].h[e] = (in && ch < ci) ? __ldg(x + pix * ci + ch)
+                                    : __float2bfloat16(0.0f);
       }
     }
-    __syncthreads();   // the next iteration refills the other stage
-  }
-  cp_async_wait<0>();
-
-  // epilogue: stage the accumulators (the pipeline buffers are dead)
 #pragma unroll
-  for (int r = 0; r < T::RPW; ++r)
-#pragma unroll
-    for (int nf = 0; nf < NF; ++nf)
-      wmma::store_matrix_sync(stage + (r0 + r) * TW * T::OLD + nf * 16,
-                              acc[r][nf], T::OLD, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int j = tid; j < T::TH * TW * a.Cout; j += NTHREADS) {
-    const int p = j / a.Cout, co = j % a.Cout;
-    const int hh = h0 + p / TW, ww = w0 + p % TW;
-    if (hh >= a.H || ww >= a.W) continue;
-    const size_t o =
-        ((static_cast<size_t>(b) * a.H + hh) * a.W + ww) * a.Cout + co;
-    float v = __fadd_rn(stage[p * T::OLD + co], a.bias[co]);
-    if (a.act) v = v >= 0.0f ? v : __fmul_rn(0.2f, v);
-    if (a.res != nullptr)
-      v = __fadd_rn(__bfloat162float(a.res[o]), __fmul_rn(a.res_scale, v));
-    if (a.out_f32)
-      static_cast<float*>(a.y)[o] = v;
-    else
-      static_cast<bf16*>(a.y)[o] = __float2bfloat16(v);
+    for (int u = 0; u < GB; ++u) {
+      const int idx = base + 128 * u;
+      if (idx < C::SPIX * 2)
+        *reinterpret_cast<uint4*>(st + (idx & 1) * C::PLANE +
+                                  (idx >> 1) * 16) = v[u].u;
+    }
   }
 }
 
-template <int NF>
-int launch(const DenseArgs& a, int B, cudaStream_t stream) {
-  using T = Tile<NF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_conv_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((a.H + T::TH - 1) / T::TH) * ((a.W + TW - 1) / TW);
-  dense_conv_kernel<NF><<<dim3(tiles, 1, B), NTHREADS, T::SMEM_BYTES,
-                          stream>>>(a);
+// conv_first: K indices [q0, q0 + 16) of the tile's im2col rows (q = tap *
+// c + channel, zero from 9 c), at the slab's centre window; one lane a
+// (pixel, plane), the tap and channel stepped without a division a value.
+template <int NP>
+__device__ __forceinline__ void gather_packed(unsigned char* st,
+                                              const DenseArgs& a, int q0,
+                                              int b, int h0, int w0,
+                                              int ptid) {
+  using C = Cfg<NP>;
+  constexpr int N = C::TR * TWP * 2;
+  const int ci = a.c[0];
+  const bf16* __restrict__ x = a.x[0];
+  for (int base = ptid; base < N; base += 128 * GB) {
+    Vec8 v[GB];
+#pragma unroll
+    for (int u = 0; u < GB; ++u) {
+      const int idx = base + 128 * u;
+      const int p = idx >> 1, pl = idx & 1;
+      const int r = p / TWP, col = p % TWP;
+      const int q = q0 + 8 * pl;
+      int tap = q / ci, ch = q - tap * ci;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int hh = h0 + r + tap / 3 - 1, ww = w0 + col + tap % 3 - 1;
+        const bool in = idx < N && tap < 9 && hh >= 0 && hh < a.H &&
+                        ww >= 0 && ww < a.W;
+        v[u].h[e] = in ? __ldg(x + ((static_cast<size_t>(b) * a.H + hh) *
+                                        a.W + ww) * ci + ch)
+                       : __float2bfloat16(0.0f);
+        if (++ch == ci) {
+          ch = 0;
+          ++tap;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GB; ++u) {
+      const int idx = base + 128 * u;
+      const int p = idx >> 1;
+      if (idx < N)
+        *reinterpret_cast<uint4*>(
+            st + (idx & 1) * C::PLANE +
+            ((p / TWP + 1) * SWID + p % TWP + 1) * 16) = v[u].u;
+    }
+  }
+}
+
+// The producer warpgroup's 128 threads meet (named barrier 1).
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float residual_add(const DenseArgs& a, float v,
+                                              float r) {
+  return __fadd_rn(r, __fmul_rn(a.res_scale, v));
+}
+
+// One block an SM, walking work items of TR x 64 pixels x NP channels.  See
+// the head of this file.
+template <int NP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    dense_wgmma_kernel(const DenseArgs a, const __grid_constant__ Maps maps) {
+  using C = Cfg<NP>;
+  constexpr int MB = C::MB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  const uint32_t base_s = smem_u32(smem);
+  const uint32_t bar_s = base_s + C::OFF_BAR;
+  auto full = [&](int s) { return bar_s + 8 * s; };
+  auto empty = [&](int s) { return bar_s + 8 * (NSTAGE + s); };
+
+  const int tid = threadIdx.x;
+  const int tiles_w = (a.W + TWP - 1) / TWP;
+  const int tiles = ((a.H + C::TR - 1) / C::TR) * tiles_w;
+  const int nwork = tiles * a.B;
+  const int ntaps = a.packed ? 1 : 9;
+  const int nchunks = a.nchunks;
+
+  if (tid == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NCWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform as far as the compiler can see (a divergent-looking role
+  // branch makes ptxas serialize the wgmmas)
+  if (__shfl_sync(0xffffffffu, tid / 32, 0) >= NCWARPS) {
+    // ---- producer: thread 0 of the warpgroup issues the copies, all 128
+    // gather
+    const int ptid = tid - NCONSUMER;
+    int nw = 0;
+    for (int wi = blockIdx.x; wi < nwork; wi += gridDim.x) {
+      const int b = wi / tiles, tile = wi % tiles;
+      const int h0 = (tile / tiles_w) * C::TR, w0 = (tile % tiles_w) * TWP;
+      for (int ci = 0; ci < nchunks; ++ci) {
+        const int s = nw % NSTAGE;
+        mbar_wait(empty(s), ((nw / NSTAGE) & 1) ^ 1);
+        unsigned char* st = smem + s * C::STAGE;
+        const uint32_t st_s = base_s + s * C::STAGE;
+        int i, c0;
+        chunk_src(a, ci, i, c0);
+        const bool tma = !a.packed && a.tma[i];
+        const bool two = c0 + 8 < a.c[i];   // plane 1 holds channels
+        if (ptid == 0) {
+          const int wbytes = ntaps * C::W_TAP;
+          mbar_add_tx(full(s), wbytes + (tma ? (two ? 2 : 1) * C::PLANE_TX
+                                             : 0));
+          bulk_load(st_s + 2 * C::PLANE,
+                    a.w + static_cast<size_t>(ci) * (wbytes / 2), wbytes,
+                    full(s));
+          if (tma) {
+            tma_load_4d(st_s, &maps.m[i], full(s), c0, w0 - 1, h0 - 1, b);
+            if (two)
+              tma_load_4d(st_s + C::PLANE, &maps.m[i], full(s), c0 + 8,
+                          w0 - 1, h0 - 1, b);
+          }
+        }
+        if (a.packed) {
+          gather_packed<NP>(st, a, c0, b, h0, w0, ptid);
+        } else if (!tma) {
+          gather_slab<NP>(st, a, i, c0, b, h0, w0, ptid);
+        } else if (!two) {   // the padded half of a width 8 (mod 16)
+          for (int j = ptid; j < C::PLANE_TX / 16; j += 128)
+            reinterpret_cast<uint4*>(st + C::PLANE)[j] = make_uint4(0, 0, 0,
+                                                                    0);
+        }
+        fence_proxy_async();   // the gathers, before wgmma reads them
+        producer_sync();
+        if (ptid == 0) mbar_arrive(full(s));
+        ++nw;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: two warpgroups, each MB tile rows x NP
+  const int ctid = tid, wg = ctid >> 7, wl = (ctid >> 5) & 3;
+  const int lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  float acc[MB][NP / 2];
+  int nw = 0;
+  for (int wi = blockIdx.x; wi < nwork; wi += gridDim.x) {
+    const int b = wi / tiles, tile = wi % tiles;
+    const int h0 = (tile / tiles_w) * C::TR, w0 = (tile % tiles_w) * TWP;
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int q = 0; q < NP / 2; ++q) acc[mb][q] = 0.0f;
+    fence_operands<MB * NP / 2>(&acc[0][0]);
+
+    int prev = 0;
+#pragma unroll 1
+    for (int ci = 0; ci < nchunks; ++ci) {
+      const int s = nw % NSTAGE;
+      mbar_wait(full(s), (nw / NSTAGE) & 1);
+      const uint32_t st = base_s + s * C::STAGE;
+      wgmma_fence();
+#pragma unroll 1
+      for (int tap = 0; tap < ntaps; ++tap) {
+        // packed: the one "tap" is the centre window
+        const int di = a.packed ? 1 : tap / 3, dj = a.packed ? 1 : tap % 3;
+        const uint64_t db = b_desc(st + 2 * C::PLANE + tap * C::W_TAP);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+          wgmma_ss<NP, 0>(acc[mb],
+                          a_desc<NP>(st + ((wg * MB + mb + di) * SWID + dj) *
+                                              16),
+                          db);
+      }
+      wgmma_commit();
+      // keep this chunk's group in flight; the previous chunk's is done
+      wgmma_wait<1>();
+      if (ci > 0 && lane == 0) mbar_arrive(empty(prev));
+      prev = s;
+      ++nw;
+    }
+    wgmma_wait<0>();
+    fence_operands<MB * NP / 2>(&acc[0][0]);
+    if (lane == 0) mbar_arrive(empty(prev));
+
+    // ---- epilogue: + bias and LeakyReLU in place, in straight-line code
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int q = 0; q < NP / 2; ++q) {
+        float v = __fadd_rn(acc[mb][q], a.bias[8 * (q / 4) + 2 * t + q % 2]);
+        if (a.act) v = v >= 0.0f ? v : __fmul_rn(0.2f, v);
+        acc[mb][q] = v;
+      }
+    fence_operands<MB * NP / 2>(&acc[0][0]);
+    // then the residual and the store: thread rows (mb, i), columns 8 j +
+    // 2 t (+ 1)
+    const bool pairs = (a.Cout & 1) == 0;
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int hh = h0 + wg * MB + mb, ww = w0 + 16 * wl + g + 8 * i;
+        if (hh >= a.H || ww >= a.W) continue;
+        const size_t o =
+            ((static_cast<size_t>(b) * a.H + hh) * a.W + ww) * a.Cout;
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j) {
+          const int n = 8 * j + 2 * t;
+          float v0 = acc[mb][4 * j + 2 * i], v1 = acc[mb][4 * j + 2 * i + 1];
+          if (pairs) {
+            if (n < a.Cout) {
+              if (a.res != nullptr) {
+                const float2 r = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(a.res + o + n));
+                v0 = residual_add(a, v0, r.x);
+                v1 = residual_add(a, v1, r.y);
+              }
+              if (a.out_f32)
+                *reinterpret_cast<float2*>(static_cast<float*>(a.y) + o + n) =
+                    make_float2(v0, v1);
+              else
+                *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.y) +
+                                                   o + n) =
+                    __floats2bfloat162_rn(v0, v1);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (n + e < a.Cout) {
+                float v = e ? v1 : v0;
+                if (a.res != nullptr)
+                  v = residual_add(a, v, __bfloat162float(a.res[o + n + e]));
+                if (a.out_f32)
+                  static_cast<float*>(a.y)[o + n + e] = v;
+                else
+                  static_cast<bf16*>(a.y)[o + n + e] = __float2bfloat16(v);
+              }
+            }
+          }
+        }
+      }
+  }
+}
+
+constexpr int MAX_DEV = 64;
+
+// The SM count of `dev`, read once (the launch path is host-bound at the
+// chain's small shapes).
+int sm_count(int dev) {
+  static int sms[MAX_DEV] = {};
+  if (dev >= MAX_DEV) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+template <int NP>
+int launch(const DenseArgs& a, const Maps& maps, cudaStream_t stream) {
+  using C = Cfg<NP>;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  static bool attr[MAX_DEV] = {};   // the shared-memory opt-in, per device
+  if (dev >= MAX_DEV || !attr[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dense_wgmma_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < MAX_DEV) attr[dev] = true;
+  }
+  // persistent: one block an SM walks the work items
+  const int sms = sm_count(dev);
+  const int nwork = ((a.H + C::TR - 1) / C::TR) * ((a.W + TWP - 1) / TWP) *
+                    a.B;
+  dense_wgmma_kernel<NP><<<nwork < sms ? nwork : sms, NTHREADS, C::SMEM,
+                           stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Each TMA input's map: x [B, H, W, c] with a box of one 8-channel plane of
+// the slab [TR + 2 rows x 66 pixels].
+template <int NP>
+int make_maps(DenseArgs& a, Maps& maps) {
+  for (int i = 0; i < a.n_in; ++i) {
+    if (!a.tma[i]) continue;
+    const uint64_t dims[4] = {uint64_t(a.c[i]), uint64_t(a.W), uint64_t(a.H),
+                              uint64_t(a.B)};
+    const uint32_t box[4] = {8, SWID, Cfg<NP>::TR + 2, 1};
+    if (make_map(&maps.m[i], a.x[i], 4, dims, box,
+                 CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
+      a.tma[i] = 0;   // the producer gathers it instead
+  }
+  return 0;
+}
+
+template <int NP>
+int run(DenseArgs& a, cudaStream_t stream) {
+  Maps maps = {};
+  make_maps<NP>(a, maps);
+  return launch<NP>(a, maps, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x0..x4 [B,H,W,c_i] bf16 (the first n_in used); w [9,Cin,NP] bf16 with
-// NP = 16 * ceil(Cout / 16) and Cin = sum c_i; bias [Cout] f32; res
-// [B,H,W,Cout] bf16 or null; y [B,H,W,Cout] bf16 (out_f32 = 0) or f32.
-// Returns cudaErrorInvalidValue for n_in outside 1..5, Cout outside 1..128
-// or a zero-channel input.
+// x0..x4 [B,H,W,c_i] bf16 (the first n_in used); w the prepared weights
+// [nchunks][taps][NP/8][2][8][8] bf16 (kernels/dense_conv.py
+// `prepare_weights`: NP the smallest of 8, 16, 32, 64, 128 >= Cout; packed
+// = 1 for one input narrower than 16 channels, its K packed across taps,
+// one tap); bias [NP] f32, zero past Cout; res [B,H,W,Cout] bf16 or null;
+// y [B,H,W,Cout] bf16 (out_f32 = 0) or f32.  Returns cudaErrorInvalidValue
+// for n_in outside 1..5, Cout outside 1..NP, an NP not in that set, a
+// zero-channel input or a packing the inputs do not allow.
 int hdrvae_dense_conv3x3(const void* x0, const void* x1, const void* x2,
                          const void* x3, const void* x4, int c0, int c1,
                          int c2, int c3, int c4, int n_in, const void* w,
                          const void* bias, const void* res, void* y, int B,
-                         int H, int W, int Cout, int act, float res_scale,
-                         int out_f32, void* stream) {
+                         int H, int W, int Cout, int np, int packed, int act,
+                         float res_scale, int out_f32, void* stream) {
   const void* xs[MAX_IN] = {x0, x1, x2, x3, x4};
   const int cs[MAX_IN] = {c0, c1, c2, c3, c4};
-  if (n_in < 1 || n_in > MAX_IN || Cout < 1 || Cout > 128)
+  const bool np_ok = np == 8 || np == 16 || np == 32 || np == 64 || np == 128;
+  if (n_in < 1 || n_in > MAX_IN || Cout < 1 || !np_ok || Cout > np ||
+      (packed && (n_in != 1 || c0 >= KC)))
     return static_cast<int>(cudaErrorInvalidValue);
   DenseArgs a = {};
-  int koff = 0;
   for (int i = 0; i < n_in; ++i) {
     if (cs[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     a.x[i] = static_cast<const bf16*>(xs[i]);
     a.c[i] = cs[i];
-    a.koff[i] = koff;
-    a.vec[i] = cs[i] % 8 == 0 &&
+    a.tma[i] = !packed && cs[i] % 8 == 0 &&
                reinterpret_cast<uintptr_t>(xs[i]) % 16 == 0;
-    a.nsteps += (cs[i] + BK - 1) / BK;
-    koff += cs[i];
+    a.nchunks += (cs[i] + KC - 1) / KC;
   }
+  if (packed) a.nchunks = (9 * c0 + KC - 1) / KC;
   a.n_in = n_in;
+  a.packed = packed;
   a.w = static_cast<const bf16*>(w);
   a.bias = static_cast<const float*>(bias);
   a.res = static_cast<const bf16*>(res);
   a.y = y;
+  a.B = B;
   a.H = H;
   a.W = W;
-  a.Cin = koff;
   a.Cout = Cout;
   a.act = act;
   a.res_scale = res_scale;
   a.out_f32 = out_f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((Cout + 15) / 16) {
-    case 1: return launch<1>(a, B, s);
-    case 2: return launch<2>(a, B, s);
-    case 3: return launch<3>(a, B, s);
-    case 4: return launch<4>(a, B, s);
-    case 5: return launch<5>(a, B, s);
-    case 6: return launch<6>(a, B, s);
-    case 7: return launch<7>(a, B, s);
-    default: return launch<8>(a, B, s);
+  switch (np) {
+    case 8: return run<8>(a, s);
+    case 16: return run<16>(a, s);
+    case 32: return run<32>(a, s);
+    case 64: return run<64>(a, s);
+    default: return run<128>(a, s);
   }
 }
 

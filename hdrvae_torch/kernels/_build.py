@@ -43,7 +43,7 @@ SIGNATURES = {
     "hdrvae_fused_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P],
     "hdrvae_upsample_conv3x3": [_P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _P],
     "hdrvae_group_stats": [_P, _P, _I, _I, _I, _I, _P],
     # upconv.cu
     "hdrvae_upconv_gn_conv3x3": [_P] * 9 + [_I] * 6 + [_P],
@@ -53,8 +53,8 @@ SIGNATURES = {
     "hdrvae_flash_attention_3pass": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     # dense_conv.cu
     "hdrvae_dense_conv3x3": [_P] * 5 + [_I] * 5 + [_I, _P, _P, _P, _P,
-                                                   _I, _I, _I, _I, _I, _F,
-                                                   _I, _P],
+                                                   _I, _I, _I, _I, _I, _I,
+                                                   _I, _F, _I, _P],
     # epilogue.cu
     "hdrvae_collapse_and_stats": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                   _P],

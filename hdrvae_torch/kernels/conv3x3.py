@@ -4,8 +4,8 @@ PyTorch versions, as ``hdrvae/kernels/conv3x3.py``.
 - :func:`fused_conv3x3` (K1): ``y = conv3x3(silu(x * gamma + beta)) + bias
   [+ r | + r @ res_kernel]``, optionally with the per-group (sum, sumsq) of
   y as stored.
-- :func:`upsample_conv3x3` (K2): ``y = conv3x3(nearest2x(x)) + bias`` from
-  the low-resolution map through the 2x2 phase decomposition, optionally
+- :func:`upsample_conv3x3` (K2): ``y = act(conv3x3(nearest2x(x)) + bias)``
+  from the low-resolution map through the 2x2 phase decomposition, optionally
   with the same statistics, or (``stats_only``) the statistics alone.
 - :func:`upconv_gn_conv3x3` (K5): ``conv3x3(silu(gn_affine(
   conv3x3(nearest2x(x)) + up_bias))) + bias`` and its statistics, with the
@@ -34,6 +34,7 @@ from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels import _build
 
 Sums = Tuple[torch.Tensor, torch.Tensor]   # (sum [B, G], sumsq [B, G])
+LRELU_SLOPE = 0.2                          # K2's act="lrelu"
 
 # conv3x3.cu (K1, K2): a work item's tile is _TR rows x _TWP pixels (K2: of
 # the low-resolution map, for one output phase); the kernels take Cin and Cr
@@ -164,17 +165,27 @@ def fused_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
     return y
 
 
+def _check_act(name: str, act: Optional[str]) -> None:
+    _require(act in (None, "lrelu"), f"{name}: unknown act {act!r}")
+
+
 def upsample_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
                                bias: torch.Tensor, *,
                                emit_stats: bool = False, num_groups: int = 32,
                                out_dtype: Optional[torch.dtype] = None,
-                               stats_only: bool = False):
+                               stats_only: bool = False,
+                               act: Optional[str] = None):
     """Plain version of :func:`upsample_conv3x3`: the nearest 2x upsample
-    materialized, then the 3x3 conv in float32 from the same weights.
-    ``stats_only`` returns only the (sum, sumsq) of y as stored."""
+    materialized, then the 3x3 conv in float32 from the same weights, the
+    bias and ``act`` in float32, one cast to ``out_dtype``.  ``stats_only``
+    returns only the (sum, sumsq) of y as stored."""
+    _check_act("upsample_conv3x3", act)
     out_dtype = out_dtype or x.dtype
     up = x.float().repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-    y = (_conv3x3_f32(up, kernel) + bias.float()).to(out_dtype)
+    y = _conv3x3_f32(up, kernel) + bias.float()
+    if act == "lrelu":
+        y = torch.where(y >= 0, y, LRELU_SLOPE * y)
+    y = y.to(out_dtype)
     if stats_only:
         return _group_sums(y, num_groups)
     if emit_stats:
@@ -334,11 +345,13 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor, *, emit_stats: bool = False,
                      num_groups: int = 32,
                      out_dtype: Optional[torch.dtype] = None,
-                     stats_only: bool = False):
-    """``conv3x3(nearest2x(x)) + bias`` as one kernel (K2): x [B, H, W, Cin]
-    -> [B, 2H, 2W, Cout]; ``kernel`` is the plain [3, 3, Cin, Cout] conv
-    kernel, collapsed here into phase kernels.  With ``emit_stats`` also
-    the per-group (sum, sumsq) of the output as stored, each [B, G].
+                     stats_only: bool = False, act: Optional[str] = None):
+    """``act(conv3x3(nearest2x(x)) + bias)`` as one kernel (K2): x [B, H, W,
+    Cin] -> [B, 2H, 2W, Cout]; ``kernel`` is the plain [3, 3, Cin, Cout]
+    conv kernel, collapsed here into phase kernels; ``act`` None or
+    "lrelu" (LeakyReLU, slope 0.2, in float32 before the storage cast).
+    With ``emit_stats`` also the per-group (sum, sumsq) of the output as
+    stored (after ``act``), each [B, G].
 
     ``stats_only`` (with ``emit_stats``) returns only that (sum, sumsq):
     y is computed and rounded tile by tile but never allocated, the
@@ -352,10 +365,11 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     """
     _require(not stats_only or emit_stats,
              "upsample_conv3x3: stats_only needs emit_stats")
+    _check_act("upsample_conv3x3", act)
     if x.device.type == "cpu":
         return upsample_conv3x3_reference(
             x, kernel, bias, emit_stats=emit_stats, num_groups=num_groups,
-            out_dtype=out_dtype, stats_only=stats_only)
+            out_dtype=out_dtype, stats_only=stats_only, act=act)
     _require(x.is_cuda, f"upsample_conv3x3: unsupported device {x.device}")
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
@@ -384,7 +398,7 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
         x.data_ptr(), pk.data_ptr(), bias.data_ptr(),
         None if y is None else y.data_ptr(),
         None if partial is None else partial.data_ptr(), b, h, w, cin, cout,
-        _stream(x)), "hdrvae_upsample_conv3x3")
+        int(act == "lrelu"), _stream(x)), "hdrvae_upsample_conv3x3")
     if stats_only:
         upsample_conv3x3.stats_only_launches += 1
         return _group_stats(partial, num_groups)

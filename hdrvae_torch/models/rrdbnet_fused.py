@@ -2,8 +2,10 @@
 ``hdrvae/models/rrdbnet_pallas.py``: the fast tier's path on the card.
 
 Every conv is one :func:`dense_conv3x3`: the dense blocks' concats are
-never formed (the kernel walks its inputs as K steps), and LeakyReLU and
-the scaled residual adds run in the conv epilogue.  Two steps stay torch
+never formed (the kernel walks its inputs as K chunks), and LeakyReLU and
+the scaled residual adds run in the conv epilogue.  Each conv's weights are
+prepared in the kernel's layout once per compute dtype and device
+(:func:`conv_weights`), not on every call.  Two steps stay torch
 ops outside the kernel, as in the JAX package: the RRDB-level
 ``x + 0.2 * h`` and the nearest-2x upsamples before ``conv_up*``.
 
@@ -18,20 +20,39 @@ testable without a card.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch import nn
 
 from hdrvae_torch.core.config import Precision
-from hdrvae_torch.kernels.dense_conv import dense_conv3x3
+from hdrvae_torch.kernels.dense_conv import (DenseWeights, dense_conv3x3,
+                                             prepare_weights)
 from hdrvae_torch.models.layers import nearest_upsample_2x
 from hdrvae_torch.models.rrdbnet import (RESIDUAL_SCALE, RRDB, DenseBlock,
                                          RRDBNet, unshuffle_input)
 
 
-def _w(conv: nn.Conv2d, cdt: torch.dtype):
-    """OIHW weight -> HWIO in the compute dtype, and the float32 bias."""
-    return (conv.weight.permute(2, 3, 1, 0).to(cdt).contiguous(),
-            conv.bias.float())
+def conv_weights(conv: nn.Conv2d, cdt: torch.dtype,
+                 cins: Sequence[int]) -> DenseWeights:
+    """K6's weights of one conv for inputs of widths ``cins``, prepared
+    once per compute dtype and device and kept on the module (the network
+    is read-only): OIHW -> HWIO in ``cdt`` -> the kernel's layout, the bias
+    float32."""
+    key = (cdt, str(conv.weight.device), tuple(cins))
+    cache = conv.__dict__.setdefault("_dense_weights", {})
+    if key not in cache:
+        cache[key] = prepare_weights(
+            conv.weight.permute(2, 3, 1, 0).to(cdt).contiguous(), conv.bias,
+            cins)
+    return cache[key]
+
+
+def _conv(feats, conv: nn.Conv2d, cdt: torch.dtype, **kw) -> torch.Tensor:
+    """One K6 launch over ``feats`` with ``conv``'s prepared weights."""
+    return dense_conv3x3(feats, conv_weights(conv, cdt,
+                                             [f.shape[-1] for f in feats]),
+                         **kw)
 
 
 def _dense_block(x: torch.Tensor, blk: DenseBlock, cdt: torch.dtype,
@@ -39,11 +60,10 @@ def _dense_block(x: torch.Tensor, blk: DenseBlock, cdt: torch.dtype,
     """ResidualDenseBlock_5C: five dense convs, concat-free."""
     feats = [x]
     for i in range(1, 5):
-        k, b = _w(getattr(blk, f"conv{i}"), cdt)
-        feats.append(dense_conv3x3(feats, k, b, act="lrelu", out_dtype=sdt))
-    k, b = _w(blk.conv5, cdt)
-    return dense_conv3x3(feats, k, b, residual=x, res_scale=RESIDUAL_SCALE,
-                         out_dtype=sdt)
+        feats.append(_conv(feats, getattr(blk, f"conv{i}"), cdt, act="lrelu",
+                           out_dtype=sdt))
+    return _conv(feats, blk.conv5, cdt, residual=x,
+                 res_scale=RESIDUAL_SCALE, out_dtype=sdt)
 
 
 def _rrdb(x: torch.Tensor, blk: RRDB, cdt: torch.dtype,
@@ -66,22 +86,18 @@ def rrdbnet_fused_apply(net: RRDBNet, x: torch.Tensor, *,
     if cfg.unshuffle > 1:
         x = unshuffle_input(x, cfg.unshuffle)
     x = x.to(cdt).contiguous()
-    k, b = _w(net.conv_first, cdt)
-    fea = dense_conv3x3([x], k, b, out_dtype=sdt)
+    fea = _conv([x], net.conv_first, cdt, out_dtype=sdt)
     trunk = fea
     for blk in net.body:
         trunk = _rrdb(trunk, blk, cdt, sdt)
-    k, b = _w(net.conv_body, cdt)
-    fea = dense_conv3x3([trunk], k, b, residual=fea, res_scale=1.0,
-                        out_dtype=sdt)
+    fea = _conv([trunk], net.conv_body, cdt, residual=fea, res_scale=1.0,
+                out_dtype=sdt)
     for i in range(cfg.num_upsamples):
-        k, b = _w(getattr(net, f"conv_up{i + 1}"), cdt)
-        fea = dense_conv3x3([nearest_upsample_2x(fea).contiguous()], k, b,
-                            act="lrelu", out_dtype=sdt)
-    k, b = _w(net.conv_hr, cdt)
-    fea = dense_conv3x3([fea], k, b, act="lrelu", out_dtype=sdt)
-    k, b = _w(net.conv_last, cdt)
-    out = dense_conv3x3([fea], k, b, out_dtype=torch.float32)
+        fea = _conv([nearest_upsample_2x(fea).contiguous()],
+                    getattr(net, f"conv_up{i + 1}"), cdt, act="lrelu",
+                    out_dtype=sdt)
+    fea = _conv([fea], net.conv_hr, cdt, act="lrelu", out_dtype=sdt)
+    out = _conv([fea], net.conv_last, cdt, out_dtype=torch.float32)
     if cfg.unshuffle > 1:   # crop the pre-pad region
         out = out[:, :h0 * cfg.scale, :w0 * cfg.scale]
     return out

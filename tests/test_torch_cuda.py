@@ -156,6 +156,25 @@ def test_upsample_conv3x3_ragged(dev):
     torch.testing.assert_close(sq, rsq, rtol=1e-2, atol=0)
 
 
+def test_upsample_conv3x3_act(dev):
+    """K2 with act="lrelu": y and its statistics (taken after the act, of
+    y as stored) as in test_upsample_conv3x3_ragged."""
+    b, h, w, cin, cout = 2, 5, 20, 32, 64
+    x = _rand(dev, (b, h, w, cin), 0.5)
+    kern = _rand(dev, (3, 3, cin, cout), (9 * cin) ** -0.5, seed=1)
+    bias = _rand(dev, (cout,), 0.1, torch.float32, seed=2)
+    kw = dict(emit_stats=True, num_groups=16, act="lrelu")
+    y, (s, sq) = conv3x3.upsample_conv3x3(x, kern, bias, **kw)
+    ry, (rs, rsq) = conv3x3.upsample_conv3x3_reference(x, kern, bias, **kw)
+    plain = conv3x3.upsample_conv3x3(x, kern, bias)
+    torch.cuda.synchronize()
+    assert (y.float() - ry.float()).abs().max().item() <= 4 * _ulp_bound(ry)
+    assert (ry < 0).any() and not torch.equal(y, plain)
+    torch.testing.assert_close(sq, rsq, rtol=1e-2, atol=0)
+    with pytest.raises(ValueError, match="unknown act"):
+        conv3x3.upsample_conv3x3(x, kern, bias, act="relu")
+
+
 def test_upsample_conv3x3_stats_only(dev):
     """K2's stats_only launch: its own counter, and the sums of the launch
     that writes y, bit for bit."""
@@ -361,9 +380,10 @@ def test_small_decoder_large_frame_routes(dev, monkeypatch):
 
 
 # (input widths, Cout, act, residual scale or None, float32 out): one to
-# five inputs as in a dense block, conv_first's 3 and 12 (unshuffled)
-# channels, conv_last's 3 outputs in float32, and narrow widths (4 is no
-# multiple of 8: element-wise loads)
+# five inputs as in a dense block, conv_first's 3, 12 and 48 (unshuffle 1,
+# 2, 4) channels, conv_last's 3 outputs in float32, narrow widths (4 and 12
+# are no multiple of 8: gathered, not loaded by TMA; 8 and 24 end in a half
+# K chunk), a 32-channel input after a narrow one, and each wgmma N
 DENSE_CASES = [((64,), 32, "lrelu", None, False),
                ((64, 32), 32, "lrelu", None, False),
                ((64, 32, 32), 32, "lrelu", None, False),
@@ -374,7 +394,11 @@ DENSE_CASES = [((64,), 32, "lrelu", None, False),
                ((64,), 3, None, None, True),
                ((64,), 64, None, 1.0, False),
                ((8, 4, 4), 8, "lrelu", 0.2, False),
-               ((24,), 128, "lrelu", None, True)]
+               ((24,), 128, "lrelu", None, True),
+               ((48,), 64, None, None, False),
+               ((24, 32), 32, "lrelu", 0.2, False),
+               ((32, 12, 4), 16, None, 0.2, False),
+               ((16, 8), 100, "lrelu", None, False)]
 
 
 @pytest.mark.parametrize("cins,cout,act,res_scale,out_f32", DENSE_CASES)
@@ -403,6 +427,59 @@ def test_dense_conv3x3(dev, cins, cout, act, res_scale, out_f32):
         assert err <= 1e-5 * max(1.0, ref.abs().max().item()), err
     else:
         assert err <= 2 * _ulp_bound(ref), err
+
+
+# (B, H, W, input widths, Cout, float32 out): H and W no multiple of the
+# kernel's tile (16 x 64 pixels at Cout <= 32, 8 x 64 at 64, 4 x 64 at 128)
+DENSE_EDGES = [(2, 17, 65, (64,), 3, True),
+               (2, 17, 130, (64, 32), 32, False),
+               (1, 9, 129, (64, 32, 32, 32, 32), 64, False),
+               (2, 5, 67, (64,), 128, False)]
+
+
+@pytest.mark.parametrize("b,h,w,cins,cout,out_f32", DENSE_EDGES)
+def test_dense_conv3x3_tile_edges(dev, b, h, w, cins, cout, out_f32):
+    """Ragged tiles in both dimensions with prepared weights, as the chain
+    passes them, and a residual: within the bounds of
+    test_dense_conv3x3."""
+    xs = [_rand(dev, (b, h, w, c), seed=i) for i, c in enumerate(cins)]
+    kern = _rand(dev, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5,
+                 seed=7)
+    bias = _rand(dev, (cout,), 0.1, torch.float32, seed=8)
+    res = _rand(dev, (b, h, w, cout), seed=9)
+    kw = dict(act="lrelu", residual=res, res_scale=0.2,
+              out_dtype=torch.float32 if out_f32 else None)
+    pw = dense_conv.prepare_weights(kern, bias, cins)
+    y = dense_conv.dense_conv3x3(xs, pw, **kw)
+    ref = dense_conv.dense_conv3x3_reference(xs, kern, bias, **kw)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    if out_f32:
+        assert err <= 1e-5 * max(1.0, ref.abs().max().item()), err
+    else:
+        assert err <= 2 * _ulp_bound(ref), err
+
+
+@pytest.mark.parametrize("small", [True, False])
+def test_rrdbnet_chain_launches_once_per_conv(dev, small):
+    """A with_small() and a full-width RRDBNetConfig() tile through the K6
+    chain: one dense_conv3x3 launch per conv (15 a RRDB, conv_first,
+    conv_body, the upsample convs, conv_hr, conv_last: 351 at full width)
+    and the weights prepared once per conv across two forwards."""
+    cfg = RRDBNetConfig().with_small() if small else RRDBNetConfig()
+    net = init_rrdbnet(cfg, seed=2, device=dev)
+    x = _rand(dev, (1, 20, 28, 3), 0.5, torch.float32, seed=5)
+    convs = 15 * cfg.nb + 4 + cfg.num_upsamples
+    assert small or convs == 351
+    prepared = dense_conv.prepare_weights.preparations
+    for _ in range(2):
+        before = dense_conv.dense_conv3x3.launches
+        y = rrdbnet_fused_apply(net, x, precision=Precision.fast())
+        assert dense_conv.dense_conv3x3.launches == before + convs
+    assert dense_conv.prepare_weights.preparations == prepared + convs
+    torch.cuda.synchronize()
+    assert y.shape == (1, 20 * cfg.scale, 28 * cfg.scale, 3)
+    assert torch.isfinite(y).all()
 
 
 def test_dense_conv3x3_refuses_what_it_does_not_take(dev):

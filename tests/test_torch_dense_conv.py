@@ -101,17 +101,59 @@ def test_reference_matches_pallas_bf16(out_dtype):
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
 
 
-def test_padded_weights_layout():
-    """[3, 3, Cin, Cout] -> [9, Cin, 16 * ceil(Cout / 16)], zeros past
-    Cout (conv_last's 3 channels pad to 16)."""
-    k = _t(_np(0, (3, 3, 5, 3)))
-    wp = dense_conv.padded_weights(k)
-    assert wp.shape == (9, 5, 16) and wp.is_contiguous()
-    np.testing.assert_array_equal(wp[:, :, :3].numpy(),
-                                  k.reshape(9, 5, 3).numpy())
-    assert not wp[:, :, 3:].any()
-    assert dense_conv.padded_weights(_t(_np(1, (3, 3, 4, 32)))).shape == \
-        (9, 4, 32)
+# (input widths, Cout): conv_first's 3 and 12 channels (K packed across the
+# taps), its 48 (unshuffle 4), a dense block's five inputs, widths that end
+# in a part chunk (8, 4, 24), conv_last's 3 outputs (N 8) and N 128
+LAYOUT_CASES = [((3,), 64), ((12,), 64), ((48,), 64),
+                ((16, 8, 8, 8, 8), 16), ((8, 4, 4), 8), ((24,), 100),
+                ((64,), 3)]
+
+
+@pytest.mark.parametrize("cins,cout", LAYOUT_CASES)
+def test_prepared_weights_layout(cins, cout):
+    """The kernel's weight layout (``prepare_weights``), read back as the
+    kernel reads it (``dense_conv3x3_as_gemm``: per K chunk and tap the
+    decoded [16, N] slice times that chunk's window), reproduces the plain
+    version's conv of the same HWIO kernel: float32 sums in another order,
+    <= 1e-5 of the largest value.  Its shape: [chunks, taps, N / 8, 2, 8,
+    8], N the first of 8, 16, 32, 64, 128 >= Cout, zeros past Cout."""
+    xs = [_t(_np(20 + i, (2, 5, 7, c))) for i, c in enumerate(cins)]
+    kern = _t(_np(30, (3, 3, sum(cins), cout), 0.2))
+    bias = _t(_np(31, (cout,)))
+    pw = dense_conv.prepare_weights(kern, bias, cins)
+    n = dense_conv.padded_cout(cout)
+    packed = len(cins) == 1 and cins[0] < 16
+    chunks = (-(-9 * cins[0] // 16) if packed
+              else sum(-(-c // 16) for c in cins))
+    assert pw.packed == packed
+    assert pw.w.shape == (chunks, 1 if packed else 9, n // 8, 2, 8, 8)
+    assert pw.bias.shape == (n,) and not pw.bias[cout:].any()
+    assert not pw.w.permute(0, 1, 3, 5, 2, 4).reshape(
+        chunks, -1, n)[..., cout:].any()
+    got = dense_conv.dense_conv3x3_as_gemm(xs, pw) + bias
+    ref = dense_conv.dense_conv3x3_reference(xs, kern, bias)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+
+
+def test_prepared_weights_on_cpu():
+    """A call with prepared weights runs the same plain version as one with
+    the HWIO kernel; prepared weights carry their bias and refuse another,
+    and refuse inputs of other widths."""
+    cins, cout = (8, 4), 8
+    xs = [_t(_np(i, (1, 4, 6, c))) for i, c in enumerate(cins)]
+    kern, bias = _t(_np(5, (3, 3, 12, cout), 0.2)), _t(_np(6, (cout,)))
+    pw = dense_conv.prepare_weights(kern, bias, cins)
+    r = _t(_np(7, (1, 4, 6, cout)))
+    kw = dict(act="lrelu", residual=r, res_scale=0.2)
+    np.testing.assert_array_equal(
+        dense_conv.dense_conv3x3(xs, pw, **kw).numpy(),
+        dense_conv.dense_conv3x3(xs, kern, bias, **kw).numpy())
+    with pytest.raises(ValueError, match="bias"):
+        dense_conv.dense_conv3x3(xs, pw, bias)
+    with pytest.raises(ValueError, match="Cout"):
+        dense_conv.prepare_weights(_t(_np(8, (3, 3, 12, 130))),
+                                   torch.zeros(130), cins)
 
 
 def test_unknown_act_refused():
@@ -186,6 +228,28 @@ def test_chain_fast_tier_within_band():
     # the port's own unfused fast layers sit in the same band
     layers = rrdbnet_layers(net, _t(x), precision=Precision.fast()).float()
     assert np.abs(layers.numpy() - ref).max() <= 5e-2
+
+
+def test_chain_prepares_each_conv_once():
+    """``rrdbnet_fused_apply`` prepares each conv's weights once per
+    compute dtype and device and keeps them on the module: two calls
+    prepare 15 a RRDB + conv_first, conv_body, the upsample convs, conv_hr
+    and conv_last, once."""
+    jcfg = jrrdb.RRDBNetConfig().with_small()
+    _, net = _pair(jcfg, seed=2)
+    x = _t(_np(6, (1, 6, 10, 3)))
+    convs = 15 * jcfg.nb + 4 + jcfg.num_upsamples
+    before = dense_conv.prepare_weights.preparations
+    a = rrdbnet_fused_apply(net, x, precision=Precision.fast())
+    assert dense_conv.prepare_weights.preparations == before + convs
+    b = rrdbnet_fused_apply(net, x, precision=Precision.fast())
+    assert dense_conv.prepare_weights.preparations == before + convs
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # another compute dtype is another preparation of each conv
+    rrdbnet_fused_apply(net, x, precision=Precision(
+        compute_dtype=torch.float32, storage_dtype=torch.float32,
+        mode="fast"))
+    assert dense_conv.prepare_weights.preparations == before + 2 * convs
 
 
 def test_apply_runs_layers_on_cpu():

@@ -189,6 +189,30 @@ class TestUpsampleConv:
         _stats_close((gs[0].numpy(), gs[1].numpy()),
                      (np.asarray(rs[0])[None], np.asarray(rs[1])[None]), ry)
 
+    @pytest.mark.parametrize("h,w,cin,cout", [(8, 16, 16, 16),
+                                              (4, 8, 16, 32)])
+    def test_lrelu_matches_pallas(self, h, w, cin, cout):
+        """act="lrelu": LeakyReLU(0.2) after the bias in float32, the
+        statistics of y after it; against the Pallas kernel's act in
+        interpret mode, <= 1e-5 as above."""
+        x = _np(24, (1, h, w, cin))
+        kern = _np(25, (3, 3, cin, cout), 0.2)
+        bias = _np(26, (cout,))
+        with pltpu.force_tpu_interpret_mode():
+            ry, rs = jconv.upsample_conv3x3(
+                jnp.asarray(x[0]), jnp.asarray(kern), jnp.asarray(bias),
+                emit_stats=True, num_groups=4, block_rows=4, act="lrelu")
+        gy, gs = tconv.upsample_conv3x3(_t(x), _t(kern), _t(bias),
+                                        emit_stats=True, num_groups=4,
+                                        act="lrelu")
+        ry = np.asarray(ry)[None]
+        assert (ry < 0).any()
+        np.testing.assert_allclose(gy.numpy(), ry, atol=1e-5, rtol=0)
+        _stats_close((gs[0].numpy(), gs[1].numpy()),
+                     (np.asarray(rs[0])[None], np.asarray(rs[1])[None]), ry)
+        with pytest.raises(ValueError, match="unknown act"):
+            tconv.upsample_conv3x3(_t(x), _t(kern), _t(bias), act="relu")
+
     def test_phase_kernels_match_pallas(self):
         """The phase-weight collapse is the JAX package's, bit for bit in
         float32 and after the bf16 rounding."""

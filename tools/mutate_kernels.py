@@ -2,7 +2,7 @@
 """Mutation check of a kernel's test in ``chip_smoke.py``, on one NVIDIA
 GPU.
 
-    python3 tools/mutate_kernels.py [k1|k2|k5|chain|k3_3pass ...]
+    python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_3pass ...]
                                     (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
@@ -11,13 +11,16 @@ there (one or more edits), builds that copy's kernels and runs the
 target's check of ``chip_smoke`` (k1: ``_check_k1``, K1 against its
 plain version at the 1024^2 decode's six conv shapes and a ragged one;
 k2: ``_check_k2``, K2 at the decode's three upsample convs and a ragged
-one; k5: ``_check_k5``, K5 against its plain
+one; k6: ``_check_k6``, K6 at one 512^2 tile's shapes of the ESRGAN x4 net
+and more (a ragged conv5, conv_body, conv_first of unshuffle 2 and 4); k5: ``_check_k5``, K5 against its plain
 version at the 2048^2 decode's junction and a ragged map; chain:
 ``_check_chain``, K10, K9 and K11 of the staged Swin chain at K7's v1
 shapes and the chain against K7; k3_3pass: ``_check_k3_3pass``, K3's
 3-pass mode against exact float32 and its plain version at N = 16,384, C
 = 512, and against its plain version on a ragged input with peaked
-scores), then reports whether the check refused the broken kernel.  The
+scores), then reports whether the check refused the broken kernel: by a
+failed assertion, or by a fault of the broken kernel on the card (a
+mutant that writes past an output stops the check there).  The
 checkout itself is never changed.  Exits non-zero if a mutant the check
 must catch survives; one marked ``sub-ulp`` moves each value by less than
 one bf16 ulp, below what the 5e-2 budgets can see, and is reported only.
@@ -36,19 +39,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # target: (chip_smoke call, log prefixes, mutations); each mutation name:
 # (CUDA source under csrc/, text of it, its broken form, must the check
 # catch it); text and broken form may be tuples of edits made together
+# K1 / K2's wgmma of one m64 block and tap
+K1_WGMMA = "            wgmma_ss<BN, 1>(acc[mb], da, b_desc(st + ks * 2048));\n"
+
 TARGETS = {
     # K1 and K2 share conv3x3.cu's mainloop: each mutant keeps the producer
     # and consumer schedules in step (a broken schedule would trap, not
     # compute a wrong y)
     "k1": ("_check_k1(np.random.default_rng(0))", ("K1",), {
         "one tap skipped": (
-            "conv3x3.cu", "            if constexpr (NH == 2)\n",
-            "            if (tap == 4 && !proj) {\n"
-            "            } else if constexpr (NH == 2)\n", True),
+            "conv3x3.cu", K1_WGMMA,
+            "            if (!(tap == 4 && !proj))\n" + K1_WGMMA, True),
         "last K chunk skipped": (
-            "conv3x3.cu", "            if constexpr (NH == 2)\n",
-            "            if (ci == nmain - 1) {\n"
-            "            } else if constexpr (NH == 2)\n", True),
+            "conv3x3.cu", K1_WGMMA,
+            "            if (ci != nmain - 1)\n" + K1_WGMMA, True),
         "prologue on halo pixels outside the image": (
             "conv3x3.cu",
             "if (c >= a.Cin || hh < 0 || hh >= a.H || ww < 0 || ww >= a.W) "
@@ -70,9 +74,27 @@ TARGETS = {
             "(MODE == MODE_UP) ? (wk.ph == 3 ? 2 : wk.ph) * 4 + tap : tap;",
             True),
         "one tap skipped": (
-            "conv3x3.cu", "            if constexpr (NH == 2)\n",
-            "            if (tap == 3) {\n"
-            "            } else if constexpr (NH == 2)\n", True),
+            "conv3x3.cu", K1_WGMMA, "            if (tap != 3)\n" + K1_WGMMA,
+            True),
+    }),
+    # K6: the mainloop's chunk count and the tap loop are shared by the
+    # producer and the consumers, so the schedules stay in step
+    "k6": ("_check_k6(np.random.default_rng(0))", ("K6",), {
+        "one tap skipped": (
+            "dense_conv.cu", "          wgmma_ss<NP, 0>(acc[mb],\n",
+            "          if (tap != 4) wgmma_ss<NP, 0>(acc[mb],\n", True),
+        "the last input's last chunk dropped": (
+            "dense_conv.cu", "const int nchunks = a.nchunks;",
+            "const int nchunks = a.nchunks - 1;", True),
+        "LeakyReLU slope 0 (ReLU)": (
+            "dense_conv.cu", "__fmul_rn(0.2f, v)", "__fmul_rn(0.0f, v)", True),
+        "res_scale dropped": (
+            "dense_conv.cu",
+            "return __fadd_rn(r, __fmul_rn(a.res_scale, v));",
+            "return __fadd_rn(r, v);", True),
+        "conv_last's column mask dropped": (
+            "dense_conv.cu", "              if (n + e < a.Cout) {",
+            "              if (true) {", True),
     }),
     "k5": ("_check_k5(np.random.default_rng(5))", ("K5",), {
         "band not zeroed outside the image": (
@@ -153,14 +175,18 @@ TARGETS = {
 CHECK = """
 import sys
 import numpy as np
+import torch
 sys.path.insert(0, '.')
 import chip_smoke
 chip_smoke.phase_build()
 try:
     chip_smoke.{call}
+    torch.cuda.synchronize()
     print('SURVIVED')
 except AssertionError as exc:
     print('CAUGHT:', exc)
+except torch.AcceleratorError as exc:   # a fault of the broken kernel
+    print('CAUGHT (the check faulted):', str(exc).splitlines()[0])
 """
 
 

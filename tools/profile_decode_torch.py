@@ -9,6 +9,7 @@
     python3 tools/profile_decode_torch.py --lowmem [--latent 256 512]
     python3 tools/profile_decode_torch.py --staged [--latent 256 512]
     python3 tools/profile_decode_torch.py --ab-tree DIR
+                                          [--ab-only swin conv esrgan]
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
 tier, the full-width Flux.1 decoder (``DecoderConfig()``, random weights
@@ -53,7 +54,12 @@ CUDA events over 20 launches after 3 warm-ups, then two fast
 numpy seed 1; then K1 and K2 at ``chip_smoke.py``'s phase-3 shapes and
 its ragged ones, K2 ``stats_only`` at the 2048^2 junction (CUDA events over
 10 launches after 2 warm-ups, 5 for stats_only), and three requests each of
-fast decodes at 1024^2 and 2048^2 and of parity and mixed ones at 1024^2.
+fast decodes at 1024^2 and 2048^2 and of parity and mixed ones at 1024^2;
+then K6 ``dense_conv3x3`` at ``chip_smoke.py``'s phase-3 shapes and
+conv_body (10 launches after 2 warm-ups), summed and launch-weighted over one
+``RRDBNetConfig()`` tile forward, and three fast and one parity ESRGAN x4
+``hdr_upscale`` requests of a 1024^2 HDR image from numpy seed 1 (the
+first fast one warms up).  ``--ab-only swin conv esrgan`` picks the turns.
 
 The script only reads: it changes nothing in the package.  Without a CUDA
 device it exits non-zero.
@@ -108,7 +114,7 @@ PORT_KERNELS = ("conv_wgmma_kernel", "group_stats_kernel",
                 "upconv_gn_conv_kernel", "flash_bf16_kernel",
                 "flash_3pass_kernel", "flash_f32_kernel",
                 "collapse_stats_kernel",
-                "stats_finalize_kernel", "dense_conv_kernel",
+                "stats_finalize_kernel", "dense_wgmma_kernel",
                 "swin_block_kernel", "ocab_kernel")
 
 
@@ -414,14 +420,103 @@ for side, tier in ((128, "fast"), (256, "fast"), (128, "parity"),
 '''
 
 
-def ab(other: str) -> int:
+# K6 at chip_smoke.py's phase-3 shapes and conv_body, each on its own and
+# launch-weighted over one RRDBNetConfig() 512^2 tile forward (351
+# launches), with weights prepared beforehand where the tree prepares them
+# (the kernel's main path) and the HWIO kernel otherwise; then two fast and
+# one parity ESRGAN x4 hdr_upscale requests of a 1024^2 HDR image
+AB_ESRGAN = r'''
+import time
+import numpy as np
+import torch
+from hdrvae_torch.core.config import Precision, UpscaleConfig
+from hdrvae_torch.kernels import dense_conv
+from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet
+from hdrvae_torch.upscale.pipeline import hdr_upscale
+
+# (name, H, W, input widths, Cout, act, residual scale, float32 out,
+# launches a tile forward)
+K6 = [("conv_first", 512, 512, (3,), 64, None, None, False, 1)] + [
+    (f"conv{i}", 512, 512, (64,) + (32,) * (i - 1), 32, "lrelu", None, False,
+     69) for i in range(1, 5)] + [
+    ("conv5", 512, 512, (64, 32, 32, 32, 32), 64, None, 0.2, False, 69),
+    ("conv_up1", 1024, 1024, (64,), 64, "lrelu", None, False, 1),
+    ("conv_up2", 2048, 2048, (64,), 64, "lrelu", None, False, 2),
+    ("conv_last", 2048, 2048, (64,), 3, None, None, True, 1),
+    ("conv5 ragged", 128, 120, (64, 32, 32, 32, 32), 64, None, 0.2, False, 0),
+    ("conv_body", 512, 512, (64,), 64, None, 1.0, False, 1)]
+
+
+def ms(fn, iters=10):
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rand(rng, shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+        np.float32)).cuda().bfloat16()
+
+
+rng = np.random.default_rng(0)
+summed = forward = 0.0
+for name, h, w, cins, cout, act, rs, f32, n in K6:
+    xs = [rand(rng, (1, h, w, c), 0.5) for c in cins]
+    kern = rand(rng, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5)
+    bias = torch.zeros(cout, device="cuda")
+    kw = dict(act=act, out_dtype=torch.float32 if f32 else None)
+    if rs is not None:
+        kw.update(residual=rand(rng, (1, h, w, cout), 0.5), res_scale=rs)
+    if hasattr(dense_conv, "prepare_weights"):
+        pw = dense_conv.prepare_weights(kern, bias, cins)
+        t = ms(lambda: dense_conv.dense_conv3x3(xs, pw, **kw))
+    else:
+        t = ms(lambda: dense_conv.dense_conv3x3(xs, kern, bias, **kw))
+    summed += t if name != "conv_body" else 0.0
+    forward += n * t
+    print(f"  K6 {name} {h}x{w} {'+'.join(map(str, cins))}->{cout}: "
+          f"{t:.3f} ms", flush=True)
+    del xs, kern, kw
+    torch.cuda.empty_cache()
+print(f"  K6 summed over phase-3's ten shapes: {summed:.3f} ms; one "
+      f"RRDBNetConfig() tile forward, launch-weighted: {forward:.3f} ms",
+      flush=True)
+net = init_rrdbnet(RRDBNetConfig(), seed=2, device="cuda")
+img = torch.from_numpy((np.random.default_rng(1).standard_normal(
+    (1, 1024, 1024, 3)) * 1.5 + 0.3).astype(np.float32)).cuda()
+for tier in ("fast", "fast", "fast", "parity"):
+    prec = getattr(Precision, tier)()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    start.record()
+    hdr_upscale(net, img, UpscaleConfig(), architecture="ESRGAN",
+                precision=prec)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"  ESRGAN x4 1024^2 {tier} request: device "
+          f"{start.elapsed_time(end):.3f} ms, host wall "
+          f"{1e3 * (time.perf_counter() - h0):.3f} ms", flush=True)
+'''
+
+AB_TURNS = {"swin": AB_TURN, "conv": AB_CONV, "esrgan": AB_ESRGAN}
+
+
+def ab(other: str, turns) -> int:
     """The turns of ``--ab-tree``: this tree, ``other``, ``other``, this."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     there = os.path.abspath(other)
     for label, root in (("this", here), ("other", there), ("other", there),
                         ("this", here)):
         print(f"== {label}: {root}", flush=True)
-        for turn in (AB_TURN, AB_CONV):
+        for turn in (AB_TURNS[t] for t in turns):
             proc = subprocess.run([sys.executable, "-c", turn], cwd=root,
                                   env=dict(os.environ, PYTHONPATH=root),
                                   timeout=900)
@@ -453,8 +548,12 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=12,
                     help="kernel names listed per run")
     ap.add_argument("--ab-tree", metavar="DIR",
-                    help="compare K7, a SwinIR-M upscale, K1, K2 and "
-                         "decodes with the tree in DIR instead")
+                    help="compare K7, a SwinIR-M upscale, K1, K2, decodes, "
+                         "K6 and ESRGAN upscales with the tree in DIR "
+                         "instead")
+    ap.add_argument("--ab-only", nargs="+", choices=list(AB_TURNS),
+                    default=list(AB_TURNS),
+                    help="the --ab-tree turns run (default: all)")
     args = ap.parse_args()
     latents = args.latent or ([128] if args.upscale else [128, 256])
     tiers = args.tiers or (["fast", "parity"] if args.upscale
@@ -467,7 +566,7 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     if args.ab_tree:
-        return ab(args.ab_tree)
+        return ab(args.ab_tree, args.ab_only)
 
     cfg = DecoderConfig()
     dec = init_decoder(cfg, seed=0, device="cuda")
