@@ -35,7 +35,8 @@
 //    epilogue.
 //  * 384 threads: two consumer warpgroups, each owning half the tile rows,
 //    and a producer warpgroup behind "full" / "empty" mbarriers on a ring
-//    of NSTAGE = 4 stages.  A stage is one chunk: its halo'd slab [(TR+2) x
+//    of NSTAGE stages (4 at NP <= 16 and 64, 3 at 32 and 128, for the
+//    output tile's room).  A stage is one chunk: its halo'd slab [(TR+2) x
 //    66 pixels x 16 channels] and its weights for all nine taps.  One
 //    producer thread issues the copies; the producer's four warps gather
 //    what TMA cannot load (with one warp, conv_first was gather-bound).
@@ -66,18 +67,23 @@
 //    cast, rounded as the plain version rounds (no fused multiply-add):
 //    + bias and LeakyReLU in straight-line code (a read of the wgmma
 //    results on a path ptxas sees as divergent serializes the wgmmas), then
-//    r + res_scale * v; pairs of channels load and store as one vector
-//    where Cout is even.  Rows past H or W and columns past Cout are masked
-//    by coordinate.  The epilogue runs with the tensor cores idle; its
-//    stores are what they wait for (tools/k6_variants.py no-stores), not
-//    their width: 16-byte stores after a transpose within each quad were no
-//    faster.
+//    r + res_scale * v.  Where Cout = NP >= 32 (every RRDBNet conv but
+//    conv_last) and bf16 out, y leaves through a 64 KB tile in shared
+//    memory [TR][64][NP], swizzled as TMA reads it, by one TMA store that
+//    clips rows past H or W and runs on while the next item multiplies;
+//    the residual comes into the same tile by a TMA load issued as the
+//    item starts, once the previous store has read the tile.  Stored from
+//    the fragments instead (4 bytes a lane; still the path for conv_last
+//    and odd widths, rows and columns masked by coordinate), the epilogue
+//    ran with the tensor cores idle and took half of K6's time
+//    (tools/k6_variants.py no-stores); 16-byte stores after a transpose
+//    within each quad were no faster.
 //  * Tried and not kept: a ping-pong of the two warpgroups over alternate
 //    items of half the rows (faster on the 64 -> 64 tail convs, slower on
 //    the body's n32 convs, and 168 registers a thread spilled), and a
-//    coalesced epilogue through shared memory (slower; its __syncwarp made
-//    ptxas serialize the wgmmas).  tools/k6_variants.py times what each
-//    part of this kernel costs.
+//    coalesced epilogue through shared memory by plain stores (slower; its
+//    __syncwarp made ptxas serialize the wgmmas).  tools/k6_variants.py
+//    times what each part of this kernel costs.
 
 #include <cuda_bf16.h>
 
@@ -96,7 +102,6 @@ constexpr int KC = 16;                   // channels a K chunk
 constexpr int NCONSUMER = 256;           // two warpgroups
 constexpr int NTHREADS = NCONSUMER + 128; // + the producer warpgroup
 constexpr int NCWARPS = NCONSUMER / 32;
-constexpr int NSTAGE = 4;                // copy ring stages
 
 template <int NP>
 struct Cfg {
@@ -107,8 +112,15 @@ struct Cfg {
   static constexpr int PLANE = (PLANE_TX + 127) / 128 * 128;
   static constexpr int W_TAP = NP * KC * 2;        // one tap's [16 x NP]
   static constexpr int STAGE = 2 * PLANE + 9 * W_TAP;
-  static constexpr int OFF_BAR = NSTAGE * STAGE;
-  static constexpr int SMEM = OFF_BAR + 2 * NSTAGE * 8 + 128;
+  // the output tile [TR][64][NP] bf16 that a TMA store writes out (NP >=
+  // 32; NP 128 as two 64-channel halves), 64 KB, which leaves room for 3
+  // ring stages at NP 32 and 128, 4 at 64
+  static constexpr bool TILE_OUT = NP >= 32;
+  static constexpr int OUT_BYTES = TILE_OUT ? TR * TWP * NP * 2 : 0;
+  static constexpr int NSTAGE = (NP == 32 || NP == 128) ? 3 : 4;
+  static constexpr int OFF_OUT = (NSTAGE * STAGE + 1023) / 1024 * 1024;
+  static constexpr int OFF_BAR = OFF_OUT + OUT_BYTES;
+  static constexpr int SMEM = OFF_BAR + (2 * NSTAGE + 1) * 8 + 1024;
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -127,6 +139,8 @@ struct DenseArgs {
   int act;                 // 0 none, 1 LeakyReLU(0.2)
   float res_scale;
   int out_f32;
+  int tile_out;            // y leaves through the staged tile and TMA
+  int res_tile;            // and the residual comes into it by TMA
 };
 
 struct Maps {
@@ -257,6 +271,26 @@ __device__ __forceinline__ void producer_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
 
+// The two consumer warpgroups' 256 threads meet (named barrier 2).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 2, 256;\n" ::: "memory");
+}
+
+// Byte offset of channel n of pixel px of tile row `row` in the output tile
+// as the TMA store reads it: lines of 64 channels (128 B, the 128-byte
+// swizzle; NP 128 as two halves of 64) or, at NP 32, of 32 (64 B, the
+// 64-byte swizzle), each 16-byte chunk index XORed with the line's address
+// bits 7.. as TMA's swizzle does (the tile is 1024-byte aligned).
+template <int NP>
+__device__ __forceinline__ uint32_t tile_offset(int row, int px, int n) {
+  constexpr int LINE = NP == 32 ? 64 : 128;
+  constexpr uint32_t M = NP == 32 ? 3 : 7;
+  const int half = n >> 6;
+  const uint32_t off = half * (Cfg<NP>::TR * TWP * 128) +
+                       (row * TWP + px) * LINE + (n & 63) * 2;
+  return off ^ (((off >> 7) & M) << 4);
+}
+
 __device__ __forceinline__ float residual_add(const DenseArgs& a, float v,
                                               float r) {
   return __fadd_rn(r, __fmul_rn(a.res_scale, v));
@@ -266,16 +300,20 @@ __device__ __forceinline__ float residual_add(const DenseArgs& a, float v,
 // the head of this file.
 template <int NP>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    dense_wgmma_kernel(const DenseArgs a, const __grid_constant__ Maps maps) {
+    dense_wgmma_kernel(const DenseArgs a, const __grid_constant__ Maps maps,
+                       const __grid_constant__ CUtensorMap ymap,
+                       const __grid_constant__ CUtensorMap rmap) {
   using C = Cfg<NP>;
   constexpr int MB = C::MB;
+  constexpr int NSTAGE = C::NSTAGE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t base_s = smem_u32(smem);
   const uint32_t bar_s = base_s + C::OFF_BAR;
   auto full = [&](int s) { return bar_s + 8 * s; };
   auto empty = [&](int s) { return bar_s + 8 * (NSTAGE + s); };
+  const uint32_t res_full = bar_s + 8 * (2 * NSTAGE);   // the residual tile
 
   const int tid = threadIdx.x;
   const int tiles_w = (a.W + TWP - 1) / TWP;
@@ -289,6 +327,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_init(full(s), 1);
       mbar_init(empty(s), NCWARPS);
     }
+    mbar_init(res_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -348,7 +387,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int ctid = tid, wg = ctid >> 7, wl = (ctid >> 5) & 3;
   const int lane = ctid & 31, g = lane >> 2, t = lane & 3;
   float acc[MB][NP / 2];
-  int nw = 0;
+  int nw = 0, nres = 0;
   for (int wi = blockIdx.x; wi < nwork; wi += gridDim.x) {
     const int b = wi / tiles, tile = wi % tiles;
     const int h0 = (tile / tiles_w) * C::TR, w0 = (tile % tiles_w) * TWP;
@@ -378,6 +417,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                           db);
       }
       wgmma_commit();
+      if (C::TILE_OUT && a.res_tile && ci == 0 && ctid == 0) {
+        // this item's residual into the output tile, landing while the
+        // item multiplies, once the previous item's store has read it
+        bulk_wait_read();
+        mbar_expect_tx(res_full, C::OUT_BYTES);
+#pragma unroll
+        for (int half = 0; half < (NP > 64 ? 2 : 1); ++half)
+          tma_load_4d(base_s + C::OFF_OUT + half * (C::OUT_BYTES / 2), &rmap,
+                      res_full, 64 * half, w0, h0, b);
+      }
       // keep this chunk's group in flight; the previous chunk's is done
       wgmma_wait<1>();
       if (ci > 0 && lane == 0) mbar_arrive(empty(prev));
@@ -398,8 +447,60 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         acc[mb][q] = v;
       }
     fence_operands<MB * NP / 2>(&acc[0][0]);
-    // then the residual and the store: thread rows (mb, i), columns 8 j +
-    // 2 t (+ 1)
+    if constexpr (C::TILE_OUT) {
+      if (a.tile_out) {
+        // the residual added into the staged tile, then one TMA store that
+        // runs on while the next item multiplies (it clips rows past H or
+        // W); its previous store must have read the tile first
+        unsigned char* tile = smem + C::OFF_OUT;
+        if (a.res_tile) {
+          mbar_wait(res_full, nres & 1);
+          ++nres;
+        } else {
+          if (ctid == 0) bulk_wait_read();
+          consumer_sync();
+        }
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = wg * MB + mb, px = 16 * wl + g + 8 * i;
+            const int hh = h0 + row, ww = w0 + px;
+            const bool in = hh < a.H && ww < a.W;
+            const size_t o =
+                ((static_cast<size_t>(b) * a.H + hh) * a.W + ww) * a.Cout;
+#pragma unroll
+            for (int j = 0; j < NP / 8; ++j) {
+              const int n = 8 * j + 2 * t;
+              float v0 = acc[mb][4 * j + 2 * i];
+              float v1 = acc[mb][4 * j + 2 * i + 1];
+              __nv_bfloat162* yt = reinterpret_cast<__nv_bfloat162*>(
+                  tile + tile_offset<NP>(row, px, n));
+              if (a.res_tile || (a.res != nullptr && in)) {
+                const float2 r = __bfloat1622float2(
+                    a.res_tile ? *yt
+                               : *reinterpret_cast<const __nv_bfloat162*>(
+                                     a.res + o + n));
+                v0 = residual_add(a, v0, r.x);
+                v1 = residual_add(a, v1, r.y);
+              }
+              *yt = __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        fence_proxy_async();   // the tile, before the TMA store reads it
+        consumer_sync();
+        if (ctid == 0) {
+          const uint32_t tile_s = base_s + C::OFF_OUT;
+#pragma unroll
+          for (int half = 0; half < (NP > 64 ? 2 : 1); ++half)
+            tma_store_4d(&ymap, tile_s + half * (C::OUT_BYTES / 2),
+                         64 * half, w0, h0, b);
+          bulk_commit();
+        }
+        continue;
+      }
+    }
+    // else from the fragments: thread rows (mb, i), columns 8 j + 2 t (+ 1)
     const bool pairs = (a.Cout & 1) == 0;
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
@@ -446,6 +547,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         }
       }
   }
+  // the last TMA store is done before the block's shared memory goes
+  if (C::TILE_OUT && a.tile_out && ctid == 0) bulk_wait();
 }
 
 constexpr int MAX_DEV = 64;
@@ -465,7 +568,8 @@ int sm_count(int dev) {
 }
 
 template <int NP>
-int launch(const DenseArgs& a, const Maps& maps, cudaStream_t stream) {
+int launch(const DenseArgs& a, const Maps& maps, const CUtensorMap& ymap,
+           const CUtensorMap& rmap, cudaStream_t stream) {
   using C = Cfg<NP>;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -482,7 +586,7 @@ int launch(const DenseArgs& a, const Maps& maps, cudaStream_t stream) {
   const int nwork = ((a.H + C::TR - 1) / C::TR) * ((a.W + TWP - 1) / TWP) *
                     a.B;
   dense_wgmma_kernel<NP><<<nwork < sms ? nwork : sms, NTHREADS, C::SMEM,
-                           stream>>>(a, maps);
+                           stream>>>(a, maps, ymap, rmap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -502,11 +606,37 @@ int make_maps(DenseArgs& a, Maps& maps) {
   return 0;
 }
 
+// The maps of y (the TMA store of the output tile) and of the residual
+// (its TMA load into the tile), where they apply: bf16 out, Cout = NP >= 32,
+// 16-byte aligned; a box of one 64-channel half (32 at NP 32) of [TR rows x
+// 64 pixels], swizzled as tile_offset writes it.
+template <int NP>
+void make_tile_maps(DenseArgs& a, CUtensorMap& ymap, CUtensorMap& rmap) {
+  a.tile_out = Cfg<NP>::TILE_OUT && !a.out_f32 && a.Cout == NP &&
+               reinterpret_cast<uintptr_t>(a.y) % 16 == 0;
+  a.res_tile = 0;
+  if (!a.tile_out) return;
+  const uint64_t dims[4] = {uint64_t(a.Cout), uint64_t(a.W), uint64_t(a.H),
+                            uint64_t(a.B)};
+  const uint32_t box[4] = {NP == 32 ? 32u : 64u, TWP, Cfg<NP>::TR, 1};
+  const CUtensorMapSwizzle sw = NP == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                         : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (make_map(&ymap, a.y, 4, dims, box, sw) != 0) {
+    a.tile_out = 0;   // the consumers store from the fragments instead
+    return;
+  }
+  a.res_tile = a.res != nullptr &&
+               reinterpret_cast<uintptr_t>(a.res) % 16 == 0 &&
+               make_map(&rmap, a.res, 4, dims, box, sw) == 0;
+}
+
 template <int NP>
 int run(DenseArgs& a, cudaStream_t stream) {
   Maps maps = {};
+  CUtensorMap ymap = {}, rmap = {};
   make_maps<NP>(a, maps);
-  return launch<NP>(a, maps, stream);
+  make_tile_maps<NP>(a, ymap, rmap);
+  return launch<NP>(a, maps, ymap, rmap, stream);
 }
 
 }  // namespace

@@ -14,7 +14,8 @@ after 3 warm-ups) and the wrapper's time (CUDA events, mean of 10), with
 the weights prepared beforehand as the ESRGAN chain passes them:
 
 - as-is: the kernel as it is;
-- no-stores: the epilogue computes but stores nothing;
+- no-stores: the epilogue computes (into the staged output tile where it
+  takes one) but stores nothing;
 - no-slab-loads: the producer issues no TMA slab copies (the weights still
   stream; the gathers of conv_first still run);
 - no-wgmma: the consumers issue no wgmma (the feed and the epilogue run).
@@ -37,6 +38,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {
     "as-is": [],
     "no-stores": [
+        ("            tma_store_4d(&ymap,",
+         "            if (half < 0) tma_store_4d(&ymap,"),
         ("          if (pairs) {\n            if (n < a.Cout) {",
          "          if (pairs) {\n            if (n < 0) {"),
         ("              if (n + e < a.Cout) {", "              if (n < 0) {"),
