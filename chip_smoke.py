@@ -20,8 +20,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    one 512^2 tile of the full-width ESRGAN x4 net, each shape once in the
    row's sums, with weights prepared as the chain passes them (and the
    HWIO call bit-equal), conv_body and conv_first of unshuffle 2 and 4
-   logged apart, and the launch-weighted time of one tile forward (351
-   launches) beside cuDNN's conv alone; K7: one 512^2 tile of SwinIR-M,
+   logged apart, and an estimate of K6's time in one tile forward (each
+   shape's time alone times its 351 launches there) beside cuDNN's conv
+   alone; K7: one 512^2 tile of SwinIR-M,
    unshifted and shifted, of HAT-M with its CAB residual, and a ragged
    128 x 120 tile; K7's SwinV2 body: one 512^2 tile of Swin2SR-M,
    unshifted and shifted, a window-7 grid and the ragged tile; K8: HAT-M's
@@ -63,7 +64,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
    512^2 tiles (9 tiles x 2 passes): two fast requests and one parity
    request, the fused K6 chain held to the unfused fast layers on one
-   tile, and one fast request with small_blur and local_fix;
+   tile, one tile forward measured (K6's 351 launches counted, their
+   device time from ``torch.profiler``), and one fast request with
+   small_blur and local_fix;
 8. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
    and Swin2SR-M x4 (random weights from numpy seeds) through
    ``hdr_upscale`` on a 768^2 crop of the parity image (4 tiles x 2
@@ -870,8 +873,8 @@ def _k6_case(rng, bnd, name, h, w, cins, cout, act, rs, f32):
 
 def _check_k6(rng) -> dict:
     """K6 at one 512^2 tile's shapes of the ESRGAN x4 net (the row's sums,
-    each shape once), more shapes logged apart, and the launch-weighted
-    time of one RRDBNetConfig() tile forward."""
+    each shape once), more shapes logged apart, and an estimate of K6's
+    time in one RRDBNetConfig() tile forward, launch-weighted."""
     details, extra, bnd = [], [], Bound()
     for shape in K6_SHAPES:
         text, rec = _k6_case(rng, bnd, *shape)
@@ -883,27 +886,26 @@ def _check_k6(rng) -> dict:
         log("K6 dense_conv3x3 (out of the sums) " + text)
         extra.append(rec)
         torch.cuda.empty_cache()
-    # one tile forward: each shape times its launches
+    # an estimate of K6 in one tile forward: each shape's time alone times
+    # its launches there (phase_upscale measures a forward itself)
     recs = {d["shape"][0]: d for d in details + extra}
-    forward = {k: sum(n * recs[name][k] for name, n in K6_FORWARD.items())
-               for k in ("ms", "library_ms", "flops", "bound_ms", "ops_ms",
-                         "bytes_ms")}
-    forward["launches"] = sum(K6_FORWARD.values())
-    forward["bound_by"] = ("operations" if forward["ops_ms"]
-                           >= forward["bytes_ms"] else "bytes")
-    log(f"K6 dense_conv3x3 one RRDBNetConfig() 512^2 tile forward "
-        f"({forward['launches']} launches, launch-weighted): kernel "
-        f"{forward['ms']:.3f} ms ({forward['flops'] / (forward['ms'] * 1e9):.1f}"
-        f" TFLOP/s)  conv alone {forward['library_ms']:.3f} ms  bound "
-        f"{forward['bound_ms']:.3f} ms (operations {forward['ops_ms']:.3f}, "
-        f"bytes {forward['bytes_ms']:.3f})")
+    est = {k: sum(n * recs[name][k] for name, n in K6_FORWARD.items())
+           for k in ("ms", "library_ms", "flops", "bound_ms", "ops_ms",
+                     "bytes_ms")}
+    log(f"K6 dense_conv3x3 one RRDBNetConfig() 512^2 tile forward, estimate "
+        f"(each shape's time alone x its launches there, "
+        f"{sum(K6_FORWARD.values())} in all): kernel {est['ms']:.3f} ms "
+        f"({est['flops'] / (est['ms'] * 1e9):.1f} TFLOP/s)  conv alone "
+        f"{est['library_ms']:.3f} ms  bound {est['bound_ms']:.3f} ms "
+        f"(summed over the launches; operations {est['ops_ms']:.3f}, bytes "
+        f"{est['bytes_ms']:.3f})")
     return {"name": "dense_conv3x3", "route": "cuda",
             "source": "hdrvae_torch/csrc/dense_conv.cu",
             "replaces": "hdrvae/kernels/conv3x3.py:1306",
             "max_abs_err": max(d["max_abs_err"] for d in details),
             **_summed(details), **bnd.entry(),
             "library_call": CONV_ALONE + " (on the concatenated inputs)",
-            "shapes": details, "extra": extra, "forward": forward}
+            "shapes": details, "extra": extra}
 
 
 def _swin_block(rng, dim: int, heads: int, ws: int, v2: bool = False):
@@ -1647,6 +1649,48 @@ def _upscale_request(net, image, ucfg, prec, architecture="ESRGAN"):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def _k6_forward(net, tile: torch.Tensor) -> None:
+    """One RRDBNetConfig() forward of a 512^2 tile through the K6 chain,
+    measured (its weights prepared by the calls before): K6's launches
+    from its count, K6's device time and the device's busy time from the
+    profiler's kernel events, the forward's time from CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdrvae_torch.core.config import Precision
+    from hdrvae_torch.models.rrdbnet_fused import rrdbnet_fused_apply
+    dense = _wrappers()["dense_conv3x3"]
+    dense.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd_ms = cuda_ms(lambda: rrdbnet_fused_apply(
+            net, tile, precision=Precision.fast()), iters=1, warmup=0)
+    launches = dense.launches
+    spans, k6_ms, k6_events = [], 0.0, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = evt.time_range.start, evt.time_range.end
+        spans.append((t0, t1))
+        if "dense_wgmma_kernel" in evt.name:
+            k6_ms, k6_events = k6_ms + (t1 - t0) / 1e3, k6_events + 1
+    busy, reach = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > reach:
+            busy, reach = busy + (t1 - max(t0, reach)) / 1e3, t1
+    check(launches == sum(K6_FORWARD.values()),
+          f"K6 tile forward: {launches} launches counted, "
+          f"{sum(K6_FORWARD.values())} convs")
+    shapes = {shape[0]: shape[1:5] for shape in K6_SHAPES + K6_EXTRA}
+    flops = sum(n * 2 * h * w * 9 * sum(cins) * cout
+                for name, n in K6_FORWARD.items()
+                for h, w, cins, cout in [shapes[name]])
+    rate = flops / (k6_ms * 1e9) if k6_ms else float("nan")
+    log(f"K6 in one RRDBNetConfig() 512^2 tile forward, measured: "
+        f"{launches} launches ({k6_events} kernel events), K6 device "
+        f"{k6_ms:.3f} ms ({rate:.1f} TFLOP/s, torch.profiler), device busy "
+        f"{busy:.3f} ms of the forward's {fwd_ms:.3f} ms (CUDA events)")
+
+
 def phase_upscale(image: torch.Tensor):
     from hdrvae_torch.core.config import Precision, UpscaleConfig
     from hdrvae_torch.models.rrdbnet import (RRDBNetConfig, init_rrdbnet,
@@ -1702,6 +1746,7 @@ def phase_upscale(image: torch.Tensor):
     log(f"upscale fused vs unfused fast raw 512^2 tile: max-abs {e:.4e} "
         f"(<= {bound:.4e}; max|ref| {unfused.abs().max().item():.4e})")
     del fused, unfused, results
+    _k6_forward(net, tile)
 
     res, dev_ms, wall_ms, peak = _upscale_request(
         net, image, UpscaleConfig(local_fix=True, small_blur=True),

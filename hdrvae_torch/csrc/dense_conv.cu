@@ -60,6 +60,11 @@
 //    [NP/8][2][8 n][8 k]: each (chunk, tap) slice is K-major core matrices
 //    (leading offset 128 B, stride 256 B), one contiguous bulk copy a chunk.
 //    They stream through the ring from L2; bias comes zero-padded to NP.
+//    Kept resident in shared memory instead, conv4's (10 chunks x 9 taps
+//    x 16 x 32, 90 KB) would not fit beside the 64 KB output tile and even
+//    two stages of the slab ring (228.5 KB of the 227 KB a block may hold):
+//    the tile would have to shrink or the output tile go.  What the stream
+//    costs is timed by `tools/mutate_kernels.py --time-k6 no-weight-loads`.
 //  * One commit group a chunk (9 taps x the warpgroup's m64 blocks), one
 //    group left in flight while the next chunk issues; a stage is handed
 //    back once its group has retired.
@@ -76,14 +81,14 @@
 //    the fragments instead (4 bytes a lane; still the path for conv_last
 //    and odd widths, rows and columns masked by coordinate), the epilogue
 //    ran with the tensor cores idle and took half of K6's time
-//    (tools/k6_variants.py no-stores); 16-byte stores after a transpose
-//    within each quad were no faster.
+//    (mutate_kernels.py --time-k6 no-stores); 16-byte stores after a
+//    transpose within each quad were no faster.
 //  * Tried and not kept: a ping-pong of the two warpgroups over alternate
 //    items of half the rows (faster on the 64 -> 64 tail convs, slower on
 //    the body's n32 convs, and 168 registers a thread spilled), and a
 //    coalesced epilogue through shared memory by plain stores (slower; its
-//    __syncwarp made ptxas serialize the wgmmas).  tools/k6_variants.py
-//    times what each part of this kernel costs.
+//    __syncwarp made ptxas serialize the wgmmas).
+//    `tools/mutate_kernels.py --time-k6` times what each part costs.
 
 #include <cuda_bf16.h>
 

@@ -5,7 +5,8 @@ Every conv is one :func:`dense_conv3x3`: the dense blocks' concats are
 never formed (the kernel walks its inputs as K chunks), and LeakyReLU and
 the scaled residual adds run in the conv epilogue.  Each conv's weights are
 prepared in the kernel's layout once per compute dtype and device
-(:func:`conv_weights`), not on every call.  Two steps stay torch
+(:func:`conv_weights`), not on every call, and again only when the
+parameters change.  Two steps stay torch
 ops outside the kernel, as in the JAX package: the RRDB-level
 ``x + 0.2 * h`` and the nearest-2x upsamples before ``conv_up*``.
 
@@ -36,11 +37,17 @@ from hdrvae_torch.models.rrdbnet import (RESIDUAL_SCALE, RRDB, DenseBlock,
 def conv_weights(conv: nn.Conv2d, cdt: torch.dtype,
                  cins: Sequence[int]) -> DenseWeights:
     """K6's weights of one conv for inputs of widths ``cins``, prepared
-    once per compute dtype and device and kept on the module (the network
-    is read-only): OIHW -> HWIO in ``cdt`` -> the kernel's layout, the bias
-    float32."""
-    key = (cdt, str(conv.weight.device), tuple(cins))
-    cache = conv.__dict__.setdefault("_dense_weights", {})
+    once per compute dtype and kept on the module: OIHW -> HWIO in ``cdt``
+    -> the kernel's layout, the bias float32.  The kept weights hold while
+    the conv's parameters do: a change in place (``load_state_dict``) or a
+    move to another device drops them, and they are prepared anew."""
+    stamp = tuple((str(p.device), p.data_ptr(), p._version)
+                  for p in (conv.weight, conv.bias) if p is not None)
+    kept = conv.__dict__.get("_dense_weights")
+    if kept is None or kept[0] != stamp:
+        kept = conv.__dict__["_dense_weights"] = (stamp, {})
+    cache = kept[1]
+    key = (cdt, tuple(cins))
     if key not in cache:
         cache[key] = prepare_weights(
             conv.weight.permute(2, 3, 1, 0).to(cdt).contiguous(), conv.bias,

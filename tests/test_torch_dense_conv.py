@@ -252,6 +252,26 @@ def test_chain_prepares_each_conv_once():
     assert dense_conv.prepare_weights.preparations == before + 2 * convs
 
 
+def test_chain_prepares_again_after_weights_change():
+    """The weights kept on a module follow its parameters: after
+    ``load_state_dict`` puts another net's weights in place, the chain
+    prepares each conv anew and gives that net's output, not the old
+    one's."""
+    jcfg = jrrdb.RRDBNetConfig().with_small()
+    _, net = _pair(jcfg, seed=2)
+    _, other = _pair(jcfg, seed=3)
+    x = _t(_np(6, (1, 6, 10, 3)))
+    convs = 15 * jcfg.nb + 4 + jcfg.num_upsamples
+    a = rrdbnet_fused_apply(net, x, precision=Precision.fast())
+    want = rrdbnet_fused_apply(other, x, precision=Precision.fast())
+    before = dense_conv.prepare_weights.preparations
+    net.load_state_dict(other.state_dict())
+    b = rrdbnet_fused_apply(net, x, precision=Precision.fast())
+    assert dense_conv.prepare_weights.preparations == before + convs
+    np.testing.assert_array_equal(b.numpy(), want.numpy())
+    assert not np.array_equal(a.numpy(), b.numpy())
+
+
 def test_apply_runs_layers_on_cpu():
     """``rrdbnet_apply`` takes the chain only for CUDA inputs in the fast
     tier; a CPU input runs the layers, as the JAX package does off the

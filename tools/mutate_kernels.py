@@ -12,8 +12,9 @@ target's check of ``chip_smoke`` (k1: ``_check_k1``, K1 against its
 plain version at the 1024^2 decode's six conv shapes and a ragged one;
 k2: ``_check_k2``, K2 at the decode's three upsample convs and a ragged
 one; k6: ``_check_k6``, K6 at one 512^2 tile's shapes of the ESRGAN x4 net
-and more (a ragged conv5, conv_body, conv_first of unshuffle 2 and 4); k5: ``_check_k5``, K5 against its plain
-version at the 2048^2 decode's junction and a ragged map; chain:
+and more (a ragged conv5, conv_body, conv_first of unshuffle 2 and 4);
+k5: ``_check_k5``, K5 against its plain version at the 2048^2 decode's
+junction and a ragged map; chain:
 ``_check_chain``, K10, K9 and K11 of the staged Swin chain at K7's v1
 shapes and the chain against K7; k3_3pass: ``_check_k3_3pass``, K3's
 3-pass mode against exact float32 and its plain version at N = 16,384, C
@@ -24,10 +25,34 @@ mutant that writes past an output stops the check there).  The
 checkout itself is never changed.  Exits non-zero if a mutant the check
 must catch survives; one marked ``sub-ulp`` moves each value by less than
 one bf16 ulp, below what the 5e-2 budgets can see, and is reported only.
+
+    python3 tools/mutate_kernels.py --time-k6 [as-is|no-stores|...]
+                                    (default: all; a name may repeat)
+
+times what each part of K6 (``dense_conv.cu``) costs instead: each variant
+takes one part out of the kernel in such a copy (its results are then
+wrong: these are timings only) and times K6 at ``chip_smoke.py``'s phase-3
+shapes and conv_body, each as the device time of the kernel alone
+(``torch.profiler``, mean of 10 launches after 3 warm-ups) and the
+wrapper's time (CUDA events, mean of 10), with the weights prepared
+beforehand as the ESRGAN chain passes them:
+
+- as-is: the kernel as it is;
+- no-stores: the epilogue computes (into the staged output tile where it
+  takes one) but stores nothing;
+- no-slab-loads: the producer issues no TMA slab copies (the weights still
+  stream; the gathers of conv_first still run);
+- no-weight-loads: the producer issues no weight copies (the slabs still
+  load): what the weights' stream through the ring costs, the most that
+  weights kept resident in shared memory could save;
+- no-wgmma: the consumers issue no wgmma (the feed and the epilogue run).
+
+It prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import subprocess
@@ -190,31 +215,108 @@ except torch.AcceleratorError as exc:   # a fault of the broken kernel
 """
 
 
+# --time-k6: variant -> edits (text of dense_conv.cu, its replacement)
+K6_VARIANTS = {
+    "as-is": [],
+    "no-stores": [
+        ("            tma_store_4d(&ymap,",
+         "            if (half < 0) tma_store_4d(&ymap,"),
+        ("          if (pairs) {\n            if (n < a.Cout) {",
+         "          if (pairs) {\n            if (n < 0) {"),
+        ("              if (n + e < a.Cout) {", "              if (n < 0) {"),
+    ],
+    "no-slab-loads": [
+        ("          if (tma) {\n            tma_load_4d(",
+         "          if (false) {\n            tma_load_4d("),
+        ("wbytes + (tma ? (two ? 2 : 1) * C::PLANE_TX\n"
+         "                                             : 0)", "wbytes"),
+    ],
+    "no-weight-loads": [
+        ("mbar_add_tx(full(s), wbytes + (tma", "mbar_add_tx(full(s), (tma"),
+        ("          bulk_load(st_s + 2 * C::PLANE,",
+         "          if (false) bulk_load(st_s + 2 * C::PLANE,"),
+    ],
+    "no-wgmma": [
+        ("          wgmma_ss<NP, 0>(acc[mb],",
+         "          if (ntaps < 0) wgmma_ss<NP, 0>(acc[mb],"),
+    ],
+}
+
+K6_TIME = r'''
+import sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from hdrvae_torch.kernels import _build, dense_conv
+
+_build.library()
+rng = np.random.default_rng(0)
+dev_sum = wrap_sum = 0.0
+for name, h, w, cins, cout, act, rs, f32 in cs.K6_SHAPES + cs.K6_EXTRA[:1]:
+    xs = [cs._bf16(rng, (1, h, w, c), 0.5) for c in cins]
+    kern = cs._bf16(rng, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5)
+    bias = cs._uniform(rng, -0.1, 0.1, cout)
+    kw = dict(act=act, out_dtype=torch.float32 if f32 else None)
+    if rs is not None:
+        kw.update(residual=cs._bf16(rng, (1, h, w, cout), 0.5), res_scale=rs)
+    pw = dense_conv.prepare_weights(kern, bias, cins)
+
+    def run():
+        dense_conv.dense_conv3x3(xs, pw, **kw)
+
+    wrap = cs.cuda_ms(run, iters=10, warmup=3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            run()
+        torch.cuda.synchronize()
+    dev = sum(e.device_time_total for e in prof.key_averages()
+              if "dense_wgmma_kernel" in e.key) / 10 / 1e3
+    if name != "conv_body":
+        dev_sum, wrap_sum = dev_sum + dev, wrap_sum + wrap
+    print(f"  {name:13s} device {dev:.3f} ms  wrapper {wrap:.3f} ms",
+          flush=True)
+print(f"  phase-3 sum   device {dev_sum:.3f} ms  wrapper {wrap_sum:.3f} ms",
+      flush=True)
+'''
+
+
+@contextlib.contextmanager
+def edited_copy(source: str, edits):
+    """A temporary copy of ``hdrvae_torch/`` and ``chip_smoke.py`` with
+    ``edits`` (text, replacement) made to ``csrc/source``: its directory,
+    or None if a text is not in the source exactly once."""
+    src = open(os.path.join(REPO, "hdrvae_torch", "csrc", source)).read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            yield None
+            return
+        src = src.replace(old, new)
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(REPO, "hdrvae_torch"),
+                        os.path.join(tmp, "hdrvae_torch"),
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
+        with open(os.path.join(tmp, "hdrvae_torch", "csrc", source),
+                  "w") as f:
+            f.write(src)
+        yield tmp
+
+
 def run_target(target: str) -> bool:
     """Every mutation of ``target``; True if each that must be caught
     was."""
     call, prefixes, mutations = TARGETS[target]
-    csrc = os.path.join(REPO, "hdrvae_torch", "csrc")
     ok = True
     for name, (source, text, broken, must_catch) in mutations.items():
-        src = open(os.path.join(csrc, source)).read()
-        edits = (zip(text, broken) if isinstance(text, tuple)
+        edits = (list(zip(text, broken)) if isinstance(text, tuple)
                  else [(text, broken)])
-        for old, new in edits:
-            if src.count(old) != 1:
+        with edited_copy(source, edits) as tmp:
+            if tmp is None:
                 print(f"== {name}: {source} does not hold the mutated text "
                       "once", file=sys.stderr)
                 return False
-            src = src.replace(old, new)
-        with tempfile.TemporaryDirectory() as tmp:
-            shutil.copytree(os.path.join(REPO, "hdrvae_torch"),
-                            os.path.join(tmp, "hdrvae_torch"),
-                            ignore=shutil.ignore_patterns("build",
-                                                          "__pycache__"))
-            shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
-            with open(os.path.join(tmp, "hdrvae_torch", "csrc", source),
-                      "w") as f:
-                f.write(src)
             proc = subprocess.run(
                 [sys.executable, "-c", CHECK.format(call=call)], cwd=tmp,
                 capture_output=True, text=True, timeout=900)
@@ -230,14 +332,40 @@ def run_target(target: str) -> bool:
     return ok
 
 
+def time_k6(variant: str) -> int:
+    """One variant of K6 timed; the subprocess's exit code."""
+    with edited_copy("dense_conv.cu", K6_VARIANTS[variant]) as tmp:
+        if tmp is None:
+            print(f"== {variant}: dense_conv.cu does not hold the edited "
+                  "text once", file=sys.stderr)
+            return 1
+        print(f"== {variant}", flush=True)
+        proc = subprocess.run([sys.executable, "-c", K6_TIME], cwd=tmp,
+                              capture_output=True, text=True, timeout=900)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-2000:], file=sys.stderr)
+    return proc.returncode
+
+
 def main(argv=None) -> int:
-    targets = (argv if argv is not None else sys.argv[1:]) or list(TARGETS)
-    unknown = set(targets) - set(TARGETS)
+    args = argv if argv is not None else sys.argv[1:]
+    timing = args[:1] == ["--time-k6"]
+    known = K6_VARIANTS if timing else TARGETS
+    names = args[1:] if timing else args
+    names = names or list(known)
+    unknown = set(names) - set(known)
     if unknown:
-        print(f"unknown targets {sorted(unknown)}; expected {list(TARGETS)}",
-              file=sys.stderr)
+        print(f"unknown {'variants' if timing else 'targets'} "
+              f"{sorted(unknown)}; expected {list(known)}", file=sys.stderr)
         return 2
-    results = [run_target(t) for t in targets]
+    if timing:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        print(smi.stdout.strip(), flush=True)
+        return max(time_k6(n) for n in names)
+    results = [run_target(t) for t in names]
     return 0 if all(results) else 1
 
 

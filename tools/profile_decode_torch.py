@@ -56,8 +56,11 @@ its ragged ones, K2 ``stats_only`` at the 2048^2 junction (CUDA events over
 10 launches after 2 warm-ups, 5 for stats_only), and three requests each of
 fast decodes at 1024^2 and 2048^2 and of parity and mixed ones at 1024^2;
 then K6 ``dense_conv3x3`` at ``chip_smoke.py``'s phase-3 shapes and
-conv_body (10 launches after 2 warm-ups), summed and launch-weighted over one
-``RRDBNetConfig()`` tile forward, and three fast and one parity ESRGAN x4
+conv_body (10 launches after 2 warm-ups, the table taken from this tree's
+``chip_smoke.py``), summed, and as an estimate of one ``RRDBNetConfig()``
+tile forward weighted by each shape's launches there; one such forward
+measured (K6's device time from ``torch.profiler``); and three fast and
+one parity ESRGAN x4
 ``hdr_upscale`` requests of a 1024^2 HDR image from numpy seed 1 (the
 first fast one warms up).  ``--ab-only swin conv esrgan`` picks the turns.
 
@@ -421,30 +424,28 @@ for side, tier in ((128, "fast"), (256, "fast"), (128, "parity"),
 
 
 # K6 at chip_smoke.py's phase-3 shapes and conv_body, each on its own and
-# launch-weighted over one RRDBNetConfig() 512^2 tile forward (351
-# launches), with weights prepared beforehand where the tree prepares them
-# (the kernel's main path) and the HWIO kernel otherwise; then two fast and
-# one parity ESRGAN x4 hdr_upscale requests of a 1024^2 HDR image
+# summed over phase 3's ten, with weights prepared beforehand where the tree
+# prepares them (the kernel's main path) and the HWIO kernel otherwise; an
+# estimate of K6 in one RRDBNetConfig() 512^2 tile forward (each shape's
+# time times its launches there), and one such forward measured (K6's
+# kernel events under torch.profiler, the forward by CUDA events); then
+# three fast and one parity ESRGAN x4 hdr_upscale requests of a 1024^2 HDR
+# image.  K6_TABLE becomes this tree's chip_smoke.py K6 table (an older
+# tree's chip_smoke may lack it): (name, H, W, input widths, Cout, act,
+# residual scale, float32 out, launches a tile forward, in phase 3's sum).
 AB_ESRGAN = r'''
 import time
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 from hdrvae_torch.core.config import Precision, UpscaleConfig
 from hdrvae_torch.kernels import dense_conv
 from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet
+from hdrvae_torch.models.rrdbnet_fused import rrdbnet_fused_apply
 from hdrvae_torch.upscale.pipeline import hdr_upscale
 
-# (name, H, W, input widths, Cout, act, residual scale, float32 out,
-# launches a tile forward)
-K6 = [("conv_first", 512, 512, (3,), 64, None, None, False, 1)] + [
-    (f"conv{i}", 512, 512, (64,) + (32,) * (i - 1), 32, "lrelu", None, False,
-     69) for i in range(1, 5)] + [
-    ("conv5", 512, 512, (64, 32, 32, 32, 32), 64, None, 0.2, False, 69),
-    ("conv_up1", 1024, 1024, (64,), 64, "lrelu", None, False, 1),
-    ("conv_up2", 2048, 2048, (64,), 64, "lrelu", None, False, 2),
-    ("conv_last", 2048, 2048, (64,), 3, None, None, True, 1),
-    ("conv5 ragged", 128, 120, (64, 32, 32, 32, 32), 64, None, 0.2, False, 0),
-    ("conv_body", 512, 512, (64,), 64, None, 1.0, False, 1)]
+K6 = K6_TABLE
 
 
 def ms(fn, iters=10):
@@ -467,7 +468,7 @@ def rand(rng, shape, scale=1.0):
 
 rng = np.random.default_rng(0)
 summed = forward = 0.0
-for name, h, w, cins, cout, act, rs, f32, n in K6:
+for name, h, w, cins, cout, act, rs, f32, n, in_sum in K6:
     xs = [rand(rng, (1, h, w, c), 0.5) for c in cins]
     kern = rand(rng, (3, 3, sum(cins), cout), (9 * sum(cins)) ** -0.5)
     bias = torch.zeros(cout, device="cuda")
@@ -479,16 +480,33 @@ for name, h, w, cins, cout, act, rs, f32, n in K6:
         t = ms(lambda: dense_conv.dense_conv3x3(xs, pw, **kw))
     else:
         t = ms(lambda: dense_conv.dense_conv3x3(xs, kern, bias, **kw))
-    summed += t if name != "conv_body" else 0.0
+    summed += t if in_sum else 0.0
     forward += n * t
     print(f"  K6 {name} {h}x{w} {'+'.join(map(str, cins))}->{cout}: "
           f"{t:.3f} ms", flush=True)
     del xs, kern, kw
     torch.cuda.empty_cache()
 print(f"  K6 summed over phase-3's ten shapes: {summed:.3f} ms; one "
-      f"RRDBNetConfig() tile forward, launch-weighted: {forward:.3f} ms",
-      flush=True)
+      f"RRDBNetConfig() tile forward, estimate (launch-weighted): "
+      f"{forward:.3f} ms", flush=True)
 net = init_rrdbnet(RRDBNetConfig(), seed=2, device="cuda")
+tile = torch.from_numpy((rng.standard_normal((1, 512, 512, 3)) * 1.5
+                         + 0.3).astype(np.float32)).cuda()
+fast = Precision.fast()
+rrdbnet_fused_apply(net, tile, precision=fast)   # prepares the weights
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    start.record()
+    rrdbnet_fused_apply(net, tile, precision=fast)
+    end.record()
+    torch.cuda.synchronize()
+k6 = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+      if e.device_type == DeviceType.CUDA and "dense_" in e.name]
+print(f"  K6 in one RRDBNetConfig() 512^2 tile forward, measured: "
+      f"{len(k6)} launches, K6 device {sum(k6):.3f} ms (torch.profiler); "
+      f"the forward {start.elapsed_time(end):.3f} ms (CUDA events)",
+      flush=True)
 img = torch.from_numpy((np.random.default_rng(1).standard_normal(
     (1, 1024, 1024, 3)) * 1.5 + 0.3).astype(np.float32)).cuda()
 for tier in ("fast", "fast", "fast", "parity"):
@@ -506,7 +524,19 @@ for tier in ("fast", "fast", "fast", "parity"):
           f"{1e3 * (time.perf_counter() - h0):.3f} ms", flush=True)
 '''
 
-AB_TURNS = {"swin": AB_TURN, "conv": AB_CONV, "esrgan": AB_ESRGAN}
+
+def k6_table() -> list:
+    """``chip_smoke.py``'s K6 shapes with their launches a tile forward and
+    whether phase 3 sums them (the turn's K6_TABLE)."""
+    import chip_smoke
+    return [shape + (chip_smoke.K6_FORWARD.get(shape[0], 0),
+                     shape in chip_smoke.K6_SHAPES)
+            for shape in chip_smoke.K6_SHAPES + chip_smoke.K6_EXTRA[:1]]
+
+
+AB_TURNS = {"swin": lambda: AB_TURN, "conv": lambda: AB_CONV,
+            "esrgan": lambda: AB_ESRGAN.replace("K6_TABLE",
+                                                repr(k6_table()))}
 
 
 def ab(other: str, turns) -> int:
@@ -516,7 +546,7 @@ def ab(other: str, turns) -> int:
     for label, root in (("this", here), ("other", there), ("other", there),
                         ("this", here)):
         print(f"== {label}: {root}", flush=True)
-        for turn in (AB_TURNS[t] for t in turns):
+        for turn in (AB_TURNS[t]() for t in turns):
             proc = subprocess.run([sys.executable, "-c", turn], cwd=root,
                                   env=dict(os.environ, PYTHONPATH=root),
                                   timeout=900)
