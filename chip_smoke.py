@@ -16,7 +16,10 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    each at one ragged shape of an 832 x 1216 frame, logged apart and out
    of the rows' sums, K2 also timed as the launch alone; K3 in its three
    dot modes, the 3-pass one also against exact float32 and on a ragged
-   input with peaked scores; K2 also with act="lrelu", logged apart; K6:
+   input with peaked scores, and each mode's key_valid mask (the bucketed
+   phase's live 121 x 100 of 128 x 128, and a 32 x 32 grid whose first
+   256 keys are dead), timed beside the unmasked kernel and SDPA with the
+   mask; K2 also with act="lrelu", logged apart; K6:
    one 512^2 tile of the full-width ESRGAN x4 net, each shape once in the
    row's sums, with weights prepared as the chain passes them (and the
    HWIO call bit-equal), conv_body and conv_first of unshuffle 2 and 4
@@ -49,7 +52,14 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    kernel) held to parity at the fast tier's budget; then one fast and
    one parity decode with the fused epilogue (K4) held to the default
    path's; then the epilogue in all four modes on one decoder output;
-5. large frames: fast decodes at 2048^2 and 4096^2 with the whole-image
+5. bucketed decode: the same decoder on a [1, 121, 100, 16] latent (seed
+   7) padded to its (128, 128) bucket (``BucketPolicy((64, 96, 128))``)
+   through ``hdr_decode(pad_to=)`` in each tier, each launching its
+   tier's attention kernel once with ``key_valid`` (and no fused chain),
+   held to the unbucketed decode of the same latent on the same route
+   (fast: upstack "xla"), its output [1, 968, 800, 3] and its input
+   statistics those of the unpadded latent;
+6. large frames: fast decodes at 2048^2 and 4096^2 with the whole-image
    and the streamed top level (``LOWMEM_MIN_PIXELS`` set in-process), the
    streamed one launching K5 and K2 stats_only once a request and the
    whole-image one neither, held to each other (and at 2048^2 to the
@@ -59,32 +69,33 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    itself, at the smallest latent side whose frame reaches
    ``STAGED_MIN_PIXELS``, its mid attention one 3-pass launch; each with
    its time and peak memory;
-6. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
-7. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
+7. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
+8. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
    seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
    512^2 tiles (9 tiles x 2 passes): two fast requests and one parity
    request, the fused K6 chain held to the unfused fast layers on one
    tile, one tile forward measured (K6's 351 launches counted, their
    device time from ``torch.profiler``), and one fast request with
    small_blur and local_fix;
-8. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
+9. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
    and Swin2SR-M x4 (random weights from numpy seeds) through
    ``hdr_upscale`` on a 768^2 crop of the parity image (4 tiles x 2
    passes), one fast and one parity request each; the fast one must
    launch K7 (Swin2SR: its v2 body) once per block and K8 once per OCAB
    of every tile run, the parity one neither; the fused chain is held to
    the unfused fast layers on the first tile's raw output;
-9. Swin chain: the body of the full-width SwinIR-M (seed 3) on one 512^2
+10. Swin chain: the body of the full-width SwinIR-M (seed 3) on one 512^2
    tile of the decoded image, walked twice, each block through the staged
    chain (K10 -> K9 -> K11, 36 launches each), then through K7 (36), each
    group's conv + residual after its blocks; the two bodies held to each
    other, and both walks timed;
-10. f32 dot probe: ``tools/f32_dot_probe_torch.py``'s measurement, K12's
+11. f32 dot probe: ``tools/f32_dot_probe_torch.py``'s measurement, K12's
    main path: each precision's time and error against a float64 product,
    held to its class, beside ``torch.matmul`` in float32 (TF32 off and on)
    and bf16;
-11. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K3's 3-pass
-   mode in mixed, K3 f32 in parity, K4 in the fused-epilogue decodes, K5
+12. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K3's 3-pass
+   mode in mixed, K3 f32 in parity, each of the three masked in its
+   tier's bucketed decode, K4 in the fused-epilogue decodes, K5
    and K2 stats_only in the
    low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
    fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR upscale,
@@ -186,6 +197,19 @@ FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
 STATS_BUDGET = 1e-3         # relative, on the emitted GroupNorm sums
 ATTN_BUDGET = {"parity": 1e-5, "mixed": 1e-4}
+# K3's key_valid mode at K3's N = 16,384 (a 128 x 128 grid): the live
+# region of the bucketed phase's latent, 121 x 100 of its 128 x 128 bucket;
+# and a small grid whose first key steps are all dead in every mode (the
+# first 256 keys of 32 x 32)
+K3_LIVE = (121, 100)
+K3_DEAD_HW, K3_DEAD_KEYS = 32, 256
+# the bucketed phase: a [1, 121, 100, 16] latent (seed 7) snapped to its
+# bucket by BucketPolicy(BUCKET_EDGES), decoded bucketed and unbucketed;
+# rgb (and image) max-abs budgets per tier, the fast one relative to
+# max(1, max|ref|)
+BUCKET_LATENT, BUCKET_EDGES = (121, 100), (64, 96, 128)
+BUCKET_BUDGET = {"parity": (1e-4, 1e-4), "mixed": (1e-4, 1e-3),
+                 "fast": (5e-2, None)}
 # K3's 3-pass kernel against its plain version, relative to max|ref|: both
 # take the same bf16 products, so they differ by float32 sum order and by
 # where P is split (the kernel against the running row max, the plain
@@ -313,11 +337,15 @@ class Bound:
 CONV_ALONE = "F.conv2d, bf16, channels_last (the conv alone)"
 
 
-def sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> float:
+def sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            key_valid: torch.Tensor = None) -> float:
     """``F.scaled_dot_product_attention`` of the spatial attention's
-    [1, h, w, C] q, k, v as one head of h w tokens."""
+    [1, h, w, C] q, k, v as one head of h w tokens; ``key_valid`` ([h, w]
+    bool) as its boolean ``attn_mask`` over the keys."""
     q, k, v = (t.reshape(1, 1, -1, t.shape[-1]) for t in (q, k, v))
-    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=3)
+    mask = None if key_valid is None else key_valid.reshape(1, 1, 1, -1)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters=3)
 
 
 def conv_alone_ms(x: torch.Tensor, kern: torch.Tensor) -> float:
@@ -411,14 +439,17 @@ def phase_kernels() -> list:
     log(f"K3 flash_attention_f32 N={N_TOKENS} C={C_ATTN}: parity max-abs "
         f"{e:.3e}  kernel {t:.3f} ms  plain {tp:.3f} ms  SDPA {tl:.3f} ms  "
         f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    del got
+    masked = _check_k3_masked(
+        attention.flash_attention_f32, attention.spatial_attention_reference,
+        q, k, v, lambda r: ATTN_BUDGET["parity"], t)
     entries.append({"name": "flash_attention_f32", "route": "cuda",
                     "source": "hdrvae_torch/csrc/attention.cu",
                     "replaces": "hdrvae/kernels/attention.py:210",
                     "max_abs_err": e, "ms": t, "plain_ms": tp, **b,
                     "library_ms": tl,
                     "library_call": "F.scaled_dot_product_attention, float32",
-                    "tiers": ["parity"]})
-    del got
+                    "tiers": ["parity"], "key_valid": masked})
     entries.append(_check_k3_3pass(q, k, v, ref))
 
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -436,14 +467,18 @@ def phase_kernels() -> list:
     log(f"K3 flash_attention_bf16 N={N_TOKENS} C={C_ATTN}: max-abs {e:.3e} "
         f"(budget {bound:.3e})  kernel {t:.3f} ms  plain {tp:.3f} ms  SDPA "
         f"{tl:.3f} ms  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    del got, ref
+    masked = _check_k3_masked(
+        attention.flash_attention_bf16, attention.spatial_attention_reference,
+        qb, kb, vb, bf16_ulp, t)
     entries.append({"name": "flash_attention_bf16", "route": "cuda",
                     "source": "hdrvae_torch/csrc/attention.cu",
                     "replaces": "hdrvae/kernels/attention.py:210",
                     "max_abs_err": e, "err_budget": bound, "ms": t,
                     "plain_ms": tp, **b, "library_ms": tl,
                     "library_call": "F.scaled_dot_product_attention, bf16",
-                    "tiers": ["fast"]})
-    del q, k, v, qb, kb, vb, ref, got
+                    "tiers": ["fast"], "key_valid": masked})
+    del q, k, v, qb, kb, vb
     torch.cuda.empty_cache()
     entries.append(_check_k4())
     entries.append(_check_k6(rng))
@@ -611,6 +646,63 @@ def _k3_inputs(rng, hw: int = int(N_TOKENS ** 0.5), qscale: float = 1.0):
     return q * qscale, k, v
 
 
+def _live_mask(hw: int, live: tuple) -> torch.Tensor:
+    """[hw, hw] bool on the card: True on the first live[0] rows and
+    live[1] columns."""
+    rows = torch.arange(hw, device="cuda") < live[0]
+    cols = torch.arange(hw, device="cuda") < live[1]
+    return rows[:, None] & cols[None, :]
+
+
+def _check_k3_masked(fn, plain, q, k, v, bar, t_unmasked: float) -> dict:
+    """K3's key_valid mode of one dot mode: the kernel ``fn`` against its
+    plain version with the same mask, within ``bar(ref)`` (the mode's
+    unmasked budget), at K3's inputs with the bucketed phase's live region
+    and on a small grid whose first K3_DEAD_KEYS keys are dead (finite and
+    within the bar); the masked kernel's time beside the unmasked one's,
+    and SDPA with the mask as its boolean attn_mask."""
+    hw = q.shape[1]
+    kv = _live_mask(hw, K3_LIVE)
+    got = fn(q, k, v, kv)
+    ref = plain(q, k, v, kv)
+    torch.cuda.synchronize()
+    e, b = (got - ref).abs().max().item(), bar(ref)
+    check(torch.isfinite(got).all().item() and e <= b,
+          f"K3 {fn.__name__} key_valid live {K3_LIVE}: max-abs {e} > {b}")
+    del got, ref
+    rng = np.random.default_rng(8)
+    qs, ks, vs = (torch.from_numpy(rng.standard_normal(
+        (1, K3_DEAD_HW, K3_DEAD_HW, C_ATTN)).astype(np.float32)).cuda()
+        .to(q.dtype) for _ in range(3))
+    dead = torch.ones(K3_DEAD_HW * K3_DEAD_HW, dtype=torch.bool,
+                      device="cuda")
+    dead[:K3_DEAD_KEYS] = False
+    dead = dead.reshape(K3_DEAD_HW, K3_DEAD_HW)
+    got = fn(qs, ks, vs, dead)
+    ref = plain(qs, ks, vs, dead)
+    torch.cuda.synchronize()
+    e_dead, b_dead = (got - ref).abs().max().item(), bar(ref)
+    check(torch.isfinite(got).all().item() and e_dead <= b_dead,
+          f"K3 {fn.__name__} key_valid, first {K3_DEAD_KEYS} keys dead: "
+          f"max-abs {e_dead} > {b_dead} or not finite")
+    del qs, ks, vs, got, ref
+    t = cuda_ms(lambda: fn(q, k, v, kv), iters=3)
+    tl = sdpa_ms(q, k, v, kv)
+    log(f"K3 {fn.__name__} key_valid live {K3_LIVE[0]} x {K3_LIVE[1]} of "
+        f"{hw} x {hw}: max-abs {e:.3e} (<= {b:.3e}); first {K3_DEAD_KEYS} of "
+        f"{K3_DEAD_HW ** 2} keys dead: {e_dead:.3e} (<= {b_dead:.3e})  "
+        f"masked {t:.3f} ms  unmasked {t_unmasked:.3f} ms  SDPA with the "
+        f"mask {tl:.3f} ms")
+    return {"live": list(K3_LIVE), "n": hw * hw, "max_abs_err": e,
+            "err_budget": b,
+            "first_keys_dead": {"n": K3_DEAD_HW ** 2, "dead": K3_DEAD_KEYS,
+                                "max_abs_err": e_dead,
+                                "err_budget": b_dead},
+            "ms": t, "unmasked_ms": t_unmasked, "library_ms": tl,
+            "library_call": "F.scaled_dot_product_attention, boolean "
+                            f"attn_mask, {str(q.dtype)[6:]}"}
+
+
 def _check_k3_3pass(q, k, v, ref=None) -> dict:
     """K3's 3-pass mode (the mixed tier) at K3's inputs: within
     ATTN_BUDGET["mixed"] of the exact plain version ``ref`` and within
@@ -648,6 +740,10 @@ def _check_k3_3pass(q, k, v, ref=None) -> dict:
     tp = cuda_ms(lambda: attention.spatial_attention_3pass_reference(q, k, v),
                  iters=3)
     tl = sdpa_ms(q, k, v)
+    masked = _check_k3_masked(
+        attention.flash_attention_3pass,
+        attention.spatial_attention_3pass_reference, q, k, v,
+        lambda r: K3_3PASS_REL * r.abs().max().item(), t)
     # three bf16 passes of q k^T and of p v on the tensor cores
     b = Bound().add(3 * ATTN_FLOPS, 4 * nbytes(q), PEAK_BF16)
     log(f"K3 flash_attention_3pass N={N_TOKENS} C={C_ATTN}: max-abs "
@@ -667,7 +763,7 @@ def _check_k3_3pass(q, k, v, ref=None) -> dict:
                               "max_abs_err": e_sharp, "err_budget": bar_sharp},
             "ms": t, "plain_ms": tp, **b, "library_ms": tl,
             "library_call": "F.scaled_dot_product_attention, float32",
-            "tiers": ["mixed"]}
+            "tiers": ["mixed"], "key_valid": masked}
 
 
 def _check_k2_stats_only(rng) -> dict:
@@ -1270,8 +1366,13 @@ def _wrappers() -> dict:
 
 
 def _counts() -> dict:
-    """Every counter; K2's stats_only launches under their own name."""
-    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    """Every counter; K2's stats_only launches and K3's masked ones under
+    their own names."""
+    counts = {}
+    for name, fn in _wrappers().items():
+        counts[name] = fn.launches
+        if hasattr(fn, "launches_masked"):
+            counts[name + "_masked"] = fn.launches_masked
     counts["upsample_conv3x3_stats_only"] = \
         _wrappers()["upsample_conv3x3"].stats_only_launches
     return counts
@@ -1280,6 +1381,8 @@ def _counts() -> dict:
 def _reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_masked"):
+            fn.launches_masked = 0
     _wrappers()["upsample_conv3x3"].stats_only_launches = 0
 
 
@@ -1450,9 +1553,10 @@ def phase_decode():
             epi_counts, dec)
 
 
-def _decode_request(dec, z, hcfg, prec):
-    """One hdr_decode with its summary fetched: (result, summary, device
-    ms, host wall ms, peak GiB of allocated memory)."""
+def _decode_request(dec, z, hcfg, prec, **kw):
+    """One hdr_decode (``kw``: its bucketing) with its summary fetched:
+    (result, summary, device ms, host wall ms, peak GiB of allocated
+    memory)."""
     from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1460,13 +1564,89 @@ def _decode_request(dec, z, hcfg, prec):
     end = torch.cuda.Event(enable_timing=True)
     h0 = time.perf_counter()
     start.record()
-    res = hdr_decode(dec, z, hcfg, prec)
+    res = hdr_decode(dec, z, hcfg, prec, **kw)
     end.record()
     summary = decode_summary(res)
     torch.cuda.synchronize()
     return (res, summary, start.elapsed_time(end),
             1e3 * (time.perf_counter() - h0),
             torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_bucketed(dec):
+    """The shape-bucketed decode on the full-width decoder: a [1, 121, 100,
+    16] latent (seed 7) snapped to its bucket by ``BucketPolicy``, decoded
+    through ``hdr_decode(pad_to=)`` in each tier and held to the
+    unbucketed decode of the same latent on the same route (fast: the
+    layers, upstack "xla", the route a bucketed decode takes).  Each
+    bucketed decode must run its tier's attention kernel masked and, in
+    the fast tier, no fused chain.  Returns (the masked attention launches
+    per tier, the records)."""
+    from hdrvae_torch.core.config import HDRDecodeConfig, Precision
+    from hdrvae_torch.decode.buckets import BucketPolicy
+    h, w = BUCKET_LATENT
+    z = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, h, w, dec.cfg.z_channels)).astype(np.float32)).cuda()
+    pad_to = BucketPolicy(BUCKET_EDGES).snap_hw(h, w)
+    s = dec.cfg.spatial_scale
+    cons = HDRDecodeConfig(hdr_mode="conservative", keep_standard=True)
+    tiers = {"parity": (Precision.parity(), "flash_attention_f32"),
+             "mixed": (Precision.mixed(), "flash_attention_3pass"),
+             "fast": (Precision.fast(), "flash_attention_bf16")}
+    masked, records = {}, {}
+    for name, (prec, kernel) in tiers.items():
+        ref_prec = _unfused_fast() if name == "fast" else prec
+        _reset_counts()
+        ref, ref_sum, ref_ms, _, ref_peak = _decode_request(dec, z, cons,
+                                                            ref_prec)
+        unb = _counts()
+        _reset_counts()
+        res, summary, dev_ms, wall_ms, peak = _decode_request(
+            dec, z, cons, prec, pad_to=pad_to)
+        counts = _counts()
+        masked[name] = counts[kernel + "_masked"]
+        for r in (ref, res):
+            check(tuple(r.image.shape) == (1, h * s, w * s, 3)
+                  and tuple(r.standard.shape) == (1, h * s, w * s, 3),
+                  f"bucketed {name}: image shape {tuple(r.image.shape)}")
+            check(torch.isfinite(r.image).all().item()
+                  and torch.isfinite(r.standard).all().item(),
+                  f"bucketed {name}: non-finite output")
+        check(summary["input"] == ref_sum["input"],
+              f"bucketed {name}: input stats {summary['input']} != "
+              f"unbucketed {ref_sum['input']}")
+        check(counts[kernel] == counts[kernel + "_masked"] == 1
+              and unb[kernel + "_masked"] == 0,
+              f"bucketed {name}: {kernel} launched {counts[kernel]} times, "
+              f"{counts[kernel + '_masked']} masked (unbucketed "
+              f"{unb[kernel + '_masked']}), want 1 / 1 (0)")
+        check(counts["fused_conv3x3"] == 0,
+              f"bucketed {name} ran the fused chain: {counts}")
+        e_rgb = (res.standard - ref.standard).abs().max().item()
+        e_img = (res.image - ref.image).abs().max().item()
+        b_rgb, b_img = BUCKET_BUDGET[name]
+        if name == "fast":
+            b_rgb *= max(1.0, ref.standard.abs().max().item())
+        check(e_rgb <= b_rgb, f"bucketed {name} vs unbucketed rgb max-abs "
+              f"{e_rgb} > {b_rgb}")
+        check(b_img is None or e_img <= b_img, f"bucketed {name} vs "
+              f"unbucketed conservative max-abs {e_img} > {b_img}")
+        records[name] = {"device_ms": dev_ms, "wall_ms": wall_ms,
+                         "peak_gib": peak, "unbucketed_device_ms": ref_ms,
+                         "unbucketed_peak_gib": ref_peak,
+                         "rgb_vs_unbucketed": e_rgb,
+                         "image_vs_unbucketed": e_img,
+                         "launches": {k: v for k, v in counts.items() if v}}
+        log(f"bucketed[{name}] latent {h} x {w} -> {pad_to}: device ms "
+            f"{dev_ms:.3f} (unbucketed {ref_ms:.3f}), host wall ms "
+            f"{wall_ms:.3f}, peak {peak:.3f} GiB (unbucketed "
+            f"{ref_peak:.3f}); vs unbucketed rgb max-abs {e_rgb:.3e} (<= "
+            f"{b_rgb:.3e}), conservative {e_img:.3e}"
+            + (f" (<= {b_img})" if b_img is not None else "")
+            + f"; launches {records[name]['launches']}")
+        del ref, res
+        torch.cuda.empty_cache()
+    return masked, records
 
 
 def _latent(side: int) -> torch.Tensor:
@@ -1967,6 +2147,9 @@ def main() -> int:
     phase_build()
     entries, chain_ab = phase_kernels()
     image, counts, per_tier, times, epi_counts, dec = phase_decode()
+    t_b = time.perf_counter()
+    bucket_masked, bucket_records = phase_bucketed(dec)
+    log(f"bucketed phase {time.perf_counter() - t_b:.1f} s")
     t_lf = time.perf_counter()
     lf_counts, lf_records = phase_large_frames(dec)
     del dec
@@ -1997,6 +2180,12 @@ def main() -> int:
           "parity decode never ran flash_attention_f32")
     check(epi_counts["collapse_and_stats_fused"] > 0,
           "fused-epilogue decodes never ran collapse_and_stats_fused")
+    # K3's key_valid mode: each tier's kernel masked in the bucketed phase
+    for tier, kname in (("parity", "flash_attention_f32"),
+                        ("mixed", "flash_attention_3pass"),
+                        ("fast", "flash_attention_bf16")):
+        check(bucket_masked[tier] > 0, f"bucketed {tier} decode never ran "
+              f"{kname} with key_valid")
     # each kernel's launches in the run of the path it serves
     main_path = dict(counts)
     main_path["collapse_and_stats_fused"] = epi_counts[
@@ -2022,12 +2211,17 @@ def main() -> int:
         entry["launches"] = main_path[entry["name"]]
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on its main path")
+        if "key_valid" in entry:
+            # the masked mode's main path: the bucketed decode of its tier
+            entry["key_valid"]["launches"] = bucket_masked[
+                entry["tiers"][0]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries,
                       "decode_ms": {k: v[-1][0] for k, v in times.items()},
                       "upscale_ms": {k: v[-1][0] if k in ("fast", "parity")
                                      else {t: r[0] for t, r in v.items()}
                                      for k, v in up_times.items()},
+                      "bucketed_decode": bucket_records,
                       "large_frames": lf_records,
                       "swin_chain_vs_k7": chain_ab,
                       "swin_chain": chain_record,

@@ -53,6 +53,19 @@
 // Ragged N is handled by masking: keys at or past N score -inf (and their
 // rows load as zero), queries at or past N are computed on zeros and not
 // stored.  No padded copy and no flag channel.
+//
+// key_valid (the JAX kernel's key_valid=, a shape-bucketed decode's pad
+// exclusion): an optional [N] byte per key, shared by the batch, nullptr
+// for none.  A key whose byte is 0 scores -inf like a key past N: one byte
+// load per key and step.  The JAX kernel adds -1e12 * scale to such a
+// score through a flag channel, whose weight exp(-1e12 scale - m) is 0 in
+// float32, so both give the softmax over the live keys alone.  With an
+// arbitrary mask a step can see only dead keys for a row before any live
+// one; the running max is then still -inf and exp(-inf - -inf) would be
+// NaN, so the online softmax takes 0 as its reference while the max is
+// -inf (every weight and the rescale are then 0).  That never happens
+// without a mask (key 0 is live) and leaves the unmasked arithmetic as it
+// was.
 
 #include "window_attention.cuh"
 
@@ -79,6 +92,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// whether key `key` takes part in the softmax: below N and, given a mask,
+// marked live
+__device__ __forceinline__ bool key_live(const unsigned char* kvalid,
+                                         int key, int N) {
+  return key < N && (kvalid == nullptr || __ldg(kvalid + key) != 0);
+}
+
+// the online softmax's reference max: m, or 0 while every key seen is dead
+__device__ __forceinline__ float softmax_ref(float m) {
+  return m == -INFINITY ? 0.0f : m;
 }
 
 // rows [row0, row0 + rows) of a [N, C] matrix (elem-byte elements) into
@@ -127,8 +152,8 @@ struct Bf16Layout {
 
 __global__ void __launch_bounds__(NT16) flash_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, float* __restrict__ out, int N, int C,
-    float scale) {
+    const bf16* __restrict__ v, const unsigned char* __restrict__ kvalid,
+    float* __restrict__ out, int N, int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Bf16Layout L(C);
   bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
@@ -213,7 +238,8 @@ __global__ void __launch_bounds__(NT16) flash_bf16_kernel(
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int key = kv0 + pcol + j;
-        sv[j] = key < N ? ss[prow * SLD + pcol + j] * scale : -INFINITY;
+        sv[j] = key_live(kvalid, key, N) ? ss[prow * SLD + pcol + j] * scale
+                                         : -INFINITY;
         mt = fmaxf(mt, sv[j]);
       }
 #pragma unroll
@@ -221,10 +247,11 @@ __global__ void __launch_bounds__(NT16) flash_bf16_kernel(
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float m_old = ms[prow];
       const float m_new = fmaxf(m_old, mt);
+      const float m_ref = softmax_ref(m_new);
       float rs = 0.0f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const float p = expf(sv[j] - m_new);
+        const float p = expf(sv[j] - m_ref);
         rs += p;
         ps[prow * PLD + pcol + j] = __float2bfloat16(p);
       }
@@ -233,7 +260,7 @@ __global__ void __launch_bounds__(NT16) flash_bf16_kernel(
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
       __syncwarp();
       if (tid % 8 == 0) {
-        const float alpha = expf(m_old - m_new);
+        const float alpha = expf(m_old - m_ref);
         ms[prow] = m_new;
         ls[prow] = ls[prow] * alpha + rs;
         as[prow] = alpha;
@@ -296,8 +323,8 @@ size_t f32_smem(int C) {
 
 __global__ void __launch_bounds__(NT32, 1) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int N, int C,
-    float scale) {
+    const float* __restrict__ v, const unsigned char* __restrict__ kvalid,
+    float* __restrict__ out, int N, int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = C + 4;
   float* qs = reinterpret_cast<float*>(smem);
@@ -361,24 +388,26 @@ __global__ void __launch_bounds__(NT32, 1) flash_f32_kernel(
       float mt = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        sv[r][j] = (kv0 + skey + 8 * j < N) ? sv[r][j] * scale : -INFINITY;
+        sv[r][j] = key_live(kvalid, kv0 + skey + 8 * j, N) ? sv[r][j] * scale
+                                                          : -INFINITY;
         mt = fmaxf(mt, sv[r][j]);
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float m_new = fmaxf(m_run[r], mt);
+      const float m_ref = softmax_ref(m_new);
       float rs = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(sv[r][j] - m_new);
+        const float p = expf(sv[r][j] - m_ref);
         rs += p;
         ps[(srow + r) * PLD32 + skey + 8 * j] = p;
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float alpha = expf(m_run[r] - m_new);
+      const float alpha = expf(m_run[r] - m_ref);
       m_run[r] = m_new;
       l_run[r] = l_run[r] * alpha + rs;
       if (skey == 0) as[srow + r] = alpha;
@@ -528,8 +557,8 @@ __device__ __forceinline__ void split_rows(bf16* hi, bf16* lo,
 
 __global__ void __launch_bounds__(NT3, 1) flash_3pass_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int N, int C,
-    float scale) {
+    const float* __restrict__ v, const unsigned char* __restrict__ kvalid,
+    float* __restrict__ out, int N, int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Pass3Layout L(C);
   bf16* qh = reinterpret_cast<bf16*>(smem + L.qh);
@@ -615,17 +644,20 @@ __global__ void __launch_bounds__(NT3, 1) flash_3pass_kernel(
       float mt = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        sv[j] = kv0 + pcol + j < N ? ss[prow * SLD3 + pcol + j] : -INFINITY;
+        sv[j] = key_live(kvalid, kv0 + pcol + j, N)
+                    ? ss[prow * SLD3 + pcol + j]
+                    : -INFINITY;
         mt = fmaxf(mt, sv[j]);
       }
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
       const float m_new = fmaxf(m_run, mt);
+      const float m_ref = softmax_ref(m_new);
       float rs = 0.0f;
       bf16 h[2][4], lo[2][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float p = expf(sv[j] - m_new);
+        const float p = expf(sv[j] - m_ref);
         rs += p;
         split3(p, h[j / 4][j % 4], lo[j / 4][j % 4]);
       }
@@ -638,7 +670,7 @@ __global__ void __launch_bounds__(NT3, 1) flash_3pass_kernel(
       }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
       rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      const float alpha = expf(m_run - m_new);
+      const float alpha = expf(m_run - m_ref);
       m_run = m_new;
       l_run = l_run * alpha + rs;
       if ((tid & 3) == 0) as[prow] = alpha;
@@ -711,10 +743,11 @@ __global__ void __launch_bounds__(NT3, 1) flash_3pass_kernel(
 
 extern "C" {
 
-// q, k, v [B,N,C] bf16, out [B,N,C] f32; C % 64 == 0, C <= 512.
+// q, k, v [B,N,C] bf16, out [B,N,C] f32; C % 64 == 0, C <= 512;
+// key_valid [N] bytes (0: the key is dead) or nullptr.
 int hdrvae_flash_attention_bf16(const void* q, const void* k, const void* v,
-                                void* out, int B, int N, int C, float scale,
-                                void* stream) {
+                                const void* key_valid, void* out, int B,
+                                int N, int C, float scale, void* stream) {
   const size_t smem = Bf16Layout(C).total;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -723,15 +756,17 @@ int hdrvae_flash_attention_bf16(const void* q, const void* k, const void* v,
   dim3 grid((N + BQ16 - 1) / BQ16, B);
   flash_bf16_kernel<<<grid, NT16, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<float*>(out), N, C, scale);
+      static_cast<const bf16*>(v),
+      static_cast<const unsigned char*>(key_valid), static_cast<float*>(out),
+      N, C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512
-// (cudaErrorInvalidValue otherwise).
+// (cudaErrorInvalidValue otherwise); key_valid [N] bytes or nullptr.
 int hdrvae_flash_attention_3pass(const void* q, const void* k, const void* v,
-                                 void* out, int B, int N, int C, float scale,
-                                 void* stream) {
+                                 const void* key_valid, void* out, int B,
+                                 int N, int C, float scale, void* stream) {
   if (C <= 0 || C % 64 != 0 || C > MAXC32)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Pass3Layout(C).total;
@@ -742,14 +777,17 @@ int hdrvae_flash_attention_3pass(const void* q, const void* k, const void* v,
   dim3 grid((N + BQ3 - 1) / BQ3, B);
   flash_3pass_kernel<<<grid, NT3, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), N, C, scale);
+      static_cast<const float*>(v),
+      static_cast<const unsigned char*>(key_valid), static_cast<float*>(out),
+      N, C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512.
+// q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512;
+// key_valid [N] bytes or nullptr.
 int hdrvae_flash_attention_f32(const void* q, const void* k, const void* v,
-                               void* out, int B, int N, int C, float scale,
-                               void* stream) {
+                               const void* key_valid, void* out, int B,
+                               int N, int C, float scale, void* stream) {
   const size_t smem = f32_smem(C);
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -758,7 +796,9 @@ int hdrvae_flash_attention_f32(const void* q, const void* k, const void* v,
   dim3 grid((N + BQ32 - 1) / BQ32, B);
   flash_f32_kernel<<<grid, NT32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), N, C, scale);
+      static_cast<const float*>(v),
+      static_cast<const unsigned char*>(key_valid), static_cast<float*>(out),
+      N, C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

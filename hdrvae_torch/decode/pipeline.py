@@ -9,6 +9,12 @@
 The batch runs natively through the decoder and the epilogue statistics
 span the whole batch.  Every statistic stays on the device until
 :func:`decode_summary` fetches them once.
+
+Shape buckets (``hdr_decode(shape_bucket=, pad_to=)``): the latent is
+zero-padded to its bucket, decoded with a ``layers.PadMask`` that keeps the
+pad region out of every statistic, softmax and conv halo, and the outputs
+are cropped before the epilogue, so a bucketed decode equals the unpadded
+one to float noise.  ``decode.buckets.BucketPolicy`` picks the buckets.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ from hdrvae_torch.decode.analysis import (NORM_NAMES, ConvOutAnalysis,
                                           classify_normalization)
 from hdrvae_torch.decode.modes import apply_mode, build_recovery_maps
 from hdrvae_torch.kernels.epilogue import collapse_and_stats
-from hdrvae_torch.models.decoder import Decoder, decoder_apply
-from hdrvae_torch.models.layers import conv2d
+from hdrvae_torch.models.decoder import Decoder, DecodeOutput, decoder_apply
+from hdrvae_torch.models.layers import PadMask, conv2d
 
 # Test hook: replaces decode.staged.STAGED_MIN_PIXELS as hdr_decode's
 # threshold for the staged route (None: the real constant).
@@ -108,34 +114,12 @@ def _to_nhwc(latent: torch.Tensor, zc: int) -> torch.Tensor:
                      f"z_channels={zc})")
 
 
-@torch.no_grad()
-def hdr_decode(decoder: Decoder, latent: torch.Tensor,
-               cfg: HDRDecodeConfig = HDRDecodeConfig(),
-               precision: Precision = Precision()) -> HDRDecodeResult:
-    """Decode a latent to a linear HDR image.
-
-    ``latent`` is [B, h, w, z_channels] NHWC (or [B, z, h, w] NCHW) on the
-    decoder's device.  Returns an :class:`HDRDecodeResult` whose ``stats``
-    are still device tensors.
-
-    Large frames: a batch-1 mixed decode of at least
-    ``decode.staged.STAGED_MIN_PIXELS`` output pixels goes through the
-    staged executor (the same function in bounded memory) unless it sets
-    ``fast_head_levels`` (the staged executor runs the whole decoder in the
-    mixed tier); a fast decode streams its top level from
-    ``models.fused_tail.LOWMEM_MIN_PIXELS``.
-    """
-    latent = _to_nhwc(latent, decoder.cfg.z_channels)
-    dcfg = decoder.cfg
-    if (precision.mode == "mixed" and precision.fast_head_levels == 0
-            and latent.shape[0] == 1 and dcfg.num_levels >= 2):
-        from hdrvae_torch.decode import staged as _staged
-        s = dcfg.spatial_scale
-        threshold = (_STAGED_MIN_PIXELS_OVERRIDE
-                     or _staged.STAGED_MIN_PIXELS)
-        if (latent.shape[1] * s) * (latent.shape[2] * s) >= threshold:
-            return _staged.staged_hdr_decode(decoder, latent, cfg, precision)
-    out = decoder_apply(decoder, latent, precision=precision)
+def _epilogue_and_stats(decoder: Decoder, out: DecodeOutput,
+                        latent: torch.Tensor, cfg: HDRDecodeConfig,
+                        precision: Precision) -> HDRDecodeResult:
+    """The epilogue and the stats record of a decoder output.  ``latent``
+    is the unpadded latent, so ``stats["input"]`` never counts pad
+    pixels."""
     image, used_fallback, analysis = hdr_epilogue(out.rgb, out.pre_conv_out,
                                                   cfg)
     stats = {
@@ -157,6 +141,78 @@ def hdr_decode(decoder: Decoder, latent: torch.Tensor,
     standard = out.rgb if cfg.keep_standard else None
     return HDRDecodeResult(image=image, standard=standard, stats=stats,
                            used_fallback=used_fallback)
+
+
+def _bucket_target(hw: Tuple[int, int], shape_bucket: int,
+                   pad_to: Optional[Tuple[int, int]]
+                   ) -> Optional[Tuple[int, int]]:
+    """The padded (h, w) a bucketed decode runs at, or None for the
+    unbucketed decode.  ``pad_to`` is taken even when it equals the latent
+    (a full-valid mask: one decoder shape a bucket); ``shape_bucket`` pads
+    only a latent that is no multiple of it."""
+    h, w = hw
+    if pad_to is not None:
+        if pad_to[0] < h or pad_to[1] < w:
+            raise ValueError(f"pad_to {tuple(pad_to)} smaller than latent "
+                             f"{(h, w)}")
+        return int(pad_to[0]), int(pad_to[1])
+    if shape_bucket > 0 and (h % shape_bucket or w % shape_bucket):
+        return -(-h // shape_bucket) * shape_bucket, \
+            -(-w // shape_bucket) * shape_bucket
+    return None
+
+
+@torch.no_grad()
+def hdr_decode(decoder: Decoder, latent: torch.Tensor,
+               cfg: HDRDecodeConfig = HDRDecodeConfig(),
+               precision: Precision = Precision(), *,
+               shape_bucket: int = 0,
+               pad_to: Optional[Tuple[int, int]] = None) -> HDRDecodeResult:
+    """Decode a latent to a linear HDR image.
+
+    ``latent`` is [B, h, w, z_channels] NHWC (or [B, z, h, w] NCHW) on the
+    decoder's device.  Returns an :class:`HDRDecodeResult` whose ``stats``
+    are still device tensors.
+
+    Shape buckets: with ``pad_to`` (e.g. ``BucketPolicy.snap_hw(h, w)``;
+    smaller than the latent raises ``ValueError``) or ``shape_bucket > 0``
+    (pad h and w up to its multiples), the latent is zero-padded, decoded
+    with a ``PadMask`` on the layers, and rgb and the pre map are cropped
+    to ``(h, w) * spatial_scale`` before the epilogue.  The result equals
+    the unbucketed decode to float noise.
+
+    Large frames: a batch-1 mixed decode of at least
+    ``decode.staged.STAGED_MIN_PIXELS`` output pixels goes through the
+    staged executor (the same function in bounded memory) unless it sets
+    ``fast_head_levels`` (the staged executor runs the whole decoder in the
+    mixed tier) or buckets (a bucketed decode stays whole-image, as in the
+    JAX package); a fast decode streams its top level from
+    ``models.fused_tail.LOWMEM_MIN_PIXELS``.
+    """
+    latent = _to_nhwc(latent, decoder.cfg.z_channels)
+    dcfg = decoder.cfg
+    if (precision.mode == "mixed" and precision.fast_head_levels == 0
+            and latent.shape[0] == 1 and shape_bucket == 0
+            and pad_to is None and dcfg.num_levels >= 2):
+        from hdrvae_torch.decode import staged as _staged
+        s = dcfg.spatial_scale
+        threshold = (_STAGED_MIN_PIXELS_OVERRIDE
+                     or _staged.STAGED_MIN_PIXELS)
+        if (latent.shape[1] * s) * (latent.shape[2] * s) >= threshold:
+            return _staged.staged_hdr_decode(decoder, latent, cfg, precision)
+    h, w = latent.shape[1], latent.shape[2]
+    target = _bucket_target((h, w), shape_bucket, pad_to)
+    if target is None:
+        out = decoder_apply(decoder, latent, precision=precision)
+    else:
+        padded = torch.nn.functional.pad(
+            latent, (0, 0, 0, target[1] - w, 0, target[0] - h))
+        out = decoder_apply(decoder, padded, precision=precision,
+                            tape=PadMask(target[0], target[1], h, w))
+        s = dcfg.spatial_scale
+        out = DecodeOutput(rgb=out.rgb[:, :h * s, :w * s],
+                           pre_conv_out=out.pre_conv_out[:, :h * s, :w * s])
+    return _epilogue_and_stats(decoder, out, latent, cfg, precision)
 
 
 def decode_summary(result: HDRDecodeResult) -> Dict[str, Any]:

@@ -48,9 +48,9 @@ SIGNATURES = {
     # upconv.cu
     "hdrvae_upconv_gn_conv3x3": [_P] * 9 + [_I] * 6 + [_P],
     # attention.cu
-    "hdrvae_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "hdrvae_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "hdrvae_flash_attention_3pass": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "hdrvae_flash_attention_bf16": [_P] * 5 + [_I, _I, _I, _F, _P],
+    "hdrvae_flash_attention_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
+    "hdrvae_flash_attention_3pass": [_P] * 5 + [_I, _I, _I, _F, _P],
     # dense_conv.cu
     "hdrvae_dense_conv3x3": [_P] * 5 + [_I] * 5 + [_I, _P, _P, _P, _P,
                                                    _I, _I, _I, _I, _I, _I,

@@ -17,6 +17,12 @@ the layers ("auto" in parity and mixed, or "xla") run them on PyTorch's
 ops with the mid attention through the tier's flash kernel: exact float32
 in parity, the 3-pass bf16x3 kernel in mixed, the bf16 one in the fast
 tier and in a mixed head with ``fast_head_levels``.
+
+A ``tape`` (``layers.PadMask``) makes a zero-padded latent decode as the
+unpadded one would, where the JAX decoder masks: the latent after its
+prescale, every GroupNorm's statistics and output, each ResNet block's
+``x + h``, and the mid attention's keys.  A taped decode runs on the
+layers in every tier, as the JAX package keeps it off its Pallas chain.
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ from torch import nn
 
 from hdrvae_torch.core.config import DecoderConfig, Precision
 from hdrvae_torch.kernels.attention import spatial_attention
-from hdrvae_torch.models.layers import (EPS, Moments, conv2d, group_norm,
-                                        group_norm_silu, nearest_upsample_2x)
+from hdrvae_torch.models.layers import (EPS, Moments, PadMask, conv2d,
+                                        group_norm, group_norm_silu,
+                                        nearest_upsample_2x)
 
 
 class DecodeOutput(NamedTuple):
@@ -116,30 +123,39 @@ class Decoder(nn.Module):
 
 
 def resnet_block(x: torch.Tensor, blk: ResnetBlock, *, num_groups: int,
-                 precision: Precision) -> torch.Tensor:
+                 precision: Precision,
+                 tape: Optional[PadMask] = None) -> torch.Tensor:
     """One ResNet block on the layers' own ops, whole image: x [B, H, W,
     Cin] -> [B, H, W, Cout] (the staged decode runs the head's last level
-    through it)."""
+    through it).  With a tape, x + h is zeroed on the pad region: the conv
+    biases write there, and the next conv must see zeros."""
     h = group_norm_silu(x, blk.norm1, num_groups=num_groups,
-                        precision=precision)
+                        precision=precision, tape=tape)
     h = conv2d(h, blk.conv1, precision=precision)
     h = group_norm_silu(h, blk.norm2, num_groups=num_groups,
-                        precision=precision)
+                        precision=precision, tape=tape)
     h = conv2d(h, blk.conv2, precision=precision)
     if hasattr(blk, "nin_shortcut"):
         x = conv2d(x, blk.nin_shortcut, precision=precision)
-    return x + h
+    out = x + h
+    if tape is not None:
+        out.mul_(tape.mask(out))
+    return out
 
 
 def attn_block(x: torch.Tensor, attn: AttnBlock, *, num_groups: int,
-               precision: Precision) -> torch.Tensor:
+               precision: Precision,
+               tape: Optional[PadMask] = None) -> torch.Tensor:
     """Single-head spatial self-attention with residual; plain GroupNorm
-    (no SiLU) before the 1x1 q/k/v projections."""
-    h = group_norm(x, attn.norm, num_groups=num_groups, precision=precision)
+    (no SiLU) before the 1x1 q/k/v projections.  With a tape the pad
+    tokens are no keys; x + h is not masked (the next GroupNorm is)."""
+    h = group_norm(x, attn.norm, num_groups=num_groups, precision=precision,
+                   tape=tape)
     q = conv2d(h, attn.q, precision=precision)
     k = conv2d(h, attn.k, precision=precision)
     v = conv2d(h, attn.v, precision=precision)
-    h = spatial_attention(q, k, v, precision=precision)
+    key_valid = tape.key_valid(x) if tape is not None else None
+    h = spatial_attention(q, k, v, precision=precision, key_valid=key_valid)
     h = conv2d(h, attn.proj_out, precision=precision)
     return x + h
 
@@ -150,13 +166,15 @@ def attn_block(x: torch.Tensor, attn: AttnBlock, *, num_groups: int,
 
 
 def _up_level(dec: Decoder, x: torch.Tensor, level: int,
-              precision: Precision) -> torch.Tensor:
+              precision: Precision,
+              tape: Optional[PadMask] = None) -> torch.Tensor:
     """Up level ``level``: its ResNet blocks, then (above level 0) the
-    nearest 2x upsample and its conv."""
+    nearest 2x upsample and its conv (not masked: the next GroupNorm
+    is)."""
     up = dec.up[level]
     for blk in up.block:
         x = resnet_block(x, blk, num_groups=dec.cfg.num_groups,
-                         precision=precision)
+                         precision=precision, tape=tape)
     if level != 0:
         x = conv2d(nearest_upsample_2x(x), up.upsample.conv,
                    precision=precision)
@@ -166,7 +184,8 @@ def _up_level(dec: Decoder, x: torch.Tensor, level: int,
 @torch.no_grad()
 def decoder_head(dec: Decoder, z: torch.Tensor, *,
                  precision: Precision = Precision(),
-                 tail_levels: int = 0) -> torch.Tensor:
+                 tail_levels: int = 0,
+                 tape: Optional[PadMask] = None) -> torch.Tensor:
     """Latent prescale, conv_in, the mid (with the global attention) and
     the up levels above ``tail_levels``, on the layers' own ops.  With the
     default 0 that is every level: the pre-norm_out map.  Output
@@ -174,20 +193,24 @@ def decoder_head(dec: Decoder, z: torch.Tensor, *,
 
     conv_in and the mid run at ``precision.head_precision()`` and each up
     level at ``precision.for_level(level)``: all at ``precision`` unless a
-    mixed tier sets ``fast_head_levels``."""
+    mixed tier sets ``fast_head_levels``.  With a tape the prescaled
+    latent's pad region is zeroed (the shift writes there) before
+    conv_in."""
     cfg = dec.cfg
     hp = precision.head_precision()
-    x = conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
-               precision=hp)
+    z = z / cfg.scale_factor + cfg.shift_factor
+    if tape is not None:
+        z = tape.mask_output(z)
+    x = conv2d(z, dec.conv_in, precision=hp)
     x = resnet_block(x, dec.mid.block_1, num_groups=cfg.num_groups,
-                     precision=hp)
+                     precision=hp, tape=tape)
     if cfg.attn_mid:
         x = attn_block(x, dec.mid.attn_1, num_groups=cfg.num_groups,
-                       precision=hp)
+                       precision=hp, tape=tape)
     x = resnet_block(x, dec.mid.block_2, num_groups=cfg.num_groups,
-                     precision=hp)
+                     precision=hp, tape=tape)
     for level in reversed(range(tail_levels, cfg.num_levels)):
-        x = _up_level(dec, x, level, precision.for_level(level))
+        x = _up_level(dec, x, level, precision.for_level(level), tape)
     return x
 
 
@@ -196,17 +219,19 @@ def decoder_tail(dec: Decoder, x: torch.Tensor, *,
                  precision: Precision = Precision(),
                  tail_levels: int = 0,
                  apply_conv_out: bool = True,
-                 moments: Optional[Moments] = None) -> DecodeOutput:
+                 moments: Optional[Moments] = None,
+                 tape: Optional[PadMask] = None) -> DecodeOutput:
     """Up levels ``tail_levels - 1 .. 0`` (none by default), each at
     ``precision.for_level(level)``, and norm_out + SiLU (+ conv_out and the
     output mapping) at ``precision``, on a :func:`decoder_head` output of
     the same ``tail_levels``.  ``moments`` are norm_out's input moments
-    when the producer already reduced them (the fused chain)."""
+    when the producer already reduced them (the fused chain); ``tape`` the
+    decode's pad mask, if any."""
     cfg = dec.cfg
     for level in reversed(range(tail_levels)):
-        x = _up_level(dec, x, level, precision.for_level(level))
+        x = _up_level(dec, x, level, precision.for_level(level), tape)
     x = group_norm_silu(x, dec.norm_out, num_groups=cfg.num_groups,
-                        precision=precision, moments=moments)
+                        precision=precision, moments=moments, tape=tape)
     # Kept in the storage dtype (bf16 in the fast tier): the epilogue's
     # passes over this map are bound by memory traffic.
     pre_conv_out = x.to(precision.storage_dtype)
@@ -223,7 +248,8 @@ def decoder_tail(dec: Decoder, x: torch.Tensor, *,
 @torch.no_grad()
 def decoder_apply(dec: Decoder, z: torch.Tensor, *,
                   precision: Precision = Precision(),
-                  apply_conv_out: bool = True) -> DecodeOutput:
+                  apply_conv_out: bool = True,
+                  tape: Optional[PadMask] = None) -> DecodeOutput:
     """Decode a latent ``z`` [B, h, w, z_channels] (NHWC) to
     ``DecodeOutput(rgb, pre_conv_out)`` in one forward.
 
@@ -234,17 +260,24 @@ def decoder_apply(dec: Decoder, z: torch.Tensor, *,
     (exact float32 in parity; the 3-pass bf16x3 kernel in mixed, or the
     bf16 one in a head with ``fast_head_levels``).  "xla": the layers in
     every tier.  "pallas": the fused chain, which takes only the fast tier
-    (on a CPU tensor its kernels' plain versions run).
+    and no tape (on a CPU tensor its kernels' plain versions run).
+
+    ``tape``: a ``layers.PadMask`` for a zero-padded latent; the decode
+    then runs on the layers whatever ``upstack`` says, except "pallas",
+    which raises.
     """
-    if precision.upstack == "pallas" and precision.mode != "fast":
+    if precision.upstack == "pallas" and (precision.mode != "fast"
+                                          or tape is not None):
         raise ValueError(
             "precision.upstack='pallas' runs the fused chain, which takes "
-            f"only the fast tier (got mode={precision.mode!r})")
-    if precision.mode == "fast" and precision.upstack != "xla":
+            f"only the fast tier and no tape (got mode={precision.mode!r}, "
+            f"tape={tape!r})")
+    if (precision.mode == "fast" and precision.upstack != "xla"
+            and tape is None):
         from hdrvae_torch.models.fused_tail import forward
         pre, moments = forward(dec, z, precision=precision)
         return decoder_tail(dec, pre, precision=precision,
                             apply_conv_out=apply_conv_out, moments=moments)
-    x = decoder_head(dec, z, precision=precision)
+    x = decoder_head(dec, z, precision=precision, tape=tape)
     return decoder_tail(dec, x, precision=precision,
-                        apply_conv_out=apply_conv_out)
+                        apply_conv_out=apply_conv_out, tape=tape)

@@ -293,6 +293,59 @@ def test_flash_attention_3pass(dev, hw, c, qscale):
         torch.testing.assert_close(got, exact, rtol=0, atol=1e-4)
 
 
+# key_valid masks as (grid, live rows, live columns): a bucketed grid's
+# live rectangle (11 x 13 of 16 x 16), the first 64 keys dead (the first
+# key step of every mode sees no live key), the first 256 of 32 x 32 dead
+KEY_MASKS = {"live 11 x 13": ((16, 16), slice(0, 11), slice(0, 13)),
+             "first 64 dead": ((16, 16), slice(4, None), slice(None)),
+             "first 256 dead": ((32, 32), slice(8, None), slice(None))}
+
+
+@pytest.mark.parametrize("case", sorted(KEY_MASKS))
+@pytest.mark.parametrize("c", [64, 512])
+def test_flash_attention_key_valid(dev, case, c):
+    """K3's key_valid mode in its three dot modes against their plain
+    versions with the same mask, each at its unmasked bar: exact float32
+    1e-5, 3-pass 2^-16 of the largest output, bf16 one ulp of it; finite
+    where the first key steps are all dead; each a masked launch."""
+    hw, rows, cols = KEY_MASKS[case]
+    mask = np.zeros(hw, bool)
+    mask[rows, cols] = True
+    kv = torch.from_numpy(mask).to(dev)
+    q, k, v = (_rand(dev, (2, *hw, c), 1.0, torch.float32, seed=s)
+               for s in range(3))
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    modes = (
+        (attention.flash_attention_f32, attention.spatial_attention_reference,
+         (q, k, v), lambda r: 1e-5),
+        (attention.flash_attention_3pass,
+         attention.spatial_attention_3pass_reference, (q, k, v),
+         lambda r: 2.0 ** -16 * r.abs().max().item()),
+        (attention.flash_attention_bf16, attention.spatial_attention_reference,
+         (qb, kb, vb), _ulp_bound))
+    for fn, plain, args, bar in modes:
+        before = (fn.launches, fn.launches_masked)
+        got = fn(*args, key_valid=kv)
+        assert (fn.launches, fn.launches_masked) == (before[0] + 1,
+                                                     before[1] + 1)
+        ref = plain(*args, key_valid=kv)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), fn.__name__
+        err = (got - ref).abs().max().item()
+        assert err <= bar(ref), (fn.__name__, err)
+
+
+def test_flash_attention_key_valid_refused(dev):
+    q = torch.zeros(1, 4, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="key_valid"):
+        attention.flash_attention_f32(q, q, q, torch.ones(4, 3, device=dev,
+                                                          dtype=torch.bool))
+    with pytest.raises(ValueError, match="key_valid"):
+        attention.flash_attention_bf16(q.bfloat16(), q.bfloat16(),
+                                       q.bfloat16(),
+                                       torch.ones(4, 4, dtype=torch.bool))
+
+
 def test_mixed_tier_attention_routes(dev):
     """On the card the mixed tier launches the 3-pass kernel, parity the
     exact float32 one, a mixed head with fast_head_levels the bf16 one."""

@@ -185,12 +185,13 @@ def test_port_never_imports_jax():
         "from hdrvae_torch.kernels import _build, attention, conv3x3, "
         "epilogue\n"
         "from hdrvae_torch.decode import formatting, analysis, modes, "
-        "pipeline, staged\n"
+        "pipeline, staged, buckets\n"
         "from hdrvae_torch.io import exr\n"
         "cfg = config.DecoderConfig().with_small()\n"
         "dec = params.init_decoder(cfg, 0, device='cpu')\n"
         "z = torch.zeros(1, 4, 4, 4)\n"
-        "r = pipeline.hdr_decode(dec, z, precision=config.Precision.fast())\n"
+        "r = pipeline.hdr_decode(dec, z, precision=config.Precision.fast())\n"        "pipeline.hdr_decode(dec, z[:, :3], precision=config.Precision.fast(), "
+        "pad_to=buckets.BucketPolicy((4, 8)).snap_hw(3, 4))\n"
         "staged.staged_hdr_decode(dec, z)\n"
         "m = fused_tail._entry_moments(torch.zeros(1, 4, 4, 32), 4)\n"
         "fused_tail.upstack_apply(dec, torch.zeros(1, 4, 4, 32), m, "
