@@ -9,14 +9,16 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 1. device: the card's name and power limit, as the line nvidia-smi prints;
 2. build: compile the kernels, print the build time and ptxas' register
    and spill report, and the count of HGMMA (wgmma) instructions in the
-   SASS of K1/K2's and K6's kernels (``cuobjdump --dump-sass``), which must
-   not be 0;
+   SASS of K1/K2's, K6's and K3 bf16's kernels (``cuobjdump
+   --dump-sass``), which must not be 0, with K3 bf16's registers and spills
+   per instance;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1-K4: a 1024^2 decode, and K1 and K2
    each at one ragged shape of an 832 x 1216 frame, logged apart and out
    of the rows' sums, K2 also timed as the launch alone; K3 in its three
-   dot modes, the 3-pass one also against exact float32 and on a ragged
-   input with peaked scores, and each mode's key_valid mask (the bucketed
+   dot modes, the 3-pass one also against exact float32, the 3-pass and
+   bf16 ones on a ragged input with peaked scores, the bf16 one also at
+   batch 2 and C = 64, and each mode's key_valid mask (the bucketed
    phase's live 121 x 100 of 128 x 128, and a 32 x 32 grid whose first
    256 keys are dead), timed beside the unmasked kernel and SDPA with the
    mask; K2 also with act="lrelu", logged apart; K6:
@@ -114,6 +116,7 @@ import functools
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -151,6 +154,10 @@ ATTN_FLOPS = 4 * N_TOKENS * N_TOKENS * C_ATTN   # q k^T and p v, one pass
 # so the scores have std ~8 and the softmax is peaked: there the order of
 # the scale and the split (2^-16 of each score) reaches the output
 K3_SHARP_HW, K3_SHARP_QSCALE = 100, 8.0
+# K3 bf16 also at batch 2, C = 64 and ragged N (33 x 47 = 1,551 tokens, no
+# multiple of its 64-key steps): one 64-column box a consumer warpgroup, so
+# the second multiplies a zero box; [B, H, W, C]
+K3_BATCH2 = (2, 33, 47, 64)
 # K6 at one 512^2 tile of the x4 net: (name, H, W, input widths, Cout,
 # act, residual scale or None, float32 out)
 K6_SHAPES = [("conv_first", 512, 512, (3,), 64, None, None, False)] + [
@@ -383,12 +390,48 @@ def phase_build() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
     for name, kernel in (("K1/K2", "conv_wgmma_kernel"),
-                         ("K6", "dense_wgmma_kernel")):
+                         ("K6", "dense_wgmma_kernel"),
+                         ("K3 bf16", "flash_bf16_kernel")):
         n, funcs = hgmma_count(path, kernel)
         log(f"SASS: {n} HGMMA instructions in {name}'s {kernel} "
             f"({funcs} instances)")
         check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
               "SASS)")
+    # K3 bf16's registers and spills per C / 64 instance, and any ptxas
+    # warning (a serialized wgmma is one)
+    for inst, (regs, stores, loads) in ptxas_report(compiler_log,
+                                                    "flash_bf16_kernel"):
+        log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads")
+    for line in compiler_log.splitlines():
+        if "warning" in line.lower() or ("flash_bf16_kernel" in line
+                                         and "(C7" in line):
+            log("  ptxas:", line.strip())
+
+
+def ptxas_report(compiler_log: str, kernel: str) -> list:
+    """[(instance, (registers, spill store bytes, spill load bytes))] of
+    every instance of ``kernel`` in ``nvcc -Xptxas -v``'s log (empty when
+    the library was reused, not built)."""
+    rows, inst, spills = [], None, (0, 0)
+    for line in compiler_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            inst = m.group(1) if kernel in m.group(1) else None
+            continue
+        if inst is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            ilit = re.search(r"ILi(\d+)E", inst)
+            name = f"{kernel}<{ilit.group(1)}>" if ilit else inst
+            rows.append((name, (int(m.group(1)), *spills)))
+            inst, spills = None, (0, 0)
+    return rows
 
 
 def hgmma_count(lib: str, kernel: str) -> tuple:
@@ -451,34 +494,8 @@ def phase_kernels() -> list:
                     "library_call": "F.scaled_dot_product_attention, float32",
                     "tiers": ["parity"], "key_valid": masked})
     entries.append(_check_k3_3pass(q, k, v, ref))
-
-    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    got = attention.spatial_attention(qb, kb, vb, precision=Precision.fast())
-    ref = attention.spatial_attention_reference(qb, kb, vb)
-    torch.cuda.synchronize()
-    e = (got - ref).abs().max().item()
-    bound = bf16_ulp(ref)
-    check(e <= bound, f"K3 fast: max-abs {e} > {bound}")
-    t = cuda_ms(lambda: attention.flash_attention_bf16(qb, kb, vb), iters=3)
-    tp = cuda_ms(lambda: attention.spatial_attention_reference(qb, kb, vb),
-                 iters=3)
-    tl = sdpa_ms(qb, kb, vb)
-    b = Bound().add(ATTN_FLOPS, 4 * nbytes(qb))
-    log(f"K3 flash_attention_bf16 N={N_TOKENS} C={C_ATTN}: max-abs {e:.3e} "
-        f"(budget {bound:.3e})  kernel {t:.3f} ms  plain {tp:.3f} ms  SDPA "
-        f"{tl:.3f} ms  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
-    del got, ref
-    masked = _check_k3_masked(
-        attention.flash_attention_bf16, attention.spatial_attention_reference,
-        qb, kb, vb, bf16_ulp, t)
-    entries.append({"name": "flash_attention_bf16", "route": "cuda",
-                    "source": "hdrvae_torch/csrc/attention.cu",
-                    "replaces": "hdrvae/kernels/attention.py:210",
-                    "max_abs_err": e, "err_budget": bound, "ms": t,
-                    "plain_ms": tp, **b, "library_ms": tl,
-                    "library_call": "F.scaled_dot_product_attention, bf16",
-                    "tiers": ["fast"], "key_valid": masked})
-    del q, k, v, qb, kb, vb
+    entries.append(_check_k3_bf16(q, k, v))
+    del q, k, v, ref
     torch.cuda.empty_cache()
     entries.append(_check_k4())
     entries.append(_check_k6(rng))
@@ -701,6 +718,72 @@ def _check_k3_masked(fn, plain, q, k, v, bar, t_unmasked: float) -> dict:
             "ms": t, "unmasked_ms": t_unmasked, "library_ms": tl,
             "library_call": "F.scaled_dot_product_attention, boolean "
                             f"attn_mask, {str(q.dtype)[6:]}"}
+
+
+def _check_k3_bf16(q, k, v) -> dict:
+    """K3's bf16 mode (the fast tier) within one bf16 ulp of the largest
+    output of the exact plain version on the same bf16 values: at K3's
+    inputs (float32 q, k, v, rounded here), on the 3-pass check's ragged,
+    peaked input (K3_SHARP_HW^2 tokens, q x K3_SHARP_QSCALE) and on
+    K3_BATCH2; then its key_valid records.  Times the kernel (and its
+    TFLOP/s), its plain version and SDPA bf16 at K3's inputs."""
+    from hdrvae_torch.core.config import Precision
+    from hdrvae_torch.kernels import attention
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = attention.spatial_attention(qb, kb, vb, precision=Precision.fast())
+    ref = attention.spatial_attention_reference(qb, kb, vb)
+    torch.cuda.synchronize()
+    e = (got - ref).abs().max().item()
+    bound = bf16_ulp(ref)
+    check(torch.isfinite(got).all().item() and e <= bound,
+          f"K3 fast: max-abs {e} > {bound}")
+    del got, ref
+    records = {}
+    sharp = _k3_inputs(np.random.default_rng(7), K3_SHARP_HW,
+                       K3_SHARP_QSCALE)
+    rng = np.random.default_rng(9)
+    batch2 = [torch.from_numpy(rng.standard_normal(K3_BATCH2).astype(
+        np.float32)).cuda() for _ in range(3)]
+    for label, inputs, qscale in (("ragged_peaked", sharp, K3_SHARP_QSCALE),
+                                  ("batch2_c64", batch2, 1.0)):
+        qs, ks, vs = (x.bfloat16() for x in inputs)
+        got = attention.flash_attention_bf16(qs, ks, vs)
+        r = attention.spatial_attention_reference(qs, ks, vs)
+        torch.cuda.synchronize()
+        ex, bx = (got - r).abs().max().item(), bf16_ulp(r)
+        check(torch.isfinite(got).all().item() and ex <= bx,
+              f"K3 fast {label} {list(qs.shape)}: max-abs {ex} > {bx} or "
+              "not finite")
+        records[label] = {"shape": list(qs.shape), "qscale": qscale,
+                          "max_abs_err": ex, "err_budget": bx}
+        del qs, ks, vs, got, r
+    del sharp, batch2
+    torch.cuda.empty_cache()
+    t = cuda_ms(lambda: attention.flash_attention_bf16(qb, kb, vb), iters=3)
+    tp = cuda_ms(lambda: attention.spatial_attention_reference(qb, kb, vb),
+                 iters=3)
+    tl = sdpa_ms(qb, kb, vb)
+    # q, k, v in bf16 read once, the float32 output (q's size) written once
+    b = Bound().add(ATTN_FLOPS, 3 * nbytes(qb) + nbytes(q))
+    tflops = ATTN_FLOPS / (t * 1e9)
+    log(f"K3 flash_attention_bf16 N={N_TOKENS} C={C_ATTN}: max-abs {e:.3e} "
+        f"(budget {bound:.3e}); ragged N={K3_SHARP_HW ** 2} q x "
+        f"{K3_SHARP_QSCALE}: {records['ragged_peaked']['max_abs_err']:.3e} "
+        f"(<= {records['ragged_peaked']['err_budget']:.3e}); "
+        f"{list(K3_BATCH2)}: {records['batch2_c64']['max_abs_err']:.3e} "
+        f"(<= {records['batch2_c64']['err_budget']:.3e})  kernel {t:.3f} ms "
+        f"({tflops:.1f} TFLOP/s)  plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    masked = _check_k3_masked(
+        attention.flash_attention_bf16, attention.spatial_attention_reference,
+        qb, kb, vb, bf16_ulp, t)
+    return {"name": "flash_attention_bf16", "route": "cuda",
+            "source": "hdrvae_torch/csrc/attention.cu",
+            "replaces": "hdrvae/kernels/attention.py:210",
+            "max_abs_err": e, "err_budget": bound, **records, "ms": t,
+            "tflops": tflops, "plain_ms": tp, **b, "library_ms": tl,
+            "library_call": "F.scaled_dot_product_attention, bf16",
+            "tiers": ["fast"], "key_valid": masked}
 
 
 def _check_k3_3pass(q, k, v, ref=None) -> dict:

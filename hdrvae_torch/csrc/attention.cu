@@ -13,15 +13,44 @@
 // that fused attention libraries handle, which is why the port writes its
 // own.  Three kernels, one per dot mode of the tiers:
 //
-//  * flash_bf16 (fast tier): bf16 q, k, v; S = q k^T and P v on the tensor
-//    cores through WMMA (bf16 operands, float32 accumulation; P is rounded
-//    to bf16 for its product, as the TPU's DEFAULT dot does).  32 queries
-//    by 128 keys per step with 8 warps.  The 32 x C output accumulator
-//    stays in registers (each warp owns 16 rows x C/4 columns); its
-//    per-row online-softmax rescale needs the row of every accumulator
-//    element, which the kernel reads off a probe fragment loaded from a
-//    matrix of row indices, so it assumes nothing about WMMA's layout.
-//    Tiles arrive by cp.async; the V tile loads while the softmax runs.
+//  * flash_bf16 (fast tier; a mixed head's with fast_head_levels): what
+//    _flash_kernel computes in DEFAULT, bf16 q, k, v; S = q k^T and P v by
+//    wgmma (bf16 operands, float32 accumulation; P is rounded to bf16 for
+//    its product, as the TPU's DEFAULT dot does).  Bound at N = 16,384, C =
+//    512: 4 N^2 C = 5.50e11 operations, 0.556 ms at the bf16 tensor-core
+//    rate; the q, k, v and float32 output bytes (80 MiB) take 0.025 ms.
+//    Every block streams all of K and V through shared memory, so shared
+//    memory bounds the design: per 64-key step the two warpgroups' S
+//    products read q twice (128 KB: each computes S for half the keys over
+//    all of C), K 64 KB, P V 96 KB, and TMA writes 128 KB, ~424 KB at 128
+//    B a clock against 2,048 clocks of tensor work.  Halving the L2 reads
+//    (two blocks sharing each K / V tile by TMA multicast) gained nothing
+//    on the H100.  A block is 64 queries (one m64 block; N = 16,384 gives
+//    256 blocks, 1.94 waves on 132 SMs) and two warpgroups; thread 0
+//    issues every copy by TMA (3-D maps [B, N, C], so rows past N arrive as
+//    zeros and never from the next batch; 64 x 64 boxes with the 128-byte
+//    swizzle).  No producer warp: a ninth warp
+//    puts three warps on one SM sub-partition, which caps every thread at
+//    168 registers; the C = 512 kernel then spilled and ptxas serialized
+//    its wgmmas, and setmaxnreg did not lift the cap.  q lands once (C / 64
+//    boxes, 64 KB at C = 512); the keys step 64 at a time through two
+//    slots, K_j in one and V_j in the other (64 KB each), behind full /
+//    empty mbarriers, so K_{j+1} lands during softmax_j and P V_j, and
+//    V_{j+1} during S_{j+1}.  The 64 x C float32 output does not fit one
+//    warpgroup (256 registers a thread at C = 512), so warpgroup w owns
+//    output columns [w C/2, (w+1) C/2) (whole 64-column boxes; at odd C /
+//    64 the second's last box multiplies a zero box and is not stored),
+//    128 registers a thread at C = 512, and computes S for keys [32 w, 32
+//    w + 32) of the step over all of C (wgmma m64n32k16, q and K both
+//    K-major from shared memory).  The two halves' row maxima, and at the
+//    end their row sums, meet in shared memory behind a named barrier, so
+//    both use one m and one alpha.  P (64 x 64 bf16) goes to shared memory
+//    in the swizzled layout wgmma reads (A from registers serialized
+//    K1's wgmmas), then O_w += P V[:, own columns] by m64n128k16 (V
+//    MN-major).  S_{j+1} is issued while P V_j runs, and the next step's
+//    key_valid bytes load behind it.  The output (1/256 of a block's
+//    bytes at N = 16,384) is stored from the fragments, divided by l, rows
+//    past N skipped.
 //  * flash_3pass (mixed tier): what _flash_kernel computes in HIGH, the
 //    3-pass bf16x3 split of _dot3 (:43).  q is scaled by C^-1/2 in
 //    float32 and then split (hi = bf16(x), lo = bf16(x - hi)), as :131
@@ -67,11 +96,11 @@
 // without a mask (key 0 is live) and leaves the unmasked arithmetic as it
 // was.
 
+#include "hopper.cuh"
 #include "window_attention.cuh"
 
 #include <math.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -123,190 +152,362 @@ __device__ __forceinline__ void load_rows_async(T* dst, const T* src,
 }
 
 // ---------------------------------------------------------------- bf16 ----
-constexpr int BQ16 = 32;          // queries per block
-constexpr int BKV16 = 128;        // keys per step
-constexpr int NT16 = 256;         // 8 warps
-constexpr int SLD = BKV16 + 4;    // score row stride (float)
-constexpr int PLD = BKV16 + 8;    // probability row stride (bf16)
-constexpr int MAXF16 = 8;         // output fragments per warp: C / 64
+constexpr int BQ16 = 64;                // queries a block: one m64 block
+constexpr int BKV16 = 64;               // keys a step
+// two warpgroups, thread 0 of which also issues the copies: a ninth warp
+// (a producer) would put three warps on one SM sub-partition and cap every
+// thread at 168 registers, which spilled the C = 512 kernel and serialized
+// its wgmmas (setmaxnreg did not lift ptxas' cap); 8 warps allow 255
+constexpr int NT16 = 256;
+constexpr int BOX16 = 64 * 128;         // one 64-row x 64-column bf16 box
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-constexpr int ACC_ELEMS = AccFrag::num_elements;
-
-struct Bf16Layout {
-  int qld, old;                   // q/kv row stride (bf16), output (float)
-  size_t q, kv, s, p, m, l, alpha, total;
-  __host__ __device__ explicit Bf16Layout(int C) {
-    qld = C + 8;
-    old = C + 4;
-    q = 0;
-    kv = q + static_cast<size_t>(BQ16) * qld * 2;
-    s = kv + static_cast<size_t>(BKV16) * qld * 2;
-    p = s + static_cast<size_t>(BQ16) * SLD * 4;
-    m = p + static_cast<size_t>(BQ16) * PLD * 2;
-    l = m + BQ16 * 4;
-    alpha = l + BQ16 * 4;
-    total = alpha + BQ16 * 4;
-  }
+// Shared memory of flash_bf16_kernel<NC> (C = 64 NC) from a 1024-byte
+// aligned base: q (NC boxes), the K slot (NC boxes), the V slot (NB boxes
+// a warpgroup; at odd NC the last is zeros, never loaded), P (one box),
+// the two warpgroups' row maxima and row sums, five mbarriers.
+template <int NC>
+struct Bf16Smem {
+  static constexpr int NB = (NC + 1) / 2;   // output boxes a warpgroup
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NC * BOX16;
+  static constexpr int V = K + NC * BOX16;
+  static constexpr int P = V + 2 * NB * BOX16;
+  static constexpr int MX = P + BOX16;              // float [2][64]
+  static constexpr int LS = MX + 2 * BQ16 * 4;      // float [2][64]
+  static constexpr int BAR = LS + 2 * BQ16 * 4;
+  static constexpr int BYTES = BAR + 5 * 8 + 1024;  // + the alignment
 };
+static_assert(Bf16Smem<8>::BYTES <= 232448, "shared memory");
 
-__global__ void __launch_bounds__(NT16) flash_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const unsigned char* __restrict__ kvalid,
-    float* __restrict__ out, int N, int C, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Bf16Layout L(C);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* kvs = reinterpret_cast<bf16*>(smem + L.kv);
-  float* ss = reinterpret_cast<float*>(smem + L.s);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.p);
-  float* ms = reinterpret_cast<float*>(smem + L.m);
-  float* ls = reinterpret_cast<float*>(smem + L.l);
-  float* as = reinterpret_cast<float*>(smem + L.alpha);
-  float* os = reinterpret_cast<float*>(smem + L.kv);   // final staging
+__device__ __forceinline__ void sync16() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT16) : "memory");
+}
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ16;
-  const size_t base = static_cast<size_t>(b) * N * C;
-
-  // row (within its 16 x 16 tile) of each accumulator element
-  int row_of[ACC_ELEMS];
-  {
-    for (int i = tid; i < 256; i += NT16) ss[i] = static_cast<float>(i / 16);
-    __syncthreads();
-    AccFrag probe;
-    wmma::load_matrix_sync(probe, ss, 16, wmma::mem_row_major);
+// NC boxes of rows [row0, row0 + 64) of a [B, N, C] map into dst, on bar
+template <int NC>
+__device__ __forceinline__ void load_boxes(uint32_t dst,
+                                           const CUtensorMap* map,
+                                           uint32_t bar, int row0, int b) {
+  hopper::mbar_expect_tx(bar, NC * BOX16);
 #pragma unroll
-    for (int i = 0; i < ACC_ELEMS; ++i)
-      row_of[i] = static_cast<int>(probe.x[i]);
-    __syncthreads();
+  for (int c = 0; c < NC; ++c)
+    hopper::tma_load_3d(dst + c * BOX16, map, bar, 64 * c, row0, b);
+}
+
+// wgmma descriptor of a K-major operand in 64 x 64 boxes with the 128-byte
+// swizzle (q, K, P): rows of 128 B, 8-row groups 1 KB apart
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return hopper::make_desc(addr, 16, 1024, hopper::LAYOUT_B128);
+}
+
+// wgmma descriptor of V [16 keys][64 or 128 columns], MN-major in 64 x 64
+// boxes with the 128-byte swizzle: the leading offset is the 8 KB between
+// two boxes' columns, the stride the 1 KB between groups of 8 keys
+__device__ __forceinline__ uint64_t v_desc(uint32_t addr) {
+  return hopper::make_desc(addr, BOX16, 1024, hopper::LAYOUT_B128);
+}
+
+// x, hidden from the compiler: a descriptor built from it is built where it
+// is used, not hoisted out of the key loop (the loop-invariant descriptors
+// of a step's wgmmas would hold ~150 registers)
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// s[64 x 32] = q[64 x 64 NC] K[32 keys at kw_s, 64 NC]^T, both K-major
+// (fresh: s is zeroed first), one commit group.  Each descriptor is the
+// operand's base descriptor plus its byte offset / 16 in the start-address
+// field (no carry: shared addresses stay below 256 KB).
+template <int NC>
+__device__ __forceinline__ void s_wgmmas(float* s, uint32_t q_s,
+                                         uint32_t kw_s) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) s[q] = 0.0f;
+  hopper::fence_operands<16>(s);
+  const uint64_t qd = kmajor_desc(opaque(q_s));
+  const uint64_t kd = kmajor_desc(opaque(kw_s));
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int off = (c * BOX16 + kk * 32) >> 4;
+      hopper::wgmma_ss<32, 0>(s, qd + off, kd + off);
+    }
+  hopper::wgmma_commit();
+}
+
+// The key_valid bytes of this lane's two keys of the step at kv0, kv0 + 2
+// lane (+ 1), as loaded (byte 0, byte 1; 0 for a key past N, 1 for a live
+// key without a mask); their test waits for live_bits, a step later, so
+// the load's latency hides behind the step's waits
+__device__ __forceinline__ unsigned mask_bytes(const unsigned char* kvalid,
+                                               int kv0, int N, int lane) {
+  const int key = kv0 + 2 * lane;
+  if (kvalid == nullptr)
+    return (key < N ? 1u : 0u) | (key + 1 < N ? 256u : 0u);
+  if (key + 1 < N)
+    return __ldg(reinterpret_cast<const unsigned short*>(kvalid + key));
+  return key < N ? __ldg(kvalid + key) : 0u;
+}
+
+// This thread's 8 keys of the step (key kb + 8 jj + e at bit 2 jj + e, kb
+// even), 1 where live, from the warp's mask_bytes: a ballot each of the
+// even and the odd keys
+__device__ __forceinline__ unsigned live_bits(unsigned bytes, int kb) {
+  const unsigned even = __ballot_sync(0xffffffffu, (bytes & 0xFFu) != 0);
+  const unsigned odd = __ballot_sync(0xffffffffu, (bytes >> 8) != 0);
+  unsigned bits = 0;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int l = kb / 2 + 4 * jj;
+    bits |= ((even >> l) & 1u) << (2 * jj);
+    bits |= ((odd >> l) & 1u) << (2 * jj + 1);
   }
+  return bits;
+}
 
-  load_rows_async(qs, q + base, q0, BQ16, N, C, L.qld);
-  cp_async_commit();
-  if (tid < BQ16) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.0f;
+// o[64 x 64 NB] += P[64 x 64] V[64 keys, the NB boxes at v_s]: per 16-key
+// step one m64n128k16 a pair of boxes, m64n64k16 for an odd one
+template <int NB>
+__device__ __forceinline__ void pv_wgmmas(float* o, uint32_t p_s,
+                                          uint32_t v_s) {
+  const uint64_t pd = kmajor_desc(opaque(p_s)), vd = v_desc(opaque(v_s));
+#pragma unroll
+  for (int ks = 0; ks < BKV16 / 16; ++ks) {
+#pragma unroll
+    for (int pr = 0; pr < NB / 2; ++pr)
+      hopper::wgmma_ss<128, 1>(o + 64 * pr, pd + ks * 2,
+                               vd + ((2 * pr * BOX16 + ks * 2048) >> 4));
+    if constexpr (NB % 2 == 1)
+      hopper::wgmma_ss<64, 1>(o + 64 * (NB / 2), pd + ks * 2,
+                              vd + (((NB - 1) * BOX16 + ks * 2048) >> 4));
   }
+}
 
-  // S = q k^T: warp -> row tile (warp & 1), key tiles 2 * (warp >> 1) + {0,1}
-  const int srow = (warp & 1) * 16, scol = (warp >> 1) * 32;
-  // softmax: 8 threads per query row, 16 keys each
-  const int prow = tid / 8, pcol = (tid % 8) * 16;
-  // P v: warp -> rows orow.., columns ocol + 16 f for f < C / 64
-  const int orow = (warp & 1) * 16, ocol = (warp >> 1) * (C / 4);
-  const int nof = C / 64;
+template <int NC>
+__global__ void __launch_bounds__(NT16, 1) flash_bf16_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const unsigned char* __restrict__ kvalid, float* __restrict__ out,
+    int N, float scale) {
+  typedef Bf16Smem<NC> L;
+  constexpr int NB = L::NB, C = 64 * NC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base_s = hopper::smem_u32(smem);
+  const uint32_t q_s = base_s + L::Q, k_s = base_s + L::K;
+  const uint32_t v_s = base_s + L::V, p_s = base_s + L::P;
+  float* mx = reinterpret_cast<float*>(smem + L::MX);
+  float* ls = reinterpret_cast<float*>(smem + L::LS);
+  const uint32_t q_full = base_s + L::BAR, k_full = q_full + 8,
+                 k_empty = q_full + 16, v_full = q_full + 24,
+                 v_empty = q_full + 32;
 
-  AccFrag of[MAXF16];
-#pragma unroll
-  for (int f = 0; f < MAXF16; ++f) wmma::fill_fragment(of[f], 0.0f);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, q0 = blockIdx.x * BQ16;
+  const int ntiles = (N + BKV16 - 1) / BKV16;
 
-  for (int kv0 = 0; kv0 < N; kv0 += BKV16) {
-    __syncthreads();   // the previous step's P v is done with kvs
-    load_rows_async(kvs, k + base, kv0, BKV16, N, C, L.qld);
-    cp_async_wait_all();
-    __syncthreads();
-    {
-      AccFrag sf[2];
-      wmma::fill_fragment(sf[0], 0.0f);
-      wmma::fill_fragment(sf[1], 0.0f);
-      for (int c = 0; c < C; c += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, qs + srow * L.qld + c, L.qld);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-              bfr;
-          wmma::load_matrix_sync(bfr, kvs + (scol + 16 * j) * L.qld + c,
-                                 L.qld);
-          wmma::mma_sync(sf[j], af, bfr, sf[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(ss + srow * SLD + scol + 16 * j, sf[j], SLD,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-    // V replaces K while the softmax runs on the scores
-    load_rows_async(kvs, v + base, kv0, BKV16, N, C, L.qld);
-    cp_async_commit();
-    {
-      float sv[16];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int key = kv0 + pcol + j;
-        sv[j] = key_live(kvalid, key, N) ? ss[prow * SLD + pcol + j] * scale
-                                         : -INFINITY;
-        mt = fmaxf(mt, sv[j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_old = ms[prow];
-      const float m_new = fmaxf(m_old, mt);
-      const float m_ref = softmax_ref(m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float p = expf(sv[j] - m_ref);
-        rs += p;
-        ps[prow * PLD + pcol + j] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      __syncwarp();
-      if (tid % 8 == 0) {
-        const float alpha = expf(m_old - m_ref);
-        ms[prow] = m_new;
-        ls[prow] = ls[prow] * alpha + rs;
-        as[prow] = alpha;
-      }
-    }
-    __syncthreads();   // P and alpha visible
-#pragma unroll
-    for (int f = 0; f < MAXF16; ++f) {
-      if (f < nof) {
-#pragma unroll
-        for (int i = 0; i < ACC_ELEMS; ++i) of[f].x[i] *= as[orow + row_of[i]];
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();   // V visible
-    for (int kk = 0; kk < BKV16; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, ps + orow * PLD + kk, PLD);
-#pragma unroll
-      for (int f = 0; f < MAXF16; ++f) {
-        if (f < nof) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              bfr;
-          wmma::load_matrix_sync(bfr, kvs + kk * L.qld + ocol + 16 * f,
-                                 L.qld);
-          wmma::mma_sync(of[f], af, bfr, of[f]);
-        }
-      }
-    }
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(k_full, 1);
+    hopper::mbar_init(v_full, 1);
+    hopper::mbar_init(k_empty, NT16 / 32);
+    hopper::mbar_init(v_empty, NT16 / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();   // kvs is free: stage the normalized output there
-#pragma unroll
-  for (int f = 0; f < MAXF16; ++f) {
-    if (f < nof) {
-#pragma unroll
-      for (int i = 0; i < ACC_ELEMS; ++i) of[f].x[i] /= ls[orow + row_of[i]];
-      wmma::store_matrix_sync(os + orow * L.old + ocol + 16 * f, of[f], L.old,
-                              wmma::mem_row_major);
-    }
+  if constexpr (NC % 2 == 1) {
+    // the second warpgroup's last V box: zeros, read by wgmma only
+    uint4* z = reinterpret_cast<uint4*>(smem + L::V + NC * BOX16);
+    for (int i = tid; i < BOX16 / 16; i += NT16)
+      z[i] = make_uint4(0, 0, 0, 0);
+    hopper::fence_proxy_async();
   }
   __syncthreads();
-  for (int i = tid; i < BQ16 * C; i += NT16) {
-    const int r = i / C, c = i % C;
-    if (q0 + r < N)
-      out[base + static_cast<size_t>(q0 + r) * C + c] = os[r * L.old + c];
+  // thread 0 issues every copy: q and the first K and V now, each later one
+  // once every warp has arrived on the slot's empty barrier
+  if (tid == 0) {
+    load_boxes<NC>(q_s, &qmap, q_full, q0, b);
+    load_boxes<NC>(k_s, &kmap, k_full, 0, b);
+    load_boxes<NC>(v_s, &vmap, v_full, 0, b);
   }
+
+  // warpgroup wg, its warp wl, the fragment's rows r0, r0 + 8
+  const int wg = tid / 128, wl = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * wl + g;
+  const int other = (wg ^ 1) * BQ16;
+  // this warpgroup's keys of a step (S) and its boxes of V (P V)
+  const uint32_t kw_s = k_s + 32 * 128 * wg;
+  const uint32_t vw_s = v_s + NB * BOX16 * wg;
+  // wgmma fragments: s[4 j + 2 i + e] is row r0 + 8 i, key 32 wg + 8 j +
+  // 2 t + e of the step; o[4 j + 2 i + e] row r0 + 8 i, column 64 NB wg +
+  // 8 j + 2 t + e
+  float o[NB * 32], s[16];
+#pragma unroll
+  for (int q = 0; q < NB * 32; ++q) o[q] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  const int kb = 32 * wg + 2 * t;   // this thread's first key of a step
+  unsigned bytes = mask_bytes(kvalid, 0, N, lane);
+
+  hopper::mbar_wait(q_full, 0);
+  hopper::mbar_wait(k_full, 0);
+  s_wgmmas<NC>(s, q_s, kw_s);
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands<16>(s);
+  if (lane == 0) hopper::mbar_arrive(k_empty);
+  if (tid == 0 && ntiles > 1) {
+    hopper::mbar_wait(k_empty, 0);
+    load_boxes<NC>(k_s, &kmap, k_full, BKV16, b);
+  }
+
+#pragma unroll 1
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = j * BKV16;
+    // scaled scores; keys past N or outside key_valid score -inf
+    const unsigned live = kvalid == nullptr && kv0 + BKV16 <= N
+                              ? 0xFFu : live_bits(bytes, kb);
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = s[4 * jj + 2 * i + e];
+          x = (live >> (2 * jj + e)) & 1u ? x * scale : -INFINITY;
+          mt[i] = fmaxf(mt[i], x);
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    }
+    // the row maxima of both halves of the step
+    if (t == 0) {
+      mx[wg * BQ16 + r0] = mt[0];
+      mx[wg * BQ16 + r0 + 8] = mt[1];
+    }
+    sync16();
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mt_both = fmaxf(mt[i], mx[other + r0 + 8 * i]);
+      const float m_next = fmaxf(m_run[i], mt_both);
+      const float ref = softmax_ref(m_next);
+      alpha[i] = expf(m_run[i] - ref);
+      m_run[i] = m_next;
+      float rs = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * jj + 2 * i + e];
+          x = expf(x - ref);
+          rs += x;
+        }
+      l_run[i] = l_run[i] * alpha[i] + rs;
+    }
+    // P in bf16, K-major with the 128-byte swizzle: row r's 16-byte chunk
+    // c at ((c ^ (r % 8)) << 4); r % 8 == g
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(
+            smem + L::P + (r0 + 8 * i) * 128 + (((4 * wg + jj) ^ g) << 4) +
+            4 * t) = __floats2bfloat162_rn(s[4 * jj + 2 * i],
+                                           s[4 * jj + 2 * i + 1]);
+#pragma unroll
+    for (int q = 0; q < NB * 32; ++q) o[q] *= alpha[(q >> 1) & 1];
+    hopper::fence_proxy_async();   // P's generic stores, before wgmma reads
+    sync16();                      // both halves of P are in place
+
+    hopper::mbar_wait(v_full, j & 1);
+    hopper::fence_operands<NB * 32>(o);
+    hopper::wgmma_fence();
+    pv_wgmmas<NB>(o, p_s, vw_s);
+    hopper::wgmma_commit();
+    if (j + 1 < ntiles) {
+      // the next step's S while P V runs
+      hopper::mbar_wait(k_full, (j + 1) & 1);
+      s_wgmmas<NC>(s, q_s, kw_s);
+      bytes = mask_bytes(kvalid, kv0 + BKV16, N, lane);
+      hopper::wgmma_wait<1>();
+      hopper::fence_operands<NB * 32>(o);
+      if (lane == 0) hopper::mbar_arrive(v_empty);
+      if (tid == 0) {   // V_{j+1} once every warp's P V_j is done
+        hopper::mbar_wait(v_empty, j & 1);
+        load_boxes<NC>(v_s, &vmap, v_full, kv0 + BKV16, b);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands<16>(s);
+      if (lane == 0) hopper::mbar_arrive(k_empty);
+      if (tid == 0 && j + 2 < ntiles) {   // K_{j+2} once S_{j+1} is done
+        hopper::mbar_wait(k_empty, (j + 1) & 1);
+        load_boxes<NC>(k_s, &kmap, k_full, kv0 + 2 * BKV16, b);
+      }
+    } else {
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands<NB * 32>(o);
+    }
+  }
+
+  // the row sums: this thread's keys, its quad's, then both warpgroups'
+  float l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = l_run[i] + __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (t == 0) {
+    ls[wg * BQ16 + r0] = l[0];
+    ls[wg * BQ16 + r0 + 8] = l[1];
+  }
+  sync16();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += ls[other + r0 + 8 * i];
+    const int row = q0 + r0 + 8 * i;
+    if (row >= N) continue;
+    float* orow = out + (static_cast<size_t>(b) * N + row) * C +
+                  64 * NB * wg;
+#pragma unroll
+    for (int jj = 0; jj < 8 * NB; ++jj) {
+      const int col = 8 * jj + 2 * t;
+      if (64 * NB * wg + col < C)
+        *reinterpret_cast<float2*>(orow + col) = make_float2(
+            o[4 * jj + 2 * i] / l[i], o[4 * jj + 2 * i + 1] / l[i]);
+    }
+  }
+}
+
+// Maps of q, k, v [B, N, C] (64 x 64 boxes, the 128-byte swizzle), the
+// launch: one block a 64-query tile and batch element.
+template <int NC>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const unsigned char* kvalid, float* out, int B, int N,
+                float scale, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const uint64_t dims[3] = {uint64_t(64 * NC), uint64_t(N), uint64_t(B)};
+  const uint32_t box[3] = {64, BKV16, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int err = hopper::make_map(&maps[i], ptrs[i], 3, dims, box,
+                                     CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != 0) return err;
+  }
+  const int smem = Bf16Smem<NC>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + BQ16 - 1) / BQ16, B);
+  flash_bf16_kernel<NC><<<grid, NT16, smem, stream>>>(
+      maps[0], maps[1], maps[2], kvalid, out, N, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- f32 -----
@@ -743,23 +944,26 @@ __global__ void __launch_bounds__(NT3, 1) flash_3pass_kernel(
 
 extern "C" {
 
-// q, k, v [B,N,C] bf16, out [B,N,C] f32; C % 64 == 0, C <= 512;
-// key_valid [N] bytes (0: the key is dead) or nullptr.
+// q, k, v [B,N,C] bf16, out [B,N,C] f32; C % 64 == 0, C <= 512
+// (cudaErrorInvalidValue otherwise); key_valid [N] bytes (0: the key is
+// dead) or nullptr.
 int hdrvae_flash_attention_bf16(const void* q, const void* k, const void* v,
                                 const void* key_valid, void* out, int B,
                                 int N, int C, float scale, void* stream) {
-  const size_t smem = Bf16Layout(C).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + BQ16 - 1) / BQ16, B);
-  flash_bf16_kernel<<<grid, NT16, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v),
-      static_cast<const unsigned char*>(key_valid), static_cast<float*>(out),
-      N, C, scale);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned char* kv = static_cast<const unsigned char*>(key_valid);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C % 64 == 0 ? C / 64 : 0) {
+    case 1: return launch_bf16<1>(q, k, v, kv, o, B, N, scale, s);
+    case 2: return launch_bf16<2>(q, k, v, kv, o, B, N, scale, s);
+    case 3: return launch_bf16<3>(q, k, v, kv, o, B, N, scale, s);
+    case 4: return launch_bf16<4>(q, k, v, kv, o, B, N, scale, s);
+    case 5: return launch_bf16<5>(q, k, v, kv, o, B, N, scale, s);
+    case 6: return launch_bf16<6>(q, k, v, kv, o, B, N, scale, s);
+    case 7: return launch_bf16<7>(q, k, v, kv, o, B, N, scale, s);
+    case 8: return launch_bf16<8>(q, k, v, kv, o, B, N, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512

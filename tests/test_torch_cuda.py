@@ -335,6 +335,68 @@ def test_flash_attention_key_valid(dev, case, c):
         assert err <= bar(ref), (fn.__name__, err)
 
 
+# K3 bf16 at its edges: (grid, C, batch, q's scale, key_valid). N = 1, 63,
+# 64, 65, 127 and 4,097 (one 64-query block and 64-key step, one either
+# side of it, and a long ragged run); C from one 64-column box a consumer
+# warpgroup (the second's a zero box) to 512; batch 1 and 2; unit and
+# peaked (q x 8) scores; no mask, a live rectangle, the first 256 keys
+# dead (the first four steps see no live key) and a single live key
+BF16_EDGES = [
+    ((1, 1), 64, 1, 1.0, "none"),
+    ((1, 1), 512, 2, 8.0, "one live key"),
+    ((7, 9), 128, 2, 1.0, "none"),
+    ((7, 9), 320, 1, 8.0, "live rectangle"),
+    ((8, 8), 320, 1, 8.0, "none"),
+    ((8, 8), 512, 2, 1.0, "one live key"),
+    ((5, 13), 512, 2, 1.0, "live rectangle"),
+    ((5, 13), 128, 1, 8.0, "none"),
+    ((127, 1), 64, 2, 8.0, "one live key"),
+    ((127, 1), 512, 1, 1.0, "none"),
+    ((17, 241), 512, 1, 8.0, "first 256 dead"),
+    ((17, 241), 64, 2, 1.0, "live rectangle"),
+    ((17, 241), 128, 2, 8.0, "none"),
+    ((17, 241), 320, 2, 1.0, "first 256 dead"),
+]
+
+
+def _bf16_edge_mask(hw, case):
+    """[H, W] bool key_valid of a BF16_EDGES case, or None."""
+    n = hw[0] * hw[1]
+    if case == "none":
+        return None
+    if case == "live rectangle":
+        live = np.zeros(hw, bool)
+        live[:max(1, 7 * hw[0] // 10), :max(1, 4 * hw[1] // 5)] = True
+        return live
+    live = np.zeros(n, bool)
+    if case == "first 256 dead":
+        live[256:] = True
+    else:                                   # one live key
+        live[n // 2] = True
+    return live.reshape(hw)
+
+
+@pytest.mark.parametrize("hw,c,b,qscale,mask", BF16_EDGES)
+def test_flash_attention_bf16_edges(dev, hw, c, b, qscale, mask):
+    """K3's bf16 kernel against the exact plain version on the same bf16
+    values, within one bf16 ulp of the largest output (p is rounded to bf16
+    for its product with v; those errors take both signs and average
+    down), finite everywhere, one launch each."""
+    live = _bf16_edge_mask(hw, mask)
+    kv = None if live is None else torch.from_numpy(live).to(dev)
+    q, k, v = (_rand(dev, (b, *hw, c), 1.0, torch.float32, seed=s)
+               for s in range(3))
+    q, k, v = (q * qscale).bfloat16(), k.bfloat16(), v.bfloat16()
+    before = attention.flash_attention_bf16.launches
+    got = attention.flash_attention_bf16(q, k, v, key_valid=kv)
+    assert attention.flash_attention_bf16.launches == before + 1
+    ref = attention.spatial_attention_reference(q, k, v, key_valid=kv)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= _ulp_bound(ref)
+
+
 def test_flash_attention_key_valid_refused(dev):
     q = torch.zeros(1, 4, 4, 64, device=dev)
     with pytest.raises(ValueError, match="key_valid"):

@@ -2,7 +2,7 @@
 """Mutation check of a kernel's test in ``chip_smoke.py``, on one NVIDIA
 GPU.
 
-    python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_3pass ...]
+    python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_3pass|k3_bf16 ...]
                                     (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
@@ -19,7 +19,10 @@ junction and a ragged map; chain:
 shapes and the chain against K7; k3_3pass: ``_check_k3_3pass``, K3's
 3-pass mode against exact float32 and its plain version at N = 16,384, C
 = 512, and against its plain version on a ragged input with peaked
-scores), then reports whether the check refused the broken kernel: by a
+scores; k3_bf16: ``_check_k3_bf16``, K3's bf16 mode within one bf16 ulp
+of the exact plain version at N = 16,384, C = 512, on the same ragged,
+peaked input, at batch 2 and C = 64, and in its two key_valid records),
+then reports whether the check refused the broken kernel: by a
 failed assertion, or by a fault of the broken kernel on the card (a
 mutant that writes past an output stops the check there).  The
 checkout itself is never changed.  Exits non-zero if a mutant the check
@@ -46,6 +49,21 @@ beforehand as the ESRGAN chain passes them:
   load): what the weights' stream through the ring costs, the most that
   weights kept resident in shared memory could save;
 - no-wgmma: the consumers issue no wgmma (the feed and the epilogue run).
+
+    python3 tools/mutate_kernels.py --time-k3 [as-is|no-loads|...]
+
+does the same for K3's bf16 kernel (``attention.cu``), timed by CUDA
+events (mean of 10 launches after 2 warm-ups, twice) at ``chip_smoke.py``'s
+N = 16,384, C = 512, unmasked and with phase 3's key_valid mask:
+
+- as-is: the kernel as it is;
+- no-loads: no TMA copies of q, K or V (their barriers still complete);
+- no-k-loads, no-v-loads: no copies of K, or of V;
+- no-s-wgmma, no-pv-wgmma, no-wgmma: no S = q K^T wgmmas, no P V ones,
+  neither (the feed, the softmax and the barriers run);
+- fast-exp: ``__expf`` (the bare ex2 path) for ``expf`` in the softmax;
+- skip-rescale: the output's rescale skipped where every alpha of the
+  warp is 1.
 
 It prints the card's name and power limit first.
 """
@@ -195,6 +213,37 @@ TARGETS = {
             "attention.cu", "for (int kv0 = 0; kv0 < N; kv0 += BKV3) {",
             "for (int kv0 = 0; kv0 < N - BKV3; kv0 += BKV3) {", True),
     }),
+    # K3's bf16 kernel: every mutant keeps the producer's and the
+    # consumers' schedules in step
+    "k3_bf16": ("_check_k3_bf16(*chip_smoke._k3_inputs("
+                "np.random.default_rng(0)))", ("K3",), {
+        "last key tile skipped": (
+            "attention.cu",
+            "x = (live >> (2 * jj + e)) & 1u ? x * scale : -INFINITY;",
+            "x = (live >> (2 * jj + e)) & 1u && j + 1 < ntiles ? x * scale "
+            ": -INFINITY;", True),
+        "alpha rescale dropped": (
+            "attention.cu", "o[q] *= alpha[(q >> 1) & 1];", "o[q] *= 1.0f;",
+            True),
+        "the other warpgroup's row maximum ignored": (
+            "attention.cu",
+            "const float mt_both = fmaxf(mt[i], mx[other + r0 + 8 * i]);",
+            "const float mt_both = mt[i];", True),
+        "key_valid ignored": (
+            "attention.cu", "  if (kvalid == nullptr)\n    return (key < N",
+            "  if (true)\n    return (key < N", True),
+        "the -inf guard removed": (
+            "attention.cu", "const float ref = softmax_ref(m_next);",
+            "const float ref = m_next;", True),
+        "the last ragged query rows not stored": (
+            "attention.cu", "    const int row = q0 + r0 + 8 * i;\n"
+            "    if (row >= N) continue;",
+            "    const int row = q0 + r0 + 8 * i;\n"
+            "    if (row >= N / BQ16 * BQ16) continue;", True),
+        "V's column halves swapped": (
+            "attention.cu", "const uint32_t vw_s = v_s + NB * BOX16 * wg;",
+            "const uint32_t vw_s = v_s + NB * BOX16 * (wg ^ 1);", True),
+    }),
 }
 
 CHECK = """
@@ -242,6 +291,61 @@ K6_VARIANTS = {
     ],
 }
 
+# --time-k3: variant -> edits (text of attention.cu, its replacement)
+K3_NO_K = [(f"load_boxes<NC>(k_s, &kmap, k_full, {row}, b);",
+            f"load_boxes<0>(k_s, &kmap, k_full, {row}, b);")
+           for row in ("0", "BKV16", "kv0 + 2 * BKV16")]
+K3_NO_V = [(f"load_boxes<NC>(v_s, &vmap, v_full, {row}, b);",
+            f"load_boxes<0>(v_s, &vmap, v_full, {row}, b);")
+           for row in ("0", "kv0 + BKV16")]
+K3_NO_S = [("      hopper::wgmma_ss<32, 0>(s, qd + off, kd + off);", "")]
+K3_NO_PV = [("      hopper::wgmma_ss<128, 1>(o + 64 * pr,",
+             "      if (NB < 0) hopper::wgmma_ss<128, 1>(o + 64 * pr,"),
+            ("      hopper::wgmma_ss<64, 1>(o + 64 * (NB / 2),",
+             "      if (NB < 0) hopper::wgmma_ss<64, 1>(o + 64 * (NB / 2),")]
+K3_VARIANTS = {
+    "as-is": [],
+    "no-loads": [("  hopper::mbar_expect_tx(bar, NC * BOX16);\n#pragma unroll\n"
+                  "  for (int c = 0; c < NC; ++c)",
+                  "  hopper::mbar_expect_tx(bar, 0);\n#pragma unroll\n"
+                  "  for (int c = 0; c < 0; ++c)")],
+    "no-k-loads": K3_NO_K,
+    "no-v-loads": K3_NO_V,
+    "no-s-wgmma": K3_NO_S,
+    "no-pv-wgmma": K3_NO_PV,
+    "no-wgmma": K3_NO_S + K3_NO_PV,
+    "fast-exp": [("      alpha[i] = expf(m_run[i] - ref);",
+                  "      alpha[i] = __expf(m_run[i] - ref);"),
+                 ("          x = expf(x - ref);",
+                  "          x = __expf(x - ref);")],
+    "skip-rescale": [
+        ("#pragma unroll\n    for (int q = 0; q < NB * 32; ++q) o[q] *= "
+         "alpha[(q >> 1) & 1];",
+         "    if (__any_sync(0xffffffffu, alpha[0] != 1.0f || "
+         "alpha[1] != 1.0f))\n#pragma unroll\n"
+         "    for (int q = 0; q < NB * 32; ++q) o[q] *= alpha[(q >> 1) & 1];")],
+}
+
+K3_TIME = r'''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from hdrvae_torch.kernels import _build, attention
+
+_build.library()
+q, k, v = (x.bfloat16() for x in cs._k3_inputs(np.random.default_rng(0)))
+kv = cs._live_mask(128, cs.K3_LIVE)
+for _ in range(2):
+    t = cs.cuda_ms(lambda: attention.flash_attention_bf16(q, k, v), iters=10)
+    tm = cs.cuda_ms(lambda: attention.flash_attention_bf16(q, k, v, kv),
+                    iters=10)
+    print(f"  N={cs.N_TOKENS} C={cs.C_ATTN}: unmasked {t:.3f} ms "
+          f"({cs.ATTN_FLOPS / (t * 1e9):.1f} TFLOP/s), masked {tm:.3f} ms",
+          flush=True)
+'''
+
 K6_TIME = r'''
 import sys
 import numpy as np
@@ -280,6 +384,11 @@ for name, h, w, cins, cout, act, rs, f32 in cs.K6_SHAPES + cs.K6_EXTRA[:1]:
 print(f"  phase-3 sum   device {dev_sum:.3f} ms  wrapper {wrap_sum:.3f} ms",
       flush=True)
 '''
+
+
+# the timing modes: flag -> (CUDA source, variants, timing script)
+TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
+           "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME)}
 
 
 @contextlib.contextmanager
@@ -332,15 +441,17 @@ def run_target(target: str) -> bool:
     return ok
 
 
-def time_k6(variant: str) -> int:
-    """One variant of K6 timed; the subprocess's exit code."""
-    with edited_copy("dense_conv.cu", K6_VARIANTS[variant]) as tmp:
+def time_variant(flag: str, variant: str) -> int:
+    """One variant of ``flag``'s kernel timed; the subprocess's exit
+    code."""
+    source, variants, script = TIMINGS[flag]
+    with edited_copy(source, variants[variant]) as tmp:
         if tmp is None:
-            print(f"== {variant}: dense_conv.cu does not hold the edited "
-                  "text once", file=sys.stderr)
+            print(f"== {variant}: {source} does not hold the edited text "
+                  "once", file=sys.stderr)
             return 1
         print(f"== {variant}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", K6_TIME], cwd=tmp,
+        proc = subprocess.run([sys.executable, "-c", script], cwd=tmp,
                               capture_output=True, text=True, timeout=900)
     print(proc.stdout, end="", flush=True)
     if proc.returncode != 0:
@@ -350,8 +461,8 @@ def time_k6(variant: str) -> int:
 
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
-    timing = args[:1] == ["--time-k6"]
-    known = K6_VARIANTS if timing else TARGETS
+    timing = args[0] if args and args[0] in TIMINGS else None
+    known = TIMINGS[timing][1] if timing else TARGETS
     names = args[1:] if timing else args
     names = names or list(known)
     unknown = set(names) - set(known)
@@ -364,7 +475,7 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60)
         print(smi.stdout.strip(), flush=True)
-        return max(time_k6(n) for n in names)
+        return max(time_variant(timing, n) for n in names)
     results = [run_target(t) for t in names]
     return 0 if all(results) else 1
 

@@ -9,7 +9,7 @@
     python3 tools/profile_decode_torch.py --lowmem [--latent 256 512]
     python3 tools/profile_decode_torch.py --staged [--latent 256 512]
     python3 tools/profile_decode_torch.py --ab-tree DIR
-                                          [--ab-only swin conv esrgan]
+                                          [--ab-only swin conv esrgan attn]
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
 tier, the full-width Flux.1 decoder (``DecoderConfig()``, random weights
@@ -62,7 +62,11 @@ tile forward weighted by each shape's launches there; one such forward
 measured (K6's device time from ``torch.profiler``); and three fast and
 one parity ESRGAN x4
 ``hdr_upscale`` requests of a 1024^2 HDR image from numpy seed 1 (the
-first fast one warms up).  ``--ab-only swin conv esrgan`` picks the turns.
+first fast one warms up); then K3 bf16 at N = 16,384 and 65,536 (C =
+512), unmasked and with the bucketed phase's live fraction of the grid
+(10 launches, 3 at N = 65,536, after 2 warm-ups), and three fast decodes
+each at 1024^2 and 2048^2.  ``--ab-only swin conv esrgan attn`` picks the
+turns.
 
 The script only reads: it changes nothing in the package.  Without a CUDA
 device it exits non-zero.
@@ -525,6 +529,68 @@ for tier in ("fast", "fast", "fast", "parity"):
 '''
 
 
+# K3 bf16 at the fast decodes' mid attention, N = 16,384 and 65,536 (the
+# 1024^2 and 2048^2 decodes), C = 512, unmasked and with the bucketed
+# phase's live fraction (121 x 100 of 128 x 128, scaled to the grid), CUDA
+# events over 10 launches (3 at N = 65,536) after 2 warm-ups; then three
+# requests each of fast decodes at 1024^2 and 2048^2
+AB_ATTN = r'''
+import numpy as np
+import torch
+from hdrvae_torch.core.config import DecoderConfig, HDRDecodeConfig, Precision
+from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+from hdrvae_torch.kernels import attention
+from hdrvae_torch.models.params import init_decoder
+
+
+def ms(fn, iters=10):
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+rng = np.random.default_rng(0)
+for side in (128, 256):
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, side, side, 512)).astype(np.float32)).cuda().bfloat16()
+        for _ in range(3))
+    live = (121 * side // 128, 100 * side // 128)
+    grid = torch.arange(side, device="cuda")
+    kv = (grid[:, None] < live[0]) & (grid[None, :] < live[1])
+    n = side * side
+    for label, mask in (("unmasked", None),
+                        (f"live {live[0]} x {live[1]}", kv)):
+        t = ms(lambda: attention.flash_attention_bf16(q, k, v, mask),
+               iters=10 if side == 128 else 3)
+        print(f"  K3 bf16 N={n} C=512 {label}: {t:.3f} ms "
+              f"({4 * n * n * 512 / (t * 1e9):.1f} TFLOP/s)", flush=True)
+    del q, k, v
+dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
+cons = HDRDecodeConfig(hdr_mode="conservative")
+for side in (128, 256):
+    z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, side, side, 16)).astype(np.float32)).cuda()
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        decode_summary(hdr_decode(dec, z, cons, Precision.fast()))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(round(start.elapsed_time(end), 3))
+    print(f"  decode {side * 8}^2 fast: device ms {times}", flush=True)
+    torch.cuda.empty_cache()
+'''
+
+
 def k6_table() -> list:
     """``chip_smoke.py``'s K6 shapes with their launches a tile forward and
     whether phase 3 sums them (the turn's K6_TABLE)."""
@@ -536,7 +602,8 @@ def k6_table() -> list:
 
 AB_TURNS = {"swin": lambda: AB_TURN, "conv": lambda: AB_CONV,
             "esrgan": lambda: AB_ESRGAN.replace("K6_TABLE",
-                                                repr(k6_table()))}
+                                                repr(k6_table())),
+            "attn": lambda: AB_ATTN}
 
 
 def ab(other: str, turns) -> int:
@@ -579,8 +646,8 @@ def main() -> int:
                     help="kernel names listed per run")
     ap.add_argument("--ab-tree", metavar="DIR",
                     help="compare K7, a SwinIR-M upscale, K1, K2, decodes, "
-                         "K6 and ESRGAN upscales with the tree in DIR "
-                         "instead")
+                         "K6, ESRGAN upscales and K3 bf16 with the tree in "
+                         "DIR instead")
     ap.add_argument("--ab-only", nargs="+", choices=list(AB_TURNS),
                     default=list(AB_TURNS),
                     help="the --ab-tree turns run (default: all)")
