@@ -397,12 +397,13 @@ def phase_build() -> None:
             f"({funcs} instances)")
         check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
               "SASS)")
-    # K3 bf16's registers and spills per C / 64 instance, and any ptxas
-    # warning (a serialized wgmma is one)
-    for inst, (regs, stores, loads) in ptxas_report(compiler_log,
-                                                    "flash_bf16_kernel"):
-        log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill stores, "
-            f"{loads} bytes spill loads")
+    # K3 bf16's and K3 f32's registers and spills per C / 64 instance, and
+    # any ptxas warning (a serialized wgmma is one)
+    for kernel in ("flash_bf16_kernel", "flash_f32_kernel"):
+        for inst, (regs, stores, loads) in ptxas_report(compiler_log,
+                                                        kernel):
+            log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill "
+                f"stores, {loads} bytes spill loads")
     for line in compiler_log.splitlines():
         if "warning" in line.lower() or ("flash_bf16_kernel" in line
                                          and "(C7" in line):
@@ -465,34 +466,9 @@ def phase_kernels() -> list:
     entries = [_check_k1(rng), _check_k2(rng)]
 
     # K3 ---------------------------------------------------------------
-    from hdrvae_torch.core.config import Precision
     q, k, v = _k3_inputs(rng)
     ref = attention.spatial_attention_reference(q, k, v)
-    got = attention.spatial_attention(q, k, v, precision=Precision.parity())
-    torch.cuda.synchronize()
-    e = (got - ref).abs().max().item()
-    check(e <= ATTN_BUDGET["parity"],
-          f"K3 parity: max-abs {e} > {ATTN_BUDGET['parity']}")
-    t = cuda_ms(lambda: attention.flash_attention_f32(q, k, v), iters=3)
-    tp = cuda_ms(lambda: attention.spatial_attention_reference(q, k, v),
-                 iters=3)
-    tl = sdpa_ms(q, k, v)
-    # q k^T and p v; exact float32 runs outside the tensor cores
-    b = Bound().add(ATTN_FLOPS, 4 * nbytes(q), PEAK_F32)
-    log(f"K3 flash_attention_f32 N={N_TOKENS} C={C_ATTN}: parity max-abs "
-        f"{e:.3e}  kernel {t:.3f} ms  plain {tp:.3f} ms  SDPA {tl:.3f} ms  "
-        f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
-    del got
-    masked = _check_k3_masked(
-        attention.flash_attention_f32, attention.spatial_attention_reference,
-        q, k, v, lambda r: ATTN_BUDGET["parity"], t)
-    entries.append({"name": "flash_attention_f32", "route": "cuda",
-                    "source": "hdrvae_torch/csrc/attention.cu",
-                    "replaces": "hdrvae/kernels/attention.py:210",
-                    "max_abs_err": e, "ms": t, "plain_ms": tp, **b,
-                    "library_ms": tl,
-                    "library_call": "F.scaled_dot_product_attention, float32",
-                    "tiers": ["parity"], "key_valid": masked})
+    entries.append(_check_k3_f32(q, k, v, ref))
     entries.append(_check_k3_3pass(q, k, v, ref))
     entries.append(_check_k3_bf16(q, k, v))
     del q, k, v, ref
@@ -720,6 +696,101 @@ def _check_k3_masked(fn, plain, q, k, v, bar, t_unmasked: float) -> dict:
                             f"attn_mask, {str(q.dtype)[6:]}"}
 
 
+def _k3_edge_inputs() -> list:
+    """(label, [q, k, v], q's scale) of K3's edge inputs on the card,
+    float32: the ragged, peaked one (K3_SHARP_HW^2 tokens, q x
+    K3_SHARP_QSCALE) and K3_BATCH2."""
+    sharp = _k3_inputs(np.random.default_rng(7), K3_SHARP_HW,
+                       K3_SHARP_QSCALE)
+    rng = np.random.default_rng(9)
+    batch2 = [torch.from_numpy(rng.standard_normal(K3_BATCH2).astype(
+        np.float32)).cuda() for _ in range(3)]
+    return [("ragged_peaked", list(sharp), K3_SHARP_QSCALE),
+            ("batch2_c64", batch2, 1.0)]
+
+
+def _k3_f32_guarded(q, k, v) -> tuple:
+    """K3 f32's C entry on [B, H, W, C] float32 q, k, v, writing into a
+    buffer one 64-query block longer than the output, its tail NaN: (the
+    output, whether the tail is untouched).  Rows past N are never
+    stored; a kernel that stores them would overwrite the next batch
+    element's first rows, or memory past the output."""
+    from hdrvae_torch.kernels import _build
+    b, h, w, c = q.shape
+    n = b * h * w * c
+    buf = torch.full((n + 64 * c,), float("nan"), device=q.device)
+    fn = _build.library().hdrvae_flash_attention_f32
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                    buf.data_ptr(), b, h * w, c, float(c ** -0.5),
+                    torch.cuda.current_stream().cuda_stream),
+                 "flash_attention_f32")
+    torch.cuda.synchronize()
+    return buf[:n].view(b, h, w, c), bool(buf[n:].isnan().all().item())
+
+
+def _check_k3_f32(q, k, v, ref=None) -> dict:
+    """K3's exact float32 mode (the parity tier) within
+    ATTN_BUDGET["parity"] of the plain version: through the parity
+    dispatch at K3's inputs (``ref`` their plain output), on the ragged,
+    peaked input and on K3_BATCH2, each also into a buffer whose tail past
+    the last row must stay untouched; then its key_valid records.  Times
+    the kernel (and its TFLOP/s), its plain version and SDPA float32 at
+    K3's inputs."""
+    from hdrvae_torch.core.config import Precision
+    from hdrvae_torch.kernels import attention
+    bar = ATTN_BUDGET["parity"]
+    if ref is None:
+        ref = attention.spatial_attention_reference(q, k, v)
+    got = attention.spatial_attention(q, k, v, precision=Precision.parity())
+    torch.cuda.synchronize()
+    e = (got - ref).abs().max().item()
+    check(torch.isfinite(got).all().item() and e <= bar,
+          f"K3 parity: max-abs {e} > {bar}")
+    del got
+    records = {}
+    for label, (qs, ks, vs), qscale in _k3_edge_inputs():
+        got = attention.flash_attention_f32(qs, ks, vs)
+        r = attention.spatial_attention_reference(qs, ks, vs)
+        torch.cuda.synchronize()
+        ex = (got - r).abs().max().item()
+        check(torch.isfinite(got).all().item() and ex <= bar,
+              f"K3 parity {label} {list(qs.shape)}: max-abs {ex} > {bar} or "
+              "not finite")
+        # the same through a buffer with a NaN tail past the last row
+        got, tail = _k3_f32_guarded(qs, ks, vs)
+        eg = (got - r).abs().max().item()
+        check(tail and eg <= bar, f"K3 parity {label}: rows past N stored "
+              f"(tail untouched: {tail}) or max-abs {eg} > {bar}")
+        records[label] = {"shape": list(qs.shape), "qscale": qscale,
+                          "max_abs_err": ex, "err_budget": bar,
+                          "tail_untouched": tail}
+        del qs, ks, vs, got, r
+    torch.cuda.empty_cache()
+    t = cuda_ms(lambda: attention.flash_attention_f32(q, k, v), iters=3)
+    tp = cuda_ms(lambda: attention.spatial_attention_reference(q, k, v),
+                 iters=3)
+    tl = sdpa_ms(q, k, v)
+    # q k^T and p v; exact float32 runs outside the tensor cores
+    b = Bound().add(ATTN_FLOPS, 4 * nbytes(q), PEAK_F32)
+    tflops = ATTN_FLOPS / (t * 1e9)
+    log(f"K3 flash_attention_f32 N={N_TOKENS} C={C_ATTN}: parity max-abs "
+        f"{e:.3e} (<= {bar}); ragged N={K3_SHARP_HW ** 2} q x "
+        f"{K3_SHARP_QSCALE}: {records['ragged_peaked']['max_abs_err']:.3e}; "
+        f"{list(K3_BATCH2)}: {records['batch2_c64']['max_abs_err']:.3e}  "
+        f"kernel {t:.3f} ms ({tflops:.1f} TFLOP/s)  plain {tp:.3f} ms  SDPA "
+        f"{tl:.3f} ms  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    masked = _check_k3_masked(
+        attention.flash_attention_f32, attention.spatial_attention_reference,
+        q, k, v, lambda r: bar, t)
+    return {"name": "flash_attention_f32", "route": "cuda",
+            "source": "hdrvae_torch/csrc/attention.cu",
+            "replaces": "hdrvae/kernels/attention.py:210",
+            "max_abs_err": e, "err_budget": bar, **records, "ms": t,
+            "tflops": tflops, "plain_ms": tp, **b, "library_ms": tl,
+            "library_call": "F.scaled_dot_product_attention, float32",
+            "tiers": ["parity"], "key_valid": masked}
+
+
 def _check_k3_bf16(q, k, v) -> dict:
     """K3's bf16 mode (the fast tier) within one bf16 ulp of the largest
     output of the exact plain version on the same bf16 values: at K3's
@@ -739,13 +810,7 @@ def _check_k3_bf16(q, k, v) -> dict:
           f"K3 fast: max-abs {e} > {bound}")
     del got, ref
     records = {}
-    sharp = _k3_inputs(np.random.default_rng(7), K3_SHARP_HW,
-                       K3_SHARP_QSCALE)
-    rng = np.random.default_rng(9)
-    batch2 = [torch.from_numpy(rng.standard_normal(K3_BATCH2).astype(
-        np.float32)).cuda() for _ in range(3)]
-    for label, inputs, qscale in (("ragged_peaked", sharp, K3_SHARP_QSCALE),
-                                  ("batch2_c64", batch2, 1.0)):
+    for label, inputs, qscale in _k3_edge_inputs():
         qs, ks, vs = (x.bfloat16() for x in inputs)
         got = attention.flash_attention_bf16(qs, ks, vs)
         r = attention.spatial_attention_reference(qs, ks, vs)
@@ -757,7 +822,6 @@ def _check_k3_bf16(q, k, v) -> dict:
         records[label] = {"shape": list(qs.shape), "qscale": qscale,
                           "max_abs_err": ex, "err_budget": bx}
         del qs, ks, vs, got, r
-    del sharp, batch2
     torch.cuda.empty_cache()
     t = cuda_ms(lambda: attention.flash_attention_bf16(qb, kb, vb), iters=3)
     tp = cuda_ms(lambda: attention.spatial_attention_reference(qb, kb, vb),

@@ -73,11 +73,38 @@
 //    operations on the tensor cores; the design is bound instead by its
 //    shared-memory reads (~1.5 KB a 16 x 8 x 16 triple of mmas) and by the
 //    K / V tile loads, which stop the block at its barriers.
-//  * flash_f32 (parity tier): exact float32 dot products with FMAs on the
-//    CUDA cores, never TF32 (HIGHEST).  64 queries by 32 keys per step;
-//    each thread computes a 2 x 4 block of scores and keeps a 16-row x
-//    8-column block of the output in registers, so shared-memory reads per
-//    FMA stay low.
+//  * flash_f32 (parity tier): what _flash_kernel computes in HIGHEST,
+//    exact float32: q scaled by C^-1/2 first (one rounded multiply, as
+//    :131), every product an fmaf on the CUDA cores (no TF32, no tensor
+//    cores), expf, the online softmax in float32.  Bound at N = 16,384, C
+//    = 512: 4 N^2 C = 5.50e11 operations, 8.205 ms at the 67 TFLOP/s
+//    float32 rate, so the design is about feeding 128 FFMAs a clock an SM
+//    from registers.  A block is 64 queries and 8 warps, warp w owning
+//    rows 8 w .. 8 w + 7 in both products, so each row's max, sum and P
+//    stay in its warp.  A step is BK32 = 128 keys: S is an outer-product
+//    register tile of 8 rows x 4 keys a thread (keys lane + 32 j), P V one
+//    of 8 rows x C / 32 columns (128 registers at C = 512, which leaves
+//    no room for a larger S tile).  Shared loads cost by quarter-warp
+//    (tools/smem_probe.cu on the H100: a 128-bit load takes 4.0 SM clocks
+//    when each quarter-warp reads 8 chunks, 2.3 when it reads one, as a
+//    broadcast does), so per 4 channels S takes 8 q broadcasts and 4 K
+//    loads, ~34 clocks of loads for 32 of FFMAs: shared memory bounds S.
+//    P V takes per key 4 V loads of 4 columns (2 at odd C / 64) and per 4
+//    keys one P broadcast a row, ~21 clocks for 32.  q stays resident
+//    (128 KB at C = 512, scaled in place once); K and V stream through a
+//    ring of NS32 = 4 slots of 16 KB behind full / empty mbarriers, copied
+//    by TMA from 3-D [B, N, C] maps (rows past N arrive as zeros, never
+//    from the next batch): a K stage is the step's 128 keys x 32 channels
+//    (the 128-byte swizzle, so the 8 lanes of a quarter-warp read 8 bank
+//    groups), a V stage 8 keys x C.  P goes to shared memory, 8 rows x 128
+//    keys a warp (32 KB), and comes back as broadcasts.  ~225 KB of shared
+//    memory, one block an SM; 255 registers, no spills.  Thread 0 issues
+//    the copies: after each stage it waits until every warp has released
+//    it and refills its slot.  This keeps the 8 warps in step: a thread 0
+//    that refilled only slots already free, never waiting, let the warps
+//    drift apart and ran far slower (sub-partitions idled while the
+//    slowest warp caught up); a ninth, producer warp would cap every
+//    thread at 168 registers.
 //
 // Ragged N is handled by masking: keys at or past N score -inf (and their
 // rows load as zero), queries at or past N are computed on zeros and not
@@ -105,24 +132,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// 16-byte global -> shared copy; zero-fills when !valid (no bytes read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 // whether key `key` takes part in the softmax: below N and, given a mask,
 // marked live
 __device__ __forceinline__ bool key_live(const unsigned char* kvalid,
@@ -133,22 +142,6 @@ __device__ __forceinline__ bool key_live(const unsigned char* kvalid,
 // the online softmax's reference max: m, or 0 while every key seen is dead
 __device__ __forceinline__ float softmax_ref(float m) {
   return m == -INFINITY ? 0.0f : m;
-}
-
-// rows [row0, row0 + rows) of a [N, C] matrix (elem-byte elements) into
-// shared memory with row stride ld elements; rows at or past N are zero.
-template <typename T>
-__device__ __forceinline__ void load_rows_async(T* dst, const T* src,
-                                                int row0, int rows, int N,
-                                                int C, int ld) {
-  constexpr int per = 16 / sizeof(T);
-  const int vpr = C / per;
-  for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
-    const int r = i / vpr, c = (i % vpr) * per;
-    const bool valid = row0 + r < N;
-    const T* g = valid ? src + static_cast<size_t>(row0 + r) * C + c : src;
-    cp_async16(dst + r * ld + c, g, valid);
-  }
 }
 
 // ---------------------------------------------------------------- bf16 ----
@@ -511,149 +504,357 @@ int launch_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------- f32 -----
-constexpr int BQ32 = 64;          // queries per block
-constexpr int BKV32 = 32;         // keys per step
-constexpr int NT32 = 256;
-constexpr int MAXC32 = 512;       // register accumulator bound: C / 64 <= 8
-constexpr int PLD32 = BKV32 + 1;
+constexpr int MAXC32 = 512;       // C / 64 <= 8 (the 3-pass kernel's too)
+constexpr int BQ32 = 64;          // queries a block: 8 rows a warp
+constexpr int JK32 = 4;           // keys a lane a step: lane + 32 j, j < JK32
+constexpr int BK32 = 32 * JK32;   // keys a step
+constexpr int NT32 = 256;         // 8 warps; thread 0 also issues the copies
+constexpr int KC32 = 32;          // channels of a K stage: BK32 rows of 128 B
+constexpr int VK32 = 8;           // keys of a V stage: 8 x C
+constexpr int NS32 = 4;           // ring slots
+constexpr int SLOT32 = BK32 * KC32 * 4;   // 16 KB: a K stage, a V one at C 512
+constexpr int QBOX32 = 64 * 64 * 4;       // a 64-row x 64-column q box
+static_assert(SLOT32 >= VK32 * MAXC32 * 4, "a V stage fits a slot");
+static_assert(KC32 * 4 == 128, "K stage rows span the 128-byte swizzle");
 
-size_t f32_smem(int C) {
-  return (static_cast<size_t>(BQ32 + BKV32) * (C + 4) + BQ32 * PLD32 +
-          2 * BQ32) * sizeof(float);
+// Shared memory of flash_f32_kernel<NC> (C = 64 NC) from a 1024-byte
+// aligned base: q (NC boxes [64 rows][64 columns]), the ring's NS32 slots,
+// P (each warp's 8 rows x BK32 keys), the ring's full and empty mbarriers
+// and q's.  A step of BK32 keys is KST K stages (all its keys, KC32
+// channels each) and then BK32 / VK32 V stages (8 keys, all of C each; NC
+// boxes [8 keys][64 columns]).
+template <int NC>
+struct F32Smem {
+  static constexpr int KST = 64 * NC / KC32;
+  static constexpr int STAGES = KST + BK32 / VK32;   // a step
+  static constexpr int Q = 0;
+  static constexpr int RING = Q + NC * QBOX32;
+  static constexpr int P = RING + NS32 * SLOT32;
+  static constexpr int BAR = P + BQ32 * BK32 * 4;
+  static constexpr int BYTES = BAR + (2 * NS32 + 1) * 8 + 1024;
+};
+static_assert(F32Smem<8>::BYTES <= 232448, "shared memory");
+
+// Stage g of the ring (step g / STAGES) into slot g % NS32 by TMA,
+// completing on that slot's full barrier: a K stage, or a V stage's NC
+// boxes.  Rows at or past N arrive as zeros.
+template <int NC>
+__device__ __forceinline__ void f32_stage_copy(int g, uint32_t ring_s,
+                                               uint32_t full_s,
+                                               const CUtensorMap* kmap,
+                                               const CUtensorMap* vmap,
+                                               int b) {
+  typedef F32Smem<NC> L;
+  const int step = g / L::STAGES, i = g - step * L::STAGES;
+  const uint32_t dst = ring_s + (g % NS32) * SLOT32;
+  const uint32_t bar = full_s + (g % NS32) * 8;
+  if (i < L::KST) {
+    hopper::mbar_expect_tx(bar, SLOT32);
+    hopper::tma_load_3d(dst, kmap, bar, KC32 * i, BK32 * step, b);
+  } else {
+    const int row = BK32 * step + VK32 * (i - L::KST);
+    hopper::mbar_expect_tx(bar, NC * VK32 * 256);
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+      hopper::tma_load_3d(dst + m * VK32 * 256, vmap, bar, 64 * m, row, b);
+  }
 }
 
-__global__ void __launch_bounds__(NT32, 1) flash_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ kvalid,
-    float* __restrict__ out, int N, int C, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = C + 4;
-  float* qs = reinterpret_cast<float*>(smem);
-  float* kvs = qs + BQ32 * ld;
-  float* ps = kvs + BKV32 * ld;            // [BQ32][PLD32]
-  float* as = ps + BQ32 * PLD32;           // alpha per row
-  float* ls = as + BQ32;                   // final row sums
+// The ring, as each thread tracks it: stage g's slot, waited for, and
+// released once every lane of the warp is done reading it; thread 0 then
+// waits until every warp has released it and refills it with the stage
+// NS32 later.  Shared addresses are 32-bit offsets from the aligned base.
+template <int NC>
+struct F32Ring {
+  uint32_t base_s;
+  int b, nst, g = 0;
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ32;
-  const size_t base = static_cast<size_t>(b) * N * C;
-
-  // scores: thread -> rows srow, srow + 1; keys skey + 8 j, j < 4
-  const int srow = (tid / 8) * 2, skey = tid % 8;
-  // output: thread -> rows orow0 .. orow0 + 15, columns ocol + 64 j
-  const int orow0 = (tid / 64) * 16, ocol = tid % 64;
-  const int ncol = C / 64;
-
-  float acc[16][MAXC32 / 64];
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int j = 0; j < MAXC32 / 64; ++j) acc[r][j] = 0.0f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
-
-  load_rows_async(qs, q + base, q0, BQ32, N, C, ld);
-  cp_async_commit();
-
-  for (int kv0 = 0; kv0 < N; kv0 += BKV32) {
-    __syncthreads();   // the previous step's P v is done with kvs
-    load_rows_async(kvs, k + base, kv0, BKV32, N, C, ld);
-    cp_async_wait_all();
-    __syncthreads();
-    float sv[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sv[r][j] = 0.0f;
-    const float* q0r = qs + srow * ld;
-    const float* q1r = q0r + ld;
-    for (int c = 0; c < C; c += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(q0r + c);
-      const float4 a1 = *reinterpret_cast<const float4*>(q1r + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(kvs + (skey + 8 * j) * ld + c);
-        sv[0][j] = fmaf(a0.x, kk.x, sv[0][j]);
-        sv[0][j] = fmaf(a0.y, kk.y, sv[0][j]);
-        sv[0][j] = fmaf(a0.z, kk.z, sv[0][j]);
-        sv[0][j] = fmaf(a0.w, kk.w, sv[0][j]);
-        sv[1][j] = fmaf(a1.x, kk.x, sv[1][j]);
-        sv[1][j] = fmaf(a1.y, kk.y, sv[1][j]);
-        sv[1][j] = fmaf(a1.z, kk.z, sv[1][j]);
-        sv[1][j] = fmaf(a1.w, kk.w, sv[1][j]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sv[r][j] = key_live(kvalid, kv0 + skey + 8 * j, N) ? sv[r][j] * scale
-                                                          : -INFINITY;
-        mt = fmaxf(mt, sv[r][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m_run[r], mt);
-      const float m_ref = softmax_ref(m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sv[r][j] - m_ref);
-        rs += p;
-        ps[(srow + r) * PLD32 + skey + 8 * j] = p;
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float alpha = expf(m_run[r] - m_ref);
-      m_run[r] = m_new;
-      l_run[r] = l_run[r] * alpha + rs;
-      if (skey == 0) as[srow + r] = alpha;
-    }
-    __syncthreads();   // scores are done with K; P and alpha visible
-    load_rows_async(kvs, v + base, kv0, BKV32, N, C, ld);
-    cp_async_commit();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float a = as[orow0 + r];
-#pragma unroll
-      for (int j = 0; j < MAXC32 / 64; ++j) acc[r][j] *= a;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int key = 0; key < BKV32; ++key) {
-      float vv[MAXC32 / 64];
-#pragma unroll
-      for (int j = 0; j < MAXC32 / 64; ++j)
-        vv[j] = j < ncol ? kvs[key * ld + ocol + 64 * j] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const float p = ps[(orow0 + r) * PLD32 + key];
-#pragma unroll
-        for (int j = 0; j < MAXC32 / 64; ++j)
-          acc[r][j] = fmaf(p, vv[j], acc[r][j]);
-      }
-    }
+  __device__ __forceinline__ uint32_t full(int h) const {
+    return base_s + F32Smem<NC>::BAR + (h % NS32) * 8;
   }
-  if (skey == 0) {
-    ls[srow] = l_run[0];
-    ls[srow + 1] = l_run[1];
+  __device__ __forceinline__ uint32_t empty(int h) const {
+    return full(h) + 8 * NS32;
+  }
+
+  // the byte offset of stage g's slot from the aligned base, once it landed
+  __device__ __forceinline__ int wait() const {
+    hopper::mbar_wait(full(g), (g / NS32) & 1);
+    return F32Smem<NC>::RING + (g % NS32) * SLOT32;
+  }
+
+  __device__ __forceinline__ void release(int tid, const CUtensorMap* kmap,
+                                          const CUtensorMap* vmap) {
+    __syncwarp();
+    if (tid % 32 == 0) hopper::mbar_arrive(empty(g));
+    if (tid == 0 && g + NS32 < nst) {
+      hopper::mbar_wait(empty(g), (g / NS32) & 1);
+      f32_stage_copy<NC>(g + NS32, base_s + F32Smem<NC>::RING,
+                         base_s + F32Smem<NC>::BAR, kmap, vmap, b);
+    }
+    ++g;
+  }
+};
+
+template <int NC>
+__global__ void __launch_bounds__(NT32, 1) flash_f32_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const unsigned char* __restrict__ kvalid, float* __restrict__ out,
+    int N, float scale) {
+  typedef F32Smem<NC> L;
+  constexpr int C = 64 * NC;
+  // aligned by an offset from smem_raw (not through an integer), so the
+  // compiler keeps every access below in the shared window: 32-bit
+  // addresses and shared loads
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_s = hopper::smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw_s & 1023u)) & 1023u;
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t base_s = raw_s + pad;
+  float* qs = reinterpret_cast<float*>(smem + L::Q);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* pw = reinterpret_cast<float*>(smem + L::P) + warp * 8 * BK32;
+  const int b = blockIdx.y, q0 = blockIdx.x * BQ32;
+  const int nsteps = (N + BK32 - 1) / BK32;
+  F32Ring<NC> ring;
+  ring.base_s = base_s;
+  ring.b = b;
+  ring.nst = nsteps * L::STAGES;
+  const uint32_t q_full = base_s + L::BAR + 16 * NS32;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int i = 0; i < NS32; ++i) {
+      hopper::mbar_init(ring.full(i), 1);
+      hopper::mbar_init(ring.empty(i), NT32 / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + orow0 + r;
-    if (row >= N) continue;
-    const float inv = 1.0f / ls[orow0 + r];
-#pragma unroll
-    for (int j = 0; j < MAXC32 / 64; ++j)
-      if (j < ncol)
-        out[base + static_cast<size_t>(row) * C + ocol + 64 * j] =
-            acc[r][j] * inv;
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_full, NC * QBOX32);
+    for (int m = 0; m < NC; ++m)
+      hopper::tma_load_3d(base_s + L::Q + m * QBOX32, &qmap, q_full, 64 * m,
+                          q0, b);
+    for (int g = 0; g < NS32 && g < ring.nst; ++g)
+      f32_stage_copy<NC>(g, base_s + L::RING, base_s + L::BAR, &kmap, &vmap,
+                         b);
   }
+  // q times C^-1/2, one rounded multiply each, as the reference's q * scale
+  hopper::mbar_wait(q_full, 0);
+  for (int i = tid; i < NC * QBOX32 / 16; i += NT32) {
+    float4* p = reinterpret_cast<float4*>(qs) + i;
+    float4 x = *p;
+    x.x = __fmul_rn(x.x, scale);
+    x.y = __fmul_rn(x.y, scale);
+    x.z = __fmul_rn(x.z, scale);
+    x.w = __fmul_rn(x.w, scale);
+    *p = x;
+  }
+  __syncthreads();
+
+  // S: this warp's rows 8 warp + r, this lane's keys lane + 32 j of a step.
+  // TMA's 128-byte swizzle keeps the 16-byte chunk c of a K stage's key row
+  // k at c ^ (k % 8), the same for k = lane + 32 j and every j: the eight
+  // lanes of a quarter-warp read eight different bank groups.
+  const int sw = lane & 7;
+  const float* qw = qs + warp * 8 * 64;   // row 8 warp of the first box
+  // P V: o[r][VW m + x] is row 8 warp + r, column 32 VW m + VW lane + x:
+  // VW = 4 columns a lane and load (2 at odd NC), NV loads a key; in a V
+  // stage (NC boxes [8 keys][64 columns]) at lane_v + m_v(m) floats
+  constexpr int VW = NC % 2 == 0 ? 4 : 2, NV = 2 * NC / VW;
+  const int lane_v = (VW * lane / 64) * VK32 * 64 + (VW * lane) % 64;
+  float o[8][2 * NC];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int m = 0; m < 2 * NC; ++m) o[r][m] = 0.0f;
+  // the running max and sum of row 8 warp + r, kept by lane r
+  float m_lane = -INFINITY, l_lane = 0.0f;
+
+#pragma unroll 1
+  for (int step = 0; step < nsteps; ++step) {
+    const int kv0 = step * BK32;
+    // bit j: key kv0 + lane + 32 j is below N and, given a mask, live
+    unsigned live = 0xFFu;
+    if (kvalid != nullptr || kv0 + BK32 > N) {
+      live = 0;
+#pragma unroll
+      for (int j = 0; j < JK32; ++j)
+        live |= unsigned(key_live(kvalid, kv0 + lane + 32 * j, N)) << j;
+    }
+    float s[8][JK32];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < JK32; ++j) s[r][j] = 0.0f;
+#pragma unroll 1
+    for (int kc = 0; kc < L::KST; ++kc) {
+      const float* ks =
+          reinterpret_cast<const float*>(smem + ring.wait()) + lane * KC32;
+      const float* qc = qw + (kc * KC32 / 64) * (QBOX32 / 4) +
+                        (kc * KC32) % 64;
+#pragma unroll
+      for (int c4 = 0; c4 < KC32 / 4; ++c4) {
+        float4 kf[JK32];
+#pragma unroll
+        for (int j = 0; j < JK32; ++j)
+          kf[j] = *reinterpret_cast<const float4*>(ks + 32 * KC32 * j +
+                                                   4 * (c4 ^ sw));
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qc + 64 * r + 4 * c4);
+#pragma unroll
+          for (int j = 0; j < JK32; ++j) {
+            s[r][j] = fmaf(qv.x, kf[j].x, s[r][j]);
+            s[r][j] = fmaf(qv.y, kf[j].y, s[r][j]);
+            s[r][j] = fmaf(qv.z, kf[j].z, s[r][j]);
+            s[r][j] = fmaf(qv.w, kf[j].w, s[r][j]);
+          }
+        }
+      }
+      ring.release(tid, &kmap, &vmap);
+    }
+
+    // the online softmax of each row over the step's keys, dead keys -inf
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < JK32; ++j) {
+        if (!((live >> j) & 1u)) s[r][j] = -INFINITY;
+        mt = fmaxf(mt, s[r][j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_old = __shfl_sync(0xffffffffu, m_lane, r);
+      const float m_next = fmaxf(m_old, mt);
+      const float base = softmax_ref(m_next);
+      const float alpha = expf(m_old - base);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < JK32; ++j) {
+        s[r][j] = expf(s[r][j] - base);
+        rs += s[r][j];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      const float l_old = __shfl_sync(0xffffffffu, l_lane, r);
+      if (lane == r) {
+        m_lane = m_next;
+        l_lane = l_old * alpha + rs;
+      }
+#pragma unroll
+      for (int m = 0; m < 2 * NC; ++m) o[r][m] *= alpha;
+    }
+
+    // P to this warp's rows of shared memory, once its last P V has read
+    // them: pw[r][key of the step]
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < JK32; ++j) pw[r * BK32 + lane + 32 * j] = s[r][j];
+    __syncwarp();
+
+    // P V: V stage v holds keys 8 v .. 8 v + 7 of the step; their P comes
+    // four keys a row at a time, one broadcast load
+#pragma unroll 1
+    for (int v = 0; v < BK32 / VK32; ++v) {
+      const float* vs =
+          reinterpret_cast<const float*>(smem + ring.wait()) + lane_v;
+#pragma unroll
+      for (int e4 = 0; e4 < VK32; e4 += 4) {
+        float4 pr[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          pr[r] = *reinterpret_cast<const float4*>(pw + r * BK32 +
+                                                   VK32 * v + e4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float vv[2 * NC];
+#pragma unroll
+          for (int m = 0; m < NV; ++m) {
+            const float* src = vs + (VW * m / 2) * VK32 * 64 + (e4 + e) * 64;
+            if constexpr (VW == 4) {
+              const float4 x = *reinterpret_cast<const float4*>(src);
+              vv[4 * m] = x.x;
+              vv[4 * m + 1] = x.y;
+              vv[4 * m + 2] = x.z;
+              vv[4 * m + 3] = x.w;
+            } else {
+              const float2 x = *reinterpret_cast<const float2*>(src);
+              vv[2 * m] = x.x;
+              vv[2 * m + 1] = x.y;
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float p = e == 0 ? pr[r].x : e == 1 ? pr[r].y
+                            : e == 2 ? pr[r].z : pr[r].w;
+#pragma unroll
+            for (int m = 0; m < 2 * NC; ++m)
+              o[r][m] = fmaf(p, vv[m], o[r][m]);
+          }
+        }
+      }
+      ring.release(tid, &kmap, &vmap);
+    }
+  }
+
+  // divided by the row sums; rows past N are not stored
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float l = __shfl_sync(0xffffffffu, l_lane, r);
+    const int row = q0 + 8 * warp + r;
+    if (row >= N) continue;
+    float* orow = out + (static_cast<size_t>(b) * N + row) * C + VW * lane;
+#pragma unroll
+    for (int m = 0; m < NV; ++m) {
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(orow + 128 * m) =
+            make_float4(o[r][4 * m] / l, o[r][4 * m + 1] / l,
+                        o[r][4 * m + 2] / l, o[r][4 * m + 3] / l);
+      else
+        *reinterpret_cast<float2*>(orow + 64 * m) =
+            make_float2(o[r][2 * m] / l, o[r][2 * m + 1] / l);
+    }
+  }
+}
+
+// Maps of q (64 x 64 boxes), K (16 channels x 256 keys, the 64-byte
+// swizzle) and V (64 x 8 boxes), all [B, N, C] float32; the launch: one
+// block a 64-query tile and batch element.
+template <int NC>
+int launch_f32(const void* q, const void* k, const void* v,
+               const unsigned char* kvalid, float* out, int B, int N,
+               float scale, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const uint64_t dims[3] = {uint64_t(64 * NC), uint64_t(N), uint64_t(B)};
+  const uint32_t boxes[3][3] = {{64, BQ32, 1}, {KC32, BK32, 1}, {64, VK32, 1}};
+  const CUtensorMapSwizzle swz[3] = {CU_TENSOR_MAP_SWIZZLE_NONE,
+                                     CU_TENSOR_MAP_SWIZZLE_128B,
+                                     CU_TENSOR_MAP_SWIZZLE_NONE};
+  for (int i = 0; i < 3; ++i) {
+    const int err = hopper::make_map(&maps[i], ptrs[i], 3, dims, boxes[i],
+                                     swz[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    if (err != 0) return err;
+  }
+  const int smem = F32Smem<NC>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_f32_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + BQ32 - 1) / BQ32, B);
+  flash_f32_kernel<NC><<<grid, NT32, smem, stream>>>(
+      maps[0], maps[1], maps[2], kvalid, out, N, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -------------------------------------------------------------- 3-pass ----
@@ -987,23 +1188,25 @@ int hdrvae_flash_attention_3pass(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512;
-// key_valid [N] bytes or nullptr.
+// q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512
+// (cudaErrorInvalidValue otherwise); key_valid [N] bytes or nullptr.
 int hdrvae_flash_attention_f32(const void* q, const void* k, const void* v,
                                const void* key_valid, void* out, int B,
                                int N, int C, float scale, void* stream) {
-  const size_t smem = f32_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + BQ32 - 1) / BQ32, B);
-  flash_f32_kernel<<<grid, NT32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v),
-      static_cast<const unsigned char*>(key_valid), static_cast<float*>(out),
-      N, C, scale);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned char* kv = static_cast<const unsigned char*>(key_valid);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C % 64 == 0 ? C / 64 : 0) {
+    case 1: return launch_f32<1>(q, k, v, kv, o, B, N, scale, s);
+    case 2: return launch_f32<2>(q, k, v, kv, o, B, N, scale, s);
+    case 3: return launch_f32<3>(q, k, v, kv, o, B, N, scale, s);
+    case 4: return launch_f32<4>(q, k, v, kv, o, B, N, scale, s);
+    case 5: return launch_f32<5>(q, k, v, kv, o, B, N, scale, s);
+    case 6: return launch_f32<6>(q, k, v, kv, o, B, N, scale, s);
+    case 7: return launch_f32<7>(q, k, v, kv, o, B, N, scale, s);
+    case 8: return launch_f32<8>(q, k, v, kv, o, B, N, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

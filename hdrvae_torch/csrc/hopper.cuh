@@ -295,16 +295,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// bf16 tensor map with zero fill out of bounds; dims innermost first, the
-// innermost contiguous, `box` elements a copy.  0 on success.
+// bf16 (or float32) tensor map with zero fill out of bounds; dims
+// innermost first, the innermost contiguous, `box` elements a copy.  0 on
+// success.
 inline int make_map(CUtensorMap* map, const void* ptr, int rank,
                     const uint64_t* dims, const uint32_t* box,
-                    CUtensorMapSwizzle swizzle) {
+                    CUtensorMapSwizzle swizzle,
+                    CUtensorMapDataType dtype =
+                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], st[4];
   cuuint32_t bx[5], es[5];
-  uint64_t stride = 2;
+  uint64_t stride = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     bx[i] = box[i];
@@ -312,7 +315,7 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
     if (i > 0) st[i - 1] = stride;
     stride *= dims[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  const CUresult r = fn(map, dtype, rank,
                         const_cast<void*>(ptr), d, st, bx, es,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -397,6 +397,47 @@ def test_flash_attention_bf16_edges(dev, hw, c, b, qscale, mask):
     assert (got - ref).abs().max().item() <= _ulp_bound(ref)
 
 
+# K3 f32 at its edges: (grid, C, batch, q's scale, key_valid). N = 1, 63,
+# 130, 256 (one 256-key step) and 4,097 (no multiple of the step or of
+# a V stage's 8 keys, a ragged last step; 65 query blocks); C from one
+# 64-column box to 512; batch 1 and 2; unit and peaked (q x 8) scores; no
+# mask, a live rectangle, the first 256 keys dead (the whole first step
+# sees no live key) and a single live key
+F32_EDGES = [
+    ((1, 1), 512, 2, 1.0, "none"),
+    ((7, 9), 64, 2, 8.0, "none"),
+    ((7, 9), 512, 1, 1.0, "one live key"),
+    ((10, 13), 128, 2, 1.0, "none"),
+    ((10, 13), 512, 2, 8.0, "one live key"),
+    ((10, 13), 64, 1, 1.0, "live rectangle"),
+    ((16, 16), 512, 2, 8.0, "none"),
+    ((17, 241), 512, 1, 8.0, "first 256 dead"),
+    ((17, 241), 64, 2, 1.0, "first 256 dead"),
+    ((17, 241), 128, 2, 8.0, "one live key"),
+    ((17, 241), 320, 1, 1.0, "none"),
+]
+
+
+@pytest.mark.parametrize("hw,c,b,qscale,mask", F32_EDGES)
+def test_flash_attention_f32_edges(dev, hw, c, b, qscale, mask):
+    """K3's exact float32 kernel against the plain version within 1e-5
+    (both take float32 products and sums, in other orders), finite
+    everywhere, one launch each."""
+    live = _bf16_edge_mask(hw, mask)
+    kv = None if live is None else torch.from_numpy(live).to(dev)
+    q, k, v = (_rand(dev, (b, *hw, c), 1.0, torch.float32, seed=s)
+               for s in range(3))
+    q = q * qscale
+    before = attention.flash_attention_f32.launches
+    got = attention.flash_attention_f32(q, k, v, key_valid=kv)
+    assert attention.flash_attention_f32.launches == before + 1
+    ref = attention.spatial_attention_reference(q, k, v, key_valid=kv)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
 def test_flash_attention_key_valid_refused(dev):
     q = torch.zeros(1, 4, 4, 64, device=dev)
     with pytest.raises(ValueError, match="key_valid"):

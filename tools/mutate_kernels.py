@@ -2,8 +2,8 @@
 """Mutation check of a kernel's test in ``chip_smoke.py``, on one NVIDIA
 GPU.
 
-    python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_3pass|k3_bf16 ...]
-                                    (default: all)
+    python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_f32|k3_3pass|
+                                     k3_bf16 ...]   (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
 ``chip_smoke.py`` into a temporary directory, breaks one CUDA source
@@ -16,7 +16,11 @@ and more (a ragged conv5, conv_body, conv_first of unshuffle 2 and 4);
 k5: ``_check_k5``, K5 against its plain version at the 2048^2 decode's
 junction and a ragged map; chain:
 ``_check_chain``, K10, K9 and K11 of the staged Swin chain at K7's v1
-shapes and the chain against K7; k3_3pass: ``_check_k3_3pass``, K3's
+shapes and the chain against K7; k3_f32: ``_check_k3_f32``, K3's exact
+float32 mode within 1e-5 of its plain version at N = 16,384, C = 512, on
+the ragged, peaked input and at batch 2 and C = 64 (each also into a
+buffer whose tail past the last row must stay untouched), and in its two
+key_valid records; k3_3pass: ``_check_k3_3pass``, K3's
 3-pass mode against exact float32 and its plain version at N = 16,384, C
 = 512, and against its plain version on a ragged input with peaked
 scores; k3_bf16: ``_check_k3_bf16``, K3's bf16 mode within one bf16 ulp
@@ -64,6 +68,22 @@ N = 16,384, C = 512, unmasked and with phase 3's key_valid mask:
 - fast-exp: ``__expf`` (the bare ex2 path) for ``expf`` in the softmax;
 - skip-rescale: the output's rescale skipped where every alpha of the
   warp is 1.
+
+    python3 tools/mutate_kernels.py --time-k3-f32 [as-is|no-loads|...]
+
+does the same for K3's exact float32 kernel (CUDA events, mean of 5
+launches after 2 warm-ups, twice, unmasked and masked at N = 16,384, C =
+512):
+
+- as-is: the kernel as it is;
+- no-loads, no-k-loads, no-v-loads: no TMA copies of K and V, of K, or of
+  V (their barriers still complete; q still loads);
+- no-s-ffma, no-pv-ffma: no S = q K^T FFMAs, or no P V ones (the shared
+  loads that fed them go with them; the ring, the softmax and the
+  barriers run);
+- refill-lag-1, refill-lag-2: thread 0 refills the slot of the stage
+  before the one its warp has just released, or of the one two before,
+  instead of that one (each once every warp has released it).
 
 It prints the card's name and power limit first.
 """
@@ -213,6 +233,45 @@ TARGETS = {
             "attention.cu", "for (int kv0 = 0; kv0 < N; kv0 += BKV3) {",
             "for (int kv0 = 0; kv0 < N - BKV3; kv0 += BKV3) {", True),
     }),
+    # K3's exact float32 kernel: every mutant keeps the producer's and the
+    # consumers' schedules in step
+    "k3_f32": ("_check_k3_f32(*chip_smoke._k3_inputs("
+               "np.random.default_rng(0)))", ("K3",), {
+        "one K stage's last 4 channels skipped": (
+            "attention.cu",
+            "      for (int c4 = 0; c4 < KC32 / 4; ++c4) {",
+            "      for (int c4 = 0; c4 < KC32 / 4 - (kc == 3); ++c4) {", True),
+        "alpha rescale dropped": (
+            "attention.cu", "for (int m = 0; m < 2 * NC; ++m) o[r][m] *= alpha;",
+            "for (int m = 0; m < 2 * NC; ++m) o[r][m] *= 1.0f;", True),
+        # each stage's copy lands in the slot of the stage after it (on
+        # its own slot's barrier): it overwrites a slot whose readers have
+        # not released it, and its own readers find the older stage
+        "a ring slot overwritten before its readers release it": (
+            "attention.cu",
+            "  const uint32_t dst = ring_s + (g % NS32) * SLOT32;",
+            "  const uint32_t dst = ring_s + ((g + 1) % NS32) * SLOT32;",
+            True),
+        "key_valid ignored (dead keys left live)": (
+            "attention.cu",
+            "live |= unsigned(key_live(kvalid, kv0 + lane + 32 * j, N)) << j;",
+            "live |= unsigned(key_live(nullptr, kv0 + lane + 32 * j, N)) << j;",
+            True),
+        "the -inf guard removed": (
+            "attention.cu", "const float base = softmax_ref(m_next);",
+            "const float base = m_next;", True),
+        "the last partial key step dropped": (
+            "attention.cu", "const int nsteps = (N + BK32 - 1) / BK32;",
+            "const int nsteps = N / BK32;", True),
+        "P of the next V stage's keys": (
+            "attention.cu", "VK32 * v + e4);",
+            "VK32 * ((v + 1) % (BK32 / VK32)) + e4);", True),
+        "rows past N stored": (
+            "attention.cu", "    const int row = q0 + 8 * warp + r;\n"
+            "    if (row >= N) continue;",
+            "    const int row = q0 + 8 * warp + r;\n"
+            "    if (row >= N + BQ32) continue;", True),
+    }),
     # K3's bf16 kernel: every mutant keeps the producer's and the
     # consumers' schedules in step
     "k3_bf16": ("_check_k3_bf16(*chip_smoke._k3_inputs("
@@ -326,6 +385,45 @@ K3_VARIANTS = {
          "    for (int q = 0; q < NB * 32; ++q) o[q] *= alpha[(q >> 1) & 1];")],
 }
 
+# --time-k3-f32: variant -> edits (text of attention.cu, its replacement)
+K3F_NO_K = [("    hopper::mbar_expect_tx(bar, SLOT32);\n"
+             "    hopper::tma_load_3d(dst, kmap, bar, KC32 * i, BK32 * step, b);",
+             "    hopper::mbar_expect_tx(bar, 0);")]
+K3F_NO_V = [("    hopper::mbar_expect_tx(bar, NC * VK32 * 256);\n#pragma unroll\n"
+             "    for (int m = 0; m < NC; ++m)",
+             "    hopper::mbar_expect_tx(bar, 0);\n#pragma unroll\n"
+             "    for (int m = 0; m < 0; ++m)")]
+K3F_VARIANTS = {
+    "as-is": [],
+    "no-loads": K3F_NO_K + K3F_NO_V,
+    "no-k-loads": K3F_NO_K,
+    "no-v-loads": K3F_NO_V,
+    # the products' FFMAs taken out: their shared loads (and P's
+    # shuffles) then feed nothing and go too
+    "no-s-ffma": [("            s[r][j] = fmaf(qv.x, kf[j].x, s[r][j]);\n"
+                   "            s[r][j] = fmaf(qv.y, kf[j].y, s[r][j]);\n"
+                   "            s[r][j] = fmaf(qv.z, kf[j].z, s[r][j]);\n"
+                   "            s[r][j] = fmaf(qv.w, kf[j].w, s[r][j]);\n",
+                   "")],
+    "no-pv-ffma": [("              o[r][m] = fmaf(p, vv[m], o[r][m]);",
+                    "              {}")],
+    # thread 0 refills the slot of the stage before the one its warp has
+    # just released, or of the one two before (each once every warp has
+    # released it)
+    "refill-lag-1": [("    if (tid == 0 && g + NS32 < nst) {\n"
+                      "      hopper::mbar_wait(empty(g), (g / NS32) & 1);\n"
+                      "      f32_stage_copy<NC>(g + NS32,",
+                      "    if (tid == 0 && g >= 1 && g - 1 + NS32 < nst) {\n"
+                      "      hopper::mbar_wait(empty(g - 1), ((g - 1) / NS32) & 1);\n"
+                      "      f32_stage_copy<NC>(g - 1 + NS32,")],
+    "refill-lag-2": [("    if (tid == 0 && g + NS32 < nst) {\n"
+                      "      hopper::mbar_wait(empty(g), (g / NS32) & 1);\n"
+                      "      f32_stage_copy<NC>(g + NS32,",
+                      "    if (tid == 0 && g >= 2 && g - 2 + NS32 < nst) {\n"
+                      "      hopper::mbar_wait(empty(g - 2), ((g - 2) / NS32) & 1);\n"
+                      "      f32_stage_copy<NC>(g - 2 + NS32,")],
+}
+
 K3_TIME = r'''
 import sys
 import numpy as np
@@ -341,6 +439,26 @@ for _ in range(2):
     t = cs.cuda_ms(lambda: attention.flash_attention_bf16(q, k, v), iters=10)
     tm = cs.cuda_ms(lambda: attention.flash_attention_bf16(q, k, v, kv),
                     iters=10)
+    print(f"  N={cs.N_TOKENS} C={cs.C_ATTN}: unmasked {t:.3f} ms "
+          f"({cs.ATTN_FLOPS / (t * 1e9):.1f} TFLOP/s), masked {tm:.3f} ms",
+          flush=True)
+'''
+
+K3F_TIME = r'''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from hdrvae_torch.kernels import _build, attention
+
+_build.library()
+q, k, v = cs._k3_inputs(np.random.default_rng(0))
+kv = cs._live_mask(128, cs.K3_LIVE)
+for _ in range(2):
+    t = cs.cuda_ms(lambda: attention.flash_attention_f32(q, k, v), iters=5)
+    tm = cs.cuda_ms(lambda: attention.flash_attention_f32(q, k, v, kv),
+                    iters=5)
     print(f"  N={cs.N_TOKENS} C={cs.C_ATTN}: unmasked {t:.3f} ms "
           f"({cs.ATTN_FLOPS / (t * 1e9):.1f} TFLOP/s), masked {tm:.3f} ms",
           flush=True)
@@ -388,7 +506,8 @@ print(f"  phase-3 sum   device {dev_sum:.3f} ms  wrapper {wrap_sum:.3f} ms",
 
 # the timing modes: flag -> (CUDA source, variants, timing script)
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
-           "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME)}
+           "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
+           "--time-k3-f32": ("attention.cu", K3F_VARIANTS, K3F_TIME)}
 
 
 @contextlib.contextmanager

@@ -62,10 +62,10 @@ tile forward weighted by each shape's launches there; one such forward
 measured (K6's device time from ``torch.profiler``); and three fast and
 one parity ESRGAN x4
 ``hdr_upscale`` requests of a 1024^2 HDR image from numpy seed 1 (the
-first fast one warms up); then K3 bf16 at N = 16,384 and 65,536 (C =
-512), unmasked and with the bucketed phase's live fraction of the grid
-(10 launches, 3 at N = 65,536, after 2 warm-ups), and three fast decodes
-each at 1024^2 and 2048^2.  ``--ab-only swin conv esrgan attn`` picks the
+first fast one warms up); then K3 bf16 and K3 f32 at N = 16,384 and
+65,536 (C = 512), unmasked and with the bucketed phase's live fraction of
+the grid (10 launches, 3 at N = 65,536, after 2 warm-ups), and three fast
+and three parity decodes each at 1024^2 and 2048^2.  ``--ab-only swin conv esrgan attn`` picks the
 turns.
 
 The script only reads: it changes nothing in the package.  Without a CUDA
@@ -529,11 +529,12 @@ for tier in ("fast", "fast", "fast", "parity"):
 '''
 
 
-# K3 bf16 at the fast decodes' mid attention, N = 16,384 and 65,536 (the
-# 1024^2 and 2048^2 decodes), C = 512, unmasked and with the bucketed
-# phase's live fraction (121 x 100 of 128 x 128, scaled to the grid), CUDA
-# events over 10 launches (3 at N = 65,536) after 2 warm-ups; then three
-# requests each of fast decodes at 1024^2 and 2048^2
+# K3 bf16 and K3 f32 at the fast and parity decodes' mid attention, N =
+# 16,384 and 65,536 (the 1024^2 and 2048^2 decodes), C = 512, unmasked and
+# with the bucketed phase's live fraction (121 x 100 of 128 x 128, scaled
+# to the grid), CUDA events over 10 launches (3 at N = 65,536) after 2
+# warm-ups; then three requests each of fast and parity decodes at 1024^2
+# and 2048^2
 AB_ATTN = r'''
 import numpy as np
 import torch
@@ -559,35 +560,42 @@ def ms(fn, iters=10):
 rng = np.random.default_rng(0)
 for side in (128, 256):
     q, k, v = (torch.from_numpy(rng.standard_normal(
-        (1, side, side, 512)).astype(np.float32)).cuda().bfloat16()
-        for _ in range(3))
+        (1, side, side, 512)).astype(np.float32)).cuda() for _ in range(3))
     live = (121 * side // 128, 100 * side // 128)
     grid = torch.arange(side, device="cuda")
     kv = (grid[:, None] < live[0]) & (grid[None, :] < live[1])
     n = side * side
-    for label, mask in (("unmasked", None),
-                        (f"live {live[0]} x {live[1]}", kv)):
-        t = ms(lambda: attention.flash_attention_bf16(q, k, v, mask),
-               iters=10 if side == 128 else 3)
-        print(f"  K3 bf16 N={n} C=512 {label}: {t:.3f} ms "
-              f"({4 * n * n * 512 / (t * 1e9):.1f} TFLOP/s)", flush=True)
+    for name, fn, cast in (
+            ("bf16", attention.flash_attention_bf16, torch.bfloat16),
+            ("f32", attention.flash_attention_f32, torch.float32)):
+        qc, kc, vc = (x.to(cast) for x in (q, k, v))
+        for label, mask in (("unmasked", None),
+                            (f"live {live[0]} x {live[1]}", kv)):
+            t = ms(lambda: fn(qc, kc, vc, mask),
+                   iters=10 if side == 128 else 3)
+            print(f"  K3 {name} N={n} C=512 {label}: {t:.3f} ms "
+                  f"({4 * n * n * 512 / (t * 1e9):.1f} TFLOP/s)", flush=True)
+        del qc, kc, vc
     del q, k, v
 dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
 cons = HDRDecodeConfig(hdr_mode="conservative")
-for side in (128, 256):
-    z = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (1, side, side, 16)).astype(np.float32)).cuda()
-    times = []
-    for _ in range(3):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        decode_summary(hdr_decode(dec, z, cons, Precision.fast()))
-        end.record()
-        torch.cuda.synchronize()
-        times.append(round(start.elapsed_time(end), 3))
-    print(f"  decode {side * 8}^2 fast: device ms {times}", flush=True)
-    torch.cuda.empty_cache()
+for tier in ("fast", "parity"):
+    for side in (128, 256):
+        z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (1, side, side, 16)).astype(np.float32)).cuda()
+        times = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            decode_summary(hdr_decode(dec, z, cons,
+                                      getattr(Precision, tier)()))
+            end.record()
+            torch.cuda.synchronize()
+            times.append(round(start.elapsed_time(end), 3))
+        print(f"  decode {side * 8}^2 {tier}: device ms {times}", flush=True)
+        torch.cuda.empty_cache()
 '''
 
 
@@ -646,8 +654,8 @@ def main() -> int:
                     help="kernel names listed per run")
     ap.add_argument("--ab-tree", metavar="DIR",
                     help="compare K7, a SwinIR-M upscale, K1, K2, decodes, "
-                         "K6, ESRGAN upscales and K3 bf16 with the tree in "
-                         "DIR instead")
+                         "K6, ESRGAN upscales and K3 with the tree in DIR "
+                         "instead")
     ap.add_argument("--ab-only", nargs="+", choices=list(AB_TURNS),
                     default=list(AB_TURNS),
                     help="the --ab-tree turns run (default: all)")
