@@ -9,9 +9,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 1. device: the card's name and power limit, as the line nvidia-smi prints;
 2. build: compile the kernels, print the build time and ptxas' register
    and spill report, and the count of HGMMA (wgmma) instructions in the
-   SASS of K1/K2's, K6's and K3 bf16's kernels (``cuobjdump
-   --dump-sass``), which must not be 0, with K3 bf16's registers and spills
-   per instance;
+   SASS of K1/K2's, K6's, K3 bf16's and K8's kernels (``cuobjdump
+   --dump-sass``), which must not be 0, with the registers and spills of
+   K3's (per instance) and K8's kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1-K4: a 1024^2 decode, and K1 and K2
    each at one ragged shape of an 832 x 1216 frame, logged apart and out
@@ -31,10 +31,12 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    unshifted and shifted, of HAT-M with its CAB residual, and a ragged
    128 x 120 tile; K7's SwinV2 body: one 512^2 tile of Swin2SR-M,
    unshifted and shifted, a window-7 grid and the ragged tile; K8: HAT-M's
-   OCAB on a 512^2 tile; K2's stats_only mode, its sums bit-equal to K2's
-   with y written, and K5: the 2048^2 decode's top-level junction and a
-   ragged map; the staged Swin chain's K10, K9 and K11 at K7's v1 shapes,
-   each on the previous kernel's output, and the chain against K7 on the
+   OCAB on a 512^2 tile, also with a peaked bias, and a ragged 20 x 36
+   shape, each within two bf16 ulps of its largest output; K2's
+   stats_only mode, its sums bit-equal to K2's with y written, and K5:
+   the 2048^2 decode's top-level junction and a ragged map; the staged
+   Swin chain's K10, K9 and K11 at K7's v1 shapes, each on the previous
+   kernel's output, and the chain against K7 on the
    same inputs and weights; K12 at the probe's 8192 x 256 x 256 in its
    three precisions), with its tolerance, and both timed with CUDA
    events after a warm-up; beside them the least time the card could take
@@ -42,7 +44,8 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    or its bytes, each input read once and each output written once, over
    the memory rate, whichever is larger) and, where one PyTorch call
    computes the same function, that call's time (library_ms; the port
-   never calls it);
+   never calls it); K8's bound also counts its exponentials, one a score,
+   at the MUFU's rate;
 4. decode: the full-width Flux.1 decoder (random weights from a numpy
    seed), written to a safetensors file and read back by ``load_decoder``
    bit for bit, on a [1, 128, 128, 16] latent through ``hdr_decode`` +
@@ -131,6 +134,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, float32 outside
 # them, HBM3
 PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# exponentials (ex2 on the SM's MUFU unit): 16 a clock an SM (sm_90), 132
+# SMs, at the 1.83 GHz that the bf16 peak above implies (989e12 / (132 x
+# 4096 operations a clock))
+PEAK_EX2 = 16 * 132 * 1.83e9
 
 # 1024^2 decode shapes (latent 128^2): (H, W, Cin, Cout, residual) of the
 # ResNet conv2s, which carry every fused part (prologue, residual, stats)
@@ -194,9 +201,14 @@ K7_V2_SHAPES = [("Swin2SR-M", 512, 512, 8, 0, False),
                 ("Swin2SR-M", 512, 512, 8, 4, False),
                 ("window 7", 504, 504, 7, 3, False),
                 ("ragged", 128, 120, 8, 4, False)]
-# K8 at HAT-M's 512^2-tile OCAB: (windows, heads, queries, keys)
+# K8 at HAT-M's 512^2-tile OCAB: (windows, heads, queries, keys); a ragged
+# shape whose token counts the wrapper pads to 16; the peaked input's bias
+# scale (one key a row dominates: exp(-16 x the gap to the row's second
+# largest bias) weighs the rest)
 K8_SHAPE = (1024, 6, 256, 576)
-SWIN_BUDGET = 5e-2          # relative to max(1, max|ref|), K7 and K8
+K8_RAGGED = (64, 6, 20, 36)
+K8_PEAK = 16.0
+SWIN_BUDGET = 5e-2          # relative to max(1, max|ref|): K7, fused chains
 SWIN_CROP = 768             # the SwinIR / HAT upscale input: 4 tiles a pass
 K4_BUDGET = 1e-5            # relative, on mean and std
 FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
@@ -322,14 +334,17 @@ def nbytes(*tensors) -> int:
 class Bound:
     """The least time the card could take for a kernel's work, summed over
     its shapes: per shape the larger of its operations over the peak rate
-    of their type and its bytes over the memory rate."""
+    of their type and its bytes over the memory rate.  Operations of two
+    types (products and exponentials) run on different units, so the
+    slower of the two sets the operations' time."""
 
     def __init__(self):
         self.ms = self.ops_ms = self.bytes_ms = 0.0
 
     def add(self, flops: float, nbytes_: float,
-            peak: float = PEAK_BF16) -> dict:
-        t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes_ / HBM_BYTES_S
+            peak: float = PEAK_BF16, exps: float = 0.0) -> dict:
+        t_ops = max(1e3 * flops / peak, 1e3 * exps / PEAK_EX2)
+        t_bytes = 1e3 * nbytes_ / HBM_BYTES_S
         self.ms += max(t_ops, t_bytes)
         self.ops_ms += t_ops
         self.bytes_ms += t_bytes
@@ -391,22 +406,22 @@ def phase_build() -> None:
             log("  ptxas:", line.strip())
     for name, kernel in (("K1/K2", "conv_wgmma_kernel"),
                          ("K6", "dense_wgmma_kernel"),
-                         ("K3 bf16", "flash_bf16_kernel")):
+                         ("K3 bf16", "flash_bf16_kernel"),
+                         ("K8", "ocab_kernel")):
         n, funcs = hgmma_count(path, kernel)
         log(f"SASS: {n} HGMMA instructions in {name}'s {kernel} "
             f"({funcs} instances)")
         check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
               "SASS)")
-    # K3 bf16's and K3 f32's registers and spills per C / 64 instance, and
-    # any ptxas warning (a serialized wgmma is one)
-    for kernel in ("flash_bf16_kernel", "flash_f32_kernel"):
+    # K3 bf16's and K3 f32's registers and spills per C / 64 instance, K8's,
+    # and any ptxas warning (a serialized wgmma is one)
+    for kernel in ("flash_bf16_kernel", "flash_f32_kernel", "ocab_kernel"):
         for inst, (regs, stores, loads) in ptxas_report(compiler_log,
                                                         kernel):
             log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill "
                 f"stores, {loads} bytes spill loads")
     for line in compiler_log.splitlines():
-        if "warning" in line.lower() or ("flash_bf16_kernel" in line
-                                         and "(C7" in line):
+        if "warning" in line.lower() or "(C7" in line:
             log("  ptxas:", line.strip())
 
 
@@ -1249,12 +1264,11 @@ def _check_k7(rng, shapes, v2: bool = False) -> dict:
                             "Swin block", "shapes": details}
 
 
-def _check_k8(rng) -> dict:
-    """K8 against its plain version at HAT-M's 512^2-tile OCAB shape: 1024
-    windows, 6 heads, 256 queries against 576 keys, head dim 30 padded to
-    32 with zeros."""
-    from hdrvae_torch.kernels import ocab
-    nwb, heads, nq, nk = K8_SHAPE
+def _k8_inputs(rng, shape, peak: float = 1.0):
+    """q (scaled by 30^-1/2), k, v [nwb, heads, n, 32] bf16 with the head
+    dim 30 zero-padded to 32, and a standard normal bias [heads, nq, nk]
+    times ``peak``."""
+    nwb, heads, nq, nk = shape
 
     def qkv(n, scale):
         t = _bf16(rng, (nwb, heads, n, 32), scale)
@@ -1262,16 +1276,54 @@ def _check_k8(rng) -> dict:
         return t
     q, k, v = qkv(nq, 30 ** -0.5), qkv(nk, 1.0), qkv(nk, 1.0)
     bias = torch.from_numpy(rng.standard_normal((heads, nq, nk))
-                            .astype(np.float32)).cuda()
+                            .astype(np.float32) * peak).cuda()
+    return q, k, v, bias
+
+
+def _check_k8(rng) -> dict:
+    """K8 against its plain version at HAT-M's 512^2-tile OCAB shape (1024
+    windows, 6 heads, 256 queries against 576 keys, head dim 30 padded to
+    32 with zeros), on the same shape with a peaked bias (one key a row
+    dominates, where the kernel's rounding of the unnormalized P differs
+    most from the plain version's normalized one) and at a ragged shape
+    (20 queries, 36 keys: padded to 16 around the launch), each within two
+    bf16 ulps of its largest output; at HAT-M's shape also through the C
+    entry into a NaN-filled buffer, which must come out bit-equal."""
+    from hdrvae_torch.kernels import ocab
+    nwb, heads, nq, nk = K8_SHAPE
     kw = dict(compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16)
-    o = ocab.ocab_attention(q, k, v, bias, **kw)
-    ro = ocab.ocab_attention_reference(q, k, v, bias, **kw)
+    errs = {}
+    for name, shape, peak in (("peaked", K8_SHAPE, K8_PEAK),
+                              ("ragged", K8_RAGGED, 1.0),
+                              ("main", K8_SHAPE, 1.0)):
+        q, k, v, bias = _k8_inputs(rng, shape, peak)
+        o = ocab.ocab_attention(q, k, v, bias, **kw)
+        ro = ocab.ocab_attention_reference(q, k, v, bias, **kw)
+        torch.cuda.synchronize()
+        check(o.dtype == ro.dtype and o.shape == ro.shape,
+              f"K8 {name}: {o.dtype} {tuple(o.shape)}")
+        e = (o.float() - ro.float()).abs().max().item()
+        bound = 2 * bf16_ulp(ro)
+        check(e <= bound, f"K8 {name} {list(shape)}: max-abs {e} > {bound} "
+              "(two bf16 ulps of the largest output)")
+        errs[name] = (e, bound)
+        log(f"K8 ocab_attention {name} {list(shape)}: max-abs {e:.3e} "
+            f"(budget {bound:.3e})")
+        if name != "main":
+            del q, k, v, bias, o, ro
+    e, bound = errs["main"]
+    # through the C entry into a NaN-filled buffer: every output element
+    # written, bit-equal to the wrapper's output
+    from hdrvae_torch.kernels import _build
+    filled = torch.full_like(o, float("nan"))
+    _build.check(_build.library().hdrvae_ocab_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        filled.data_ptr(), nwb, heads, nq, nk,
+        torch.cuda.current_stream().cuda_stream), "hdrvae_ocab_attention")
     torch.cuda.synchronize()
-    check(o.dtype == ro.dtype and o.shape == ro.shape,
-          f"K8: {o.dtype} {tuple(o.shape)}")
-    e = (o.float() - ro.float()).abs().max().item()
-    bound = SWIN_BUDGET * max(1.0, ro.float().abs().max().item())
-    check(e <= bound, f"K8: max-abs {e} > {bound}")
+    check(torch.equal(filled, o), "K8: the C entry's output into a "
+          "NaN-filled buffer is not the wrapper's (an element not written)")
+    del filled
     t = cuda_ms(lambda: ocab.ocab_attention(q, k, v, bias, **kw))
     tp = cuda_ms(lambda: ocab.ocab_attention_reference(q, k, v, bias, **kw),
                  iters=2, warmup=1)
@@ -1281,19 +1333,24 @@ def _check_k8(rng) -> dict:
     tl = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=1.0))
     del mask
-    flops = 4 * nwb * heads * nq * nk * 32
-    b = Bound().add(flops, nbytes(q, k, v, bias, o))
-    log(f"K8 ocab_attention {list(K8_SHAPE)}: max-abs {e:.3e} (budget "
-        f"{bound:.3e})  kernel {t:.3f} ms ({flops / (t * 1e9):.1f} TFLOP/s)"
-        f"  plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound {b['bound_ms']:.3f} "
-        f"ms ({b['bound_by']})")
+    flops, exps = 4 * nwb * heads * nq * nk * 32, nwb * heads * nq * nk
+    b = Bound().add(flops, nbytes(q, k, v, bias, o), exps=exps)
+    log(f"K8 ocab_attention {list(K8_SHAPE)}: kernel {t:.3f} ms "
+        f"({flops / (t * 1e9):.1f} TFLOP/s, {exps / (t * 1e9):.3f} T "
+        f"exponentials/s)  plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}: products "
+        f"{1e3 * flops / PEAK_BF16:.3f}, exponentials "
+        f"{1e3 * exps / PEAK_EX2:.3f}, bytes "
+        f"{1e3 * nbytes(q, k, v, bias, o) / HBM_BYTES_S:.3f})")
     del q, k, v, bias, o, ro
     torch.cuda.empty_cache()
     return {"name": "ocab_attention", "route": "cuda",
             "source": "hdrvae_torch/csrc/ocab.cu",
             "replaces": "hdrvae/kernels/ocab.py:95", "max_abs_err": e,
-            "err_budget": bound, "ms": t, "plain_ms": tp, **b,
-            "library_ms": tl,
+            "err_budget": bound,
+            "max_abs_err_peaked": errs["peaked"][0],
+            "max_abs_err_ragged": errs["ragged"][0],
+            "ms": t, "plain_ms": tp, **b, "library_ms": tl,
             "library_call": "F.scaled_dot_product_attention, bf16, the bias "
                             "as a bf16 attn_mask",
             "shape": list(K8_SHAPE)}

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's implicit-GEMM convolutions
-// (conv3x3.cu: K1 / K2; dense_conv.cu: K6): shared-memory addresses,
-// mbarriers, TMA tile and bulk copies, wgmma descriptors and the wgmma
-// instructions themselves, and libcuda's tensor-map encoder, reached
-// through the runtime (the library does not link libcuda).
+// (conv3x3.cu: K1 / K2; dense_conv.cu: K6) and attention kernels
+// (attention.cu: K3; ocab.cu: K8): shared-memory addresses, mbarriers, TMA
+// tile and bulk copies, wgmma descriptors and the wgmma instructions
+// themselves, and libcuda's tensor-map encoder, reached through the
+// runtime (the library does not link libcuda).
 
 #pragma once
 
@@ -130,7 +131,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-enum Layout { LAYOUT_INTERLEAVE = 0, LAYOUT_B128 = 1 };
+enum Layout { LAYOUT_INTERLEAVE = 0, LAYOUT_B128 = 1, LAYOUT_B64 = 2 };
 
 // A wgmma shared-memory matrix descriptor: start address, leading and
 // stride byte offsets (multiples of 16), layout (swizzle) type.
@@ -160,6 +161,11 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // d[64 x N] += A[64 x 16] (shared, K-major) * B[16 x N] (shared; TB = 0
@@ -260,6 +266,30 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
+// d[64 x 32] += A[64 x 16] (registers) * B[16 x 32] (shared; TB as above).
+// a holds bf16 pairs in the accumulator's layout, halved: thread (warp w,
+// lane 4 g + t) gives rows 16 w + g (a[0], a[2]) and + 8 (a[1], a[3]),
+// columns 2 t (+ 1) (a[0], a[1]) and 2 t + 8 (+ 1) (a[2], a[3]), the
+// lower column in the lower half.  a must stay unchanged until the wgmma
+// is waited for.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
 
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {

@@ -22,7 +22,7 @@ from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels import _build
 
 HDP = 32
-MAX_KEYS = 624   # [64, nk + 4] float32 scores + staged q, K / V: 227 KB
+MAX_KEYS = 624   # HAT-M: 576; the kernel's resident bias takes up to 640
 
 
 def use_ocab_kernel(precision: Precision, x: torch.Tensor, head_dim: int,

@@ -807,16 +807,24 @@ def test_swin_block_fused_v2(dev, b, h, w, c, heads, ws, shift, extra):
     assert d[:, :, -ws:].max().item() <= bound
 
 
-@pytest.mark.parametrize("nwb,heads,nq,nk", [(3, 2, 16, 36), (2, 3, 20, 36),
-                                             (2, 2, 64, 144),
-                                             (2, 6, 256, 576)])
-def test_ocab_attention(dev, nwb, heads, nq, nk):
+@pytest.mark.parametrize("nwb,heads,nq,nk,peak", [
+    (3, 2, 16, 36, 1.0), (2, 3, 20, 36, 1.0), (2, 2, 64, 144, 1.0),
+    (2, 6, 256, 576, 1.0),
+    (2, 6, 256, 576, 16.0),    # peaked: one key a row dominates
+    (5, 40, 32, 80, 1.0),      # 5 windows: runs cross heads in a block
+    (3, 1, 256, 576, 1.0),     # one head
+    (7, 6, 256, 576, 1.0),     # HAT-M's shape, 7 windows
+    (3, 2, 144, 624, 1.0),     # three slices, the most keys: two warpgroups
+])
+def test_ocab_attention(dev, nwb, heads, nq, nk, peak):
     """K8 against its plain version, token counts padded to 16 around the
-    launch (36 keys, 20 queries) or not: within two bf16 ulps of the
-    largest output."""
+    launch (36 keys, 20 queries) or not, windows split unevenly over the
+    blocks, and with a peaked bias (where the kernel's rounding of the
+    unnormalized P differs most from the plain version's normalized one):
+    within two bf16 ulps of the largest output."""
     q = _rand(dev, (nwb, heads, nq, 32), 0.2, seed=1)
     k, v = (_rand(dev, (nwb, heads, nk, 32), seed=s) for s in (2, 3))
-    bias = _rand(dev, (heads, nq, nk), 1.0, torch.float32, seed=4)
+    bias = _rand(dev, (heads, nq, nk), peak, torch.float32, seed=4)
     kw = dict(compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16)
     before = ocab.ocab_attention.launches
     o = ocab.ocab_attention(q, k, v, bias, **kw)

@@ -3,7 +3,7 @@
 GPU.
 
     python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_f32|k3_3pass|
-                                     k3_bf16 ...]   (default: all)
+                                     k3_bf16|k8 ...]   (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
 ``chip_smoke.py`` into a temporary directory, breaks one CUDA source
@@ -25,7 +25,10 @@ key_valid records; k3_3pass: ``_check_k3_3pass``, K3's
 = 512, and against its plain version on a ragged input with peaked
 scores; k3_bf16: ``_check_k3_bf16``, K3's bf16 mode within one bf16 ulp
 of the exact plain version at N = 16,384, C = 512, on the same ragged,
-peaked input, at batch 2 and C = 64, and in its two key_valid records),
+peaked input, at batch 2 and C = 64, and in its two key_valid records;
+k8: ``_check_k8``, K8 within two bf16 ulps of its plain version at
+HAT-M's OCAB shape, with a peaked bias and at a ragged 20 x 36 shape, and
+through its C entry into a NaN-filled buffer),
 then reports whether the check refused the broken kernel: by a
 failed assertion, or by a fault of the broken kernel on the card (a
 mutant that writes past an output stops the check there).  The
@@ -84,6 +87,25 @@ launches after 2 warm-ups, twice, unmasked and masked at N = 16,384, C =
 - refill-lag-1, refill-lag-2: thread 0 refills the slot of the stage
   before the one its warp has just released, or of the one two before,
   instead of that one (each once every warp has released it).
+
+    python3 tools/mutate_kernels.py --time-k8 [as-is|no-kv-loads|...]
+
+does the same for K8 (``ocab.cu``; CUDA events, mean of 10 launches after
+2 warm-ups, twice, at ``chip_smoke.py``'s K8_SHAPE):
+
+- as-is: the kernel as it is;
+- no-kv-loads: no TMA copies of K and V (their barriers still complete;
+  q and the bias still load): what the K / V feed holds back;
+- no-bias-fill: the bias is not copied from device memory at each head's
+  start (what the resident bias's fill costs);
+- no-bias-loads: the softmax reads no bias from shared memory (zeros);
+- no-exp: no exponentials (the scores' scaled differences stand in);
+- no-softmax: no softmax at all (P is S rounded, alpha 1): what the rest
+  of a tile's work costs;
+- no-s-wgmma, no-pv-wgmma: no S = q K^T wgmmas, or no P V ones;
+- no-stores: the outputs are not stored;
+- two-warpgroups: the kernel with two consumer warpgroups a block (and
+  three ring slots each), as for more than 576 keys, instead of three.
 
 It prints the card's name and power limit first.
 """
@@ -303,6 +325,37 @@ TARGETS = {
             "attention.cu", "const uint32_t vw_s = v_s + NB * BOX16 * wg;",
             "const uint32_t vw_s = v_s + NB * BOX16 * (wg ^ 1);", True),
     }),
+    # K8: every mutant keeps the issuer's and the consumers' schedules in
+    # step; the check's NaN-filled C-entry call sees an output never stored
+    "k8": ("_check_k8(np.random.default_rng(0))", ("K8",), {
+        "one key tile skipped": (
+            "ocab.cu", "          x = ex2(x - ref);",
+            "          x = kt == 1 ? 0.0f : ex2(x - ref);", True),
+        "bias row off by one": (
+            "ocab.cu", "a.bias + (static_cast<size_t>(h) * a.nq + r) * a.nk + col;",
+            "a.bias + (static_cast<size_t>(h) * a.nq + (r + 1) % a.nq) * a.nk "
+            "+ col;", True),
+        "bias head off by one": (
+            "ocab.cu", "a.bias + (static_cast<size_t>(h) * a.nq + r) * a.nk + col;",
+            "a.bias + (static_cast<size_t>((h + 1) % a.heads) * a.nq + r) * "
+            "a.nk + col;", True),
+        "O not rescaled when the max grows": (
+            "ocab.cu", "o[q] *= alpha[(q >> 1) & 1];", "o[q] *= 1.0f;", True),
+        "the row sum missing a key tile": (
+            "ocab.cu", "l_run[i] = l_run[i] * alpha[i] + rs;",
+            "l_run[i] = l_run[i] * alpha[i] + (kt == 1 ? 0.0f : rs);", True),
+        "the last window dropped": (
+            "ocab.cu",
+            "const long long jobs = static_cast<long long>(a.heads) * a.nwb;",
+            "const long long jobs = static_cast<long long>(a.heads) * a.nwb "
+            "- 1;", True),
+        "the last 64-row slice not stored": (
+            "ocab.cu", "      if (row >= a.nq) continue;",
+            "      if (row >= a.nq - BQ) continue;", True),
+        "a padded key scored 0, not -inf": (
+            "ocab.cu", "const float key_pad = -INFINITY;",
+            "const float key_pad = 0.0f;", True),
+    }),
 }
 
 CHECK = """
@@ -326,6 +379,8 @@ except torch.AcceleratorError as exc:   # a fault of the broken kernel
 # --time-k6: variant -> edits (text of dense_conv.cu, its replacement)
 K6_VARIANTS = {
     "as-is": [],
+    "two-warpgroups": [("  if (Plan<3>::smem_bytes(a.ntk) <= SMEM_MAX) return launch<3>(maps, a, st);",
+                        "")],
     "no-stores": [
         ("            tma_store_4d(&ymap,",
          "            if (half < 0) tma_store_4d(&ymap,"),
@@ -424,6 +479,45 @@ K3F_VARIANTS = {
                       "      f32_stage_copy<NC>(g - 2 + NS32,")],
 }
 
+# --time-k8: variant -> edits (text of ocab.cu, its replacement)
+K8_VARIANTS = {
+    "as-is": [],
+    "no-kv-loads": [("          hopper::mbar_expect_tx(full(tile), STAGE);\n"
+                     "          hopper::tma_load_3d(dst, &kmap, full(tile), 0, BK * kt, b);\n"
+                     "          hopper::tma_load_3d(dst + TILE, &vmap, full(tile), 0, BK * kt, b);",
+                     "          hopper::mbar_arrive(full(tile));")],
+    "no-bias-fill": [("      if (r < a.nq && col < a.nk) {", "      if (r < 0) {")],
+    "no-bias-loads": [("      const float4 bb = bt[j * 32];",
+                       "      const float4 bb = make_float4(0.0f, 0.0f, 0.0f, 0.0f);")],
+    "no-exp": [("          x = ex2(x - ref);", "          x = (x - ref) * 0.5f;"),
+               ("      alpha[i] = ex2(m_run[i] - ref);", "      alpha[i] = 1.0f;")],
+    "no-softmax": [("      softmax(kt, alpha);", "      alpha[0] = alpha[1] = 1.0f;")],
+    "no-s-wgmma": [("      hopper::wgmma_ss<64, 0>(s, qd + 2 * kk, kd + 2 * kk);",
+                    "      if (kk < 0) hopper::wgmma_ss<64, 0>(s, qd + 2 * kk, kd + 2 * kk);")],
+    "no-pv-wgmma": [("      hopper::wgmma_rs_n32<1>(o, p + 4 * ks, vd + ks * (1024 >> 4));",
+                     "      if (ks < 0) hopper::wgmma_rs_n32<1>(o, p + 4 * ks, vd + ks * (1024 >> 4));")],
+    "two-warpgroups": [("  if (Plan<3>::smem_bytes(a.ntk) <= SMEM_MAX) return launch<3>(maps, a, st);",
+                        "")],
+    "no-stores": [("      if (store_pending) store(ojob, l_fin);\n", ""),
+                  ("    store(ojob, l_fin);\n    seg = seg_end;", "    seg = seg_end;")],
+}
+
+K8_TIME = r'''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from hdrvae_torch.kernels import _build, ocab
+
+_build.library()
+q, k, v, bias = cs._k8_inputs(np.random.default_rng(0), cs.K8_SHAPE)
+kw = dict(compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16)
+for _ in range(2):
+    t = cs.cuda_ms(lambda: ocab.ocab_attention(q, k, v, bias, **kw), iters=10)
+    print(f"  K8 {list(cs.K8_SHAPE)}: {t:.3f} ms", flush=True)
+'''
+
 K3_TIME = r'''
 import sys
 import numpy as np
@@ -507,7 +601,8 @@ print(f"  phase-3 sum   device {dev_sum:.3f} ms  wrapper {wrap_sum:.3f} ms",
 # the timing modes: flag -> (CUDA source, variants, timing script)
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
-           "--time-k3-f32": ("attention.cu", K3F_VARIANTS, K3F_TIME)}
+           "--time-k3-f32": ("attention.cu", K3F_VARIANTS, K3F_TIME),
+           "--time-k8": ("ocab.cu", K8_VARIANTS, K8_TIME)}
 
 
 @contextlib.contextmanager

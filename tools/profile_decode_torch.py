@@ -9,7 +9,9 @@
     python3 tools/profile_decode_torch.py --lowmem [--latent 256 512]
     python3 tools/profile_decode_torch.py --staged [--latent 256 512]
     python3 tools/profile_decode_torch.py --ab-tree DIR
-                                          [--ab-only swin conv esrgan attn]
+                                          [--ab-only swin conv esrgan attn
+                                                     hat]
+    python3 tools/profile_decode_torch.py --upscale --model hat --ab-tree DIR
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
 tier, the full-width Flux.1 decoder (``DecoderConfig()``, random weights
@@ -65,8 +67,13 @@ one parity ESRGAN x4
 first fast one warms up); then K3 bf16 and K3 f32 at N = 16,384 and
 65,536 (C = 512), unmasked and with the bucketed phase's live fraction of
 the grid (10 launches, 3 at N = 65,536, after 2 warm-ups), and three fast
-and three parity decodes each at 1024^2 and 2048^2.  ``--ab-only swin conv esrgan attn`` picks the
-turns.
+and three parity decodes each at 1024^2 and 2048^2; then K8
+``ocab_attention`` at ``chip_smoke.py``'s K8_SHAPE beside SDPA bf16, fast
+HAT-M x4 requests of a 1024^2 HDR image (one to warm up, two timed, one
+under ``torch.profiler`` for K8's share), and as controls two fast SwinIR-M
+x4 requests and three fast 1024^2 decodes.  ``--ab-only swin conv esrgan
+attn hat`` picks the turns; ``--upscale --model hat`` runs the HAT turn
+alone.
 
 The script only reads: it changes nothing in the package.  Without a CUDA
 device it exits non-zero.
@@ -599,6 +606,116 @@ for tier in ("fast", "parity"):
 '''
 
 
+# K8 at chip_smoke.py's K8_SHAPE (HAT-M's 512^2-tile OCAB: 1024 windows, 6
+# heads, 256 queries, 576 keys) beside SDPA bf16 with the bias as its mask,
+# CUDA events over 10 launches after 2 warm-ups; then fast HAT-M x4
+# hdr_upscale requests of a 1024^2 HDR image from numpy seed 1: one to warm
+# up, two timed, and one under torch.profiler (K8's launches and device
+# time against the device time of all the request's events); then the
+# controls, which do not run K8: two fast SwinIR-M x4 requests of the same
+# image (the first warms up) and three fast 1024^2 decodes
+AB_HAT = r'''
+import time
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
+                                      Precision, UpscaleConfig)
+from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+from hdrvae_torch.kernels import ocab
+from hdrvae_torch.models.hat import HATConfig, init_hat
+from hdrvae_torch.models.params import init_decoder
+from hdrvae_torch.models.swinir import SwinIRConfig, init_swinir
+from hdrvae_torch.upscale.pipeline import hdr_upscale
+
+
+def ms(fn, iters=10):
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed(fn):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), 1e3 * (time.perf_counter() - h0)
+
+
+rng = np.random.default_rng(0)
+nwb, heads, nq, nk = 1024, 6, 256, 576
+
+
+def qkv(n, scale):
+    t = torch.from_numpy((rng.standard_normal((nwb, heads, n, 32)) * scale)
+                         .astype(np.float32)).cuda().bfloat16()
+    t[..., 30:] = 0
+    return t
+
+
+q, k, v = qkv(nq, 30 ** -0.5), qkv(nk, 1.0), qkv(nk, 1.0)
+bias = torch.from_numpy(rng.standard_normal((heads, nq, nk)).astype(
+    np.float32)).cuda()
+kw = dict(compute_dtype=torch.bfloat16, storage_dtype=torch.bfloat16)
+t = ms(lambda: ocab.ocab_attention(q, k, v, bias, **kw))
+mask = bias.bfloat16()
+tl = ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               scale=1.0))
+print(f"  K8 [{nwb}, {heads}, {nq}, {nk}]: {t:.3f} ms; SDPA bf16 (the bias "
+      f"as a bf16 mask) {tl:.3f} ms", flush=True)
+del q, k, v, bias, mask
+torch.cuda.empty_cache()
+
+fast = Precision.fast()
+img = torch.from_numpy((np.random.default_rng(1).standard_normal(
+    (1, 1024, 1024, 3)) * 1.5 + 0.3).astype(np.float32)).cuda()
+for name, arch, net, n in (
+        ("HAT-M", "HAT", init_hat(HATConfig(), seed=4, device="cuda"), 3),
+        ("SwinIR-M", "SwinIR",
+         init_swinir(SwinIRConfig(), seed=3, device="cuda"), 2)):
+    def run():
+        hdr_upscale(net, img, UpscaleConfig(), architecture=arch,
+                    precision=fast)
+    for i in range(n):
+        d, w = timed(run)
+        print(f"  {name} x4 1024^2 fast request {i}: device {d:.3f} ms, "
+              f"host wall {w:.3f} ms", flush=True)
+    if arch == "HAT":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+               for e in prof.events() if e.device_type == DeviceType.CUDA]
+        total = sum(x for _, x in dev)
+        k8 = [x for name_, x in dev if "ocab_kernel" in name_]
+        print(f"  {name} x4 1024^2 fast, profiled: K8 {len(k8)} launches, "
+              f"{sum(k8):.3f} ms of {total:.3f} ms summed device time "
+              f"({100 * sum(k8) / total:.2f} %)", flush=True)
+    del net
+    torch.cuda.empty_cache()
+dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
+z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+    (1, 128, 128, 16)).astype(np.float32)).cuda()
+cons = HDRDecodeConfig(hdr_mode="conservative")
+times = [round(timed(lambda: decode_summary(hdr_decode(dec, z, cons, fast)))[0],
+               3) for _ in range(3)]
+print(f"  decode 1024^2 fast: device ms {times}", flush=True)
+'''
+
+
 def k6_table() -> list:
     """``chip_smoke.py``'s K6 shapes with their launches a tile forward and
     whether phase 3 sums them (the turn's K6_TABLE)."""
@@ -611,7 +728,7 @@ def k6_table() -> list:
 AB_TURNS = {"swin": lambda: AB_TURN, "conv": lambda: AB_CONV,
             "esrgan": lambda: AB_ESRGAN.replace("K6_TABLE",
                                                 repr(k6_table())),
-            "attn": lambda: AB_ATTN}
+            "attn": lambda: AB_ATTN, "hat": lambda: AB_HAT}
 
 
 def ab(other: str, turns) -> int:
@@ -654,8 +771,8 @@ def main() -> int:
                     help="kernel names listed per run")
     ap.add_argument("--ab-tree", metavar="DIR",
                     help="compare K7, a SwinIR-M upscale, K1, K2, decodes, "
-                         "K6, ESRGAN upscales and K3 with the tree in DIR "
-                         "instead")
+                         "K6, ESRGAN upscales, K3, K8 and HAT-M upscales "
+                         "with the tree in DIR instead")
     ap.add_argument("--ab-only", nargs="+", choices=list(AB_TURNS),
                     default=list(AB_TURNS),
                     help="the --ab-tree turns run (default: all)")
@@ -671,7 +788,10 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     if args.ab_tree:
-        return ab(args.ab_tree, args.ab_only)
+        # --upscale --model hat: the HAT turn alone
+        turns = (["hat"] if args.upscale and args.model == ["hat"]
+                 else args.ab_only)
+        return ab(args.ab_tree, turns)
 
     cfg = DecoderConfig()
     dec = init_decoder(cfg, seed=0, device="cuda")
