@@ -29,8 +29,10 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    shape's time alone times its 351 launches there) beside cuDNN's conv
    alone; K7: one 512^2 tile of SwinIR-M,
    unshifted and shifted, of HAT-M with its CAB residual, and a ragged
-   128 x 120 tile; K7's SwinV2 body: one 512^2 tile of Swin2SR-M,
-   unshifted and shifted, a window-7 grid and the ragged tile; K8: HAT-M's
+   128 x 120 tile, within two bf16 ulps of its largest output over the
+   image and over its last window row and column; K7's SwinV2 body: one
+   512^2 tile of Swin2SR-M, unshifted and shifted, a window-7 grid and
+   the ragged tile, within 5e-2 * max(1, max|ref|); K8: HAT-M's
    OCAB on a 512^2 tile, also with a peaked bias, and a ragged 20 x 36
    shape, each within two bf16 ulps of its largest output; K2's
    stats_only mode, its sums bit-equal to K2's with y written, and K5:
@@ -407,15 +409,17 @@ def phase_build() -> None:
     for name, kernel in (("K1/K2", "conv_wgmma_kernel"),
                          ("K6", "dense_wgmma_kernel"),
                          ("K3 bf16", "flash_bf16_kernel"),
-                         ("K8", "ocab_kernel")):
+                         ("K8", "ocab_kernel"),
+                         ("K7", "swin_block_kernel")):
         n, funcs = hgmma_count(path, kernel)
         log(f"SASS: {n} HGMMA instructions in {name}'s {kernel} "
             f"({funcs} instances)")
         check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
               "SASS)")
     # K3 bf16's and K3 f32's registers and spills per C / 64 instance, K8's,
-    # and any ptxas warning (a serialized wgmma is one)
-    for kernel in ("flash_bf16_kernel", "flash_f32_kernel", "ocab_kernel"):
+    # K7's per body and channel width, and any ptxas warning (a serialized wgmma is one)
+    for kernel in ("flash_bf16_kernel", "flash_f32_kernel", "ocab_kernel",
+                   "swin_block_kernel"):
         for inst, (regs, stores, loads) in ptxas_report(compiler_log,
                                                         kernel):
             log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill "
@@ -443,8 +447,8 @@ def ptxas_report(compiler_log: str, kernel: str) -> list:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            ilit = re.search(r"ILi(\d+)E", inst)
-            name = f"{kernel}<{ilit.group(1)}>" if ilit else inst
+            targs = re.findall(r"L[bi](\d+)E", inst)
+            name = f"{kernel}<{', '.join(targs)}>" if targs else inst
             rows.append((name, (int(m.group(1)), *spills)))
             inst, spills = None, (0, 0)
     return rows
@@ -1011,7 +1015,8 @@ def _check_k5(rng) -> dict:
         log(f"K5 upconv_gn_conv3x3 {h}x{w}->{2 * h}x{2 * w} {cin}->{cm}->"
             f"{cout}: max-abs {e:.3e} stats {es:.2e}  kernel {t:.3f} ms "
             f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms  bound "
-            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}; kernel "
+            f"{t / b['bound_ms']:.1f}x it)")
         details.append({"shape": [h, w, cin, cm, cout], "max_abs_err": e,
                         "stats_rel_err": es, "ms": t, "plain_ms": tp,
                         "tflops": flops / (t * 1e9), **b})
@@ -1221,6 +1226,10 @@ def _check_k7(rng, shapes, v2: bool = False) -> dict:
         # extra at the scale of x: a dropped or misplaced residual shows
         e_in = _bf16(rng, (1, h, w, SWIN_DIM), 0.5) if extra else None
         kw = dict(ws=ws, shift=shift, extra=e_in, precision=fast)
+        # a NaN-filled block of y's size goes back to the allocator just
+        # before the call, which then most likely hands it to y: a window
+        # the kernel never stores shows
+        torch.full_like(x, float("nan"))
         y = ska.swin_block_fused(x, wts, **kw)
         ry = ska.swin_block_fused_reference(x, wts, **kw)
         torch.cuda.synchronize()
@@ -1231,8 +1240,15 @@ def _check_k7(rng, shapes, v2: bool = False) -> dict:
         d = (y.float() - ry.float()).abs()
         e = d.max().item()
         e_last = max(d[:, -ws:].max().item(), d[:, :, -ws:].max().item())
-        bound = SWIN_BUDGET * max(1.0, ry.float().abs().max().item())
+        # v1 rounds where its plain version does: two bf16 ulps of the
+        # largest output (the card tests' bound); v2's scales up to 100
+        # amplify a q rounding difference (SWIN_BUDGET)
+        bound = (SWIN_BUDGET * max(1.0, ry.float().abs().max().item())
+                 if v2 else 2 * bf16_ulp(ry))
         check(e <= bound, f"{name_k} {name}: max-abs {e} > {bound}")
+        check(e_last <= bound,
+              f"{name_k} {name}: last window row/col max-abs {e_last} > "
+              f"{bound}")
         t = cuda_ms(lambda: ska.swin_block_fused(x, wts, **kw))
         tp = cuda_ms(lambda: ska.swin_block_fused_reference(x, wts, **kw),
                      iters=2, warmup=1)
@@ -1243,7 +1259,8 @@ def _check_k7(rng, shapes, v2: bool = False) -> dict:
             f"{' +extra' if extra else ''}: max-abs {e:.3e} (last window "
             f"row/col {e_last:.3e}, budget {bound:.3e})  kernel {t:.3f} ms "
             f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms  bound "
-            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}; kernel "
+            f"{t / b['bound_ms']:.1f}x it)")
         details.append({"shape": [name, h, w, SWIN_DIM, ws, shift,
                                   bool(extra)],
                         "max_abs_err": e, "max_abs_err_last_row_col": e_last,

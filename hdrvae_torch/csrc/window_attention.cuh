@@ -1,7 +1,7 @@
-// Building blocks shared by the Swin block kernel (K7, swin_block.cu),
-// the three kernels of the staged Swin chain (K9-K11, swin_chain.cu) and
-// HAT's OCAB attention kernel (K8, ocab.cu), on bf16 tensor-core products
-// with float32 accumulation: cp.async copies of bf16 rows into shared
+// Building blocks of the three kernels of the staged Swin chain (K9-K11,
+// swin_chain.cu; the Swin block kernel K7, swin_block.cu, takes its exact
+// GELU and cp.async copies from here), on bf16 tensor-core products with
+// float32 accumulation: cp.async copies of bf16 rows into shared
 // memory, a 64-row block GEMM with both operands in shared memory (WMMA),
 // one whose B operand (a weight matrix in global memory, read by every
 // window from L2) streams through a two-buffer cp.async ring (ldmatrix +
@@ -150,12 +150,6 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a,
 constexpr int KP = 96, NC = 128, LDB = NC + 8, NSTAGE = 2;
 constexpr int RING_ELEMS = NSTAGE * KP * LDB;
 
-// No change to a warp's finished accumulator fragments.
-struct NoFrag {
-  template <typename T>
-  __device__ __forceinline__ void operator()(int, int, T&) const {}
-};
-
 // C[nrt*16, N] = A[nrt*16, K] @ B[K, N] for one row block of nrt (<= 4)
 // row tiles: A row major in shared memory (lda a multiple of 8), B a
 // row-major bf16 matrix in global memory (ldb a multiple of 8; K a
@@ -163,22 +157,19 @@ struct NoFrag {
 // shared memory) one KP x NC piece at a time, the next piece loading by
 // cp.async while this one multiplies.  NC / WC warps share the columns of
 // a piece, the other NWARPS * WC / NC the four row tiles: warp w owns the
-// WC (16 or 32) columns w % (NC / WC) of each NC-wide chunk over two row
-// tiles (WC 16) or one (WC 32); ldmatrix + mma.sync m16n8k16, each B
-// fragment serving every row tile of the warp.  Once a row tile's sums are
-// whole, frag(row of its first row, first column, acc[WC / 8][4]) may
-// change them in registers (mma's C layout: lane l holds rows l / 4 and
-// l / 4 + 8, columns 8 t + 2 (l % 4) + {0, 1} of n8 tile t; the four lanes
-// of a quad hold one row's WC columns), then each 16x16 tile goes through
-// the warp's float32 stage (256 floats) to epi(row within the row block,
-// first column, v[8]), eight consecutive values a lane.  Every thread of
-// the block must call it; it synchronizes the block.
-template <int WC = 16, typename Frag = NoFrag, typename Epi>
+// WC columns w % (NC / WC) of each NC-wide chunk over two row tiles;
+// ldmatrix + mma.sync m16n8k16, each B fragment serving every row tile of
+// the warp.  Each finished 16x16 tile goes through the warp's float32
+// stage (256 floats) to epi(row within the row block, first column, v[8]),
+// eight consecutive values a lane.  Every thread of the block must call
+// it; it synchronizes the block.
+template <typename Epi>
 __device__ __forceinline__ void gemm_weights(const bf16* A, int lda, int nrt,
                                              const bf16* __restrict__ B,
                                              int ldb, int K, int N,
                                              bf16* ring, float* stage,
-                                             Epi epi, Frag frag = Frag()) {
+                                             Epi epi) {
+  constexpr int WC = 16;                           // columns of one warp
   constexpr int CW = NC / WC;                      // warps across a chunk
   constexpr int RT_PER_WARP = 4 / (NWARPS / CW);   // row tiles of one warp
   constexpr int NT8 = WC / 8;                      // n8 tiles of one warp
@@ -239,7 +230,6 @@ __device__ __forceinline__ void gemm_weights(const bf16* A, int lda, int nrt,
 #pragma unroll
         for (int r = 0; r < RT_PER_WARP; ++r) {
           if (r >= nr) continue;
-          frag((rt0 + r) * 16, ct * WC, acc[r]);
           const int row = lane >> 2, col = (lane & 3) * 2;
 #pragma unroll
           for (int hh = 0; hh < NT8 / 2; ++hh) {

@@ -344,6 +344,19 @@ def _require_cuda_block(name: str, img: torch.Tensor, w: BlockWeights,
              f"bias must be [{heads}, {n}, {n}]")
 
 
+def qkv_scratch_shape(nwin: int, ws: int,
+                      heads: int) -> Optional[Tuple[int, ...]]:
+    """The device-memory scratch K7 takes for ``nwin`` windows of ``ws``:
+    none for windows of at most 64 tokens (one row block: q, k and v stay
+    on chip), else [nwin, heads, 3, n64, 32] (q, k and v of each head, the
+    tokens rounded up to n64, a multiple of 64), filled by the kernel with
+    every row block's q, k and v before the window's attention."""
+    n = ws * ws
+    if n <= 64:
+        return None
+    return (nwin, heads, 3, -(-n // 64) * 64, HDP)
+
+
 def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
                      shift: int, extra: Optional[torch.Tensor] = None,
                      precision: Precision = Precision()) -> torch.Tensor:
@@ -364,7 +377,7 @@ def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
     _require(0 <= shift < ws, f"swin_block_fused: shift {shift} not in "
              f"[0, {ws})")
     b, hh, ww, c = img.shape
-    heads, n = w.heads, ws * ws
+    heads = w.heads
     _require(w.post_norm == (w.qk_scale is not None),
              "swin_block_fused: the CUDA kernel takes the v2 body whole "
              "(post_norm with qk_scale) or v1")
@@ -373,9 +386,9 @@ def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
                  and tuple(w.qk_scale.shape) == (heads,)
                  and w.qk_scale.device == img.device,
                  f"qk_scale must be float32 [{heads}] on {img.device}")
-    nwin = b * (hh // ws) * (ww // ws)
-    scratch = torch.empty(nwin, _round16(n), heads * 96, device=img.device,
-                          dtype=torch.bfloat16)
+    shape = qkv_scratch_shape(b * (hh // ws) * (ww // ws), ws, heads)
+    scratch = None if shape is None else torch.empty(
+        shape, device=img.device, dtype=torch.bfloat16)
     y = torch.empty_like(img)
     _build.check(_build.library().hdrvae_swin_block(
         img.data_ptr(), None if extra is None else extra.data_ptr(),
@@ -384,7 +397,8 @@ def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
         w.wp.data_ptr(), w.bp.data_ptr(),
         w.g1.data_ptr(), w.be1.data_ptr(), w.g2.data_ptr(), w.be2.data_ptr(),
         w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(),
-        w.bias.data_ptr(), scratch.data_ptr(), y.data_ptr(), b, hh, ww, c,
+        w.bias.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        y.data_ptr(), b, hh, ww, c,
         heads, w.hidden, ws, shift, int(w.post_norm),
         torch.cuda.current_stream(img.device).cuda_stream),
         "hdrvae_swin_block")

@@ -743,12 +743,16 @@ def _swin_block(dev, dim, heads, ws, seed):
 
 # (batch, H, W, C, heads, window, shift, extra): n = 16, 49 (padded to 64
 # rows), 64 and 256 tokens; 3 and 5 windows across (odd grids the JAX
-# kernel refuses); C 48 and 180 (no multiple of 16: padded to 192)
+# kernel refuses); C 48 and 180 (no multiple of 16: padded to 192); 105
+# windows at batch 3 (odd: the last pair's second warpgroup has no window;
+# and no multiple of the 132 SMs); one row of two 256-token windows
 SWIN_CASES = [(2, 8, 12, 48, 2, 4, 0, False),
               (2, 8, 12, 48, 2, 4, 2, True),
               (1, 14, 21, 48, 3, 7, 3, False),
               (1, 24, 40, 180, 6, 8, 4, False),
-              (2, 32, 48, 180, 6, 16, 8, True)]
+              (2, 32, 48, 180, 6, 16, 8, True),
+              (3, 40, 56, 180, 6, 8, 4, True),
+              (1, 16, 32, 180, 6, 16, 8, True)]
 
 
 @pytest.mark.parametrize("b,h,w,c,heads,ws,shift,extra", SWIN_CASES)

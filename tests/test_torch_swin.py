@@ -232,6 +232,21 @@ def test_swin_gate():
         tocab.use_ocab_kernel(pallas, x, 40, 576)
 
 
+@pytest.mark.parametrize("ws", [4, 7, 8, 10, 12, 16])
+def test_qkv_scratch_shape(ws):
+    """K7 takes no device-memory scratch for windows of one 64-row block
+    (ws <= 8: q, k and v stay on chip); past that, one slot of 32 values
+    for each head's q, k and v of every token, the tokens rounded up to
+    whole 64-row blocks."""
+    nwin, heads, n = 5, 6, ws * ws
+    shape = tska.qkv_scratch_shape(nwin, ws, heads)
+    if n <= 64:
+        assert shape is None
+        return
+    assert shape[:3] == (nwin, heads, 3) and shape[4] == tska.HDP
+    assert shape[3] % 64 == 0 and 0 <= shape[3] - n < 64
+
+
 def test_non_cpu_tensors_never_fall_back():
     """A tensor off the CPU goes to the kernel or raises: the wrappers take
     the plain version for CPU tensors only (a meta tensor stands in for a

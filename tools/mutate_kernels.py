@@ -3,7 +3,7 @@
 GPU.
 
     python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_f32|k3_3pass|
-                                     k3_bf16|k8 ...]   (default: all)
+                                     k3_bf16|k8|k7 ...]   (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
 ``chip_smoke.py`` into a temporary directory, breaks one CUDA source
@@ -28,7 +28,10 @@ of the exact plain version at N = 16,384, C = 512, on the same ragged,
 peaked input, at batch 2 and C = 64, and in its two key_valid records;
 k8: ``_check_k8``, K8 within two bf16 ulps of its plain version at
 HAT-M's OCAB shape, with a peaked bias and at a ragged 20 x 36 shape, and
-through its C entry into a NaN-filled buffer),
+through its C entry into a NaN-filled buffer; k7: ``_check_k7``, K7's v1
+body within two bf16 ulps of its plain version at ``K7_SHAPES`` and its
+v2 body within its budget at ``K7_V2_SHAPES``, each output in a block
+that held NaNs, built for C <= 192 alone),
 then reports whether the check refused the broken kernel: by a
 failed assertion, or by a fault of the broken kernel on the card (a
 mutant that writes past an output stops the check there).  The
@@ -107,6 +110,27 @@ does the same for K8 (``ocab.cu``; CUDA events, mean of 10 launches after
 - two-warpgroups: the kernel with two consumer warpgroups a block (and
   three ring slots each), as for more than 576 keys, instead of three.
 
+    python3 tools/mutate_kernels.py --time-k7 [--tree DIR] [as-is|...]
+
+does the same for K7's v1 body (``swin_block.cu``; CUDA events, mean of
+10 launches after 2 warm-ups, twice, at each of ``chip_smoke.py``'s
+K7_SHAPES and over all four), in the tree at DIR (default: this one; an
+older tree times the earlier mma.sync / WMMA kernel, where the variant
+exists for it):
+
+- as-is: the kernel as it is;
+- no-weight-loads: the weight tiles are not copied (their barriers still
+  complete);
+- no-attention: no S, softmax or P V;
+- no-qkv-scratch: q, k and v neither stored to nor read from device
+  memory (windows past 64 tokens; the earlier kernel: every window);
+- no-bias-reads: the position bias is not read;
+- no-ln-gelu: no LN1 statistics and no GELU (the earlier kernel: no LN
+  statistics at all);
+- no-x-loads: the input image is not read (LN1's rows and the residual);
+- no-stores: the output is not stored;
+- one-warpgroup: one row block in flight a block instead of two.
+
 It prints the card's name and power limit first.
 """
 
@@ -126,6 +150,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # catch it); text and broken form may be tuples of edits made together
 # K1 / K2's wgmma of one m64 block and tap
 K1_WGMMA = "            wgmma_ss<BN, 1>(acc[mb], da, b_desc(st + ks * 2048));\n"
+
+# K7 built for C <= 192 alone (the checks' and timings' width): one
+# instance a body instead of three
+K7_ONLY_C192 = (
+    "    case 1: return launch<V2, 1>(maps, a, smem, grid, s);\n"
+    "    case 3: return launch<V2, 3>(maps, a, smem, grid, s);\n"
+    "    default: return launch<V2, 4>(maps, a, smem, grid, s);",
+    "    default: return launch<V2, 3>(maps, a, smem, grid, s);")
+
+
+def _k7(text: str, broken: str, must_catch: bool = True):
+    """A K7 mutation (swin_block.cu), built for C <= 192 alone."""
+    return ("swin_block.cu", (text, K7_ONLY_C192[0]),
+            (broken, K7_ONLY_C192[1]), must_catch)
+
 
 TARGETS = {
     # K1 and K2 share conv3x3.cu's mainloop: each mutant keeps the producer
@@ -356,6 +395,51 @@ TARGETS = {
             "ocab.cu", "const float key_pad = -INFINITY;",
             "const float key_pad = 0.0f;", True),
     }),
+    # K7: the check holds v1 within two bf16 ulps of its plain version at
+    # K7_SHAPES (the HAT shape with extra) and v2 within its budget at
+    # K7_V2_SHAPES; its output buffer comes from a freed NaN-filled block,
+    # so a window never stored shows.  Each mutant builds K7 for C = 180
+    # alone (K7_ONLY_C192), to keep the builds short.
+    "k7": ("_check_k7(np.random.default_rng(0), chip_smoke.K7_SHAPES) and "
+           "chip_smoke._check_k7(np.random.default_rng(0), "
+           "chip_smoke.K7_V2_SHAPES, v2=True)", ("K7",), {
+        "a k-step of the qkv products skipped": _k7(
+            "        hopper::wgmma_ss<32, 1>(f[s], dA + a_step(ks), db + ks * 64);",
+            "        if (ks != 1) hopper::wgmma_ss<32, 1>(f[s], dA + a_step(ks), db + ks * 64);"),
+        "one fc1 tile of the ring skipped": _k7(
+            "        hopper::wgmma_ss<32, 1>(h1, dA + a_step(ks), db1 + ks * 64);",
+            "        if (ch != 2) hopper::wgmma_ss<32, 1>(h1, dA + a_step(ks), db1 + ks * 64);"),
+        "the band mask in the wrong window row": _k7(
+            "    lr = a.shift > 0 && wr == a.nwh - 1;",
+            "    lr = a.shift > 0 && wr == a.nwh - 2;"),
+        "the band mask in the wrong window column": _k7(
+            "    lc = a.shift > 0 && wc == a.nww - 1;",
+            "    lc = a.shift > 0 && wc == a.nww - 2;"),
+        "the bias head off by one": _k7(
+            "          a.bias + (static_cast<size_t>(h) * n + rows[i]) * n;",
+            "          a.bias + (static_cast<size_t>((h + 1) % H) * n + rows[i]) * n;"),
+        "the bias row off by one": _k7(
+            "          a.bias + (static_cast<size_t>(h) * n + rows[i]) * n;",
+            "          a.bias + (static_cast<size_t>(h) * n + min(rows[i] + 1, n - 1)) * n;"),
+        "the P normalization dropped": _k7(
+            "            for (int e = 0; e < 2; ++e) s[4 * j + 2 * i + e] *= il;",
+            "            for (int e = 0; e < 2; ++e) s[4 * j + 2 * i + e] *= 1.0f;"),
+        "the last window never stored": _k7(
+            "      const bool real = wi < a.nwin;",
+            "      const bool real = wi < a.nwin - 1;"),
+        "the last row block of a ws-16 window never stored": _k7(
+            "      const bool real = rb < nrb;\n"
+            "      const int tok0 = 64 * (real ? rb : nrb - 1);\n"
+            "      int rows[2];",
+            "      const bool real = rb < nrb - 1;\n"
+            "      const int tok0 = 64 * (rb < nrb ? rb : nrb - 1);\n"
+            "      int rows[2];"),
+        "extra dropped": _k7(
+            "                if (er != nullptr) v += es[e];", ""),
+        "v2's q scale not applied": _k7(
+            "          const float m = s == 0 ? a.qs[h] : 1.0f;",
+            "          const float m = 1.0f;"),
+    }),
 }
 
 CHECK = """
@@ -502,6 +586,126 @@ K8_VARIANTS = {
                   ("    store(ojob, l_fin);\n    seg = seg_end;", "    seg = seg_end;")],
 }
 
+# --time-k7: variant -> alternatives, each a list of (source, text,
+# replacement); the first alternative whose texts the tree holds is made.
+# The first alternative is the wgmma kernel; a second, where there is one,
+# is the earlier mma.sync / WMMA kernel (one window a block, qkv through a
+# device-memory scratch), for timing it in an older tree (--tree).
+SB, WA = "swin_block.cu", "window_attention.cuh"
+K7_NEW = {
+    "as-is": [],
+    # the weight tiles are not copied (the ring's barriers still complete;
+    # the slots keep stale bytes)
+    "no-weight-loads": [
+        (SB, "    hopper::mbar_expect_tx(fb, TB);\n    if (i < 3 * H) {",
+         "    hopper::mbar_arrive(fb);\n    if (true) {\n    } else if (i < 3 * H) {")],
+    # no attention: no S, softmax or P V (the attention output stays as
+    # it was)
+    "no-attention": [
+        (SB, "        scores(s, bb, qa, k_s, 0, rows, lr, lc);",
+         "        for (int e = 0; e < 32; ++e) s[e] = 0.0f;"),
+        (SB, "        pv(o, pa, v_s);\n", ""),
+        (SB, "for (int kt = 0; kt < ntk; ++kt) {   // pass 1",
+         "for (int kt = 0; kt < 0; ++kt) {"),
+        (SB, "for (int kt = 0; kt < ntk; ++kt) {   // pass 2",
+         "for (int kt = 0; kt < 0; ++kt) {")],
+    # q / k / v neither stored to nor read from device memory (windows
+    # past 64 tokens; up to 64 tokens they stay on chip)
+    "no-qkv-scratch": [
+        (SB, "        if (!real) continue;\n        bf16* sq",
+         "        continue;\n        bf16* sq"),
+        (SB, "off < n64 * 64;", "off < 0;"),
+        (SB, "            qa[2 * j + i] = __ldcg(",
+         "            qa[2 * j + i] = 0 * __ldcg(")],
+    # the position bias not read (zeros)
+    "no-bias-reads": [
+        (SB, "bb[4 * j + 2 * i + e] = key < n ? __ldg(brow + key) : 0.0f;",
+         "bb[4 * j + 2 * i + e] = 0.0f;")],
+    # no LN1 statistics and no GELU (the rows pass as they are)
+    "no-ln-gelu": [
+        (SB, "      if constexpr (!V2) {\n        float sum = 0.0f;",
+         "      if constexpr (false) {\n        float sum = 0.0f;"),
+        (SB, "? winattn::gelu_erf(h1[4 * j + 2 * i + e] + b1_s[c])",
+         "? (h1[4 * j + 2 * i + e] + b1_s[c])")],
+    # the input image not read (LN1's rows and the proj residual)
+    "no-x-loads": [
+        (SB, "        v[k] = live ? load_pair(src, 8 * k + 2 * t, a.C)",
+         "        v[k] = live ? make_float2(0.5f, 0.5f)"),
+        (SB, "              const float2 xv = load_pair(xr, c, a.C);",
+         "              const float2 xv = make_float2(0.5f, 0.5f);")],
+    # the block's output not stored
+    "no-stores": [
+        (SB, "      if (real) {\n        const int rows_w",
+         "      if (false) {\n        const int rows_w"),
+        (SB, "            store_pair(dst, c, a.C, o[0], o[1]);", "            {}")],
+    # one warpgroup a block (as past C = 192) instead of two
+    "one-warpgroup": [
+        (SB, "if (!plan(a, CK, 2, smem) && !plan(a, CK, 1, smem))",
+         "if (!plan(a, CK, 1, smem))")],
+}
+# The earlier mma.sync / WMMA kernel (one window a block, qkv through a
+# device-memory scratch), for timing it in an older tree (--tree)
+K7_OLD = {
+    "as-is": [],
+    "no-weight-loads": [
+        (WA, "    if (i < total) {\n      const int c0",
+         "    if (false) {\n      const int c0")],
+    "no-attention": [
+        (SB, "    for (int h = 0; h < a.heads; ++h) {\n      const bf16* qs",
+         "    for (int h = 0; h < 0; ++h) {\n      const bf16* qs")],
+    "no-qkv-scratch": [
+        (SB, "        store_bf16x8(dst + static_cast<size_t>(r) * QW + c, o);", ""),
+        (SB, "      copy_rows_async(qs, LDQ, qkv_h + static_cast<size_t>(r0) * QW, QW,\n"
+             "                      nrt * 16, HDP);", ""),
+        (SB, "      copy_rows_async(qs + RB * LDQ, LDQ, qkv_h + HDP, QW, a.n16, HDP);", ""),
+        (SB, "      copy_rows_async(qs + (RB + a.n16) * LDQ, LDQ, qkv_h + 2 * HDP, QW,\n"
+             "                      a.n16, HDP);", "")],
+    "no-bias-reads": [(WA, "      float t = brow[j];", "      float t = 0.0f;")],
+    "no-ln-gelu": [
+        (WA, "    if constexpr (NORM) row_stats(v, C, mean, rstd);", ""),
+        (SB, "        g[i] = c + i < a.hidden ? gelu_erf(u) : 0.0f;",
+         "        g[i] = u;")],
+    "no-stores": [
+        (SB, "          dst[c] = ys[static_cast<size_t>(r) * a.ldy + c];",
+         "          if (c < 0) dst[c] = ys[static_cast<size_t>(r) * a.ldy + c];")],
+}
+K7_VARIANTS = {name: [edits + [(SB, *K7_ONLY_C192)]] +
+               ([K7_OLD[name]] if name in K7_OLD else [])
+               for name, edits in K7_NEW.items()}
+
+K7_TIME = r'''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from hdrvae_torch.core.config import Precision
+from hdrvae_torch.kernels import _build, swin_attention as ska
+from hdrvae_torch.models.swinir import block_weights
+
+_build.library()
+rng = np.random.default_rng(0)
+cases = []
+for name, h, w, ws, shift, extra in cs.K7_SHAPES:
+    blk = cs._swin_block(rng, cs.SWIN_DIM, cs.SWIN_HEADS, ws)
+    wts = block_weights(blk, cs.SWIN_HEADS, ws, torch.bfloat16)
+    x = cs._bf16(rng, (1, h, w, cs.SWIN_DIM))
+    e = cs._bf16(rng, (1, h, w, cs.SWIN_DIM), 0.5) if extra else None
+    cases.append((f"{name} {h}x{w} ws {ws} shift {shift}", h * w, ws,
+                  lambda x=x, wts=wts, ws=ws, shift=shift, e=e:
+                  ska.swin_block_fused(x, wts, ws=ws, shift=shift, extra=e,
+                                       precision=Precision.fast())))
+for _ in range(2):
+    total = 0.0
+    for label, tokens, ws, fn in cases:
+        t = cs.cuda_ms(fn, iters=10)
+        total += t
+        flops = cs._swin_flops(tokens, ws * ws)
+        print(f"  K7 {label}: {t:.3f} ms ({flops / (t * 1e9):.1f} TFLOP/s)",
+              flush=True)
+    print(f"  K7 over K7_SHAPES: {total:.3f} ms", flush=True)
+'''
+
 K8_TIME = r'''
 import sys
 import numpy as np
@@ -602,29 +806,43 @@ print(f"  phase-3 sum   device {dev_sum:.3f} ms  wrapper {wrap_sum:.3f} ms",
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
            "--time-k3-f32": ("attention.cu", K3F_VARIANTS, K3F_TIME),
-           "--time-k8": ("ocab.cu", K8_VARIANTS, K8_TIME)}
+           "--time-k8": ("ocab.cu", K8_VARIANTS, K8_TIME),
+           "--time-k7": (None, K7_VARIANTS, K7_TIME)}
 
 
 @contextlib.contextmanager
-def edited_copy(source: str, edits):
-    """A temporary copy of ``hdrvae_torch/`` and ``chip_smoke.py`` with
-    ``edits`` (text, replacement) made to ``csrc/source``: its directory,
-    or None if a text is not in the source exactly once."""
-    src = open(os.path.join(REPO, "hdrvae_torch", "csrc", source)).read()
-    for old, new in edits:
-        if src.count(old) != 1:
+def edited_copy(edits, root: str = REPO):
+    """A temporary copy of ``hdrvae_torch/`` and ``chip_smoke.py`` of the
+    tree at ``root`` with ``edits`` (CUDA source under csrc/, text,
+    replacement) made: its directory, or None if a text is not in its
+    source exactly once."""
+    csrc = os.path.join(root, "hdrvae_torch", "csrc")
+    srcs = {}
+    for source, old, new in edits:
+        if source not in srcs:
+            srcs[source] = open(os.path.join(csrc, source)).read()
+        if srcs[source].count(old) != 1:
             yield None
             return
-        src = src.replace(old, new)
+        srcs[source] = srcs[source].replace(old, new)
     with tempfile.TemporaryDirectory() as tmp:
-        shutil.copytree(os.path.join(REPO, "hdrvae_torch"),
+        shutil.copytree(os.path.join(root, "hdrvae_torch"),
                         os.path.join(tmp, "hdrvae_torch"),
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
-        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
-        with open(os.path.join(tmp, "hdrvae_torch", "csrc", source),
-                  "w") as f:
-            f.write(src)
+        shutil.copy(os.path.join(root, "chip_smoke.py"), tmp)
+        for source, src in srcs.items():
+            with open(os.path.join(tmp, "hdrvae_torch", "csrc", source),
+                      "w") as f:
+                f.write(src)
         yield tmp
+
+
+def _applies(edits, root: str) -> bool:
+    """Whether every (source, text, replacement) of ``edits`` finds its
+    text exactly once in the tree at ``root``."""
+    csrc = os.path.join(root, "hdrvae_torch", "csrc")
+    return all(open(os.path.join(csrc, source)).read().count(old) == 1
+               for source, old, _ in edits)
 
 
 def run_target(target: str) -> bool:
@@ -635,7 +853,7 @@ def run_target(target: str) -> bool:
     for name, (source, text, broken, must_catch) in mutations.items():
         edits = (list(zip(text, broken)) if isinstance(text, tuple)
                  else [(text, broken)])
-        with edited_copy(source, edits) as tmp:
+        with edited_copy([(source, o, n) for o, n in edits]) as tmp:
             if tmp is None:
                 print(f"== {name}: {source} does not hold the mutated text "
                       "once", file=sys.stderr)
@@ -655,14 +873,21 @@ def run_target(target: str) -> bool:
     return ok
 
 
-def time_variant(flag: str, variant: str) -> int:
-    """One variant of ``flag``'s kernel timed; the subprocess's exit
-    code."""
+def time_variant(flag: str, variant: str, root: str = REPO) -> int:
+    """One variant of ``flag``'s kernel in the tree at ``root`` timed; the
+    subprocess's exit code."""
     source, variants, script = TIMINGS[flag]
-    with edited_copy(source, variants[variant]) as tmp:
+    if source is None:   # alternatives of (source, text, replacement) edits
+        edits = next((alt for alt in variants[variant]
+                      if _applies(alt, root)), None)
+    else:
+        edits = [(source, o, n) for o, n in variants[variant]]
+    with contextlib.ExitStack() as stack:
+        tmp = None if edits is None else stack.enter_context(
+            edited_copy(edits, root))
         if tmp is None:
-            print(f"== {variant}: {source} does not hold the edited text "
-                  "once", file=sys.stderr)
+            print(f"== {variant}: the kernel's sources do not hold the "
+                  "edited text once", file=sys.stderr)
             return 1
         print(f"== {variant}", flush=True)
         proc = subprocess.run([sys.executable, "-c", script], cwd=tmp,
@@ -674,7 +899,12 @@ def time_variant(flag: str, variant: str) -> int:
 
 
 def main(argv=None) -> int:
-    args = argv if argv is not None else sys.argv[1:]
+    args = list(argv if argv is not None else sys.argv[1:])
+    root = REPO
+    if "--tree" in args:   # time the kernels of another tree
+        i = args.index("--tree")
+        root = os.path.abspath(args[i + 1])
+        del args[i:i + 2]
     timing = args[0] if args and args[0] in TIMINGS else None
     known = TIMINGS[timing][1] if timing else TARGETS
     names = args[1:] if timing else args
@@ -689,7 +919,7 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60)
         print(smi.stdout.strip(), flush=True)
-        return max(time_variant(timing, n) for n in names)
+        return max(time_variant(timing, n, root) for n in names)
     results = [run_target(t) for t in names]
     return 0 if all(results) else 1
 

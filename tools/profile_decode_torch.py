@@ -73,7 +73,10 @@ HAT-M x4 requests of a 1024^2 HDR image (one to warm up, two timed, one
 under ``torch.profiler`` for K8's share), and as controls two fast SwinIR-M
 x4 requests and three fast 1024^2 decodes.  ``--ab-only swin conv esrgan
 attn hat`` picks the turns; ``--upscale --model hat`` runs the HAT turn
-alone.
+alone, and ``--upscale --model swinir swin2sr hat`` (any other list) the
+upscale turn: for each model named, three fast x4 requests of a 1024^2
+HDR image from numpy seed 1 (the first warms up), then three fast 1024^2
+decodes as the control.
 
 The script only reads: it changes nothing in the package.  Without a CUDA
 device it exits non-zero.
@@ -715,6 +718,70 @@ times = [round(timed(lambda: decode_summary(hdr_decode(dec, z, cons, fast)))[0],
 print(f"  decode 1024^2 fast: device ms {times}", flush=True)
 '''
 
+# --upscale --model ... --ab-tree: fast x4 requests of a 1024^2 HDR image
+# (numpy seed 1) through each model of MODELS (one warms up, two timed),
+# then three fast 1024^2 decodes as the control
+AB_UPSCALE = r'''
+import time
+import numpy as np
+import torch
+from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
+                                      Precision, UpscaleConfig)
+from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+from hdrvae_torch.models.hat import HATConfig, init_hat
+from hdrvae_torch.models.params import init_decoder
+from hdrvae_torch.models.swin2sr import Swin2SRConfig, init_swin2sr
+from hdrvae_torch.models.swinir import SwinIRConfig, init_swinir
+from hdrvae_torch.upscale.pipeline import hdr_upscale
+
+
+def timed(fn):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), 1e3 * (time.perf_counter() - h0)
+
+
+NETS = {"swinir": ("SwinIR-M", "SwinIR",
+                   lambda: init_swinir(SwinIRConfig(), seed=3, device="cuda")),
+        "swin2sr": ("Swin2SR-M", "Swin2SR",
+                    lambda: init_swin2sr(Swin2SRConfig(), seed=5,
+                                         device="cuda")),
+        "hat": ("HAT-M", "HAT",
+                lambda: init_hat(HATConfig(), seed=4, device="cuda")),
+        "esrgan": None}
+fast = Precision.fast()
+img = torch.from_numpy((np.random.default_rng(1).standard_normal(
+    (1, 1024, 1024, 3)) * 1.5 + 0.3).astype(np.float32)).cuda()
+for model in MODELS:
+    if NETS.get(model) is None:
+        continue
+    name, arch, make = NETS[model]
+    net = make()
+
+    def run():
+        hdr_upscale(net, img, UpscaleConfig(), architecture=arch,
+                    precision=fast)
+    for i in range(3):
+        d, w = timed(run)
+        print(f"  {name} x4 1024^2 fast request {i}"
+              f"{' (warm-up)' if i == 0 else ''}: device {d:.3f} ms, host "
+              f"wall {w:.3f} ms", flush=True)
+    del net
+    torch.cuda.empty_cache()
+dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
+z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+    (1, 128, 128, 16)).astype(np.float32)).cuda()
+cons = HDRDecodeConfig(hdr_mode="conservative")
+times = [round(timed(lambda: decode_summary(hdr_decode(dec, z, cons, fast)))[0],
+               3) for _ in range(3)]
+print(f"  decode 1024^2 fast: device ms {times}", flush=True)
+'''
+
 
 def k6_table() -> list:
     """``chip_smoke.py``'s K6 shapes with their launches a tile forward and
@@ -725,20 +792,24 @@ def k6_table() -> list:
             for shape in chip_smoke.K6_SHAPES + chip_smoke.K6_EXTRA[:1]]
 
 
-AB_TURNS = {"swin": lambda: AB_TURN, "conv": lambda: AB_CONV,
-            "esrgan": lambda: AB_ESRGAN.replace("K6_TABLE",
-                                                repr(k6_table())),
-            "attn": lambda: AB_ATTN, "hat": lambda: AB_HAT}
+AB_TURNS = {"swin": lambda models: AB_TURN,
+            "conv": lambda models: AB_CONV,
+            "esrgan": lambda models: AB_ESRGAN.replace(
+                "K6_TABLE", repr(k6_table())),
+            "attn": lambda models: AB_ATTN, "hat": lambda models: AB_HAT,
+            "upscale": lambda models: AB_UPSCALE.replace("MODELS",
+                                                         repr(models))}
 
 
-def ab(other: str, turns) -> int:
-    """The turns of ``--ab-tree``: this tree, ``other``, ``other``, this."""
+def ab(other: str, turns, models=()) -> int:
+    """The turns of ``--ab-tree``: this tree, ``other``, ``other``, this
+    (``models`` for the upscale turn)."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     there = os.path.abspath(other)
     for label, root in (("this", here), ("other", there), ("other", there),
                         ("this", here)):
         print(f"== {label}: {root}", flush=True)
-        for turn in (AB_TURNS[t]() for t in turns):
+        for turn in (AB_TURNS[t](list(models)) for t in turns):
             proc = subprocess.run([sys.executable, "-c", turn], cwd=root,
                                   env=dict(os.environ, PYTHONPATH=root),
                                   timeout=900)
@@ -774,7 +845,7 @@ def main() -> int:
                          "K6, ESRGAN upscales, K3, K8 and HAT-M upscales "
                          "with the tree in DIR instead")
     ap.add_argument("--ab-only", nargs="+", choices=list(AB_TURNS),
-                    default=list(AB_TURNS),
+                    default=[t for t in AB_TURNS if t != "upscale"],
                     help="the --ab-tree turns run (default: all)")
     args = ap.parse_args()
     latents = args.latent or ([128] if args.upscale else [128, 256])
@@ -788,10 +859,13 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     if args.ab_tree:
-        # --upscale --model hat: the HAT turn alone
-        turns = (["hat"] if args.upscale and args.model == ["hat"]
-                 else args.ab_only)
-        return ab(args.ab_tree, turns)
+        # --upscale --model hat: the HAT turn alone; --upscale with other
+        # models: their x4 requests
+        if args.upscale:
+            turns = ["hat"] if args.model == ["hat"] else ["upscale"]
+        else:
+            turns = args.ab_only
+        return ab(args.ab_tree, turns, args.model)
 
     cfg = DecoderConfig()
     dec = init_decoder(cfg, seed=0, device="cuda")
