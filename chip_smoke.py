@@ -9,14 +9,16 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 1. device: the card's name and power limit, as the line nvidia-smi prints;
 2. build: compile the kernels, print the build time and ptxas' register
    and spill report, and the count of HGMMA (wgmma) instructions in the
-   SASS of K1/K2's, K6's, K3 bf16's and K8's kernels (``cuobjdump
-   --dump-sass``), which must not be 0, with the registers and spills of
-   K3's (per instance) and K8's kernels;
+   SASS of K1/K2's, K6's, K3 bf16's, K3 3-pass's, K8's and K7's kernels
+   (``cuobjdump --dump-sass``), which must not be 0, with the registers
+   and spills of K3's (per instance), K8's and K7's kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1-K4: a 1024^2 decode, and K1 and K2
    each at one ragged shape of an 832 x 1216 frame, logged apart and out
    of the rows' sums, K2 also timed as the launch alone; K3 in its three
-   dot modes, the 3-pass one also against exact float32, the 3-pass and
+   dot modes, the 3-pass one also against exact float32 and at 65,536
+   tokens (the 2048^2 decode's), its split (``split_qkv``) bit-equal to
+   the split's plain version, the 3-pass and
    bf16 ones on a ragged input with peaked scores, the bf16 one also at
    batch 2 and C = 64, and each mode's key_valid mask (the bucketed
    phase's live 121 x 100 of 128 x 128, and a 32 x 32 grid whose first
@@ -101,7 +103,8 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    held to its class, beside ``torch.matmul`` in float32 (TF32 off and on)
    and bf16;
 12. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K3's 3-pass
-   mode in mixed, K3 f32 in parity, each of the three masked in its
+   mode in mixed (and ``split_qkv`` once a 3-pass launch, in no other
+   tier), K3 f32 in parity, each of the three masked in its
    tier's bucketed decode, K4 in the fused-epilogue decodes, K5
    and K2 stats_only in the
    low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
@@ -163,6 +166,9 @@ ATTN_FLOPS = 4 * N_TOKENS * N_TOKENS * C_ATTN   # q k^T and p v, one pass
 # so the scores have std ~8 and the softmax is peaked: there the order of
 # the scale and the split (2^-16 of each score) reaches the output
 K3_SHARP_HW, K3_SHARP_QSCALE = 100, 8.0
+# K3's 3-pass mode also at the 2048^2 decode's mid attention: 256 x 256 =
+# 65,536 tokens, C = C_ATTN
+K3_LONG_HW = 256
 # K3 bf16 also at batch 2, C = 64 and ragged N (33 x 47 = 1,551 tokens, no
 # multiple of its 64-key steps): one 64-column box a consumer warpgroup, so
 # the second multiplies a zero box; [B, H, W, C]
@@ -409,6 +415,7 @@ def phase_build() -> None:
     for name, kernel in (("K1/K2", "conv_wgmma_kernel"),
                          ("K6", "dense_wgmma_kernel"),
                          ("K3 bf16", "flash_bf16_kernel"),
+                         ("K3 3-pass", "flash_3pass_kernel"),
                          ("K8", "ocab_kernel"),
                          ("K7", "swin_block_kernel")):
         n, funcs = hgmma_count(path, kernel)
@@ -416,10 +423,11 @@ def phase_build() -> None:
             f"({funcs} instances)")
         check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
               "SASS)")
-    # K3 bf16's and K3 f32's registers and spills per C / 64 instance, K8's,
-    # K7's per body and channel width, and any ptxas warning (a serialized wgmma is one)
-    for kernel in ("flash_bf16_kernel", "flash_f32_kernel", "ocab_kernel",
-                   "swin_block_kernel"):
+    # K3 bf16's, f32's and 3-pass's registers and spills per C / 64
+    # instance, K8's, K7's per body and channel width, and any ptxas
+    # warning (a serialized wgmma is one)
+    for kernel in ("flash_bf16_kernel", "flash_f32_kernel",
+                   "flash_3pass_kernel", "ocab_kernel", "swin_block_kernel"):
         for inst, (regs, stores, loads) in ptxas_report(compiler_log,
                                                         kernel):
             log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill "
@@ -488,7 +496,7 @@ def phase_kernels() -> list:
     q, k, v = _k3_inputs(rng)
     ref = attention.spatial_attention_reference(q, k, v)
     entries.append(_check_k3_f32(q, k, v, ref))
-    entries.append(_check_k3_3pass(q, k, v, ref))
+    entries += _check_k3_3pass(q, k, v, ref)
     entries.append(_check_k3_bf16(q, k, v))
     del q, k, v, ref
     torch.cuda.empty_cache()
@@ -869,13 +877,79 @@ def _check_k3_bf16(q, k, v) -> dict:
             "tiers": ["fast"], "key_valid": masked}
 
 
-def _check_k3_3pass(q, k, v, ref=None) -> dict:
-    """K3's 3-pass mode (the mixed tier) at K3's inputs: within
-    ATTN_BUDGET["mixed"] of the exact plain version ``ref`` and within
-    K3_3PASS_REL * max|ref3| of its own plain version ref3; then the same
-    against its plain version on the ragged, peaked input.  Times the
-    kernel, its plain version and SDPA float32 at K3's inputs."""
+def _plain_3pass_rows(q, k, v, rows: int = 4096) -> tuple:
+    """(3-pass, exact float32) attention of [1, h, w, C] q, k, v, the
+    arithmetic of spatial_attention_3pass_reference and of
+    spatial_attention_reference a block of ``rows`` queries at a time:
+    their whole scores at K3_LONG_HW^2 tokens would take 16 GiB each."""
+    from hdrvae_torch.core.config import Precision, fp32_contractions
     from hdrvae_torch.kernels import attention
+    b, h, w, c = q.shape
+    n = h * w
+    qs = q.reshape(b, n, c) * c ** -0.5
+    kt = k.reshape(b, n, c).transpose(1, 2)
+    vf = v.reshape(b, n, c)
+    out3, exact = torch.empty_like(vf), torch.empty_like(vf)
+    for r in range(0, n, rows):
+        s = attention._dot3(qs[:, r:r + rows], kt)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        out3[:, r:r + rows] = (attention._dot3(p, vf)
+                               / p.sum(dim=-1, keepdim=True))
+        with fp32_contractions(Precision.parity()):
+            p = torch.softmax(qs[:, r:r + rows] @ kt, dim=-1)
+            exact[:, r:r + rows] = p @ vf
+        del s, p
+    return out3.reshape(q.shape), exact.reshape(q.shape)
+
+
+def _check_split_qkv(q, k, v) -> dict:
+    """The 3-pass kernel's split (split_qkv) bit-equal to its plain
+    version at K3's inputs and on the ragged, peaked input; timed at K3's
+    inputs (its bound: q, k, v read once, the six bf16 parts written)."""
+    from hdrvae_torch.kernels import attention
+    qs, ks, vs = _k3_inputs(np.random.default_rng(7), K3_SHARP_HW,
+                            K3_SHARP_QSCALE)
+    err = 0.0
+    for label, args in (("K3's inputs", (q, k, v)),
+                        (f"ragged N={K3_SHARP_HW ** 2} q x {K3_SHARP_QSCALE}",
+                         (qs, ks, vs))):
+        got = attention.split_qkv(*args)
+        want = attention.split_qkv_reference(*args)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"split_qkv {label}: shape "
+              f"{tuple(got.shape)}, want {tuple(want.shape)}")
+        e = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, want), f"split_qkv {label}: not bit-equal to "
+              f"its plain version ({e} apart)")
+        err = max(err, e)
+        del got, want
+    del qs, ks, vs
+    t = cuda_ms(lambda: attention.split_qkv(q, k, v), iters=10)
+    tp = cuda_ms(lambda: attention.split_qkv_reference(q, k, v), iters=3)
+    b = Bound().add(0, 3 * nbytes(q) + 6 * q.numel() * 2)
+    log(f"split_qkv N={N_TOKENS} C={C_ATTN}: bit-equal to its plain version "
+        f"(and on the ragged, peaked input)  kernel {t:.3f} ms  plain "
+        f"{tp:.3f} ms  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    return {"name": "split_qkv", "route": "cuda",
+            "source": "hdrvae_torch/csrc/attention.cu",
+            "replaces": "hdrvae/kernels/attention.py:50 (_dot3's split, "
+                        "in K3's HIGH body :131)",
+            "max_abs_err": err, "err_budget": 0.0, "ms": t, "plain_ms": tp,
+            **b, "library_ms": None, "tiers": ["mixed"]}
+
+
+def _check_k3_3pass(q, k, v, ref=None) -> list:
+    """K3's 3-pass mode (the mixed tier) at K3's inputs: its split
+    (``_check_split_qkv``) bit-equal to the split's plain version; the
+    kernel within ATTN_BUDGET["mixed"] of the exact plain version ``ref``
+    and within K3_3PASS_REL * max|ref3| of its own plain version ref3; the
+    same against its plain version on the ragged, peaked input; then at
+    K3_LONG_HW^2 tokens (the 2048^2 decode's mid attention, its plain
+    versions a block of rows at a time).  Times the kernel, its plain
+    version and SDPA float32 at both sizes.  Returns the kernel's record
+    and the split's."""
+    from hdrvae_torch.kernels import attention
+    split_entry = _check_split_qkv(q, k, v)
     if ref is None:
         ref = attention.spatial_attention_reference(q, k, v)
     got = attention.flash_attention_3pass(q, k, v)
@@ -919,17 +993,62 @@ def _check_k3_3pass(q, k, v, ref=None) -> dict:
         f"kernel {t:.3f} ms ({3 * ATTN_FLOPS / (t * 1e9):.1f} TFLOP/s)  "
         f"plain {tp:.3f} ms  SDPA {tl:.3f} ms  bound {b['bound_ms']:.3f} ms "
         f"({b['bound_by']})")
-    return {"name": "flash_attention_3pass", "route": "cuda",
-            "source": "hdrvae_torch/csrc/attention.cu",
-            "replaces": "hdrvae/kernels/attention.py:210 (HIGH: _dot3, :43)",
-            "max_abs_err": e, "err_budget": bar,
-            "max_abs_err_vs_exact": e_exact,
-            "ragged_peaked": {"n": K3_SHARP_HW ** 2,
-                              "qscale": K3_SHARP_QSCALE,
-                              "max_abs_err": e_sharp, "err_budget": bar_sharp},
-            "ms": t, "plain_ms": tp, **b, "library_ms": tl,
-            "library_call": "F.scaled_dot_product_attention, float32",
-            "tiers": ["mixed"], "key_valid": masked}
+    long = _check_k3_3pass_long()
+    return [{"name": "flash_attention_3pass", "route": "cuda",
+             "source": "hdrvae_torch/csrc/attention.cu",
+             "replaces": "hdrvae/kernels/attention.py:210 (HIGH: _dot3, :43)",
+             "max_abs_err": e, "err_budget": bar,
+             "max_abs_err_vs_exact": e_exact,
+             "ragged_peaked": {"n": K3_SHARP_HW ** 2,
+                               "qscale": K3_SHARP_QSCALE,
+                               "max_abs_err": e_sharp,
+                               "err_budget": bar_sharp},
+             "ms": t, "tflops": 3 * ATTN_FLOPS / (t * 1e9), "plain_ms": tp,
+             **b, "library_ms": tl,
+             "library_call": "F.scaled_dot_product_attention, float32",
+             "tiers": ["mixed"], "key_valid": masked, "long": long},
+            split_entry]
+
+
+def _check_k3_3pass_long() -> dict:
+    """K3's 3-pass mode at K3_LONG_HW^2 tokens, C = C_ATTN (the 2048^2
+    decode's mid attention, 1,024 key steps of accumulation): within
+    K3_3PASS_REL * max|ref3| of its plain version and ATTN_BUDGET["mixed"]
+    of exact float32 (both a block of rows at a time), timed beside SDPA
+    float32 (None where SDPA runs out of memory)."""
+    from hdrvae_torch.kernels import attention
+    q, k, v = _k3_inputs(np.random.default_rng(10), K3_LONG_HW)
+    n = K3_LONG_HW ** 2
+    got = attention.flash_attention_3pass(q, k, v)
+    ref3, exact = _plain_3pass_rows(q, k, v)
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), f"K3 3-pass N = {n}: output not "
+          "finite")
+    e = (got - ref3).abs().max().item()
+    bar = K3_3PASS_REL * ref3.abs().max().item()
+    e_exact = (got - exact).abs().max().item()
+    check(e <= bar and e_exact <= ATTN_BUDGET["mixed"],
+          f"K3 3-pass N = {n}: max-abs {e} against its plain version (<= "
+          f"{bar}), {e_exact} against exact float32 (<= "
+          f"{ATTN_BUDGET['mixed']})")
+    del got, ref3, exact
+    torch.cuda.empty_cache()
+    t = cuda_ms(lambda: attention.flash_attention_3pass(q, k, v), iters=3)
+    try:
+        tl = sdpa_ms(q, k, v)
+    except torch.OutOfMemoryError:
+        tl = None
+    torch.cuda.empty_cache()
+    flops = 3 * 4 * n * n * C_ATTN
+    b = Bound().add(flops, 4 * nbytes(q), PEAK_BF16)
+    log(f"K3 flash_attention_3pass N={n} C={C_ATTN}: max-abs {e:.3e} vs "
+        f"plain 3-pass (<= {bar:.3e}), {e_exact:.3e} vs exact (<= "
+        f"{ATTN_BUDGET['mixed']})  kernel {t:.3f} ms "
+        f"({flops / (t * 1e9):.1f} TFLOP/s)  SDPA {tl} ms  bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    return {"n": n, "max_abs_err": e, "err_budget": bar,
+            "max_abs_err_vs_exact": e_exact, "ms": t,
+            "tflops": flops / (t * 1e9), **b, "library_ms": tl}
 
 
 def _check_k2_stats_only(rng) -> dict:
@@ -1579,7 +1698,7 @@ def _wrappers() -> dict:
         conv3x3.fused_conv3x3, conv3x3.upsample_conv3x3,
         conv3x3.upconv_gn_conv3x3,
         attention.flash_attention_bf16, attention.flash_attention_3pass,
-        attention.flash_attention_f32,
+        attention.flash_attention_f32, attention.split_qkv,
         epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3,
         swin_attention.swin_block_fused, ocab.ocab_attention,
         swin_attention.ln_qkv, swin_attention.window_attention_core,
@@ -2397,6 +2516,13 @@ def main() -> int:
         check(per_tier["fast"][name] > 0, f"fast decode never ran {name}")
     check(per_tier["mixed"]["flash_attention_3pass"] > 0,
           "mixed decode never ran flash_attention_3pass")
+    # the 3-pass kernel's operands are split once a launch, in its tier alone
+    check(per_tier["mixed"]["split_qkv"]
+          == per_tier["mixed"]["flash_attention_3pass"]
+          and per_tier["fast"]["split_qkv"] == 0
+          and per_tier["parity"]["split_qkv"] == 0,
+          f"split_qkv launched {[per_tier[t]['split_qkv'] for t in per_tier]}"
+          " times (fast, parity, mixed), want once a 3-pass launch")
     check(per_tier["parity"]["flash_attention_f32"] > 0,
           "parity decode never ran flash_attention_f32")
     check(epi_counts["collapse_and_stats_fused"] > 0,

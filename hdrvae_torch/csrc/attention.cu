@@ -52,27 +52,47 @@
 //    bytes at N = 16,384) is stored from the fragments, divided by l, rows
 //    past N skipped.
 //  * flash_3pass (mixed tier): what _flash_kernel computes in HIGH, the
-//    3-pass bf16x3 split of _dot3 (:43).  q is scaled by C^-1/2 in
-//    float32 and then split (hi = bf16(x), lo = bf16(x - hi)), as :131
-//    does; S = hi.hi + hi.lo + lo.hi and, after the online float32
-//    softmax, P v the same way with P split, each dot's three products
-//    accumulating into one float32 accumulator on mma.sync m16n8k16 (bf16
-//    operands, float32 accumulation; each run of mmas is kept short and
-//    added to its sum with round-to-nearest, since the tensor cores
-//    truncate).  Each operand is split exactly once,
-//    because converting per use, not the extra passes, set the time of the
-//    bf16x3 product K12 measured: the q block into hi / lo tiles when it
-//    loads, each K and V tile as it lands (float32 global -> registers ->
-//    two bf16 stores), P in registers as it is stored.  64 queries by 32
-//    keys a step, 8 warps; at C = 512 q takes 130 KB as hi + lo and the K
-//    / V tile (V replaces K once the scores are done) 65 KB, ~215 KB in
-//    all: one block an SM.  A warp computes a 16 x 16 block of S and owns
-//    16 rows x C / 2 columns of the output in registers (128 floats at C =
-//    512), so S and P v each read their operands through ldmatrix and no
-//    C split or recompute of S is needed.  Bound on the H100: 3 x 4 N^2 C
-//    operations on the tensor cores; the design is bound instead by its
-//    shared-memory reads (~1.5 KB a 16 x 8 x 16 triple of mmas) and by the
-//    K / V tile loads, which stop the block at its barriers.
+//    3-pass bf16x3 split of _dot3 (:43): S = hi.hi + hi.lo + lo.hi and, after
+//    the online float32 softmax, P v the same way with P split, on wgmma
+//    (bf16 operands, float32 accumulation).  Bound at N = 16,384, C = 512: 3
+//    x 4 N^2 C = 1.65e12 operations, 1.668 ms at the bf16 tensor-core rate.
+//    The split (hi = bf16(x), lo = bf16(x - hi)) is done once a launch, not
+//    once a block: split_qkv_kernel writes q's parts (q scaled by C^-1/2 in
+//    float32 first, as :131 does), K's and V's into a [6][B, N, C] bf16
+//    scratch the wrapper allocates (12 bytes read and written a value, ~0.06
+//    ms at N = 16,384; the earlier mma.sync kernel re-read and re-split all
+//    of K and V as float32 in every block, which took half its time).  The
+//    flash kernel keeps flash_bf16's outer structure: 64 queries a block, two
+//    warpgroups, no producer warp, copies by TMA from 3-D [B, N, C] maps
+//    (rows past N arrive as zeros, never from the next batch; the 128-byte
+//    swizzle).  q's hi and lo stay resident (128 KB at C = 512); K and V
+//    stream through a ring of NS3 = 4 slots of 16 KB: per 64-key step NC K
+//    stages (64 channels of the step's keys, hi and lo) and 2 NB V stages (32
+//    keys of one output box of each warpgroup, hi and lo); ~210 KB of shared
+//    memory, one block an SM.  A slot is refilled by the last of the eight
+//    warps to release it (a count in shared memory), so no thread waits for
+//    the others and the two warpgroups drift apart within the ring's slack
+//    (thread 0 refilling once every warp had released, as flash_bf16 does,
+//    ran 5.0 ms against 4.8 at N = 16,384, C = 512, one part in S).
+//    Warpgroup w computes S for keys [32 w, 32 w + 32) of the step over all
+//    of C and owns output columns [64 NB w, 64 NB (w + 1)), as flash_bf16
+//    does.  Shared-memory reads bound the design (per step ~450 KB of S
+//    operands, ~320 KB of P V operands and 256 KB of TMA writes against
+//    ~6,150 clocks of products), so each A operand read feeds two products: B
+//    is stacked as [Kh ; Kl] in one m64n64k16 (qh.Kh and qh.Kl in separate
+//    accumulator columns, ql.Kh added into the first by an m64n32k16), and P
+//    V takes Ph [Vh | Vl] in one m64n128k16 and Pl Vh in one m64n64k16 (three
+//    m64n64k16 a box, which would let box b + 1's products run while box b's
+//    are folded, ran 4.7 ms against 3.9).  The tensor cores add into float32
+//    by truncation, so a long run of wgmmas into one accumulator shrinks it
+//    by up to an ulp a step: each K stage's products go into a fresh part
+//    added to S with round-to-nearest (two parts, so stage c + 1's products
+//    run while stage c's part is added: 3.9 ms against 4.8 with one), and
+//    each output box's P V of the step into a fresh part folded as o =
+//    fmaf(o, alpha, part). Scores stay in registers (dead keys -inf on the
+//    fragment); the two halves' row maxima, and at the end their row sums,
+//    meet in shared memory; P is split in registers and stored, hi and lo, in
+//    the swizzled K-major layout wgmma reads.
 //  * flash_f32 (parity tier): what _flash_kernel computes in HIGHEST,
 //    exact float32: q scaled by C^-1/2 first (one rounded multiply, as
 //    :131), every product an fmaf on the CUDA cores (no TF32, no tensor
@@ -124,7 +144,8 @@
 // was.
 
 #include "hopper.cuh"
-#include "window_attention.cuh"
+
+#include <cuda_bf16.h>
 
 #include <math.h>
 
@@ -504,7 +525,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------- f32 -----
-constexpr int MAXC32 = 512;       // C / 64 <= 8 (the 3-pass kernel's too)
+constexpr int MAXC32 = 512;       // C / 64 <= 8
 constexpr int BQ32 = 64;          // queries a block: 8 rows a warp
 constexpr int JK32 = 4;           // keys a lane a step: lane + 32 j, j < JK32
 constexpr int BK32 = 32 * JK32;   // keys a step
@@ -858,55 +879,43 @@ int launch_f32(const void* q, const void* k, const void* v,
 }
 
 // -------------------------------------------------------------- 3-pass ----
-constexpr int BQ3 = 64;               // queries per block
-constexpr int BKV3 = 32;              // keys per step
-constexpr int NT3 = 256;              // 8 warps
-constexpr int SLD3 = BKV3 + 4;        // score row stride (float)
-constexpr int PLD3 = BKV3 + 8;        // probability row stride (bf16)
-constexpr int MAXN3 = MAXC32 / 16;    // output n8 tiles a warp: C / 2 / 8
-constexpr int LOADS3 = 8;             // float4 tile loads in flight a thread
+constexpr int BQ3 = 64;               // queries a block: one m64 block
+constexpr int BKV3 = 64;              // keys a step
+constexpr int NT3 = 256;              // two warpgroups, no producer warp
+constexpr int NS3 = 4;                // ring slots
+constexpr int QUART3 = 32 * 128;      // 32 rows x 64 bf16 columns (4 KB)
+constexpr int SLOT3 = 4 * QUART3;     // a stage: four quarters (16 KB)
 
-// Row strides of C + 8 bf16 (and PLD3) put the eight rows of an ldmatrix
-// 16 bytes apart in the banks: conflict-free.
-struct Pass3Layout {
-  int ld;                             // q / kv row stride (bf16)
-  size_t qh, ql, kvh, kvl, s, ph, pl, alpha, l, total;
-  __host__ __device__ explicit Pass3Layout(int C) {
-    ld = C + 8;
-    qh = 0;
-    ql = qh + static_cast<size_t>(BQ3) * ld * 2;
-    kvh = ql + static_cast<size_t>(BQ3) * ld * 2;
-    kvl = kvh + static_cast<size_t>(BKV3) * ld * 2;
-    s = kvl + static_cast<size_t>(BKV3) * ld * 2;
-    ph = s + static_cast<size_t>(BQ3) * SLD3 * 4;
-    pl = ph + static_cast<size_t>(BQ3) * PLD3 * 2;
-    alpha = pl + static_cast<size_t>(BQ3) * PLD3 * 2;
-    l = alpha + BQ3 * 4;
-    total = l + BQ3 * 4;
-  }
+// Shared memory of flash_3pass_kernel<NC> (C = 64 NC) from a 1024-byte
+// aligned base: q's hi and lo parts (NC boxes each), the ring's NS3 slots,
+// P's hi and lo parts (one box each), the two warpgroups' row maxima and
+// row sums, the ring's release counts, q's mbarrier and the ring's full
+// ones.  A step of BKV3 keys is NC K stages (chunk c: channels 64 c .. 64 c + 63 of the
+// step's keys, quarters Kh keys 0-31, Kl keys 0-31, Kh 32-63, Kl 32-63)
+// and then 2 NB V stages (box b's keys 32 h .. 32 h + 31, h = 0, 1:
+// quarters Vh and Vl of warpgroup 0's box b, Vh and Vl of warpgroup 1's
+// box NB + b, which at odd NC is past C and never copied).
+template <int NC>
+struct Pass3Smem {
+  static constexpr int NB = (NC + 1) / 2;      // output boxes a warpgroup
+  static constexpr int STAGES = NC + 2 * NB;   // a step
+  static constexpr int QH = 0;
+  static constexpr int QL = QH + NC * BOX16;
+  static constexpr int RING = QL + NC * BOX16;
+  static constexpr int PH = RING + NS3 * SLOT3;
+  static constexpr int PL = PH + BOX16;
+  static constexpr int MX = PL + BOX16;            // float [2][64]
+  static constexpr int LS = MX + 2 * BQ3 * 4;      // float [2][64]
+  static constexpr int CNT = LS + 2 * BQ3 * 4;     // int [NS3]
+  static constexpr int BAR = CNT + 8 * NS3;         // q, full[NS3]
+  static constexpr int BYTES = BAR + (1 + NS3) * 8 + 1024;
 };
+static_assert(Pass3Smem<8>::BYTES <= 232448, "shared memory");
 
 // _dot3's split: hi = bf16(x), lo = bf16(x - hi) (x - hi is exact)
 __device__ __forceinline__ void split3(float x, bf16& hi, bf16& lo) {
   hi = __float2bfloat16(x);
   lo = __float2bfloat16(x - __bfloat162float(hi));
-}
-
-// d[16x8] = a[16x16] b[16x8], bf16 operands, float32 out: a fresh
-// accumulator.  The tensor cores add each product into float32 with
-// truncation, not round-to-nearest, so a long run of mma into one
-// accumulator shrinks it by up to an ulp a step, which thousands of steps
-// make visible; the kernel keeps each such run short (three or six mmas)
-// and adds the runs with round-to-nearest.
-__device__ __forceinline__ void mma_bf16_16816_new(float* d,
-                                                   const unsigned* a,
-                                                   const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.0f));
 }
 
 __device__ __forceinline__ uint2 pack4(const bf16 (&h)[4]) {
@@ -918,227 +927,369 @@ __device__ __forceinline__ uint2 pack4(const bf16 (&h)[4]) {
   return r;
 }
 
-// Rows [row0, row0 + rows) of a float32 [N, C] matrix, each value times
-// scale (one rounded float32 multiply, never fused into the split), split
-// into the bf16 hi and lo tiles (row stride ld); rows at or past N are
-// zero.  LOADS3 16-byte loads are in flight a thread before their splits
-// are stored (the tile loads sit between barriers: their latency is not
-// hidden by other work of the block).
-__device__ __forceinline__ void split_rows(bf16* hi, bf16* lo,
-                                           const float* __restrict__ src,
-                                           int row0, int rows, int N, int C,
-                                           int ld, float scale) {
-  const int vpr = C / 4;
-  const int total = rows * vpr;
-  for (int i0 = threadIdx.x; i0 < total; i0 += LOADS3 * NT3) {
-    float4 v[LOADS3];
+// The split of q (times scale: one rounded float32 multiply, never fused
+// into the split), k and v, once a launch: tensor blockIdx.y of the three,
+// n values each, into parts [3][2][n] (hi, lo of q, then of k, of v).
+// Bound by its bytes: 12 n read, 12 n written.
+__global__ void __launch_bounds__(256) split_qkv_kernel(
+    const float4* __restrict__ q, const float4* __restrict__ k,
+    const float4* __restrict__ v, uint2* __restrict__ parts, long long n,
+    float scale) {
+  const int w = blockIdx.y;
+  const float4* src = w == 0 ? q : w == 1 ? k : v;
+  const float s = w == 0 ? scale : 1.0f;
+  const long long n4 = n / 4;
+  uint2* hi = parts + 2 * w * n4;
+  uint2* lo = hi + n4;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4;
+       i += 256ll * gridDim.x) {
+    const float4 x = __ldcs(src + i);
+    const float xs[4] = {__fmul_rn(x.x, s), __fmul_rn(x.y, s),
+                         __fmul_rn(x.z, s), __fmul_rn(x.w, s)};
+    bf16 h[4], l[4];
 #pragma unroll
-    for (int u = 0; u < LOADS3; ++u) {
-      const int i = i0 + u * NT3;
-      const int r = i / vpr, c = (i % vpr) * 4;
-      v[u] = i < total && row0 + r < N
-                 ? __ldg(reinterpret_cast<const float4*>(
-                       src + static_cast<size_t>(row0 + r) * C + c))
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int e = 0; e < 4; ++e) split3(xs[e], h[e], l[e]);
+    hi[i] = pack4(h);
+    lo[i] = pack4(l);
+  }
+}
+
+// Stage g of the ring (step g / STAGES) into slot g % NS3 by TMA,
+// completing on that slot's full barrier (Pass3Smem's layout).  Rows at or
+// past N arrive as zeros.
+template <int NC>
+__device__ __forceinline__ void pass3_stage_copy(int g, uint32_t base_s,
+                                                 const CUtensorMap* maps,
+                                                 int b) {
+  typedef Pass3Smem<NC> L;
+  const int step = g / L::STAGES, i = g - step * L::STAGES;
+  const uint32_t dst = base_s + L::RING + (g % NS3) * SLOT3;
+  const uint32_t bar = base_s + L::BAR + 8 + (g % NS3) * 8;
+  const int kv0 = step * BKV3;
+  if (i < NC) {   // K: maps[2] Kh, maps[3] Kl
+    hopper::mbar_expect_tx(bar, SLOT3);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      hopper::tma_load_3d(dst + p * QUART3, &maps[2 + p % 2], bar, 64 * i,
+                          kv0 + 32 * (p / 2), b);
+  } else {        // V: maps[4] Vh, maps[5] Vl
+    const int box = (i - NC) / 2, row = kv0 + 32 * ((i - NC) % 2);
+    const bool second = L::NB + box < NC;
+    hopper::mbar_expect_tx(bar, second ? SLOT3 : 2 * QUART3);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      if (p < 2 || second)
+        hopper::tma_load_3d(dst + p * QUART3, &maps[4 + p % 2], bar,
+                            64 * (box + (p / 2) * L::NB), row, b);
+  }
+}
+
+// wgmma descriptor of a V stage's [Vh | Vl] quarters of one warpgroup as
+// B [16 keys][128 columns], MN-major with the 128-byte swizzle: the leading
+// offset is the 4 KB from Vh's 64 columns to Vl's, the stride the 1 KB
+// between groups of 8 keys (v_desc's layout with quarters for boxes)
+__device__ __forceinline__ uint64_t v3_desc(uint32_t addr) {
+  return hopper::make_desc(addr, QUART3, 1024, hopper::LAYOUT_B128);
+}
+
+// The ring, as each thread tracks it: stage g's slot is waited for, read
+// by both warpgroups' wgmmas, and released by each warp once its wgmmas on
+// it are done; the last of the eight warps to release it (a count in
+// shared memory) refills it with the stage NS3 later.  No thread waits for
+// the others: the two warpgroups may drift apart by up to the ring's
+// slack, so one's products fill the other's waits and folds.
+template <int NC>
+struct Pass3Ring {
+  uint32_t base_s;
+  int* released;   // [NS3] warps done with the slot's current stage
+  int b, nst, g = 0;
+
+  __device__ __forceinline__ uint32_t full(int h) const {
+    return base_s + Pass3Smem<NC>::BAR + 8 + (h % NS3) * 8;
+  }
+  // the shared address of stage h's slot, once it landed
+  __device__ __forceinline__ uint32_t wait(int h) const {
+    hopper::mbar_wait(full(h), (h / NS3) & 1);
+    return base_s + Pass3Smem<NC>::RING + (h % NS3) * SLOT3;
+  }
+  __device__ __forceinline__ void release(int tid, const CUtensorMap* maps) {
+    if (tid % 32 == 0) {
+      __threadfence_block();
+      if (atomicAdd(released + g % NS3, 1) == NT3 / 32 - 1) {
+        atomicExch(released + g % NS3, 0);
+        if (g + NS3 < nst) pass3_stage_copy<NC>(g + NS3, base_s, maps, b);
+      }
     }
+    ++g;
+  }
+};
+
+// part[64 x 32 | 32] = qh [Kh ; Kl] + ql [Kh ; 0] of one K stage at k_s
+// (fresh: part is zeroed first), warpgroup wg's keys: qh.Kh (+ ql.Kh) in
+// columns 0-31, qh.Kl in 32-63; one commit group
+__device__ __forceinline__ void s_stage(float* part, uint32_t qh_s,
+                                        uint32_t ql_s, uint32_t k_s,
+                                        int wg) {
 #pragma unroll
-    for (int u = 0; u < LOADS3; ++u) {
-      const int i = i0 + u * NT3;
-      if (i >= total) break;
-      const int r = i / vpr, c = (i % vpr) * 4;
-      const float x[4] = {__fmul_rn(v[u].x, scale), __fmul_rn(v[u].y, scale),
-                          __fmul_rn(v[u].z, scale), __fmul_rn(v[u].w, scale)};
-      bf16 h[4], l[4];
+  for (int x = 0; x < 32; ++x) part[x] = 0.0f;
+  hopper::fence_operands<32>(part);
+  const uint64_t qhd = kmajor_desc(opaque(qh_s));
+  const uint64_t qld = kmajor_desc(opaque(ql_s));
+  const uint64_t kd = kmajor_desc(opaque(k_s + 2 * QUART3 * wg));
+  hopper::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split3(x[e], h[e], l[e]);
-      *reinterpret_cast<uint2*>(hi + r * ld + c) = pack4(h);
-      *reinterpret_cast<uint2*>(lo + r * ld + c) = pack4(l);
+  for (int kk = 0; kk < 4; ++kk) {
+    hopper::wgmma_ss<64, 0>(part, qhd + 2 * kk, kd + 2 * kk);
+    hopper::wgmma_ss<32, 0>(part, qld + 2 * kk, kd + 2 * kk);
+  }
+  hopper::wgmma_commit();
+}
+
+// q's parts (maps[0], maps[1]: 64 x 64 boxes), Kh, Kl, Vh, Vl (maps[2..5]:
+// 64 columns x 32 rows), all [B, N, C] bf16 with the 128-byte swizzle.
+struct Pass3Maps {
+  CUtensorMap m[6];
+};
+
+template <int NC>
+__global__ void __launch_bounds__(NT3, 1) flash_3pass_kernel(
+    const __grid_constant__ Pass3Maps maps,
+    const unsigned char* __restrict__ kvalid, float* __restrict__ out,
+    int N) {
+  typedef Pass3Smem<NC> L;
+  constexpr int NB = L::NB, C = 64 * NC;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_s = hopper::smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw_s & 1023u)) & 1023u;
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t base_s = raw_s + pad;
+  float* mx = reinterpret_cast<float*>(smem + L::MX);
+  float* ls = reinterpret_cast<float*>(smem + L::LS);
+  const uint32_t q_full = base_s + L::BAR;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, q0 = blockIdx.x * BQ3;
+  const int nsteps = (N + BKV3 - 1) / BKV3;
+  Pass3Ring<NC> ring;
+  ring.base_s = base_s;
+  ring.released = reinterpret_cast<int*>(smem + L::CNT);
+  ring.b = b;
+  ring.nst = nsteps * L::STAGES;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int i = 0; i < NS3; ++i) {
+      hopper::mbar_init(ring.full(i), 1);
+      ring.released[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_full, 2 * NC * BOX16);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_3d(base_s + L::QH + c * BOX16, &maps.m[0], q_full,
+                          64 * c, q0, b);
+      hopper::tma_load_3d(base_s + L::QL + c * BOX16, &maps.m[1], q_full,
+                          64 * c, q0, b);
+    }
+    for (int g = 0; g < NS3 && g < ring.nst; ++g)
+      pass3_stage_copy<NC>(g, base_s, maps.m, b);
+  }
+
+  // warpgroup wg, its warp wl, the fragment's rows r0, r0 + 8
+  const int wg = tid / 128, wl = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * wl + g;
+  const int other = (wg ^ 1) * BQ3;
+  const int kb = 32 * wg + 2 * t;   // this thread's first key of a step
+  // wgmma fragments: s[4 j + 2 i + e] is row r0 + 8 i, key 32 wg + 8 j +
+  // 2 t + e of the step; o[4 j + 2 i + e] row r0 + 8 i, column 64 NB wg +
+  // 8 j + 2 t + e
+  float o[NB * 32];
+#pragma unroll
+  for (int x = 0; x < NB * 32; ++x) o[x] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  hopper::mbar_wait(q_full, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < nsteps; ++j) {
+    const int kv0 = j * BKV3;
+    const unsigned bytes = mask_bytes(kvalid, kv0, N, lane);
+    // S = qh Kh + qh Kl + ql Kh over the K stages: each stage's products
+    // into a fresh part, added to s with round-to-nearest; stage c + 1's
+    // products run while stage c's part is added
+    float s[16], part[2][32];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) s[x] = 0.0f;
+    s_stage(part[0], base_s + L::QH, base_s + L::QL, ring.wait(ring.g), wg);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c + 1 < NC) {
+        s_stage(part[(c + 1) % 2], base_s + L::QH + (c + 1) * BOX16,
+                base_s + L::QL + (c + 1) * BOX16, ring.wait(ring.g + 1), wg);
+        hopper::wgmma_wait<1>();
+      } else {
+        hopper::wgmma_wait<0>();
+      }
+      hopper::fence_operands<32>(part[c % 2]);
+      ring.release(tid, maps.m);
+#pragma unroll
+      for (int x = 0; x < 16; ++x)
+        s[x] += part[c % 2][x] + part[c % 2][16 + x];
+    }
+
+    // keys past N or outside key_valid score -inf
+    const unsigned live = kvalid == nullptr && kv0 + BKV3 <= N
+                              ? 0xFFu : live_bits(bytes, kb);
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = s[4 * jj + 2 * i + e];
+          if (!((live >> (2 * jj + e)) & 1u)) x = -INFINITY;
+          mt[i] = fmaxf(mt[i], x);
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    }
+    // the row maxima of both halves of the step
+    if (t == 0) {
+      mx[wg * BQ3 + r0] = mt[0];
+      mx[wg * BQ3 + r0 + 8] = mt[1];
+    }
+    sync16();
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_next = fmaxf(m_run[i],
+                                 fmaxf(mt[i], mx[other + r0 + 8 * i]));
+      const float ref = softmax_ref(m_next);
+      alpha[i] = expf(m_run[i] - ref);
+      m_run[i] = m_next;
+      float rs = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * jj + 2 * i + e];
+          x = expf(x - ref);
+          rs += x;
+        }
+      l_run[i] = l_run[i] * alpha[i] + rs;
+    }
+    // P split into hi and lo, each K-major with the 128-byte swizzle: row
+    // r's 16-byte chunk c at ((c ^ (r % 8)) << 4); r % 8 == g
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        bf16 h0, l0, h1, l1;
+        split3(s[4 * jj + 2 * i], h0, l0);
+        split3(s[4 * jj + 2 * i + 1], h1, l1);
+        const int off = (r0 + 8 * i) * 128 + (((4 * wg + jj) ^ g) << 4) +
+                        4 * t;
+        *reinterpret_cast<__nv_bfloat162*>(smem + L::PH + off) =
+            __halves2bfloat162(h0, h1);
+        *reinterpret_cast<__nv_bfloat162*>(smem + L::PL + off) =
+            __halves2bfloat162(l0, l1);
+      }
+    hopper::fence_proxy_async();   // P's generic stores, before wgmma reads
+    sync16();                      // both halves of P are in place
+
+    // P V = Ph Vh + Ph Vl + Pl Vh, box by box: the step's products for a
+    // box into a fresh part (Ph [Vh | Vl] stacked on n: hh in columns
+    // 0-63, hl in 64-127; lh added into hh), folded as o = o alpha + part
+    // with round-to-nearest
+    const uint64_t phd = kmajor_desc(opaque(base_s + L::PH));
+    const uint64_t pld = kmajor_desc(opaque(base_s + L::PL));
+#pragma unroll
+    for (int bx = 0; bx < NB; ++bx) {
+      const uint32_t slot0 = ring.wait(ring.g);
+      const uint32_t slot1 = ring.wait(ring.g + 1);
+      float part[64];
+#pragma unroll
+      for (int x = 0; x < 64; ++x) part[x] = 0.0f;
+      hopper::fence_operands<64>(part);
+      const uint64_t vd0 = v3_desc(opaque(slot0 + 2 * QUART3 * wg));
+      const uint64_t vd1 = v3_desc(opaque(slot1 + 2 * QUART3 * wg));
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BKV3 / 16; ++ks) {
+        const uint64_t vd = (ks < 2 ? vd0 : vd1) + (ks % 2) * (2048 >> 4);
+        hopper::wgmma_ss<128, 1>(part, phd + 2 * ks, vd);
+        hopper::wgmma_ss<64, 1>(part, pld + 2 * ks, vd);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands<64>(part);
+      ring.release(tid, maps.m);
+      ring.release(tid, maps.m);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        float& acc = o[32 * bx + x];
+        acc = fmaf(acc, alpha[(x >> 1) & 1], part[x] + part[32 + x]);
+      }
+    }
+  }
+
+  // the row sums: this thread's keys, its quad's, then both warpgroups'
+  float l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = l_run[i] + __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (t == 0) {
+    ls[wg * BQ3 + r0] = l[0];
+    ls[wg * BQ3 + r0 + 8] = l[1];
+  }
+  sync16();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += ls[other + r0 + 8 * i];
+    const int row = q0 + r0 + 8 * i;
+    if (row >= N) continue;
+    float* orow = out + (static_cast<size_t>(b) * N + row) * C +
+                  64 * NB * wg;
+#pragma unroll
+    for (int jj = 0; jj < 8 * NB; ++jj) {
+      const int col = 8 * jj + 2 * t;
+      if (64 * NB * wg + col < C)
+        *reinterpret_cast<float2*>(orow + col) = make_float2(
+            o[4 * jj + 2 * i] / l[i], o[4 * jj + 2 * i + 1] / l[i]);
     }
   }
 }
 
-__global__ void __launch_bounds__(NT3, 1) flash_3pass_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ kvalid,
-    float* __restrict__ out, int N, int C, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Pass3Layout L(C);
-  bf16* qh = reinterpret_cast<bf16*>(smem + L.qh);
-  bf16* ql = reinterpret_cast<bf16*>(smem + L.ql);
-  bf16* kvh = reinterpret_cast<bf16*>(smem + L.kvh);
-  bf16* kvl = reinterpret_cast<bf16*>(smem + L.kvl);
-  float* ss = reinterpret_cast<float*>(smem + L.s);
-  bf16* ph = reinterpret_cast<bf16*>(smem + L.ph);
-  bf16* pl = reinterpret_cast<bf16*>(smem + L.pl);
-  float* as = reinterpret_cast<float*>(smem + L.alpha);
-  float* ls = reinterpret_cast<float*>(smem + L.l);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ3;
-  const size_t base = static_cast<size_t>(b) * N * C;
-  const int ld = L.ld;
-
-  // the q block: scaled in float32, then split (_flash_kernel :131)
-  split_rows(qh, ql, q + base, q0, BQ3, N, C, ld, scale);
-
-  // S: warp -> query rows 16 wr .. + 16, keys 16 wh .. + 16 (two n8
-  // tiles); P v: warp -> the same rows, output columns col0 .. + C / 2
-  const int wr = warp & 3, wh = warp >> 2;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row, column pair
-  const int col0 = wh * (C / 2), nnt = C / 16;
-  // softmax: four threads a query row, eight keys each
-  const int prow = tid >> 2, pcol = (tid & 3) * 8;
-  // ldmatrix row addresses: A fragments (q, P) read row lane % 16 at
-  // column 8 (lane / 16); K's B fragments of two n8 tiles read key (lane %
-  // 8) + 8 (lane / 16) at column 8 ((lane / 8) % 2); V's (.trans) key lane
-  // % 16 at column 8 (lane / 16)
-  const int qa = (16 * wr + (lane & 15)) * ld + (lane >> 4) * 8;
-  const int kb = (16 * wh + (lane & 7) + ((lane >> 4) << 3)) * ld +
-                 ((lane >> 3) & 1) * 8;
-  const int pa = (16 * wr + (lane & 15)) * PLD3 + (lane >> 4) * 8;
-  const int vb = (lane & 15) * ld + col0 + (lane >> 4) * 8;
-
-  float acc[MAXN3][4];
-#pragma unroll
-  for (int n = 0; n < MAXN3; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  float m_run = -INFINITY, l_run = 0.0f;
-
-  for (int kv0 = 0; kv0 < N; kv0 += BKV3) {
-    __syncthreads();   // the previous step's P v is done with the tile
-    split_rows(kvh, kvl, k + base, kv0, BKV3, N, C, ld, 1.0f);
-    __syncthreads();
-    {
-      // each 16-channel step's three products into a fresh part, added to
-      // the scores with round-to-nearest
-      float sacc[2][4] = {};
-#pragma unroll 2
-      for (int c = 0; c < C; c += 16) {
-        unsigned ah[4], al[4], bh[4], bl[4];
-        winattn::ldsm_x4(ah, qh + qa + c);
-        winattn::ldsm_x4(al, ql + qa + c);
-        winattn::ldsm_x4(bh, kvh + kb + c);
-        winattn::ldsm_x4(bl, kvl + kb + c);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float part[4];
-          mma_bf16_16816_new(part, ah, bh + 2 * j);
-          winattn::mma_bf16_16816(part, ah, bl + 2 * j);
-          winattn::mma_bf16_16816(part, al, bh + 2 * j);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sacc[j][e] += part[e];
-        }
-      }
-      // mma's C layout: lane holds rows g and g + 8, columns 2 t4 + {0, 1}
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float* srow = ss + (16 * wr + g) * SLD3 + 16 * wh + 8 * j + 2 * t4;
-        *reinterpret_cast<float2*>(srow) = make_float2(sacc[j][0], sacc[j][1]);
-        *reinterpret_cast<float2*>(srow + 8 * SLD3) =
-            make_float2(sacc[j][2], sacc[j][3]);
-      }
-    }
-    __syncthreads();   // the scores are whole; no warp reads K any more
-    {
-      float sv[8];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sv[j] = key_live(kvalid, kv0 + pcol + j, N)
-                    ? ss[prow * SLD3 + pcol + j]
-                    : -INFINITY;
-        mt = fmaxf(mt, sv[j]);
-      }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m_run, mt);
-      const float m_ref = softmax_ref(m_new);
-      float rs = 0.0f;
-      bf16 h[2][4], lo[2][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = expf(sv[j] - m_ref);
-        rs += p;
-        split3(p, h[j / 4][j % 4], lo[j / 4][j % 4]);
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        *reinterpret_cast<uint2*>(ph + prow * PLD3 + pcol + 4 * hf) =
-            pack4(h[hf]);
-        *reinterpret_cast<uint2*>(pl + prow * PLD3 + pcol + 4 * hf) =
-            pack4(lo[hf]);
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      const float alpha = expf(m_run - m_ref);
-      m_run = m_new;
-      l_run = l_run * alpha + rs;
-      if ((tid & 3) == 0) as[prow] = alpha;
-    }
-    // V replaces K
-    split_rows(kvh, kvl, v + base, kv0, BKV3, N, C, ld, 1.0f);
-    __syncthreads();   // P, alpha and V visible
-    {
-      // the tile's P v for 16 columns into a fresh t (both 16-key halves,
-      // three passes each), then acc = acc * alpha + t with round-to-nearest
-      unsigned pa_h[2][4], pa_l[2][4];
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        winattn::ldsm_x4(pa_h[ks], ph + pa + 16 * ks);
-        winattn::ldsm_x4(pa_l[ks], pl + pa + 16 * ks);
-      }
-      const float a0 = as[16 * wr + g], a1 = as[16 * wr + g + 8];
-#pragma unroll
-      for (int n2 = 0; n2 < MAXN3 / 2; ++n2) {
-        if (2 * n2 < nnt) {
-          float t[2][4];
-#pragma unroll
-          for (int ks = 0; ks < 2; ++ks) {
-            unsigned vh[4], vl[4];
-            winattn::ldsm_x4_trans(vh, kvh + vb + 16 * ks * ld + 16 * n2);
-            winattn::ldsm_x4_trans(vl, kvl + vb + 16 * ks * ld + 16 * n2);
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-              if (ks == 0)
-                mma_bf16_16816_new(t[jj], pa_h[ks], vh + 2 * jj);
-              else
-                winattn::mma_bf16_16816(t[jj], pa_h[ks], vh + 2 * jj);
-              winattn::mma_bf16_16816(t[jj], pa_h[ks], vl + 2 * jj);
-              winattn::mma_bf16_16816(t[jj], pa_l[ks], vh + 2 * jj);
-            }
-          }
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            float* a = acc[2 * n2 + jj];
-            a[0] = fmaf(a[0], a0, t[jj][0]);
-            a[1] = fmaf(a[1], a0, t[jj][1]);
-            a[2] = fmaf(a[2], a1, t[jj][2]);
-            a[3] = fmaf(a[3], a1, t[jj][3]);
-          }
-        }
-      }
-    }
+// Maps of the parts [6][B, N, C] bf16 (qh, ql, kh, kl, vh, vl), the launch:
+// one block a 64-query tile and batch element.
+template <int NC>
+int launch_3pass(const bf16* parts, const unsigned char* kvalid, float* out,
+                 int B, int N, cudaStream_t stream) {
+  Pass3Maps maps;
+  const size_t n = static_cast<size_t>(B) * N * 64 * NC;
+  const uint64_t dims[3] = {uint64_t(64 * NC), uint64_t(N), uint64_t(B)};
+  const uint32_t qbox[3] = {64, BQ3, 1}, kvbox[3] = {64, 32, 1};
+  for (int i = 0; i < 6; ++i) {
+    const int err = hopper::make_map(&maps.m[i], parts + i * n, 3, dims,
+                                     i < 2 ? qbox : kvbox,
+                                     CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != 0) return err;
   }
-  if ((tid & 3) == 0) ls[prow] = l_run;
-  __syncthreads();
-  const int r0 = 16 * wr + g;
-  const float l0 = ls[r0], l1 = ls[r0 + 8];
-#pragma unroll
-  for (int n = 0; n < MAXN3; ++n) {
-    if (n < nnt) {
-      const int col = col0 + 8 * n + 2 * t4;
-      if (q0 + r0 < N)
-        *reinterpret_cast<float2*>(out + base +
-                                   static_cast<size_t>(q0 + r0) * C + col) =
-            make_float2(acc[n][0] / l0, acc[n][1] / l0);
-      if (q0 + r0 + 8 < N)
-        *reinterpret_cast<float2*>(
-            out + base + static_cast<size_t>(q0 + r0 + 8) * C + col) =
-            make_float2(acc[n][2] / l1, acc[n][3] / l1);
-    }
-  }
+  const int smem = Pass3Smem<NC>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_3pass_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + BQ3 - 1) / BQ3, B);
+  flash_3pass_kernel<NC><<<grid, NT3, smem, stream>>>(maps, kvalid, out, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1167,25 +1318,40 @@ int hdrvae_flash_attention_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512
-// (cudaErrorInvalidValue otherwise); key_valid [N] bytes or nullptr.
-int hdrvae_flash_attention_3pass(const void* q, const void* k, const void* v,
-                                 const void* key_valid, void* out, int B,
-                                 int N, int C, float scale, void* stream) {
-  if (C <= 0 || C % 64 != 0 || C > MAXC32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Pass3Layout(C).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_3pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + BQ3 - 1) / BQ3, B);
-  flash_3pass_kernel<<<grid, NT3, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v),
-      static_cast<const unsigned char*>(key_valid), static_cast<float*>(out),
-      N, C, scale);
+// q, k, v [n] f32 (n % 4 == 0) -> parts [3][2][n] bf16: hi, lo of q *
+// scale, of k, of v (_dot3's split, once a launch).
+int hdrvae_split_qkv(const void* q, const void* k, const void* v,
+                     void* parts, long long n, float scale, void* stream) {
+  if (n <= 0 || n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n / 4 + 255) / 256;
+  const dim3 grid(static_cast<unsigned>(blocks < 1056 ? blocks : 1056), 3);
+  split_qkv_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(q), static_cast<const float4*>(k),
+      static_cast<const float4*>(v), static_cast<uint2*>(parts), n, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// parts [6][B,N,C] bf16 (hdrvae_split_qkv's: q's scaled), out [B,N,C]
+// f32; C % 64 == 0, C <= 512 (cudaErrorInvalidValue otherwise); key_valid
+// [N] bytes or nullptr.
+int hdrvae_flash_attention_3pass(const void* parts, const void* key_valid,
+                                 void* out, int B, int N, int C,
+                                 void* stream) {
+  const bf16* p = static_cast<const bf16*>(parts);
+  const unsigned char* kv = static_cast<const unsigned char*>(key_valid);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C % 64 == 0 ? C / 64 : 0) {
+    case 1: return launch_3pass<1>(p, kv, o, B, N, s);
+    case 2: return launch_3pass<2>(p, kv, o, B, N, s);
+    case 3: return launch_3pass<3>(p, kv, o, B, N, s);
+    case 4: return launch_3pass<4>(p, kv, o, B, N, s);
+    case 5: return launch_3pass<5>(p, kv, o, B, N, s);
+    case 6: return launch_3pass<6>(p, kv, o, B, N, s);
+    case 7: return launch_3pass<7>(p, kv, o, B, N, s);
+    case 8: return launch_3pass<8>(p, kv, o, B, N, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // q, k, v [B,N,C] f32, out [B,N,C] f32; C % 64 == 0, C <= 512

@@ -50,7 +50,8 @@ SIGNATURES = {
     # attention.cu
     "hdrvae_flash_attention_bf16": [_P] * 5 + [_I, _I, _I, _F, _P],
     "hdrvae_flash_attention_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
-    "hdrvae_flash_attention_3pass": [_P] * 5 + [_I, _I, _I, _F, _P],
+    "hdrvae_flash_attention_3pass": [_P] * 3 + [_I, _I, _I, _P],
+    "hdrvae_split_qkv": [_P] * 4 + [_L, _F, _P],
     # dense_conv.cu
     "hdrvae_dense_conv3x3": [_P] * 5 + [_I] * 5 + [_I, _P, _P, _P, _P,
                                                    _I, _I, _I, _I, _I, _I,

@@ -8,7 +8,9 @@
   as three bf16 passes (hi.hi + hi.lo + lo.hi) summed in float32.
 - :func:`flash_attention_bf16`, :func:`flash_attention_3pass` and
   :func:`flash_attention_f32` (K3): the flash kernels of
-  ``csrc/attention.cu``, one per dot mode.
+  ``csrc/attention.cu``, one per dot mode.  The 3-pass one runs on the
+  bf16 parts of :func:`split_qkv` (``_dot3``'s split, once a launch);
+  :func:`spatial_attention_3pass_parts` is its plain version on them.
 - :func:`spatial_attention`: the dispatch by tier.  Fast runs the bf16
   kernel, mixed the 3-pass bf16x3 kernel, parity (and a float32-compute
   fast tier) the exact float32 kernel.
@@ -32,7 +34,7 @@ import torch
 
 from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels import _build
-from hdrvae_torch.kernels.f32_dot import f32_dot_reference
+from hdrvae_torch.kernels.f32_dot import f32_dot_reference, split_bf16
 
 _MAX_C = 512   # the kernels keep C / 64 <= 8 column tiles per thread group
 
@@ -97,9 +99,10 @@ def spatial_attention_3pass_reference(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, h, w, c)
 
 
-def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            dtype: torch.dtype,
-            key_valid: Optional[torch.Tensor]) -> torch.Tensor:
+def _prepare(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             dtype: torch.dtype, key_valid: Optional[torch.Tensor]):
+    """The checks every kernel wrapper makes: (q, k, v contiguous, the
+    [N] uint8 key_valid or None)."""
     if not q.is_cuda:
         raise ValueError(f"{name}: unsupported device {q.device}")
     b, h, w, c = q.shape
@@ -112,7 +115,6 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if c % 64 != 0 or c > _MAX_C:
         raise ValueError(f"{name}: C must be a multiple of 64 up to "
                          f"{_MAX_C}, got {c}")
-    kv_ptr = None
     if key_valid is not None:
         if tuple(key_valid.shape) != (h, w) or key_valid.device != q.device:
             raise ValueError(f"{name}: key_valid must be [H, W] = "
@@ -120,12 +122,23 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(key_valid.shape)} on "
                              f"{key_valid.device}")
         key_valid = key_valid.reshape(h * w).to(torch.uint8).contiguous()
-        kv_ptr = key_valid.data_ptr()
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    return (*(t.contiguous() for t in (q, k, v)), key_valid)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            dtype: torch.dtype,
+            key_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    q, k, v, key_valid = _prepare(name, q, k, v, dtype, key_valid)
+    b, h, w, c = q.shape
     out = torch.empty(b, h, w, c, device=q.device, dtype=torch.float32)
     fn = getattr(_build.library(), "hdrvae_" + name)
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_ptr,
-                    out.data_ptr(), b, h * w, c, float(c ** -0.5),
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    _ptr(key_valid), out.data_ptr(), b, h * w, c,
+                    float(c ** -0.5),
                     torch.cuda.current_stream(q.device).cuda_stream), name)
     return out
 
@@ -149,18 +162,82 @@ flash_attention_bf16.launches = 0
 flash_attention_bf16.launches_masked = 0
 
 
+def split_qkv_reference(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`split_qkv`: [3, 2, *q.shape] bf16, the hi
+    and lo parts (hi = bf16(x), lo = bf16(x - hi), ``_dot3``'s split) of q
+    times C^-1/2 (in float32, before the split), of k and of v."""
+    scale = q.shape[-1] ** -0.5
+    return torch.stack([torch.stack(split_bf16(x)) for x in
+                        (q.float() * scale, k.float(), v.float())])
+
+
+def split_qkv(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """The 3-pass kernel's operands, split once a launch: [3, 2, *q.shape]
+    bf16 (q's scaled by C^-1/2 first), as :func:`split_qkv_reference`.
+    Launches ``csrc/attention.cu``'s ``split_qkv_kernel`` for CUDA float32
+    q, k, v of one shape; runs the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return split_qkv_reference(q, k, v)
+    q, k, v, _ = _prepare("split_qkv", q, k, v, torch.float32, None)
+    parts = torch.empty(3, 2, *q.shape, device=q.device,
+                        dtype=torch.bfloat16)
+    _build.check(_build.library().hdrvae_split_qkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), parts.data_ptr(),
+        q.numel(), float(q.shape[-1] ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream), "split_qkv")
+    split_qkv.launches += 1
+    return parts
+
+
+split_qkv.launches = 0
+
+
+def spatial_attention_3pass_parts(parts: torch.Tensor,
+                                  key_valid: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """The 3-pass attention on the parts of :func:`split_qkv` (what the
+    3-pass kernel computes from them), scores materialized: s = qh.kh +
+    qh.kl + ql.kh, the keys outside ``key_valid`` at -inf; p = exp(s -
+    rowmax) split as _dot3 splits it, ph.vh + ph.vl + pl.vh; divided by the
+    row sum.  Equals :func:`spatial_attention_3pass_reference` on q, k, v
+    bit for bit."""
+    b, h, w, c = parts.shape[2:]
+    n = h * w
+    qh, ql, kh, kl, vh, vl = (t.reshape(b, n, c).float()
+                              for t in parts.reshape(6, b, n, c))
+    kh, kl = kh.transpose(1, 2), kl.transpose(1, 2)
+    with fp32_contractions(Precision.parity()):
+        s = qh @ kh + qh @ kl + ql @ kh
+        bias = _dead_keys(key_valid, n)
+        if bias is not None:
+            s += bias
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        ph, pl = (t.float() for t in split_bf16(p))
+        out = (ph @ vh + ph @ vl + pl @ vh) / p.sum(dim=-1, keepdim=True)
+    return out.reshape(b, h, w, c)
+
+
 def flash_attention_3pass(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor,
                           key_valid: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Mixed-tier flash attention (K3 in HIGH): float32 q, k, v, each split
-    once into bf16 hi + lo; both dots as hi.hi + hi.lo + lo.hi on the
-    tensor cores into float32 accumulators, an online float32 softmax whose
-    probabilities are split the same way.  Runs
-    :func:`spatial_attention_3pass_reference` for CPU tensors."""
+    """Mixed-tier flash attention (K3 in HIGH): float32 q, k, v, split
+    once by :func:`split_qkv` into bf16 hi + lo (q scaled first); both dots
+    as hi.hi + hi.lo + lo.hi on the tensor cores into float32 accumulators,
+    an online float32 softmax whose probabilities are split the same way.
+    Runs :func:`spatial_attention_3pass_reference` for CPU tensors."""
     if q.device.type == "cpu":
         return spatial_attention_3pass_reference(q, k, v, key_valid)
-    out = _launch("flash_attention_3pass", q, k, v, torch.float32, key_valid)
+    name = "flash_attention_3pass"
+    q, k, v, kv = _prepare(name, q, k, v, torch.float32, key_valid)
+    parts = split_qkv(q, k, v)
+    b, h, w, c = q.shape
+    out = torch.empty(b, h, w, c, device=q.device, dtype=torch.float32)
+    _build.check(_build.library().hdrvae_flash_attention_3pass(
+        parts.data_ptr(), _ptr(kv), out.data_ptr(), b, h * w, c,
+        torch.cuda.current_stream(q.device).cuda_stream), name)
     flash_attention_3pass.launches += 1
     flash_attention_3pass.launches_masked += key_valid is not None
     return out

@@ -182,3 +182,111 @@ def test_cpu_tensor_runs_the_plain_version():
     got = tattn.flash_attention_3pass(q, k, v)
     assert tattn.flash_attention_3pass.launches == before == 0
     assert torch.equal(got, tattn.spatial_attention_3pass_reference(q, k, v))
+
+
+# The 3-pass kernel's operands are split once a launch (split_qkv) instead
+# of inside each dot: its plain version must give _dot3's own parts, and
+# the attention on those parts must equal the plain 3-pass attention.
+
+
+def _with_ties(shape, seed):
+    """float32 values ~ N(0, 1), a quarter of them placed on a bf16 tie
+    (half a bf16 ulp above a bf16 value), a quarter one float32 ulp to
+    either side of one: where hi = bf16(x) rounds to even or not."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    bits = x.view(np.uint32) & np.uint32(0xFFFF0000)
+    tie = bits | np.uint32(0x8000)
+    off = tie.astype(np.int64) + rng.choice([-1, 1], shape)
+    pick = rng.integers(0, 4, shape)
+    out = np.where(pick == 0, tie, np.where(pick == 1, off.astype(np.uint32),
+                                            x.view(np.uint32)))
+    return out.astype(np.uint32).view(np.float32).reshape(shape)
+
+
+def _jax_split(x, b):
+    """(hi, lo) of ``x`` as _dot3 (hdrvae/kernels/attention.py) makes them:
+    the bf16 operands of its DEFAULT passes, recorded."""
+    seen = []
+    real = jax.lax.dot_general
+
+    def record(a, bb, *args, **kwargs):
+        seen.append((np.asarray(a), np.asarray(bb)))
+        return real(a, bb, *args, **kwargs)
+
+    jax.lax.dot_general = record
+    try:
+        jattn._dot3(x, b, (((1,), (1,)), ((), ())))
+    finally:
+        jax.lax.dot_general = real
+    (ah, bh), (ah2, bl), (al, bh2) = seen
+    assert np.array_equal(ah, ah2) and np.array_equal(bh, bh2)
+    return (ah, al), (bh, bl)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("c", [128, 512])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_qkv_is_dot3s_split(c, seed):
+    """split_qkv's plain version gives the bf16 parts _dot3 makes, bit for
+    bit: q's after its float32 scale by C^-1/2 (no power of two at C = 128
+    or 512), k's and v's as they are, on values at and beside bf16 ties."""
+    h, w = 4, 6
+    q, k, v = (_with_ties((1, h, w, c), seed + s) for s in (0, 10, 20))
+    parts = tattn.split_qkv_reference(_t(q), _t(k), _t(v))
+    assert parts.shape == (3, 2, 1, h, w, c) and parts.dtype == torch.bfloat16
+    got = parts.float().reshape(3, 2, h * w, c).numpy()
+    qs = jnp.asarray(q.reshape(h * w, c)) * c ** -0.5
+    (qh, ql), (kh, kl) = _jax_split(qs, jnp.asarray(k.reshape(h * w, c)))
+    (vh, vl), _ = _jax_split(jnp.asarray(v.reshape(h * w, c)), qs)
+    for i, want in enumerate((qh, ql, kh, kl, vh, vl)):
+        assert np.array_equal(_bits(got[i // 2, i % 2]),
+                              _bits(np.asarray(want, np.float32))), i
+
+
+def test_split_qkv_splits_after_the_scale():
+    """At C = 128 q's parts are those of q * C^-1/2, which differ from the
+    scaled parts of q."""
+    c = 128
+    q, k, v = (_t(a) for a in _qkv(4, 4, c))
+    parts = tattn.split_qkv_reference(q, k, v)
+    hi, lo = split_bf16(q * c ** -0.5)
+    assert torch.equal(parts[0, 0], hi) and torch.equal(parts[0, 1], lo)
+    hi2, lo2 = split_bf16(q)
+    assert not torch.equal(parts[0, 0].float() + parts[0, 1].float(),
+                           (hi2.float() + lo2.float()) * c ** -0.5)
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["all", "key_valid"])
+@pytest.mark.parametrize("h,w,c", [(8, 8, 64), (10, 10, 128), (7, 9, 512)])
+def test_attention_on_parts_equals_the_plain_3pass(h, w, c, mask):
+    """The attention on split_qkv's parts (what the kernel computes from
+    them) equals spatial_attention_3pass_reference on q, k, v bit for bit:
+    splitting once a launch changes nothing."""
+    q, k, v = (_t(a) for a in _qkv(h, w, c))
+    kv = None
+    if mask:
+        kv = torch.from_numpy(np.random.default_rng(5).random((h, w)) > 0.3)
+    got = tattn.spatial_attention_3pass_parts(tattn.split_qkv(q, k, v), kv)
+    want = tattn.spatial_attention_3pass_reference(q, k, v, kv)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h,w,block", SHAPES)
+def test_attention_on_parts_matches_jax_high(h, w, block):
+    q, k, v = _qkv(h, w)
+    parts = tattn.split_qkv(_t(q), _t(k), _t(v))
+    got = tattn.spatial_attention_3pass_parts(parts)
+    np.testing.assert_allclose(got.numpy(), _jax_high(q, k, v, block),
+                               atol=HIGH_BAR, rtol=0)
+
+
+def test_cpu_split_runs_the_plain_version():
+    q, k, v = (_t(a) for a in _qkv(8, 8))
+    before = tattn.split_qkv.launches
+    got = tattn.split_qkv(q, k, v)
+    assert tattn.split_qkv.launches == before == 0
+    assert torch.equal(got, tattn.split_qkv_reference(q, k, v))

@@ -280,9 +280,11 @@ def test_flash_attention_3pass(dev, hw, c, qscale):
     q, k, v = (_rand(dev, (2, *hw, c), 1.0, torch.float32, seed=s)
                for s in range(3))
     q = q * qscale
-    before = attention.flash_attention_3pass.launches
+    before = (attention.flash_attention_3pass.launches,
+              attention.split_qkv.launches)
     got = attention.flash_attention_3pass(q, k, v)
-    assert attention.flash_attention_3pass.launches == before + 1
+    assert (attention.flash_attention_3pass.launches,
+            attention.split_qkv.launches) == (before[0] + 1, before[1] + 1)
     ref = attention.spatial_attention_3pass_reference(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == q.shape
@@ -291,6 +293,21 @@ def test_flash_attention_3pass(dev, hw, c, qscale):
     if qscale == 1.0:
         exact = attention.spatial_attention_reference(q, k, v)
         torch.testing.assert_close(got, exact, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,hw,c", [(2, (10, 13), 64), (2, (7, 9), 512),
+                                     (1, (33, 47), 128)])
+def test_split_qkv(dev, b, hw, c):
+    """The 3-pass kernel's split, once a launch, bit-equal to its plain
+    version (q scaled by C^-1/2 in float32 before its split)."""
+    q, k, v = (_rand(dev, (b, *hw, c), 1.0, torch.float32, seed=s)
+               for s in range(3))
+    before = attention.split_qkv.launches
+    got = attention.split_qkv(q, k, v)
+    assert attention.split_qkv.launches == before + 1
+    want = attention.split_qkv_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 2, b, *hw, c) and torch.equal(got, want)
 
 
 # key_valid masks as (grid, live rows, live columns): a bucketed grid's

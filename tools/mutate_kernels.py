@@ -21,10 +21,12 @@ float32 mode within 1e-5 of its plain version at N = 16,384, C = 512, on
 the ragged, peaked input and at batch 2 and C = 64 (each also into a
 buffer whose tail past the last row must stay untouched), and in its two
 key_valid records; k3_3pass: ``_check_k3_3pass``, K3's
-3-pass mode against exact float32 and its plain version at N = 16,384, C
-= 512, and against its plain version on a ragged input with peaked
-scores; k3_bf16: ``_check_k3_bf16``, K3's bf16 mode within one bf16 ulp
-of the exact plain version at N = 16,384, C = 512, on the same ragged,
+3-pass mode's split bit-equal to its plain version, the mode against
+exact float32 and its plain version at N = 16,384, C = 512, against its
+plain version on a ragged input with peaked scores, in its two key_valid
+records and at N = 65,536 (built from attention.cu alone); k3_bf16:
+``_check_k3_bf16``, K3's bf16 mode within one bf16 ulp of the exact
+plain version at N = 16,384, C = 512, on the same ragged,
 peaked input, at batch 2 and C = 64, and in its two key_valid records;
 k8: ``_check_k8``, K8 within two bf16 ulps of its plain version at
 HAT-M's OCAB shape, with a peaked bias and at a ragged 20 x 36 shape, and
@@ -37,7 +39,8 @@ failed assertion, or by a fault of the broken kernel on the card (a
 mutant that writes past an output stops the check there).  The
 checkout itself is never changed.  Exits non-zero if a mutant the check
 must catch survives; one marked ``sub-ulp`` moves each value by less than
-one bf16 ulp, below what the 5e-2 budgets can see, and is reported only.
+one bf16 ulp, below what the 5e-2 budgets can see, and is reported only,
+as is k3_3pass's "P v in place across steps" (what the fresh parts buy).
 
     python3 tools/mutate_kernels.py --time-k6 [as-is|no-stores|...]
                                     (default: all; a name may repeat)
@@ -90,6 +93,23 @@ launches after 2 warm-ups, twice, unmasked and masked at N = 16,384, C =
 - refill-lag-1, refill-lag-2: thread 0 refills the slot of the stage
   before the one its warp has just released, or of the one two before,
   instead of that one (each once every warp has released it).
+
+    python3 tools/mutate_kernels.py --time-k3-3pass [--tree DIR] [as-is|...]
+
+does the same for K3's 3-pass kernel and its split (``attention.cu``,
+built alone; CUDA events, mean of 5 launches after 2 warm-ups, twice,
+unmasked and masked at N = 16,384, C = 512), in the tree at DIR (default:
+this one; by default the variants its sources hold):
+
+- as-is: the kernel as it is;
+- no-loads: no TMA copies of K and V (their barriers still complete; q
+  still loads);
+- no-s-wgmma, no-pv-wgmma, no-wgmma: no S wgmmas, no P V ones, neither;
+- no-presplit: the wrapper launches no split (the parts uninitialized);
+- for the earlier mma.sync kernel, which split K and V from float32 in
+  every block: as-is; no-loads (K and V neither read nor split);
+  no-s-products, no-pv-products (their mma.sync taken out);
+  barriers-only (all three).
 
     python3 tools/mutate_kernels.py --time-k8 [as-is|no-kv-loads|...]
 
@@ -265,34 +285,82 @@ TARGETS = {
             "swin_chain.cu", "xr[i] + v[i] + a.b2[c + i]", "xr[i] + v[i]",
             True),
     }),
+    # K3's 3-pass kernel: qh [Kh ; Kl] is one wgmma (hh, hl), ql Kh another
+    # (lh); Ph [Vh | Vl] likewise (hh, hl), Pl Vh another (lh).  Built from
+    # attention.cu alone.
     "k3_3pass": ("_check_k3_3pass(*chip_smoke._k3_inputs("
-                 "np.random.default_rng(0)))", ("K3",), {
+                 "np.random.default_rng(0)))", ("K3", "split_qkv"), {
+        "S: hi.hi dropped": (
+            "attention.cu",
+            "    hopper::wgmma_ss<64, 0>(part, qhd + 2 * kk, kd + 2 * kk);",
+            "    hopper::wgmma_ss<32, 0>(part + 16, qhd + 2 * kk,\n"
+            "                            kd + 2 * kk + (QUART3 >> 4));",
+            True),
         "S: hi.lo dropped": (
             "attention.cu",
-            "winattn::mma_bf16_16816(part, ah, bl + 2 * j);", "", True),
+            "    hopper::wgmma_ss<64, 0>(part, qhd + 2 * kk, kd + 2 * kk);",
+            "    hopper::wgmma_ss<32, 0>(part, qhd + 2 * kk, kd + 2 * kk);",
+            True),
         "S: lo.hi dropped": (
             "attention.cu",
-            "winattn::mma_bf16_16816(part, al, bh + 2 * j);", "", True),
+            "    hopper::wgmma_ss<32, 0>(part, qld + 2 * kk, kd + 2 * kk);\n",
+            "", True),
+        "P v: hi.hi dropped": (
+            "attention.cu",
+            "        hopper::wgmma_ss<128, 1>(part, phd + 2 * ks, vd);",
+            "        hopper::wgmma_ss<64, 1>(part + 32, phd + 2 * ks,\n"
+            "                                vd + (QUART3 >> 4));", True),
         "P v: hi.lo dropped": (
             "attention.cu",
-            "winattn::mma_bf16_16816(t[jj], pa_h[ks], vl + 2 * jj);", "",
-            True),
+            "        hopper::wgmma_ss<128, 1>(part, phd + 2 * ks, vd);",
+            "        hopper::wgmma_ss<64, 1>(part, phd + 2 * ks, vd);", True),
         "P v: lo.hi dropped": (
             "attention.cu",
-            "winattn::mma_bf16_16816(t[jj], pa_l[ks], vh + 2 * jj);", "",
+            "        hopper::wgmma_ss<64, 1>(part, pld + 2 * ks, vd);\n", "",
             True),
         # q split unscaled, the scores scaled after the three passes
         "split before the scale": (
             "attention.cu",
-            ("split_rows(qh, ql, q + base, q0, BQ3, N, C, ld, scale);",
-             "      // mma's C layout: lane holds rows g and g + 8"),
-            ("split_rows(qh, ql, q + base, q0, BQ3, N, C, ld, 1.0f);",
-             "      for (int j = 0; j < 2; ++j)\n"
-             "        for (int e = 0; e < 4; ++e) sacc[j][e] *= scale;\n"
-             "      // mma's C layout: lane holds rows g and g + 8"), True),
-        "last key tile dropped": (
-            "attention.cu", "for (int kv0 = 0; kv0 < N; kv0 += BKV3) {",
-            "for (int kv0 = 0; kv0 < N - BKV3; kv0 += BKV3) {", True),
+            ("  const float s = w == 0 ? scale : 1.0f;",
+             "        s[x] += part[c % 2][x] + part[c % 2][16 + x];"),
+            ("  const float s = 1.0f;",
+             "        s[x] += (part[c % 2][x] + part[c % 2][16 + x]) *\n"
+             "                rsqrtf(64.0f * NC);"),
+            True),
+        # the split's lo parts rounded toward zero: below what the
+        # attention's bars see; the split's bit-equality refuses it
+        "split: lo rounded toward zero": (
+            "attention.cu",
+            "    for (int e = 0; e < 4; ++e) split3(xs[e], h[e], l[e]);",
+            "    for (int e = 0; e < 4; ++e) {\n"
+            "      h[e] = __float2bfloat16(xs[e]);\n"
+            "      l[e] = __float2bfloat16_rz(xs[e] - __bfloat162float(h[e]));\n"
+            "    }", True),
+        "last key step dropped": (
+            "attention.cu", "const int nsteps = (N + BKV3 - 1) / BKV3;",
+            "const int nsteps = (N + BKV3 - 1) / BKV3 - 1;", True),
+        # P V accumulated in place across the key steps (o = o alpha, then
+        # the three products into o): what the fresh parts buy; reported
+        "P v in place across steps": (
+            "attention.cu",
+            ("      hopper::fence_operands<64>(part);\n"
+             "      const uint64_t vd0",
+             "        hopper::wgmma_ss<128, 1>(part, phd + 2 * ks, vd);\n"
+             "        hopper::wgmma_ss<64, 1>(part, pld + 2 * ks, vd);",
+             "      hopper::fence_operands<64>(part);\n"
+             "      ring.release(tid, maps.m);",
+             "        acc = fmaf(acc, alpha[(x >> 1) & 1], part[x] + part[32 + x]);"),
+            ("#pragma unroll\n"
+             "      for (int x = 0; x < 32; ++x) o[32 * bx + x] *= alpha[(x >> 1) & 1];\n"
+             "      hopper::fence_operands<32>(o + 32 * bx);\n"
+             "      const uint64_t vd0",
+             "        hopper::wgmma_ss<64, 1>(o + 32 * bx, phd + 2 * ks, vd);\n"
+             "        hopper::wgmma_ss<64, 1>(o + 32 * bx, phd + 2 * ks,\n"
+             "                                vd + (QUART3 >> 4));\n"
+             "        hopper::wgmma_ss<64, 1>(o + 32 * bx, pld + 2 * ks, vd);",
+             "      hopper::fence_operands<32>(o + 32 * bx);\n"
+             "      ring.release(tid, maps.m);",
+             "        (void)acc;"), False),
     }),
     # K3's exact float32 kernel: every mutant keeps the producer's and the
     # consumers' schedules in step
@@ -442,13 +510,32 @@ TARGETS = {
     }),
 }
 
+# the kernel library built from one CUDA source alone (the copy's other
+# sources removed), binding the C entries it holds: for a target or timing
+# whose kernel's source needs no other
+ONE_SOURCE = """
+import ctypes, glob, os
+for src in glob.glob("hdrvae_torch/csrc/*.cu"):
+    if os.path.basename(src) != "{source}":
+        os.remove(src)
+from hdrvae_torch.kernels import _build
+lib = ctypes.CDLL(str(_build.build()[0]))
+for name, argtypes in _build.SIGNATURES.items():
+    if hasattr(lib, name):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+_build.library = lambda: lib
+"""
+# targets checked on a library built from one source (see ONE_SOURCE)
+ONE_SOURCE_TARGETS = {"k3_3pass": "attention.cu"}
+
 CHECK = """
 import sys
 import numpy as np
 import torch
 sys.path.insert(0, '.')
 import chip_smoke
-chip_smoke.phase_build()
+{build}
 try:
     chip_smoke.{call}
     torch.cuda.synchronize()
@@ -562,6 +649,71 @@ K3F_VARIANTS = {
                       "      hopper::mbar_wait(empty(g - 2), ((g - 2) / NS32) & 1);\n"
                       "      f32_stage_copy<NC>(g - 2 + NS32,")],
 }
+
+# --time-k3-3pass: variant -> alternatives, each a list of (source, text,
+# replacement), as for --time-k7; the first alternative that the tree holds
+# is made.  K3P_OLD times the earlier mma.sync kernel (K and V split from
+# float32 in every block) in an older tree (--tree).
+AT = "attention.cu"
+K3P_OLD_NO_SPLIT = [
+    (AT, "    split_rows(kvh, kvl, k + base, kv0, BKV3, N, C, ld, 1.0f);\n", ""),
+    (AT, "    split_rows(kvh, kvl, v + base, kv0, BKV3, N, C, ld, 1.0f);\n", "")]
+K3P_OLD_NO_S = [
+    (AT, "          mma_bf16_16816_new(part, ah, bh + 2 * j);\n"
+         "          winattn::mma_bf16_16816(part, ah, bl + 2 * j);\n"
+         "          winattn::mma_bf16_16816(part, al, bh + 2 * j);\n",
+     "          part[0] = part[1] = part[2] = part[3] = 0.0f;\n")]
+K3P_OLD_NO_PV = [
+    (AT, "              if (ks == 0)\n"
+         "                mma_bf16_16816_new(t[jj], pa_h[ks], vh + 2 * jj);\n"
+         "              else\n"
+         "                winattn::mma_bf16_16816(t[jj], pa_h[ks], vh + 2 * jj);\n"
+         "              winattn::mma_bf16_16816(t[jj], pa_h[ks], vl + 2 * jj);\n"
+         "              winattn::mma_bf16_16816(t[jj], pa_l[ks], vh + 2 * jj);\n",
+     "              t[jj][0] = t[jj][1] = t[jj][2] = t[jj][3] = 0.0f;\n")]
+K3P_OLD = {
+    "as-is": [],
+    # K and V neither read nor split (the tiles keep stale bytes)
+    "no-loads": K3P_OLD_NO_SPLIT,
+    # no S mma (the ldmatrix loads that fed them stay)
+    "no-s-products": K3P_OLD_NO_S,
+    # no P V mma (likewise)
+    "no-pv-products": K3P_OLD_NO_PV,
+    # neither loads nor products: the barriers, q's split, the ldmatrix
+    # loads and the softmax
+    "barriers-only": K3P_OLD_NO_SPLIT + K3P_OLD_NO_S + K3P_OLD_NO_PV,
+}
+K3P_NO_S = [(AT, "    hopper::wgmma_ss<64, 0>(part, qhd + 2 * kk, kd + 2 * kk);\n"
+                  "    hopper::wgmma_ss<32, 0>(part, qld + 2 * kk, kd + 2 * kk);\n",
+             "")]
+K3P_NO_PV = [(AT, "        hopper::wgmma_ss<128, 1>(part, phd + 2 * ks, vd);\n"
+                   "        hopper::wgmma_ss<64, 1>(part, pld + 2 * ks, vd);\n",
+              "")]
+K3P_NEW = {
+    "as-is": [],
+    # no TMA copies of K and V (their barriers still complete; the slots
+    # keep stale bytes; q still loads)
+    "no-loads": [
+        (AT, "    hopper::mbar_expect_tx(bar, SLOT3);\n#pragma unroll\n"
+             "    for (int p = 0; p < 4; ++p)",
+         "    hopper::mbar_expect_tx(bar, 0);\n#pragma unroll\n"
+         "    for (int p = 0; p < 0; ++p)"),
+        (AT, "    hopper::mbar_expect_tx(bar, second ? SLOT3 : 2 * QUART3);",
+         "    hopper::mbar_expect_tx(bar, 0);"),
+        (AT, "      if (p < 2 || second)", "      if (p < 0)")],
+    # no S = q K^T wgmmas (scores 0), or no P V ones
+    "no-s-wgmma": K3P_NO_S,
+    "no-pv-wgmma": K3P_NO_PV,
+    "no-wgmma": K3P_NO_S + K3P_NO_PV,
+    # the wrapper launches no split (the parts are uninitialized)
+    "no-presplit": [
+        ("../kernels/attention.py", "    parts = split_qkv(q, k, v)\n",
+         "    parts = torch.empty(3, 2, *q.shape, device=q.device,\n"
+         "                        dtype=torch.bfloat16)\n")],
+}
+K3P_VARIANTS = {name: [alt[name] for alt in (K3P_NEW, K3P_OLD)
+                       if name in alt]
+                for name in dict.fromkeys([*K3P_NEW, *K3P_OLD])}
 
 # --time-k8: variant -> edits (text of ocab.cu, its replacement)
 K8_VARIANTS = {
@@ -762,6 +914,27 @@ for _ in range(2):
           flush=True)
 '''
 
+# K3's 3-pass mode, built from attention.cu alone (ONE_SOURCE)
+K3P_TIME = r'''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+''' + ONE_SOURCE.format(source="attention.cu") + r'''
+from hdrvae_torch.kernels import attention
+q, k, v = cs._k3_inputs(np.random.default_rng(0))
+kv = cs._live_mask(128, cs.K3_LIVE)
+flops = 3 * cs.ATTN_FLOPS
+for _ in range(2):
+    t = cs.cuda_ms(lambda: attention.flash_attention_3pass(q, k, v), iters=5)
+    tm = cs.cuda_ms(lambda: attention.flash_attention_3pass(q, k, v, kv),
+                    iters=5)
+    print(f"  N={cs.N_TOKENS} C={cs.C_ATTN}: unmasked {t:.3f} ms "
+          f"({flops / (t * 1e9):.1f} TFLOP/s), masked {tm:.3f} ms",
+          flush=True)
+'''
+
 K6_TIME = r'''
 import sys
 import numpy as np
@@ -806,6 +979,7 @@ print(f"  phase-3 sum   device {dev_sum:.3f} ms  wrapper {wrap_sum:.3f} ms",
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
            "--time-k3-f32": ("attention.cu", K3F_VARIANTS, K3F_TIME),
+           "--time-k3-3pass": (None, K3P_VARIANTS, K3P_TIME),
            "--time-k8": ("ocab.cu", K8_VARIANTS, K8_TIME),
            "--time-k7": (None, K7_VARIANTS, K7_TIME)}
 
@@ -858,8 +1032,12 @@ def run_target(target: str) -> bool:
                 print(f"== {name}: {source} does not hold the mutated text "
                       "once", file=sys.stderr)
                 return False
+            build = (ONE_SOURCE.format(source=ONE_SOURCE_TARGETS[target])
+                     if target in ONE_SOURCE_TARGETS
+                     else "chip_smoke.phase_build()")
             proc = subprocess.run(
-                [sys.executable, "-c", CHECK.format(call=call)], cwd=tmp,
+                [sys.executable, "-c", CHECK.format(call=call, build=build)],
+                cwd=tmp,
                 capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith(prefixes + ("CAUGHT", "SURVIVED"))]
@@ -908,6 +1086,11 @@ def main(argv=None) -> int:
     timing = args[0] if args and args[0] in TIMINGS else None
     known = TIMINGS[timing][1] if timing else TARGETS
     names = args[1:] if timing else args
+    if not names and timing and TIMINGS[timing][0] is None:
+        # the variants the tree's sources hold (an older tree's kernel has
+        # its own)
+        names = [n for n, alts in known.items()
+                 if any(_applies(alt, root) for alt in alts)]
     names = names or list(known)
     unknown = set(names) - set(known)
     if unknown:

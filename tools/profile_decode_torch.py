@@ -64,10 +64,12 @@ tile forward weighted by each shape's launches there; one such forward
 measured (K6's device time from ``torch.profiler``); and three fast and
 one parity ESRGAN x4
 ``hdr_upscale`` requests of a 1024^2 HDR image from numpy seed 1 (the
-first fast one warms up); then K3 bf16 and K3 f32 at N = 16,384 and
-65,536 (C = 512), unmasked and with the bucketed phase's live fraction of
-the grid (10 launches, 3 at N = 65,536, after 2 warm-ups), and three fast
-and three parity decodes each at 1024^2 and 2048^2; then K8
+first fast one warms up); then K3 bf16, K3 f32 and K3 3-pass at N =
+16,384 and 65,536 (C = 512), unmasked and with the bucketed phase's live
+fraction of the grid (10 launches, 3 at N = 65,536, after 2 warm-ups), and
+three fast, three parity and three mixed decodes each at 1024^2 and
+2048^2, with each tier's peak memory and, for mixed, K3 3-pass's share of
+one profiled request; then K8
 ``ocab_attention`` at ``chip_smoke.py``'s K8_SHAPE beside SDPA bf16, fast
 HAT-M x4 requests of a 1024^2 HDR image (one to warm up, two timed, one
 under ``torch.profiler`` for K8's share), and as controls two fast SwinIR-M
@@ -539,15 +541,19 @@ for tier in ("fast", "fast", "fast", "parity"):
 '''
 
 
-# K3 bf16 and K3 f32 at the fast and parity decodes' mid attention, N =
-# 16,384 and 65,536 (the 1024^2 and 2048^2 decodes), C = 512, unmasked and
-# with the bucketed phase's live fraction (121 x 100 of 128 x 128, scaled
-# to the grid), CUDA events over 10 launches (3 at N = 65,536) after 2
-# warm-ups; then three requests each of fast and parity decodes at 1024^2
-# and 2048^2
+# K3 bf16, K3 f32 and K3 3-pass at the fast, parity and mixed decodes' mid
+# attention, N = 16,384 and 65,536 (the 1024^2 and 2048^2 decodes), C =
+# 512, unmasked and with the bucketed phase's live fraction (121 x 100 of
+# 128 x 128, scaled to the grid), CUDA events over 10 launches (3 at N =
+# 65,536) after 2 warm-ups; then three requests each of fast, parity and
+# mixed decodes at 1024^2 and 2048^2, the mixed ones with their peak memory
+# and one more under torch.profiler: K3 3-pass's share (its kernel and its
+# split, where the tree has one) of the request's summed device time
 AB_ATTN = r'''
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 from hdrvae_torch.core.config import DecoderConfig, HDRDecodeConfig, Precision
 from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
 from hdrvae_torch.kernels import attention
@@ -575,36 +581,60 @@ for side in (128, 256):
     grid = torch.arange(side, device="cuda")
     kv = (grid[:, None] < live[0]) & (grid[None, :] < live[1])
     n = side * side
-    for name, fn, cast in (
-            ("bf16", attention.flash_attention_bf16, torch.bfloat16),
-            ("f32", attention.flash_attention_f32, torch.float32)):
+    for name, fn, cast, passes in (
+            ("bf16", attention.flash_attention_bf16, torch.bfloat16, 1),
+            ("f32", attention.flash_attention_f32, torch.float32, 1),
+            ("3-pass", attention.flash_attention_3pass, torch.float32, 3)):
         qc, kc, vc = (x.to(cast) for x in (q, k, v))
         for label, mask in (("unmasked", None),
                             (f"live {live[0]} x {live[1]}", kv)):
             t = ms(lambda: fn(qc, kc, vc, mask),
                    iters=10 if side == 128 else 3)
             print(f"  K3 {name} N={n} C=512 {label}: {t:.3f} ms "
-                  f"({4 * n * n * 512 / (t * 1e9):.1f} TFLOP/s)", flush=True)
+                  f"({passes * 4 * n * n * 512 / (t * 1e9):.1f} TFLOP/s)",
+                  flush=True)
         del qc, kc, vc
     del q, k, v
+torch.cuda.empty_cache()
 dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
 cons = HDRDecodeConfig(hdr_mode="conservative")
-for tier in ("fast", "parity"):
+for tier in ("fast", "parity", "mixed"):
     for side in (128, 256):
         z = torch.from_numpy(np.random.default_rng(1).standard_normal(
             (1, side, side, 16)).astype(np.float32)).cuda()
+        prec = getattr(Precision, tier)()
+
+        def run():
+            decode_summary(hdr_decode(dec, z, cons, prec))
         times = []
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(3):
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             torch.cuda.synchronize()
             start.record()
-            decode_summary(hdr_decode(dec, z, cons,
-                                      getattr(Precision, tier)()))
+            run()
             end.record()
             torch.cuda.synchronize()
             times.append(round(start.elapsed_time(end), 3))
-        print(f"  decode {side * 8}^2 {tier}: device ms {times}", flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  decode {side * 8}^2 {tier}: device ms {times}, peak "
+              f"{peak:.3f} GiB", flush=True)
+        if tier == "mixed":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            dev = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            total = sum(x for _, x in dev)
+            k3 = sum(x for nm, x in dev if "flash_3pass_kernel" in nm)
+            sp = sum(x for nm, x in dev if "split_qkv_kernel" in nm)
+            print(f"  decode {side * 8}^2 mixed, profiled: K3 3-pass "
+                  f"{k3:.3f} ms + split {sp:.3f} ms of {total:.3f} ms summed "
+                  f"device time ({100 * (k3 + sp) / total:.2f} %)",
+                  flush=True)
+        del z
         torch.cuda.empty_cache()
 '''
 
