@@ -9,9 +9,10 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 1. device: the card's name and power limit, as the line nvidia-smi prints;
 2. build: compile the kernels, print the build time and ptxas' register
    and spill report, and the count of HGMMA (wgmma) instructions in the
-   SASS of K1/K2's, K6's, K3 bf16's, K3 3-pass's, K8's and K7's kernels
+   SASS of K1/K2's, K5's, K6's, K3 bf16's, K3 3-pass's, K8's and K7's
+   kernels
    (``cuobjdump --dump-sass``), which must not be 0, with the registers
-   and spills of K3's (per instance), K8's and K7's kernels;
+   and spills of K3's (per instance), K5's, K8's and K7's kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1-K4: a 1024^2 decode, and K1 and K2
    each at one ragged shape of an 832 x 1216 frame, logged apart and out
@@ -38,7 +39,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    OCAB on a 512^2 tile, also with a peaked bias, and a ragged 20 x 36
    shape, each within two bf16 ulps of its largest output; K2's
    stats_only mode, its sums bit-equal to K2's with y written, and K5:
-   the 2048^2 decode's top-level junction and a ragged map; the staged
+   the 2048^2 decode's top-level junction and a ragged map, with cuDNN's
+   two convs alone (the up-conv on the materialized 2x map, then conv1)
+   as its library column; the staged
    Swin chain's K10, K9 and K11 at K7's v1 shapes, each on the previous
    kernel's output, and the chain against K7 on the
    same inputs and weights; K12 at the probe's 8192 x 256 x 256 in its
@@ -413,6 +416,7 @@ def phase_build() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
     for name, kernel in (("K1/K2", "conv_wgmma_kernel"),
+                         ("K5", "upconv_wgmma_kernel"),
                          ("K6", "dense_wgmma_kernel"),
                          ("K3 bf16", "flash_bf16_kernel"),
                          ("K3 3-pass", "flash_3pass_kernel"),
@@ -424,10 +428,11 @@ def phase_build() -> None:
         check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
               "SASS)")
     # K3 bf16's, f32's and 3-pass's registers and spills per C / 64
-    # instance, K8's, K7's per body and channel width, and any ptxas
-    # warning (a serialized wgmma is one)
+    # instance, K5's per Cout / 64, K8's, K7's per body and channel width,
+    # and any ptxas warning (a serialized wgmma is one)
     for kernel in ("flash_bf16_kernel", "flash_f32_kernel",
-                   "flash_3pass_kernel", "ocab_kernel", "swin_block_kernel"):
+                   "flash_3pass_kernel", "upconv_wgmma_kernel",
+                   "ocab_kernel", "swin_block_kernel"):
         for inst, (regs, stores, loads) in ptxas_report(compiler_log,
                                                         kernel):
             log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill "
@@ -1098,11 +1103,15 @@ def _check_k2_stats_only(rng) -> dict:
 
 def _check_k5(rng) -> dict:
     """K5 against its plain version at the 2048^2 decode's junction and at
-    a ragged map whose output width is no multiple of the 16-pixel tile;
-    y max-abs within CONV_BUDGET, the statistics within STATS_BUDGET."""
+    a ragged map whose output width is no multiple of the 64-pixel work
+    item; y max-abs within CONV_BUDGET, the statistics within
+    STATS_BUDGET.  Its library column: the two cuDNN convs alone (the
+    up-conv on the materialized 2x map, and conv1), which the port never
+    calls."""
     from hdrvae_torch.kernels import conv3x3
     cin, cm, cout = K5_CIN, K5_CM, K5_COUT
-    details, k_ms, p_ms, err, err_s, bnd = [], 0.0, 0.0, 0.0, 0.0, Bound()
+    details, bnd = [], Bound()
+    err = err_s = 0.0
     for h, w in K5_SHAPES:
         x = _bf16(rng, (1, h, w, cin), 0.5)
         args = (x, _bf16(rng, (3, 3, cin, cm), (9 * cin) ** -0.5),
@@ -1123,33 +1132,39 @@ def _check_k5(rng) -> dict:
         es = stats_err(s, rs, ry)
         check(e <= CONV_BUDGET, f"K5 {h}x{w}: max-abs {e} > {CONV_BUDGET}")
         check(es <= STATS_BUDGET, f"K5 {h}x{w}: stats rel err {es}")
-        del ry
+        nb = nbytes(*args, y, *s)
+        del ry, rs, y, s
         t = cuda_ms(lambda: conv3x3.upconv_gn_conv3x3(*args, **kw))
         tp = cuda_ms(lambda: conv3x3.upconv_gn_conv3x3_reference(
             *args, **kw), iters=2, warmup=1)
+        up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        tl = conv_alone_ms(up, args[1])
+        del up
+        band = _bf16(rng, (1, 2 * h, 2 * w, cm), 0.5)
+        tl += conv_alone_ms(band, args[5])
+        del band
         # the phase-decomposed up-conv (16 taps over the low-resolution
         # map) and conv1 (9 taps at the doubled resolution)
         flops = 2 * h * w * 16 * cin * cm + 2 * (4 * h * w) * 9 * cm * cout
-        b = bnd.add(flops, nbytes(*args, y, *s))
+        b = bnd.add(flops, nb)
         log(f"K5 upconv_gn_conv3x3 {h}x{w}->{2 * h}x{2 * w} {cin}->{cm}->"
             f"{cout}: max-abs {e:.3e} stats {es:.2e}  kernel {t:.3f} ms "
-            f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms  bound "
-            f"{b['bound_ms']:.3f} ms ({b['bound_by']}; kernel "
-            f"{t / b['bound_ms']:.1f}x it)")
+            f"({flops / (t * 1e9):.1f} TFLOP/s)  plain {tp:.3f} ms  cuDNN's "
+            f"two convs alone {tl:.3f} ms  bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']}; kernel {t / b['bound_ms']:.1f}x it)")
         details.append({"shape": [h, w, cin, cm, cout], "max_abs_err": e,
                         "stats_rel_err": es, "ms": t, "plain_ms": tp,
-                        "tflops": flops / (t * 1e9), **b})
-        k_ms, p_ms = k_ms + t, p_ms + tp
+                        "library_ms": tl, "tflops": flops / (t * 1e9), **b})
         err, err_s = max(err, e), max(err_s, es)
-        del x, args, y, s
+        del x, args
         torch.cuda.empty_cache()
     return {"name": "upconv_gn_conv3x3", "route": "cuda",
             "source": "hdrvae_torch/csrc/upconv.cu",
             "replaces": "hdrvae/kernels/conv3x3.py:1059",
-            "max_abs_err": err, "stats_rel_err": err_s, "ms": k_ms,
-            "plain_ms": p_ms, **bnd.entry(), "library_ms": None,
-            "library_call": "none: no one PyTorch call computes the up-conv, "
-                            "the GroupNorm affine + SiLU and the next conv",
+            "max_abs_err": err, "stats_rel_err": err_s, **_summed(details),
+            **bnd.entry(),
+            "library_call": CONV_ALONE + " twice: the up-conv on the "
+                            "upsampled map, then conv1",
             "shapes": details}
 
 

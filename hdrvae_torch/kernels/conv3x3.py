@@ -40,9 +40,9 @@ LRELU_SLOPE = 0.2                          # K2's act="lrelu"
 # the low-resolution map, for one output phase); the kernels take Cin and Cr
 # multiples of _CIN_STEP and Cout of _COUT_STEP
 _TR, _TWP, _CIN_STEP, _COUT_STEP = 4, 64, 16, 64
-# upconv.cu (K5): its own 8 x 16 output tile, one statistics partial each,
-# and its Cin step
-_K5_TH, _K5_TW, _K5_CIN_STEP = 8, 16, 16
+# upconv.cu (K5): its work item's output tile, _K5_TH rows x _K5_TW pixels
+# (one statistics partial each), and its Cin step
+_K5_TH, _K5_TW, _K5_CIN_STEP = 4, 64, 16
 
 # Row/column tap sets of the phase decomposition: output pixel (2i+a, .) of
 # conv3x3(nearest2x(x)) reads input rows i-1+u, u in {0, 1}, with the 3x3
@@ -75,6 +75,12 @@ def conv_tiles(h: int, w: int) -> int:
     map: the partial count T of K1's statistics (K2's is 4 T, one a
     phase)."""
     return -(-h // _TR) * -(-w // _TWP)
+
+
+def upconv_tiles(h: int, w: int) -> int:
+    """Work items of upconv.cu's K5 over a low-resolution [h, w] map (its
+    output is [2 h, 2 w]): the partial count T of its statistics."""
+    return -(-2 * h // _K5_TH) * -(-2 * w // _K5_TW)
 
 
 def conv_partials(y: torch.Tensor, upsampled: bool = False) -> torch.Tensor:
@@ -418,7 +424,8 @@ def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,
                       bias: torch.Tensor, *, emit_stats: bool = True,
                       num_groups: int = 32,
                       out_dtype: Optional[torch.dtype] = None,
-                      store_dtype: Optional[torch.dtype] = None):
+                      store_dtype: Optional[torch.dtype] = None,
+                      phase: Optional[torch.Tensor] = None):
     """The streaming upsample junction as one kernel (K5): x [B, H, W, Cin]
     -> y [B, 2H, 2W, Cout] = conv3x3(silu(z * gamma + beta)) + bias with z
     = conv3x3(nearest2x(x)) + up_bias, the [B, 2H, 2W, Cm] map z never
@@ -430,6 +437,10 @@ def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,
     chain's storage, as the unfused pair would store it) and the band to
     x's dtype.  With ``emit_stats`` also the per-group (sum, sumsq) of y as
     stored, each [B, G].
+
+    ``phase``: ``phase_kernels(up_kernel)``, the kernel's layout of the
+    up-conv, prepared once by the caller (the decoder keeps it on the
+    module); collapsed here from ``up_kernel`` on every call when None.
 
     Launches ``csrc/upconv.cu`` for a CUDA ``x`` (bf16 throughout; Cin a
     multiple of 16 up to 512, Cm 128 or 256, Cout 64 or 128); runs
@@ -466,18 +477,19 @@ def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,
              f"gamma/beta must be [{cm}] or [{b}, {cm}]")
     if emit_stats:
         _require(cout % num_groups == 0, "Cout % num_groups must be 0")
-    for t in (up_kernel, up_bias, gamma, beta, kernel, bias):
+    if phase is None:
+        phase = phase_kernels(up_kernel).contiguous()
+    _check_bf16("phase", phase, (2, 2, 2, 2, cin, cm))
+    for t in (up_kernel, up_bias, gamma, beta, kernel, bias, phase):
         _require(t.device == x.device,
                  "upconv_gn_conv3x3: every operand must be on x's device")
-    pk = phase_kernels(up_kernel).contiguous()
 
     y = torch.empty(b, 2 * h, 2 * w, cout, device=x.device,
                     dtype=torch.bfloat16)
-    tiles = -(-2 * h // _K5_TH) * -(-2 * w // _K5_TW)
-    partial = (torch.empty(b, tiles, 2, cout, device=x.device,
+    partial = (torch.empty(b, upconv_tiles(h, w), 2, cout, device=x.device,
                            dtype=torch.float32) if emit_stats else None)
     _build.check(_build.library().hdrvae_upconv_gn_conv3x3(
-        x.data_ptr(), pk.data_ptr(), up_bias.data_ptr(), gamma.data_ptr(),
+        x.data_ptr(), phase.data_ptr(), up_bias.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
         None if partial is None else partial.data_ptr(), b, h, w, cin, cm,
         cout, _stream(x)), "hdrvae_upconv_gn_conv3x3")

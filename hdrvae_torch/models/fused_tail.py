@@ -24,7 +24,7 @@ plain versions, so the chain is testable without a card.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,7 +33,7 @@ from hdrvae_torch.core.config import (DecoderConfig, Precision,
                                       fp32_contractions)
 from hdrvae_torch.kernels.attention import spatial_attention
 from hdrvae_torch.kernels.conv3x3 import (Sums, fused_conv3x3,
-                                          upconv_gn_conv3x3,
+                                          phase_kernels, upconv_gn_conv3x3,
                                           upsample_conv3x3)
 from hdrvae_torch.models.decoder import AttnBlock, Decoder, ResnetBlock
 from hdrvae_torch.models.layers import (Moments, conv2d, gn_affine,
@@ -65,6 +65,36 @@ def _hwio(conv, dtype: torch.dtype) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
 
 
+class JunctionWeights(NamedTuple):
+    """K5's weights in the kernel's layout (:func:`junction_weights`)."""
+    up_kernel: torch.Tensor   # the upsample conv, HWIO, compute dtype
+    phase: torch.Tensor       # phase_kernels(up_kernel): the kernel's
+    up_bias: torch.Tensor     # float32
+    kernel: torch.Tensor      # block 0's conv1, HWIO, compute dtype
+    bias: torch.Tensor        # float32
+
+
+def junction_weights(up_conv: nn.Conv2d, blk: ResnetBlock,
+                     cdt: torch.dtype) -> JunctionWeights:
+    """K5's weights of the streamed junction (``up_conv``, then ``blk``'s
+    conv1), prepared once per compute dtype and kept on ``blk``.  The kept
+    weights hold while the two convs' parameters do: a change in place
+    (``load_state_dict``) or a move to another device drops them, and they
+    are prepared anew."""
+    params = (up_conv.weight, up_conv.bias, blk.conv1.weight, blk.conv1.bias)
+    stamp = tuple((str(p.device), p.data_ptr(), p._version) for p in params)
+    kept = blk.__dict__.get("_junction_weights")
+    if kept is None or kept[0] != stamp:
+        kept = blk.__dict__["_junction_weights"] = (stamp, {})
+    if cdt not in kept[1]:
+        up_kernel = _hwio(up_conv, cdt)
+        kept[1][cdt] = JunctionWeights(
+            up_kernel, phase_kernels(up_kernel).contiguous(),
+            up_conv.bias.to(torch.float32, copy=True), _hwio(blk.conv1, cdt),
+            blk.conv1.bias.to(torch.float32, copy=True))
+    return kept[1][cdt]
+
+
 def _folded_shortcut(x: torch.Tensor, up_kernel: torch.Tensor,
                      up_bias: torch.Tensor, nin: nn.Conv2d,
                      precision: Precision) -> torch.Tensor:
@@ -92,24 +122,25 @@ def _resnet_block(x: torch.Tensor, blk: ResnetBlock, moments: Moments,
     may take the block's output (K1 writes each output element over the
     residual element it has just read).
 
-    ``stream_upsample`` = (up_kernel [3, 3, Cm, Cm] float32 HWIO, up_bias):
-    x is the LOW-resolution map feeding the level's upsample and
-    ``moments`` are the absent upsampled map's (K2's stats_only pass).
-    conv1 runs as K5 (the upsampled map lives only as per-tile bands on
-    chip), and the shortcut ``nin_shortcut(conv_up(nearest2x(x)))`` is one
-    folded upsample conv of x (K2), whose only reader is conv2's residual
-    add, so conv2 writes its output there."""
+    ``stream_upsample`` = the level's upsample conv: x is the
+    LOW-resolution map feeding it and ``moments`` are the absent upsampled
+    map's (K2's stats_only pass).  conv1 runs as K5 (the upsampled map
+    lives only as per-tile bands on chip) on weights kept on the block
+    (:func:`junction_weights`), and the shortcut
+    ``nin_shortcut(conv_up(nearest2x(x)))`` is one folded upsample conv of
+    x (K2), whose only reader is conv2's residual add, so conv2 writes its
+    output there."""
     g = cfg.num_groups
     cdt, sdt = precision.compute_dtype, precision.storage_dtype
     b, h, w, _ = x.shape
     g1, b1 = gn_affine(moments, blk.norm1)
     if stream_upsample is not None:
-        up_kernel, up_bias = stream_upsample
+        jw = junction_weights(stream_upsample, blk, cdt)
         h, w = 2 * h, 2 * w
         h1, s1 = upconv_gn_conv3x3(
-            x, up_kernel.to(cdt).contiguous(), up_bias, g1, b1,
-            _hwio(blk.conv1, cdt), blk.conv1.bias.float(), emit_stats=True,
-            num_groups=g, out_dtype=sdt, store_dtype=sdt)
+            x, jw.up_kernel, jw.up_bias, g1, b1, jw.kernel, jw.bias,
+            emit_stats=True, num_groups=g, out_dtype=sdt, store_dtype=sdt,
+            phase=jw.phase)
     else:
         h1, s1 = fused_conv3x3(
             x, _hwio(blk.conv1, cdt), blk.conv1.bias.float(), gamma=g1,
@@ -121,8 +152,9 @@ def _resnet_block(x: torch.Tensor, blk: ResnetBlock, moments: Moments,
     res_kernel = None
     residual = x
     if stream_upsample is not None:
-        residual = _folded_shortcut(x, up_kernel, up_bias, blk.nin_shortcut,
-                                    precision)
+        residual = _folded_shortcut(
+            x, stream_upsample.weight.permute(2, 3, 1, 0),
+            stream_upsample.bias, blk.nin_shortcut, precision)
         owned = True
     elif hasattr(blk, "nin_shortcut"):
         # the 1x1 projection runs in the second conv's epilogue; its bias
@@ -195,7 +227,7 @@ def top_level_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
                 out_dtype=precision.storage_dtype, stats_only=True)
             moments = _finalize(
                 sums, 4 * h * w * (conv.out_channels // cfg.num_groups))
-            stream = (conv.weight.permute(2, 3, 1, 0), conv.bias)
+            stream = conv
         else:
             x, moments = _upsample(x, conv, cfg, precision)
             owned = True

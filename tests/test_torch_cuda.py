@@ -213,15 +213,14 @@ def test_upsample_conv3x3_tile_edges(dev, cin, cout):
     assert torch.equal(so, s) and torch.equal(sqo, sq)
 
 
-@pytest.mark.parametrize("cm,cout", [(256, 128), (256, 64), (128, 128),
-                                     (128, 64)])
-def test_upconv_gn_conv3x3_ragged(dev, cm, cout):
-    """K5 at batch 2 with per-sample GroupNorm affines and an 18 x 40
-    output (rows and columns end in part tiles), for every (Cm, Cout) it
-    takes: y within four bf16 ulps of the largest output (z and the band
-    are rounded to bf16 from phase weights rounded after summing, as K2's
-    output is), sumsq within 1e-2."""
-    b, h, w, cin = 2, 9, 20, 48
+K5_PAIRS = [(256, 128), (256, 64), (128, 128), (128, 64)]
+
+
+def _k5_case(dev, b, h, w, cin, cm, cout):
+    """K5 on x [b, h, w, cin] with per-sample GroupNorm affines against its
+    plain version: y within four bf16 ulps of the largest output (z and
+    the band are rounded to bf16 from phase weights rounded after summing,
+    as K2's output is), sumsq within 1e-2; one launch."""
     args = (_rand(dev, (b, h, w, cin), 0.5),
             _rand(dev, (3, 3, cin, cm), (9 * cin) ** -0.5, seed=1),
             _rand(dev, (cm,), 0.1, torch.float32, seed=2),
@@ -238,6 +237,29 @@ def test_upconv_gn_conv3x3_ragged(dev, cm, cout):
     assert y.shape == (b, 2 * h, 2 * w, cout) and y.dtype == torch.bfloat16
     assert (y.float() - ry.float()).abs().max().item() <= 4 * _ulp_bound(ry)
     torch.testing.assert_close(sq, rsq, rtol=1e-2, atol=0)
+
+
+@pytest.mark.parametrize("cm,cout", K5_PAIRS)
+def test_upconv_gn_conv3x3_ragged(dev, cm, cout):
+    """K5 at batch 2 and an 18 x 40 output (rows and columns end in part
+    work items), for every (Cm, Cout) it takes."""
+    _k5_case(dev, 2, 9, 20, 48, cm, cout)
+
+
+# (B, H, W, Cin) of K5's low-resolution x against its 4 x 64 output work
+# item: an output width no multiple of 64 (the row's second item partial),
+# a height no multiple of 4, a map smaller than one item at batch 2, a
+# slab of two Cin chunks (the second partial) at batch 2, and Cin 512 (the
+# slab in eight chunks, a two-stage weight ring)
+K5_EDGES = [(1, 9, 50, 48), (1, 7, 40, 64), (2, 1, 3, 48), (2, 6, 36, 80),
+            (1, 5, 33, 512)]
+
+
+@pytest.mark.parametrize("cm,cout", K5_PAIRS)
+@pytest.mark.parametrize("shape", K5_EDGES)
+def test_upconv_gn_conv3x3_item_edges(dev, shape, cm, cout):
+    """K5 at the edges of its work item, for every (Cm, Cout) it takes."""
+    _k5_case(dev, *shape, cm, cout)
 
 
 def test_upconv_gn_conv3x3_refuses(dev):

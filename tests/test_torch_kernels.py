@@ -263,6 +263,17 @@ class TestConvPlan:
                                    atol=1e-6 * y.abs().sum().item())
         torch.testing.assert_close(g[:, 1], ref[1], rtol=1e-5, atol=0)
 
+    @pytest.mark.parametrize("h,w", [(2, 32), (9, 20), (36, 60),
+                                     (1, 3)])
+    def test_upconv_tiles_are_k1_tiles_of_the_output(self, h, w):
+        """K5's work item is K1's 4 x 64 tile of its [2 h, 2 w] output:
+        T partials, laid out as conv_partials lays out K1's."""
+        t = tconv.upconv_tiles(h, w)
+        assert t == -(-2 * h // 4) * -(-2 * w // 64)
+        assert t == tconv.conv_tiles(2 * h, 2 * w)
+        y = torch.zeros(1, 2 * h, 2 * w, 32)
+        assert tconv.conv_partials(y).shape == (1, t, 2, 32)
+
     def test_partials_follow_tile_order(self):
         """K2's partial 4 t + 2 a + b holds output pixels (2 i + a, 2 j +
         b) of low-resolution tile t only."""

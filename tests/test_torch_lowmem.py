@@ -10,6 +10,7 @@ whole-image chain and to the JAX decoder's layers.  Inputs are made with
 numpy from a seed; weights cross over with ``state_dict_from_jax``.
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -219,6 +220,47 @@ def test_folded_shortcut_algebra(small, h, w):
                  precision=par)
     assert got.shape == ref.shape == (1, 2 * h, 2 * w, nin.out_channels)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_junction_weights_are_pallas_phase_kernels(small, dtype):
+    """The phase kernels K5 takes, kept on level 0's block 0, are the JAX
+    package's phase_kernels of the upsample conv in the compute dtype, bit
+    for bit; conv1 is its HWIO kernel in that dtype, and a second call
+    returns the kept weights."""
+    _, _, dec = small
+    up, blk = dec.up[1].upsample.conv, dec.up[0].block[0]
+    tdt = getattr(torch, dtype)
+    jw = fused_tail.junction_weights(up, blk, tdt)
+    hwio = up.weight.permute(2, 3, 1, 0).to(tdt)
+    ref = jconv.phase_kernels(jnp.asarray(hwio.float().numpy(),
+                                          getattr(jnp, dtype)))
+    assert jw.phase.dtype == tdt and jw.phase.is_contiguous()
+    np.testing.assert_array_equal(jw.phase.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+    assert torch.equal(jw.up_kernel, hwio)
+    assert torch.equal(jw.kernel, blk.conv1.weight.permute(2, 3, 1, 0)
+                       .to(tdt))
+    assert fused_tail.junction_weights(up, blk, tdt) is jw
+
+
+def test_junction_weights_follow_load_state_dict(small):
+    """A load_state_dict that changes the upsample conv or conv1 in place
+    drops the kept weights: the next call prepares them from the new
+    parameters."""
+    _, _, dec = small
+    dec = copy.deepcopy(dec)
+    up, blk = dec.up[1].upsample.conv, dec.up[0].block[0]
+    old = fused_tail.junction_weights(up, blk, torch.bfloat16)
+    sd = {k: v.clone() for k, v in dec.state_dict().items()}
+    sd["up.1.upsample.conv.weight"] *= 2.0
+    sd["up.0.block.0.conv1.bias"] += 1.0
+    dec.load_state_dict(sd)
+    new = fused_tail.junction_weights(up, blk, torch.bfloat16)
+    assert new is not old
+    assert torch.equal(new.phase, tconv.phase_kernels(
+        up.weight.permute(2, 3, 1, 0).to(torch.bfloat16)))
+    assert torch.equal(new.bias, old.bias + 1.0)
 
 
 @pytest.mark.parametrize("h,w", [(8, 8), (6, 10)])

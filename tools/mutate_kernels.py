@@ -14,7 +14,8 @@ k2: ``_check_k2``, K2 at the decode's three upsample convs and a ragged
 one; k6: ``_check_k6``, K6 at one 512^2 tile's shapes of the ESRGAN x4 net
 and more (a ragged conv5, conv_body, conv_first of unshuffle 2 and 4);
 k5: ``_check_k5``, K5 against its plain version at the 2048^2 decode's
-junction and a ragged map; chain:
+junction and a ragged map (built from upconv.cu and conv3x3.cu alone);
+chain:
 ``_check_chain``, K10, K9 and K11 of the staged Swin chain at K7's v1
 shapes and the chain against K7; k3_f32: ``_check_k3_f32``, K3's exact
 float32 mode within 1e-5 of its plain version at N = 16,384, C = 512, on
@@ -130,6 +131,23 @@ does the same for K8 (``ocab.cu``; CUDA events, mean of 10 launches after
 - two-warpgroups: the kernel with two consumer warpgroups a block (and
   three ring slots each), as for more than 576 keys, instead of three.
 
+    python3 tools/mutate_kernels.py --time-k5 [--tree DIR] [as-is|...]
+
+does the same for K5 (``upconv.cu``, built with conv3x3.cu alone; the
+kernel's device time from ``torch.profiler``, mean of 5 launches after 2
+warm-ups, and the wrapper's by CUDA events, twice, at ``chip_smoke.py``'s
+K5_SHAPES and summed), in the tree at DIR (default: this one; an older
+tree times PR 5's mma.sync kernel, where the variant exists for it):
+
+- as-is: the kernel as it is;
+- no-weight-loads: the weight stages are not copied (their barriers
+  still complete; the slab still loads);
+- no-upconv-products, no-conv1-products: no up-conv products, or no
+  conv1 products (the feed and the epilogues run);
+- no-band-epilogue: the band is not written (no up_bias, GroupNorm
+  affine, SiLU or stores);
+- no-y-stores: y is not stored (its statistics still run).
+
     python3 tools/mutate_kernels.py --time-k7 [--tree DIR] [as-is|...]
 
 does the same for K7's v1 body (``swin_block.cu``; CUDA events, mean of
@@ -240,20 +258,40 @@ TARGETS = {
             "dense_conv.cu", "              if (n + e < a.Cout) {",
             "              if (true) {", True),
     }),
+    # K5: every mutant keeps the producer's and the consumers' schedules in
+    # step; built from K5_SOURCES alone
     "k5": ("_check_k5(np.random.default_rng(5))", ("K5",), {
         "band not zeroed outside the image": (
-            "upconv.cu", "o[e] = in ? silu(zn) : 0.0f;", "o[e] = silu(zn);",
-            True),
+            "upconv.cu", "  if (!in) return __floats2bfloat162_rn(0.0f, 0.0f);",
+            "  if (false) return __floats2bfloat162_rn(0.0f, 0.0f);", True),
         "up_bias dropped": (
-            "upconv.cu", "acc_a[mt][t][2 * hf + e] +\n"
-            "                                           up_bias[n + e]",
-            "acc_a[mt][t][2 * hf + e]", True),
-        "last conv1 weight piece skipped": (
-            "upconv.cu", "      const int j = i - na;\n",
-            "      const int j = i - na;\n      if (j == npb - 1) continue;\n",
+            "upconv.cu",
+            "up[4 * j + 2 * i] + u2.x, up[4 * j + 2 * i + 1] + u2.y",
+            "up[4 * j + 2 * i], up[4 * j + 2 * i + 1]", True),
+        "one Cm chunk's band skipped": (
+            "upconv.cu",
+            "        if (ri >= PH_ROWS || ci >= PH_COLS) continue;",
+            "        if (ri >= PH_ROWS || ci >= PH_COLS || c == 1) continue;",
             True),
+        "last conv1 tap skipped": (
+            "upconv.cu", "            wgmma_ss<CO, 1>(\n",
+            "            if (tap != 8) wgmma_ss<CO, 1>(\n", True),
+        "last Cm chunk's conv1 skipped": (
+            "upconv.cu", "            wgmma_ss<CO, 1>(\n",
+            "            if (c != nchunks - 1) wgmma_ss<CO, 1>(\n", True),
+        "one phase's tap skipped": (
+            "upconv.cu", "              wgmma_ss<64, 1>(up, a_desc(",
+            "              if (!(p == 3 && (i & 1) && v == 1))\n"
+            "                wgmma_ss<64, 1>(up, a_desc(", True),
+        "ragged-edge store mask dropped": (
+            "upconv.cu", "        ok[mb][i] = oh < H2 && ow < W2;",
+            "        ok[mb][i] = true;", True),
         "z not rounded to bf16 (sub-ulp)": (
-            "upconv.cu", "const float z = round_bf16(", "const float z = (",
+            "upconv.cu",
+            "const float2 z = __bfloat1622float2(__floats2bfloat162_rn(\n"
+            "                up[4 * j + 2 * i] + u2.x, up[4 * j + 2 * i + 1] + u2.y));",
+            "const float2 z = make_float2(\n"
+            "                up[4 * j + 2 * i] + u2.x, up[4 * j + 2 * i + 1] + u2.y);",
             False),
     }),
     # the masks live in window_attention.cuh, shared with K7: a broken mask
@@ -510,13 +548,13 @@ TARGETS = {
     }),
 }
 
-# the kernel library built from one CUDA source alone (the copy's other
-# sources removed), binding the C entries it holds: for a target or timing
-# whose kernel's source needs no other
+# the kernel library built from some CUDA sources alone (the copy's other
+# sources removed), binding the C entries they hold: for a target or timing
+# whose kernel's sources need no other
 ONE_SOURCE = """
 import ctypes, glob, os
 for src in glob.glob("hdrvae_torch/csrc/*.cu"):
-    if os.path.basename(src) != "{source}":
+    if os.path.basename(src) not in {sources!r}:
         os.remove(src)
 from hdrvae_torch.kernels import _build
 lib = ctypes.CDLL(str(_build.build()[0]))
@@ -526,8 +564,11 @@ for name, argtypes in _build.SIGNATURES.items():
         getattr(lib, name).restype = ctypes.c_int
 _build.library = lambda: lib
 """
-# targets checked on a library built from one source (see ONE_SOURCE)
-ONE_SOURCE_TARGETS = {"k3_3pass": "attention.cu"}
+# K5's kernel (upconv.cu) and its statistics' reduction (conv3x3.cu's
+# hdrvae_group_stats)
+K5_SOURCES = ("upconv.cu", "conv3x3.cu")
+# targets checked on a library built from some sources (see ONE_SOURCE)
+ONE_SOURCE_TARGETS = {"k3_3pass": ("attention.cu",), "k5": K5_SOURCES}
 
 CHECK = """
 import sys
@@ -921,7 +962,7 @@ import numpy as np
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
-''' + ONE_SOURCE.format(source="attention.cu") + r'''
+''' + ONE_SOURCE.format(sources=("attention.cu",)) + r'''
 from hdrvae_torch.kernels import attention
 q, k, v = cs._k3_inputs(np.random.default_rng(0))
 kv = cs._live_mask(128, cs.K3_LIVE)
@@ -975,13 +1016,119 @@ print(f"  phase-3 sum   device {dev_sum:.3f} ms  wrapper {wrap_sum:.3f} ms",
 '''
 
 
+# --time-k5: variant -> alternatives, each a list of (source, text,
+# replacement), as for --time-k3-3pass; K5_OLD times PR 5's mma.sync kernel
+# (8 x 16 tiles, weights through a cp.async ring) in an older tree (--tree)
+UC = "upconv.cu"
+K5_NEW = {
+    "as-is": [],
+    # the ring's weight stages are not copied (each stage's barrier still
+    # completes; the slots keep stale bytes; the slab still loads)
+    "no-weight-loads": [
+        (UC, "              mbar_expect_tx(w_full(r.s), STAGE_BYTES);\n"
+             "              for (int v = 0; v < 2; ++v)",
+         "              mbar_arrive(w_full(r.s));\n"
+             "              for (int v = 0; v < 0; ++v)"),
+        (UC, "            mbar_expect_tx(w_full(r.s), NH * SLICE_BYTES);\n"
+             "            for (int nh = 0; nh < NH; ++nh)",
+         "            mbar_arrive(w_full(r.s));\n"
+             "            for (int nh = 0; nh < 0; ++nh)")],
+    # no up-conv wgmma (the feed, the band epilogue and conv1 run)
+    "no-upconv-products": [
+        (UC, "              wgmma_ss<64, 1>(up, a_desc(",
+         "              if (ks < 0) wgmma_ss<64, 1>(up, a_desc(")],
+    # no conv1 wgmma
+    "no-conv1-products": [
+        (UC, "            wgmma_ss<CO, 1>(\n                acc[mb],",
+         "            if (ks < 0) wgmma_ss<CO, 1>(\n                acc[mb],")],
+    # the band is not written (no bias, GroupNorm affine, SiLU or stores)
+    "no-band-epilogue": [
+        (UC, "        if (ri >= PH_ROWS || ci >= PH_COLS) continue;",
+         "        if (ri >= 0) continue;")],
+    # y is not stored (the statistics still run)
+    "no-y-stores": [
+        (UC, "              *reinterpret_cast<__nv_bfloat162*>(a.y + orow[mb][i] + n) = yb;\n",
+         "")],
+}
+K5_OLD = {
+    "as-is": [],
+    # the ring's weight pieces are not copied (the slab still loads; the
+    # buffers keep stale bytes)
+    "no-weight-loads": [
+        (UC, "      for (int e = tid; e < KP * per_row; e += NTHREADS) {",
+         "      for (int e = tid; e < 0; e += NTHREADS) {")],
+    # no up-conv mma.sync (the ldmatrix loads that fed them stay)
+    "no-upconv-products": [
+        (UC, "            mma_bf16_16816(acc_a[mt][2 * j], af, bfr[j]);\n"
+             "            mma_bf16_16816(acc_a[mt][2 * j + 1], af, bfr[j] + 2);\n",
+         "")],
+    # no conv1 mma.sync (likewise)
+    "no-conv1-products": [
+        (UC, "            mma_bf16_16816(acc_b[r][2 * jj], af, bfr[jj]);\n"
+             "            mma_bf16_16816(acc_b[r][2 * jj + 1], af, bfr[jj] + 2);\n",
+         "")],
+    # the band is not written (no bias, GroupNorm affine, SiLU or stores)
+    "no-band-epilogue": [(UC, "      if (p == npa - 1) {", "      if (p < 0) {")],
+    # y is not stored (the statistics still run)
+    "no-y-stores": [
+        (UC, "      y[((static_cast<size_t>(b) * H2 + oh) * W2 + ow) * COUT + co] = yb;\n",
+         "")],
+}
+K5_VARIANTS = {name: [alt[name] for alt in (K5_NEW, K5_OLD) if name in alt]
+               for name in dict.fromkeys([*K5_NEW, *K5_OLD])}
+
+# K5 at chip_smoke.py's K5_SHAPES, built from K5_SOURCES alone: the
+# kernel's device time (torch.profiler, mean of 5 launches after 2
+# warm-ups) and the wrapper's (CUDA events, mean of 5), twice
+K5_TIME = r'''
+import sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, ".")
+import chip_smoke as cs
+''' + ONE_SOURCE.format(sources=K5_SOURCES) + r'''
+from hdrvae_torch.kernels import conv3x3
+rng = np.random.default_rng(5)
+cin, cm, cout = cs.K5_CIN, cs.K5_CM, cs.K5_COUT
+cases = []
+for h, w in cs.K5_SHAPES:
+    args = (cs._bf16(rng, (1, h, w, cin), 0.5),
+            cs._bf16(rng, (3, 3, cin, cm), (9 * cin) ** -0.5),
+            cs._uniform(rng, -0.1, 0.1, cm), cs._uniform(rng, 0.5, 1.5, (1, cm)),
+            cs._uniform(rng, -0.5, 0.5, (1, cm)),
+            cs._bf16(rng, (3, 3, cm, cout), (9 * cm) ** -0.5),
+            cs._uniform(rng, -0.1, 0.1, cout))
+    flops = 2 * h * w * 16 * cin * cm + 2 * (4 * h * w) * 9 * cm * cout
+    cases.append((h, w, args, flops))
+for _ in range(2):
+    dev_sum = wrap_sum = 0.0
+    for h, w, args, flops in cases:
+        def run():
+            conv3x3.upconv_gn_conv3x3(*args, emit_stats=True, num_groups=32)
+        wrap = cs.cuda_ms(run, iters=5, warmup=2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                run()
+            torch.cuda.synchronize()
+        dev = sum(e.device_time_total for e in prof.key_averages()
+                  if "upconv" in e.key) / 5 / 1e3
+        dev_sum, wrap_sum = dev_sum + dev, wrap_sum + wrap
+        print(f"  {h}x{w}->{2 * h}x{2 * w}: device {dev:.3f} ms "
+              f"({flops / (dev * 1e9):.1f} TFLOP/s)  wrapper {wrap:.3f} ms",
+              flush=True)
+    print(f"  K5_SHAPES sum: device {dev_sum:.3f} ms  wrapper "
+          f"{wrap_sum:.3f} ms", flush=True)
+'''
+
 # the timing modes: flag -> (CUDA source, variants, timing script)
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
            "--time-k3-f32": ("attention.cu", K3F_VARIANTS, K3F_TIME),
            "--time-k3-3pass": (None, K3P_VARIANTS, K3P_TIME),
            "--time-k8": ("ocab.cu", K8_VARIANTS, K8_TIME),
-           "--time-k7": (None, K7_VARIANTS, K7_TIME)}
+           "--time-k7": (None, K7_VARIANTS, K7_TIME),
+           "--time-k5": (None, K5_VARIANTS, K5_TIME)}
 
 
 @contextlib.contextmanager
@@ -1032,7 +1179,7 @@ def run_target(target: str) -> bool:
                 print(f"== {name}: {source} does not hold the mutated text "
                       "once", file=sys.stderr)
                 return False
-            build = (ONE_SOURCE.format(source=ONE_SOURCE_TARGETS[target])
+            build = (ONE_SOURCE.format(sources=ONE_SOURCE_TARGETS[target])
                      if target in ONE_SOURCE_TARGETS
                      else "chip_smoke.phase_build()")
             proc = subprocess.run(

@@ -10,7 +10,7 @@
     python3 tools/profile_decode_torch.py --staged [--latent 256 512]
     python3 tools/profile_decode_torch.py --ab-tree DIR
                                           [--ab-only swin conv esrgan attn
-                                                     hat]
+                                                     hat lowmem]
     python3 tools/profile_decode_torch.py --upscale --model hat --ab-tree DIR
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
@@ -73,8 +73,12 @@ one profiled request; then K8
 ``ocab_attention`` at ``chip_smoke.py``'s K8_SHAPE beside SDPA bf16, fast
 HAT-M x4 requests of a 1024^2 HDR image (one to warm up, two timed, one
 under ``torch.profiler`` for K8's share), and as controls two fast SwinIR-M
-x4 requests and three fast 1024^2 decodes.  ``--ab-only swin conv esrgan
-attn hat`` picks the turns; ``--upscale --model hat`` runs the HAT turn
+x4 requests and three fast 1024^2 decodes; then K5 ``upconv_gn_conv3x3``
+at ``chip_smoke.py``'s K5_SHAPES (the wrapper by CUDA events, the kernel
+by ``torch.profiler``), and three requests each of fast 2048^2 and 4096^2
+decodes with the whole-image and the streamed top level, with a fast
+1024^2 and a mixed 2048^2 decode as controls.  ``--ab-only swin conv
+esrgan attn hat lowmem`` picks the turns; ``--upscale --model hat`` runs the HAT turn
 alone, and ``--upscale --model swinir swin2sr hat`` (any other list) the
 upscale turn: for each model named, three fast x4 requests of a 1024^2
 HDR image from numpy seed 1 (the first warms up), then three fast 1024^2
@@ -130,7 +134,7 @@ UPSCALERS = {
 # the __global__ functions of hdrvae_torch/csrc (K1/K2, K5, K3 in its three
 # dot modes, K4, K6, K7, K8)
 PORT_KERNELS = ("conv_wgmma_kernel", "group_stats_kernel",
-                "upconv_gn_conv_kernel", "flash_bf16_kernel",
+                "upconv_wgmma_kernel", "flash_bf16_kernel",
                 "flash_3pass_kernel", "flash_f32_kernel",
                 "collapse_stats_kernel",
                 "stats_finalize_kernel", "dense_wgmma_kernel",
@@ -822,11 +826,89 @@ def k6_table() -> list:
             for shape in chip_smoke.K6_SHAPES + chip_smoke.K6_EXTRA[:1]]
 
 
+# K5 at chip_smoke.py's K5_SHAPES and its inputs (the wrapper by CUDA
+# events over 5 launches after 2 warm-ups; the kernel's device time from
+# torch.profiler over 5 more), then three requests each (the first warms
+# up) of fast decodes at 2048^2 and 4096^2 with the whole-image and the
+# streamed top level (LOWMEM_MIN_PIXELS set in-process), and as controls,
+# which do not launch K5, a fast 1024^2 and a mixed 2048^2 decode on their
+# default routes
+AB_LOWMEM = r'''
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from hdrvae_torch.core.config import DecoderConfig, HDRDecodeConfig, Precision
+from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+from hdrvae_torch.kernels import conv3x3
+from hdrvae_torch.models import fused_tail
+from hdrvae_torch.models.params import init_decoder
+
+rng = np.random.default_rng(5)
+wrap_sum = dev_sum = 0.0
+for h, w in cs.K5_SHAPES:
+    cin, cm, cout = cs.K5_CIN, cs.K5_CM, cs.K5_COUT
+    args = (cs._bf16(rng, (1, h, w, cin), 0.5),
+            cs._bf16(rng, (3, 3, cin, cm), (9 * cin) ** -0.5),
+            cs._uniform(rng, -0.1, 0.1, cm), cs._uniform(rng, 0.5, 1.5, (1, cm)),
+            cs._uniform(rng, -0.5, 0.5, (1, cm)),
+            cs._bf16(rng, (3, 3, cm, cout), (9 * cm) ** -0.5),
+            cs._uniform(rng, -0.1, 0.1, cout))
+
+    def run():
+        conv3x3.upconv_gn_conv3x3(*args, emit_stats=True, num_groups=32)
+    wrap = cs.cuda_ms(run, iters=5, warmup=2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+    dev = sum(e.device_time_total for e in prof.key_averages()
+              if "upconv" in e.key) / 5 / 1e3
+    wrap_sum, dev_sum = wrap_sum + wrap, dev_sum + dev
+    print(f"  K5 {h}x{w}->{2 * h}x{2 * w}: wrapper {wrap:.3f} ms, device "
+          f"{dev:.3f} ms", flush=True)
+    del args
+print(f"  K5 K5_SHAPES sum: wrapper {wrap_sum:.3f} ms, device "
+      f"{dev_sum:.3f} ms", flush=True)
+torch.cuda.empty_cache()
+dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
+cons = HDRDecodeConfig(hdr_mode="conservative")
+default = fused_tail.LOWMEM_MIN_PIXELS
+for tier, side, route in (("fast", 256, "whole"), ("fast", 256, "streamed"),
+                          ("fast", 512, "whole"), ("fast", 512, "streamed"),
+                          ("fast", 128, None), ("mixed", 256, None)):
+    z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, side, side, 16)).astype(np.float32)).cuda()
+    prec = getattr(Precision, tier)()
+    fused_tail.LOWMEM_MIN_PIXELS = {"whole": 1 << 62, "streamed": 1}.get(
+        route, default)
+    k5 = conv3x3.upconv_gn_conv3x3.launches
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        decode_summary(hdr_decode(dec, z, cons, prec))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(round(start.elapsed_time(end), 3))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  decode {side * 8}^2 {tier} {route or 'default route'}: device "
+          f"ms {times}, peak {peak:.3f} GiB, K5 launches "
+          f"{conv3x3.upconv_gn_conv3x3.launches - k5}", flush=True)
+    del z
+    torch.cuda.empty_cache()
+fused_tail.LOWMEM_MIN_PIXELS = default
+'''
+
+
 AB_TURNS = {"swin": lambda models: AB_TURN,
             "conv": lambda models: AB_CONV,
             "esrgan": lambda models: AB_ESRGAN.replace(
                 "K6_TABLE", repr(k6_table())),
             "attn": lambda models: AB_ATTN, "hat": lambda models: AB_HAT,
+            "lowmem": lambda models: AB_LOWMEM,
             "upscale": lambda models: AB_UPSCALE.replace("MODELS",
                                                          repr(models))}
 
@@ -872,8 +954,8 @@ def main() -> int:
                     help="kernel names listed per run")
     ap.add_argument("--ab-tree", metavar="DIR",
                     help="compare K7, a SwinIR-M upscale, K1, K2, decodes, "
-                         "K6, ESRGAN upscales, K3, K8 and HAT-M upscales "
-                         "with the tree in DIR instead")
+                         "K6, ESRGAN upscales, K3, K8, HAT-M upscales, K5 "
+                         "and streamed decodes with the tree in DIR instead")
     ap.add_argument("--ab-only", nargs="+", choices=list(AB_TURNS),
                     default=[t for t in AB_TURNS if t != "upscale"],
                     help="the --ab-tree turns run (default: all)")
