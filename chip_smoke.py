@@ -198,6 +198,14 @@ K6_FORWARD = {"conv_first": 1, "conv1": 69, "conv2": 69, "conv3": 69,
               "conv4": 69, "conv5": 69, "conv_body": 1, "conv_up1": 1,
               "conv_up2": 2, "conv_last": 1}
 K4_SHAPE = (1, 1024, 1024, 128)
+# K4's other maps, checked in both dtypes and not timed: (shape, kind) of a
+# ragged M (no multiple of a warp's 32-row chunk) whose |mean| >> std (1e3
+# + unit spread: bf16's step there is 4, so the spread survives), a ragged
+# row ramp whose largest values lie in the last
+# rows (the last partial), C = 20 (its thirds inside 16- and 8-byte
+# vectors) and C = 3 (the identity collapse, 2-byte bf16 vectors)
+K4_EXTRA = [((1, 37, 53, 128), "offset"), ((1, 41, 47, 128), "ramp"),
+            ((1, 33, 31, 20), "spread"), ((2, 9, 7, 3), "spread")]
 # K7 at the full widths of SwinIR-M and HAT-M (C 180, 6 heads, hd 30):
 # (name, H, W, window, shift, with HAT's extra residual)
 SWIN_DIM, SWIN_HEADS = 180, 6
@@ -222,6 +230,10 @@ K8_PEAK = 16.0
 SWIN_BUDGET = 5e-2          # relative to max(1, max|ref|): K7, fused chains
 SWIN_CROP = 768             # the SwinIR / HAT upscale input: 4 tiles a pass
 K4_BUDGET = 1e-5            # relative, on mean and std
+# K9 alone on windows whose rows are no multiple of 64, checked and not
+# timed: (name, H, W, window, shift): ws 10 (n16 112, two row blocks, the
+# last ragged) and ws 12 (n16 144, three), shifted
+K9_EXTRA = [("window 10", 120, 150, 10, 5), ("window 12", 144, 96, 12, 6)]
 FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
@@ -421,7 +433,8 @@ def phase_build() -> None:
                          ("K3 bf16", "flash_bf16_kernel"),
                          ("K3 3-pass", "flash_3pass_kernel"),
                          ("K8", "ocab_kernel"),
-                         ("K7", "swin_block_kernel")):
+                         ("K7", "swin_block_kernel"),
+                         ("K9", "attn_core_kernel")):
         n, funcs = hgmma_count(path, kernel)
         log(f"SASS: {n} HGMMA instructions in {name}'s {kernel} "
             f"({funcs} instances)")
@@ -429,10 +442,12 @@ def phase_build() -> None:
               "SASS)")
     # K3 bf16's, f32's and 3-pass's registers and spills per C / 64
     # instance, K5's per Cout / 64, K8's, K7's per body and channel width,
-    # and any ptxas warning (a serialized wgmma is one)
+    # K9's per key-tile count, K4's per type and vector width, and any
+    # ptxas warning (a serialized wgmma is one)
     for kernel in ("flash_bf16_kernel", "flash_f32_kernel",
                    "flash_3pass_kernel", "upconv_wgmma_kernel",
-                   "ocab_kernel", "swin_block_kernel"):
+                   "ocab_kernel", "swin_block_kernel", "attn_core_kernel",
+                   "collapse_stats_kernel"):
         for inst, (regs, stores, loads) in ptxas_report(compiler_log,
                                                         kernel):
             log(f"ptxas: {inst}: {regs} registers, {stores} bytes spill "
@@ -1168,28 +1183,55 @@ def _check_k5(rng) -> dict:
             "shapes": details}
 
 
+def _k4_compare(pre: torch.Tensor, label: str) -> tuple:
+    """K4 against its plain version on ``pre``: the collapse bit-exact,
+    min and max exact, mean and std within K4_BUDGET relative.  Returns
+    (collapsed, stats, max-abs over both, {mean, std: relative error})."""
+    from hdrvae_torch.kernels import epilogue
+    col, st = epilogue.collapse_and_stats_fused(pre)
+    rcol, rst = epilogue.collapse_and_stats_reference(pre)
+    torch.cuda.synchronize()
+    check(torch.equal(col, rcol), f"K4 {label}: collapse not bit-exact")
+    e_abs = max((col.float() - rcol.float()).abs().max().item(),
+                *(abs(st[k].item() - rst[k].item()) for k in st))
+    for key in ("min", "max"):
+        check(st[key].item() == rst[key].item(),
+              f"K4 {label}: {key} {st[key].item()} != {rst[key].item()}")
+    rel = {key: abs(st[key].item() - rst[key].item())
+           / max(abs(rst[key].item()), 1e-30) for key in ("mean", "std")}
+    for key, e in rel.items():
+        check(e <= K4_BUDGET, f"K4 {label}: {key} rel err {e}")
+    return col, st, e_abs, rel
+
+
+def _k4_extra_map(shape: tuple, kind: str, g) -> torch.Tensor:
+    x = torch.randn(shape, generator=g, device="cuda")
+    if kind == "offset":
+        return x + 1e3
+    if kind == "ramp":   # + 0.01 per row of [M, C]
+        rows = torch.arange(x.numel() // shape[-1], device="cuda")
+        return x + 0.01 * rows.reshape(*shape[:-1], 1)
+    return x * 2.0
+
+
 def _check_k4() -> dict:
     from hdrvae_torch.kernels import epilogue
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(K4_SHAPE, generator=g, device="cuda") * 2.0
     details, k_ms, p_ms, err, rel_err = [], 0.0, 0.0, 0.0, 0.0
     bnd = Bound()
+    for shape, kind in K4_EXTRA:
+        m = _k4_extra_map(shape, kind, g)
+        for dtype in (torch.float32, torch.bfloat16):
+            _, _, e_abs, rel = _k4_compare(m.to(dtype),
+                                           f"{kind} {list(shape)} {dtype}")
+            log(f"K4 collapse_and_stats {kind} {list(shape)} {dtype}: "
+                f"collapse bit-exact, min/max exact, mean rel "
+                f"{rel['mean']:.2e} std rel {rel['std']:.2e}")
+            err, rel_err = max(err, e_abs), max(rel_err, *rel.values())
     for dtype in (torch.float32, torch.bfloat16):
         pre = torch.nn.functional.silu(x).to(dtype)   # a post-SiLU map
-        col, st = epilogue.collapse_and_stats_fused(pre)
-        rcol, rst = epilogue.collapse_and_stats_reference(pre)
-        torch.cuda.synchronize()
-        check(torch.equal(col, rcol), f"K4 {dtype}: collapse not bit-exact")
-        e_abs = max((col.float() - rcol.float()).abs().max().item(),
-                    *(abs(st[k].item() - rst[k].item()) for k in st))
-        for key in ("min", "max"):
-            check(st[key].item() == rst[key].item(),
-                  f"K4 {dtype}: {key} {st[key].item()} != "
-                  f"{rst[key].item()}")
-        rel = {key: abs(st[key].item() - rst[key].item())
-               / abs(rst[key].item()) for key in ("mean", "std")}
-        for key, e in rel.items():
-            check(e <= K4_BUDGET, f"K4 {dtype}: {key} rel err {e}")
+        col, st, e_abs, rel = _k4_compare(pre, str(dtype))
         t = cuda_ms(lambda: epilogue.collapse_and_stats_fused(pre))
         tp = cuda_ms(lambda: epilogue.collapse_and_stats_reference(pre))
         gbs = pre.numel() * pre.element_size() / (t * 1e6)
@@ -1207,10 +1249,10 @@ def _check_k4() -> dict:
                         **b})
         k_ms, p_ms = k_ms + t, p_ms + tp
         err, rel_err = max(err, e_abs), max(rel_err, *rel.values())
-        del pre, col, rcol
+        del pre, col
     del x
     torch.cuda.empty_cache()
-    # max_abs_err: over the collapsed map and the four statistics
+    # max_abs_err: over the collapsed maps and the four statistics
     return {"name": "collapse_and_stats_fused", "route": "cuda",
             "source": "hdrvae_torch/csrc/epilogue.cu",
             "replaces": "hdrvae/kernels/epilogue.py:93", "max_abs_err": err,
@@ -1528,12 +1570,46 @@ def _window_mask(bias: torch.Tensor, ws: int, shift: int,
     return mask.reshape(-1, *bias.shape).to(torch.bfloat16)
 
 
-def _check_chain(rng) -> tuple:
+def _check_k9_ragged(rng) -> float:
+    """K9 alone against its plain version (not timed) on K9_EXTRA's windows,
+    whose rows are no multiple of 64, each on K10's qkv: within SWIN_BUDGET
+    and the padded rows n .. n16 of its output exactly zero.  Returns the
+    largest max-abs."""
+    from hdrvae_torch.core.config import Precision
+    from hdrvae_torch.kernels import swin_attention as ska
+    from hdrvae_torch.models.swinir import block_weights
+    err = 0.0
+    for name, h, w, ws, shift in K9_EXTRA:
+        blk = _swin_block(rng, SWIN_DIM, SWIN_HEADS, ws)
+        wts = block_weights(blk, SWIN_HEADS, ws, torch.bfloat16)
+        x = _bf16(rng, (1, h, w, SWIN_DIM))
+        kc = dict(heads=SWIN_HEADS, ws=ws, shift=shift,
+                  grid=(h // ws, w // ws))
+        qkv = ska.ln_qkv(x, wts, ws=ws, precision=Precision.fast())
+        o = ska.window_attention_core(qkv, wts.bias, **kc)
+        ref = ska.window_attention_core_reference(qkv, wts.bias, **kc)
+        torch.cuda.synchronize()
+        check(o.shape == ref.shape and torch.isfinite(o.float()).all().item(),
+              f"swin_attn_core {name}: {tuple(o.shape)} or not finite")
+        e = (o.float() - ref.float()).abs().max().item()
+        bound = SWIN_BUDGET * max(1.0, ref.float().abs().max().item())
+        check(e <= bound, f"swin_attn_core {name}: max-abs {e} > {bound}")
+        pad = o[:, ws * ws:].float().abs().sum().item()   # none at n16 = n
+        check(pad == 0.0, f"swin_attn_core {name}: padded rows {pad}")
+        log(f"swin_attn_core {name} {h}x{w} ws {ws} shift {shift}: max-abs "
+            f"{e:.3e} (budget {bound:.3e}), padded rows {o.shape[1] - ws * ws}"
+            f" zero")
+        err = max(err, e)
+    return err
+
+
+def _check_chain(rng, with_k7: bool = True) -> tuple:
     """The staged Swin chain at K7's v1 shapes: K10, K9 and K11 each against
     its plain version on the same input, each kernel's input the previous
     kernel's output, with the max-abs over the last window row and column
-    apart; then the chain against K7 on the same inputs and weights, with
-    both times.  Returns the three kernels' entries and the A/B records."""
+    apart; K9 also on K9_EXTRA's ragged windows; then (``with_k7``) the
+    chain against K7 on the same inputs and weights, with both times.
+    Returns the three kernels' entries and the A/B records."""
     from hdrvae_torch.core.config import Precision
     from hdrvae_torch.kernels import swin_attention as ska
     from hdrvae_torch.models.swinir import block_weights
@@ -1567,10 +1643,12 @@ def _check_chain(rng) -> tuple:
                 qkv, wts.bias, **kc),
             "swin_proj_mlp": lambda: ska.proj_mlp_reference(
                 o, x, wts, ws=ws, extra=e_in, precision=fast)}
-        work = {   # (operations, bytes): each input read once, output once
+        work = {   # (operations, bytes[, peak, exponentials]): each input
+                   # read once, output once
             "swin_ln_qkv": (2 * tokens * c * 3 * c, nbytes(
                 x, qkv, wts.wq, wts.bq, wts.g1, wts.be1)),
-            "swin_attn_core": (4 * tokens * n * c, nbytes(qkv, wts.bias, o)),
+            "swin_attn_core": (4 * tokens * n * c, nbytes(qkv, wts.bias, o),
+                               PEAK_BF16, tokens * n * SWIN_HEADS),
             "swin_proj_mlp": (2 * tokens * (c * c + 2 * c * 2 * c), nbytes(
                 o, x, e_in, y, wts.wp, wts.bp, wts.g2, wts.be2, wts.w1,
                 wts.b1, wts.w2, wts.b2))}
@@ -1618,6 +1696,9 @@ def _check_chain(rng) -> tuple:
             a["plain_ms"] += tp
             a["library_ms"] += tl or 0.0
             a["err"], a["edge"] = max(a["err"], e), max(a["edge"], e_last)
+        del qkv, o, y
+        if not with_k7:
+            continue
         # the chain against K7, same inputs and weights
         kw = dict(ws=ws, shift=shift, extra=e_in, precision=fast)
         yc = ska.swin_block_chain(x, wts, **kw)
@@ -1638,8 +1719,9 @@ def _check_chain(rng) -> tuple:
                    "bit_equal": bool(torch.equal(yc, y7)),
                    "kernels_sum_ms": t_sum, "chain_ms": t_chain,
                    "k7_ms": t_k7})
-        del x, e_in, qkv, o, y, yc, y7, wts, blk
+        del x, e_in, yc, y7, wts, blk
         torch.cuda.empty_cache()
+    acc["swin_attn_core"]["err_ragged"] = _check_k9_ragged(rng)
     replaces = {"swin_ln_qkv": 359, "swin_attn_core": 187,
                 "swin_proj_mlp": 411}
     entries = []
@@ -1650,7 +1732,8 @@ def _check_chain(rng) -> tuple:
             "name": key, "route": "cuda",
             "source": "hdrvae_torch/csrc/swin_chain.cu",
             "replaces": f"hdrvae/kernels/swin_attention.py:{replaces[key]}",
-            "max_abs_err": a["err"], "max_abs_err_last_row_col": a["edge"],
+            "max_abs_err": max(a["err"], a.get("err_ragged", 0.0)),
+            "max_abs_err_last_row_col": a["edge"],
             "ms": a["ms"], "plain_ms": a["plain_ms"], **a["bound"].entry(),
             "library_ms": a["library_ms"] if core else None,
             "library_call": "F.scaled_dot_product_attention, bf16, the bias "

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the port's implicit-GEMM convolutions
 // (conv3x3.cu: K1 / K2; dense_conv.cu: K6) and attention kernels
-// (attention.cu: K3; ocab.cu: K8): shared-memory addresses, mbarriers, TMA
-// tile and bulk copies, wgmma descriptors and the wgmma instructions
-// themselves, and libcuda's tensor-map encoder, reached through the
-// runtime (the library does not link libcuda).
+// (attention.cu: K3; ocab.cu: K8; swin_block.cu: K7; swin_chain.cu: K9):
+// shared-memory addresses, mbarriers, TMA tile and bulk copies, wgmma
+// descriptors and the wgmma instructions themselves, and libcuda's
+// tensor-map encoder, reached through the runtime (the library does not
+// link libcuda).
 
 #pragma once
 
@@ -79,8 +80,18 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-// A TMA tile store from shared memory, in the thread's bulk group; out-of-
+// TMA tile stores from shared memory, in the thread's bulk group; out-of-
 // bounds elements are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,
                                              int c2, int c3) {

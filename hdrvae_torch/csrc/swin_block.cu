@@ -47,8 +47,9 @@
 //    registers as S's A operand; k and v go to shared memory in the
 //    layouts S and P V read.  S = q K^T by wgmma m64n64k16, q from
 //    registers; the bias, the band masks and the softmax work on S's
-//    accumulator fragment (exact two-pass: max, exp, sum, then p = exp *
-//    (1 / sum) rounded to bf16, in registers in wgmma's A layout); O = P V
+//    accumulator fragment (exact two-pass: max, exp, sum, then p = exp /
+//    sum, correctly rounded by a reciprocal and one FMA correction, in bf16
+//    in registers in wgmma's A layout); O = P V
 //    by wgmma m64n32k16 with A from registers and V MN-major; O rounded to
 //    bf16 into the row block's attention output (K-major, one 32-column
 //    atom a head).  No float32 score and no q / k / v touches device
@@ -75,8 +76,8 @@
 //  * Past C = 192 the two warpgroups' buffers and a ring of three slots do
 //    not fit; there one warpgroup a block runs (C = 240, SwinIR-L).
 // Rounding points are those of the JAX kernel: LN outputs (v2: the input),
-// q/k/v, P and the attention output in bf16; scores, softmax (p as the exp
-// times the sum's reciprocal), q/k norms, residuals, LN and the MLP
+// q/k/v, P and the attention output in bf16; scores, softmax (p = exp /
+// sum, correctly rounded), q/k norms, residuals, LN and the MLP
 // accumulation in float32.
 
 #include "hopper.cuh"
@@ -90,7 +91,11 @@
 namespace {
 
 using winattn::bf16;
+using winattn::desc64;
+using winattn::frag_to_atom;
 using winattn::MAXC;
+using winattn::pack_bf16;
+using winattn::swz;
 
 constexpr int HD = 32;              // padded head dim: 64-byte rows
 constexpr int MAXWG = 2;            // warpgroups a block
@@ -124,28 +129,11 @@ struct Args {
   int offB, offPar, offRing, offBar;   // bytes from the aligned base
 };
 
-// wgmma descriptors, the 64-byte swizzle (64-byte rows, 8-row groups 512
-// B apart): K-major A / B tiles and MN-major B tiles one 32-column atom
-// wide (the leading offset is then unused); the 128-byte swizzle (MN-major
-// 64-column boxes, 8-row groups 1 KB apart, boxes 4 KB apart).
-__device__ __forceinline__ uint64_t desc64(uint32_t addr) {
-  return hopper::make_desc(addr, 16, 512, hopper::LAYOUT_B64);
-}
+// wgmma descriptors of the 128-byte swizzle (MN-major 64-column boxes,
+// 8-row groups 1 KB apart, boxes 4 KB apart); the 64-byte swizzle's
+// (desc64) and its atom layout (swz, frag_to_atom) are window_attention.cuh's.
 __device__ __forceinline__ uint64_t desc128(uint32_t addr) {
   return hopper::make_desc(addr, 4096, 1024, hopper::LAYOUT_B128);
-}
-
-// Byte offset of element (r, c) of a K-major region of [64 x 32] atoms
-// (64-byte rows, the 64-byte swizzle: 16-byte chunk bits 4-5 XOR address
-// bits 7-8); atoms at 4 KB strides along c.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  const uint32_t e = r * 32 + (c & 31);
-  return (c >> 5) * ATOM + 2 * (e ^ (((e >> 6) & 3) << 3));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
@@ -178,21 +166,6 @@ __device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
                "r"(bytes)
                : "memory");
-}
-
-// An m64n32 accumulator fragment (f[4 j + 2 i + e]: row 16 w + g + 8 i,
-// column 8 j + 2 t + e of warp w, lane 4 g + t) rounded to bf16 into a
-// [64 x 32] atom with the 64-byte swizzle.
-__device__ __forceinline__ void frag_to_atom(unsigned char* atom,
-                                             const float* f, int wl, int g,
-                                             int t) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint32_t*>(atom + swz(16 * wl + g + 8 * i,
-                                              8 * j + 2 * t)) =
-          pack_bf16(f[4 * j + 2 * i], f[4 * j + 2 * i + 1]);
 }
 
 template <bool V2, int NCT>
@@ -890,11 +863,18 @@ swin_block_kernel(const __grid_constant__ CUtensorMap wqmap,
             }
           l += __shfl_xor_sync(0xffffffffu, l, 1);
           l += __shfl_xor_sync(0xffffffffu, l, 2);
+          // p = e / l, correctly rounded (what __fdiv_rn gives, as the
+          // JAX kernel's p / l): e times il = 1 / l rounded, then one FMA
+          // correction (Markstein); padded rows take il = 0, so p = 0
           const float il = 16 * wl + g + 8 * i < n ? 1.0f / l : 0.0f;
 #pragma unroll
           for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) s[4 * j + 2 * i + e] *= il;
+            for (int e = 0; e < 2; ++e) {
+              float& x = s[4 * j + 2 * i + e];
+              const float q = x * il;
+              x = fmaf(fmaf(-q, l, x), il, q);
+            }
         }
         to_p(pa, s);
         float o[16];
@@ -1026,7 +1006,8 @@ swin_block_kernel(const __grid_constant__ CUtensorMap wqmap,
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 float& x = s[4 * j + 2 * i + e];
-                x = expf(x - m[i]) * il[i];
+                const float ex = expf(x - m[i]), q = ex * il[i];
+                x = fmaf(fmaf(-q, l[i], ex), il[i], q);   // ex / l, as above
               }
           uint32_t pa[16];
           to_p(pa, s);

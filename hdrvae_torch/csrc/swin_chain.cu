@@ -1,6 +1,6 @@
 // The staged Swin chain: a v1 Swin block (SwinIR, HAT's HAB with the
 // optional `extra` residual) as three kernels on Hopper's tensor cores
-// (bf16 mma.sync and WMMA, float32 accumulation), 512 threads a block.
+// (bf16 operands, float32 accumulation).
 //
 // Replaces the TPU kernels K10, K9 and K11 of the JAX package, the staged
 // debugging tier of its fused block:
@@ -11,8 +11,10 @@
 //                                                         [+ extra] -> LN2
 //                                                         -> MLP + residual
 // on an image [B, H, W, C] already rolled by -shift.  Each stage computes
-// and rounds what K7 (swin_block.cu) computes and rounds at that point,
-// with the same code, so the chain's output equals K7's.
+// and rounds what K7 (swin_block.cu) computes and rounds at that point
+// (K9 normalizes P by a divide where K7 multiplies by the reciprocal: one
+// rounding apart), so the chain's output stays within the fast tier's
+// budget of K7's.
 //
 // Between the kernels (nwin = B * (H / ws) * (W / ws) windows of n = ws *
 // ws tokens, padded to n16 = 16 * ceil(n / 16) rows, rows >= n zero):
@@ -27,32 +29,41 @@
 // What bounds it on the H100: the chain writes and reads qkv (3 x the
 // feature map at C = 180, padded head dims) and o through device memory,
 // about 1.1 GB a SwinIR-M 512^2 block against K7's 0.2 GB, for the same
-// ~0.16 TFLOP: bytes bound it (~0.33 ms at 3.35 TB/s).  What the split
-// buys: K9 holds no weight ring, so at n = 64 four blocks share an SM
-// (K7: one ~212 KB block), and K10 two; K11 keeps K7's MLP layout (one
-// block an SM).  Every kernel takes 64 query rows of one window a block.
-//  * K10, per (window, row block): LN1 rows in float32 -> bf16 in shared
-//    memory -> qkv = y @ Wqkv + bqkv through K7's cp.async weight ring
-//    (gemm_weights) -> bf16 rows of the window's qkv.
-//  * K9, per (window, head, row block): q rows and K copied to shared
-//    memory -> S = q k^T (float32, shared) -> + bias [heads, n, n] + -100
-//    band masks in the last window row / column of a shifted grid (a
-//    corner window takes both) -> float32 softmax, 8 threads a row, V
-//    arriving over K's bytes meanwhile -> P in bf16 over S -> P v -> bf16.
-//  * K11, per (window, row block): o rows, x (float32) and extra read ->
-//    proj -> x2 = x + proj + bp [+ extra] -> LN2 -> fc1 + b1 -> exact GELU
-//    (erff) -> fc2 -> x2 + out + b2 -> bf16 -> the window's pixels.
+// ~0.16 TFLOP: bytes bound it (~0.33 ms at 3.35 TB/s).
+//  * K10, per (window, row block), 512 threads: LN1 rows in float32 ->
+//    bf16 in shared memory -> qkv = y @ Wqkv + bqkv through K7's cp.async
+//    weight ring (gemm_weights, mma.sync) -> bf16 rows of the window's qkv.
+//  * K9 (wgmma, TMA): bound by reading qkv and writing o once (0.12 ms at
+//    SwinIR-M's 512^2 tile).  Persistent blocks of one warpgroup, each
+//    with one head and a stream of windows: a window's q, k and v columns
+//    of that head come by one TMA box each (n64 = 64 ceil(n16 / 64) rows
+//    of 64 bytes, the 64-byte swizzle, zero past n16) into a ring of two
+//    to four slots, so every byte of qkv is read once and K and V serve
+//    every row block of the window.  Per 64-row block S = q K^T by wgmma
+//    m64n64k16 over the n64 / 64 key tiles (q and K from shared memory),
+//    the whole score row in registers (32 floats a key tile); + the
+//    position bias (at n <= 64 the head's table resident in shared
+//    memory, else read from L2) and the -100 band masks in the last
+//    window row / column of a shifted grid (a corner window takes both;
+//    each key's band bits computed once); the exact softmax by quad
+//    shuffles, e = exp2(s log2 e - max log2 e), p = e / l correctly
+//    rounded (the JAX kernel's divide: a reciprocal of l a row and one
+//    FMA correction an element) and rounded to bf16 in wgmma's A layout; O = P V by m64n32k16 with A from registers and V
+//    MN-major; O in bf16 through a staging atom and one TMA store (rows
+//    past n16 are not written, padded rows get p = 0, so O = 0).
+//  * K11, per (window, row block), 512 threads: o rows, x (float32) and
+//    extra read -> proj -> x2 = x + proj + bp [+ extra] -> LN2 -> fc1 + b1
+//    -> exact GELU (erff) -> fc2 -> x2 + out + b2 -> bf16 -> the window's
+//    pixels.
 
 #include <algorithm>
 
+#include "hopper.cuh"
 #include "window_attention.cuh"
 
 namespace {
 
 using namespace winattn;
-
-constexpr int LDQ = HDP + 8;   // row stride of the staged q / K / V
-constexpr int TPR = 8;         // threads a softmax row, as in K7
 
 // A window grid on an image [B, H, W, C] (C padded to CP).
 struct Grid {
@@ -104,54 +115,301 @@ ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
 // K9: the attention core
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NT)
-attn_core_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                 bf16* __restrict__ out, int heads, int ws, int shift, int n,
-                 int n16, int nwh, int nww, int lds) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* S = reinterpret_cast<float*>(smem);                  // [64, lds]
-  bf16* qs = reinterpret_cast<bf16*>(smem + RB * lds * 4);    // [64, LDQ]
-  bf16* kv = qs + RB * LDQ;                                   // [n16, LDQ]
-  float* stage = reinterpret_cast<float*>(kv + n16 * LDQ) +
-                 (threadIdx.x >> 5) * 256;
-  const int win = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * RB;
-  const int nrt = min(4, (n16 - r0) / 16);
-  const int QW = heads * 96;
-  const bf16* src = qkv + static_cast<size_t>(win) * n16 * QW + h * 96;
+namespace k9 {
 
-  copy_rows_async(qs, LDQ, src + static_cast<size_t>(r0) * QW, QW, nrt * 16,
-                  HDP);
-  copy_rows_async(kv, LDQ, src + HDP, QW, n16, HDP);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  gemm_rows<true>(qs, LDQ, nrt, kv, LDQ, 2, n16 / 16,
-                  [&](int rt, int ct, const Acc& acc) {
-    wmma::store_matrix_sync(S + static_cast<size_t>(rt) * 16 * lds + ct * 16,
-                            acc, lds, wmma::mem_row_major);
-  });
-  __syncthreads();
-  copy_rows_async(kv, LDQ, src + 2 * HDP, QW, n16, HDP);   // V over K
-  cp_async_commit();
+constexpr int NT = 128;       // one warpgroup a block
+constexpr int LDBIAS = 72;    // a resident bias row's floats (conflict-free)
+constexpr float LOG2E = 1.4426950408889634f;
 
-  const int wc = win % nww, wr = (win / nww) % nwh;
-  const BandMasks<TPR> masks(ws, shift, wr == nwh - 1, wc == nww - 1);
-  const float* bias_h = bias + static_cast<size_t>(h) * n * n;
-  softmax_rows<TPR>(S, lds, nrt * 16, n - r0, n, n16, [&](int r) {
-    const int q = min(r0 + r, n - 1);   // padded queries: any row
-    return masks.row(q, bias_h + static_cast<size_t>(q) * n);
-  });
-  cp_async_wait<0>();
+struct Args {
+  const float* bias;   // [heads, n, n]
+  int heads, ws, shift, n, nwh, nww, nwin;
+  int nstream;         // window streams: gridDim.x / heads
+  int ns;              // ring slots
+  int offRing, offOut, offBar;   // bytes from the aligned base
+};
+
+// NTK = n64 / 64 key tiles (and row blocks) of a window: the whole score
+// row of a query stays in registers (32 NTK floats a thread).
+template <int NTK>
+__global__ void __launch_bounds__(NT, NTK == 1 ? 3 : 2)
+attn_core_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap omap, const Args a) {
+  constexpr int SLOT = 3 * NTK * ATOM;   // q, k, v of one (window, head)
+  constexpr bool RESIDENT = NTK == 1;    // the head's bias in shared memory
+  // aligned by an offset from smem_raw, so every access stays in the
+  // shared window
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_s = hopper::smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw_s & 1023u)) & 1023u;
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t base_s = raw_s + pad;
+  const uint32_t ring_s = base_s + a.offRing, bar_s = base_s + a.offBar;
+  unsigned char* out_p = smem + a.offOut;
+  const uint32_t out_s = base_s + a.offOut;
+  auto full = [&](int s) { return bar_s + 8 * s; };
+
+  const int tid = threadIdx.x, wl = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = a.n, h = blockIdx.x % a.heads;
+  const int stream = blockIdx.x / a.heads;
+  const int nitems =
+      stream < a.nwin ? (a.nwin - 1 - stream) / a.nstream + 1 : 0;
+  const float* bias_h = a.bias + static_cast<size_t>(h) * n * n;
+
+  // the head's [n, n] bias as [64][LDBIAS] floats, zero past n
+  float* bias_s = reinterpret_cast<float*>(smem);
+  if (RESIDENT)
+    for (int e = tid; e < 64 * 64; e += NT) {
+      const int r = e >> 6, c = e & 63;
+      bias_s[r * LDBIAS + c] = r < n && c < n ? bias_h[r * n + c] : 0.0f;
+    }
+  // item i (window stream + i * nstream, this block's head): its q, k and
+  // v columns, n64 rows each (zero past n16), into slot i % ns
+  auto put = [&](int i) {
+    const int win = stream + i * a.nstream;
+    const uint32_t dst = ring_s + (i % a.ns) * SLOT, fb = full(i % a.ns);
+    hopper::mbar_expect_tx(fb, SLOT);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      hopper::tma_load_3d(dst + j * NTK * ATOM, &qmap, fb, h * 96 + j * HDP,
+                          0, win);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < a.ns; ++s) hopper::mbar_init(full(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  bf16* ob = out + (static_cast<size_t>(win) * n16 + r0) * heads * HDP +
-             h * HDP;
-  gemm_rows<false>(reinterpret_cast<const bf16*>(S), 2 * lds, nrt, kv, LDQ,
-                   n16 / 16, 2, [&](int rt, int ct, const Acc& acc) {
-    each_run8(stage, rt, ct, acc, [&](int r, int c, const float* v) {
-      store_bf16x8(ob + static_cast<size_t>(r) * heads * HDP + c, v);
-    });
-  });
+  if (tid == 0)
+    for (int i = 0; i < min(a.ns, nitems); ++i) put(i);
+  auto wg_sync = [&]() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); };
+
+  // this thread's 16 keys of each key tile (8 j + 2 t + e, bit 2 j + e):
+  // in the band of the last window row (column) of a shifted grid, past n
+  const int band = a.ws - a.shift;
+  const float inv_ws = 1.0f / a.ws;
+  uint32_t kband[NTK], kdead[NTK];
+#pragma unroll
+  for (int kt = 0; kt < NTK; ++kt) {
+    kband[kt] = kdead[kt] = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = 64 * kt + 8 * j + 2 * t + e;
+        const int kr = __float2int_rz((key + 0.5f) * inv_ws);
+        const int kc = key - kr * a.ws;
+        kband[kt] |= (static_cast<uint32_t>(kr >= band) |
+                      static_cast<uint32_t>(kc >= band) << 16)
+                     << (2 * j + e);
+        kdead[kt] |= static_cast<uint32_t>(key >= n) << (2 * j + e);
+      }
+  }
+
+  for (int i = 0; i < nitems; ++i) {
+    const int win = stream + i * a.nstream;
+    const uint32_t q_s = ring_s + (i % a.ns) * SLOT;
+    const uint32_t k_s = q_s + NTK * ATOM, v_s = k_s + NTK * ATOM;
+    const int wr = (win / a.nww) % a.nwh, wc = win % a.nww;
+    const bool lr = a.shift > 0 && wr == a.nwh - 1;
+    const bool lc = a.shift > 0 && wc == a.nww - 1;
+    hopper::mbar_wait(full(i % a.ns), (i / a.ns) & 1);
+#pragma unroll 1
+    for (int rb = 0; rb < NTK; ++rb) {
+      // S = q K^T of the row block over every key tile
+      float s[NTK][32];
+#pragma unroll
+      for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[kt][e] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < NTK; ++kt) hopper::fence_operands<32>(s[kt]);
+      hopper::wgmma_fence();
+      const uint64_t dq = desc64(q_s + rb * ATOM);
+#pragma unroll
+      for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          hopper::wgmma_ss<64, 0>(s[kt], dq + 2 * kk,
+                                  desc64(k_s + kt * ATOM) + 2 * kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int kt = 0; kt < NTK; ++kt) hopper::fence_operands<32>(s[kt]);
+
+      // + bias and band masks, the exact softmax of each row (a quad's
+      // four lanes hold it), p = e / l rounded to bf16 as P V's A operand.
+      // A window of the last row or column of a shifted grid takes the
+      // band masks, the others the bias alone (a branch uniform over the
+      // warpgroup); keys past n only where n is no multiple of 64
+      uint32_t pa[NTK][16];
+      const bool masked = lr || lc, ragged = n < 64 * NTK;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 64 * rb + 16 * wl + g + 8 * r;
+        const int q = min(row, n - 1);   // padded queries: any row
+        const float* brow = RESIDENT ? bias_s + q * LDBIAS : bias_h + q * n;
+        // the row's bias (key 64 kt + 8 (b / 2) + 2 t + b % 2 at [kt][b]),
+        // every load issued before any is used
+        float bb[NTK][16];
+#pragma unroll
+        for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+          for (int b = 0; b < 16; ++b) {
+            const int key = 64 * kt + 8 * (b >> 1) + 2 * t + (b & 1);
+            bb[kt][b] = RESIDENT ? brow[key]
+                                 : (key < n ? __ldg(brow + key) : 0.0f);
+          }
+        if (masked) {
+          // keys masked against this query: on the other side of the band
+          const int qr = q / a.ws, qc = q - qr * a.ws;
+          const uint32_t mrow = lr ? (qr >= band ? 0xffffu : 0u) : 0u;
+          const uint32_t mcol = lc ? (qc >= band ? 0xffffu : 0u) : 0u;
+#pragma unroll
+          for (int kt = 0; kt < NTK; ++kt) {
+            const uint32_t xr = lr ? (kband[kt] & 0xffffu) ^ mrow : 0u;
+            const uint32_t xc = lc ? (kband[kt] >> 16) ^ mcol : 0u;
+#pragma unroll
+            for (int b = 0; b < 16; ++b) {
+              float& v = s[kt][4 * (b >> 1) + 2 * r + (b & 1)];
+              if ((xr >> b) & 1u) bb[kt][b] += -100.0f;
+              v += bb[kt][b];
+              if ((xc >> b) & 1u) v += -100.0f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+            for (int b = 0; b < 16; ++b)
+              s[kt][4 * (b >> 1) + 2 * r + (b & 1)] += bb[kt][b];
+        }
+        if (ragged)
+#pragma unroll
+          for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+            for (int b = 0; b < 16; ++b)
+              if ((kdead[kt] >> b) & 1u)
+                s[kt][4 * (b >> 1) + 2 * r + (b & 1)] = -INFINITY;
+        // the row's max and sum over four partials each (short chains)
+        float mp[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+          for (int b = 0; b < 16; ++b)
+            mp[b & 3] = fmaxf(mp[b & 3], s[kt][4 * (b >> 1) + 2 * r + (b & 1)]);
+        float m = fmaxf(fmaxf(mp[0], mp[1]), fmaxf(mp[2], mp[3]));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        // exp(v - m) as exp2(v log2 e - m log2 e): one FFMA and ex2
+        const float m2 = m * LOG2E;
+        float lp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+          for (int b = 0; b < 16; ++b) {
+            float& v = s[kt][4 * (b >> 1) + 2 * r + (b & 1)];
+            v = exp2f(fmaf(v, LOG2E, -m2));
+            lp[b & 3] += v;
+          }
+        float l = (lp[0] + lp[1]) + (lp[2] + lp[3]);
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        // p = e / l, correctly rounded (what __fdiv_rn gives): q = e rl
+        // with rl = 1 / l rounded, then one FMA correction (Markstein)
+        const bool live = row < n;
+        const float rl = __frcp_rn(l);
+        auto div = [&](float e) { return fmaf(fmaf(-e * rl, l, e), rl, e * rl); };
+#pragma unroll
+        for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            pa[kt][2 * j + r] =
+                live ? pack_bf16(div(s[kt][4 * j + 2 * r]),
+                                 div(s[kt][4 * j + 2 * r + 1]))
+                     : 0u;
+      }
+
+      // O = P V, P from registers, V MN-major
+      float o[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) o[e] = 0.0f;
+      hopper::fence_operands<16>(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < NTK; ++kt)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          hopper::wgmma_rs_n32<1>(o, pa[kt] + 4 * ks,
+                                  desc64(v_s + kt * ATOM) + ks * 64);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands<16>(o);
+
+      // O in bf16 through the staging atom, out by one TMA store (rows
+      // past n16 are not written)
+      if (tid == 0) hopper::bulk_wait_read();   // the last store read it
+      wg_sync();
+      frag_to_atom(out_p, o, wl, g, t);
+      hopper::fence_proxy_async();
+      wg_sync();   // and every warp is done with the slot's q / K / V
+      if (tid == 0) {
+        hopper::tma_store_3d(&omap, out_s, h * HDP, 64 * rb, win);
+        hopper::bulk_commit();
+        if (rb == NTK - 1 && i + a.ns < nitems) put(i + a.ns);
+      }
+    }
+  }
+  if (tid == 0) hopper::bulk_wait();
 }
+
+// The ring slots of the NTK instance (a block's shared memory sets how
+// many blocks share an SM: three at NTK 1, two above).
+constexpr int slots(int ntk) { return ntk == 1 ? 4 : 2; }
+
+template <int NTK>
+int launch(const void* qkv, const float* bias, void* out, Args a,
+           cudaStream_t stream) {
+  constexpr int SLOT = 3 * NTK * ATOM;
+  const int n16 = round_up(a.n, 16);
+  CUtensorMap qmap, omap;
+  const uint64_t qd[3] = {static_cast<uint64_t>(a.heads) * 96,
+                          static_cast<uint64_t>(n16),
+                          static_cast<uint64_t>(a.nwin)};
+  const uint32_t qb[3] = {HDP, 64 * NTK, 1};
+  const uint64_t od[3] = {static_cast<uint64_t>(a.heads) * HDP,
+                          static_cast<uint64_t>(n16),
+                          static_cast<uint64_t>(a.nwin)};
+  const uint32_t ob[3] = {HDP, 64, 1};
+  int err = hopper::make_map(&qmap, qkv, 3, qd, qb,
+                             CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == 0)
+    err = hopper::make_map(&omap, out, 3, od, ob, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != 0) return err;
+  a.bias = bias;
+  a.ns = slots(NTK);
+  a.offRing = NTK == 1 ? 64 * LDBIAS * 4 : 0;   // 18 KB: 1 KB aligned
+  a.offOut = a.offRing + a.ns * SLOT;
+  a.offBar = a.offOut + ATOM;
+  const int smem = a.offBar + 8 * a.ns + 1024;   // + the alignment
+  auto kernel = attn_core_kernel<NTK>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // a persistent grid of window streams, each its heads' blocks
+  a.nstream = std::max(1, std::min(a.nwin, sms * per_sm / a.heads));
+  kernel<<<a.nstream * a.heads, NT, smem, stream>>>(qmap, omap, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k9
 
 // ---------------------------------------------------------------------------
 // K11: proj + residuals, LN2, MLP, residual
@@ -324,15 +582,22 @@ int hdrvae_swin_attn_core(const void* qkv, const void* bias, void* out,
   if (ws < 1 || n16 > 256 || heads < 1 || shift < 0 || shift >= ws ||
       nwh < 1 || nww < 1 || nwin < 1 || nwin % (nwh * nww))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int lds = n16 + 4;
-  const int smem = RB * lds * 4 + (RB + n16) * LDQ * 2 + STAGE_BYTES;
-  cudaError_t err = allow_smem(attn_core_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nwin, heads, (n16 + RB - 1) / RB);
-  attn_core_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), heads, ws, shift, n, n16, nwh, nww, lds);
-  return static_cast<int>(cudaGetLastError());
+  k9::Args a = {};
+  a.heads = heads;
+  a.ws = ws;
+  a.shift = shift;
+  a.n = n;
+  a.nwh = nwh;
+  a.nww = nww;
+  a.nwin = nwin;
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((n16 + 63) / 64) {
+    case 1: return k9::launch<1>(qkv, b, out, a, s);
+    case 2: return k9::launch<2>(qkv, b, out, a, s);
+    case 3: return k9::launch<3>(qkv, b, out, a, s);
+    default: return k9::launch<4>(qkv, b, out, a, s);
+  }
 }
 
 // K11.  o [nwin, n16, heads*32] bf16; x, extra (or null), y [B, H, W, C]

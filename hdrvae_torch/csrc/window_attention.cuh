@@ -1,34 +1,29 @@
 // Building blocks of the three kernels of the staged Swin chain (K9-K11,
 // swin_chain.cu; the Swin block kernel K7, swin_block.cu, takes its exact
-// GELU and cp.async copies from here), on bf16 tensor-core products with
-// float32 accumulation: cp.async copies of bf16 rows into shared
-// memory, a 64-row block GEMM with both operands in shared memory (WMMA),
-// one whose B operand (a weight matrix in global memory, read by every
-// window from L2) streams through a two-buffer cp.async ring (ldmatrix +
-// mma.sync m16n8k16), per-warp staging of accumulator tiles for
-// elementwise epilogues, a softmax of score rows in shared memory, and
-// the LayerNorm rows and exact GELU of the block's MLP half.
+// GELU, cp.async copies and atom layout from here): cp.async copies of
+// bf16 rows into shared memory, a 64-row block GEMM whose B operand (a
+// weight matrix in global memory, read by every window from L2) streams
+// through a two-buffer cp.async ring (ldmatrix + mma.sync m16n8k16), the
+// LayerNorm rows and exact GELU of the block's MLP half, and the [64 x 32]
+// bf16 atoms with the 64-byte swizzle that K7's and K9's wgmma products
+// read (their descriptor, layout and the store of an accumulator fragment).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace winattn {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int NT = 512;        // threads per block: 16 warps, four a scheduler
 constexpr int NWARPS = NT / 32;
 constexpr int RB = 64;         // rows per row block: four 16-row tiles
 constexpr int HDP = 32;        // padded head dim
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+constexpr int ATOM = 64 * HDP * 2;   // a [64 x 32] bf16 atom: 4 KB
 
 // 16-byte global -> shared copy (both addresses 16-byte aligned).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -63,51 +58,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// C[nrt*16, nct*16] = A[nrt*16, ksteps*16] @ B[ksteps*16, nct*16] for one
-// row block of nrt (<= 4) row tiles, A and B in shared memory, A row major
-// (lda), B row major (ldb: B[k][n] at B + k * ldb + n) or, with B_COL,
-// column major (B[k][n] at B + n * ldb + k, i.e. the transpose of a
-// row-major [n, k] matrix such as K in q @ K^T).  Every warp takes whole
-// column tiles over all row tiles when there are at least as many column
-// tiles as warps (each B fragment is loaded once for four products), else
-// single (row, column) fragments.  epi(rt, ct, acc) consumes each finished
-// fragment.  Pointers must be 32-byte aligned and ld a multiple of 8.
-template <bool B_COL, typename Epi>
-__device__ __forceinline__ void gemm_rows(const bf16* A, int lda, int nrt,
-                                          const bf16* B, int ldb, int ksteps,
-                                          int nct, Epi epi) {
-  typedef typename std::conditional<B_COL, wmma::col_major,
-                                    wmma::row_major>::type BLayout;
-  const int warp = threadIdx.x >> 5;
-  const bool all_rows = nct >= NWARPS;
-  const int nwork = all_rows ? nct : nct * nrt;
-  for (int w = warp; w < nwork; w += NWARPS) {
-    const int ct = all_rows ? w : w / nrt;
-    const int rlo = all_rows ? 0 : w % nrt;
-    const int rhi = all_rows ? nrt : rlo + 1;
-    Acc acc[4];
-#pragma unroll
-    for (int rt = 0; rt < 4; ++rt) wmma::fill_fragment(acc[rt], 0.0f);
-    for (int k = 0; k < ksteps; ++k) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bf;
-      const bf16* bp = B_COL ? B + static_cast<size_t>(ct) * 16 * ldb + k * 16
-                             : B + static_cast<size_t>(k) * 16 * ldb + ct * 16;
-      wmma::load_matrix_sync(bf, bp, ldb);
-#pragma unroll
-      for (int rt = 0; rt < 4; ++rt) {
-        if (rt < rlo || rt >= rhi) continue;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(
-            af, A + static_cast<size_t>(rt) * 16 * lda + k * 16, lda);
-        wmma::mma_sync(acc[rt], af, bf, acc[rt]);
-      }
-    }
-#pragma unroll
-    for (int rt = 0; rt < 4; ++rt)
-      if (rt >= rlo && rt < rhi) epi(rt, ct, acc[rt]);
-  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -256,113 +206,6 @@ __device__ __forceinline__ void gemm_weights(const bf16* A, int lda, int nrt,
   }
 }
 
-// Softmax of rows [0, nrows) of S in place (nrows a multiple of 32 / TPR),
-// TPR threads a row, each taking the row's columns j = k + TPR i in steps
-// i.  row_score(r) returns the scorer of row r, f(i, j, s) adding the bias
-// and masks of column j < ncols; rows r >= nvalid (padded queries) get zero
-// probabilities.  Three passes over the row in shared memory, so no
-// register array holds it: the scores and their max, the exps and their
-// sum, then the probabilities as bf16 over the row's own bytes (row r of
-// P, stride 2 * lds), zero for ncols <= j < ncols16.  Float32 max, exp and
-// sum; p is the exp times the sum's reciprocal, rounded to bf16 for the
-// value product.
-template <int TPR, typename RowScore>
-__device__ __forceinline__ void softmax_rows(float* S, int lds, int nrows,
-                                             int nvalid, int ncols,
-                                             int ncols16,
-                                             RowScore row_score) {
-  const int k = threadIdx.x % TPR;
-  for (int r = threadIdx.x / TPR; r < nrows; r += NT / TPR) {
-    float* srow = S + static_cast<size_t>(r) * lds;
-    const auto score = row_score(r);
-    float m = -CUDART_INF_F;
-    for (int i = 0, j = k; j < ncols; ++i, j += TPR) {
-      const float v = score(i, j, srow[j]);
-      srow[j] = v;
-      m = fmaxf(m, v);
-    }
-#pragma unroll
-    for (int o = TPR / 2; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.0f;
-    for (int j = k; j < ncols; j += TPR) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      l += e;
-    }
-#pragma unroll
-    for (int o = TPR / 2; o > 0; o >>= 1)
-      l += __shfl_xor_sync(0xffffffffu, l, o);
-    const float il = r < nvalid ? 1.0f / l : 0.0f;
-    // bf16 p[j] lands on the bytes of float e[j / 2]: each step reads its
-    // columns, then writes, and the writes of a step only cover columns
-    // read in earlier steps or this one
-    bf16* P = reinterpret_cast<bf16*>(srow);
-    for (int j0 = 0; j0 < ncols16; j0 += TPR) {
-      const int j = j0 + k;
-      const float p = j < ncols ? srow[j] * il : 0.0f;
-      __syncwarp();
-      if (j < ncols16) P[j] = __float2bfloat16(p);
-    }
-    __syncwarp();
-  }
-}
-
-// The -100 band masks of a window in a shifted grid (the wrapper's
-// band_masks): in the last window row (column) a score is masked between
-// a query and a key on either side of window row (column) ws - shift; a
-// corner window takes both, -200 in total, which the softmax treats as it
-// treats -100.  The bits of the key columns a softmax thread visits (k +
-// TPR i, k = thread % TPR, n16 <= 256) are computed once a block.
-template <int TPR>
-struct BandMasks {
-  bool last_row, last_col;
-  int ws, band;
-  unsigned jrow = 0, jcol = 0;   // bit i: column k + TPR i in the band
-
-  __device__ __forceinline__ BandMasks(int ws_, int shift, bool in_last_row,
-                                       bool in_last_col)
-      : last_row(shift > 0 && in_last_row),
-        last_col(shift > 0 && in_last_col), ws(ws_), band(ws_ - shift) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int j = threadIdx.x % TPR + TPR * i;
-      jrow |= static_cast<unsigned>(j / ws >= band) << i;
-      jcol |= static_cast<unsigned>(j % ws >= band) << i;
-    }
-  }
-
-  // softmax_rows' scorer of query q: s + the bias row brow [n] + masks
-  __device__ __forceinline__ auto row(int q, const float* brow) const {
-    const unsigned qr = (q / ws) >= band, qc = (q % ws) >= band;
-    const bool lr = last_row, lc = last_col;
-    const unsigned jr = jrow, jc = jcol;
-    return [=](int i, int j, float s) {
-      float t = brow[j];
-      if (lr && qr != ((jr >> i) & 1u)) t += -100.0f;
-      s += t;
-      if (lc && qc != ((jc >> i) & 1u)) s += -100.0f;
-      return s;
-    };
-  }
-};
-
-// Hand one fragment to its warp as eight consecutive values a lane
-// through the warp's 16x16 float32 stage: f(row within the row block,
-// first column, v[8]); lanes 2r and 2r + 1 take row r.
-template <typename F>
-__device__ __forceinline__ void each_run8(float* stage, int rt, int ct,
-                                          const Acc& acc, F f) {
-  wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  float v[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = stage[lane * 8 + i];
-  f(rt * 16 + (lane >> 1), ct * 16 + (lane & 1) * 8, v);
-  __syncwarp();
-}
-
 // Eight float32 values as eight bf16 in one 16-byte store (dst 16-byte
 // aligned).
 __device__ __forceinline__ void store_bf16x8(bf16* dst, const float* v) {
@@ -433,6 +276,41 @@ __device__ __forceinline__ void layer_norm_rows(
 // Exact (erf) GELU of x in float32.
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// The wgmma descriptor of [64 x 32] bf16 atoms with the 64-byte swizzle
+// (64-byte rows, 8-row groups 512 B apart): K-major A / B tiles and
+// MN-major B tiles one atom wide (the leading offset is then unused).
+__device__ __forceinline__ uint64_t desc64(uint32_t addr) {
+  return hopper::make_desc(addr, 16, 512, hopper::LAYOUT_B64);
+}
+
+// Byte offset of element (r, c) of a K-major region of [64 x 32] atoms
+// (64-byte rows, the 64-byte swizzle: 16-byte chunk bits 4-5 XOR address
+// bits 7-8); atoms at 4 KB strides along c.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  const uint32_t e = r * 32 + (c & 31);
+  return (c >> 5) * ATOM + 2 * (e ^ (((e >> 6) & 3) << 3));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// An m64n32 accumulator fragment (f[4 j + 2 i + e]: row 16 w + g + 8 i,
+// column 8 j + 2 t + e of warp w, lane 4 g + t) rounded to bf16 into a
+// [64 x 32] atom with the 64-byte swizzle.
+__device__ __forceinline__ void frag_to_atom(unsigned char* atom,
+                                             const float* f, int wl, int g,
+                                             int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(atom + swz(16 * wl + g + 8 * i,
+                                              8 * j + 2 * t)) =
+          pack_bf16(f[4 * j + 2 * i], f[4 * j + 2 * i + 1]);
 }
 
 }  // namespace winattn

@@ -58,7 +58,7 @@ SIGNATURES = {
                                                    _I, _F, _I, _P],
     # epilogue.cu
     "hdrvae_collapse_and_stats": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                                  _P],
+                                  _I, _P],
     # swin_block.cu
     "hdrvae_swin_block": [_P] * 18 + [_I] * 9 + [_P],
     # ocab.cu

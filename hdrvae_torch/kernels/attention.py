@@ -37,6 +37,20 @@ from hdrvae_torch.kernels import _build
 from hdrvae_torch.kernels.f32_dot import f32_dot_reference, split_bf16
 
 _MAX_C = 512   # the kernels keep C / 64 <= 8 column tiles per thread group
+_LOG2E = 1.4426950408889634
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor, the same on every run.  On the CPU,
+    ``torch.exp`` of float32 runs MKL's vsExp, whose first call in each
+    worker thread races on a loaded machine and can return a result good
+    to ~12 bits (1.5e-4 relative) for that thread's share of the tensor;
+    ATen's own exp2 keeps no such state.  Here exp(x) = exp2(x log2 e) in
+    float64, rounded once to float32 (correctly rounded but for ties
+    within 1e-14).  CUDA tensors take ``torch.exp``."""
+    if x.device.type != "cpu":
+        return torch.exp(x)
+    return torch.exp2(x.double() * _LOG2E).float()
 
 
 def _dead_keys(key_valid: Optional[torch.Tensor], n: int
@@ -94,7 +108,7 @@ def spatial_attention_3pass_reference(q: torch.Tensor, k: torch.Tensor,
     bias = _dead_keys(key_valid, n)
     if bias is not None:
         s += bias
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = exp_f32(s - s.amax(dim=-1, keepdim=True))
     out = _dot3(p, v.reshape(b, n, c).float()) / p.sum(dim=-1, keepdim=True)
     return out.reshape(b, h, w, c)
 
@@ -200,8 +214,8 @@ def spatial_attention_3pass_parts(parts: torch.Tensor,
     """The 3-pass attention on the parts of :func:`split_qkv` (what the
     3-pass kernel computes from them), scores materialized: s = qh.kh +
     qh.kl + ql.kh, the keys outside ``key_valid`` at -inf; p = exp(s -
-    rowmax) split as _dot3 splits it, ph.vh + ph.vl + pl.vh; divided by the
-    row sum.  Equals :func:`spatial_attention_3pass_reference` on q, k, v
+    rowmax) (:func:`exp_f32`) split as _dot3 splits it, ph.vh + ph.vl +
+    pl.vh; divided by the row sum.  Equals :func:`spatial_attention_3pass_reference` on q, k, v
     bit for bit."""
     b, h, w, c = parts.shape[2:]
     n = h * w
@@ -213,7 +227,7 @@ def spatial_attention_3pass_parts(parts: torch.Tensor,
         bias = _dead_keys(key_valid, n)
         if bias is not None:
             s += bias
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = exp_f32(s - s.amax(dim=-1, keepdim=True))
         ph, pl = (t.float() for t in split_bf16(p))
         out = (ph @ vh + ph @ vl + pl @ vh) / p.sum(dim=-1, keepdim=True)
     return out.reshape(b, h, w, c)

@@ -18,7 +18,9 @@ from hdrvae_torch.kernels import _build
 
 Stats = Dict[str, torch.Tensor]
 
-_ROWS = 256   # rows of the flattened [M, C] map per block of epilogue.cu
+# the most blocks of epilogue.cu's persistent grid (its float64 partials);
+# it launches as many as fit on the card (8 of 256 threads an SM)
+_MAX_BLOCKS = 2048
 
 
 def collapse_and_stats_reference(pre: torch.Tensor
@@ -53,13 +55,13 @@ def collapse_and_stats_fused(pre: torch.Tensor
     b, h, w, c = pre.shape
     m = b * h * w
     collapsed = torch.empty(b, h, w, 3, device=pre.device, dtype=pre.dtype)
-    partial = torch.empty(-(-m // _ROWS), 5, device=pre.device,
-                          dtype=torch.float32)
+    partial = torch.empty(_MAX_BLOCKS, 5, device=pre.device,
+                          dtype=torch.float64)
     out = torch.empty(4, device=pre.device, dtype=torch.float32)
     _build.check(_build.library().hdrvae_collapse_and_stats(
         pre.data_ptr(), collapsed.data_ptr(), partial.data_ptr(),
         out.data_ptr(), m, c, *collapse_bounds(c),
-        int(pre.dtype == torch.bfloat16),
+        int(pre.dtype == torch.bfloat16), _MAX_BLOCKS,
         torch.cuda.current_stream(pre.device).cuda_stream),
         "hdrvae_collapse_and_stats")
     collapse_and_stats_fused.launches += 1

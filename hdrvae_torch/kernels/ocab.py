@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels import _build
+from hdrvae_torch.kernels.attention import exp_f32
 
 HDP = 32
 MAX_KEYS = 624   # HAT-M: 576; the kernel's resident bias takes up to 640
@@ -56,7 +57,7 @@ def ocab_attention_reference(q: torch.Tensor, k: torch.Tensor,
     with fp32_contractions(Precision.parity()):
         s = q.float() @ k.float().transpose(-1, -2) + bias.float()
         m = s.amax(dim=-1, keepdim=True)
-        e = torch.exp(s - m)
+        e = exp_f32(s - m)
         p = (e / e.sum(dim=-1, keepdim=True)).to(compute_dtype)
         o = p.float() @ v.float()
     return o.to(storage_dtype)

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels import _build
+from hdrvae_torch.kernels.attention import exp_f32
 
 HDP = 32          # padded head dim (30 at SwinIR-M / HAT-M)
 MAX_TOKENS = 256  # the kernel holds a score row of at most 256 columns
@@ -244,7 +245,7 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         s = s + bias
     m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
+    e = exp_f32(s - m)
     p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).reshape(nwb, heads, n, n)
     return _mm(p, v).to(v.dtype)
 

@@ -694,15 +694,19 @@ def test_dense_conv3x3_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,shift", [((2, 33, 47, 128), 0.5),
-                                         ((1, 9, 7, 12), 0.0),
-                                         ((1, 64, 64, 128), 10.0)])
-def test_collapse_and_stats(dev, dtype, shape, shift):
-    """M = 3,102 and 63 rows (no multiple of the 256-row block) and a map
-    with |mean| >> std: the collapse and min / max exact, mean within
-    1e-5 relative, std within 1e-5 relative (1e-3 where std is 1e-4 of
-    the mean, the JAX package's bar for that case)."""
-    scale = 1e-3 if shift == 10.0 else 2.0
+@pytest.mark.parametrize("shape,shift,scale", [
+    ((2, 33, 47, 128), 0.5, 2.0), ((1, 9, 7, 12), 0.0, 2.0),
+    ((1, 64, 64, 128), 10.0, 1e-3), ((1, 67, 71, 128), 1e3, 1.0),
+    ((1, 67, 71, 20), 1e3, 1.0), ((1, 600, 600, 128), 0.5, 2.0)])
+def test_collapse_and_stats(dev, dtype, shape, shift, scale):
+    """M = 3,102, 63 and 4,757 rows (no multiple of the 32-row chunk a warp
+    takes), maps with |mean| >> std (10 +- 1e-3; 1e3 with unit spread,
+    which bf16's step of 4 there keeps, at C = 128 and at C = 20, whose
+    thirds end inside the kernel's vectors)
+    and M = 360,000 rows (more than one wave of the persistent grid): the
+    collapse and min / max exact, mean within 1e-5 relative, std within
+    1e-5 relative (1e-3 where std is 1e-4 of the mean, the JAX package's
+    bar for that case)."""
     pre = (_rand(dev, shape, scale, torch.float32, seed=4) + shift).to(dtype)
     before = epilogue.collapse_and_stats_fused.launches
     col, got = epilogue.collapse_and_stats_fused(pre)
@@ -781,7 +785,7 @@ def _swin_block(dev, dim, heads, ws, seed):
 
 
 # (batch, H, W, C, heads, window, shift, extra): n = 16, 49 (padded to 64
-# rows), 64 and 256 tokens; 3 and 5 windows across (odd grids the JAX
+# rows), 64, 100, 144 and 256 tokens; 3 and 5 windows across (odd grids the JAX
 # kernel refuses); C 48 and 180 (no multiple of 16: padded to 192); 105
 # windows at batch 3 (odd: the last pair's second warpgroup has no window;
 # and no multiple of the 132 SMs); one row of two 256-token windows
@@ -791,7 +795,12 @@ SWIN_CASES = [(2, 8, 12, 48, 2, 4, 0, False),
               (1, 24, 40, 180, 6, 8, 4, False),
               (2, 32, 48, 180, 6, 16, 8, True),
               (3, 40, 56, 180, 6, 8, 4, True),
-              (1, 16, 32, 180, 6, 16, 8, True)]
+              (1, 16, 32, 180, 6, 16, 8, True),
+              # windows of 100 and 144 tokens: two row blocks, the last
+              # ragged (n16 112), and three (n16 144), on shifted 2 x 3
+              # grids (corner windows), batch 2 at ws 10
+              (2, 20, 30, 96, 3, 10, 5, False),
+              (1, 24, 36, 180, 6, 12, 6, True)]
 
 
 @pytest.mark.parametrize("b,h,w,c,heads,ws,shift,extra", SWIN_CASES)

@@ -344,6 +344,33 @@ class TestCollapseAndStats:
             np.testing.assert_allclose(float(got[key]), float(stats[key]),
                                        rtol=1e-5, err_msg=key)
 
+    # M = 4,757 rows: two of the Pallas kernel's 4,096-row blocks and no
+    # multiple of 256; C = 20 puts the thirds' ends (6, 12, 18) inside the
+    # CUDA kernel's 16- and 8-byte vectors
+    @pytest.mark.parametrize("c", [128, 20])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_offset_map_matches_pallas(self, c, dtype):
+        """A map offset by 1e4 with unit spread (|mean| >> std, where the
+        JAX kernel's (n, mean, M2) combine is needed): the port's K4 path
+        against the Pallas kernel in interpret mode, the collapse, min and
+        max exact, mean and std <= 1e-5 relative."""
+        from hdrvae.kernels.epilogue import collapse_and_stats_pallas
+        from hdrvae_torch.kernels import epilogue as tepi
+        shape = (1, 67, 71, c)
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        jpre = jnp.asarray(_np(32, shape) + 1e4, jdt)
+        pre = np.asarray(jpre.astype(jnp.float32))   # the stored values
+        col, stats = collapse_and_stats_pallas(jpre, interpret=True)
+        got_col, got = tepi.collapse_and_stats(_t(pre, tdt), use_fused=True)
+        assert got_col.dtype == tdt and got_col.shape == shape[:3] + (3,)
+        np.testing.assert_array_equal(got_col.float().numpy(),
+                                      np.asarray(col.astype(jnp.float32)))
+        for key in ("min", "max"):
+            assert float(got[key]) == float(stats[key]), key
+        for key in ("mean", "std"):
+            np.testing.assert_allclose(float(got[key]), float(stats[key]),
+                                       rtol=1e-5, err_msg=key)
+
     def test_bounds_match_pallas(self):
         from hdrvae.kernels.epilogue import _collapse_bounds
         from hdrvae_torch.decode.formatting import collapse_bounds

@@ -3,7 +3,8 @@
 GPU.
 
     python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_f32|k3_3pass|
-                                     k3_bf16|k8|k7 ...]   (default: all)
+                                     k3_bf16|k8|k7|k4|k9 ...]
+                                    (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
 ``chip_smoke.py`` into a temporary directory, breaks one CUDA source
@@ -34,7 +35,12 @@ HAT-M's OCAB shape, with a peaked bias and at a ragged 20 x 36 shape, and
 through its C entry into a NaN-filled buffer; k7: ``_check_k7``, K7's v1
 body within two bf16 ulps of its plain version at ``K7_SHAPES`` and its
 v2 body within its budget at ``K7_V2_SHAPES``, each output in a block
-that held NaNs, built for C <= 192 alone),
+that held NaNs, built for C <= 192 alone; k4: ``_check_k4``, K4's
+collapse bit-exact, min / max exact and mean / std within K4_BUDGET at
+K4_SHAPE and on K4_EXTRA's maps, built from epilogue.cu alone; k9:
+``_check_chain(with_k7=False)``, K9 within SWIN_BUDGET of its plain
+version at K7_SHAPES and on K9_EXTRA's ragged windows, padded rows zero,
+built from swin_chain.cu alone),
 then reports whether the check refused the broken kernel: by a
 failed assertion, or by a fault of the broken kernel on the card (a
 mutant that writes past an output stops the check there).  The
@@ -167,7 +173,38 @@ exists for it):
   statistics at all);
 - no-x-loads: the input image is not read (LN1's rows and the residual);
 - no-stores: the output is not stored;
+- reciprocal: P as e times 1 / l, as before the kernel divided (it
+  computes p = e / l correctly rounded: e rl plus one FMA correction);
+- divide: the same quotient by ``__fdiv_rn``, with its range check;
 - one-warpgroup: one row block in flight a block instead of two.
+
+    python3 tools/mutate_kernels.py --time-k4 [--tree DIR] [as-is|...]
+
+times K4 (``epilogue.cu``, built alone; the wrapper by CUDA events, mean
+of 10 launches after 2 warm-ups, twice, at ``chip_smoke.py``'s K4_SHAPE in
+float32 and bf16), in the tree at DIR (default: this one; an older tree
+times PR 2's kernel, a warp a row with a Welford step a value):
+
+- as-is: the kernel as it is;
+- no-loads: every lane reads the map's first row (cached) instead of its
+  own (the earlier kernel: its first 8 values);
+- no-stores: the collapsed rows are not stored;
+- no-products: no per-element statistics or group maxes (K4 has no
+  matrix products; its per-element arithmetic stands in for them).
+
+    python3 tools/mutate_kernels.py --time-k9 [--tree DIR] [as-is|...]
+
+does the same for K9 (``swin_chain.cu``, built alone; CUDA events, mean of
+10 launches after 2 warm-ups, twice, at ``chip_smoke.py``'s K7_SHAPES on
+K10's qkv; an older tree times PR 6's WMMA kernel):
+
+- as-is: the kernel as it is;
+- no-loads: no TMA copies of q, K and V (their barriers still complete;
+  the earlier kernel: no cp.async copies);
+- no-stores: the output is not stored;
+- no-products: no S or P V wgmma (the softmax runs, P kept alive by an
+  opaque use);
+- reciprocal: P as e times 1 / l instead of the correctly rounded divide.
 
 It prints the card's name and power limit first.
 """
@@ -294,8 +331,7 @@ TARGETS = {
             "                up[4 * j + 2 * i] + u2.x, up[4 * j + 2 * i + 1] + u2.y);",
             False),
     }),
-    # the masks live in window_attention.cuh, shared with K7: a broken mask
-    # breaks both, and K9's check against its plain version refuses it
+    # K10's and K11's (K9's are the k9 target's)
     "chain": ("_check_chain(np.random.default_rng(6))", ("swin_", "chain vs"), {
         "K10: LN1 skipped": (
             "swin_chain.cu",
@@ -304,24 +340,81 @@ TARGETS = {
             True),
         "K10: qkv bias dropped": (
             "swin_chain.cu", "v[i] + bq[c + i] : 0.0f;", "v[i] : 0.0f;", True),
-        "K9: position bias dropped": (
-            "window_attention.cuh", "float t = brow[j];", "float t = 0.0f;",
-            True),
-        "K9: last-row mask dropped": (
-            "window_attention.cuh",
-            "if (lr && qr != ((jr >> i) & 1u)) t += -100.0f;", "", True),
-        "K9: last-column mask dropped": (
-            "window_attention.cuh",
-            "if (lc && qc != ((jc >> i) & 1u)) s += -100.0f;", "", True),
-        "K9: last 16 keys dropped": (
-            "swin_chain.cu", "n - r0, n, n16, [&](int r) {",
-            "n - r0, n - 16, n16, [&](int r) {", True),
         "K11: extra dropped": (
             "swin_chain.cu",
             "if (a.extra != nullptr) o += __bfloat162float(er[i]);", "", True),
         "K11: fc2 bias dropped": (
             "swin_chain.cu", "xr[i] + v[i] + a.b2[c + i]", "xr[i] + v[i]",
             True),
+    }),
+    # K4, built from epilogue.cu alone: its check holds the collapse
+    # bit-exact, min / max exact and mean / std within K4_BUDGET at
+    # K4_SHAPE and on K4_EXTRA's ragged, offset, ramp and narrow maps
+    "k4": ("_check_k4()", ("K4",), {
+        "group bound off by one": (
+            "epilogue.cu",
+            ("    keep[0][e] = c < b1 ? ~0u : 0u;",
+             "    keep[1][e] = c >= b1 && c < b2 ? ~0u : 0u;"),
+            ("    keep[0][e] = c <= b1 ? ~0u : 0u;",
+             "    keep[1][e] = c > b1 && c < b2 ? ~0u : 0u;"), True),
+        "last partial dropped": (
+            "epilogue.cu",
+            "  for (int i = threadIdx.x; i < nblocks; i += NTHREADS) {",
+            "  for (int i = threadIdx.x; i < nblocks - 1; i += NTHREADS) {",
+            True),
+        "ragged last chunk unmasked": (
+            "epilogue.cu",
+            "      return rl + tpr * sl < vpr && row < M;",
+            "      return rl + tpr * sl < vpr;", True),
+        "M2 merged without the delta term": (
+            "epilogue.cu", "    a.m2 = a.m2 + b.m2 + d * d * a.n * f;",
+            "    a.m2 = a.m2 + b.m2;", True),
+    }),
+    # K9, built from swin_chain.cu alone: its check holds it to its plain
+    # version at K7_SHAPES and on K9_EXTRA's ragged windows (the chain
+    # against K7 left out)
+    "k9": ("_check_chain(np.random.default_rng(6), with_k7=False)",
+           ("swin_attn_core",), {
+        "a k-step of S skipped": (
+            "swin_chain.cu",
+            "          hopper::wgmma_ss<64, 0>(s[kt], dq + 2 * kk,",
+            "          if (kk == 0) hopper::wgmma_ss<64, 0>(s[kt], dq + 2 * kk,",
+            True),
+        "position bias dropped": (
+            "swin_chain.cu",
+            "            bb[kt][b] = RESIDENT ? brow[key]\n"
+            "                                 : (key < n ? __ldg(brow + key) : 0.0f);",
+            "            bb[kt][b] = 0.0f;", True),
+        "bias head off by one": (
+            "swin_chain.cu",
+            "a.bias + static_cast<size_t>(h) * n * n;",
+            "a.bias + static_cast<size_t>((h + 1) % a.heads) * n * n;", True),
+        "last-row mask dropped": (
+            "swin_chain.cu", "              if ((xr >> b) & 1u) bb[kt][b] += -100.0f;\n",
+            "", True),
+        "last-column mask dropped": (
+            "swin_chain.cu", "              if ((xc >> b) & 1u) v += -100.0f;\n",
+            "", True),
+        "band masks in the first window row": (
+            "swin_chain.cu", "const bool lr = a.shift > 0 && wr == a.nwh - 1;",
+            "const bool lr = a.shift > 0 && wr == 0;", True),
+        "band masks in the first window column": (
+            "swin_chain.cu", "const bool lc = a.shift > 0 && wc == a.nww - 1;",
+            "const bool lc = a.shift > 0 && wc == 0;", True),
+        "last 16 keys dropped": (
+            "swin_chain.cu",
+            "kdead[kt] |= static_cast<uint32_t>(key >= n) << (2 * j + e);",
+            "kdead[kt] |= static_cast<uint32_t>(key >= n - 16) << (2 * j + e);",
+            True),
+        "normalization dropped": (
+            "swin_chain.cu",
+            ("pack_bf16(div(s[kt][4 * j + 2 * r]),",
+             "div(s[kt][4 * j + 2 * r + 1]))"),
+            ("pack_bf16(s[kt][4 * j + 2 * r],",
+             "s[kt][4 * j + 2 * r + 1])"), True),
+        "padded rows not zeroed": (
+            "swin_chain.cu", "        const bool live = row < n;",
+            "        const bool live = true;", True),
     }),
     # K3's 3-pass kernel: qh [Kh ; Kl] is one wgmma (hh, hl), ql Kh another
     # (lh); Ph [Vh | Vl] likewise (hh, hl), Pl Vh another (lh).  Built from
@@ -528,8 +621,8 @@ TARGETS = {
             "          a.bias + (static_cast<size_t>(h) * n + rows[i]) * n;",
             "          a.bias + (static_cast<size_t>(h) * n + min(rows[i] + 1, n - 1)) * n;"),
         "the P normalization dropped": _k7(
-            "            for (int e = 0; e < 2; ++e) s[4 * j + 2 * i + e] *= il;",
-            "            for (int e = 0; e < 2; ++e) s[4 * j + 2 * i + e] *= 1.0f;"),
+            "              x = fmaf(fmaf(-q, l, x), il, q);",
+            "              x = x + 0.0f * q;"),
         "the last window never stored": _k7(
             "      const bool real = wi < a.nwin;",
             "      const bool real = wi < a.nwin - 1;"),
@@ -568,7 +661,8 @@ _build.library = lambda: lib
 # hdrvae_group_stats)
 K5_SOURCES = ("upconv.cu", "conv3x3.cu")
 # targets checked on a library built from some sources (see ONE_SOURCE)
-ONE_SOURCE_TARGETS = {"k3_3pass": ("attention.cu",), "k5": K5_SOURCES}
+ONE_SOURCE_TARGETS = {"k3_3pass": ("attention.cu",), "k5": K5_SOURCES,
+                      "k4": ("epilogue.cu",), "k9": ("swin_chain.cu",)}
 
 CHECK = """
 import sys
@@ -831,6 +925,26 @@ K7_NEW = {
         (SB, "      if (real) {\n        const int rows_w",
          "      if (false) {\n        const int rows_w"),
         (SB, "            store_pair(dst, c, a.C, o[0], o[1]);", "            {}")],
+    # P as e times 1 / l (the kernel before it divided) instead of the
+    # correctly rounded e / l
+    "reciprocal": [
+        (SB, """            for (int e = 0; e < 2; ++e) {
+              float& x = s[4 * j + 2 * i + e];
+              const float q = x * il;
+              x = fmaf(fmaf(-q, l, x), il, q);
+            }""", "            for (int e = 0; e < 2; ++e) s[4 * j + 2 * i + e] *= il;"),
+        (SB, """                const float ex = expf(x - m[i]), q = ex * il[i];
+                x = fmaf(fmaf(-q, l[i], ex), il[i], q);   // ex / l, as above""",
+         "                x = expf(x - m[i]) * il[i];")],
+    # the divide by __fdiv_rn (with its range check) instead of the
+    # reciprocal and one FMA correction: the same quotient
+    "divide": [
+        (SB, """              const float q = x * il;
+              x = fmaf(fmaf(-q, l, x), il, q);""",
+         "              x = il == 0.0f ? 0.0f : __fdiv_rn(x, l);"),
+        (SB, """                const float ex = expf(x - m[i]), q = ex * il[i];
+                x = fmaf(fmaf(-q, l[i], ex), il[i], q);   // ex / l, as above""",
+         "                x = il[i] == 0.0f ? 0.0f : __fdiv_rn(expf(x - m[i]), l[i]);")],
     # one warpgroup a block (as past C = 192) instead of two
     "one-warpgroup": [
         (SB, "if (!plan(a, CK, 2, smem) && !plan(a, CK, 1, smem))",
@@ -1121,6 +1235,187 @@ for _ in range(2):
           f"{wrap_sum:.3f} ms", flush=True)
 '''
 
+# --time-k4: variant -> alternatives, each a list of (source, text,
+# replacement), as for --time-k5; K4_OLD times PR 2's kernel (a warp a row,
+# scalar loads, a Welford step a value) in an older tree (--tree)
+EP = "epilogue.cu"
+K4_NEW = {
+    "as-is": [],
+    # every lane reads the map's first vectors (cached) instead of its own
+    "no-loads": [(EP, "                           src + row * vpr + rl + tpr * sl);",
+                  "                           src + rl + tpr * sl);")],
+    # the collapsed rows are not stored (still staged)
+    "no-stores": [
+        (EP, "    if (lane < NV)", "    if (lane < 0)"),
+        (EP, "for (int i = lane; i < nrows * 3; i += 32) dst[i] = stage[i];",
+         "for (int i = lane; i < 0; i += 32) dst[i] = stage[i];")],
+    # no per-element statistics or group maxes (K4 has no matrix
+    # products: its per-element arithmetic stands in for them)
+    "no-products": [
+        (EP, """  st.mn = fminf(st.mn, tree_min<E>(v));
+  st.mx = fmaxf(st.mx, tree_max<E>(v));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) gk[e] = keep_or_neg_inf(x[e], keep[k][e]);
+    g[k] = fmaxf(g[k], tree_max<E>(gk));
+  }""", ""),
+        (EP, """    const float d = v[e] - st.K;
+    st.s1[e & 1] += d;
+    st.s2[e & 1] = fmaf(d, d, st.s2[e & 1]);""",
+         "    st.s1[e & 1] += v[e];"),
+        (EP, """    const float d0 = lo_f(w[i]) - st.K, d1 = hi_f(w[i]) - st.K;
+    st.s1[0] += d0;
+    st.s2[0] = fmaf(d0, d0, st.s2[0]);
+    st.s1[1] += d1;
+    st.s2[1] = fmaf(d1, d1, st.s2[1]);
+    if (i > 0) {
+      mn = min2(mn, w[i]);
+      mx = max2(mx, w[i]);
+    }""", "    st.s1[0] += lo_f(w[i]);"),
+        (EP, """#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    uint32_t m = (w[0] & keep[k][0]) | (0xff80ff80u & ~keep[k][0]);
+#pragma unroll
+    for (int i = 1; i < W; ++i)
+      m = max2(m, (w[i] & keep[k][i]) | (0xff80ff80u & ~keep[k][i]));
+    g[k] = fmaxf(g[k], fmaxf(lo_f(m), hi_f(m)));
+  }
+  st.n += 2 * W;""", "  st.n += 2 * W;")],
+}
+K4_OLD = {
+    "as-is": [],
+    "no-loads": [(EP, "      const float v = to_f32(p[c]);",
+                  "      const float v = to_f32(pre[c & 7]);")],
+    "no-stores": [(EP, "    if (lane < 3) store(collapsed + row * 3 + lane,",
+                   "    if (lane < 0) store(collapsed + row * 3 + lane,")],
+    "no-products": [
+        (EP, """      m.n += 1.0f;
+      const float d = v - m.mean;
+      m.mean += d / m.n;
+      m.m2 += d * (v - m.mean);
+      m.mn = fminf(m.mn, v);
+      m.mx = fmaxf(m.mx, v);
+      if (c < b1)
+        g0 = fmaxf(g0, v);
+      else if (c < b2)
+        g1 = fmaxf(g1, v);
+      else if (c < b3)
+        g2 = fmaxf(g2, v);""", "      m.mean += v;")],
+}
+K4_VARIANTS = {name: [alt[name] for alt in (K4_NEW, K4_OLD) if name in alt]
+               for name in K4_NEW}
+
+# K4 at chip_smoke.py's K4_SHAPE in float32 and bf16 (a post-SiLU map),
+# built from epilogue.cu alone: the wrapper by CUDA events, mean of 10
+# after 2 warm-ups, twice
+K4_TIME = r"""
+import sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+""" + ONE_SOURCE.format(sources=("epilogue.cu",)) + r"""
+from hdrvae_torch.kernels import epilogue
+g = torch.Generator(device="cuda").manual_seed(4)
+x = torch.nn.functional.silu(
+    torch.randn(cs.K4_SHAPE, generator=g, device="cuda") * 2.0)
+maps = [x, x.bfloat16()]
+for _ in range(2):
+    total = 0.0
+    for pre in maps:
+        t = cs.cuda_ms(lambda: epilogue.collapse_and_stats_fused(pre),
+                       iters=10)
+        total += t
+        gbs = pre.numel() * pre.element_size() / (t * 1e6)
+        print(f"  K4 {list(cs.K4_SHAPE)} {pre.dtype}: {t:.3f} ms "
+              f"({gbs:.0f} GB/s read)", flush=True)
+    print(f"  K4 over both dtypes: {total:.3f} ms", flush=True)
+"""
+
+# --time-k9: variant -> alternatives, as for --time-k4; K9_OLD times PR 6's
+# WMMA kernel (a block a window, head and row block, scores through shared
+# memory) in an older tree (--tree)
+SC = "swin_chain.cu"
+K9_NEW = {
+    "as-is": [],
+    # the ring's q / k / v boxes are not copied (each slot's barrier still
+    # completes; the slots keep stale bytes)
+    "no-loads": [
+        (SC, "    hopper::mbar_expect_tx(fb, SLOT);\n#pragma unroll\n"
+             "    for (int j = 0; j < 3; ++j)",
+         "    hopper::mbar_arrive(fb);\n#pragma unroll\n"
+             "    for (int j = 0; j < 0; ++j)")],
+    # the output rows are not stored (still staged)
+    "no-stores": [
+        (SC, "        hopper::tma_store_3d(&omap, out_s, h * HDP, 64 * rb, win);\n",
+         "")],
+    # no S or P V wgmma (the feed, the softmax, kept alive by an opaque use
+    # of P, and the stores run)
+    "no-products": [
+        (SC, "          hopper::wgmma_ss<64, 0>(s[kt], dq + 2 * kk,",
+         "          if (kk < 0) hopper::wgmma_ss<64, 0>(s[kt], dq + 2 * kk,"),
+        (SC, "          hopper::wgmma_rs_n32<1>(o, pa[kt] + 4 * ks,\n"
+             "                                  desc64(v_s + kt * ATOM) + ks * 64);",
+         "          hopper::fence_operands<4>(pa[kt] + 4 * ks);   // P kept")],
+    # P normalized as e times the reciprocal of l, as K7 does, instead of
+    # the divide
+    "reciprocal": [
+        (SC, "auto div = [&](float e) { return fmaf(fmaf(-e * rl, l, e), rl, e * rl); };",
+         "auto div = [&](float e) { return e * rl; };")],
+}
+K9_OLD = {
+    "as-is": [],
+    "no-loads": [
+        (SC, "  copy_rows_async(qs, LDQ, src + static_cast<size_t>(r0) * QW, QW, nrt * 16,\n"
+             "                  HDP);\n", ""),
+        (SC, "  copy_rows_async(kv, LDQ, src + HDP, QW, n16, HDP);\n", ""),
+        (SC, "  copy_rows_async(kv, LDQ, src + 2 * HDP, QW, n16, HDP);   // V over K\n",
+         "")],
+    "no-stores": [
+        (SC, "      store_bf16x8(ob + static_cast<size_t>(r) * heads * HDP + c, v);\n",
+         "")],
+    "no-products": [
+        (SC, "gemm_rows<true>(qs, LDQ, nrt, kv, LDQ, 2, n16 / 16,",
+         "gemm_rows<true>(qs, LDQ, nrt, kv, LDQ, 0, n16 / 16,"),
+        (SC, "                   n16 / 16, 2, [&](int rt, int ct, const Acc& acc) {",
+         "                   0, 2, [&](int rt, int ct, const Acc& acc) {")],
+}
+K9_VARIANTS = {name: [alt[name] for alt in (K9_NEW, K9_OLD) if name in alt]
+               for name in K9_NEW}
+
+# K9 at chip_smoke.py's K7_SHAPES on K10's qkv, built from swin_chain.cu
+# alone: CUDA events, mean of 10 after 2 warm-ups, twice
+K9_TIME = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+""" + ONE_SOURCE.format(sources=("swin_chain.cu",)) + r"""
+from hdrvae_torch.core.config import Precision
+from hdrvae_torch.kernels import swin_attention as ska
+from hdrvae_torch.models.swinir import block_weights
+rng = np.random.default_rng(0)
+cases = []
+for name, h, w, ws, shift, extra in cs.K7_SHAPES:
+    blk = cs._swin_block(rng, cs.SWIN_DIM, cs.SWIN_HEADS, ws)
+    wts = block_weights(blk, cs.SWIN_HEADS, ws, torch.bfloat16)
+    x = cs._bf16(rng, (1, h, w, cs.SWIN_DIM))
+    qkv = ska.ln_qkv(x, wts, ws=ws, precision=Precision.fast())
+    kw = dict(heads=cs.SWIN_HEADS, ws=ws, shift=shift,
+              grid=(h // ws, w // ws))
+    cases.append((f"{name} {h}x{w} ws {ws} shift {shift}",
+                  lambda qkv=qkv, wts=wts, kw=kw:
+                  ska.window_attention_core(qkv, wts.bias, **kw)))
+for _ in range(2):
+    total = 0.0
+    for label, fn in cases:
+        t = cs.cuda_ms(fn, iters=10)
+        total += t
+        print(f"  K9 {label}: {t:.3f} ms", flush=True)
+    print(f"  K9 over K7_SHAPES: {total:.3f} ms", flush=True)
+"""
+
 # the timing modes: flag -> (CUDA source, variants, timing script)
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
@@ -1128,7 +1423,9 @@ TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3-3pass": (None, K3P_VARIANTS, K3P_TIME),
            "--time-k8": ("ocab.cu", K8_VARIANTS, K8_TIME),
            "--time-k7": (None, K7_VARIANTS, K7_TIME),
-           "--time-k5": (None, K5_VARIANTS, K5_TIME)}
+           "--time-k5": (None, K5_VARIANTS, K5_TIME),
+           "--time-k4": (None, K4_VARIANTS, K4_TIME),
+           "--time-k9": (None, K9_VARIANTS, K9_TIME)}
 
 
 @contextlib.contextmanager

@@ -12,6 +12,8 @@
                                           [--ab-only swin conv esrgan attn
                                                      hat lowmem]
     python3 tools/profile_decode_torch.py --upscale --model hat --ab-tree DIR
+    python3 tools/profile_decode_torch.py --fused-epilogue --ab-tree DIR
+                                          --ab-only epilogue
 
 For each latent side (128 gives a 1024^2 image, 256 a 2048^2 one) and
 tier, the full-width Flux.1 decoder (``DecoderConfig()``, random weights
@@ -83,6 +85,14 @@ alone, and ``--upscale --model swinir swin2sr hat`` (any other list) the
 upscale turn: for each model named, three fast x4 requests of a 1024^2
 HDR image from numpy seed 1 (the first warms up), then three fast 1024^2
 decodes as the control.
+
+``--fused-epilogue`` runs every decode, the ``--ab-tree`` turns' included,
+with ``HDRDecodeConfig(use_fused_epilogue=True)``: the epilogue's collapse
+and statistics by K4 instead of the plain reductions.  Its own turn,
+``--ab-only epilogue``, times K4 at ``chip_smoke.py``'s K4_SHAPE in float32
+and bf16 (CUDA events over 10 launches after 2 warm-ups), then three
+requests each of fast decodes at 1024^2 and 2048^2 and of parity and mixed
+ones at 1024^2, with K4's launches in each.
 
 The script only reads: it changes nothing in the package.  Without a CUDA
 device it exits non-zero.
@@ -903,25 +913,79 @@ fused_tail.LOWMEM_MIN_PIXELS = default
 '''
 
 
+# K4 at chip_smoke.py's K4_SHAPE (a post-SiLU map) in float32 and bf16,
+# then three requests each of fast 1024^2 and 2048^2 and parity and mixed
+# 1024^2 decodes, with their epilogue's K4 launches
+AB_EPILOGUE = r'''
+import numpy as np
+import torch
+import chip_smoke as cs
+from hdrvae_torch.core.config import DecoderConfig, HDRDecodeConfig, Precision
+from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+from hdrvae_torch.kernels import epilogue
+from hdrvae_torch.models.params import init_decoder
+
+g = torch.Generator(device="cuda").manual_seed(4)
+x = torch.nn.functional.silu(
+    torch.randn(cs.K4_SHAPE, generator=g, device="cuda") * 2.0)
+for pre in (x, x.bfloat16()):
+    t = cs.cuda_ms(lambda: epilogue.collapse_and_stats_fused(pre), iters=10)
+    print(f"  K4 {list(cs.K4_SHAPE)} {pre.dtype}: {t:.3f} ms", flush=True)
+del x, pre
+torch.cuda.empty_cache()
+dec = init_decoder(DecoderConfig(), seed=0, device="cuda")
+cons = HDRDecodeConfig(hdr_mode="conservative")
+for tier, side in (("fast", 128), ("fast", 256), ("parity", 128),
+                   ("mixed", 128)):
+    z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, side, side, 16)).astype(np.float32)).cuda()
+    prec = getattr(Precision, tier)()
+    k4 = epilogue.collapse_and_stats_fused.launches
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        decode_summary(hdr_decode(dec, z, cons, prec))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(round(start.elapsed_time(end), 3))
+    print(f"  decode {side * 8}^2 {tier}, "
+          f"{'fused' if cons.use_fused_epilogue else 'default'} epilogue: "
+          f"device ms {times}, K4 launches "
+          f"{epilogue.collapse_and_stats_fused.launches - k4}", flush=True)
+    del z
+    torch.cuda.empty_cache()
+'''
+
 AB_TURNS = {"swin": lambda models: AB_TURN,
             "conv": lambda models: AB_CONV,
             "esrgan": lambda models: AB_ESRGAN.replace(
                 "K6_TABLE", repr(k6_table())),
             "attn": lambda models: AB_ATTN, "hat": lambda models: AB_HAT,
             "lowmem": lambda models: AB_LOWMEM,
+            "epilogue": lambda models: AB_EPILOGUE,
             "upscale": lambda models: AB_UPSCALE.replace("MODELS",
                                                          repr(models))}
 
 
-def ab(other: str, turns, models=()) -> int:
+FUSED = 'HDRDecodeConfig(hdr_mode="conservative", use_fused_epilogue=True)'
+
+
+def ab(other: str, turns, models=(), fused: bool = False) -> int:
     """The turns of ``--ab-tree``: this tree, ``other``, ``other``, this
-    (``models`` for the upscale turn)."""
+    (``models`` for the upscale turn; ``fused``: every decode with the
+    fused epilogue)."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     there = os.path.abspath(other)
+    scripts = [AB_TURNS[t](list(models)) for t in turns]
+    if fused:
+        scripts = [t.replace('HDRDecodeConfig(hdr_mode="conservative")',
+                             FUSED) for t in scripts]
     for label, root in (("this", here), ("other", there), ("other", there),
                         ("this", here)):
         print(f"== {label}: {root}", flush=True)
-        for turn in (AB_TURNS[t](list(models)) for t in turns):
+        for turn in scripts:
             proc = subprocess.run([sys.executable, "-c", turn], cwd=root,
                                   env=dict(os.environ, PYTHONPATH=root),
                                   timeout=900)
@@ -959,7 +1023,14 @@ def main() -> int:
     ap.add_argument("--ab-only", nargs="+", choices=list(AB_TURNS),
                     default=[t for t in AB_TURNS if t != "upscale"],
                     help="the --ab-tree turns run (default: all)")
+    ap.add_argument("--fused-epilogue", action="store_true",
+                    help="decode with HDRDecodeConfig.use_fused_epilogue "
+                         "(K4), in the --ab-tree turns too")
     args = ap.parse_args()
+    global CONSERVATIVE
+    if args.fused_epilogue:
+        CONSERVATIVE = HDRDecodeConfig(hdr_mode="conservative",
+                                       use_fused_epilogue=True)
     latents = args.latent or ([128] if args.upscale else [128, 256])
     tiers = args.tiers or (["fast", "parity"] if args.upscale
                            else list(TIERS))
@@ -977,7 +1048,7 @@ def main() -> int:
             turns = ["hat"] if args.model == ["hat"] else ["upscale"]
         else:
             turns = args.ab_only
-        return ab(args.ab_tree, turns, args.model)
+        return ab(args.ab_tree, turns, args.model, args.fused_epilogue)
 
     cfg = DecoderConfig()
     dec = init_decoder(cfg, seed=0, device="cuda")
