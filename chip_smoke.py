@@ -16,7 +16,12 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1-K4: a 1024^2 decode, and K1 and K2
    each at one ragged shape of an 832 x 1216 frame, logged apart and out
-   of the rows' sums, K2 also timed as the launch alone; K3 in its three
+   of the rows' sums, K2 also timed as the launch alone; K1 and K2 with
+   ``owned_rows`` (K2 in both modes) at the same decode shapes over three
+   intervals cut at odd rows, y bit-equal to the unrestricted launch's,
+   each interval's sums against the plain version's and the three adding
+   up to the unrestricted sums, timed beside the unrestricted launch; K3
+   in its three
    dot modes, the 3-pass one also against exact float32 and at 65,536
    tokens (the 2048^2 decode's), its split (``split_qkv``) bit-equal to
    the split's plain version, the 3-pass and
@@ -81,31 +86,39 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    itself, at the smallest latent side whose frame reaches
    ``STAGED_MIN_PIXELS``, its mid attention one 3-pass launch; each with
    its time and peak memory;
-7. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
-8. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
+7. slab-sharded decode: the port's launcher (``sharding/multihost.py``)
+   starts two ranks on the one card (gloo), each decoding the 2048^2 latent
+   with ``sharded_slab_decode`` (``tail_levels=2``) in the fast tier on the
+   chain (K1 / K2 with ``owned_rows``, K3 bf16) and in the mixed tier on the
+   layers (K3 3-pass); every rank's image the same, held to the
+   large-frame phase's whole-image decode of its tier, each rank's device
+   ms and peak printed (two ranks on one card: no multi-GPU speedup);
+8. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
+9. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
    seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
    512^2 tiles (9 tiles x 2 passes): two fast requests and one parity
    request, the fused K6 chain held to the unfused fast layers on one
    tile, one tile forward measured (K6's 351 launches counted, their
    device time from ``torch.profiler``), and one fast request with
    small_blur and local_fix;
-9. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
+10. SwinIR, HAT and Swin2SR upscale: the full-width SwinIR-M x4, HAT-M x4
    and Swin2SR-M x4 (random weights from numpy seeds) through
    ``hdr_upscale`` on a 768^2 crop of the parity image (4 tiles x 2
    passes), one fast and one parity request each; the fast one must
    launch K7 (Swin2SR: its v2 body) once per block and K8 once per OCAB
    of every tile run, the parity one neither; the fused chain is held to
    the unfused fast layers on the first tile's raw output;
-10. Swin chain: the body of the full-width SwinIR-M (seed 3) on one 512^2
+11. Swin chain: the body of the full-width SwinIR-M (seed 3) on one 512^2
    tile of the decoded image, walked twice, each block through the staged
    chain (K10 -> K9 -> K11, 36 launches each), then through K7 (36), each
    group's conv + residual after its blocks; the two bodies held to each
    other, and both walks timed;
-11. f32 dot probe: ``tools/f32_dot_probe_torch.py``'s measurement, K12's
+12. f32 dot probe: ``tools/f32_dot_probe_torch.py``'s measurement, K12's
    main path: each precision's time and error against a float64 product,
    held to its class, beside ``torch.matmul`` in float32 (TF32 off and on)
    and bf16;
-12. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K3's 3-pass
+13. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K1 and K2
+   with owned_rows in the fast slab decode, K3's 3-pass
    mode in mixed (and ``split_qkv`` once a 3-pass launch, in no other
    tier), K3 f32 in parity, each of the three masked in its
    tier's bucketed decode, K4 in the fused-epilogue decodes, K5
@@ -238,6 +251,15 @@ FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
 STATS_BUDGET = 1e-3         # relative, on the emitted GroupNorm sums
+# K1 / K2 owned_rows: three intervals' sums against the whole map's, the
+# same float32 values summed in other groupings (a row dropped or counted
+# twice moves them by ~1e-3 at these shapes)
+OWNED_PARTITION = 1e-5
+# the slab phase: ranks on the one card; slab vs whole-image budgets, fast
+# rgb relative to max(1, max|ref|), mixed (rgb, conservative image) max-abs
+SLAB_RANKS = 2
+SLAB_FAST = 5e-2
+SLAB_MIXED = (1e-4, 1e-3)
 ATTN_BUDGET = {"parity": 1e-5, "mixed": 1e-4}
 # K3's key_valid mode at K3's N = 16,384 (a 128 x 128 grid): the live
 # region of the bucketed phase's latent, 121 x 100 of its 128 x 128 bucket;
@@ -511,6 +533,13 @@ def phase_kernels() -> list:
     from hdrvae_torch.kernels import attention
     rng = np.random.default_rng(0)
     entries = [_check_k1(rng), _check_k2(rng)]
+    # K1 / K2 owned_rows: the bound and library time of the unrestricted
+    # launch at the same shapes (the same work)
+    for base, kind in zip(entries[:2], ("K1", "K2")):
+        owned = _check_owned(np.random.default_rng(9), kind)
+        owned.update({k: base[k] for k in ("bound_ms", "bound_by",
+                                           "library_ms", "library_call")})
+        entries.append(owned)
 
     # K3 ---------------------------------------------------------------
     q, k, v = _k3_inputs(rng)
@@ -534,10 +563,9 @@ def phase_kernels() -> list:
     return entries, chain_ab
 
 
-def _k1_case(rng, bnd, h, w, cin, cout, res):
-    """K1 at one shape against its plain version, its bound added to
-    ``bnd``: (log text, record)."""
-    from hdrvae_torch.kernels import conv3x3
+def _k1_inputs(rng, h, w, cin, cout, res):
+    """K1's x, kernel, bias and keyword operands at one shape (GroupNorm
+    prologue, statistics, an "add" or "proj" residual)."""
     dev = torch.device("cuda")
     x = _bf16(rng, (1, h, w, cin))
     kern = _bf16(rng, (3, 3, cin, cout), (9 * cin) ** -0.5)
@@ -553,6 +581,15 @@ def _k1_case(rng, bnd, h, w, cin, cout, res):
     else:
         kw.update(residual=x,
                   res_kernel=_bf16(rng, (cin, cout), cin ** -0.5))
+    return x, kern, bias, kw
+
+
+def _k1_case(rng, bnd, h, w, cin, cout, res):
+    """K1 at one shape against its plain version, its bound added to
+    ``bnd``: (log text, record)."""
+    from hdrvae_torch.kernels import conv3x3
+    x, kern, bias, kw = _k1_inputs(rng, h, w, cin, cout, res)
+    gamma, beta = kw["gamma"], kw["beta"]
     y, s = conv3x3.fused_conv3x3(x, kern, bias, **kw)
     ry, rs = conv3x3.fused_conv3x3_reference(x, kern, bias, **kw)
     torch.cuda.synchronize()
@@ -597,16 +634,21 @@ def _check_k1(rng) -> dict:
             "shapes": details, "ragged": ragged}
 
 
+def _k2_inputs(rng, h, w, c, act=None):
+    """K2's x, kernel, bias and keyword operands at one shape."""
+    x = _bf16(rng, (1, h, w, c), 0.5)
+    kern = _bf16(rng, (3, 3, c, c), (9 * c) ** -0.5)
+    bias = _uniform(rng, -0.1, 0.1, c)
+    return x, kern, bias, dict(emit_stats=True, num_groups=32, act=act)
+
+
 def _k2_case(rng, bnd, h, w, c, act=None):
     """K2 at one shape against its plain version, its bound added to
     ``bnd``: (log text, record).  Besides the wrapper's time (which
     collapses the kernel into phase kernels on every call) the launch
     alone, on phase kernels made beforehand."""
     from hdrvae_torch.kernels import _build, conv3x3
-    x = _bf16(rng, (1, h, w, c), 0.5)
-    kern = _bf16(rng, (3, 3, c, c), (9 * c) ** -0.5)
-    bias = _uniform(rng, -0.1, 0.1, c)
-    kw = dict(emit_stats=True, num_groups=32, act=act)
+    x, kern, bias, kw = _k2_inputs(rng, h, w, c, act)
     y, s = conv3x3.upsample_conv3x3(x, kern, bias, **kw)
     ry, rs = conv3x3.upsample_conv3x3_reference(x, kern, bias, **kw)
     torch.cuda.synchronize()
@@ -623,7 +665,8 @@ def _k2_case(rng, bnd, h, w, c, act=None):
     lib = _build.library()
     t_launch = cuda_ms(lambda: _build.check(lib.hdrvae_upsample_conv3x3(
         x.data_ptr(), pk.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        part.data_ptr(), 1, h, w, c, c, int(act == "lrelu"), stream),
+        part.data_ptr(), 1, h, w, c, c, int(act == "lrelu"), 0,
+        conv3x3._ALL_ROWS, stream),
         "hdrvae_upsample_conv3x3"))
     tp = cuda_ms(lambda: conv3x3.upsample_conv3x3_reference(
         x, kern, bias, **kw))
@@ -665,6 +708,96 @@ def _check_k2(rng) -> dict:
             "launch_ms": sum(d["launch_ms"] for d in details),
             "library_call": CONV_ALONE + " (on the upsampled map)",
             "shapes": details, "ragged": ragged, "act": act}
+
+
+def _owned_cuts(rows: int) -> list:
+    """Three intervals that partition ``rows`` output rows, cut at odd rows:
+    inside K1's 4-row tiles, and between K2's phase rows 2 i and 2 i + 1."""
+    a, b = (rows // 3) | 1, (2 * rows // 3) | 1
+    return [(0, a), (a, b), (b, rows)]
+
+
+def _partition_err(parts, whole, y) -> float:
+    """How far three intervals' (sum, sumsq) are from the whole map's: the
+    signed sum relative to the group's sum of |y|, sumsq relative."""
+    g = whole[0].shape[-1]
+    b, h, w, c = y.shape
+    abs_sum = y.float().abs().reshape(b, h * w, g, c // g).sum(dim=(1, 3))
+    e_sum = ((sum(p[0] for p in parts) - whole[0]).abs() / abs_sum).max()
+    e_sq = ((sum(p[1] for p in parts) - whole[1]).abs() / whole[1]).max()
+    return max(e_sum.item(), e_sq.item())
+
+
+def _check_owned(rng, kind: str) -> dict:
+    """K1 or K2 (``kind``) with ``owned_rows`` at phase 3's decode shapes
+    (K1_SHAPES, K2_SHAPES; K2 in both modes), over three intervals cut at
+    odd output rows (``_owned_cuts``): y bit-equal to the unrestricted
+    launch's, each interval's sums within STATS_BUDGET of the plain
+    version's with the same owned_rows, the three intervals' sums adding
+    up to the unrestricted sums within float32 reordering
+    (OWNED_PARTITION), K2's stats_only sums bit-equal to its y mode's; the
+    mode's time (the middle interval) beside the unrestricted launch's and
+    the plain version's.  The caller adds the bound and the library time
+    (the unrestricted entry's: the same work at the same shapes)."""
+    from hdrvae_torch.kernels import conv3x3
+    up = kind == "K2"
+    fn = conv3x3.upsample_conv3x3 if up else conv3x3.fused_conv3x3
+    plain = (conv3x3.upsample_conv3x3_reference if up
+             else conv3x3.fused_conv3x3_reference)
+    details = []
+    for shape in (K2_SHAPES if up else K1_SHAPES):
+        x, kern, bias, kw = (_k2_inputs(rng, *shape) if up
+                             else _k1_inputs(rng, *shape))
+        rows = 2 * shape[0] if up else shape[0]
+        y, s = fn(x, kern, bias, **kw)
+        parts, e_y, e_s = [], 0.0, 0.0
+        for lo, hi in _owned_cuts(rows):
+            yo, so = fn(x, kern, bias, owned_rows=(lo, hi), **kw)
+            ry, rs = plain(x, kern, bias, owned_rows=(lo, hi), **kw)
+            check(torch.equal(yo, y), f"{kind} owned_rows {(lo, hi)} at "
+                  f"{shape}: y differs from the unrestricted launch's")
+            if up:
+                st = fn(x, kern, bias, owned_rows=(lo, hi), stats_only=True,
+                        **kw)
+                check(torch.equal(st[0], so[0]) and torch.equal(st[1], so[1]),
+                      f"K2 stats_only owned_rows {(lo, hi)} at {shape}: "
+                      "sums differ from the y mode's")
+            e_y = max(e_y, (yo.float() - ry.float()).abs().max().item())
+            e_s = max(e_s, stats_err(so, rs, ry[:, lo:hi]))
+            parts.append(so)
+            del ry
+        e_p = _partition_err(parts, s, y)
+        check(e_s <= STATS_BUDGET, f"{kind} owned_rows at {shape}: stats "
+              f"rel err {e_s} > {STATS_BUDGET}")
+        check(e_p <= OWNED_PARTITION, f"{kind} owned_rows at {shape}: three "
+              f"intervals' sums off the whole map's by {e_p} > "
+              f"{OWNED_PARTITION}")
+        mid = _owned_cuts(rows)[1]
+        t = cuda_ms(lambda: fn(x, kern, bias, owned_rows=mid, **kw))
+        t_all = cuda_ms(lambda: fn(x, kern, bias, **kw))
+        tp = cuda_ms(lambda: plain(x, kern, bias, owned_rows=mid, **kw))
+        log(f"{kind} owned_rows {shape}: cuts {_owned_cuts(rows)} y "
+            f"bit-equal to the unrestricted launch; max-abs vs plain "
+            f"{e_y:.3e}  stats {e_s:.2e}  partition {e_p:.2e}  kernel "
+            f"{t:.3f} ms (unrestricted {t_all:.3f} ms)  plain {tp:.3f} ms")
+        details.append({"shape": list(shape), "max_abs_err": e_y,
+                        "stats_rel_err": e_s, "partition_rel_err": e_p,
+                        "ms": t, "unrestricted_ms": t_all, "plain_ms": tp})
+        del x, y, s, parts
+    torch.cuda.empty_cache()
+    name = "upsample_conv3x3" if up else "fused_conv3x3"
+    line = (":653 (owned_rows, :692, :738-739)" if up
+            else ":333 (owned_rows, :368-372, :437-438)")
+    return {"name": name + "_owned_rows", "route": "cuda",
+            "source": "hdrvae_torch/csrc/conv3x3.cu",
+            "replaces": "hdrvae/kernels/conv3x3.py" + line,
+            "max_abs_err": max(d["max_abs_err"] for d in details),
+            "stats_rel_err": max(d["stats_rel_err"] for d in details),
+            "partition_rel_err": max(d["partition_rel_err"]
+                                     for d in details),
+            **{k: sum(d[k] for d in details)
+               for k in ("ms", "unrestricted_ms", "plain_ms")},
+            "shapes": details}
 
 
 def _summed(details) -> dict:
@@ -2097,14 +2230,15 @@ def phase_large_frames(dec):
     the fast tier's streamed top level (K2 stats_only + K5) and the mixed
     tier's staged executor, each held to the whole-image decode, with
     their times and peaks.  Returns (the low-memory 2048^2 request's
-    launch counts, the records)."""
+    launch counts, the records, the whole-image fast and mixed 2048^2
+    results on the host: the slab phase's references)."""
     from hdrvae_torch.core.config import HDRDecodeConfig, Precision
     from hdrvae_torch.decode import pipeline, staged
     from hdrvae_torch.models import fused_tail
     from hdrvae_torch.models.decoder import decoder_apply
     cons = HDRDecodeConfig(hdr_mode="conservative")
     fast, mixed = Precision.fast(), Precision.mixed()
-    records = {}
+    records, refs = {}, {}
     lowmem_min = fused_tail.LOWMEM_MIN_PIXELS
 
     def run(label, z, prec, n=1):
@@ -2160,6 +2294,7 @@ def phase_large_frames(dec):
             records[f"fast {px} low-memory"]["rgb_vs_whole"] = e
             if side == 256:
                 main_counts = cl
+                refs["fast"] = whole
                 unfused = decoder_apply(dec, z,
                                         precision=_unfused_fast()).rgb.cpu()
                 e_u = (low[0] - unfused).abs().max().item()
@@ -2179,7 +2314,8 @@ def phase_large_frames(dec):
     z = _latent(256)
     try:
         pipeline._STAGED_MIN_PIXELS_OVERRIDE = 1 << 62
-        whole = host(run("mixed 2048^2 whole-image", z, mixed)[0])
+        whole = refs["mixed"] = host(run("mixed 2048^2 whole-image", z,
+                                         mixed)[0])
         pipeline._STAGED_MIN_PIXELS_OVERRIDE = 1
         st = host(run("mixed 2048^2 staged", z, mixed)[0])
     finally:
@@ -2230,7 +2366,90 @@ def phase_large_frames(dec):
         f"(with the exact float32 attention, as PERF.md records it: "
         f"{F32_AUTO_ROUTED[0]} ms, {F32_AUTO_ROUTED[1]} GiB)")
     torch.cuda.empty_cache()
-    return main_counts, records
+    return main_counts, records, refs
+
+
+def phase_slab(dec, refs):
+    """The slab-sharded decode across SLAB_RANKS ranks on the one card
+    (gloo: NCCL takes no two ranks on one device), started by the port's
+    launcher: ``sharded_slab_decode`` of the 2048^2 latent of the
+    large-frame phase with ``tail_levels=2``, fast on the chain (K1 / K2
+    with owned_rows, K3 bf16) and mixed on the layers (K3 3-pass), two
+    requests each, the second timed and counted on every rank; every rank's
+    image the same, held to the whole-image decode of its tier (``refs``).
+    Returns (the fast request's launch counts summed over the ranks, the
+    records)."""
+    from hdrvae_torch.core.config import HDRDecodeConfig, Precision
+    from hdrvae_torch.sharding import multihost
+    cons = HDRDecodeConfig(hdr_mode="conservative")
+    z = _latent(256).cpu()
+    cases = [multihost.SlabCase(tier, "flux", z, cons, prec, tail_levels=2,
+                                requests=2)
+             for tier, prec in (("fast", Precision.fast()),
+                                ("mixed", Precision.mixed()))]
+    sd = {k: v.cpu() for k, v in dec.state_dict().items()}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multihost.RankGroup(SLAB_RANKS, {"flux": (dec.cfg, sd)}, cases,
+                                device="cuda").wait(timeout=300)
+    log(f"slab: {SLAB_RANKS} ranks ({ranks[0][0]['backend']}, "
+        f"{[r[0]['device'] for r in ranks]}) started, decoded and returned "
+        f"in {time.perf_counter() - t0:.1f} s")
+    records, summed = {}, {}
+    for i, case in enumerate(cases):
+        recs = [r[i] for r in ranks]
+        got = recs[0]
+        check(all(torch.equal(r["image"], got["image"])
+                  and torch.equal(r["standard"], got["standard"])
+                  for r in recs), f"slab {case.name}: ranks disagree")
+        check(torch.isfinite(got["image"]).all().item()
+              and tuple(got["image"].shape) == (1, 2048, 2048, 3),
+              f"slab {case.name}: image {tuple(got['image'].shape)}, "
+              "non-finite or of the wrong shape")
+        std, img, pre = refs[case.name]
+        e_rgb = (got["standard"] - std).abs().max().item()
+        e_img = (got["image"] - img).abs().max().item()
+        e_pre = max(abs(got["summary"]["pre"][k] - pre[k])
+                    / max(abs(pre[k]), 1e-6) for k in pre)
+        if case.name == "fast":
+            bar = SLAB_FAST * max(1.0, std.abs().max().item())
+            check(e_rgb <= bar, f"slab fast vs whole-image rgb max-abs "
+                  f"{e_rgb} > {bar}")
+        else:
+            check(e_rgb <= SLAB_MIXED[0] and e_img <= SLAB_MIXED[1],
+                  f"slab mixed vs whole-image rgb {e_rgb} (<= "
+                  f"{SLAB_MIXED[0]}), conservative {e_img} (<= "
+                  f"{SLAB_MIXED[1]})")
+        counts = {}
+        for r in recs:
+            for k, v in r["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        summed[case.name] = counts
+        records[case.name] = {
+            "rgb_vs_whole": e_rgb, "conservative_vs_whole": e_img,
+            "pre_stats_rel_vs_whole": e_pre,
+            "device_ms": [r["device_ms"] for r in recs],
+            "wall_ms": [r["wall_ms"] for r in recs],
+            "peak_gib": [r["peak_bytes"] / 2 ** 30 for r in recs],
+            "launches": {k: v for k, v in counts.items() if v}}
+        log(f"slab[{case.name}] vs whole-image: rgb max-abs {e_rgb:.3e}, "
+            f"conservative {e_img:.3e}, pre statistics rel {e_pre:.3e}; "
+            "device ms by rank "
+            f"{[round(r['device_ms'], 3) for r in recs]}, peak GiB "
+            f"{[round(r['peak_bytes'] / 2 ** 30, 3) for r in recs]} (both "
+            "ranks share one card: no multi-GPU speedup is measured here); "
+            f"launches summed over the ranks {records[case.name]['launches']}")
+    fast, mixed = summed["fast"], summed["mixed"]
+    for k in ("fused_conv3x3.owned_launches",
+              "upsample_conv3x3.owned_launches",
+              "flash_attention_bf16.launches"):
+        check(fast[k] > 0, f"slab fast never ran {k}")
+    check(mixed["flash_attention_3pass.launches"] > 0
+          and mixed["fused_conv3x3.launches"] == 0,
+          f"slab mixed: K3 3-pass / K1 launched "
+          f"{mixed['flash_attention_3pass.launches']} / "
+          f"{mixed['fused_conv3x3.launches']} times, want > 0 / 0")
+    return fast, records
 
 
 def phase_exr(image: torch.Tensor) -> None:
@@ -2589,9 +2808,12 @@ def main() -> int:
     bucket_masked, bucket_records = phase_bucketed(dec)
     log(f"bucketed phase {time.perf_counter() - t_b:.1f} s")
     t_lf = time.perf_counter()
-    lf_counts, lf_records = phase_large_frames(dec)
-    del dec
+    lf_counts, lf_records, slab_refs = phase_large_frames(dec)
     log(f"large-frame phase {time.perf_counter() - t_lf:.1f} s")
+    t_sl = time.perf_counter()
+    slab_counts, slab_records = phase_slab(dec, slab_refs)
+    del dec, slab_refs
+    log(f"slab phase {time.perf_counter() - t_sl:.1f} s")
     phase_exr(image)
     t_up = time.perf_counter()
     up_counts, up_times = phase_upscale(image)
@@ -2652,6 +2874,10 @@ def main() -> int:
                                 ("swin_proj_mlp", "proj_mlp")):
         main_path[entry_name] = chain_counts[wrapper]
     main_path["f32_dot"] = probe_counts["f32_dot"]
+    # K1 / K2 owned_rows: the fast slab decode, summed over its ranks
+    for name in ("fused_conv3x3", "upsample_conv3x3"):
+        main_path[name + "_owned_rows"] = slab_counts[name +
+                                                      ".owned_launches"]
     for entry in entries:
         entry["launches"] = main_path[entry["name"]]
         check(entry["launches"] > 0,
@@ -2668,6 +2894,7 @@ def main() -> int:
                                      for k, v in up_times.items()},
                       "bucketed_decode": bucket_records,
                       "large_frames": lf_records,
+                      "slab_sharded": slab_records,
                       "swin_chain_vs_k7": chain_ab,
                       "swin_chain": chain_record,
                       "f32_dot_probe": probe_rows}))

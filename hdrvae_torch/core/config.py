@@ -232,6 +232,18 @@ class UpscaleConfig:
     tiling: TilingConfig = dataclasses.field(default_factory=TilingConfig)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Layout of a sharded decode, read by ``sharding.mesh.Mesh``.  The JAX
+    package's mesh is a 1-D device axis; the port's is a
+    ``torch.distributed`` process group, one device a rank.
+    ``num_devices`` is the group's size, checked against it (None: every
+    rank of the default group).  JAX's ``axis_name`` has no counterpart: a
+    process group has no named axes."""
+
+    num_devices: Optional[int] = None
+
+
 @contextlib.contextmanager
 def fp32_contractions(precision: Precision) -> Iterator[None]:
     """Run float32 convs and matmuls exactly in the parity and mixed tiers.

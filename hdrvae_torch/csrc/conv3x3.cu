@@ -58,13 +58,21 @@
 //  * Epilogue from the accumulators: bias and the residual (K1) or K2's
 //    LeakyReLU applied in float32, rounded to bf16, stored.  An identity
 //    residual is read by the thread that then writes that element, so y may
-//    be the residual's own storage (res and y carry no __restrict__).  Statistics of y as stored (after the
-//    rounding): a shuffle reduction per column over the warp's rows, per-warp
-//    partials in shared memory, a fixed-order sum over the eight warps into
+//    be the residual's own storage (res and y carry no __restrict__).
+//    Statistics of y as stored (after the rounding): a shuffle reduction
+//    per column over the warp's rows, per-warp partials in shared memory,
+//    a fixed-order sum over the eight warps into
 //    per-tile partials [B, T, 2, Cout] that hdrvae_group_stats reduces in a
 //    fixed order.  No atomics, so K2's stats_only mode (y null, the same
 //    code with the store predicated off) gives sums bit-equal to the launch
 //    that writes y.
+//  * owned_rows (both kernels, K2 in both modes; JAX conv3x3.py:368-372,
+//    :692): the statistics count only output rows [own_lo, own_hi), the
+//    rows a slab shard owns, so a sum over the shards is the whole image's;
+//    y is stored as without it.  The bounds are launch arguments and the
+//    test is one compare per accumulator row, so a tile that straddles a
+//    bound counts exactly its owned rows.  K2's phase a carries
+//    low-resolution row i to output row 2 i + a.
 //  * K2's phases are separate work items, neighbours in the walk: a slab of
 //    all Cin channels, which would let one block run the four phases
 //    against one load, does not fit in shared memory (405 KB at Cin 512),
@@ -144,6 +152,7 @@ struct ConvArgs {
   float* partial;       // [B, T, 2, Cout] or null
   int B, H, W, Cin, Cout, Cr, res_mode;
   int act;              // K2: 0 none, 1 LeakyReLU(0.2) before the rounding
+  int own_lo, own_hi;   // statistics over output rows [own_lo, own_hi) only
 };
 
 // GroupNorm affine + SiLU, rounded to bf16, in place on the slab's
@@ -376,7 +385,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv_wgmma_kernel(
     const int Wo = (MODE == MODE_UP) ? 2 * a.W : a.W;
     // this thread's pixels: rows (mb, i) of its m64 blocks
     size_t orow[2][2];
-    bool ok[2][2];
+    bool ok[2][2], own[2][2];
 #pragma unroll
     for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
@@ -385,6 +394,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv_wgmma_kernel(
         const int oh = (MODE == MODE_UP) ? 2 * hh + pa : hh;
         const int ow = (MODE == MODE_UP) ? 2 * ww + pb : ww;
         ok[mb][i] = hh < a.H && ww < a.W;
+        // counted in the statistics: the owned output rows (K2's phase a
+        // puts low-resolution row hh at output row 2 hh + a)
+        own[mb][i] = ok[mb][i] && oh >= a.own_lo && oh < a.own_hi;
         orow[mb][i] =
             ((static_cast<size_t>(b) * Ho + oh) * Wo + ow) * a.Cout + n0;
       }
@@ -429,7 +441,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv_wgmma_kernel(
                 *reinterpret_cast<__nv_bfloat162*>(a.y + o) = yb;
               v0 = __low2float(yb);   // statistics of y as stored
               v1 = __high2float(yb);
-              s0 += v0; s1 += v1; q0 += v0 * v0; q1 += v1 * v1;
+              if (own[mb][i]) {
+                s0 += v0; s1 += v1; q0 += v0 * v0; q1 += v1 * v1;
+              }
             }
           }
         if (a.partial != nullptr) {
@@ -554,11 +568,13 @@ extern "C" {
 // gamma/beta [B,Cin] f32 or null; res [B,H,W,Cr] bf16 or null; res_w
 // [Cr,Cout] bf16 or null; y [B,H,W,Cout] bf16; partial [B,T,2,Cout] f32 or
 // null, T = ceil(H/4) * ceil(W/64).  Cin, Cr % 16 == 0, Cout % 64 == 0.
+// The partials count rows [own_lo, own_hi) of y only (0, INT_MAX: all).
 int hdrvae_fused_conv3x3(const void* x, const void* w, const void* bias,
                          const void* gamma, const void* beta, const void* res,
                          const void* res_w, void* y, void* partial, int B,
                          int H, int W, int Cin, int Cout, int Cr,
-                         int res_mode, void* stream) {
+                         int res_mode, int own_lo, int own_hi,
+                         void* stream) {
   const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                    static_cast<const float*>(bias),
                    static_cast<const float*>(gamma),
@@ -566,7 +582,7 @@ int hdrvae_fused_conv3x3(const void* x, const void* w, const void* bias,
                    static_cast<const bf16*>(res),
                    static_cast<const bf16*>(res_w), static_cast<bf16*>(y),
                    static_cast<float*>(partial), B, H, W, Cin, Cout, Cr,
-                   res_mode, 0};
+                   res_mode, 0, own_lo, own_hi};
   return launch_n<MODE_CONV>(a, stream);
 }
 
@@ -574,15 +590,17 @@ int hdrvae_fused_conv3x3(const void* x, const void* w, const void* bias,
 // bias [Cout] f32; y [B,2H,2W,Cout] bf16, or null (stats_only: partial
 // must then be given); partial [B,4T,2,Cout] f32 or null; act 0 none, 1
 // LeakyReLU(0.2) after the bias (the statistics are of y after it, as
-// stored).
+// stored); the partials count rows [own_lo, own_hi) of y only (0,
+// INT_MAX: all).
 int hdrvae_upsample_conv3x3(const void* x, const void* pw, const void* bias,
                             void* y, void* partial, int B, int H, int W,
-                            int Cin, int Cout, int act, void* stream) {
+                            int Cin, int Cout, int act, int own_lo,
+                            int own_hi, void* stream) {
   const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(pw),
                    static_cast<const float*>(bias), nullptr, nullptr,
                    nullptr, nullptr, static_cast<bf16*>(y),
                    static_cast<float*>(partial), B, H, W, Cin, Cout, 0,
-                   RES_NONE, act};
+                   RES_NONE, act, own_lo, own_hi};
   return launch_n<MODE_UP>(a, stream);
 }
 

@@ -88,15 +88,24 @@ def hdr_epilogue_from_parts(rgb: torch.Tensor, pre_collapsed: torch.Tensor,
 def hdr_epilogue(rgb: torch.Tensor, pre_conv_out: torch.Tensor,
                  cfg: HDRDecodeConfig) -> Tuple[torch.Tensor, torch.Tensor,
                                                 ConvOutAnalysis]:
-    """Analysis + mode math + acceptance select on decoder outputs; the
-    collapse and the pre-map statistics run as the fused K4 pass when
-    ``cfg.use_fused_epilogue`` is set."""
+    """Analysis + mode math + acceptance select on decoder outputs."""
+    pre_collapsed, pre_stats, pre_first3 = _epilogue_parts(pre_conv_out, cfg)
+    return hdr_epilogue_from_parts(rgb, pre_collapsed, pre_stats, cfg,
+                                   pre_first3)
+
+
+def _epilogue_parts(pre_conv_out: torch.Tensor, cfg: HDRDecodeConfig
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                               Optional[torch.Tensor]]:
+    """The whole-image pre map's parts that :func:`hdr_epilogue_from_parts`
+    takes: the collapsed map (float32), its statistics (the fused K4 pass
+    when ``cfg.use_fused_epilogue`` is set), and the first three channels
+    when the ``first3`` fallback needs them."""
     pre_collapsed, pre_stats = collapse_and_stats(
         pre_conv_out, use_fused=cfg.use_fused_epilogue)
     pre_first3 = (pre_conv_out[..., :3].float()
                   if cfg.fallback_collapse == "first3" else None)
-    return hdr_epilogue_from_parts(rgb, pre_collapsed.float(), pre_stats,
-                                   cfg, pre_first3)
+    return pre_collapsed.float(), pre_stats, pre_first3
 
 
 def _to_nhwc(latent: torch.Tensor, zc: int) -> torch.Tensor:
@@ -114,14 +123,18 @@ def _to_nhwc(latent: torch.Tensor, zc: int) -> torch.Tensor:
                      f"z_channels={zc})")
 
 
-def _epilogue_and_stats(decoder: Decoder, out: DecodeOutput,
-                        latent: torch.Tensor, cfg: HDRDecodeConfig,
-                        precision: Precision) -> HDRDecodeResult:
-    """The epilogue and the stats record of a decoder output.  ``latent``
-    is the unpadded latent, so ``stats["input"]`` never counts pad
-    pixels."""
-    image, used_fallback, analysis = hdr_epilogue(out.rgb, out.pre_conv_out,
-                                                  cfg)
+def result_from_parts(decoder: Decoder, rgb: torch.Tensor,
+                      pre_collapsed: torch.Tensor,
+                      pre_stats: Dict[str, torch.Tensor],
+                      latent: torch.Tensor, cfg: HDRDecodeConfig,
+                      pre_first3: Optional[torch.Tensor] = None
+                      ) -> HDRDecodeResult:
+    """The epilogue (:func:`hdr_epilogue_from_parts`) and the stats record
+    of a decode whose pre map was collapsed and reduced by its executor
+    (staged, slab-sharded), so only the weights' part of
+    ``full_analysis`` is recorded.  ``latent`` is the unpadded latent."""
+    image, used_fallback, analysis = hdr_epilogue_from_parts(
+        rgb, pre_collapsed, pre_stats, cfg, pre_first3)
     stats = {
         "input": hdr_stats(latent),
         "pre": analysis.pre_stats,
@@ -130,17 +143,30 @@ def _epilogue_and_stats(decoder: Decoder, out: DecodeOutput,
         "output": hdr_stats(image),
     }
     if cfg.full_analysis:
-        # conv_out re-applied to the captured features alone, and the
-        # layer's weight/bias statistics
-        conv_only = conv2d(out.pre_conv_out, decoder.conv_out,
-                           precision=precision)
-        stats["conv_only"] = tensor_stats(conv_only)
         stats["conv_weight"] = tensor_stats(
             decoder.conv_out.weight.permute(2, 3, 1, 0))
         stats["conv_bias"] = tensor_stats(decoder.conv_out.bias)
-    standard = out.rgb if cfg.keep_standard else None
-    return HDRDecodeResult(image=image, standard=standard, stats=stats,
-                           used_fallback=used_fallback)
+    return HDRDecodeResult(image=image,
+                           standard=rgb if cfg.keep_standard else None,
+                           stats=stats, used_fallback=used_fallback)
+
+
+def _epilogue_and_stats(decoder: Decoder, out: DecodeOutput,
+                        latent: torch.Tensor, cfg: HDRDecodeConfig,
+                        precision: Precision) -> HDRDecodeResult:
+    """The epilogue and the stats record of a decoder output.  ``latent``
+    is the unpadded latent, so ``stats["input"]`` never counts pad
+    pixels."""
+    pre_collapsed, pre_stats, pre_first3 = _epilogue_parts(
+        out.pre_conv_out, cfg)
+    result = result_from_parts(decoder, out.rgb, pre_collapsed, pre_stats,
+                               latent, cfg, pre_first3)
+    if cfg.full_analysis:
+        # conv_out re-applied to the captured features alone
+        conv_only = conv2d(out.pre_conv_out, decoder.conv_out,
+                           precision=precision)
+        result.stats["conv_only"] = tensor_stats(conv_only)
+    return result
 
 
 def _bucket_target(hw: Tuple[int, int], shape_bucket: int,

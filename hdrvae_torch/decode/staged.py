@@ -46,10 +46,9 @@ from torch import nn
 
 from hdrvae_torch.core.config import (HDRDecodeConfig, Precision,
                                       fp32_contractions)
-from hdrvae_torch.core.stats import hdr_stats, tensor_stats
 from hdrvae_torch.decode.formatting import collapse_channels_maxpool
 from hdrvae_torch.decode.pipeline import (HDRDecodeResult, _to_nhwc,
-                                          hdr_epilogue_from_parts)
+                                          result_from_parts)
 from hdrvae_torch.models.decoder import (Decoder, ResnetBlock, decoder_head,
                                          resnet_block)
 from hdrvae_torch.models.layers import (Moments, conv2d, gn_affine,
@@ -439,25 +438,10 @@ def staged_tail(decoder: Decoder, buf: torch.Tensor, moments: Moments,
     pre_stats = {"min": mn, "max": mx, "mean": mean.float(),
                  "std": torch.sqrt(var).float()}
 
-    image, used_fallback, analysis = hdr_epilogue_from_parts(
-        rgb[None], pre_c[None], pre_stats, cfg,
-        pre3[None] if want_first3 else None)
-    stats = {
-        "input": hdr_stats(latent),
-        "pre": analysis.pre_stats,
-        "post": analysis.post_stats,
-        "norm_kind": analysis.norm_kind,
-        "output": hdr_stats(image),
-    }
-    if cfg.full_analysis:
-        # the weights' part only: the pre map is never whole in memory to
-        # run conv_out over it alone
-        stats["conv_weight"] = tensor_stats(
-            decoder.conv_out.weight.permute(2, 3, 1, 0))
-        stats["conv_bias"] = tensor_stats(decoder.conv_out.bias)
-    return HDRDecodeResult(image=image,
-                           standard=rgb[None] if cfg.keep_standard else None,
-                           stats=stats, used_fallback=used_fallback)
+    # full_analysis records the weights' part only: the pre map is never
+    # whole in memory to run conv_out over it alone
+    return result_from_parts(decoder, rgb[None], pre_c[None], pre_stats,
+                             latent, cfg, pre3[None] if want_first3 else None)
 
 
 @torch.no_grad()

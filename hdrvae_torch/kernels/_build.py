@@ -40,10 +40,8 @@ _L = ctypes.c_longlong
 # c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
     # conv3x3.cu
-    "hdrvae_fused_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _P],
-    "hdrvae_upsample_conv3x3": [_P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _P],
+    "hdrvae_fused_conv3x3": [_P] * 9 + [_I] * 9 + [_P],
+    "hdrvae_upsample_conv3x3": [_P] * 5 + [_I] * 8 + [_P],
     "hdrvae_group_stats": [_P, _P, _I, _I, _I, _I, _P],
     # upconv.cu
     "hdrvae_upconv_gn_conv3x3": [_P] * 9 + [_I] * 6 + [_P],

@@ -13,7 +13,10 @@ PyTorch versions, as ``hdrvae/kernels/conv3x3.py``.
 
 Layouts are the JAX package's: x [B, H, W, C] NHWC, conv kernels HWIO
 [3, 3, Cin, Cout], ``res_kernel`` [Cr, Cout].  Statistics are per sample:
-(sum [B, G], sumsq [B, G]).
+(sum [B, G], sumsq [B, G]).  K1 and K2 take ``owned_rows`` = (lo, hi), host
+ints at the output's resolution: the statistics then count only output rows
+lo <= r < hi, the rows a slab shard owns (``sharding/mesh.py``), and y is
+the same.
 
 Each wrapper runs its plain version only when ``x`` lies on the CPU.  On a
 CUDA tensor it launches the kernel (``csrc/conv3x3.cu``, ``csrc/upconv.cu``)
@@ -34,12 +37,14 @@ from hdrvae_torch.core.config import Precision, fp32_contractions
 from hdrvae_torch.kernels import _build
 
 Sums = Tuple[torch.Tensor, torch.Tensor]   # (sum [B, G], sumsq [B, G])
+OwnedRows = Optional[Tuple[int, int]]      # [lo, hi) of the output's rows
 LRELU_SLOPE = 0.2                          # K2's act="lrelu"
 
 # conv3x3.cu (K1, K2): a work item's tile is _TR rows x _TWP pixels (K2: of
 # the low-resolution map, for one output phase); the kernels take Cin and Cr
 # multiples of _CIN_STEP and Cout of _COUT_STEP
 _TR, _TWP, _CIN_STEP, _COUT_STEP = 4, 64, 16, 64
+_ALL_ROWS = 2 ** 31 - 1                    # own_hi of an unrestricted launch
 # upconv.cu (K5): its work item's output tile, _K5_TH rows x _K5_TW pixels
 # (one statistics partial each), and its Cin step
 _K5_TH, _K5_TW, _K5_CIN_STEP = 4, 64, 16
@@ -83,13 +88,29 @@ def upconv_tiles(h: int, w: int) -> int:
     return -(-2 * h // _K5_TH) * -(-2 * w // _K5_TW)
 
 
-def conv_partials(y: torch.Tensor, upsampled: bool = False) -> torch.Tensor:
+def _owned_span(owned_rows: OwnedRows, h: int) -> Tuple[int, int]:
+    """The rows r of [0, h) with lo <= r < hi, as a slice's (start, stop)
+    (bounds outside the map select no row there)."""
+    if owned_rows is None:
+        return 0, h
+    lo = min(max(int(owned_rows[0]), 0), h)
+    return lo, min(max(int(owned_rows[1]), lo), h)
+
+
+def conv_partials(y: torch.Tensor, upsampled: bool = False,
+                  owned_rows: OwnedRows = None) -> torch.Tensor:
     """Plain version of the kernels' statistics partials: y [B, Ho, Wo, C]
     (K2: the upsampled map) -> [B, T, 2, C] float32, the per-channel (sum,
     sumsq) of each tile, indexed as conv3x3.cu writes them (K1: tile t; K2:
-    4 t + the phase 2 a + b of output pixels (2 i + a, 2 j + b))."""
+    4 t + the phase 2 a + b of output pixels (2 i + a, 2 j + b)), counting
+    only the output rows in ``owned_rows`` when given."""
     b, ho, wo, c = y.shape
     y = y.float()
+    if owned_rows is not None:
+        lo, hi = _owned_span(owned_rows, ho)
+        keep = torch.zeros(ho, dtype=torch.bool, device=y.device)
+        keep[lo:hi] = True
+        y = y * keep[None, :, None, None]
     if upsampled:
         y = y.reshape(b, ho // 2, 2, wo // 2, 2, c).permute(0, 2, 4, 1, 3, 5)
     else:
@@ -124,7 +145,11 @@ def _conv3x3_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def _group_sums(y: torch.Tensor, num_groups: int) -> Sums:
+def _group_sums(y: torch.Tensor, num_groups: int,
+                owned_rows: OwnedRows = None) -> Sums:
+    """Per-group (sum, sumsq) of y's rows in ``owned_rows`` (all: None)."""
+    lo, hi = _owned_span(owned_rows, y.shape[1])
+    y = y[:, lo:hi]
     b, h, w, c = y.shape
     g = y.float().reshape(b, h * w, num_groups, c // num_groups)
     return g.sum(dim=(1, 3)), torch.square(g).sum(dim=(1, 3))
@@ -144,11 +169,13 @@ def fused_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
                             res_kernel: Optional[torch.Tensor] = None,
                             emit_stats: bool = False, num_groups: int = 32,
                             out_dtype: Optional[torch.dtype] = None,
-                            out: Optional[torch.Tensor] = None):
+                            out: Optional[torch.Tensor] = None,
+                            owned_rows: OwnedRows = None):
     """Plain version of :func:`fused_conv3x3`, rounding where the kernel
     does: the prologue output to x's dtype before the taps, y to
-    ``out_dtype`` before its statistics.  The SAME zeros are zeros of the
-    normalized activation.  ``out`` receives y when given."""
+    ``out_dtype`` before its statistics (of the ``owned_rows`` alone when
+    given).  The SAME zeros are zeros of the normalized activation.
+    ``out`` receives y when given."""
     out_dtype = out_dtype or x.dtype
     b = x.shape[0]
     z = x.float()
@@ -167,7 +194,7 @@ def fused_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
     if out is not None:
         y = out.copy_(y)
     if emit_stats:
-        return y, _group_sums(y, num_groups)
+        return y, _group_sums(y, num_groups, owned_rows)
     return y
 
 
@@ -180,11 +207,13 @@ def upsample_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
                                emit_stats: bool = False, num_groups: int = 32,
                                out_dtype: Optional[torch.dtype] = None,
                                stats_only: bool = False,
-                               act: Optional[str] = None):
+                               act: Optional[str] = None,
+                               owned_rows: OwnedRows = None):
     """Plain version of :func:`upsample_conv3x3`: the nearest 2x upsample
     materialized, then the 3x3 conv in float32 from the same weights, the
     bias and ``act`` in float32, one cast to ``out_dtype``.  ``stats_only``
-    returns only the (sum, sumsq) of y as stored."""
+    returns only the (sum, sumsq) of y as stored; ``owned_rows`` limits
+    them to those output rows."""
     _check_act("upsample_conv3x3", act)
     out_dtype = out_dtype or x.dtype
     up = x.float().repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
@@ -193,9 +222,9 @@ def upsample_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor,
         y = torch.where(y >= 0, y, LRELU_SLOPE * y)
     y = y.to(out_dtype)
     if stats_only:
-        return _group_sums(y, num_groups)
+        return _group_sums(y, num_groups, owned_rows)
     if emit_stats:
-        return y, _group_sums(y, num_groups)
+        return y, _group_sums(y, num_groups, owned_rows)
     return y
 
 
@@ -243,6 +272,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _own_args(owned_rows: OwnedRows, emit_stats: bool,
+              name: str) -> Tuple[int, int]:
+    """The kernel's (own_lo, own_hi) launch arguments: every row when
+    ``owned_rows`` is None."""
+    if owned_rows is None:
+        return 0, _ALL_ROWS
+    _require(emit_stats, f"{name}: owned_rows needs emit_stats")
+    lo, hi = (int(r) for r in owned_rows)
+    return lo, hi
+
+
 def _group_stats(partial: torch.Tensor, num_groups: int) -> Sums:
     b, t, _, c = partial.shape
     out = torch.empty(b, 2, num_groups, device=partial.device,
@@ -260,7 +300,8 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                   res_kernel: Optional[torch.Tensor] = None,
                   emit_stats: bool = False, num_groups: int = 32,
                   out_dtype: Optional[torch.dtype] = None,
-                  out: Optional[torch.Tensor] = None):
+                  out: Optional[torch.Tensor] = None,
+                  owned_rows: OwnedRows = None):
     """One fused ResNet conv step (K1).
 
     x [B, H, W, Cin]; kernel [3, 3, Cin, Cout]; bias [Cout] float32;
@@ -275,15 +316,21 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     element, so the block's output can overwrite a residual that is not
     used again (one full-resolution map less).
 
+    ``owned_rows`` = (lo, hi), host ints (with ``emit_stats``): the
+    statistics count only rows lo <= r < hi of y, the rows a slab shard
+    owns.  Those launches also count in ``fused_conv3x3.owned_launches``.
+
     Launches ``csrc/conv3x3.cu`` for a CUDA ``x`` (bf16 x, kernel,
     residual and output; Cin and Cr multiples of 16, Cout of 64); runs
     :func:`fused_conv3x3_reference` for a CPU ``x``.
     """
+    own = _own_args(owned_rows, emit_stats, "fused_conv3x3")
     if x.device.type == "cpu":
         return fused_conv3x3_reference(
             x, kernel, bias, gamma=gamma, beta=beta, residual=residual,
             res_kernel=res_kernel, emit_stats=emit_stats,
-            num_groups=num_groups, out_dtype=out_dtype, out=out)
+            num_groups=num_groups, out_dtype=out_dtype, out=out,
+            owned_rows=owned_rows)
     _require(x.is_cuda, f"fused_conv3x3: unsupported device {x.device}")
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
@@ -336,22 +383,25 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     _build.check(_build.library().hdrvae_fused_conv3x3(
         x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), ptr(gamma),
         ptr(beta), ptr(residual), ptr(res_kernel), y.data_ptr(),
-        ptr(partial), b, h, w, cin, cout, cr, res_mode, _stream(x)),
+        ptr(partial), b, h, w, cin, cout, cr, res_mode, *own, _stream(x)),
         "hdrvae_fused_conv3x3")
     fused_conv3x3.launches += 1
+    fused_conv3x3.owned_launches += owned_rows is not None
     if emit_stats:
         return y, _group_stats(partial, num_groups)
     return y
 
 
 fused_conv3x3.launches = 0
+fused_conv3x3.owned_launches = 0
 
 
 def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor, *, emit_stats: bool = False,
                      num_groups: int = 32,
                      out_dtype: Optional[torch.dtype] = None,
-                     stats_only: bool = False, act: Optional[str] = None):
+                     stats_only: bool = False, act: Optional[str] = None,
+                     owned_rows: OwnedRows = None):
     """``act(conv3x3(nearest2x(x)) + bias)`` as one kernel (K2): x [B, H, W,
     Cin] -> [B, 2H, 2W, Cout]; ``kernel`` is the plain [3, 3, Cin, Cout]
     conv kernel, collapsed here into phase kernels; ``act`` None or
@@ -365,6 +415,11 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     Those launches count in ``upsample_conv3x3.stats_only_launches``, the
     others in ``upsample_conv3x3.launches``.
 
+    ``owned_rows`` = (lo, hi), host ints at the output's resolution (with
+    ``emit_stats``, in either mode): the statistics count only output rows
+    lo <= r < hi.  Those launches also count in
+    ``upsample_conv3x3.owned_launches``.
+
     Launches ``csrc/conv3x3.cu`` for a CUDA ``x`` (bf16 in and out; Cin a
     multiple of 16, Cout of 64); runs :func:`upsample_conv3x3_reference`
     for a CPU ``x``.
@@ -372,10 +427,12 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     _require(not stats_only or emit_stats,
              "upsample_conv3x3: stats_only needs emit_stats")
     _check_act("upsample_conv3x3", act)
+    own = _own_args(owned_rows, emit_stats, "upsample_conv3x3")
     if x.device.type == "cpu":
         return upsample_conv3x3_reference(
             x, kernel, bias, emit_stats=emit_stats, num_groups=num_groups,
-            out_dtype=out_dtype, stats_only=stats_only, act=act)
+            out_dtype=out_dtype, stats_only=stats_only, act=act,
+            owned_rows=owned_rows)
     _require(x.is_cuda, f"upsample_conv3x3: unsupported device {x.device}")
     _require(x.dim() == 4, f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, cin = x.shape
@@ -404,7 +461,8 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
         x.data_ptr(), pk.data_ptr(), bias.data_ptr(),
         None if y is None else y.data_ptr(),
         None if partial is None else partial.data_ptr(), b, h, w, cin, cout,
-        int(act == "lrelu"), _stream(x)), "hdrvae_upsample_conv3x3")
+        int(act == "lrelu"), *own, _stream(x)), "hdrvae_upsample_conv3x3")
+    upsample_conv3x3.owned_launches += owned_rows is not None
     if stats_only:
         upsample_conv3x3.stats_only_launches += 1
         return _group_stats(partial, num_groups)
@@ -416,6 +474,7 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
 
 upsample_conv3x3.launches = 0
 upsample_conv3x3.stats_only_launches = 0
+upsample_conv3x3.owned_launches = 0
 
 
 def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,

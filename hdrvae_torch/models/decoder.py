@@ -27,6 +27,7 @@ layers in every tier, as the JAX package keeps it off its Pallas chain.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -139,7 +140,7 @@ def resnet_block(x: torch.Tensor, blk: ResnetBlock, *, num_groups: int,
         x = conv2d(x, blk.nin_shortcut, precision=precision)
     out = x + h
     if tape is not None:
-        out.mul_(tape.mask(out))
+        tape.zero_pad_(out)
     return out
 
 
@@ -179,6 +180,23 @@ def _up_level(dec: Decoder, x: torch.Tensor, level: int,
         x = conv2d(nearest_upsample_2x(x), up.upsample.conv,
                    precision=precision)
     return x
+
+
+def tail_receptive_radius(cfg: DecoderConfig, tail_levels: int) -> int:
+    """Receptive-field radius of :func:`decoder_tail` in tail-entry pixels,
+    as ``hdrvae/models/decoder.py``: each 3x3 conv at resolution f x entry
+    adds 1/f, each upsample doubles f (its conv runs at the doubled one),
+    conv_out adds the last 1/f.  A slab halo of this many rows makes the
+    halo-crop of the tail's convs exact."""
+    rf = 0.0
+    f = 1
+    for level in reversed(range(tail_levels)):
+        rf += 2 * (cfg.num_res_blocks + 1) / f
+        if level != 0:
+            f *= 2
+            rf += 1.0 / f
+    rf += 1.0 / f
+    return max(1, int(math.ceil(rf)))
 
 
 @torch.no_grad()

@@ -15,6 +15,13 @@ upsampled map (the largest map of the decode, [B, H, W, 256]) instead of
 storing it: K2's stats_only pass, K5 ``upconv_gn_conv3x3`` for level 0's
 first conv, and a folded shortcut (:func:`top_level_apply`).
 
+Under slab sharding (``sharding/mesh.py``) the chain runs in two parts:
+:func:`chain_head`, the whole image down to the tail levels, on every rank,
+then :func:`upstack_slab_apply`, the tail levels on this rank's row slab.
+A statistics scope tells the kernels which rows to count: the whole map
+(:class:`StatScope`), or a slab's owned rows (:class:`SlabStatScope`: K1
+and K2 with ``owned_rows``, the [B, G] sums all-reduced over the ranks).
+
 Numerics are the fast tier's: float32 statistics through the one-pass
 E[x^2] - mean^2 over the stored activations, float32 accumulation, storage
 in ``precision.storage_dtype``.  Activations are [B, H, W, C] and moments
@@ -32,7 +39,7 @@ from torch import nn
 from hdrvae_torch.core.config import (DecoderConfig, Precision,
                                       fp32_contractions)
 from hdrvae_torch.kernels.attention import spatial_attention
-from hdrvae_torch.kernels.conv3x3 import (Sums, fused_conv3x3,
+from hdrvae_torch.kernels.conv3x3 import (OwnedRows, Sums, fused_conv3x3,
                                           phase_kernels, upconv_gn_conv3x3,
                                           upsample_conv3x3)
 from hdrvae_torch.models.decoder import AttnBlock, Decoder, ResnetBlock
@@ -58,6 +65,43 @@ def _finalize(sums: Sums, n: int) -> Moments:
     ssum, ssq = sums
     mean = ssum / n
     return mean, torch.clamp(ssq / n - torch.square(mean), min=0.0)
+
+
+class StatScope:
+    """Whole-image statistics: the kernels' (sum, sumsq) cover the map, and
+    :meth:`finalize` divides by its element count."""
+
+    def __init__(self):
+        self.f = 1   # the current layer's resolution multiple of the entry
+
+    def owned_rows(self) -> OwnedRows:
+        return None
+
+    def finalize(self, sums: Sums, h: int, w: int, gsz: int) -> Moments:
+        return _finalize(sums, h * w * gsz)
+
+
+class SlabStatScope(StatScope):
+    """Whole-image statistics under slab sharding, as JAX's
+    ``_SlabStatScope``: every K1 / K2 launch counts only the rows this rank
+    owns (``bounds``, [lo, hi) of the slab's rows at the chain entry's
+    resolution, scaled by ``f`` to the layer's), :meth:`finalize`
+    all-reduces the [B, G] sums over ``mesh`` (a ``sharding.mesh.Mesh``)
+    and divides by the whole image's element count (``entry_h``: the
+    image's rows at the entry)."""
+
+    def __init__(self, mesh, bounds: Tuple[int, int], entry_h: int):
+        super().__init__()
+        self.mesh = mesh
+        self.bounds = (int(bounds[0]), int(bounds[1]))
+        self.entry_h = entry_h
+
+    def owned_rows(self) -> OwnedRows:
+        return self.bounds[0] * self.f, self.bounds[1] * self.f
+
+    def finalize(self, sums: Sums, h: int, w: int, gsz: int) -> Moments:
+        both = self.mesh.all_reduce(torch.stack(sums))
+        return _finalize((both[0], both[1]), self.entry_h * self.f * w * gsz)
 
 
 def _hwio(conv, dtype: torch.dtype) -> torch.Tensor:
@@ -113,10 +157,12 @@ def _folded_shortcut(x: torch.Tensor, up_kernel: torch.Tensor,
 
 def _resnet_block(x: torch.Tensor, blk: ResnetBlock, moments: Moments,
                   cfg: DecoderConfig, precision: Precision, *,
-                  owned: bool = False, stream_upsample=None
+                  owned: bool = False, stream_upsample=None,
+                  scope: Optional[StatScope] = None
                   ) -> Tuple[torch.Tensor, Moments]:
     """One ResNet block as two fused convs; returns the block output and
-    its GroupNorm moments.
+    its GroupNorm moments (counted over ``scope``'s rows; the whole map by
+    default).
 
     ``owned``: x is the chain's own map, so an identity residual's storage
     may take the block's output (K1 writes each output element over the
@@ -132,9 +178,12 @@ def _resnet_block(x: torch.Tensor, blk: ResnetBlock, moments: Moments,
     output there."""
     g = cfg.num_groups
     cdt, sdt = precision.compute_dtype, precision.storage_dtype
+    scope = scope or StatScope()
     b, h, w, _ = x.shape
     g1, b1 = gn_affine(moments, blk.norm1)
     if stream_upsample is not None:
+        # K5 has no owned-row mode: the streamed top level is whole-image
+        assert scope.owned_rows() is None
         jw = junction_weights(stream_upsample, blk, cdt)
         h, w = 2 * h, 2 * w
         h1, s1 = upconv_gn_conv3x3(
@@ -144,9 +193,10 @@ def _resnet_block(x: torch.Tensor, blk: ResnetBlock, moments: Moments,
     else:
         h1, s1 = fused_conv3x3(
             x, _hwio(blk.conv1, cdt), blk.conv1.bias.float(), gamma=g1,
-            beta=b1, emit_stats=True, num_groups=g, out_dtype=sdt)
+            beta=b1, emit_stats=True, num_groups=g, out_dtype=sdt,
+            owned_rows=scope.owned_rows())
     c1 = h1.shape[-1]
-    g2, b2 = gn_affine(_finalize(s1, h * w * (c1 // g)), blk.norm2)
+    g2, b2 = gn_affine(scope.finalize(s1, h, w, c1 // g), blk.norm2)
 
     bias2 = blk.conv2.bias.float()
     res_kernel = None
@@ -166,21 +216,46 @@ def _resnet_block(x: torch.Tensor, blk: ResnetBlock, moments: Moments,
     y, s2 = fused_conv3x3(
         h1, _hwio(blk.conv2, cdt), bias2, gamma=g2, beta=b2,
         residual=residual, res_kernel=res_kernel, emit_stats=True,
-        num_groups=g, out_dtype=sdt, out=residual if donate else None)
+        num_groups=g, out_dtype=sdt, out=residual if donate else None,
+        owned_rows=scope.owned_rows())
     c2 = y.shape[-1]
-    return y, _finalize(s2, h * w * (c2 // g))
+    return y, scope.finalize(s2, h, w, c2 // g)
 
 
 def _upsample(x: torch.Tensor, conv: nn.Conv2d, cfg: DecoderConfig,
-              precision: Precision) -> Tuple[torch.Tensor, Moments]:
+              precision: Precision, scope: StatScope
+              ) -> Tuple[torch.Tensor, Moments]:
     """Nearest 2x upsample fused into its conv (K2); statistics at the
-    doubled resolution."""
+    doubled resolution, over ``scope``'s rows there."""
+    scope.f *= 2
     x, sums = upsample_conv3x3(
         x, _hwio(conv, precision.compute_dtype), conv.bias.float(),
         emit_stats=True, num_groups=cfg.num_groups,
-        out_dtype=precision.storage_dtype)
+        out_dtype=precision.storage_dtype, owned_rows=scope.owned_rows())
     _, h, w, c = x.shape
-    return x, _finalize(sums, h * w * (c // cfg.num_groups))
+    return x, scope.finalize(sums, h, w, c // cfg.num_groups)
+
+
+def _levels_apply(dec: Decoder, x: torch.Tensor, moments: Moments,
+                  precision: Precision, scope: StatScope, *, hi: int,
+                  lo: int = 0, owned: bool = False,
+                  last_upsample: bool = True
+                  ) -> Tuple[torch.Tensor, Moments]:
+    """Up levels ``hi - 1 .. lo``, highest first, each above level 0
+    followed by its upsample (K2), level ``lo``'s only with
+    ``last_upsample``, as JAX's ``_levels_apply``.  ``owned``: x is the
+    chain's own map (an identity residual may take a block's output)."""
+    cfg = dec.cfg
+    for level in reversed(range(lo, hi)):
+        up = dec.up[level]
+        for blk in up.block:
+            x, moments = _resnet_block(x, blk, moments, cfg, precision,
+                                       owned=owned, scope=scope)
+            owned = True
+        if level > 0 and (level > lo or last_upsample):
+            x, moments = _upsample(x, up.upsample.conv, cfg, precision,
+                                   scope)
+    return x, moments
 
 
 def upper_levels_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
@@ -190,17 +265,8 @@ def upper_levels_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
     between them, stopping before level 1's upsample (the top level's
     junction, :func:`top_level_apply`).  x is the mid output; the caller's
     x is never written."""
-    cfg = dec.cfg
-    owned = False
-    for level in reversed(range(1, cfg.num_levels)):
-        up = dec.up[level]
-        for blk in up.block:
-            x, moments = _resnet_block(x, blk, moments, cfg, precision,
-                                       owned=owned)
-            owned = True
-        if level > 1:
-            x, moments = _upsample(x, up.upsample.conv, cfg, precision)
-    return x, moments
+    return _levels_apply(dec, x, moments, precision, StatScope(),
+                         hi=dec.cfg.num_levels, lo=1, last_upsample=False)
 
 
 def top_level_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
@@ -229,7 +295,7 @@ def top_level_apply(dec: Decoder, x: torch.Tensor, moments: Moments, *,
                 sums, 4 * h * w * (conv.out_channels // cfg.num_groups))
             stream = conv
         else:
-            x, moments = _upsample(x, conv, cfg, precision)
+            x, moments = _upsample(x, conv, cfg, precision, StatScope())
             owned = True
     for j, blk in enumerate(dec.up[0].block):
         x, moments = _resnet_block(
@@ -300,6 +366,43 @@ def midstack_apply(dec: Decoder, x: torch.Tensor, *,
                          owned=True)
 
 
+def _conv_in(dec: Decoder, z: torch.Tensor,
+             precision: Precision) -> torch.Tensor:
+    """The latent prescale and conv_in, on the layers' conv."""
+    cfg = dec.cfg
+    return conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
+                  precision=precision)
+
+
+@torch.no_grad()
+def chain_head(dec: Decoder, z: torch.Tensor, *, tail_levels: int,
+               precision: Precision = Precision.fast()
+               ) -> Tuple[torch.Tensor, Moments]:
+    """The slab decode's whole-image head as the chain, as JAX's
+    ``pallas_head``: conv_in, the mid, and the up levels above
+    ``tail_levels`` (1 or more) with their upsamples.  Returns the head
+    output [B, H, W, C] (the tail's entry) and its whole-image moments."""
+    x = _conv_in(dec, z, precision)
+    x, moments = midstack_apply(dec, x, precision=precision)
+    return _levels_apply(dec, x, moments, precision, StatScope(),
+                         hi=dec.cfg.num_levels, lo=tail_levels, owned=True)
+
+
+@torch.no_grad()
+def upstack_slab_apply(dec: Decoder, x: torch.Tensor, moments: Moments,
+                       scope: SlabStatScope, *, tail_levels: int,
+                       precision: Precision = Precision.fast()
+                       ) -> Tuple[torch.Tensor, Moments]:
+    """Up levels ``tail_levels - 1 .. 0`` on one row slab x of a
+    :func:`chain_head` output, with whole-image statistics from ``scope``
+    (K1 / K2 with ``owned_rows``, the sums all-reduced), as JAX's
+    ``upstack_slab_apply``.  ``moments`` are the head output's whole-image
+    moments.  Returns the slab's pre-norm_out map and the whole image's
+    moments of it, for ``norm_out``.  The top level is never streamed (K5
+    has no owned-row mode); x is never written."""
+    return _levels_apply(dec, x, moments, precision, scope, hi=tail_levels)
+
+
 @torch.no_grad()
 def forward(dec: Decoder, z: torch.Tensor, *,
             precision: Precision = Precision.fast()
@@ -308,8 +411,6 @@ def forward(dec: Decoder, z: torch.Tensor, *,
     GroupNorm moments): the latent prescale and conv_in on the layers'
     conv, then the mid and every up level as the fused chain (the top
     level streamed from ``LOWMEM_MIN_PIXELS`` output pixels)."""
-    cfg = dec.cfg
-    x = conv2d(z / cfg.scale_factor + cfg.shift_factor, dec.conv_in,
-               precision=precision)
+    x = _conv_in(dec, z, precision)
     x, moments = midstack_apply(dec, x, precision=precision)
     return upstack_apply(dec, x, moments, precision=precision)

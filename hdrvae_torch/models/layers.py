@@ -84,8 +84,9 @@ class PadMask:
     and nothing of the pad region reaches a valid pixel.  The decoder's
     optional ``tape``, as ``hdrvae/models/layers.py::PadMask``:
     :meth:`reduce_stats` for the GroupNorm moments, :meth:`mask_output`
-    on the prescaled latent, :meth:`mask` (in place) after the norms and
-    the ResNet blocks, :meth:`key_valid` for the mid attention.
+    on the prescaled latent, :meth:`zero_pad_` after the norms and the
+    ResNet blocks, :meth:`key_valid` for the mid attention.  A tape of the
+    tail alone has ``reduce_stats`` and ``zero_pad_``.
 
     ``base_h`` / ``base_w`` are the padded dims at the tape's entry
     resolution (the latent for ``decoder_apply``), ``valid_h`` / ``valid_w``
@@ -117,6 +118,10 @@ class PadMask:
     def mask_output(self, x: torch.Tensor) -> torch.Tensor:
         """x with its pad region zeroed, as a new tensor."""
         return x * self.mask(x)
+
+    def zero_pad_(self, x: torch.Tensor) -> torch.Tensor:
+        """x with its pad region zeroed in place."""
+        return x.mul_(self.mask(x))
 
     def key_valid(self, x: torch.Tensor) -> torch.Tensor:
         """[H, W] bool validity map of the attention keys at x's
@@ -175,7 +180,7 @@ def _store(y: torch.Tensor, precision: Precision,
     """The float32 norm output y, its pad region zeroed in place when a
     tape is given, rounded to the storage dtype."""
     if tape is not None:
-        y.mul_(tape.mask(y))
+        tape.zero_pad_(y)
     return y.to(precision.storage_dtype)
 
 

@@ -213,6 +213,57 @@ def test_upsample_conv3x3_tile_edges(dev, cin, cout):
     assert torch.equal(so, s) and torch.equal(sqo, sq)
 
 
+# K1 / K2 owned_rows: output-row intervals of a ragged 13 x 100 map (K2:
+# 26 rows out) that cut K1's 4-row tiles and K2's phase rows; one empty
+OWNED_CUTS = {"K1": [(0, 5), (5, 11), (11, 13)],
+              "K2": [(0, 7), (7, 7), (7, 19), (19, 26)]}
+
+
+@pytest.mark.parametrize("kind", ["K1", "K2"])
+def test_owned_rows(dev, kind):
+    """K1 / K2 (K2 in both modes) with owned_rows, batch 2: y bit-equal to
+    the unrestricted launch's, each interval's sums those of the plain
+    version with the same owned_rows (1e-3, as the unrestricted sums), the
+    intervals' sums adding up to the unrestricted ones (float32 reordering,
+    1e-5), its own counter."""
+    b, h, w, cin, cout = 2, 13, 100, 64, 128
+    x = _rand(dev, (b, h, w, cin), 0.5)
+    kern = _rand(dev, (3, 3, cin, cout), (9 * cin) ** -0.5, seed=1)
+    bias = _rand(dev, (cout,), 0.1, torch.float32, seed=2)
+    kw = dict(emit_stats=True, num_groups=32)
+    if kind == "K1":
+        fn, plain = conv3x3.fused_conv3x3, conv3x3.fused_conv3x3_reference
+        kw.update(gamma=_rand(dev, (b, cin), 0.3, torch.float32, seed=3)
+                  + 1.0, beta=_rand(dev, (b, cin), 0.3, torch.float32,
+                                    seed=4))
+    else:
+        fn = conv3x3.upsample_conv3x3
+        plain = conv3x3.upsample_conv3x3_reference
+    y, (s, sq) = fn(x, kern, bias, **kw)
+    sums = [torch.zeros_like(s), torch.zeros_like(sq)]
+    before = fn.owned_launches
+    for lo, hi in OWNED_CUTS[kind]:
+        yo, (so, sqo) = fn(x, kern, bias, owned_rows=(lo, hi), **kw)
+        ry, (rs, rsq) = plain(x, kern, bias, owned_rows=(lo, hi), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(yo, y)
+        if kind == "K2":
+            st = fn(x, kern, bias, owned_rows=(lo, hi), stats_only=True,
+                    **kw)
+            assert torch.equal(st[0], so) and torch.equal(st[1], sqo)
+        torch.testing.assert_close(sqo, rsq, rtol=1e-3, atol=0)
+        torch.testing.assert_close(
+            so, rs, rtol=0,
+            atol=1e-3 * ry[:, lo:hi].float().abs().sum().item() + 1e-30)
+        sums[0] += so
+        sums[1] += sqo
+    assert fn.owned_launches == before + len(OWNED_CUTS[kind]) * (
+        2 if kind == "K2" else 1)
+    torch.testing.assert_close(sums[1], sq, rtol=1e-5, atol=0)
+    torch.testing.assert_close(sums[0], s, rtol=0,
+                               atol=1e-5 * y.float().abs().sum().item())
+
+
 K5_PAIRS = [(256, 128), (256, 64), (128, 128), (128, 64)]
 
 
@@ -542,6 +593,61 @@ def test_small_decoder_on_card(dev):
                                atol=1e-4)
     torch.testing.assert_close(parity.image.cpu(), ref.image, rtol=0,
                                atol=1e-4)
+
+
+def test_slab_decode_one_rank_on_card(dev):
+    """The narrow decoder's fast slab decode on a one-rank mesh runs the
+    chain with owned_rows (every row owned): its rgb equals the
+    whole-image fast decode's bit for bit (the same launches on the same
+    inputs), its image within 1e-5 (the pre-map statistics are summed in
+    another order)."""
+    from hdrvae_torch.sharding.mesh import Mesh, sharded_slab_decode
+    cfg = DecoderConfig(z_channels=4, ch=64, ch_mult=(1, 2),
+                        num_res_blocks=1)
+    dec = init_decoder(cfg, seed=3, device=dev)
+    z = _rand(dev, (1, 12, 16, 4), 2.0, torch.float32, seed=8)
+    whole = hdr_decode(dec, z, HDRDecodeConfig(), Precision.fast())
+    before = (conv3x3.fused_conv3x3.owned_launches,
+              conv3x3.upsample_conv3x3.owned_launches)
+    slab = sharded_slab_decode(dec, z, mesh=Mesh(dev), tail_levels=1,
+                               precision=Precision.fast())
+    torch.cuda.synchronize()
+    assert conv3x3.fused_conv3x3.owned_launches > before[0]
+    assert torch.equal(slab.standard, whole.standard)
+    torch.testing.assert_close(slab.image, whole.image, rtol=0, atol=1e-5)
+
+
+def test_slab_dryrun_two_ranks_on_card(dev):
+    """The launcher's dryrun: two ranks on this card (gloo), the parity
+    slab decode of a small decoder, every rank's image the same."""
+    from hdrvae_torch.sharding import multihost
+    records = multihost.launch_localhost_dryrun(2, device="cuda",
+                                                timeout=300)
+    assert [r["process"] for r in records] == [0, 1]
+    assert all(r["world_size"] == 2 and r["finite"] for r in records)
+
+
+def test_slab_decode_one_rank_nccl(dev):
+    """A one-rank group on this card takes the NCCL backend (every rank has
+    a card of its own), so the slab decode's collectives run under NCCL:
+    the sum and min all-reduces and the stitch's CUDA all_gather.  The
+    fast chain's rgb equals the whole-image fast decode's bit for bit, its
+    image within 1e-5, as in the in-process one-rank test."""
+    from hdrvae_torch.sharding import multihost
+    cfg = DecoderConfig(z_channels=4, ch=64, ch_mult=(1, 2),
+                        num_res_blocks=1)
+    dec = init_decoder(cfg, seed=3, device=dev)
+    z = _rand(dev, (1, 12, 16, 4), 2.0, torch.float32, seed=8)
+    whole = hdr_decode(dec, z, HDRDecodeConfig(), Precision.fast())
+    case = multihost.SlabCase("nccl", "narrow", z.cpu(), tail_levels=1,
+                              precision=Precision.fast())
+    [[rec]] = multihost.RankGroup(1, {"narrow": (cfg, dec.state_dict())},
+                                  [case], device="cuda").wait(timeout=300)
+    assert rec["backend"] == "nccl" and rec["device"] == "cuda:0"
+    assert rec["counts"]["fused_conv3x3.owned_launches"] > 0
+    assert torch.equal(rec["standard"], whole.standard.cpu())
+    torch.testing.assert_close(rec["image"], whole.image.cpu(), rtol=0,
+                               atol=1e-5)
 
 
 def test_small_decoder_large_frame_routes(dev, monkeypatch):

@@ -2,8 +2,9 @@
 """Mutation check of a kernel's test in ``chip_smoke.py``, on one NVIDIA
 GPU.
 
-    python3 tools/mutate_kernels.py [k1|k2|k6|k5|chain|k3_f32|k3_3pass|
-                                     k3_bf16|k8|k7|k4|k9 ...]
+    python3 tools/mutate_kernels.py [k1|k2|k1_owned|k2_owned|k6|k5|chain|
+                                     k3_f32|k3_3pass|k3_bf16|k8|k7|k4|k9
+                                     ...]
                                     (default: all)
 
 For each mutation of a target below it copies ``hdrvae_torch/`` and
@@ -12,7 +13,10 @@ there (one or more edits), builds that copy's kernels and runs the
 target's check of ``chip_smoke`` (k1: ``_check_k1``, K1 against its
 plain version at the 1024^2 decode's six conv shapes and a ragged one;
 k2: ``_check_k2``, K2 at the decode's three upsample convs and a ragged
-one; k6: ``_check_k6``, K6 at one 512^2 tile's shapes of the ESRGAN x4 net
+one; k1_owned / k2_owned: ``_check_owned``, K1 / K2 with owned_rows at
+the same shapes over three intervals cut at odd rows (y bit-equal to the
+unrestricted launch's, each interval's sums against the plain version's,
+the three adding up to the whole; built from conv3x3.cu alone); k6: ``_check_k6``, K6 at one 512^2 tile's shapes of the ESRGAN x4 net
 and more (a ragged conv5, conv_body, conv_first of unshuffle 2 and 4);
 k5: ``_check_k5``, K5 against its plain version at the 2048^2 decode's
 junction and a ragged map (built from upconv.cu and conv3x3.cu alone);
@@ -235,6 +239,16 @@ K7_ONLY_C192 = (
     "    default: return launch<V2, 3>(maps, a, smem, grid, s);")
 
 
+# K1 / K2's owned-row test of an accumulator row, and its mutants
+OWNED_TEST = "oh >= a.own_lo && oh < a.own_hi"
+OWNED_MUTANTS = {
+    "lo off by one (row lo not counted)": (
+        "conv3x3.cu", OWNED_TEST, "oh > a.own_lo && oh < a.own_hi", True),
+    "hi off by one (row hi counted)": (
+        "conv3x3.cu", OWNED_TEST, "oh >= a.own_lo && oh <= a.own_hi", True),
+}
+
+
 def _k7(text: str, broken: str, must_catch: bool = True):
     """A K7 mutation (swin_block.cu), built for C <= 192 alone."""
     return ("swin_block.cu", (text, K7_ONLY_C192[0]),
@@ -275,6 +289,16 @@ TARGETS = {
         "one tap skipped": (
             "conv3x3.cu", K1_WGMMA, "            if (tap != 3)\n" + K1_WGMMA,
             True),
+    }),
+    # K1 / K2 owned_rows: the statistics' row test (y is left alone);
+    # built from conv3x3.cu alone
+    "k1_owned": ('_check_owned(np.random.default_rng(9), "K1")', ("K1",),
+                 OWNED_MUTANTS),
+    "k2_owned": ('_check_owned(np.random.default_rng(9), "K2")', ("K2",), {
+        **OWNED_MUTANTS,
+        "K2's phase row 2 i + a taken as 2 i": (
+            "conv3x3.cu", OWNED_TEST,
+            "oh - pa >= a.own_lo && oh - pa < a.own_hi", True),
     }),
     # K6: the mainloop's chunk count and the tap loop are shared by the
     # producer and the consumers, so the schedules stay in step
@@ -662,6 +686,8 @@ _build.library = lambda: lib
 K5_SOURCES = ("upconv.cu", "conv3x3.cu")
 # targets checked on a library built from some sources (see ONE_SOURCE)
 ONE_SOURCE_TARGETS = {"k3_3pass": ("attention.cu",), "k5": K5_SOURCES,
+                      "k1_owned": ("conv3x3.cu",),
+                      "k2_owned": ("conv3x3.cu",),
                       "k4": ("epilogue.cu",), "k9": ("swin_chain.cu",)}
 
 CHECK = """
