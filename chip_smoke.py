@@ -48,13 +48,16 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    two convs alone (the up-conv on the materialized 2x map, then conv1)
    as its library column; the staged
    Swin chain's K10, K9 and K11 at K7's v1 shapes, each on the previous
-   kernel's output, and the chain against K7 on the
-   same inputs and weights; K12 at the probe's 8192 x 256 x 256 in its
-   three precisions), with its tolerance, and both timed with CUDA
-   events after a warm-up; beside them the least time the card could take
-   (bound_ms: the function's operations over the peak rate of their type,
-   or its bytes, each input read once and each output written once, over
-   the memory rate, whichever is larger) and, where one PyTorch call
+   kernel's output and each output in a block that held NaNs, with
+   cuBLAS's products alone as K10's and K11's yardstick, the three on
+   CHAIN_RAGGED's ragged windows (ws 7, 10, 12; padded rows zero), and
+   the chain against K7 on the same inputs and weights; K12 at the
+   probe's 8192 x 256 x 256 in its three precisions), with its
+   tolerance, and both timed with CUDA events after a warm-up; beside
+   them the least time the card could take (bound_ms: the function's
+   operations over the peak rate of their type, or its bytes, each input
+   read once and each output written once, over the memory rate,
+   whichever is larger) and, where one PyTorch call
    computes the same function, that call's time (library_ms; the port
    never calls it); K8's bound also counts its exponentials, one a score,
    at the MUFU's rate;
@@ -243,10 +246,14 @@ K8_PEAK = 16.0
 SWIN_BUDGET = 5e-2          # relative to max(1, max|ref|): K7, fused chains
 SWIN_CROP = 768             # the SwinIR / HAT upscale input: 4 tiles a pass
 K4_BUDGET = 1e-5            # relative, on mean and std
-# K9 alone on windows whose rows are no multiple of 64, checked and not
-# timed: (name, H, W, window, shift): ws 10 (n16 112, two row blocks, the
-# last ragged) and ws 12 (n16 144, three), shifted
-K9_EXTRA = [("window 10", 120, 150, 10, 5), ("window 12", 144, 96, 12, 6)]
+# The chain's kernels on windows whose rows are no multiple of 64, checked
+# and not timed: (name, H, W, window, shift, with HAT's extra residual):
+# ws 7 (49 tokens in 64 rows, window rows no 16-byte multiple), ws 10 (n16
+# 112, two row blocks, the last ragged) and ws 12 (n16 144, three),
+# shifted
+CHAIN_RAGGED = [("window 7", 112, 98, 7, 3, True),
+                ("window 10", 120, 150, 10, 5, False),
+                ("window 12", 144, 96, 12, 6, True)]
 FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
@@ -456,7 +463,9 @@ def phase_build() -> None:
                          ("K3 3-pass", "flash_3pass_kernel"),
                          ("K8", "ocab_kernel"),
                          ("K7", "swin_block_kernel"),
-                         ("K9", "attn_core_kernel")):
+                         ("K9", "attn_core_kernel"),
+                         ("K10", "ln_qkv_kernel"),
+                         ("K11", "proj_mlp_kernel")):
         n, funcs = hgmma_count(path, kernel)
         log(f"SASS: {n} HGMMA instructions in {name}'s {kernel} "
             f"({funcs} instances)")
@@ -464,11 +473,13 @@ def phase_build() -> None:
               "SASS)")
     # K3 bf16's, f32's and 3-pass's registers and spills per C / 64
     # instance, K5's per Cout / 64, K8's, K7's per body and channel width,
-    # K9's per key-tile count, K4's per type and vector width, and any
-    # ptxas warning (a serialized wgmma is one)
+    # K9's per key-tile count, K10's and K11's per channel width, K4's
+    # per type and vector width, and any ptxas warning (a serialized wgmma
+    # is one)
     for kernel in ("flash_bf16_kernel", "flash_f32_kernel",
                    "flash_3pass_kernel", "upconv_wgmma_kernel",
                    "ocab_kernel", "swin_block_kernel", "attn_core_kernel",
+                   "ln_qkv_kernel", "proj_mlp_kernel",
                    "collapse_stats_kernel"):
         for inst, (regs, stores, loads) in ptxas_report(compiler_log,
                                                         kernel):
@@ -1703,36 +1714,62 @@ def _window_mask(bias: torch.Tensor, ws: int, shift: int,
     return mask.reshape(-1, *bias.shape).to(torch.bfloat16)
 
 
-def _check_k9_ragged(rng) -> float:
-    """K9 alone against its plain version (not timed) on K9_EXTRA's windows,
-    whose rows are no multiple of 64, each on K10's qkv: within SWIN_BUDGET
-    and the padded rows n .. n16 of its output exactly zero.  Returns the
-    largest max-abs."""
+def _nan_block(shape) -> None:
+    """A NaN-filled bf16 block of ``shape`` goes back to the allocator, which
+    then most likely hands it to the next tensor of that size: rows or
+    windows a kernel never stores show as NaN."""
+    torch.full(shape, float("nan"), device="cuda", dtype=torch.bfloat16)
+
+
+def _check_chain_ragged(rng) -> dict:
+    """The chain's kernels against their plain versions (not timed) on
+    CHAIN_RAGGED's windows, whose rows are no multiple of 64, each kernel
+    on the previous one's output and each output in a block that held NaNs:
+    within SWIN_BUDGET, and the padded rows n .. n16 of qkv and o exactly
+    zero.  Returns each kernel's largest max-abs."""
     from hdrvae_torch.core.config import Precision
     from hdrvae_torch.kernels import swin_attention as ska
     from hdrvae_torch.models.swinir import block_weights
-    err = 0.0
-    for name, h, w, ws, shift in K9_EXTRA:
+    fast = Precision.fast()
+    err = {"swin_ln_qkv": 0.0, "swin_attn_core": 0.0, "swin_proj_mlp": 0.0}
+    for name, h, w, ws, shift, extra in CHAIN_RAGGED:
         blk = _swin_block(rng, SWIN_DIM, SWIN_HEADS, ws)
         wts = block_weights(blk, SWIN_HEADS, ws, torch.bfloat16)
         x = _bf16(rng, (1, h, w, SWIN_DIM))
+        e_in = _bf16(rng, (1, h, w, SWIN_DIM), 0.5) if extra else None
+        n, n16 = ws * ws, -(-ws * ws // 16) * 16
+        nwin = (h // ws) * (w // ws)
         kc = dict(heads=SWIN_HEADS, ws=ws, shift=shift,
                   grid=(h // ws, w // ws))
-        qkv = ska.ln_qkv(x, wts, ws=ws, precision=Precision.fast())
+        _nan_block((nwin, n16, SWIN_HEADS * 96))
+        qkv = ska.ln_qkv(x, wts, ws=ws, precision=fast)
         o = ska.window_attention_core(qkv, wts.bias, **kc)
-        ref = ska.window_attention_core_reference(qkv, wts.bias, **kc)
+        _nan_block(tuple(x.shape))
+        y = ska.proj_mlp(o, x, wts, ws=ws, extra=e_in, precision=fast)
+        refs = {"swin_ln_qkv": ska.ln_qkv_reference(x, wts, ws=ws,
+                                                    precision=fast),
+                "swin_attn_core": ska.window_attention_core_reference(
+                    qkv, wts.bias, **kc),
+                "swin_proj_mlp": ska.proj_mlp_reference(
+                    o, x, wts, ws=ws, extra=e_in, precision=fast)}
         torch.cuda.synchronize()
-        check(o.shape == ref.shape and torch.isfinite(o.float()).all().item(),
-              f"swin_attn_core {name}: {tuple(o.shape)} or not finite")
-        e = (o.float() - ref.float()).abs().max().item()
-        bound = SWIN_BUDGET * max(1.0, ref.float().abs().max().item())
-        check(e <= bound, f"swin_attn_core {name}: max-abs {e} > {bound}")
-        pad = o[:, ws * ws:].float().abs().sum().item()   # none at n16 = n
-        check(pad == 0.0, f"swin_attn_core {name}: padded rows {pad}")
-        log(f"swin_attn_core {name} {h}x{w} ws {ws} shift {shift}: max-abs "
-            f"{e:.3e} (budget {bound:.3e}), padded rows {o.shape[1] - ws * ws}"
-            f" zero")
-        err = max(err, e)
+        for key, got in zip(err, (qkv, o, y)):
+            ref = refs[key]
+            check(got.shape == ref.shape
+                  and torch.isfinite(got.float()).all().item(),
+                  f"{key} {name}: {tuple(got.shape)} or not finite")
+            e = (got.float() - ref.float()).abs().max().item()
+            bound = SWIN_BUDGET * max(1.0, ref.float().abs().max().item())
+            check(e <= bound, f"{key} {name}: max-abs {e} > {bound}")
+            if key != "swin_proj_mlp":   # none at n16 = n
+                pad = got[:, n:].float().abs().sum().item()
+                check(pad == 0.0, f"{key} {name}: padded rows {pad}")
+            log(f"{key} {name} {h}x{w} ws {ws} shift {shift}"
+                f"{' +extra' if extra else ''}: max-abs {e:.3e} (budget "
+                f"{bound:.3e})" + ("" if key == "swin_proj_mlp" else
+                                   f", padded rows {n16 - n} zero"))
+            err[key] = max(err[key], e)
+        del x, e_in, qkv, o, y, refs, wts, blk
     return err
 
 
@@ -1740,16 +1777,20 @@ def _check_chain(rng, with_k7: bool = True) -> tuple:
     """The staged Swin chain at K7's v1 shapes: K10, K9 and K11 each against
     its plain version on the same input, each kernel's input the previous
     kernel's output, with the max-abs over the last window row and column
-    apart; K9 also on K9_EXTRA's ragged windows; then (``with_k7``) the
-    chain against K7 on the same inputs and weights, with both times.
-    Returns the three kernels' entries and the A/B records."""
+    apart, each output in a block that held NaNs; all three also on
+    CHAIN_RAGGED's windows; then (``with_k7``) the chain against K7 on the
+    same inputs and weights, with both times.  K10's and K11's yardstick
+    is cuBLAS's products alone (bf16 ``torch.matmul``: qkv; proj, fc1 and
+    fc2), no one PyTorch call computing either.  Returns the three
+    kernels' entries and the A/B records."""
     from hdrvae_torch.core.config import Precision
     from hdrvae_torch.kernels import swin_attention as ska
     from hdrvae_torch.models.swinir import block_weights
     fast = Precision.fast()
     keys = ("swin_ln_qkv", "swin_attn_core", "swin_proj_mlp")
     acc = {k: {"details": [], "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "err": 0.0, "edge": 0.0, "bound": Bound()} for k in keys}
+               "yardstick_ms": 0.0, "flops": 0.0, "err": 0.0, "edge": 0.0,
+               "bound": Bound()} for k in keys}
     ab = []
     c = SWIN_DIM
     for name, h, w, ws, shift, extra in K7_SHAPES:
@@ -1759,9 +1800,22 @@ def _check_chain(rng, with_k7: bool = True) -> tuple:
         e_in = _bf16(rng, (1, h, w, c), 0.5) if extra else None
         grid, n, tokens = (h // ws, w // ws), ws * ws, h * w
         kc = dict(heads=SWIN_HEADS, ws=ws, shift=shift, grid=grid)
+        _nan_block((grid[0] * grid[1], -(-n // 16) * 16, SWIN_HEADS * 96))
         qkv = ska.ln_qkv(x, wts, ws=ws, precision=fast)
         o = ska.window_attention_core(qkv, wts.bias, **kc)
+        _nan_block(tuple(x.shape))
         y = ska.proj_mlp(o, x, wts, ws=ws, extra=e_in, precision=fast)
+        # cuBLAS's products alone on operands of the kernels' padded
+        # widths: K10's x Wqkv; K11's o Wp, y2 W1, GELU W2
+        cp, hp = wts.w1.shape
+        rows_t = _bf16(rng, (tokens, cp))
+        hid = _bf16(rng, (tokens, hp))
+        o2 = o.reshape(-1, o.shape[-1])
+        yardsticks = {
+            "swin_ln_qkv": lambda: torch.matmul(rows_t, wts.wq),
+            "swin_proj_mlp": lambda: (torch.matmul(o2, wts.wp),
+                                      torch.matmul(rows_t, wts.w1),
+                                      torch.matmul(hid, wts.w2))}
         kernels = {
             "swin_ln_qkv": lambda: ska.ln_qkv(x, wts, ws=ws, precision=fast),
             "swin_attn_core": lambda: ska.window_attention_core(
@@ -1801,7 +1855,9 @@ def _check_chain(rng, with_k7: bool = True) -> tuple:
             del ref, d
             t = cuda_ms(kernels[key])
             tp = cuda_ms(plains[key], iters=2, warmup=1)
-            tl = None
+            tl = ty = None
+            if key in yardsticks:
+                ty = cuda_ms(yardsticks[key])
             if key == "swin_attn_core":
                 # SDPA on q, k, v [nwin, heads, n, 32] copied out of the
                 # slot layout, the bias and masks as its bf16 mask
@@ -1813,23 +1869,27 @@ def _check_chain(rng, with_k7: bool = True) -> tuple:
                     q, k, v, attn_mask=mask, scale=1.0))
                 del q, k, v, mask
             b = acc[key]["bound"].add(*work[key])
+            tflops = work[key][0] / (t * 1e9)
             log(f"{key} {name} {h}x{w} ws {ws} shift {shift}"
                 f"{' +extra' if extra else ''}: max-abs {e:.3e} (last window "
                 f"row/col {e_last:.3e}, budget {bound:.3e})  kernel {t:.3f} "
-                f"ms  plain {tp:.3f} ms"
+                f"ms ({tflops:.1f} TFLOP/s)  plain {tp:.3f} ms"
                 + (f"  SDPA {tl:.3f} ms" if tl is not None else "")
+                + (f"  cuBLAS products {ty:.3f} ms" if ty is not None else "")
                 + f"  bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
             acc[key]["details"].append({
                 "shape": [name, h, w, c, ws, shift, bool(extra)],
                 "max_abs_err": e, "max_abs_err_last_row_col": e_last,
                 "err_budget": bound, "ms": t, "plain_ms": tp,
-                "library_ms": tl, **b})
+                "tflops": tflops, "library_ms": tl, "yardstick_ms": ty, **b})
             a = acc[key]
             a["ms"] += t
             a["plain_ms"] += tp
             a["library_ms"] += tl or 0.0
+            a["yardstick_ms"] += ty or 0.0
+            a["flops"] += work[key][0]
             a["err"], a["edge"] = max(a["err"], e), max(a["edge"], e_last)
-        del qkv, o, y
+        del qkv, o, y, rows_t, hid, o2, yardsticks
         if not with_k7:
             continue
         # the chain against K7, same inputs and weights
@@ -1854,7 +1914,8 @@ def _check_chain(rng, with_k7: bool = True) -> tuple:
                    "k7_ms": t_k7})
         del x, e_in, yc, y7, wts, blk
         torch.cuda.empty_cache()
-    acc["swin_attn_core"]["err_ragged"] = _check_k9_ragged(rng)
+    for key, e in _check_chain_ragged(rng).items():
+        acc[key]["err_ragged"] = e
     replaces = {"swin_ln_qkv": 359, "swin_attn_core": 187,
                 "swin_proj_mlp": 411}
     entries = []
@@ -1868,10 +1929,17 @@ def _check_chain(rng, with_k7: bool = True) -> tuple:
             "max_abs_err": max(a["err"], a.get("err_ragged", 0.0)),
             "max_abs_err_last_row_col": a["edge"],
             "ms": a["ms"], "plain_ms": a["plain_ms"], **a["bound"].entry(),
+            "tflops": a["flops"] / (a["ms"] * 1e9),
             "library_ms": a["library_ms"] if core else None,
             "library_call": "F.scaled_dot_product_attention, bf16, the bias "
                             "and masks as a bf16 attn_mask" if core else
                             "none: no one PyTorch call computes it",
+            **({} if core else {
+                "yardstick_ms": a["yardstick_ms"],
+                "yardstick_call": "cuBLAS's products alone, bf16 "
+                                  "torch.matmul at the padded widths: " +
+                                  ("x Wqkv" if key == "swin_ln_qkv" else
+                                   "o Wp, y2 W1, GELU W2")}),
             "shapes": a["details"]})
     return entries, ab
 

@@ -137,7 +137,7 @@ dot_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int ks = 0; ks < TK; ks += 16) {
       // A fragments of the warp's two m16 tiles, B fragments of its four
-      // n8 tiles (two per ldmatrix.x4.trans), as in gemm_weights
+      // n8 tiles (two per ldmatrix.x4.trans)
       unsigned ah[2][4], al[2][4], bh[2][4], bl[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the port's implicit-GEMM convolutions
 // (conv3x3.cu: K1 / K2; dense_conv.cu: K6) and attention kernels
-// (attention.cu: K3; ocab.cu: K8; swin_block.cu: K7; swin_chain.cu: K9):
+// (attention.cu: K3; ocab.cu: K8; swin_block.cu: K7; swin_chain.cu: K9-K11):
 // shared-memory addresses, mbarriers, TMA tile and bulk copies, wgmma
 // descriptors and the wgmma instructions themselves, and libcuda's
 // tensor-map encoder, reached through the runtime (the library does not
@@ -106,9 +106,11 @@ __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Waits until this thread's bulk stores have read their shared memory.
+// Waits until at most N of this thread's bulk store groups (the newest)
+// have not yet read their shared memory.
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Waits until this thread's bulk stores are complete.
@@ -249,6 +251,31 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_n96(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      " %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, %51;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -333,6 +360,7 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
   else if constexpr (N == 16) wgmma_n16<TB>(d, da, db);
   else if constexpr (N == 32) wgmma_n32<TB>(d, da, db);
   else if constexpr (N == 64) wgmma_n64<TB>(d, da, db);
+  else if constexpr (N == 96) wgmma_n96<TB>(d, da, db);
   else wgmma_n128<TB>(d, da, db);
 }
 

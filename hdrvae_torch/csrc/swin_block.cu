@@ -91,10 +91,14 @@
 namespace {
 
 using winattn::bf16;
+using winattn::desc128;
 using winattn::desc64;
 using winattn::frag_to_atom;
+using winattn::load_pair;
 using winattn::MAXC;
 using winattn::pack_bf16;
+using winattn::prefetch_l2;
+using winattn::store_pair;
 using winattn::swz;
 
 constexpr int HD = 32;              // padded head dim: 64-byte rows
@@ -128,45 +132,6 @@ struct Args {
   int regA, regB;      // bytes of a warpgroup's row and scratch regions
   int offB, offPar, offRing, offBar;   // bytes from the aligned base
 };
-
-// wgmma descriptors of the 128-byte swizzle (MN-major 64-column boxes,
-// 8-row groups 1 KB apart, boxes 4 KB apart); the 64-byte swizzle's
-// (desc64) and its atom layout (swz, frag_to_atom) are window_attention.cuh's.
-__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
-  return hopper::make_desc(addr, 4096, 1024, hopper::LAYOUT_B128);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&u);
-  return __bfloat1622float2(v);
-}
-
-// Channels c, c + 1 (c even) of a bf16 row, zero past C.
-__device__ __forceinline__ float2 load_pair(const bf16* row, int c, int C) {
-  if ((C & 1) == 0)
-    return c < C ? unpack_bf16(__ldg(reinterpret_cast<const unsigned*>(
-                       row + c)))
-                 : make_float2(0.0f, 0.0f);
-  return make_float2(c < C ? __bfloat162float(row[c]) : 0.0f,
-                     c + 1 < C ? __bfloat162float(row[c + 1]) : 0.0f);
-}
-
-__device__ __forceinline__ void store_pair(bf16* row, int c, int C, float lo,
-                                           float hi) {
-  if ((C & 1) == 0) {
-    if (c < C) *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(lo, hi);
-    return;
-  }
-  if (c < C) row[c] = __float2bfloat16(lo);
-  if (c + 1 < C) row[c + 1] = __float2bfloat16(hi);
-}
-
-// Brings [p, p + bytes) into L2 (16-byte aligned, a multiple of 16).
-__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
-               "r"(bytes)
-               : "memory");
-}
 
 template <bool V2, int NCT>
 __global__ void __launch_bounds__(NT, 1)

@@ -1,6 +1,6 @@
 // The staged Swin chain: a v1 Swin block (SwinIR, HAT's HAB with the
 // optional `extra` residual) as three kernels on Hopper's tensor cores
-// (bf16 operands, float32 accumulation).
+// (bf16 operands, float32 accumulation, every product by wgmma).
 //
 // Replaces the TPU kernels K10, K9 and K11 of the JAX package, the staged
 // debugging tier of its fused block:
@@ -30,9 +30,42 @@
 // feature map at C = 180, padded head dims) and o through device memory,
 // about 1.1 GB a SwinIR-M 512^2 block against K7's 0.2 GB, for the same
 // ~0.16 TFLOP: bytes bound it (~0.33 ms at 3.35 TB/s).
-//  * K10, per (window, row block), 512 threads: LN1 rows in float32 ->
-//    bf16 in shared memory -> qkv = y @ Wqkv + bqkv through K7's cp.async
-//    weight ring (gemm_weights, mma.sync) -> bf16 rows of the window's qkv.
+//  * K10 and K11 share one skeleton, K7's (swin_block.cu) without its
+//    attention: persistent blocks, one an SM, of two warpgroups, each
+//    warpgroup one 64-row block of a window (a row block pair an item; a
+//    window of more than 64 tokens is several row blocks, the last ragged
+//    at ws 10 / 12).  Both warpgroups walk the same weight tiles in the
+//    same order, so each tile read from L2 serves 128 rows.  The tiles
+//    come by TMA (K7's tiles, swizzles and maps: [CK x 32] slices of
+//    Wqkv / W1 with the 64-byte swizzle, [32 x CK] slices of Wp / W2 in
+//    64-column boxes with the 128-byte swizzle; CK = 64, 192 or 256, TMA
+//    zero-fills past the padded weights) through a ring of up to eight
+//    slots, each with a full mbarrier and a count of the warps done with
+//    it: the last of the eight to release a slot refills it (no producer
+//    warp: a ninth warp caps every thread at 168 registers).  Products
+//    are issued one step ahead of the epilogue that reads them, so the
+//    tensor cores work while the CUDA cores round, normalize and store.
+//  * K10 (bound by writing qkv: 0.09 ms of its 0.12 at SwinIR-M's 512^2
+//    tile): LN1 of the row block a quad a row (a row's loads in flight
+//    together, the next row block's window rows prefetched into L2) into
+//    the K-major A tile; per head q, k and v by three wgmma m64n32k16
+//    chains (head h + 1's issued before head h's epilogue), + bq in
+//    float32 (pad rows t >= n zero: K9 relies on them), bf16 into one of
+//    two staging tiles, out by three TMA boxes of [64 x 32] (rows past n16
+//    clipped), so stores stay in flight behind the next head's products.
+//  * K11 (products and bytes alike: ~0.09 ms each at SwinIR-M's 512^2
+//    tile, 0.10 ms of products with the pads): the row block's o by TMA
+//    (one box a head, zero past n16: the K-major A tile of proj as it
+//    is), loaded for the next row block as soon as proj has read it, and
+//    that row block's x / extra rows prefetched into L2; proj by wgmma
+//    m64n64k16, x + proj + bp [+ extra] in float32 on the fragments (x2,
+//    kept in the accumulator, which fc2 then adds to), LN2 with the row
+//    statistics by quad shuffles into the A tile; the MLP in 32-unit
+//    chunks, fc1 two chunks ahead of fc2: fc1 + b1 -> exact GELU (erff)
+//    -> bf16 A fragments in registers -> fc2 += by wgmma m64n64k16 with A
+//    from registers (no hidden activation in memory); + b2 -> bf16 by
+//    16-byte stores of whole window rows where window rows are 16-byte
+//    multiples (ws 8 and 16 at C = 180), else by bf16 pairs.
 //  * K9 (wgmma, TMA): bound by reading qkv and writing o once (0.12 ms at
 //    SwinIR-M's 512^2 tile).  Persistent blocks of one warpgroup, each
 //    with one head and a stream of windows: a window's q, k and v columns
@@ -48,13 +81,13 @@
 //    each key's band bits computed once); the exact softmax by quad
 //    shuffles, e = exp2(s log2 e - max log2 e), p = e / l correctly
 //    rounded (the JAX kernel's divide: a reciprocal of l a row and one
-//    FMA correction an element) and rounded to bf16 in wgmma's A layout; O = P V by m64n32k16 with A from registers and V
-//    MN-major; O in bf16 through a staging atom and one TMA store (rows
-//    past n16 are not written, padded rows get p = 0, so O = 0).
-//  * K11, per (window, row block), 512 threads: o rows, x (float32) and
-//    extra read -> proj -> x2 = x + proj + bp [+ extra] -> LN2 -> fc1 + b1
-//    -> exact GELU (erff) -> fc2 -> x2 + out + b2 -> bf16 -> the window's
-//    pixels.
+//    FMA correction an element) and rounded to bf16 in wgmma's A layout;
+//    O = P V by m64n32k16 with A from registers and V MN-major; O in bf16
+//    through a staging atom and one TMA store (rows past n16 are not
+//    written, padded rows get p = 0, so O = 0).
+// Rounding points are the JAX kernels' and K7's: LN rows, q/k/v, the GELU
+// output and the block output in bf16; x2, residuals, LN statistics and
+// every sum in float32.
 
 #include <algorithm>
 
@@ -65,51 +98,9 @@ namespace {
 
 using namespace winattn;
 
-// A window grid on an image [B, H, W, C] (C padded to CP).
-struct Grid {
-  int H, W, C, CP, ws, n, n16, nwh, nww;
-
-  // element offset of token t of window win's first channel
-  __device__ __forceinline__ size_t pix(int win, int t) const {
-    const int wc = win % nww, wr = (win / nww) % nwh, b = win / (nww * nwh);
-    const int hh = wr * ws + t / ws, ww = wc * ws + t % ws;
-    return ((static_cast<size_t>(b) * H + hh) * W + ww) * C;
-  }
-};
-
 int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-constexpr int STAGE_BYTES = NWARPS * 256 * 4;   // per-warp fragment stages
 constexpr int SMEM_MAX = 232448;
-
-// ---------------------------------------------------------------------------
-// K10: LN1 + qkv
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NT)
-ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
-              const float* __restrict__ bq, const float* __restrict__ g1,
-              const float* __restrict__ be1, bf16* __restrict__ qkv,
-              const Grid g, int QW, int ldy, int off_ring, int off_stage) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);                   // [64, ldy]
-  bf16* ring = reinterpret_cast<bf16*>(smem + off_ring);
-  float* stage = reinterpret_cast<float*>(smem + off_stage) +
-                 (threadIdx.x >> 5) * 256;
-  const int win = blockIdx.x, r0 = blockIdx.y * RB;
-  const int nrt = min(4, (g.n16 - r0) / 16);
-  layer_norm_rows<true>([&](int t) { return x + g.pix(win, t); }, r0,
-                        nrt * 16, g.n, g.C, g.CP, g1, be1, ys, ldy);
-  __syncthreads();
-  bf16* dst = qkv + (static_cast<size_t>(win) * g.n16 + r0) * QW;
-  gemm_weights(ys, ldy, nrt, wq, QW, g.CP, QW, ring, stage,
-               [&](int r, int c, const float* v) {
-    float o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = r0 + r < g.n ? v[i] + bq[c + i] : 0.0f;
-    store_bf16x8(dst + static_cast<size_t>(r) * QW + c, o);
-  });
-}
 
 // ---------------------------------------------------------------------------
 // K9: the attention core
@@ -412,135 +403,801 @@ int launch(const void* qkv, const float* bias, void* out, Args a,
 }  // namespace k9
 
 // ---------------------------------------------------------------------------
-// K11: proj + residuals, LN2, MLP, residual
+// K10 and K11: persistent blocks of two warpgroups on one weight ring
 // ---------------------------------------------------------------------------
 
-struct ProjArgs {
-  const bf16* o;       // [nwin, n16, heads * 32]
+namespace rows {
+
+constexpr int NT = 256;         // two warpgroups
+
+struct Args {
   const bf16* x;       // [B, H, W, C] (rolled)
-  const bf16* extra;   // [B, H, W, C] or null
-  const bf16* wp;      // [heads * 32, CP]
-  const float* bp;     // [C]
-  const float* g2;
-  const float* be2;
-  const bf16* w1;      // [CP, HP]
-  const float* b1;     // [HP]
-  const bf16* w2;      // [HP, CP]
-  const float* b2;     // [C]
-  bf16* y;             // [B, H, W, C]
-  Grid g;
-  int OW, hidden, HP;
-  int ldo, ldy, ldh;                   // shared-memory row strides
-  // byte offsets of the regions: attention output, LN rows, hidden (first
-  // the extra rows), weight ring, per-warp fragment stages
-  int off_o, off_a, off_hid, off_ring, off_stage;
+  const bf16* extra;   // K11: [B, H, W, C] or null
+  bf16* y;             // K11: [B, H, W, C]
+  const float* bq;     // K10: [heads * 96]
+  const float* g;      // LN1 (K10) or LN2 (K11) affine, [C]
+  const float* be;
+  const float* bp;     // K11: [C]
+  const float* b1;     // K11: [HP]
+  const float* b2;     // K11: [C]
+  int H, W, C, heads, hidden, ws, n, n16, nwh, nww;
+  int nrb;             // row blocks a window: ceil(n16 / 64)
+  int blocks;          // row blocks of every window
+  int nwg;             // warpgroups a block: 1 or 2
+  int items;           // nwg row blocks each
+  int nchunk;          // K11: the MLP's 32-unit chunks, rounded up to even
+  int nhead;           // K10: heads rounded up to even
+  int ntile;           // weight tiles an item
+  int pf;              // window rows of x (and extra) may be prefetched
+  int vec_out;         // K11's output leaves by 16-byte stores of window rows
+  int regW;            // bytes of a warpgroup's region
+  int offPar, offRing, offBar;   // bytes from the aligned base
 };
 
-__global__ void __launch_bounds__(NT)
-proj_mlp_kernel(const ProjArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* x2 = reinterpret_cast<float*>(smem);                 // [64, CP]
-  bf16* ob = reinterpret_cast<bf16*>(smem + a.off_o);         // [64, ldo]
-  bf16* ys = reinterpret_cast<bf16*>(smem + a.off_a);         // [64, ldy]
-  bf16* hid = reinterpret_cast<bf16*>(smem + a.off_hid);      // [64, ldh]
-  bf16* es = hid;                                             // [64, CP]
-  bf16* ring = reinterpret_cast<bf16*>(smem + a.off_ring);
-  float* stage = reinterpret_cast<float*>(smem + a.off_stage) +
-                 (threadIdx.x >> 5) * 256;
-  const Grid& g = a.g;
-  const int win = blockIdx.x, r0 = blockIdx.y * RB;
-  const int nrt = min(4, (g.n16 - r0) / 16);
-  const int C = g.C, CP = g.CP, lane = threadIdx.x & 31;
+// Element offset of token tok of window win (the windows of every image
+// in row-major order).
+__device__ __forceinline__ size_t pix(const Args& a, int win, int tok) {
+  const int per = a.nwh * a.nww;
+  const int b = win / per, wr = (win % per) / a.nww, wc = win % a.nww;
+  const int hh = wr * a.ws + tok / a.ws, ww = wc * a.ws + tok % a.ws;
+  return ((static_cast<size_t>(b) * a.H + hh) * a.W + ww) * a.C;
+}
 
-  copy_rows_async(ob, a.ldo,
-                  a.o + (static_cast<size_t>(win) * g.n16 + r0) * a.OW, a.OW,
-                  nrt * 16, a.OW);
-  cp_async_commit();
-  // the row block's x (float32, into x2) and extra (bf16), a token row a
-  // warp; zero past the tokens and channels
-  for (int r = threadIdx.x >> 5; r < nrt * 16; r += NWARPS) {
-    const int t = r0 + r;
-    const size_t p = t < g.n ? g.pix(win, t) : 0;
-    for (int c = lane; c < CP; c += 32) {
-      const bool in = t < g.n && c < C;
-      x2[static_cast<size_t>(r) * CP + c] =
-          in ? __bfloat162float(a.x[p + c]) : 0.0f;
-      if (a.extra != nullptr)
-        es[static_cast<size_t>(r) * CP + c] =
-            in ? a.extra[p + c] : __float2bfloat16(0.0f);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  gemm_weights(ob, a.ldo, nrt, a.wp, CP, a.OW, CP, ring, stage,
-               [&](int r, int c, const float* v) {
-    float* xr = x2 + static_cast<size_t>(r) * CP + c;
-    const bf16* er = es + static_cast<size_t>(r) * CP + c;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float o = 0.0f;
-      if (c + i < C) {
-        o = xr[i] + v[i] + a.bp[c + i];
-        if (a.extra != nullptr) o += __bfloat162float(er[i]);
-      }
-      xr[i] = o;
-    }
-  });
-  layer_norm_rows<true>(
-      [&](int t) { return x2 + static_cast<size_t>(t - r0) * CP; }, r0,
-      nrt * 16, g.n, C, CP, a.g2, a.be2, ys, a.ldy);
-  __syncthreads();
-  gemm_weights(ys, a.ldy, nrt, a.w1, a.HP, CP, a.HP, ring, stage,
-               [&](int r, int c, const float* v) {
-    float h[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      h[i] = c + i < a.hidden ? gelu_erf(v[i] + a.b1[c + i]) : 0.0f;
-    store_bf16x8(hid + static_cast<size_t>(r) * a.ldh + c, h);
-  });
-  // the block's output rows into ys (free once fc1 has read it), then out
-  // to the window's pixels, a token row a warp
-  gemm_weights(hid, a.ldh, nrt, a.w2, CP, a.HP, CP, ring, stage,
-               [&](int r, int c, const float* v) {
-    const float* xr = x2 + static_cast<size_t>(r) * CP + c;
-    float o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      o[i] = c + i < C ? xr[i] + v[i] + a.b2[c + i] : 0.0f;
-    store_bf16x8(ys + static_cast<size_t>(r) * a.ldy + c, o);
-  });
-  for (int r = threadIdx.x >> 5; r < nrt * 16; r += NWARPS) {
-    const int t = r0 + r;
-    if (t >= g.n) continue;
-    bf16* dst = a.y + g.pix(win, t);
-    for (int c = lane; c < C; c += 32)
-      dst[c] = ys[static_cast<size_t>(r) * a.ldy + c];
+// Into L2, while this row block computes: the window rows of x (and
+// extra) that hold row block rb's tokens (one thread issues it).
+__device__ __forceinline__ void prefetch_rows(const Args& a, int rb) {
+  if (!a.pf || rb >= a.blocks) return;
+  const int win = rb / a.nrb, tok0 = 64 * (rb % a.nrb);
+  const int last = min(tok0 + 64, a.n) - 1;
+  for (int r = tok0 / a.ws; r <= last / a.ws; ++r) {
+    const size_t px = pix(a, win, r * a.ws);
+    prefetch_l2(a.x + px, a.ws * a.C * 2);
+    if (a.extra != nullptr) prefetch_l2(a.extra + px, a.ws * a.C * 2);
   }
 }
 
-// The grid of an image, or false for shapes the kernels do not take.
-bool make_grid(Grid& g, int H, int W, int C, int heads, int ws) {
-  g = {};
-  g.n = ws * ws;
-  g.n16 = round_up(g.n, 16);
-  if (ws < 1 || H % ws || W % ws || g.n16 > 256 || heads < 1 ||
-      C > HDP * heads || C > MAXC * 32)
+// The weight ring: tile j of a block's walk lands by TMA in slot j % NS
+// (NS a constant of the kernel: slot and phase without a divide);
+// every consumer warp waits for the tiles it multiplies by and releases
+// each once its wgmmas on it are done (waited for: their reads of the slot
+// are over, so no fence), and the last of the block's warps to release a
+// slot refills it with tile j + NS (put, by that warp's lane 0).
+template <int NS>
+struct Ring {
+  uint32_t slots, bars;
+  int* released;       // a slot's count of releases
+  int tb, total, warps;
+
+  __device__ __forceinline__ uint32_t at(int j) const {
+    return slots + (static_cast<unsigned>(j) % NS) * tb;
+  }
+  __device__ __forceinline__ uint32_t full(int j) const {
+    return bars + 8 * (static_cast<unsigned>(j) % NS);
+  }
+  __device__ __forceinline__ void wait(int j) const {
+    hopper::mbar_wait(full(j), (static_cast<unsigned>(j) / NS) & 1);
+  }
+  template <typename Put>
+  __device__ __forceinline__ void release(int j, Put put) const {
+    if ((threadIdx.x & 31) != 0) return;
+    const int s = static_cast<unsigned>(j) % NS;
+    if (atomicAdd(released + s, 1) == warps - 1) {
+      atomicExch(released + s, 0);
+      if (j + NS < total) put(j + NS);
+    }
+  }
+};
+
+// The block's ring, its barriers (and extra_bars more after them)
+// initialized and the first tiles on their way: put(j, ring) issues tile
+// j's copies.
+template <int NS, typename Put>
+__device__ __forceinline__ Ring<NS> start_ring(const Args& a,
+                                               unsigned char* smem,
+                                               uint32_t base_s, int tb,
+                                               int extra_bars, Put put) {
+  const int mine = blockIdx.x < a.items
+                       ? (a.items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  Ring<NS> r{base_s + a.offRing, base_s + a.offBar,
+             reinterpret_cast<int*>(smem + a.offBar + 8 * NS), tb,
+             mine * a.ntile, 4 * a.nwg};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(r.full(s), 1);
+      r.released[s] = 0;
+    }
+    for (int b = 0; b < extra_bars; ++b)
+      hopper::mbar_init(base_s + a.offBar + 16 * NS + 8 * b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int j = 0; j < min(NS, r.total); ++j) put(j, r);
+  return r;
+}
+
+// the LN rows as wgmma's K-major A at k16 step ks
+__device__ __forceinline__ uint64_t a_step(int ks) {
+  return static_cast<uint64_t>(((ks >> 1) * ATOM + (ks & 1) * 32) >> 4);
+}
+
+// The channel pairs 8 k + 2 t (k < NP) of a token row as raw bf16 pairs,
+// zero past C, every load issued before any is used.
+template <int NP>
+__device__ __forceinline__ void load_row(uint32_t (&u)[NP], const bf16* row,
+                                         int t, int C) {
+  if ((C & 1) == 0) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int c = 8 * k + 2 * t;
+      u[k] = c < C ? __ldg(reinterpret_cast<const unsigned*>(row + c)) : 0u;
+    }
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int c = 8 * k + 2 * t;
+      const uint32_t lo = c < C ? __ldg(h + c) : 0u;
+      const uint32_t hi = c + 1 < C ? __ldg(h + c + 1) : 0u;
+      u[k] = lo | hi << 16;
+    }
+  }
+}
+
+// K10's ring: a slot a head's three slices, the next head's waited for
+// while this one's products run.
+constexpr int K10_SLOTS = 3;
+
+// K10: LN1 + qkv.  Tile i of an item is head i's q, k and v slices of
+// Wqkv ([CK x 32] each, side by side: one [CK x 96] B operand); heads past
+// `heads` (odd heads, rounded up to even) are zero tiles whose products
+// are dropped.
+template <int NCT>
+__global__ void __launch_bounds__(NT, 1)
+ln_qkv_kernel(const __grid_constant__ CUtensorMap wqmap,
+              const __grid_constant__ CUtensorMap qmap, const Args a) {
+  constexpr int CK = 64 * NCT;     // channels, padded for the tiles
+  constexpr int TB = 64 * CK;      // bytes of a [CK x 32] slice
+  constexpr int KS = CK / 16;      // k16 steps over the channels
+  constexpr int NP = CK / 8;       // channel pairs a lane holds of a row
+  // aligned by an offset from smem_raw, so every access stays in the
+  // shared window
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_s = hopper::smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw_s & 1023u)) & 1023u;
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t base_s = raw_s + pad;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = a.n;
+
+  // the bias and LayerNorm vectors in shared memory, zero past the heads
+  // and C
+  float* bq_s = reinterpret_cast<float*>(smem + a.offPar);
+  float* g_s = bq_s + a.nhead * 96;
+  float* be_s = g_s + CK;
+  for (int i = tid; i < a.nhead * 96; i += NT)
+    bq_s[i] = i < a.heads * 96 ? a.bq[i] : 0.0f;
+  for (int c = tid; c < CK; c += NT) {
+    g_s[c] = c < a.C ? a.g[c] : 0.0f;
+    be_s[c] = c < a.C ? a.be[c] : 0.0f;
+  }
+  auto put = [&](int j, const Ring<K10_SLOTS>& r) {
+    const int h = j % a.ntile;
+    hopper::mbar_expect_tx(r.full(j), 3 * TB);
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+      hopper::tma_load_3d(r.at(j) + s * TB, &wqmap, r.full(j),
+                          h * 96 + s * HDP, 0, 0);
+  };
+  const Ring<K10_SLOTS> ring =
+      start_ring<K10_SLOTS>(a, smem, base_s, 3 * TB, 0, put);
+  auto refill = [&](int j) { put(j, ring); };
+
+  const int w = warp >> 2;   // this warpgroup
+  if (w >= a.nwg) return;
+  const int wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const bool lead = (tid & 127) == 0;
+  // this warpgroup's region: the LN rows (the A tile), then two staging
+  // buffers of three atoms (q, k, v of a head)
+  unsigned char* regA = smem + w * a.regW;
+  const uint32_t A_s = base_s + w * a.regW;
+  unsigned char* stage = regA + 128 * CK;
+  const uint32_t stage_s = A_s + 128 * CK;
+  const uint64_t dA = desc64(A_s);
+  auto wg_sync = [&]() {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+  };
+  auto block_of = [&](int item) {   // past the row blocks: the last again
+    return min(a.nwg * item + w, a.blocks - 1);
+  };
+
+  // this thread's two rows (16 wl + g, + 8) of a row block as raw bf16
+  // pairs (lane 4 g + t holds channels 8 k + 2 t, + 1), the next row
+  // block's loaded while this one multiplies
+  uint32_t xw[2][NP];
+  auto load_x = [&](int item) {
+    const int rb = block_of(item);
+    const int win = rb / a.nrb, tok0 = 64 * (rb % a.nrb);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int tok = tok0 + 16 * wl + g + 8 * i;
+      load_row(xw[i], a.x + (tok < n ? pix(a, win, tok) : 0), t, a.C);
+    }
+  };
+  // LN1 of the rows into region A as bf16, their statistics by quad
+  // shuffles (a row's channels lie on one quad); zero past the tokens and
+  // channels
+  auto ln_rows = [&](int tok0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * wl + g + 8 * i;
+      const bool live = tok0 + r < n;
+      float2 v[NP];
+      float sum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        v[k] = unpack_bf16(xw[i][k]);
+        sum += v[k].x;
+        sum += v[k].y;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float mean = sum / a.C;
+      float q = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int c = 8 * k + 2 * t;
+        const float d0 = v[k].x - mean, d1 = v[k].y - mean;
+        if (c < a.C) q += d0 * d0;
+        if (c + 1 < a.C) q += d1 * d1;
+      }
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      const float rstd = rsqrtf(q / a.C + 1e-5f);
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int c = 8 * k + 2 * t;
+        const float y0 = live && c < a.C
+                             ? (v[k].x - mean) * rstd * g_s[c] + be_s[c]
+                             : 0.0f;
+        const float y1 = live && c + 1 < a.C
+                             ? (v[k].y - mean) * rstd * g_s[c + 1] +
+                                   be_s[c + 1]
+                             : 0.0f;
+        *reinterpret_cast<uint32_t*>(regA + swz(r, c)) = pack_bf16(y0, y1);
+      }
+    }
+  };
+
+  if (blockIdx.x < a.items) load_x(blockIdx.x);
+  int stores = 0;   // this warpgroup's store groups: the staging buffer
+  int j0 = 0;       // the item's first tile
+  for (int item = blockIdx.x; item < a.items;
+       item += gridDim.x, j0 += a.ntile) {
+    const int rbi = a.nwg * item + w;
+    const bool real = rbi < a.blocks;   // else a repeat that stores nothing
+    const int rb = real ? rbi : a.blocks - 1;
+    const int win = rb / a.nrb, tok0 = 64 * (rb % a.nrb);
+    wg_sync();   // the last item's products have read region A
+    ln_rows(tok0);
+    if (item + gridDim.x < a.items) load_x(item + gridDim.x);
+    hopper::fence_proxy_async();   // the rows, before wgmma reads them
+    wg_sync();
+
+    // head h's q | k | v into f: one wgmma chain of N = 96 (the three
+    // slices one atom apart)
+    auto issue = [&](int h, float (&f)[48]) {
+      const int j = j0 + h;
+      ring.wait(j);
+#pragma unroll
+      for (int e = 0; e < 48; ++e) f[e] = 0.0f;
+      hopper::fence_operands<48>(f);
+      hopper::wgmma_fence();
+      const uint64_t db = hopper::make_desc(ring.at(j), TB, 512,
+                                            hopper::LAYOUT_B64);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        hopper::wgmma_ss<96, 1>(f, dA + a_step(ks), db + ks * 64);
+      hopper::wgmma_commit();
+    };
+    // head h's products (waited for): its tiles released, + bq in float32
+    // (rows past n zero), bf16 into a staging buffer, out by three TMA
+    // boxes (rows past n16 clipped)
+    auto epi = [&](int h, float (&f)[48]) {
+      hopper::fence_operands<48>(f);
+      ring.release(j0 + h, refill);
+      if (h >= a.heads) return;   // a pad head: zero tiles
+      const int b = stores & 1;
+      if (lead) hopper::bulk_wait_read<1>();   // buffer b's last store
+      wg_sync();
+      const float* bqh = bq_s + h * 96;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        float v[16];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const bool live = tok0 + 16 * wl + g + 8 * i < n;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              v[4 * jj + 2 * i + e] =
+                  live ? f[16 * s + 4 * jj + 2 * i + e] +
+                             bqh[s * HDP + 8 * jj + 2 * t + e]
+                       : 0.0f;
+          }
+        frag_to_atom(stage + (3 * b + s) * ATOM, v, wl, g, t);
+      }
+      hopper::fence_proxy_async();
+      wg_sync();
+      if (lead) {
+        if (real)
+#pragma unroll
+          for (int s = 0; s < 3; ++s)
+            hopper::tma_store_3d(&qmap, stage_s + (3 * b + s) * ATOM,
+                                 h * 96 + s * HDP, tok0, win);
+        hopper::bulk_commit();
+      }
+      ++stores;
+    };
+    // head h + 1's products run while head h's epilogue stores (nhead is
+    // even, so the two accumulators alternate by a fixed pattern)
+    float f[2][48];
+    issue(0, f[0]);
+    for (int h = 0; h + 2 < a.nhead; h += 2) {
+      issue(h + 1, f[1]);
+      hopper::wgmma_wait<1>();
+      epi(h, f[0]);
+      issue(h + 2, f[0]);
+      hopper::wgmma_wait<1>();
+      epi(h + 1, f[1]);
+    }
+    issue(a.nhead - 1, f[1]);
+    hopper::wgmma_wait<1>();
+    epi(a.nhead - 2, f[0]);
+    hopper::wgmma_wait<0>();
+    epi(a.nhead - 1, f[1]);
+  }
+  if (lead) hopper::bulk_wait();
+}
+
+// K11's MLP chunk: 32 hidden units (the accumulators of two chunks in
+// flight beside x2's fill the registers).
+constexpr int CW = 32;
+
+// K11's ring slots: the MLP holds two tiles while it waits for a third;
+// eight where they fit beside two warpgroups' regions (all but CK = 256).
+__host__ __device__ constexpr int k11_slots(int nct) {
+  return nct == 4 ? 4 : 8;
+}
+
+// K11: proj + residuals, LN2, MLP, residual.  Tile i of an item is head
+// i's proj rows ([32 x CK] of Wp) for i < heads, then the MLP's W1 ([CK x
+// 32]) and W2 ([32 x CK]) slices of 32-unit chunks in the order the
+// products are issued (fc1 two chunks ahead of fc2: fc1_0, fc1_1, fc2_0,
+// fc1_2, fc2_1, ..., fc2_{nchunk-1}); chunks past the hidden width are
+// zero tiles whose GELU outputs are dropped.
+__device__ __forceinline__ int fc1_tile(int c) { return c < 2 ? c : 2 * c - 1; }
+__device__ __forceinline__ int fc2_tile(int c, int nchunk) {
+  return c < nchunk - 1 ? 2 * c + 2 : 2 * nchunk - 1;
+}
+
+template <int NCT>
+__global__ void __launch_bounds__(NT, 1)
+proj_mlp_kernel(const __grid_constant__ CUtensorMap omap,
+                const __grid_constant__ CUtensorMap wpmap,
+                const __grid_constant__ CUtensorMap w1map,
+                const __grid_constant__ CUtensorMap w2map, const Args a) {
+  constexpr int CK = 64 * NCT, KS = CK / 16, NP = CK / 8;
+  constexpr int TB = 64 * CK;            // bytes of a weight tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_s = hopper::smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw_s & 1023u)) & 1023u;
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t base_s = raw_s + pad;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int H = a.heads, n = a.n;
+
+  // the bias and LayerNorm vectors in shared memory, zero past C / hidden
+  float* bp_s = reinterpret_cast<float*>(smem + a.offPar);
+  float* g_s = bp_s + CK;
+  float* be_s = g_s + CK;
+  float* b2_s = be_s + CK;
+  float* b1_s = b2_s + CK;
+  for (int c = tid; c < CK; c += NT) {
+    const bool in = c < a.C;
+    bp_s[c] = in ? a.bp[c] : 0.0f;
+    g_s[c] = in ? a.g[c] : 0.0f;
+    be_s[c] = in ? a.be[c] : 0.0f;
+    b2_s[c] = in ? a.b2[c] : 0.0f;
+  }
+  for (int c = tid; c < CW * a.nchunk; c += NT)
+    b1_s[c] = c < a.hidden ? a.b1[c] : 0.0f;
+
+  constexpr int NS = k11_slots(NCT);
+  auto put = [&](int j, const Ring<NS>& r) {
+    const int i = j % a.ntile, m = i - H;
+    const uint32_t dst = r.at(j), fb = r.full(j);
+    hopper::mbar_expect_tx(fb, TB);
+    if (i < H) {
+#pragma unroll
+      for (int jn = 0; jn < NCT; ++jn)
+        hopper::tma_load_3d(dst + jn * 4096, &wpmap, fb, 64 * jn, HDP * i,
+                            0);
+    } else if (m < 2 || ((m & 1) != 0 && m != 2 * a.nchunk - 1)) {
+      const int c = m < 2 ? m : (m + 1) >> 1;   // fc1(c)
+      hopper::tma_load_3d(dst, &w1map, fb, CW * c, 0, 0);
+    } else {
+      const int c = m == 2 * a.nchunk - 1 ? a.nchunk - 1 : (m - 2) >> 1;
+#pragma unroll
+      for (int jn = 0; jn < NCT; ++jn)   // fc2(c)
+        hopper::tma_load_3d(dst + jn * 4096, &w2map, fb, 64 * jn, CW * c,
+                            0);
+    }
+  };
+  const Ring<NS> ring = start_ring<NS>(a, smem, base_s, TB, 2, put);
+  auto refill = [&](int j) { put(j, ring); };
+
+  const int w = warp >> 2;   // this warpgroup
+  if (w >= a.nwg) return;
+  const int wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const bool lead = (tid & 127) == 0;
+  // this warpgroup's region: A the LN2 rows (fc1's operand; then the
+  // output rows), O the attention output (one atom a head: proj's operand)
+  unsigned char* regA = smem + w * a.regW;
+  const uint32_t A_s = base_s + w * a.regW;
+  const uint32_t O_s = A_s + 128 * CK;
+  const uint32_t obar = base_s + a.offBar + 16 * NS + 8 * w;
+  // bit 2 k + e: this lane's column 8 k + 2 t + e lies before C
+  uint64_t cols = 0;
+#pragma unroll
+  for (int k = 0; k < NP; ++k)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      cols |= static_cast<uint64_t>(8 * k + 2 * t + e < a.C) << (2 * k + e);
+  const uint64_t dA = desc64(A_s), dO = desc64(O_s);
+  auto wg_sync = [&]() {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+  };
+  auto block_of = [&](int item) {   // past the row blocks: the last again
+    return min(a.nwg * item + w, a.blocks - 1);
+  };
+  // row block rb's o rows into region O by TMA, one box a head (zero past
+  // n16)
+  auto load_o = [&](int rb) {
+    const int win = rb / a.nrb, tok0 = 64 * (rb % a.nrb);
+    hopper::mbar_expect_tx(obar, H * ATOM);
+    for (int h = 0; h < H; ++h)
+      hopper::tma_load_3d(O_s + h * ATOM, &omap, obar, h * HDP, tok0, win);
+  };
+  if (lead && blockIdx.x < a.items) load_o(block_of(blockIdx.x));
+
+  int j0 = 0;   // the item's first tile
+  int k = 0;    // items done: the o barrier's phase
+  for (int item = blockIdx.x; item < a.items;
+       item += gridDim.x, j0 += a.ntile, ++k) {
+    const int rbi = a.nwg * item + w;
+    const bool real = rbi < a.blocks;   // else a repeat that stores nothing
+    const int rb = real ? rbi : a.blocks - 1;
+    const int win = rb / a.nrb, tok0 = 64 * (rb % a.nrb);
+
+    // this thread's two rows of x as raw bf16 pairs, in flight while proj
+    // runs
+    size_t px[2];
+    bool live[2];
+    uint32_t xw[2][NP];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int tok = tok0 + 16 * wl + g + 8 * i;
+      live[i] = tok < n;
+      px[i] = live[i] ? pix(a, win, tok) : 0;
+      load_row(xw[i], a.x + px[i], t, a.C);
+    }
+
+    // proj: acc = o Wp over the heads' atoms (the next head's tile
+    // loading as each is released)
+    float acc[NCT][32];
+#pragma unroll
+    for (int jn = 0; jn < NCT; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[jn][e] = 0.0f;
+      hopper::fence_operands<32>(acc[jn]);
+    }
+    hopper::mbar_wait(obar, k & 1);
+    for (int h = 0; h < H; ++h) {
+      const int j = j0 + h;
+      ring.wait(j);
+      hopper::wgmma_fence();
+      const uint64_t db = desc128(ring.at(j));
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int jn = 0; jn < NCT; ++jn)
+          hopper::wgmma_ss<64, 1>(acc[jn], dO + ((h * ATOM + kk * 32) >> 4),
+                                  db + ((jn * 4096 + kk * 2048) >> 4));
+      hopper::wgmma_commit();
+      if (h > 0) {
+        hopper::wgmma_wait<1>();
+        ring.release(j - 1, refill);
+      }
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int jn = 0; jn < NCT; ++jn) hopper::fence_operands<32>(acc[jn]);
+    ring.release(j0 + H - 1, refill);
+    wg_sync();   // every warp's proj has read region O (and the last
+                 // item's stores region A)
+    if (lead && item + gridDim.x < a.items) {
+      load_o(block_of(item + gridDim.x));
+      prefetch_rows(a, a.nwg * (item + gridDim.x) + w);
+    }
+
+    // x2 = x + proj + bp [+ extra] in float32 on the fragments (it stays
+    // in acc, which fc2 then adds to; past C every term is an exact zero),
+    // its row statistics by quad shuffles (a row's columns lie on one
+    // quad), LN2's rows into region A as bf16 (zero past C: g and be are)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * wl + g + 8 * i;
+      uint32_t ew[NP];   // extra's row (a row at a time: registers)
+      if (a.extra != nullptr) load_row(ew, a.extra + px[i], t, a.C);
+      float sum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int c = 8 * k + 2 * t;
+        const float2 xv = unpack_bf16(xw[i][k]);
+        const float2 bv = *reinterpret_cast<const float2*>(bp_s + c);
+        float& v0 = acc[k >> 3][4 * (k & 7) + 2 * i];
+        float& v1 = acc[k >> 3][4 * (k & 7) + 2 * i + 1];
+        v0 = xv.x + v0 + bv.x;
+        v1 = xv.y + v1 + bv.y;
+        if (a.extra != nullptr) {
+          const float2 ev = unpack_bf16(ew[k]);
+          v0 += ev.x;
+          v1 += ev.y;
+        }
+        sum += v0;
+        sum += v1;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float mean = sum / a.C;
+      float q = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = acc[k >> 3][4 * (k & 7) + 2 * i + e] - mean;
+          if ((cols >> (2 * k + e)) & 1u) q += d * d;
+        }
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      const float rstd = live[i] ? rsqrtf(q / a.C + 1e-5f) : 0.0f;
+      const float shift = live[i] ? 1.0f : 0.0f;   // dead rows: zero
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int c = 8 * k + 2 * t;
+        const float2 gv = *reinterpret_cast<const float2*>(g_s + c);
+        const float2 bv = *reinterpret_cast<const float2*>(be_s + c);
+        const float v0 = acc[k >> 3][4 * (k & 7) + 2 * i];
+        const float v1 = acc[k >> 3][4 * (k & 7) + 2 * i + 1];
+        *reinterpret_cast<uint32_t*>(regA + swz(r, c)) =
+            pack_bf16((v0 - mean) * rstd * gv.x + bv.x * shift,
+                      (v1 - mean) * rstd * gv.y + bv.y * shift);
+      }
+    }
+    hopper::fence_proxy_async();   // the rows, before wgmma reads them
+    wg_sync();
+
+    // the MLP in CW-unit chunks, fc1 two chunks ahead of fc2: fc1(c) ->
+    // + b1 -> GELU -> bf16 A in registers -> fc2(c) += into acc.  Chunk
+    // c's fc1 accumulator and A fragments are h1[c % 2] and ha[c % 2]
+    // (nchunk is even, so a loop step takes two chunks).  The wait before
+    // chunk c leaves fc2(c - 1) and fc1(c + 1) in flight.
+    const int jm = j0 + H;
+    float h1[2][CW / 2];
+    uint32_t ha[2][CW / 4];
+    auto fc1 = [&](int c, float (&h)[CW / 2]) {
+      const int j = jm + fc1_tile(c);
+      ring.wait(j);
+#pragma unroll
+      for (int e = 0; e < CW / 2; ++e) h[e] = 0.0f;
+      hopper::fence_operands<CW / 2>(h);
+      hopper::wgmma_fence();
+      const uint64_t db = desc64(ring.at(j));
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        hopper::wgmma_ss<CW, 1>(h, dA + a_step(ks), db + ks * 64);
+      hopper::wgmma_commit();
+    };
+    // chunk c once fc1(c) is done (and fc2(c - 2) with it): GELU, the two
+    // tiles released, fc2(c) issued
+    auto fc2 = [&](int c, float (&h)[CW / 2], uint32_t (&u)[CW / 4]) {
+      hopper::fence_operands<CW / 2>(h);
+#pragma unroll
+      for (int j = 0; j < CW / 8; ++j) {
+        const float2 bv =
+            *reinterpret_cast<const float2*>(b1_s + CW * c + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)   // pad units: GELU(0 + 0) = 0
+          u[2 * j + i] = pack_bf16(gelu_erf(h[4 * j + 2 * i] + bv.x),
+                                   gelu_erf(h[4 * j + 2 * i + 1] + bv.y));
+      }
+      ring.release(jm + fc1_tile(c), refill);
+      if (c >= 2) ring.release(jm + fc2_tile(c - 2, a.nchunk), refill);
+      const int j2 = jm + fc2_tile(c, a.nchunk);
+      ring.wait(j2);
+      hopper::fence_operands<CW / 4>(u);
+      hopper::wgmma_fence();
+      const uint64_t db = desc128(ring.at(j2));
+#pragma unroll
+      for (int kk = 0; kk < CW / 16; ++kk)
+#pragma unroll
+        for (int jn = 0; jn < NCT; ++jn)
+          hopper::wgmma_rs_n64<1>(acc[jn], u + 4 * kk,
+                                  db + ((jn * 4096 + kk * 2048) >> 4));
+      hopper::wgmma_commit();
+    };
+    fc1(0, h1[0]);
+    hopper::wgmma_commit();   // an empty group in fc2(-1)'s place
+    fc1(1, h1[1]);
+    int c = 0;
+    for (; c + 2 < a.nchunk; c += 2) {
+      hopper::wgmma_wait<2>();
+      fc2(c, h1[0], ha[0]);
+      fc1(c + 2, h1[0]);
+      hopper::wgmma_wait<2>();
+      fc2(c + 1, h1[1], ha[1]);
+      fc1(c + 3, h1[1]);
+    }
+    hopper::wgmma_wait<2>();
+    fc2(c, h1[0], ha[0]);
+    hopper::wgmma_wait<1>();
+    fc2(c + 1, h1[1], ha[1]);
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int jn = 0; jn < NCT; ++jn) hopper::fence_operands<32>(acc[jn]);
+    hopper::fence_operands<CW / 4>(ha[0]);
+    hopper::fence_operands<CW / 4>(ha[1]);
+    ring.release(jm + fc2_tile(c, a.nchunk), refill);
+    ring.release(jm + fc2_tile(c + 1, a.nchunk), refill);
+
+    // the output x2 + fc2 + b2 in bf16: staged as [64 tokens][C] in region
+    // A (free: every fc1 is done) and out by 16-byte stores of window rows,
+    // or stored as bf16 pairs
+    auto out = [&](int i, int k) {
+      const float2 bv = *reinterpret_cast<const float2*>(b2_s + 8 * k + 2 * t);
+      return make_float2(acc[k >> 3][4 * (k & 7) + 2 * i] + bv.x,
+                         acc[k >> 3][4 * (k & 7) + 2 * i + 1] + bv.y);
+    };
+    if (a.vec_out) {   // C even: a pair lies before C or past it
+      wg_sync();   // every warp's fc1 has read region A
+      if (real)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (!live[i]) continue;
+          unsigned char* row = regA + 2 * (16 * wl + g + 8 * i) * a.C;
+#pragma unroll
+          for (int k = 0; k < NP; ++k)
+            if ((cols >> (2 * k)) & 1u) {
+              const float2 o = out(i, k);
+              *reinterpret_cast<uint32_t*>(row + 2 * (8 * k + 2 * t)) =
+                  pack_bf16(o.x, o.y);
+            }
+        }
+    } else if (real) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!live[i]) continue;
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+          const float2 o = out(i, k);
+          store_pair(a.y + px[i], 8 * k + 2 * t, a.C, o.x, o.y);
+        }
+      }
+    }
+    if (a.vec_out) {
+      wg_sync();
+      if (real) {
+        // a window row's pixels are ws * C contiguous channels: 16-byte
+        // chunks of it across the warpgroup
+        const int rows_w = min(64, n - tok0) / a.ws;
+        const int per = a.ws * a.C / 8;
+        bf16* y0 = a.y + pix(a, win, tok0);
+        for (int row = 0; row < rows_w; ++row) {
+          uint4* dst = reinterpret_cast<uint4*>(
+              y0 + static_cast<size_t>(row) * a.W * a.C);
+          const uint4* src = reinterpret_cast<const uint4*>(
+              regA + 2 * row * a.ws * a.C);
+          for (int ch = tid & 127; ch < per; ch += 128) dst[ch] = src[ch];
+        }
+      }
+    }
+  }
+}
+
+// The image side of both kernels' arguments, or false for shapes they do
+// not take (n16 > 256, C > 256, C > 32 * heads).
+bool geometry(Args& a, const void* x, int B, int H, int W, int C, int heads,
+              int ws) {
+  a.n = ws * ws;
+  a.n16 = round_up(a.n, 16);
+  if (B < 1 || ws < 1 || H % ws || W % ws || a.n16 > 256 || heads < 1 ||
+      C < 1 || C > HDP * heads || C > MAXC * 32)
     return false;
-  g.H = H;
-  g.W = W;
-  g.C = C;
-  g.CP = round_up(C, 16);
-  g.ws = ws;
-  g.nwh = H / ws;
-  g.nww = W / ws;
+  a.x = static_cast<const bf16*>(x);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.heads = heads;
+  a.ws = ws;
+  a.nwh = H / ws;
+  a.nww = W / ws;
+  a.nrb = (a.n16 + 63) / 64;
+  a.blocks = B * a.nwh * a.nww * a.nrb;
   return true;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Window rows of 16-byte multiples at 16-byte offsets in the image.
+bool rows16(const Args& a) {
+  return a.C % 2 == 0 && (a.ws * a.C) % 8 == 0 && (a.W * a.C) % 8 == 0;
 }
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The block's shared-memory plan: nwg warpgroup regions of reg bytes, the
+// vectors (par bytes), a ring of ns tb-byte slots and its barriers (+
+// extra barriers); false if it does not fit.
+bool plan(Args& a, int nwg, int reg, int par, int tb, int ns, int extra_bars,
+          int& smem) {
+  a.nwg = nwg;
+  a.regW = round_up(reg, 1024);
+  a.offPar = nwg * a.regW;
+  a.offRing = a.offPar + round_up(par, 1024);
+  a.offBar = a.offRing + ns * tb;
+  smem = a.offBar + 16 * ns + 8 * extra_bars + 1024;   // + the alignment
+  a.items = (a.blocks + nwg - 1) / nwg;
+  return smem <= SMEM_MAX;
+}
+
+// The persistent grid: a block an SM, at most one an item.
+int grid_size(const Args& a, int& grid) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  grid = std::max(1, std::min(sms, a.items));
+  return static_cast<int>(e);
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, int smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+template <int NCT>
+int launch_ln_qkv(const CUtensorMap* maps, const Args& a, int smem,
+                  int grid, cudaStream_t s) {
+  int e = prepare(ln_qkv_kernel<NCT>, smem);
+  if (e != 0) return e;
+  ln_qkv_kernel<NCT><<<grid, NT, smem, s>>>(maps[0], maps[1], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NCT>
+int launch_proj_mlp(const CUtensorMap* maps, const Args& a, int smem,
+                    int grid, cudaStream_t s) {
+  int e = prepare(proj_mlp_kernel<NCT>, smem);
+  if (e != 0) return e;
+  proj_mlp_kernel<NCT><<<grid, NT, smem, s>>>(maps[0], maps[1], maps[2],
+                                               maps[3], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace rows
 
 }  // namespace
 
@@ -549,26 +1206,50 @@ extern "C" {
 // K10.  x [B, H, W, C] bf16 (rolled), H and W multiples of ws; wq [CP,
 // heads*96] bf16, bq [heads*96], g1 / be1 [C] float32; qkv [B * (H/ws) *
 // (W/ws), n16, heads*96] bf16.  cudaErrorInvalidValue for shapes it does
-// not take (n16 > 256, C > 256, C > 32 * heads).
+// not take (n16 > 256, C > 256, C > 32 * heads, or more than the block's
+// shared memory).
 int hdrvae_swin_ln_qkv(const void* x, const void* wq, const void* bq,
                        const void* g1, const void* be1, void* qkv, int B,
                        int H, int W, int C, int heads, int ws, void* stream) {
-  Grid g;
-  if (B < 1 || !make_grid(g, H, W, C, heads, ws))
+  rows::Args a = {};
+  if (!rows::geometry(a, x, B, H, W, C, heads, ws))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ldy = g.CP + 8;
-  const int off_ring = round_up(RB * ldy * 2, 128);
-  const int off_stage = off_ring + round_up(RING_ELEMS * 2, 128);
-  const int smem = off_stage + STAGE_BYTES;
-  cudaError_t err = allow_smem(ln_qkv_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * g.nwh * g.nww, (g.n16 + RB - 1) / RB);
-  ln_qkv_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wq),
-      static_cast<const float*>(bq), static_cast<const float*>(g1),
-      static_cast<const float*>(be1), static_cast<bf16*>(qkv), g, heads * 96,
-      ldy, off_ring, off_stage);
-  return static_cast<int>(cudaGetLastError());
+  a.bq = static_cast<const float*>(bq);
+  a.g = static_cast<const float*>(g1);
+  a.be = static_cast<const float*>(be1);
+  a.nhead = round_up(heads, 2);
+  a.ntile = a.nhead;
+  // channels padded to CK = 64, 192 or 256 (the pads are zeros, exact)
+  const int nct = C <= 64 ? 1 : C <= 192 ? 3 : 4, CK = 64 * nct;
+  // a warpgroup's LN rows and two staging buffers of three atoms
+  const int reg = 128 * CK + 6 * ATOM, par = 4 * (a.nhead * 96 + 2 * CK);
+  int smem = 0;
+  const int tb = 3 * 64 * CK;
+  if (!rows::plan(a, 2, reg, par, tb, rows::K10_SLOTS, 0, smem) &&
+      !rows::plan(a, 1, reg, par, tb, rows::K10_SLOTS, 0, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  int e = rows::grid_size(a, grid);
+  if (e != 0) return e;
+  // Wqkv in [CK x 32] tiles (64-byte swizzle, zero past the padded
+  // extents); qkv in [64 x 32] boxes, rows past n16 not written
+  CUtensorMap maps[2];
+  const uint64_t wd[3] = {uint64_t(heads) * 96, uint64_t(round_up(C, 16)),
+                          1};
+  const uint32_t wb[3] = {HDP, uint32_t(CK), 1};
+  const uint64_t qd[3] = {uint64_t(heads) * 96, uint64_t(a.n16),
+                          uint64_t(a.blocks / a.nrb)};
+  const uint32_t qb[3] = {HDP, 64, 1};
+  e = hopper::make_map(&maps[0], wq, 3, wd, wb, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = hopper::make_map(&maps[1], qkv, 3, qd, qb, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e != 0) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nct) {
+    case 1: return rows::launch_ln_qkv<1>(maps, a, smem, grid, s);
+    case 3: return rows::launch_ln_qkv<3>(maps, a, smem, grid, s);
+    default: return rows::launch_ln_qkv<4>(maps, a, smem, grid, s);
+  }
 }
 
 // K9.  qkv [nwin, n16, heads*96] bf16 (nwin a multiple of nwh * nww, the
@@ -611,45 +1292,64 @@ int hdrvae_swin_proj_mlp(const void* o, const void* x, const void* extra,
                          const void* w2, const void* b2, void* y, int B, int H,
                          int W, int C, int heads, int hidden, int ws,
                          void* stream) {
-  ProjArgs a = {};
-  if (B < 1 || hidden < 1 || !make_grid(a.g, H, W, C, heads, ws))
+  rows::Args a = {};
+  if (hidden < 1 || !rows::geometry(a, x, B, H, W, C, heads, ws))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.o = static_cast<const bf16*>(o);
-  a.x = static_cast<const bf16*>(x);
   a.extra = static_cast<const bf16*>(extra);
-  a.wp = static_cast<const bf16*>(wp);
-  a.bp = static_cast<const float*>(bp);
-  a.g2 = static_cast<const float*>(g2);
-  a.be2 = static_cast<const float*>(be2);
-  a.w1 = static_cast<const bf16*>(w1);
-  a.b1 = static_cast<const float*>(b1);
-  a.w2 = static_cast<const bf16*>(w2);
-  a.b2 = static_cast<const float*>(b2);
   a.y = static_cast<bf16*>(y);
-  a.OW = heads * HDP;
+  a.g = static_cast<const float*>(g2);
+  a.be = static_cast<const float*>(be2);
+  a.bp = static_cast<const float*>(bp);
+  a.b1 = static_cast<const float*>(b1);
+  a.b2 = static_cast<const float*>(b2);
   a.hidden = hidden;
-  a.HP = round_up(hidden, 16);
-  a.ldo = a.OW + 8;
-  a.ldy = a.g.CP + 8;
-  a.ldh = a.HP + 8;
-  const int x2_bytes = RB * a.g.CP * 4;
-  const int o_bytes = RB * a.ldo * 2;
-  const int y_bytes = RB * a.ldy * 2;
-  // the hidden rows, which first hold the row block's extra [64, CP]
-  const int mlp_bytes =
-      round_up(y_bytes, 128) + RB * std::max(a.ldh, a.g.CP) * 2;
-  a.off_o = round_up(x2_bytes, 128);
-  a.off_a = a.off_o + round_up(o_bytes, 128);
-  a.off_hid = a.off_a + round_up(y_bytes, 128);
-  a.off_ring = a.off_a + round_up(mlp_bytes, 128);
-  a.off_stage = a.off_ring + round_up(RING_ELEMS * 2, 128);
-  const int smem = a.off_stage + STAGE_BYTES;
-  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(proj_mlp_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * a.g.nwh * a.g.nww, (a.g.n16 + RB - 1) / RB);
-  proj_mlp_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const int nct = C <= 64 ? 1 : C <= 192 ? 3 : 4, CK = 64 * nct;
+  a.nchunk = round_up((hidden + rows::CW - 1) / rows::CW, 2);
+  a.ntile = heads + 2 * a.nchunk;
+  const bool rows16 = rows::rows16(a);
+  a.pf = rows16 && rows::aligned16(x) &&
+         (extra == nullptr || rows::aligned16(extra));
+  // whole window rows in each row block
+  a.vec_out = rows16 && (a.n <= 64 || 64 % ws == 0) && rows::aligned16(y);
+  // a warpgroup's LN2 rows and o (one atom a head); two o barriers
+  const int reg = 128 * CK + heads * ATOM;
+  const int par = 4 * (4 * CK + rows::CW * a.nchunk);
+  const int tb = 64 * CK, ns = rows::k11_slots(nct);
+  int smem = 0;
+  if (!rows::plan(a, 2, reg, par, tb, ns, 2, smem) &&
+      !rows::plan(a, 1, reg, par, tb, ns, 2, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  int e = rows::grid_size(a, grid);
+  if (e != 0) return e;
+  // o in [64 x 32] boxes (64-byte swizzle, zero past n16); the weights as
+  // K7 takes them: wp and w2 in [32 x 64] boxes (128-byte swizzle), w1 in
+  // [CK x 32] slices (64-byte swizzle), zero past the padded extents
+  const uint64_t CP = round_up(C, 16), HP = round_up(hidden, 16);
+  CUtensorMap maps[4];
+  const uint64_t od[3] = {uint64_t(heads) * HDP, uint64_t(a.n16),
+                          uint64_t(a.blocks / a.nrb)};
+  const uint64_t pd[3] = {CP, uint64_t(heads) * HDP, 1};
+  const uint64_t d1[3] = {HP, CP, 1}, d2[3] = {CP, HP, 1};
+  const uint32_t box_o[3] = {HDP, 64, 1}, box_a[3] = {HDP, uint32_t(CK), 1};
+  const uint32_t box_b[3] = {64, HDP, 1};
+  e = hopper::make_map(&maps[0], o, 3, od, box_o, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = hopper::make_map(&maps[1], wp, 3, pd, box_b,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == 0)
+    e = hopper::make_map(&maps[2], w1, 3, d1, box_a,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = hopper::make_map(&maps[3], w2, 3, d2, box_b,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nct) {
+    case 1: return rows::launch_proj_mlp<1>(maps, a, smem, grid, s);
+    case 3: return rows::launch_proj_mlp<3>(maps, a, smem, grid, s);
+    default: return rows::launch_proj_mlp<4>(maps, a, smem, grid, s);
+  }
 }
 
 }  // extern "C"

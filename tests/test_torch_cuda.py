@@ -892,7 +892,8 @@ def _swin_block(dev, dim, heads, ws, seed):
 
 # (batch, H, W, C, heads, window, shift, extra): n = 16, 49 (padded to 64
 # rows), 64, 100, 144 and 256 tokens; 3 and 5 windows across (odd grids the JAX
-# kernel refuses); C 48 and 180 (no multiple of 16: padded to 192); 105
+# kernel refuses); C 48, 180 (no multiple of 16: padded to 192) and 240
+# (SwinIR-L's: K7 on one warpgroup a block); 105
 # windows at batch 3 (odd: the last pair's second warpgroup has no window;
 # and no multiple of the 132 SMs); one row of two 256-token windows
 SWIN_CASES = [(2, 8, 12, 48, 2, 4, 0, False),
@@ -906,7 +907,9 @@ SWIN_CASES = [(2, 8, 12, 48, 2, 4, 0, False),
               # ragged (n16 112), and three (n16 144), on shifted 2 x 3
               # grids (corner windows), batch 2 at ws 10
               (2, 20, 30, 96, 3, 10, 5, False),
-              (1, 24, 36, 180, 6, 12, 6, True)]
+              (1, 24, 36, 180, 6, 12, 6, True),
+              # SwinIR-L's width: C 240 (CK 256), 8 heads, shifted, extra
+              (1, 24, 40, 240, 8, 8, 4, True)]
 
 
 @pytest.mark.parametrize("b,h,w,c,heads,ws,shift,extra", SWIN_CASES)

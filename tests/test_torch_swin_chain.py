@@ -5,7 +5,9 @@ against JAX's, and ``swin_block_chain`` against the three JAX calls
 composed and against K7's plain version.
 
 Windows 4 and 16 (16 and 256 tokens) on 2 x 2 and 2 x 4 window grids at
-dim 16, 2 heads, in both tiers.  Tolerances: parity <= 1e-5 * max(1,
+dim 16, 2 heads, in both tiers; K10's and K11's plain versions also at
+the card kernels' widths (SwinIR-M's C 180, 6 heads, hidden 360, ws 8 on a
+1 x 2 grid: the head dim and channel pads).  Tolerances: parity <= 1e-5 * max(1,
 max|ref|); fast (bf16) <= 5e-2 * max(1, max|ref|), the two packages
 rounding the same float32 sums, taken in different orders, to bf16.  The
 port's chain against K7's plain version: <= 1e-6 * max(1, max|ref|) in
@@ -139,6 +141,63 @@ def test_proj_mlp_vs_jax(with_extra, ws, grid, tier):
         _weights(blk, ws, tier), ws=ws,
         extra=None if extra is None else _to_torch(extra, tier),
         precision=tprec)
+    assert got.dtype == tprec.storage_dtype and got.shape == img.shape
+    assert _err(_f32(got), _f32(ref)) <= _budget(_f32(ref), tier)
+
+
+# The card kernels' widths (SwinIR-M's: C 180, padded to 192, 6 heads of
+# 30 padded to 32, hidden 360) at ws 8 on a 1 x 2 window grid
+WIDE_DIM, WIDE_HEADS, WIDE_WS, WIDE_GRID = 180, 6, 8, (1, 2)
+
+
+def _wide_pair():
+    return _block_pair(11, WIDE_DIM, WIDE_HEADS, WIDE_WS, 2 * WIDE_DIM)
+
+
+@pytest.mark.parametrize("tier", ["parity", "fast"])
+def test_ln_qkv_reference_vs_jax_at_card_widths(tier):
+    """K10's plain version against JAX's ``ln_qkv`` at SwinIR-M's widths:
+    the head dim 30 -> 32 and C 180 -> 192 pads the card kernel is held
+    to."""
+    ws, grid, heads = WIDE_WS, WIDE_GRID, WIDE_HEADS
+    jp, blk = _wide_pair()
+    img = _np(12, (1, grid[0] * ws, grid[1] * ws, WIDE_DIM), 1.0, 0.3)
+    jprec, tprec = TIERS[tier]
+    ref = _interpret(lambda: jska.ln_qkv(
+        _to_jax(img, tier), jp["attn"], jp["norm1"], heads, ws=ws,
+        bwin=jska.pick_bwin(grid[1], ws * ws), precision=jprec))
+    w = tswin.block_weights(blk, heads, ws, tprec.compute_dtype)
+    got = tska.ln_qkv_reference(_to_torch(img, tier), w, ws=ws,
+                                precision=tprec)
+    assert got.shape == (grid[0] * grid[1], ws * ws, heads * 96)
+    assert got.dtype == tprec.storage_dtype
+    got = _slots_to_jax(got, ws * ws, heads)
+    assert _err(_f32(got), _f32(ref)) <= _budget(_f32(ref), tier)
+    pads = _f32(got).reshape(-1, heads * 3, ws * ws, 32)[..., 30:]
+    assert not pads.any()   # the head dim's pad lanes stay zero
+
+
+@pytest.mark.parametrize("tier", ["parity", "fast"])
+def test_proj_mlp_reference_vs_jax_at_card_widths(tier):
+    """K11's plain version against JAX's ``proj_mlp`` at SwinIR-M's widths,
+    with HAT's extra residual."""
+    ws, grid, heads = WIDE_WS, WIDE_GRID, WIDE_HEADS
+    jp, blk = _wide_pair()
+    n, nwb = ws * ws, grid[0] * grid[1]
+    hw = (grid[0] * ws, grid[1] * ws)
+    img = _np(13, (1, *hw, WIDE_DIM), 1.0, 0.3)
+    attn = _np(14, (nwb, heads, n, 32), 0.5)
+    attn[..., WIDE_DIM // heads:] = 0.0   # the head dim's pad lanes
+    extra = _np(15, (1, *hw, WIDE_DIM), 0.5)
+    jprec, tprec = TIERS[tier]
+    ref = _interpret(lambda: jska.proj_mlp(
+        _to_jax(attn, tier), _to_jax(img, tier), jp["attn"], jp["norm2"],
+        jp["mlp"], heads, ws=ws, bwin=jska.pick_bwin(grid[1], n),
+        precision=jprec, extra=_to_jax(extra, tier)))
+    w = tswin.block_weights(blk, heads, ws, tprec.compute_dtype)
+    got = tska.proj_mlp_reference(
+        _slots_from_jax(_to_torch(attn, tier), heads), _to_torch(img, tier),
+        w, ws=ws, extra=_to_torch(extra, tier), precision=tprec)
     assert got.dtype == tprec.storage_dtype and got.shape == img.shape
     assert _err(_f32(got), _f32(ref)) <= _budget(_f32(ref), tier)
 

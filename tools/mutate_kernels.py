@@ -21,8 +21,11 @@ and more (a ragged conv5, conv_body, conv_first of unshuffle 2 and 4);
 k5: ``_check_k5``, K5 against its plain version at the 2048^2 decode's
 junction and a ragged map (built from upconv.cu and conv3x3.cu alone);
 chain:
-``_check_chain``, K10, K9 and K11 of the staged Swin chain at K7's v1
-shapes and the chain against K7; k3_f32: ``_check_k3_f32``, K3's exact
+``_check_chain(with_k7=False)``, K10, K9 and K11 of the staged Swin chain
+within SWIN_BUDGET of their plain versions at K7's v1 shapes and on
+CHAIN_RAGGED's windows, each output in a block that held NaNs, padded
+rows zero (built from swin_chain.cu alone); k3_f32: ``_check_k3_f32``,
+K3's exact
 float32 mode within 1e-5 of its plain version at N = 16,384, C = 512, on
 the ragged, peaked input and at batch 2 and C = 64 (each also into a
 buffer whose tail past the last row must stay untouched), and in its two
@@ -43,8 +46,8 @@ that held NaNs, built for C <= 192 alone; k4: ``_check_k4``, K4's
 collapse bit-exact, min / max exact and mean / std within K4_BUDGET at
 K4_SHAPE and on K4_EXTRA's maps, built from epilogue.cu alone; k9:
 ``_check_chain(with_k7=False)``, K9 within SWIN_BUDGET of its plain
-version at K7_SHAPES and on K9_EXTRA's ragged windows, padded rows zero,
-built from swin_chain.cu alone),
+version at K7_SHAPES and on CHAIN_RAGGED's ragged windows, padded rows
+zero, built from swin_chain.cu alone),
 then reports whether the check refused the broken kernel: by a
 failed assertion, or by a fault of the broken kernel on the card (a
 mutant that writes past an output stops the check there).  The
@@ -210,6 +213,26 @@ K10's qkv; an older tree times PR 6's WMMA kernel):
   opaque use);
 - reciprocal: P as e times 1 / l instead of the correctly rounded divide.
 
+    python3 tools/mutate_kernels.py --time-k10 [--tree DIR] [as-is|...]
+    python3 tools/mutate_kernels.py --time-k11 [--tree DIR] [as-is|...]
+
+do the same for K10 and K11 (``swin_chain.cu``, built alone; CUDA events,
+mean of 10 launches after 2 warm-ups, twice, at ``chip_smoke.py``'s
+K7_SHAPES, K11 on K9's output of K10's qkv).  Each run times both kernels
+(and K9, the control); the flag picks the variants, made in the kernel it
+names (an older tree's earlier mma.sync kernels: as-is only):
+
+- as-is: the kernels as they are;
+- no-stores: K10's qkv, or K11's output, not stored;
+- no-products: K10's qkv products, or K11's proj, fc1 and fc2 products,
+  not issued (their groups still committed and waited for);
+- no-weight-loads: the weight tiles not copied (the ring's barriers still
+  complete; the slots keep stale bytes);
+- no-x-loads: K10's LN1 rows, or K11's residual rows of x, not read (a
+  constant);
+- no-gelu (K11): fc1 + b1 passed on without the GELU;
+- one-warpgroup (K11): one warpgroup a block instead of two.
+
 It prints the card's name and power limit first.
 """
 
@@ -355,21 +378,53 @@ TARGETS = {
             "                up[4 * j + 2 * i] + u2.x, up[4 * j + 2 * i + 1] + u2.y);",
             False),
     }),
-    # K10's and K11's (K9's are the k9 target's)
-    "chain": ("_check_chain(np.random.default_rng(6))", ("swin_", "chain vs"), {
+    # K10's and K11's (K9's are the k9 target's), built from swin_chain.cu
+    # alone: the chain's kernels against their plain versions at K7_SHAPES
+    # and on CHAIN_RAGGED's windows, each output in a block that held NaNs
+    # (the chain against K7 left out)
+    "chain": ("_check_chain(np.random.default_rng(6), with_k7=False)",
+              ("swin_",), {
         "K10: LN1 skipped": (
             "swin_chain.cu",
-            "layer_norm_rows<true>([&](int t) { return x + g.pix(win, t); }",
-            "layer_norm_rows<false>([&](int t) { return x + g.pix(win, t); }",
-            True),
+            ("? (v[k].x - mean) * rstd * g_s[c] + be_s[c]",
+             "? (v[k].y - mean) * rstd * g_s[c + 1] +\n"
+             "                                   be_s[c + 1]"),
+            ("? v[k].x", "? v[k].y"), True),
         "K10: qkv bias dropped": (
-            "swin_chain.cu", "v[i] + bq[c + i] : 0.0f;", "v[i] : 0.0f;", True),
+            "swin_chain.cu",
+            "                  live ? f[16 * s + 4 * jj + 2 * i + e] +\n"
+            "                             bqh[s * HDP + 8 * jj + 2 * t + e]\n",
+            "                  live ? f[16 * s + 4 * jj + 2 * i + e]\n", True),
+        "K10: a Wqkv tile of the ring skipped (head 2)": (
+            "swin_chain.cu",
+            "        hopper::wgmma_ss<96, 1>(f, dA + a_step(ks), db + ks * 64);",
+            "        if (h != 2) hopper::wgmma_ss<96, 1>(f, dA + a_step(ks), db + ks * 64);",
+            True),
+        "K10: pad rows not zeroed": (
+            "swin_chain.cu",
+            "            const bool live = tok0 + 16 * wl + g + 8 * i < n;",
+            "            const bool live = true;", True),
         "K11: extra dropped": (
             "swin_chain.cu",
-            "if (a.extra != nullptr) o += __bfloat162float(er[i]);", "", True),
-        "K11: fc2 bias dropped": (
-            "swin_chain.cu", "xr[i] + v[i] + a.b2[c + i]", "xr[i] + v[i]",
+            ("          v0 += ev.x;\n", "          v1 += ev.y;\n"), ("", ""),
             True),
+        "K11: fc2 bias dropped": (
+            "swin_chain.cu",
+            ("      return make_float2(acc[k >> 3][4 * (k & 7) + 2 * i] + bv.x,\n"
+             "                         acc[k >> 3][4 * (k & 7) + 2 * i + 1] + bv.y);"),
+            ("      return make_float2(acc[k >> 3][4 * (k & 7) + 2 * i],\n"
+             "                         acc[k >> 3][4 * (k & 7) + 2 * i + 1]);"),
+            True),
+        "K11: an fc1 tile of the ring skipped (chunk 2)": (
+            "swin_chain.cu",
+            "        hopper::wgmma_ss<CW, 1>(h, dA + a_step(ks), db + ks * 64);",
+            "        if (c != 2) hopper::wgmma_ss<CW, 1>(h, dA + a_step(ks), db + ks * 64);",
+            True),
+        "K11: the last row block of a ws-16 window not stored": (
+            "swin_chain.cu",
+            "      if (real) {\n        // a window row's pixels",
+            "      if (real && (a.nrb < 4 || rb % a.nrb != a.nrb - 1)) {\n"
+            "        // a window row's pixels", True),
     }),
     # K4, built from epilogue.cu alone: its check holds the collapse
     # bit-exact, min / max exact and mean / std within K4_BUDGET at
@@ -395,7 +450,7 @@ TARGETS = {
             "    a.m2 = a.m2 + b.m2;", True),
     }),
     # K9, built from swin_chain.cu alone: its check holds it to its plain
-    # version at K7_SHAPES and on K9_EXTRA's ragged windows (the chain
+    # version at K7_SHAPES and on CHAIN_RAGGED's ragged windows (the chain
     # against K7 left out)
     "k9": ("_check_chain(np.random.default_rng(6), with_k7=False)",
            ("swin_attn_core",), {
@@ -688,7 +743,8 @@ K5_SOURCES = ("upconv.cu", "conv3x3.cu")
 ONE_SOURCE_TARGETS = {"k3_3pass": ("attention.cu",), "k5": K5_SOURCES,
                       "k1_owned": ("conv3x3.cu",),
                       "k2_owned": ("conv3x3.cu",),
-                      "k4": ("epilogue.cu",), "k9": ("swin_chain.cu",)}
+                      "k4": ("epilogue.cu",), "k9": ("swin_chain.cu",),
+                      "chain": ("swin_chain.cu",)}
 
 CHECK = """
 import sys
@@ -1442,6 +1498,102 @@ for _ in range(2):
     print(f"  K9 over K7_SHAPES: {total:.3f} ms", flush=True)
 """
 
+# --time-k10 / --time-k11: variant -> alternatives, as for --time-k4 (the
+# earlier kernels of an older tree: as-is only)
+K10_VARIANTS = {
+    "as-is": [[]],
+    "no-stores": [[
+        (SC, "            hopper::tma_store_3d(&qmap, stage_s + (3 * b + s) * ATOM,\n"
+             "                                 h * 96 + s * HDP, tok0, win);", "{}")]],
+    "no-products": [[
+        (SC, "        hopper::wgmma_ss<96, 1>(f, dA + a_step(ks), db + ks * 64);",
+         "        if (ks < 0) hopper::wgmma_ss<96, 1>(f, dA + a_step(ks), db + ks * 64);")]],
+    "no-weight-loads": [[
+        (SC, "    hopper::mbar_expect_tx(r.full(j), 3 * TB);\n#pragma unroll\n"
+             "    for (int s = 0; s < 3; ++s)",
+         "    hopper::mbar_arrive(r.full(j));\n#pragma unroll\n"
+         "    for (int s = 0; s < 0; ++s)")]],
+    # LN1's x rows not read (a constant)
+    "no-x-loads": [[
+        (SC, "      load_row(xw[i], a.x + (tok < n ? pix(a, win, tok) : 0), t, a.C);",
+         "      for (int k = 0; k < NP; ++k) xw[i][k] = 0x3f003e80u + k;")]],
+}
+K11_VARIANTS = {
+    "as-is": [[]],
+    "no-stores": [[
+        (SC, "          for (int ch = tid & 127; ch < per; ch += 128) dst[ch] = src[ch];",
+         "          for (int ch = tid & 127; ch < 0; ch += 128) dst[ch] = src[ch];"),
+        (SC, "          store_pair(a.y + px[i], 8 * k + 2 * t, a.C, o.x, o.y);",
+         "          if (k < 0) store_pair(a.y + px[i], 8 * k + 2 * t, a.C, o.x, o.y);")]],
+    "no-products": [[
+        (SC, "          hopper::wgmma_ss<64, 1>(acc[jn], dO + ((h * ATOM + kk * 32) >> 4),",
+         "          if (kk < 0) hopper::wgmma_ss<64, 1>(acc[jn], dO + ((h * ATOM + kk * 32) >> 4),"),
+        (SC, "        hopper::wgmma_ss<CW, 1>(h, dA + a_step(ks), db + ks * 64);",
+         "        if (ks < 0) hopper::wgmma_ss<CW, 1>(h, dA + a_step(ks), db + ks * 64);"),
+        (SC, "          hopper::wgmma_rs_n64<1>(acc[jn], u + 4 * kk,",
+         "          if (kk < 0) hopper::wgmma_rs_n64<1>(acc[jn], u + 4 * kk,")]],
+    "no-weight-loads": [[
+        (SC, "    hopper::mbar_expect_tx(fb, TB);\n    if (i < H) {",
+         "    hopper::mbar_arrive(fb);\n    if (true) {\n    } else if (i < H) {")]],
+    # the residual's x rows not read (constants)
+    "no-x-loads": [[
+        (SC, "      load_row(xw[i], a.x + px[i], t, a.C);",
+         "      for (int k = 0; k < NP; ++k) xw[i][k] = 0x3f003e80u + k;")]],
+    # no GELU (fc1 + b1 passes as it is)
+    "no-gelu": [[
+        (SC, "          u[2 * j + i] = pack_bf16(gelu_erf(h[4 * j + 2 * i] + bv.x),\n"
+             "                                   gelu_erf(h[4 * j + 2 * i + 1] + bv.y));",
+         "          u[2 * j + i] = pack_bf16(h[4 * j + 2 * i] + bv.x,\n"
+         "                                   h[4 * j + 2 * i + 1] + bv.y);")]],
+    # one warpgroup a block instead of two
+    "one-warpgroup": [[
+        (SC, "  if (!rows::plan(a, 2, reg, par, tb, ns, 2, smem) &&\n"
+             "      !rows::plan(a, 1, reg, par, tb, ns, 2, smem))",
+         "  if (!rows::plan(a, 1, reg, par, tb, ns, 2, smem))")]],
+}
+
+# K10 and K11 (K9 the control) at chip_smoke.py's K7_SHAPES, built from
+# swin_chain.cu alone: CUDA events, mean of 10 after 2 warm-ups, twice
+CHAIN_TIME = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+""" + ONE_SOURCE.format(sources=("swin_chain.cu",)) + r"""
+from hdrvae_torch.core.config import Precision
+from hdrvae_torch.kernels import swin_attention as ska
+from hdrvae_torch.models.swinir import block_weights
+fast = Precision.fast()
+rng = np.random.default_rng(0)
+cases = []
+for name, h, w, ws, shift, extra in cs.K7_SHAPES:
+    blk = cs._swin_block(rng, cs.SWIN_DIM, cs.SWIN_HEADS, ws)
+    wts = block_weights(blk, cs.SWIN_HEADS, ws, torch.bfloat16)
+    x = cs._bf16(rng, (1, h, w, cs.SWIN_DIM))
+    e = cs._bf16(rng, (1, h, w, cs.SWIN_DIM), 0.5) if extra else None
+    qkv = ska.ln_qkv(x, wts, ws=ws, precision=fast)
+    kw = dict(heads=cs.SWIN_HEADS, ws=ws, shift=shift,
+              grid=(h // ws, w // ws))
+    o = ska.window_attention_core(qkv, wts.bias, **kw)
+    cases.append((f"{name} {h}x{w} ws {ws} shift {shift}", {
+        "K10": lambda x=x, wts=wts, ws=ws: ska.ln_qkv(x, wts, ws=ws,
+                                                      precision=fast),
+        "K9": lambda qkv=qkv, wts=wts, kw=kw: ska.window_attention_core(
+            qkv, wts.bias, **kw),
+        "K11": lambda o=o, x=x, wts=wts, ws=ws, e=e: ska.proj_mlp(
+            o, x, wts, ws=ws, extra=e, precision=fast)}))
+for _ in range(2):
+    total = {"K10": 0.0, "K9": 0.0, "K11": 0.0}
+    for label, fns in cases:
+        for k, fn in fns.items():
+            t = cs.cuda_ms(fn, iters=10)
+            total[k] += t
+            print(f"  {k} {label}: {t:.3f} ms", flush=True)
+    for k, t in total.items():
+        print(f"  {k} over K7_SHAPES: {t:.3f} ms", flush=True)
+"""
+
 # the timing modes: flag -> (CUDA source, variants, timing script)
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
@@ -1451,7 +1603,9 @@ TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k7": (None, K7_VARIANTS, K7_TIME),
            "--time-k5": (None, K5_VARIANTS, K5_TIME),
            "--time-k4": (None, K4_VARIANTS, K4_TIME),
-           "--time-k9": (None, K9_VARIANTS, K9_TIME)}
+           "--time-k9": (None, K9_VARIANTS, K9_TIME),
+           "--time-k10": (None, K10_VARIANTS, CHAIN_TIME),
+           "--time-k11": (None, K11_VARIANTS, CHAIN_TIME)}
 
 
 @contextlib.contextmanager
