@@ -72,6 +72,20 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    kernel) held to parity at the fast tier's budget; then one fast and
    one parity decode with the fused epilogue (K4) held to the default
    path's; then the epilogue in all four modes on one decoder output;
+4b. serve: the same decoder through a ``VAE`` handle and ``ServeEngine``:
+   a fast engine (depth 2, bucket 64) takes six [1, 128, 128, 16]
+   latents (at their bucket: the K1 / K2 / K3 chain; three with the fused
+   epilogue, K4) and two [1, 121, 100, 16] ones (padded: K3 bf16 masked)
+   from two client threads, a mixed engine two 1024^2 latents (K3 3-pass,
+   ``split_qkv``), each response bit-equal to the direct ``hdr_decode`` +
+   ``decode_summary`` of its latent on its route and the launches counted;
+   the six fast requests at depth 1 and 2 (latency p50 / p95, MP/s); a
+   512^2 request with a 2048^2 one submitted behind it, whose latency must
+   stay under half the 2048^2 decode's device ms (its fetch does not wait
+   for the next decode); the HTTP front end (32-bit and 16-bit EXR
+   responses read back, ``/healthz`` naming the card); and
+   ``export_linear`` of a served image as a 32-bit zip EXR with
+   ``verify_save``, with its seconds;
 5. bucketed decode: the same decoder on a [1, 121, 100, 16] latent (seed
    7) padded to its (128, 128) bucket (``BucketPolicy((64, 96, 128))``)
    through ``hdr_decode(pad_to=)`` in each tier, each launching its
@@ -2212,6 +2226,287 @@ def _decode_request(dec, z, hcfg, prec, **kw):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def _served_run(engine, latents, cfgs, threads: int = 1) -> tuple:
+    """Submit each latent (with its config) to ``engine`` from ``threads``
+    client threads, each taking every threads-th request in order; wait
+    for all.  Returns (responses in request order, wall s from the first
+    submit to the last result)."""
+    import threading
+    futs = [None] * len(latents)
+
+    def client(k):
+        for i in range(k, len(latents), threads):
+            futs[i] = engine.submit(latents[i], cfgs[i])
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=client, args=(k,))
+               for k in range(threads)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(120)
+        check(not t.is_alive(), "serve: a client thread hung")
+    responses = [f.result(300) for f in futs]
+    return responses, time.perf_counter() - t0
+
+
+def _latency_record(responses, wall_s: float) -> dict:
+    lat = sorted(r.latency_s for r in responses)
+    mp = sum(r.image.shape[0] * r.image.shape[1] * r.image.shape[2]
+             for r in responses) / 1e6
+    return {"latency_p50_s": lat[min(len(lat) - 1, len(lat) // 2)],
+            "latency_p95_s": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "wall_s": wall_s, "mp_per_s": mp / wall_s,
+            "requests": len(responses)}
+
+
+def _same_response(label, resp, ref, summary) -> None:
+    """A served response against the direct decode of its latent on the
+    same route: the image bit-equal, the summary equal."""
+    want = ref.image.cpu().numpy()
+    check(resp.image.shape == want.shape and np.array_equal(resp.image, want),
+          f"serve[{label}]: image not bit-equal to the direct decode (max "
+          f"abs {np.abs(resp.image - want).max()})")
+    check(json.dumps(resp.summary, sort_keys=True)
+          == json.dumps(summary, sort_keys=True),
+          f"serve[{label}]: summary differs from the direct decode's")
+
+
+def phase_serve(dec, card: str) -> dict:
+    """The served decode on the full-width decoder through a ``VAE``
+    handle: a fast ``ServeEngine`` (depth 2, bucket 64) taking 1024^2
+    latents at their bucket (the K1 / K2 / K3 chain) and 968 x 800 ones
+    padded to it (K3 bf16 masked) from two client threads, some with the
+    fused epilogue (K4); then a mixed engine (K3 3-pass, split_qkv); each
+    response bit-equal to the direct decode of its latent on its route.
+    The six fast requests at depth 1 and at depth 2 (latency p50 / p95,
+    MP/s); a 512^2 request's latency against a 2048^2 request launched
+    behind it; the HTTP front end's EXR responses and /healthz; and
+    export_linear + verify_save of a served 1024^2 image.  Returns the
+    phase's record."""
+    import threading
+
+    from hdrvae_torch.api.vae import VAE
+    from hdrvae_torch.core.config import (ExportConfig, HDRDecodeConfig,
+                                          Precision)
+    from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+    from hdrvae_torch.io.exr import read_exr
+    from hdrvae_torch.io.export import export_linear, verify_save
+    from hdrvae_torch.serve.engine import ServeEngine
+    from hdrvae_torch.serve.http import make_server
+
+    t_phase = time.perf_counter()
+    zc = dec.cfg.z_channels
+    cons = HDRDecodeConfig(hdr_mode="conservative")
+    epi = HDRDecodeConfig(hdr_mode="conservative", use_fused_epilogue=True)
+
+    def latent(seed, h, w):
+        return np.random.default_rng(seed).standard_normal(
+            (1, h, w, zc)).astype(np.float32)
+
+    def direct(z, cfg, prec, pad_to=None):
+        res = hdr_decode(dec, torch.from_numpy(z).cuda(), cfg, prec,
+                         pad_to=pad_to)
+        return res, decode_summary(res)
+
+    record = {"card": card}
+    at = [latent(100 + i, 128, 128) for i in range(6)]
+    off = [latent(110 + i, *BUCKET_LATENT) for i in range(2)]
+    fast = VAE(decoder=dec, precision=Precision.fast())
+
+    # the fast engine: six requests at their bucket (every other one with
+    # the fused epilogue) and two off it, from two client threads
+    with ServeEngine(fast, depth=2, bucket=64) as engine:
+        engine.warmup([(128, 128), BUCKET_LATENT])
+        lats = at + off
+        cfgs = [epi if i % 2 else cons for i in range(6)] + [cons, cons]
+        _reset_counts()
+        responses, _ = _served_run(engine, lats, cfgs, threads=2)
+        served = _counts()
+        stats = engine.stats()
+    for i, resp in enumerate(responses):
+        check(resp.padded_hw == (128, 128),
+              f"serve[fast {i}]: padded_hw {resp.padded_hw}")
+    _reset_counts()
+    refs = [direct(z, cfgs[i], fast.precision) for i, z in enumerate(at)]
+    one = _counts()
+    refs += [direct(z, cons, fast.precision, pad_to=(128, 128)) for z in off]
+    for i, (resp, (ref, summary)) in enumerate(zip(responses, refs)):
+        _same_response(f"fast {i}", resp, ref, summary)
+    want = refs[0][0].image[0].cpu().numpy()     # at[0], conservative
+    # the launches: the at-bucket requests ran the chain, as the direct
+    # decodes did; the bucketed ones K3 bf16 masked and no chain
+    for name in ("fused_conv3x3", "upsample_conv3x3"):
+        check(served[name] == one[name] > 0, f"serve: {name} launched "
+              f"{served[name]} times over the requests, the six direct "
+              f"decodes at their bucket {one[name]}")
+    check(served["flash_attention_bf16"] == 8
+          and served["flash_attention_bf16_masked"] == 2,
+          f"serve: K3 bf16 {served['flash_attention_bf16']} launches, "
+          f"{served['flash_attention_bf16_masked']} masked, want 8 / 2")
+    check(served["collapse_and_stats_fused"] == 3,
+          f"serve: K4 {served['collapse_and_stats_fused']} launches, want 3")
+    record["fast_launches"] = {k: v for k, v in served.items() if v}
+    log(f"serve[fast] 8 responses (6 at bucket, 3 with K4; 2 at 121 x 100 "
+        f"padded) bit-equal to the direct decodes; launches "
+        f"{record['fast_launches']}; engine stats {stats}")
+    del responses, refs
+
+    # the six requests at depth 1 against depth 2, in one burst each
+    with ServeEngine(fast, depth=1, bucket=64) as engine:
+        engine.warmup([(128, 128)])
+        burst1, wall1 = _served_run(engine, at, [cons] * 6)
+    with ServeEngine(fast, depth=2, bucket=64) as engine:
+        engine.warmup([(128, 128)])
+        burst2, wall2 = _served_run(engine, at, [cons] * 6)
+    record["depth1"] = _latency_record(burst1, wall1)
+    record["depth2"] = _latency_record(burst2, wall2)
+    for d in ("depth1", "depth2"):
+        r = record[d]
+        log(f"serve[fast 1024^2 x6, {d}] latency p50 "
+            f"{1e3 * r['latency_p50_s']:.3f} ms, p95 "
+            f"{1e3 * r['latency_p95_s']:.3f} ms, {r['mp_per_s']:.3f} MP/s "
+            f"(wall {1e3 * r['wall_s']:.3f} ms); {card}")
+    image = burst2[0].image
+    check(np.array_equal(image[0], want),
+          "serve: the depth-2 burst's first image is not the direct decode's")
+    del burst1, burst2
+
+    # stream order: a 512^2 request, then a 2048^2 one launched behind it;
+    # the first one's fetch must not wait for the second one's kernels
+    small, big = latent(120, 64, 64), latent(121, 256, 256)
+    for _ in range(2):      # the second one warm
+        _, _, big_ms, _, _ = _decode_request(
+            dec, torch.from_numpy(big).cuda(), cons, fast.precision)
+    with ServeEngine(fast, depth=2, bucket=64) as engine:
+        engine.warmup([(64, 64), (256, 256)])
+        order = []
+        dispatch, finalize = engine._dispatch, engine._finalize
+
+        def logged_dispatch(z, cfg, fetch_dtype=None):
+            order.append(("dispatch", z.shape[1]))
+            return dispatch(z, cfg, fetch_dtype)
+
+        def logged_finalize(entry):
+            order.append(("finalize", entry[1].padded_hw[0]))
+            return finalize(entry)
+        engine._dispatch, engine._finalize = logged_dispatch, logged_finalize
+        f_small, f_big = engine.submit(small), engine.submit(big)
+        r_small, r_big = f_small.result(300), f_big.result(300)
+    check(order[:3] == [("dispatch", 64), ("dispatch", 256),
+                        ("finalize", 64)],
+          f"serve stream order: the worker ran {order}, want the 2048^2 "
+          "request launched before the 512^2 one's fetch")
+    check(1e3 * r_small.latency_s < 0.5 * big_ms,
+          f"serve stream order: the 512^2 request took "
+          f"{1e3 * r_small.latency_s:.3f} ms, not under half the 2048^2 "
+          f"decode's {big_ms:.3f} device ms: its fetch waited")
+    record["stream_order"] = {"small_latency_ms": 1e3 * r_small.latency_s,
+                              "big_latency_ms": 1e3 * r_big.latency_s,
+                              "big_device_ms": big_ms}
+    log(f"serve[stream order] 512^2 latency {1e3 * r_small.latency_s:.3f} "
+        f"ms with a 2048^2 request ({big_ms:.3f} device ms) launched behind "
+        f"it, which took {1e3 * r_big.latency_s:.3f} ms")
+    del r_small, r_big
+
+    # the mixed engine, after the fast one: two 1024^2 requests
+    mixed = VAE(decoder=dec, precision=Precision.mixed())
+    with ServeEngine(mixed, depth=2, bucket=64) as engine:
+        engine.warmup([(128, 128)])
+        _reset_counts()
+        responses, wall_m = _served_run(engine, at[:2], [cons, cons])
+        served = _counts()
+    for i, resp in enumerate(responses):
+        ref, summary = direct(at[i], cons, mixed.precision)
+        _same_response(f"mixed {i}", resp, ref, summary)
+    check(served["flash_attention_3pass"] == served["split_qkv"] == 2
+          and served["flash_attention_bf16"] == 0
+          and served["flash_attention_f32"] == 0,
+          f"serve[mixed]: attention launches {served}, want two 3-pass "
+          "and two split_qkv")
+    record["mixed"] = _latency_record(responses, wall_m)
+    log(f"serve[mixed] 2 responses bit-equal to the direct decodes; "
+        f"3-pass {served['flash_attention_3pass']}, split_qkv "
+        f"{served['split_qkv']}; latency p50 "
+        f"{1e3 * record['mixed']['latency_p50_s']:.3f} ms")
+    del responses
+
+    # HTTP: 32-bit and 16-bit EXR responses and /healthz
+    import http.client
+    import io
+    with ServeEngine(fast, depth=2, bucket=64) as engine:
+        srv = make_server(engine, host="127.0.0.1", port=0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            def post(path, body=None, method="POST"):
+                conn = http.client.HTTPConnection(
+                    "127.0.0.1", srv.server_address[1], timeout=300)
+                try:
+                    conn.request(method, path, body=body)
+                    r = conn.getresponse()
+                    return r.status, r.read()
+                finally:
+                    conn.close()
+            buf = io.BytesIO()
+            np.save(buf, at[0])
+            body = buf.getvalue()
+            with tempfile.TemporaryDirectory() as d:
+                got = {}
+                for depth in ("32bit", "16bit"):
+                    status, data = post(
+                        f"/v1/decode?format=exr&mode=conservative&"
+                        f"bit_depth={depth}&compression=zip", body)
+                    check(status == 200, f"serve http {depth}: {status} "
+                          f"{data[:200]}")
+                    path = os.path.join(d, depth + ".exr")
+                    with open(path, "wb") as f:
+                        f.write(data)
+                    got[depth] = read_exr(path)
+            check(np.array_equal(got["32bit"], want),
+                  "serve http: the 32-bit EXR is not the engine's image")
+            check(np.array_equal(got["16bit"], want.astype(np.float16)
+                                 .astype(np.float32)),
+                  "serve http: the 16-bit EXR is not its float16 cast")
+            status, data = post("/healthz", method="GET")
+            health = json.loads(data)
+            check(status == 200 and health["backend"] == "cuda"
+                  and health["device"] == torch.cuda.get_device_name(0),
+                  f"serve http: /healthz {status} {health}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join(30)
+    log(f"serve[http] 32-bit and 16-bit zip EXR responses read back equal "
+        f"to the image and its float16 cast; /healthz {health}")
+
+    # decode -> 32-bit EXR + verify at card width
+    with tempfile.TemporaryDirectory() as d:
+        cfg = ExportConfig(filename_prefix="served", output_path=d,
+                           bit_depth="32bit", compression="zip")
+        t0 = time.perf_counter()
+        res = export_linear(image, cfg)
+        t_export = time.perf_counter() - t0
+        check(res.error is None and res.verified,
+              f"serve export: {res.error}")
+        t0 = time.perf_counter()
+        stats = verify_save(res.last)
+        t_verify = time.perf_counter() - t0
+        check(np.array_equal(read_exr(res.last), image[0]),
+              "serve export: the EXR does not read back bit-exact")
+        check(stats == {**res.verify_stats, "size_mb": stats["size_mb"]},
+              "serve export: verify_save disagrees with the export's")
+    record["export"] = {"write_s": t_export - t_verify, "verify_s": t_verify,
+                        "export_linear_s": t_export,
+                        "size_mb": stats["size_mb"]}
+    log(f"serve[export] 1024^2 32-bit zip EXR: export_linear {t_export:.3f}"
+        f" s (write {t_export - t_verify:.3f} s, verify_save "
+        f"{t_verify:.3f} s), {stats['size_mb']:.3f} MB, read back bit-exact")
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve phase {record['phase_s']:.1f} s; {card}")
+    return record
+
+
 def phase_bucketed(dec):
     """The shape-bucketed decode on the full-width decoder: a [1, 121, 100,
     16] latent (seed 7) snapped to its bucket by ``BucketPolicy``, decoded
@@ -2868,10 +3163,11 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     t_start = time.perf_counter()
 
-    phase_device()
+    card = phase_device()
     phase_build()
     entries, chain_ab = phase_kernels()
     image, counts, per_tier, times, epi_counts, dec = phase_decode()
+    serve_record = phase_serve(dec, card)
     t_b = time.perf_counter()
     bucket_masked, bucket_records = phase_bucketed(dec)
     log(f"bucketed phase {time.perf_counter() - t_b:.1f} s")
@@ -2960,6 +3256,7 @@ def main() -> int:
                       "upscale_ms": {k: v[-1][0] if k in ("fast", "parity")
                                      else {t: r[0] for t, r in v.items()}
                                      for k, v in up_times.items()},
+                      "serve": serve_record,
                       "bucketed_decode": bucket_records,
                       "large_frames": lf_records,
                       "slab_sharded": slab_records,

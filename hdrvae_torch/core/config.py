@@ -5,13 +5,15 @@ parameters, the numerics policy, and the tiling and upscale settings, with
 torch dtypes in place of jnp ones.
 The configs are frozen dataclasses; nothing global is switched when this
 module is imported.  :func:`fp32_contractions` is the one place that turns
-TF32 off for the float32 tiers.
+TF32 off for the float32 tiers.  :class:`ExportConfig` holds the export
+node's inputs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Iterator, Optional, Tuple
 
 import torch
@@ -244,6 +246,15 @@ class MeshConfig:
     num_devices: Optional[int] = None
 
 
+# Blocks of fp32_contractions open in any thread, and the TF32 flags they
+# found when the first of them opened.  The flags are process-wide, so a
+# block that restored them on its own exit could turn TF32 back on under
+# another thread's block that is still open.
+_FP32_LOCK = threading.Lock()
+_fp32_open = 0
+_fp32_saved = None
+
+
 @contextlib.contextmanager
 def fp32_contractions(precision: Precision) -> Iterator[None]:
     """Run float32 convs and matmuls exactly in the parity and mixed tiers.
@@ -251,19 +262,51 @@ def fp32_contractions(precision: Precision) -> Iterator[None]:
     cuDNN's ``allow_tf32`` defaults to True, which would quietly run every
     float32 conv with a 10-bit mantissa and take both tiers out of their
     error budget.  Sets ``torch.backends.cudnn.allow_tf32`` and
-    ``torch.backends.cuda.matmul.allow_tf32`` to False for the block and
-    restores both on exit.  A bf16 compute dtype (the fast tier) is left as
-    it is: bf16 operands are exact in TF32.
+    ``torch.backends.cuda.matmul.allow_tf32`` to False while any such block
+    is open in any thread, and restores what the first one found when the
+    last one closes.  A bf16 compute dtype (the fast tier) is left as it
+    is: bf16 operands are exact in TF32.
     """
+    global _fp32_open, _fp32_saved
     if precision.compute_dtype == torch.bfloat16:
         yield
         return
-    cudnn_prev = torch.backends.cudnn.allow_tf32
-    matmul_prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    with _FP32_LOCK:
+        if _fp32_open == 0:
+            _fp32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _fp32_open += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn_prev
-        torch.backends.cuda.matmul.allow_tf32 = matmul_prev
+        with _FP32_LOCK:
+            _fp32_open -= 1
+            if _fp32_open == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _fp32_saved
+
+
+EXR_COMPRESSIONS = ("none", "rle", "zip", "piz", "pxr24")
+EXPORT_FORMATS = ("exr", "hdr")
+BIT_DEPTHS = ("16bit", "32bit")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExportConfig:
+    """The export node's inputs, with the JAX package's fields and
+    defaults.  ``compression`` is validated against
+    :data:`EXR_COMPRESSIONS`; the port's EXR writer takes "none" and "zip"
+    of them (``io/export.py`` names the others in its error)."""
+
+    filename_prefix: str = "comfyUI"
+    versioning: bool = False
+    frame_sequence: bool = False
+    start_frame: int = 1001
+    frame_pad: int = 4
+    output_path: str = "/HDR"
+    format: str = "exr"
+    bit_depth: str = "16bit"
+    compression: str = "zip"
+    save_workflow: bool = False

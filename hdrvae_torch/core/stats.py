@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -37,14 +37,65 @@ def hdr_stats(x: torch.Tensor) -> Dict[str, torch.Tensor]:
             "negative_pixels": torch.sum(xf < 0.0).to(torch.int32)}
 
 
-def stats_to_host(stats) -> Dict[str, float]:
-    """Pull a (possibly nested) stats dict to Python scalars: floats for
-    floating tensors, ints otherwise."""
-    out = {}
-    for k, v in stats.items():
-        if isinstance(v, dict):
-            out[k] = stats_to_host(v)
-        else:
+Layout = List[Tuple[Tuple[str, ...], bool, int]]
+
+
+def pack_stats(stats) -> Tuple[torch.Tensor, Layout]:
+    """The 0-d leaves of a (possibly nested) stats dict as one float64
+    tensor on their device, and its layout: each leaf's key path, whether
+    it is floating, and its index in the tensor.  float32 values and int32
+    counts are exact in float64, so :func:`unpack_stats` gives back what
+    one host fetch of each leaf would."""
+    paths, leaves = [], []
+
+    def walk(d, path):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
             t = torch.as_tensor(v)
-            out[k] = float(t) if t.is_floating_point() else int(t)
+            if t.numel() != 1:
+                raise ValueError(f"stats leaf {path + (k,)} has shape "
+                                 f"{tuple(t.shape)}, not a scalar")
+            paths.append(path + (k,))
+            leaves.append(t.reshape(()))
+    walk(stats, ())
+    if not leaves:
+        return torch.zeros(0, dtype=torch.float64), []
+    device = leaves[0].device
+    # one stack a dtype, then a cast and one cat: a few launches, not one
+    # a leaf
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(leaves):
+        groups.setdefault(t.dtype, []).append(i)
+    index, parts, offset = [0] * len(leaves), [], 0
+    for idx in groups.values():
+        for j, i in enumerate(idx):
+            index[i] = offset + j
+        offset += len(idx)
+        parts.append(torch.stack([leaves[i].to(device) for i in idx]))
+    flat = torch.cat([p.to(torch.float64) for p in parts])
+    layout = [(path, t.is_floating_point(), i)
+              for path, t, i in zip(paths, leaves, index)]
+    return flat, layout
+
+
+def unpack_stats(flat, layout: Layout) -> Dict[str, Any]:
+    """The nested dict of Python scalars from :func:`pack_stats`'s tensor
+    (on the host) and layout: floats for floating leaves, ints
+    otherwise."""
+    values = flat.tolist()
+    out: Dict[str, Any] = {}
+    for path, floating, i in layout:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = float(values[i]) if floating else int(values[i])
     return out
+
+
+def stats_to_host(stats) -> Dict[str, Any]:
+    """Pull a (possibly nested) stats dict to Python scalars, floats for
+    floating tensors and ints otherwise, in one device-to-host copy."""
+    flat, layout = pack_stats(stats)
+    return unpack_stats(flat.cpu(), layout)

@@ -25,7 +25,8 @@ import torch
 
 from hdrvae_torch.core.color import srgb_to_linear
 from hdrvae_torch.core.config import HDRDecodeConfig, Precision
-from hdrvae_torch.core.stats import hdr_stats, stats_to_host, tensor_stats
+from hdrvae_torch.core.stats import (hdr_stats, pack_stats, tensor_stats,
+                                     unpack_stats)
 from hdrvae_torch.decode.analysis import (NORM_NAMES, ConvOutAnalysis,
                                           classify_normalization)
 from hdrvae_torch.decode.modes import apply_mode, build_recovery_maps
@@ -241,10 +242,27 @@ def hdr_decode(decoder: Decoder, latent: torch.Tensor,
     return _epilogue_and_stats(decoder, out, latent, cfg, precision)
 
 
+def pack_summary(result: HDRDecodeResult):
+    """The summary's device part: every statistic and the fallback flag
+    packed into one float64 tensor on the result's device, and its layout
+    (``core.stats.pack_stats``).  :func:`summary_from_host` finishes it
+    from the fetched tensor."""
+    return pack_stats({**result.stats,
+                       "used_fallback": result.used_fallback})
+
+
+def summary_from_host(flat: torch.Tensor, layout) -> Dict[str, Any]:
+    """The summary record from :func:`pack_summary`'s tensor, on the host:
+    the stats as Python scalars, the fallback flag as a bool and the
+    normalization's name."""
+    summary = unpack_stats(flat, layout)
+    summary["used_fallback"] = bool(summary["used_fallback"])
+    summary["normalization"] = NORM_NAMES[summary.pop("norm_kind")]
+    return summary
+
+
 def decode_summary(result: HDRDecodeResult) -> Dict[str, Any]:
     """One host fetch: the stats as Python scalars, the fallback flag and
-    the normalization name."""
-    summary = stats_to_host(result.stats)
-    summary["used_fallback"] = bool(result.used_fallback)
-    summary["normalization"] = NORM_NAMES[int(summary.pop("norm_kind"))]
-    return summary
+    the normalization name, in one device-to-host copy."""
+    flat, layout = pack_summary(result)
+    return summary_from_host(flat.cpu(), layout)
