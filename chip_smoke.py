@@ -86,6 +86,18 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    responses read back, ``/healthz`` naming the card); and
    ``export_linear`` of a served image as a 32-bit zip EXR with
    ``verify_save``, with its seconds;
+4c. front end (its own limit, 60 s): ``cli decode --size 2048`` (fast,
+   random weights from seed 0, a 16-bit PIZ EXR through the streamed
+   export), the file bit-equal to the direct decode's float16 cast and the
+   launches the direct decode's; the streamed export against the serial
+   ``export_linear`` of the same frame, in turns, byte-identical; the
+   1024^2 image in none, rle, zip, piz and pxr24 at 16 and 32 bits, each
+   read back bit-exact, with its bytes and seconds; ``cli run`` of
+   ``workflow_examples/hdr_decode_export.json`` at 1024^2 (a full-width
+   ESRGAN x4 checkpoint from numpy seed 2) against the same three nodes
+   called directly: the same EXR, the same launches, the upscale equal to
+   ``hdr_upscale``'s; ``cli upscale --precision fast`` (K6) against the
+   direct fast upscale;
 5. bucketed decode: the same decoder on a [1, 121, 100, 16] latent (seed
    7) padded to its (128, 128) bucket (``BucketPolicy((64, 96, 128))``)
    through ``hdr_decode(pad_to=)`` in each tier, each launching its
@@ -270,6 +282,9 @@ CHAIN_RAGGED = [("window 7", 112, 98, 7, 3, True),
                 ("window 12", 144, 96, 12, 6, True)]
 FUSED_EPI_BUDGET = 1e-5     # image max-abs and summary relative
 
+FRONTEND_BUDGET_S = 60.0    # phase 4c's own time limit
+FRONTEND_DECODE_EDGE = 2048  # phase 4c: cli decode's --size
+FRONTEND_RUN_EDGE = 1024     # phase 4c: cli run's --size
 CONV_BUDGET = 5e-2          # the decoder chain's bf16 budget (y, max-abs)
 STATS_BUDGET = 1e-3         # relative, on the emitted GroupNorm sums
 # K1 / K2 owned_rows: three intervals' sums against the whole map's, the
@@ -2507,6 +2522,275 @@ def phase_serve(dec, card: str) -> dict:
     return record
 
 
+def _bits(a: np.ndarray) -> np.ndarray:
+    """float32 values as their bit patterns (NaN-safe equality)."""
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+def _cli(argv) -> tuple:
+    """``hdrvae_torch.cli.main.main(argv)`` in this process: (its JSON
+    stdout lines, wall s).  The CLI turns INFO logging on; it goes back to
+    WARNING after."""
+    import contextlib
+    import io
+    import logging
+
+    from hdrvae_torch.cli import main as cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logging.getLogger().setLevel(logging.WARNING)
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return ([json.loads(line) for line in buf.getvalue().splitlines()
+             if line.startswith("{")], wall)
+
+
+def _timed_export(fn, *args, **kw) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(*args, **kw)
+    wall = time.perf_counter() - t0
+    check(res.error is None and res.verified,
+          f"{fn.__name__}: {res.error}")
+    return res, wall
+
+
+def phase_frontend(dec, image: torch.Tensor, card: str) -> dict:
+    """The front end on the card (4c): ``cli decode`` at 2048^2 (fast, a
+    16-bit PIZ EXR through the streamed export) against the direct decode
+    of the same weights and latent; every compression at both depths on
+    the 1024^2 image; ``cli run`` of the example workflow (HDRVAEDecode ->
+    HDRUpscaleWithModel with a full-width ESRGAN x4 -> LinearEXRExport)
+    against the same three nodes called directly; ``cli upscale
+    --precision fast`` against the direct fast upscale.  Returns the
+    phase's record."""
+    from hdrvae_torch.api.nodes import (HDRUpscaleWithModel, HDRVAEDecode,
+                                        LinearEXRExport)
+    from hdrvae_torch.api.vae import VAE
+    from hdrvae_torch.core.config import (ExportConfig, HDRDecodeConfig,
+                                          Precision, UpscaleConfig)
+    from hdrvae_torch.decode.pipeline import hdr_decode
+    from hdrvae_torch.io import exr, native_build
+    from hdrvae_torch.io.export import export_linear
+    from hdrvae_torch.io.pipeline import export_frame_streamed
+    from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet
+    from hdrvae_torch.models.zoo import load_upscale_model
+    from hdrvae_torch.upscale.pipeline import hdr_upscale
+
+    t_phase = time.perf_counter()
+    record = {"card": card}
+    lib = native_build.load_native()
+    check(lib is not None and lib._name == str(
+        native_build.library_path()) and str(native_build.library_path())
+        .startswith(os.path.join(REPO, "hdrvae_torch", "build")),
+        f"the EXR codec was not built from the checkout: {lib}")
+    env = {k: os.environ.get(k) for k in ("HDRVAE_OUTPUT_DIR",
+                                          "HDRVAE_MODELS_DIR")}
+    with tempfile.TemporaryDirectory() as out_dir, \
+            tempfile.TemporaryDirectory() as models_dir:
+        os.environ["HDRVAE_OUTPUT_DIR"] = out_dir
+        os.environ["HDRVAE_MODELS_DIR"] = models_dir
+        try:
+            # (a) cli decode at full width, streamed to a 16-bit PIZ EXR
+            _reset_counts()
+            lines, wall_cli = _cli(["decode", "--size",
+                                    str(FRONTEND_DECODE_EDGE),
+                                    "--precision", "fast", "--bit-depth",
+                                    "16bit", "--compression", "piz",
+                                    "--prefix", "cli"])
+            cli_counts = _counts()
+            path = lines[-1]["filepath"]
+            edge = FRONTEND_DECODE_EDGE // dec.cfg.spatial_scale
+            z = np.random.default_rng(0).standard_normal(
+                (1, edge, edge, dec.cfg.z_channels)).astype(np.float32)
+            _reset_counts()
+            direct = hdr_decode(dec, torch.from_numpy(z).cuda(),
+                                HDRDecodeConfig(), Precision.fast()).image[0]
+            direct_counts = _counts()
+            check(cli_counts == direct_counts,
+                  f"cli decode launches {cli_counts} != the direct "
+                  f"decode's {direct_counts}")
+            for name in ("fused_conv3x3", "upsample_conv3x3",
+                         "flash_attention_bf16"):
+                check(cli_counts[name] > 0, f"cli decode never ran {name}")
+            got = exr.read_exr(path)
+            want = direct.half().float().cpu().numpy()
+            check(np.array_equal(_bits(got), _bits(want)),
+                  "cli decode: the PIZ EXR is not the direct decode's "
+                  "float16 cast")
+            check(np.array_equal(_bits(want), _bits(
+                direct.cpu().numpy().astype(np.float16).astype(np.float32))),
+                "the card's float16 cast differs from numpy's")
+            check(exr.read_exr_header(open(path, "rb").read())[0][
+                "compression"] == "piz", "cli decode: not a PIZ file")
+            launched = {k: v for k, v in cli_counts.items() if v}
+            log(f"frontend[cli decode] 2048^2 fast -> 16-bit piz EXR in "
+                f"{wall_cli:.3f} s (weights from seed 0 included), read back "
+                f"bit-equal to the direct decode's float16 cast; launches "
+                f"{launched} = the direct decode's; {card}")
+            # the streamed export against the serial one, in turns
+            cfg16 = ExportConfig(filename_prefix="t", output_path="",
+                                 bit_depth="16bit", compression="piz")
+            turns = {"serial": [], "streamed": []}
+            files = {}
+            for kind in ("serial", "streamed", "streamed", "serial"):
+                fn = (export_linear if kind == "serial"
+                      else export_frame_streamed)
+                res, wall = _timed_export(
+                    fn, direct, cfg16,
+                    default_output_dir=os.path.join(out_dir, kind))
+                turns[kind].append(wall)
+                with open(res.last, "rb") as f:
+                    files[kind] = f.read()
+            check(files["serial"] == files["streamed"],
+                  "streamed and serial exports differ")
+            with open(path, "rb") as f:
+                check(f.read() == files["serial"],
+                      "cli decode's file is not the serial export's")
+            record["cli_decode"] = {"wall_s": wall_cli,
+                                    "launches": launched,
+                                    "export_s": turns}
+            log(f"frontend[export] 2048^2 16-bit piz of a card frame, "
+                f"export_linear vs export_frame_streamed (with verify_save)"
+                f": serial {[round(t, 4) for t in turns['serial']]} s, "
+                f"streamed {[round(t, 4) for t in turns['streamed']]} s, "
+                f"byte-identical; {card}")
+
+            # (b) every compression at both depths on the 1024^2 image
+            img = image[0].float().cpu().numpy()
+            rows = []
+            for comp in ("none", "rle", "zip", "piz", "pxr24"):
+                for ptype in ("half", "float"):
+                    p = os.path.join(out_dir, f"c_{comp}_{ptype}.exr")
+                    t0 = time.perf_counter()
+                    exr.write_exr(p, image[0], pixel_type=ptype,
+                                  compression=comp)
+                    t_write = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    back = exr.read_exr(p)
+                    t_read = time.perf_counter() - t0
+                    if ptype == "half":
+                        want = img.astype(np.float16).astype(np.float32)
+                    elif comp == "pxr24":
+                        want = exr.float24_to_float(
+                            exr.float_to_float24(img))
+                    else:
+                        want = img
+                    check(np.array_equal(_bits(back), _bits(want)),
+                          f"{comp} {ptype}: not read back bit-exact")
+                    rows.append({"compression": comp, "pixel_type": ptype,
+                                 "bytes": os.path.getsize(p),
+                                 "write_s": t_write, "read_s": t_read})
+                    log(f"frontend[exr] 1024^2 {comp:5s} {ptype:5s} "
+                        f"{os.path.getsize(p):9d} bytes, write "
+                        f"{t_write:.4f} s, read {t_read:.4f} s, bit-exact")
+            record["compressions"] = rows
+
+            # (c) cli run of the example workflow, then its nodes directly
+            mdir = os.path.join(models_dir, "upscale_models")
+            os.makedirs(mdir)
+            ckpt = os.path.join(mdir, "RealESRGAN_x4plus.pth")
+            torch.save(init_rrdbnet(RRDBNetConfig(), seed=2,
+                                    device="cpu").state_dict(), ckpt)
+            _reset_counts()
+            lines, wall_run = _cli([
+                "run", os.path.join(REPO, "workflow_examples",
+                                    "hdr_decode_export.json"),
+                "--size", str(FRONTEND_RUN_EDGE)])
+            run_counts = _counts()
+            run_path = lines[-1]["outputs"][0]
+            with open(os.path.join(REPO, "workflow_examples",
+                                   "hdr_decode_export.json")) as f:
+                widgets = json.load(f)["nodes"][2]["widgets_values"]
+            vae = VAE(decoder=dec)   # seed 0, the JAX node's parity tier
+            edge = FRONTEND_RUN_EDGE // dec.cfg.spatial_scale
+            z = np.random.default_rng(0).standard_normal(
+                (1, edge, edge, dec.cfg.z_channels)).astype(np.float32)
+            _reset_counts()
+            t0 = time.perf_counter()
+            (decoded,) = HDRVAEDecode().simple_hdr_decode(
+                {"samples": z}, vae, "mathematical_recovery", 1.0)
+            (up,) = HDRUpscaleWithModel().upscale(
+                decoded, "RealESRGAN_x4plus.pth", False, False, "bislerp")
+            (node_path,) = LinearEXRExport().export_linear_exr(up,
+                                                               **widgets)
+            wall_nodes = time.perf_counter() - t0
+            node_counts = _counts()
+            check(run_counts == node_counts,
+                  f"cli run launches {run_counts} != the nodes' "
+                  f"{node_counts}")
+            check(run_counts["flash_attention_f32"] > 0,
+                  "cli run: the parity decode never ran K3 f32")
+            check(node_path != run_path and node_path.endswith(
+                "_v002.exr"), f"nodes wrote {node_path}")
+            with open(run_path, "rb") as fa, open(node_path, "rb") as fb:
+                check(fa.read() == fb.read(),
+                      "cli run's EXR differs from the nodes' one")
+            net, _, arch = load_upscale_model(ckpt, device="cuda")
+            ref = hdr_upscale(net, decoded.cuda(), UpscaleConfig(),
+                              architecture=arch).image.cpu()
+            check(torch.equal(up, ref), "the upscale node's image is not "
+                  "hdr_upscale's of the decoded image")
+            check(tuple(up.shape) == (1, 4 * FRONTEND_RUN_EDGE,
+                                      4 * FRONTEND_RUN_EDGE, 3),
+                  f"upscaled shape {tuple(up.shape)}")
+            launched = {k: v for k, v in run_counts.items() if v}
+            record["cli_run"] = {"wall_s": wall_run,
+                                 "nodes_wall_s": wall_nodes,
+                                 "launches": launched}
+            log(f"frontend[cli run] hdr_decode_export.json at 1024^2 "
+                f"(parity decode, ESRGAN x4 parity, 32-bit zip 4096^2 "
+                f"EXR) {wall_run:.3f} s; the three nodes directly "
+                f"{wall_nodes:.3f} s: the same file, the upscale equal to "
+                f"hdr_upscale's; launches {launched} in both; {card}")
+
+            # (c') cli upscale in the fast tier: the K6 chain
+            src = os.path.join(out_dir, "decoded.npy")
+            np.save(src, img)
+            _reset_counts()
+            lines, wall_up = _cli(["upscale", "--image", src, "--model",
+                                   ckpt, "--precision", "fast",
+                                   "--prefix", "fastup"])
+            up_counts = _counts()
+            _reset_counts()
+            ref = hdr_upscale(net, torch.from_numpy(img)[None].cuda(),
+                              UpscaleConfig(), architecture=arch,
+                              precision=Precision.fast()).image[0]
+            direct_counts = _counts()
+            check(up_counts == direct_counts and
+                  up_counts["dense_conv3x3"] > 0,
+                  f"cli upscale launches {up_counts} vs the direct fast "
+                  f"upscale's {direct_counts}")
+            got = exr.read_exr(lines[-1]["filepath"])
+            check(np.array_equal(_bits(got), _bits(ref.cpu().numpy())),
+                  "cli upscale's EXR is not the direct fast upscale")
+            launched = {k: v for k, v in up_counts.items() if v}
+            record["cli_upscale"] = {"wall_s": wall_up,
+                                     "launches": launched}
+            log(f"frontend[cli upscale] ESRGAN x4 fast 1024^2 -> 4096^2 "
+                f"32-bit zip EXR {wall_up:.3f} s, equal to the direct "
+                f"fast upscale; launches {launched}; {card}")
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    HDRUpscaleWithModel._MODEL_CACHE.clear()
+    del net, vae
+    torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    check(record["phase_s"] <= FRONTEND_BUDGET_S,
+          f"front-end phase {record['phase_s']:.1f} s > "
+          f"{FRONTEND_BUDGET_S} s")
+    log(f"front-end phase {record['phase_s']:.1f} s; {card}")
+    return record
+
+
 def phase_bucketed(dec):
     """The shape-bucketed decode on the full-width decoder: a [1, 121, 100,
     16] latent (seed 7) snapped to its bucket by ``BucketPolicy``, decoded
@@ -3168,6 +3452,7 @@ def main() -> int:
     entries, chain_ab = phase_kernels()
     image, counts, per_tier, times, epi_counts, dec = phase_decode()
     serve_record = phase_serve(dec, card)
+    front_record = phase_frontend(dec, image, card)
     t_b = time.perf_counter()
     bucket_masked, bucket_records = phase_bucketed(dec)
     log(f"bucketed phase {time.perf_counter() - t_b:.1f} s")
@@ -3257,6 +3542,7 @@ def main() -> int:
                                      else {t: r[0] for t, r in v.items()}
                                      for k, v in up_times.items()},
                       "serve": serve_record,
+                      "frontend": front_record,
                       "bucketed_decode": bucket_records,
                       "large_frames": lf_records,
                       "slab_sharded": slab_records,

@@ -8,7 +8,23 @@ on CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 
 Nothing here imports JAX.  Importing the package loads no library and
 builds nothing: the kernels are compiled at their first launch
-(``hdrvae_torch.kernels._build``).
+(``hdrvae_torch.kernels._build``), the EXR codec at its first use
+(``hdrvae_torch.io.native_build``), and the node registry
+(``NODE_CLASS_MAPPINGS``, ``NODE_DISPLAY_NAME_MAPPINGS``,
+``BUILTIN_NODE_MAPPINGS``, from ``hdrvae_torch.api.comfy``) is imported
+when it is first read.
 """
 
 __version__ = "0.1.0"
+
+_REGISTRY = ("NODE_CLASS_MAPPINGS", "NODE_DISPLAY_NAME_MAPPINGS",
+             "BUILTIN_NODE_MAPPINGS")
+
+__all__ = [*_REGISTRY, "__version__"]
+
+
+def __getattr__(name):
+    if name in _REGISTRY:
+        from hdrvae_torch.api import comfy
+        return getattr(comfy, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

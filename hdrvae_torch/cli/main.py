@@ -1,19 +1,76 @@
 """hdrvae_torch command-line interface, as ``hdrvae/cli/main.py``.
 
 Subcommands:
+  decode   latent (.npy / .safetensors, or a random one) -> HDR decode ->
+           EXR / HDR file (a single-frame EXR streamed off the card)
+  upscale  EXR / HDR / .npy image -> HDR upscale -> EXR / HDR file
+  export   re-export an image file through the export pipeline
+  run      execute a workflow JSON graph (``api/graph.py``)
   serve    HTTP decode service (POST .npy latents to /v1/decode, get
            EXR / HDR / npy back), over one ServeEngine on one card
 
-    python -m hdrvae_torch.cli.main serve [--vae ae.safetensors] [--port N]
+Every subcommand takes the JAX CLI's flags, defaults and choices, plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
+versions), and prints the same JSON lines.  The JAX CLI's ``decode
+--tiled / --mesh`` and ``upscale --sharded`` (the mesh paths) are not
+here, nor ``convert``, ``inspect`` and ``bench``.
+
+    python -m hdrvae_torch.cli.main decode --size 1024 --bit-depth 16bit
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 
+import numpy as np
+
 logger = logging.getLogger("hdrvae_torch.cli")
+
+
+def _load_latent(path: str) -> np.ndarray:
+    if path.endswith(".npy"):
+        return np.load(path)
+    if path.endswith(".safetensors"):
+        from safetensors.numpy import load_file
+        sd = load_file(path)
+        if len(sd) != 1:
+            raise ValueError(
+                f"latent safetensors must hold one tensor, found "
+                f"{sorted(sd)}")
+        return next(iter(sd.values()))
+    raise ValueError(f"unsupported latent format: {path}")
+
+
+def _load_image(path: str) -> np.ndarray:
+    if path.endswith(".exr"):
+        from hdrvae_torch.io import exr
+        return exr.read_exr(path)
+    if path.endswith(".hdr"):
+        from hdrvae_torch.io import hdr
+        return hdr.read_hdr(path)
+    if path.endswith(".npy"):
+        return np.load(path)
+    raise ValueError(f"unsupported image format: {path}")
+
+
+def _add_export_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--prefix", default="hdrvae")
+    p.add_argument("--output-path", default="")
+    p.add_argument("--format", choices=("exr", "hdr"), default="exr")
+    p.add_argument("--bit-depth", choices=("16bit", "32bit"),
+                   default="32bit")
+    p.add_argument("--compression",
+                   choices=("none", "rle", "zip", "piz", "pxr24"),
+                   default="zip")
+    p.add_argument("--versioning", action="store_true")
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the models (default: the card)")
 
 
 def _parse_precision(args):
@@ -34,19 +91,192 @@ def _parse_precision(args):
             "parity": Precision.parity}[args.precision]()
 
 
-def cmd_serve(args) -> int:
+def _export_cfg(args, **kw):
+    from hdrvae_torch.core.config import ExportConfig
+    return ExportConfig(filename_prefix=args.prefix,
+                        output_path=args.output_path,
+                        format=args.format, bit_depth=args.bit_depth,
+                        compression=args.compression,
+                        versioning=args.versioning, **kw)
+
+
+def _print_export(res) -> str:
+    if res.error:
+        raise SystemExit(res.error)
+    print(json.dumps({"filepath": res.last, **res.verify_stats}))
+    return res.last
+
+
+def _export(image, args) -> str:
+    from hdrvae_torch.api import folders
+    from hdrvae_torch.io.export import export_linear
+    return _print_export(export_linear(
+        image, _export_cfg(args),
+        default_output_dir=folders.get_output_directory()))
+
+
+def _vae(args, precision=None):
+    """The decoder: ``--vae``'s checkpoint (topology inferred from its
+    shapes), else random Flux.1 weights from seed 0, on ``--device``."""
     from hdrvae_torch.api.vae import VAE
-    from hdrvae_torch.core.config import DecoderConfig, HDRDecodeConfig
+    from hdrvae_torch.core.config import DecoderConfig, Precision
+    precision = precision or Precision()
+    if args.vae:
+        return VAE.load(args.vae, precision=precision, device=args.device)
+    logger.warning("no --vae checkpoint given; using random weights")
+    return VAE.random_init(seed=0, config=DecoderConfig(),
+                           precision=precision, device=args.device)
+
+
+def _latent(args, cfg, batch: int) -> np.ndarray:
+    if args.latent:
+        latent = _load_latent(args.latent)
+    else:
+        rng = np.random.default_rng(args.seed)
+        edge = args.size // cfg.spatial_scale
+        latent = rng.standard_normal(
+            (batch, edge, edge, cfg.z_channels)).astype(np.float32)
+    return latent[None] if latent.ndim == 3 else latent
+
+
+def cmd_decode(args) -> int:
+    import torch
+
+    from hdrvae_torch.api import folders
+    from hdrvae_torch.core.config import HDRDecodeConfig
+    from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+
+    precision = _parse_precision(args)
+    vae = _vae(args, precision)
+    latent = _latent(args, vae.config, args.batch)
+    hdr_cfg = HDRDecodeConfig(
+        hdr_mode=args.mode,
+        conservative_ev_multiplier=args.ev_multiplier)
+    if args.pipelined:
+        # a frame sequence: frame N+1 decodes on the card while frame N
+        # is fetched and frame N-1 encodes and writes (io/pipeline.py)
+        from hdrvae_torch.io.pipeline import export_stream
+
+        def make_frame(i):
+            def f():
+                one = torch.from_numpy(latent[i:i + 1]).to(vae.device)
+                return hdr_decode(vae.decoder, one, hdr_cfg,
+                                  precision).image[0]
+            return f
+
+        res = export_stream(
+            [make_frame(i) for i in range(latent.shape[0])],
+            _export_cfg(args, frame_sequence=latent.shape[0] > 1),
+            default_output_dir=folders.get_output_directory())
+        if res.error:
+            raise SystemExit(res.error)
+        print(json.dumps({"frames": len(res.filepaths),
+                          "last": res.last, **res.verify_stats}))
+        return 0
+    result = hdr_decode(vae.decoder,
+                        torch.from_numpy(latent).to(vae.device), hdr_cfg,
+                        precision)
+    print(json.dumps(decode_summary(result)))
+    if result.image.shape[0] == 1 and args.format == "exr":
+        # a single-frame EXR: scanline bands copied off the card while
+        # earlier bands encode (the same file as the serial export)
+        from hdrvae_torch.io.pipeline import export_frame_streamed
+        _print_export(export_frame_streamed(
+            result.image[0], _export_cfg(args),
+            default_output_dir=folders.get_output_directory()))
+    else:
+        _export(result.image, args)
+    return 0
+
+
+def cmd_upscale(args) -> int:
+    import torch
+
+    from hdrvae_torch.core.config import TilingConfig, UpscaleConfig
+    from hdrvae_torch.models.zoo import load_upscale_model
+    from hdrvae_torch.upscale.pipeline import hdr_upscale
+
+    net, model_cfg, arch = load_upscale_model(args.model,
+                                              device=args.device)
+    # the batch axis added by torch: numpy's new axis has stride 0
+    image = torch.from_numpy(np.asarray(_load_image(args.image),
+                                        np.float32))
+    if image.dim() == 3:
+        image = image[None]
+    cfg = UpscaleConfig(small_blur=args.small_blur,
+                        local_fix=args.local_fix,
+                        upscale_method=args.upscale_method,
+                        tiling=TilingConfig(tile=args.tile,
+                                            overlap=args.overlap))
+    result = hdr_upscale(net, image.to(args.device), cfg,
+                         architecture=arch, precision=_parse_precision(args))
+    print(json.dumps({"architecture": arch, "scale": model_cfg.scale,
+                      "sharded": False,
+                      "out_shape": list(result.image.shape)}))
+    _export(result.image, args)
+    return 0
+
+
+def cmd_export(args) -> int:
+    _export(_load_image(args.image), args)
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Execute a workflow JSON graph: the latent and the VAE are supplied
+    as the external inputs ``latent_source`` and ``vae_loader`` (or, for a
+    ComfyUI export, by the type of the node they replace)."""
+    from hdrvae_torch.api.comfy import (BUILTIN_NODE_MAPPINGS,
+                                        NODE_CLASS_MAPPINGS)
+    from hdrvae_torch.api.graph import (GraphExecutor,
+                                        convert_comfyui_workflow,
+                                        is_comfyui_format)
+    from hdrvae_torch.api.nodes import HDRUpscaleWithModel
+
+    # parse the graph before building any model, so a bad file fails fast
+    with open(args.workflow) as f:
+        workflow = json.load(f)
+    if "nodes" not in workflow:
+        raise SystemExit(f"{args.workflow}: no 'nodes' list in workflow")
+
+    vae = _vae(args)
+    latent = _latent(args, vae.config, 1)
+    externals = {"latent_source": ({"samples": latent},),
+                 "vae_loader": (vae,)}
+    if is_comfyui_format(workflow):
+        converted = convert_comfyui_workflow(workflow,
+                                             dict(NODE_CLASS_MAPPINGS))
+        for key in converted.get("external_keys", []):
+            low = key.lower()
+            if "vae" in low:
+                externals[key] = (vae,)
+            elif "sampler" in low or "latent" in low:
+                externals[key] = ({"samples": latent},)
+            else:
+                raise SystemExit(
+                    f"workflow needs external input {key!r}; only VAE "
+                    "and latent/sampler sources can be auto-supplied")
+
+    # the upscale node on --device (it has no device socket)
+    upscale = type("HDRUpscaleWithModel", (HDRUpscaleWithModel,),
+                   {"device": args.device})
+    registry = {**NODE_CLASS_MAPPINGS, **BUILTIN_NODE_MAPPINGS,
+                "HDRUpscaleWithModel": upscale}
+    results = GraphExecutor(registry, externals).run(workflow)
+    for node_id, outputs in results.items():
+        desc = [tuple(o.shape) if hasattr(o, "shape") else o
+                for o in outputs]
+        print(json.dumps({"node": node_id,
+                          "outputs": [str(d) for d in desc]}))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from hdrvae_torch.core.config import HDRDecodeConfig
     from hdrvae_torch.serve.engine import ServeEngine
     from hdrvae_torch.serve.http import serve_forever
 
-    precision = _parse_precision(args)
-    if args.vae:
-        vae = VAE.load(args.vae, precision=precision, device=args.device)
-    else:
-        logger.warning("no --vae checkpoint given; using random weights")
-        vae = VAE.random_init(seed=0, config=DecoderConfig(),
-                              precision=precision, device=args.device)
+    vae = _vae(args, _parse_precision(args))
     engine = ServeEngine(
         vae, hdr_cfg=HDRDecodeConfig(hdr_mode=args.mode),
         bucket=args.bucket if args.bucket > 0 else None,
@@ -61,11 +291,65 @@ def cmd_serve(args) -> int:
     return 0
 
 
+_MODES = ("conservative", "exposure", "adaptive_recovery",
+          "mathematical_recovery")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hdrvae_torch",
         description="HDR VAE decode on PyTorch and CUDA")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("decode", help="HDR-decode a latent to EXR/HDR")
+    p.add_argument("--latent", help=".npy or single-tensor .safetensors")
+    p.add_argument("--vae", help="Flux.1 ae.safetensors checkpoint")
+    p.add_argument("--mode", default="mathematical_recovery",
+                   choices=_MODES)
+    p.add_argument("--ev-multiplier", type=float, default=1.0)
+    p.add_argument("--size", type=int, default=1024,
+                   help="output edge when generating a random latent")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--parity", action="store_true",
+                   help="full float32 numerics (alias for "
+                        "--precision parity)")
+    p.add_argument("--precision", default="fast",
+                   choices=("fast", "mixed", "parity"),
+                   help="numerics tier: fast (bf16), mixed (f32 "
+                        "activations + 3-pass attention dots), parity "
+                        "(exact f32)")
+    p.add_argument("--batch", type=int, default=1,
+                   help="frames when generating a random latent")
+    p.add_argument("--pipelined", action="store_true",
+                   help="overlap decode, device->host fetch, and EXR "
+                        "write across the frame sequence")
+    _add_export_args(p)
+    _add_device_arg(p)
+    p.set_defaults(func=cmd_decode)
+
+    p = sub.add_parser("upscale", help="HDR-upscale an EXR/HDR image")
+    p.add_argument("--image", required=True)
+    p.add_argument("--model", required=True,
+                   help="ESRGAN-family, SwinIR, Swin2SR or HAT checkpoint")
+    p.add_argument("--small-blur", action="store_true")
+    p.add_argument("--local-fix", action="store_true")
+    p.add_argument("--upscale-method", default="bislerp",
+                   choices=("nearest-exact", "bilinear", "area", "bicubic",
+                            "bislerp"))
+    p.add_argument("--tile", type=int, default=512)
+    p.add_argument("--overlap", type=int, default=64)
+    p.add_argument("--precision", default="parity",
+                   choices=("fast", "mixed", "parity"),
+                   help="numerics tier (default parity, the float32 "
+                        "contract; fast runs bf16 tile passes)")
+    _add_export_args(p)
+    _add_device_arg(p)
+    p.set_defaults(func=cmd_upscale)
+
+    p = sub.add_parser("export", help="re-export an image file")
+    p.add_argument("--image", required=True)
+    _add_export_args(p)
+    p.set_defaults(func=cmd_export)
 
     p = sub.add_parser("serve", help="HTTP decode service (POST .npy "
                                      "latents to /v1/decode, get EXR/HDR)")
@@ -73,8 +357,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8475)
     p.add_argument("--mode", default="mathematical_recovery",
-                   choices=("conservative", "exposure", "adaptive_recovery",
-                            "mathematical_recovery"))
+                   choices=_MODES)
     p.add_argument("--parity", action="store_true",
                    help="full float32 numerics (alias for "
                         "--precision parity)")
@@ -95,9 +378,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated output edges to decode once "
                         "before serving (builds the kernels), e.g. "
                         "1024,2048")
-    p.add_argument("--device", default="cuda",
-                   help="torch device of the decoder (default: the card)")
+    _add_device_arg(p)
     p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("run", help="execute a workflow JSON graph")
+    p.add_argument("workflow")
+    p.add_argument("--latent", help="latent fed as external input "
+                                    "'latent_source'")
+    p.add_argument("--vae", help="VAE checkpoint fed as 'vae_loader'")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--size", type=int, default=512)
+    _add_device_arg(p)
+    p.set_defaults(func=cmd_run)
     return parser
 
 

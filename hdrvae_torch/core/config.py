@@ -297,8 +297,8 @@ BIT_DEPTHS = ("16bit", "32bit")
 class ExportConfig:
     """The export node's inputs, with the JAX package's fields and
     defaults.  ``compression`` is validated against
-    :data:`EXR_COMPRESSIONS`; the port's EXR writer takes "none" and "zip"
-    of them (``io/export.py`` names the others in its error)."""
+    :data:`EXR_COMPRESSIONS`; "piz" needs the native EXR codec
+    (``io/export.py`` reports an ERROR without it)."""
 
     filename_prefix: str = "comfyUI"
     versioning: bool = False

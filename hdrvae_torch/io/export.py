@@ -7,10 +7,11 @@ read-back verification of the last file.  Errors come back as
 ``ExportResult.error`` (``"ERROR: ..."``) and never raise: the export
 node's contract.
 
-The port's EXR writer takes the "none" and "zip" compressions.  The
-others of :data:`EXR_COMPRESSIONS` ("rle", "piz", "pxr24") come back as an
-ERROR that names the two; nothing is written in another compression than
-the one asked for.
+Every compression of :data:`EXR_COMPRESSIONS` is written, byte-identical
+to the JAX package's files.  PIZ needs the native codec: where it cannot
+be built, "piz" comes back as an ERROR and nothing is written (the JAX
+package writes zip in its place; the port writes no other compression
+than the one asked for).
 """
 
 from __future__ import annotations
@@ -183,12 +184,8 @@ def export_linear(hdr_image, cfg: ExportConfig = ExportConfig(),
             raise ValueError(f"unsupported bit depth: {cfg.bit_depth}")
         if cfg.format == "exr" and cfg.compression not in EXR_COMPRESSIONS:
             raise ValueError(f"unsupported compression: {cfg.compression}")
-        if (cfg.format == "exr"
-                and cfg.compression not in exr_io.COMPRESSION_IDS):
-            raise ValueError(
-                f"compression {cfg.compression!r} is not written by the "
-                f"port's EXR codec; use one of "
-                f"{sorted(exr_io.COMPRESSION_IDS)}")
+        if cfg.format == "exr":
+            exr_io.check_writable(cfg.compression)
 
         image = _host_image(hdr_image)
         if image.ndim == 3:

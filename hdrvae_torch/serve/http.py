@@ -19,7 +19,9 @@ Endpoints:
                                                       from the device:
                                                       half the bytes, the
                                                       same file)
-                          compression=none|zip       (the port's EXR codec)
+                          compression=none|rle|zip|zips|piz|pxr24
+                                                     (piz: 400 without
+                                                      the native codec)
                         Response: the encoded file bytes; the decode's
                         stats record rides in the ``X-HDRVAE-Summary``
                         header (JSON).  ``format=npy`` returns the raw
@@ -236,10 +238,15 @@ class _Handler(BaseHTTPRequestHandler):
         # validate everything knowable up front: a request rejected after
         # the decode already spent the device
         if fmt == "exr":
-            from hdrvae_torch.io.exr import COMPRESSION_IDS
+            from hdrvae_torch.io.exr import COMPRESSION_IDS, check_writable
             if compression not in COMPRESSION_IDS:
                 self._error(400, f"compression must be one of "
                                  f"{sorted(COMPRESSION_IDS)}")
+                return
+            try:
+                check_writable(compression)
+            except ValueError as e:
+                self._error(400, str(e))
                 return
         if fmt != "npy" and latent.ndim == 4 and latent.shape[0] != 1:
             self._error(400, f"format={fmt} requires batch 1, got "

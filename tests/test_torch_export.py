@@ -4,8 +4,8 @@
 Every case runs the same numpy image (made from a seed) through both
 packages' functions into two directories and compares what they wrote:
 file names, file bytes, sidecar JSON and ``verify_save``'s record must be
-identical.  The port's EXR codec writes "none" and "zip"; its other
-compressions come back as an ERROR naming those two.
+identical, in every compression.  PIZ without the native EXR codec is
+an ERROR in the port (the JAX package writes zip in its place).
 """
 
 import dataclasses
@@ -242,15 +242,27 @@ def test_export_tensor_input_matches_numpy(tmp_path):
 
 
 @pytest.mark.parametrize("compression", ["rle", "piz", "pxr24"])
-def test_unwritten_compressions_are_errors(tmp_path, compression):
-    """The port writes no file in another compression than the one asked
-    for: an ERROR naming the two it writes, and nothing on disk."""
+def test_unwritten_compressions_are_errors(tmp_path, monkeypatch,
+                                           compression):
+    """The compressions the port once refused now write the JAX package's
+    bytes; PIZ without the native codec is the one ERROR left, and then
+    nothing is written in another compression (the JAX package writes
+    zip there)."""
+    for bit_depth in ("16bit", "32bit"):
+        ref, got, jdir, tdir = _export_both(
+            tmp_path / bit_depth, _image(), compression=compression,
+            bit_depth=bit_depth, output_path="")
+        assert ref.error is None and got.error is None, got.error
+        assert _rel(got.filepaths, tdir) == _rel(ref.filepaths, jdir)
+        assert _files(tdir) == _files(jdir)
+    if compression != "piz":
+        return
+    monkeypatch.setattr(texr, "load_native", lambda: None)
     cfg = tconfig.ExportConfig(compression=compression)
     res = texport.export_linear(_image(), cfg,
                                 default_output_dir=str(tmp_path / "o"))
     assert res.error is not None and res.error.startswith("ERROR: ")
-    assert "'none'" in res.error and "'zip'" in res.error
-    assert compression in res.error
+    assert "'piz'" in res.error and "native" in res.error
     assert res.filepaths == [] and not (tmp_path / "o").exists()
     assert texport.export_node_return(res) == (res.error,)
 

@@ -616,15 +616,19 @@ BAD_REQUESTS = {
 
 
 @pytest.mark.parametrize("case", sorted(BAD_REQUESTS))
-def test_http_bad_requests(server, case):
+def test_http_bad_requests(server, monkeypatch, case):
     path, body = BAD_REQUESTS[case]
+    if case == "unwritten_compression":
+        # piz is refused only where the native EXR codec is unavailable
+        from hdrvae_torch.io import exr as texr
+        monkeypatch.setattr(texr, "load_native", lambda: None)
     status, headers, resp = _request(server, "POST", path,
                                      body=body or _npy_bytes(_latent(1)))
     assert status == 400, (case, resp)
     # error replies may leave the body unread: the connection closes
     assert headers.get("Connection", "").lower() == "close", case
     if case == "unwritten_compression":
-        assert b"none" in resp and b"zip" in resp
+        assert b"'piz'" in resp and b"native" in resp
 
 
 def test_http_unknown_post_path(server):
