@@ -52,7 +52,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    cuBLAS's products alone as K10's and K11's yardstick, the three on
    CHAIN_RAGGED's ragged windows (ws 7, 10, 12; padded rows zero), and
    the chain against K7 on the same inputs and weights; K12 at the
-   probe's 8192 x 256 x 256 in its three precisions), with its
+   probe's 8192 x 256 x 256 in its three precisions, each call launching
+   w's split (``split_w``, bit-equal to its plain version) once in high
+   and default and never in highest), with its
    tolerance, and both timed with CUDA events after a warm-up; beside
    them the least time the card could take (bound_ms: the function's
    operations over the peak rate of their type, or its bytes, each input
@@ -137,13 +139,24 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    launch K7 (Swin2SR: its v2 body) once per block and K8 once per OCAB
    of every tile run, the parity one neither; the fused chain is held to
    the unfused fast layers on the first tile's raw output;
+10b. Compact, SPAN and RealPLKSR upscale: the full-width Compact x4
+   (``SRVGGConfig()``), SPAN x4 (``SPANConfig()``, official Conv3XC keys)
+   and RealPLKSR x4 (``RealPLKSRConfig()``, PixelShuffle and DySample
+   heads), random weights from numpy seeds, each written to a temporary
+   .pth and loaded by ``load_upscale_model`` on the card, through
+   ``hdr_upscale`` on a 512^2 crop of the parity image (1 tile x 2
+   passes): two fast and two parity requests each (cold, warm), every
+   output finite and of its shape, no hand-written kernel launched (they
+   run on the layers); device ms, peak, the raw forward's activation
+   bytes per input pixel and fast vs parity printed;
 11. Swin chain: the body of the full-width SwinIR-M (seed 3) on one 512^2
    tile of the decoded image, walked twice, each block through the staged
    chain (K10 -> K9 -> K11, 36 launches each), then through K7 (36), each
    group's conv + residual after its blocks; the two bodies held to each
    other, and both walks timed;
 12. f32 dot probe: ``tools/f32_dot_probe_torch.py``'s measurement, K12's
-   main path: each precision's time and error against a float64 product,
+   main path: each precision's time (high and default also the split and
+   the tensor-core kernel apart) and error against a float64 product,
    held to its class, beside ``torch.matmul`` in float32 (TF32 off and on)
    and bf16;
 13. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K1 and K2
@@ -154,8 +167,8 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    and K2 stats_only in the
    low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
    fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR upscale,
-   K8 in the fast HAT upscale, K9-K11 in the Swin chain phase, K12 in the
-   probe; every kernel of the table ran.
+   K8 in the fast HAT upscale, K9-K11 in the Swin chain phase, K12 and
+   its split in the probe; every kernel of the table ran.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -271,6 +284,7 @@ K8_RAGGED = (64, 6, 20, 36)
 K8_PEAK = 16.0
 SWIN_BUDGET = 5e-2          # relative to max(1, max|ref|): K7, fused chains
 SWIN_CROP = 768             # the SwinIR / HAT upscale input: 4 tiles a pass
+ZOO_CROP = 512              # the conv families' upscale input: 1 tile a pass
 K4_BUDGET = 1e-5            # relative, on mean and std
 # The chain's kernels on windows whose rows are no multiple of 64, checked
 # and not timed: (name, H, W, window, shift, with HAT's extra residual):
@@ -599,7 +613,7 @@ def phase_kernels() -> list:
     entries.append(_check_k5(rng5))
     chain_entries, chain_ab = _check_chain(np.random.default_rng(6))
     entries += chain_entries
-    entries.append(_check_k12())
+    entries += _check_k12()
     return entries, chain_ab
 
 
@@ -1984,16 +1998,25 @@ def _probe():
     return mod
 
 
-def _check_k12() -> dict:
+def _check_k12() -> list:
     """K12 at the probe's shape in its three precisions, each against its
-    plain version on the probe's operands within K12_BUDGET * max|ref|.
-    Its times come from the probe's run (``phase_f32_probe``)."""
+    plain version on the probe's operands within K12_BUDGET * max|ref|;
+    w's split (``split_w``) bit-equal to its plain version in both part
+    counts, and launched once a tensor-core call (highest: never).  Their
+    times come from the probe's run (``phase_f32_probe``)."""
     from hdrvae_torch.kernels import f32_dot
     m, k, n = K12_SHAPE
     x, w = _probe().operands(m, k, n)
     details, err, bnd = [], 0.0, Bound()
     for mode in f32_dot.PRECISIONS:
+        before = (f32_dot.f32_dot.launches, f32_dot.split_w.launches)
         y = f32_dot.f32_dot(x, w, precision=mode)
+        check((f32_dot.f32_dot.launches - before[0],
+               f32_dot.split_w.launches - before[1])
+              == (1, int(mode != "highest")),
+              f"K12 {mode}: launches of f32_dot / split_w in one call "
+              f"{f32_dot.f32_dot.launches - before[0]} / "
+              f"{f32_dot.split_w.launches - before[1]}")
         ref = f32_dot.f32_dot_reference(x, w, precision=mode)
         torch.cuda.synchronize()
         check(torch.isfinite(y).all().item(), f"K12 {mode}: not finite")
@@ -2009,12 +2032,36 @@ def _check_k12() -> dict:
         details.append({"precision": mode, "shape": [m, k, n],
                         "max_abs_err": e, "err_budget": bound, **b})
         err = max(err, e)
-    return {"name": "f32_dot", "route": "cuda",
-            "source": "hdrvae_torch/csrc/f32_dot.cu",
-            "replaces": "tools/perf/pallas_f32_dot_probe.py:45",
-            "max_abs_err": err, **bnd.entry(),
-            "library_call": "torch.matmul, float32, TF32 off, once a "
-                            "precision", "shapes": details}
+    split_bnd = Bound()
+    for lo in (True, False):
+        got = f32_dot.split_w(w, lo=lo)
+        torch.cuda.synchronize()
+        check(torch.equal(got, f32_dot.split_w_reference(w, lo=lo)),
+              f"split_w lo={lo}: not bit-equal to its plain version")
+        split_bnd.add(0, nbytes(w, got))
+    split_ms = sum(cuda_ms(lambda lo=lo: f32_dot.split_w(w, lo=lo),
+                           iters=10) for lo in (True, False))
+    split_plain = sum(cuda_ms(lambda lo=lo: f32_dot.split_w_reference(
+        w, lo=lo), iters=3) for lo in (True, False))
+    log(f"split_w {k}x{n} (hi + lo, then hi): bit-equal to its plain "
+        f"version  kernel {split_ms * 1e3:.2f} us  plain "
+        f"{split_plain * 1e3:.2f} us  bound "
+        f"{split_bnd.ms * 1e3:.2f} us (bytes)")
+    return [{"name": "f32_dot", "route": "cuda",
+             "source": "hdrvae_torch/csrc/f32_dot.cu",
+             "replaces": "tools/perf/pallas_f32_dot_probe.py:45",
+             "max_abs_err": err, **bnd.entry(),
+             "library_call": "torch.matmul, float32, TF32 off, once a "
+                             "precision (per precision in shapes: highest "
+                             "that call, high none, default bf16 matmul "
+                             "of pre-cast operands)", "shapes": details},
+            {"name": "split_w", "route": "cuda",
+             "source": "hdrvae_torch/csrc/f32_dot.cu",
+             "replaces": "tools/perf/pallas_f32_dot_probe.py:39 (_kernel's "
+                         "dot at DEFAULT / HIGH: w's bf16 parts)",
+             "max_abs_err": 0.0, "err_budget": 0.0, "ms": split_ms,
+             "plain_ms": split_plain, **split_bnd.entry(),
+             "library_ms": None}]
 
 
 def _wrappers() -> dict:
@@ -2030,7 +2077,7 @@ def _wrappers() -> dict:
         epilogue.collapse_and_stats_fused, dense_conv.dense_conv3x3,
         swin_attention.swin_block_fused, ocab.ocab_attention,
         swin_attention.ln_qkv, swin_attention.window_attention_core,
-        swin_attention.proj_mlp, f32_dot.f32_dot)}
+        swin_attention.proj_mlp, f32_dot.f32_dot, f32_dot.split_w)}
 
 
 def _counts() -> dict:
@@ -3325,6 +3372,100 @@ def phase_swin_upscale(image: torch.Tensor, family: str):
     return fast_counts, times
 
 
+def _zoo_checkpoints():
+    """(label, architecture, config, seed, the official state dict) of each
+    full-width checkpoint of the conv families, weights from numpy seeds."""
+    from hdrvae_torch.models import plksr, span, srvgg
+    cfgs = (("Compact", "Compact", srvgg.SRVGGConfig(), 6),
+            ("SPAN", "SPAN", span.SPANConfig(), 7),
+            ("RealPLKSR", "RealPLKSR", plksr.RealPLKSRConfig(), 8),
+            ("RealPLKSR DySample", "RealPLKSR", plksr.RealPLKSRConfig(
+                upsampler="dysample"), 9))
+    for label, arch, cfg, seed in cfgs:
+        if arch == "Compact":
+            sd = srvgg.init_srvgg(cfg, seed=seed, device="cpu").state_dict()
+        elif arch == "SPAN":
+            sd = span.official_state_dict(cfg, seed=seed)
+        else:
+            sd = plksr.init_realplksr(cfg, seed=seed,
+                                      device="cpu").state_dict()
+        yield label, arch, cfg, seed, sd
+
+
+def phase_zoo_upscale(image: torch.Tensor):
+    """The full-width Compact (SRVGGConfig(): 64 features, 32 convs, x4,
+    PReLU), SPAN (SPANConfig(): 48 features, 6 blocks, x4, official
+    Conv3XC keys) and RealPLKSR (RealPLKSRConfig(): dim 64, 28 blocks,
+    kernel 17, x4; PixelShuffle and DySample heads) upscalers, each
+    written to a temporary .pth and loaded by ``load_upscale_model`` on
+    the card, through ``hdr_upscale`` on a ZOO_CROP^2 crop of the parity
+    image (one tile a pass): two fast and two parity requests each (the
+    first cold), every output finite and of its shape, on the layers (no
+    hand-written kernel launched).  Prints device ms, peak GiB, the raw
+    forward's activation bytes per input pixel of the tile beside
+    ``working_set_bytes_per_pixel``, and fast vs parity (not gated)."""
+    from hdrvae_torch.core.config import Precision, UpscaleConfig
+    from hdrvae_torch.models.zoo import (load_upscale_model, upscaler_apply,
+                                         working_set_bytes_per_pixel)
+
+    crop = image[:, :ZOO_CROP, :ZOO_CROP, :].contiguous()
+    ucfg = UpscaleConfig()
+    out_shape = (1, ZOO_CROP * 4, ZOO_CROP * 4, 3)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, arch, cfg, seed, sd in _zoo_checkpoints():
+            path = os.path.join(tmp, f"{arch}.pth")
+            torch.save(sd, path)
+            del sd
+            net, got_cfg, got_arch = load_upscale_model(path, device="cuda")
+            check((got_arch, got_cfg) == (arch, cfg),
+                  f"{label}: loaded as {got_arch} {got_cfg}")
+            n_params = sum(p.numel() for p in net.parameters())
+            log(f"upscaler: {label} x4 {n_params} parameters, weights from "
+                f"numpy seed {seed}; input {list(crop.shape)}")
+            results, times[label] = {}, {}
+            for name, prec in (("fast", Precision.fast()),
+                               ("parity", Precision.parity())):
+                _reset_counts()
+                runs = [_upscale_request(net, crop, ucfg, prec,
+                                         architecture=arch)
+                        for _ in range(2)]
+                counts = _counts()
+                check(not any(counts.values()), f"{label} {name} launched "
+                      f"a hand-written kernel: {counts}")
+                for res, *_ in runs:
+                    check(tuple(res.image.shape) == out_shape,
+                          f"{label} {name}: shape {tuple(res.image.shape)}")
+                    for t in res:
+                        check(torch.isfinite(t).all().item(),
+                              f"{label} {name}: non-finite output")
+                # the raw forward alone on the tile: its activations
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                upscaler_apply(net, crop, precision=prec)
+                torch.cuda.synchronize()
+                per_px = (torch.cuda.max_memory_allocated() - base) \
+                    / ZOO_CROP ** 2
+                row = working_set_bytes_per_pixel(cfg, prec)
+                results[name] = runs[-1][0]
+                times[label][name] = runs[-1][1:]
+                log(f"upscale[{label}, {name}] device ms "
+                    f"{[round(r[1], 3) for r in runs]} (cold, warm), host "
+                    f"wall ms {[round(r[2], 3) for r in runs]}, peak "
+                    f"{runs[-1][3]:.3f} GiB; raw forward {per_px:.0f} B per "
+                    f"input pixel (working_set_bytes_per_pixel {row:.0f}); "
+                    f"out max {results[name].image.max().item():.6g}")
+                del runs
+            d = (results["fast"].image - results["parity"].image).abs()
+            log(f"upscale[{label}] fast vs parity image |diff| mean "
+                f"{d.mean().item():.4e} p99.9 {p999(d):.4e} (not gated: the "
+                f"logit reversal)")
+            del d, results, net
+            torch.cuda.empty_cache()
+    return times
+
+
 def phase_swin_chain(image: torch.Tensor):
     """The staged chain on the full-width SwinIR-M's path: its body (6
     residual groups of 6 blocks) on one 512^2 tile of the decoded image,
@@ -3409,29 +3550,44 @@ def phase_swin_chain(image: torch.Tensor):
 def phase_f32_probe(entry: dict):
     """K12's main path: the probe's measurement (``tools/
     f32_dot_probe_torch.py``) at K12_SHAPE, each precision's error against
-    a float64 product held to its class; its times fill K12's entry.
-    Returns the probe's launch counts and rows."""
+    a float64 product held to its class; its times fill K12's entry, each
+    precision's beside the library's float32 (TF32 off, on) and bf16
+    ``torch.matmul``.  Returns the probe's launch counts and rows."""
     _reset_counts()
     rows = _probe().measure(*K12_SHAPE)
     counts = _counts()
-    lib = rows["library"]["matmul_f32"]["ms"]
+    lib = rows["library"]
+    # one PyTorch call computing each precision's function: highest the
+    # float32 matmul with TF32 off, default the bf16 matmul of operands
+    # cast beforehand, high none
+    same_fn = {"highest": lib["matmul_f32"]["ms"], "high": None,
+               "default": lib["matmul_bf16"]["ms"]}
     for d in entry["shapes"]:
         r = rows["modes"][d["precision"]]
         check(r["rel_vs_exact"] <= K12_CLASSES[d["precision"]],
               f"K12 {d['precision']}: error {r['rel_vs_exact']} of "
               f"max|exact| > {K12_CLASSES[d['precision']]}")
-        d.update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=lib,
+        d.update(ms=r["ms"], plain_ms=r["plain_ms"],
+                 library_ms=same_fn[d["precision"]],
                  rel_vs_exact=r["rel_vs_exact"],
-                 max_abs_vs_exact=r["max_abs_vs_exact"])
-        log(f"K12 f32_dot {d['precision']}: kernel {r['ms'] * 1e3:.2f} us "
-            f"(bound {d['bound_ms'] * 1e3:.2f} us)  plain "
+                 max_abs_vs_exact=r["max_abs_vs_exact"],
+                 **{k: r[k] for k in ("split_ms", "main_ms") if k in r})
+        parts = (f" (split {r['split_ms'] * 1e3:.2f} us, tensor-core kernel "
+                 f"{r['main_ms'] * 1e3:.2f} us alone)" if "main_ms" in r
+                 else "")
+        log(f"K12 f32_dot {d['precision']}: kernel {r['ms'] * 1e3:.2f} us"
+            f"{parts} (bound {d['bound_ms'] * 1e3:.2f} us)  plain "
             f"{r['plain_ms'] * 1e3:.2f} us  vs float64 {r['rel_vs_exact']:.3e}"
-            f" of max|exact| (<= {K12_CLASSES[d['precision']]})")
-    for key in ("ms", "plain_ms", "library_ms"):
+            f" of max|exact| (<= {K12_CLASSES[d['precision']]}); torch.matmul "
+            f"float32 {lib['matmul_f32']['ms'] * 1e3:.2f} us, TF32 "
+            f"{lib['matmul_tf32']['ms'] * 1e3:.2f} us, bf16 "
+            f"{lib['matmul_bf16']['ms'] * 1e3:.2f} us")
+    for key in ("ms", "plain_ms"):
         entry[key] = sum(d[key] for d in entry["shapes"])
+    entry["library_ms"] = len(entry["shapes"]) * lib["matmul_f32"]["ms"]
     log("f32 dot probe library rows: " + ", ".join(
         f"{k} {r['ms'] * 1e3:.2f} us ({r['rel_vs_exact']:.3e})"
-        for k, r in rows["library"].items()))
+        for k, r in lib.items()))
     return counts, rows
 
 
@@ -3473,6 +3629,10 @@ def main() -> int:
         swin_counts[family], up_times[family] = phase_swin_upscale(image,
                                                                    family)
         log(f"{family} upscale phase {time.perf_counter() - t_up:.1f} s")
+    t_zoo = time.perf_counter()
+    up_times.update(phase_zoo_upscale(image))
+    log(f"Compact / SPAN / RealPLKSR upscale phase "
+        f"{time.perf_counter() - t_zoo:.1f} s")
     t_ch = time.perf_counter()
     chain_counts, chain_record = phase_swin_chain(image)
     log(f"swin chain phase {time.perf_counter() - t_ch:.1f} s")
@@ -3523,6 +3683,7 @@ def main() -> int:
                                 ("swin_proj_mlp", "proj_mlp")):
         main_path[entry_name] = chain_counts[wrapper]
     main_path["f32_dot"] = probe_counts["f32_dot"]
+    main_path["split_w"] = probe_counts["split_w"]
     # K1 / K2 owned_rows: the fast slab decode, summed over its ranks
     for name in ("fused_conv3x3", "upsample_conv3x3"):
         main_path[name + "_owned_rows"] = slab_counts[name +

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's implicit-GEMM convolutions
-// (conv3x3.cu: K1 / K2; dense_conv.cu: K6) and attention kernels
-// (attention.cu: K3; ocab.cu: K8; swin_block.cu: K7; swin_chain.cu: K9-K11):
+// (conv3x3.cu: K1 / K2; dense_conv.cu: K6), attention kernels
+// (attention.cu: K3; ocab.cu: K8; swin_block.cu: K7; swin_chain.cu: K9-K11)
+// and the float32 product probe (f32_dot.cu: K12):
 // shared-memory addresses, mbarriers, TMA tile and bulk copies, wgmma
 // descriptors and the wgmma instructions themselves, and libcuda's
 // tensor-map encoder, reached through the runtime (the library does not
@@ -45,6 +46,16 @@ __device__ __forceinline__ void mbar_add_tx(uint32_t bar, int bytes) {
 
 // TMA tile loads into shared memory, completing on `bar`; out-of-bounds
 // elements (negative coordinates included) are zero-filled.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
@@ -82,6 +93,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 
 // TMA tile stores from shared memory, in the thread's bulk group; out-of-
 // bounds elements are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,
                                              int c2) {
@@ -304,6 +324,54 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66,"
+      " %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92,"
+      " %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104,"
+      " %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115,"
+      " %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126,"
+      " %127}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
 // d[64 x 32] += A[64 x 16] (registers) * B[16 x 32] (shared; TB as above).
 // a holds bf16 pairs in the accumulator's layout, halved: thread (warp w,
 // lane 4 g + t) gives rows 16 w + g (a[0], a[2]) and + 8 (a[1], a[3]),
@@ -361,7 +429,8 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
   else if constexpr (N == 32) wgmma_n32<TB>(d, da, db);
   else if constexpr (N == 64) wgmma_n64<TB>(d, da, db);
   else if constexpr (N == 96) wgmma_n96<TB>(d, da, db);
-  else wgmma_n128<TB>(d, da, db);
+  else if constexpr (N == 128) wgmma_n128<TB>(d, da, db);
+  else wgmma_n256<TB>(d, da, db);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

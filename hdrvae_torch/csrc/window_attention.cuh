@@ -1,10 +1,9 @@
 // Building blocks of the Swin kernels (the block kernel K7, swin_block.cu;
-// the staged chain K9-K11, swin_chain.cu) and of K12's mma.sync modes
-// (f32_dot.cu): cp.async copies, ldmatrix and mma.sync m16n8k16, the exact
-// GELU, bf16 pairs of a row in and out, L2 prefetch, and the [64 x 32]
-// bf16 atoms with the 64-byte swizzle (and the 128-byte swizzle's boxes)
-// that the wgmma products read: their descriptors, layout and the store of
-// an accumulator fragment.
+// the staged chain K9-K11, swin_chain.cu) and of K12 (f32_dot.cu):
+// cp.async copies, the exact GELU, bf16 pairs of a row in and out, L2
+// prefetch, and the [64 x 32] bf16 atoms with the 64-byte swizzle (and the
+// 128-byte swizzle's boxes) that the wgmma products read: their
+// descriptors, layout and the store of an accumulator fragment.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,34 +39,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices from shared memory (lane l gives the address of
-// row l % 16, columns 8 * (l / 16) of a 16x16 tile): the A fragment of
-// mma.m16n8k16, or with .trans the B fragments of two n8 tiles of a
-// row-major [k][n] tile.
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d[16x8] += a[16x16] b[16x8], bf16 operands, float32 accumulation.
-__device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a,
-                                               const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Exact (erf) GELU of x in float32.

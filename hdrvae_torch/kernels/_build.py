@@ -67,6 +67,7 @@ SIGNATURES = {
     "hdrvae_swin_proj_mlp": [_P] * 12 + [_I] * 7 + [_P],
     # f32_dot.cu
     "hdrvae_f32_dot": [_P] * 3 + [_I] * 4 + [_P],
+    "hdrvae_f32_dot_split_w": [_P, _P, _I, _I, _I, _P],
 }
 
 

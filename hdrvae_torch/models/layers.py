@@ -34,14 +34,17 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, *,
     The operands are rounded to the compute dtype and convolved in float32
     (bf16 products are exact in float32), the bias is added in float32 and
     the result is rounded to the storage dtype: the JAX package's
-    ``preferred_element_type=float32`` contract.
+    ``preferred_element_type=float32`` contract.  A conv without a bias adds
+    none (the JAX package adds zeros).
     """
     cdt = precision.compute_dtype
     w = conv.weight.to(cdt).float()
     xin = x.to(cdt).float().permute(0, 3, 1, 2)
     with fp32_contractions(precision):
         y = F.conv2d(xin, w, padding=conv.kernel_size[0] // 2)
-    y = y.permute(0, 2, 3, 1) + conv.bias.float()
+    y = y.permute(0, 2, 3, 1)
+    if conv.bias is not None:
+        y = y + conv.bias.float()
     return y.to(precision.storage_dtype)
 
 
@@ -63,13 +66,13 @@ def group_moments(xf: torch.Tensor, num_groups: int,
     return mean, var
 
 
-def gn_affine(moments: Moments, norm: nn.GroupNorm
+def gn_affine(moments: Moments, norm: nn.GroupNorm, eps: float = EPS
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold the normalization and the learned scale/bias into one
     per-channel (gamma, beta) pair, each [B, C] float32."""
     mean, var = (m.float() for m in moments)
     cpg = norm.weight.shape[0] // mean.shape[-1]
-    rstd_c = torch.rsqrt(var + EPS).repeat_interleave(cpg, dim=-1)
+    rstd_c = torch.rsqrt(var + eps).repeat_interleave(cpg, dim=-1)
     mean_c = mean.repeat_interleave(cpg, dim=-1)
     gamma = norm.weight.float() * rstd_c
     beta = norm.bias.float() - mean_c * gamma
@@ -155,7 +158,8 @@ class PadMask:
 
 def _normalize(x: torch.Tensor, norm: nn.GroupNorm, num_groups: int,
                precision: Precision, moments: Optional[Moments],
-               tape: Optional[PadMask] = None) -> torch.Tensor:
+               tape: Optional[PadMask] = None,
+               eps: float = EPS) -> torch.Tensor:
     """x * gamma + beta in float32, as a new tensor.  The moments are
     ``moments`` when the caller already has them (the fused chain hands its
     output's moments to ``norm_out`` this way), else those of the valid
@@ -171,7 +175,7 @@ def _normalize(x: torch.Tensor, norm: nn.GroupNorm, num_groups: int,
         moments = tape.reduce_stats(xf, num_groups, two_pass)
     elif moments is None:
         moments = group_moments(xf, num_groups, two_pass=two_pass)
-    gamma, beta = gn_affine(moments, norm)
+    gamma, beta = gn_affine(moments, norm, eps)
     return xf.mul_(gamma[:, None, None, :]).add_(beta[:, None, None, :])
 
 
@@ -185,11 +189,11 @@ def _store(y: torch.Tensor, precision: Precision,
 
 
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
-               precision: Precision = Precision(),
+               eps: float = EPS, precision: Precision = Precision(),
                tape: Optional[PadMask] = None) -> torch.Tensor:
     """GroupNorm over NHWC; the output is rounded to the storage dtype."""
-    return _store(_normalize(x, norm, num_groups, precision, None, tape),
-                  precision, tape)
+    return _store(_normalize(x, norm, num_groups, precision, None, tape,
+                             eps), precision, tape)
 
 
 def group_norm_silu(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,

@@ -1,7 +1,7 @@
 """Decoder weights: topology inference, seeded initialization, and the
 JAX parameter pytree as an ldm state dict; as ``hdrvae/models/params.py``.
-Also the JAX package's RRDBNet, SwinIR, Swin2SR and HAT pytrees as the
-state dicts of their official PyTorch schemas.
+Also the JAX package's RRDBNet, SwinIR, Swin2SR, HAT, Compact, SPAN and
+RealPLKSR pytrees as the state dicts of their PyTorch schemas.
 """
 
 from __future__ import annotations
@@ -383,4 +383,70 @@ def hat_state_dict_from_jax(params_np: Mapping[str, Any]
         _put_swin_attention(sd, group + "overlap_attn.", ocab)
         _put_block(sd, group + "overlap_attn.", ocab)
         _put_conv(sd, f"layers.{li}.conv", layer["conv"])
+    return sd
+
+
+def srvgg_state_dict_from_jax(params_np: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX package's Compact pytree (numpy leaves) as the official
+    state dict: ``conv{i}`` to ``body.{2i}``, the PReLU slopes ``act{i}``
+    to ``body.{2i + 1}.weight``, ``conv_last`` to the last ``body`` entry;
+    ``srvgg_from_state_dict`` loads it."""
+    sd: Dict[str, torch.Tensor] = {}
+    n = sum(1 for k in params_np if k.startswith("conv") and k[4:].isdigit())
+    for i in range(n):
+        _put_conv(sd, f"body.{2 * i}", params_np[f"conv{i}"])
+        if f"act{i}" in params_np:
+            sd[f"body.{2 * i + 1}.weight"] = _t(params_np[f"act{i}"])
+    _put_conv(sd, f"body.{2 * n}", params_np["conv_last"])
+    return sd
+
+
+def span_state_dict_from_jax(params_np: Mapping[str, Any], *,
+                             norm: bool = True) -> Dict[str, torch.Tensor]:
+    """The JAX package's SPAN pytree (numpy leaves, Conv3XC already fused)
+    as the port's fused layout: each fused conv to ``<name>.eval_conv``,
+    ``conv_cat`` and ``upsampler.0`` as they are, a ``no_norm`` entry
+    without the input normalization; ``span_from_state_dict`` loads it."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params_np.items():
+        if name.startswith("block_"):
+            for conv, q in p.items():
+                _put_conv(sd, f"{name}.{conv}.eval_conv", q)
+        elif name in ("conv_1", "conv_2"):
+            _put_conv(sd, f"{name}.eval_conv", p)
+        else:
+            _put_conv(sd, "upsampler.0" if name == "upsampler" else name, p)
+    if not norm:
+        sd["no_norm"] = torch.zeros(1)
+    return sd
+
+
+def realplksr_state_dict_from_jax(params_np: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's RealPLKSR pytree (numpy leaves) as the official
+    state dict: ``conv_first`` to ``feats.0``, block i to ``feats.{i+1}``
+    (``channel_mixer.{0,2}``, ``lk.conv``, ``attn.f.0``, ``refine``,
+    ``norm``), ``conv_last`` to ``feats.{n+2}``, a DySample head to
+    ``to_img.*`` (the scope conv without its zero bias);
+    ``realplksr_from_state_dict`` loads it."""
+    sd: Dict[str, torch.Tensor] = {}
+    blocks = params_np["blocks"]
+    _put_conv(sd, "feats.0", params_np["conv_first"])
+    names = {"mix0": "channel_mixer.0", "mix1": "channel_mixer.2",
+             "lk": "lk.conv", "ea": "attn.f.0", "refine": "refine"}
+    for i, blk in enumerate(blocks):
+        for key, name in names.items():
+            if key in blk:
+                _put_conv(sd, f"feats.{i + 1}.{name}", blk[key])
+        _put_norm(sd, f"feats.{i + 1}.norm", blk["norm"])
+    _put_conv(sd, f"feats.{len(blocks) + 2}", params_np["conv_last"])
+    head = params_np.get("to_img")
+    if head is not None:
+        _put_conv(sd, "to_img.offset", head["offset"])
+        if head.get("scope") is not None:
+            _put_conv(sd, "to_img.scope", head["scope"])
+            del sd["to_img.scope.bias"]
+        _put_conv(sd, "to_img.end_conv", head["end_conv"])
+        sd["to_img.init_pos"] = _t(head["init_pos"]).reshape(1, -1, 1, 1)
     return sd

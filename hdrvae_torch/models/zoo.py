@@ -1,12 +1,13 @@
 """Upscale model loading and the unified forward, as
 ``hdrvae/models/zoo.py``.
 
-The port runs the ESRGAN family (RRDBNet, both public key schemas: ESRGAN
-old-arch and RealESRGAN new-arch), SwinIR, Swin2SR (the official schema
-and the ``transformers`` export) and HAT.  The other families the JAX
-package recognizes (Compact, SPAN, RealPLKSR) are detected by their keys
-and refused with ``NotImplementedError`` naming the family: the port never
-runs another model in their place.
+The port runs every family the JAX package recognizes: the ESRGAN family
+(RRDBNet, both public key schemas: ESRGAN old-arch and RealESRGAN
+new-arch), SwinIR, Swin2SR (the official schema and the ``transformers``
+export), HAT, RealPLKSR (PixelShuffle or DySample head), SPAN (Conv3XC
+fused at load) and Compact (SRVGGNetCompact).  Detection follows the JAX
+package's order; a checkpoint of another family is refused with a
+ValueError that names it where its keys say what it is.
 """
 
 from __future__ import annotations
@@ -19,9 +20,18 @@ from torch import nn
 from hdrvae_torch.core.config import Precision
 from hdrvae_torch.models.hat import (HAT, HATConfig, hat_apply,
                                      hat_from_state_dict, is_hat_state_dict)
+from hdrvae_torch.models.plksr import (RealPLKSR, RealPLKSRConfig,
+                                       is_realplksr_state_dict,
+                                       realplksr_apply,
+                                       realplksr_from_state_dict)
 from hdrvae_torch.models.rrdbnet import (RRDBNet, RRDBNetConfig,
                                          detect_architecture, rrdbnet_apply,
                                          rrdbnet_from_state_dict)
+from hdrvae_torch.models.span import (SPAN, SPANConfig, is_span_state_dict,
+                                      span_apply, span_from_state_dict)
+from hdrvae_torch.models.srvgg import (SRVGG, SRVGGConfig,
+                                       is_srvgg_state_dict, srvgg_apply,
+                                       srvgg_from_state_dict)
 from hdrvae_torch.models.swin2sr import (Swin2SR, Swin2SRConfig,
                                          is_swin2sr_state_dict, swin2sr_apply,
                                          swin2sr_from_state_dict)
@@ -29,10 +39,9 @@ from hdrvae_torch.models.swinir import (SwinIR, SwinIRConfig,
                                         is_swinir_state_dict, swinir_apply,
                                         swinir_from_state_dict)
 
-ModelConfig = Union[RRDBNetConfig, SwinIRConfig, Swin2SRConfig, HATConfig]
-UpscaleModel = Union[RRDBNet, SwinIR, Swin2SR, HAT]
-
-_PORTED = "ESRGAN/RealESRGAN (RRDBNet), SwinIR, Swin2SR and HAT"
+ModelConfig = Union[RRDBNetConfig, SwinIRConfig, Swin2SRConfig, HATConfig,
+                    SRVGGConfig, SPANConfig, RealPLKSRConfig]
+UpscaleModel = Union[RRDBNet, SwinIR, Swin2SR, HAT, SRVGG, SPAN, RealPLKSR]
 
 
 def _load_state_dict(path: str) -> Mapping[str, Any]:
@@ -48,19 +57,36 @@ def _load_state_dict(path: str) -> Mapping[str, Any]:
     return sd
 
 
-def _unported_family(sd: Mapping[str, Any]) -> str | None:
-    """The name of a recognized family the port does not run yet, from its
-    key fingerprint (the JAX package's detectors, in its order; the
-    families the port runs are detected before these)."""
-    if "feats.0.weight" in sd and "feats.1.lk.conv.weight" in sd:
-        return "RealPLKSR"
-    if "block_1.c1_r.sk.weight" in sd and "conv_cat.weight" in sd:
-        return "SPAN"
-    if "body.0.weight" in sd and not any(
-            k.startswith(("conv_first", "model.", "layers.", "conv_body"))
-            for k in sd) and len(tuple(sd["body.0.weight"].shape)) == 4:
-        return "Compact"
-    return None
+# (detector, loader, architecture name) in the JAX package's order: HAT
+# and Swin2SR before SwinIR (both share its residual_group.blocks spine).
+# The name picks the reversal of hdr_upscale; Swin2SR, RealPLKSR, SPAN and
+# Compact are not in the reference's atanh list: the logit reversal.
+_FAMILIES = (
+    (is_hat_state_dict, hat_from_state_dict, "HAT"),
+    (is_swin2sr_state_dict, swin2sr_from_state_dict, "Swin2SR"),
+    (is_swinir_state_dict, swinir_from_state_dict, "SwinIR"),
+    (is_realplksr_state_dict, realplksr_from_state_dict, "RealPLKSR"),
+    (is_span_state_dict, span_from_state_dict, "SPAN"),
+    (is_srvgg_state_dict, srvgg_from_state_dict, "Compact"),
+)
+
+# Key fingerprints of families the JAX package does not implement, so the
+# refusal names what the user has.
+_FOREIGN_FINGERPRINTS = (
+    ("before_RG.1.weight", "looks like DAT"),
+    ("residual_layer.0.residual_layer.0.layer.0.fn.0.weight",
+     "looks like OmniSR"),
+    ("unet1.conv1.conv.0.weight", "looks like RealCUGAN"),
+    ("feats.1.lk.conv.weight", "original PLKSR (only RealPLKSR is "
+                               "implemented)"),
+)
+
+
+def _guess_architecture(sd: Mapping[str, Any]) -> str:
+    for key, name in _FOREIGN_FINGERPRINTS:
+        if key in sd:
+            return name
+    return f"unrecognized; first keys: {', '.join(sorted(sd)[:3])}"
 
 
 def load_upscale_model(path: str, *, device: torch.device | str = "cuda"
@@ -70,33 +96,24 @@ def load_upscale_model(path: str, *, device: torch.device | str = "cuda"
     Returns (model, config, architecture name); the name picks the
     reversal of :func:`hdrvae_torch.upscale.pipeline.hdr_upscale`."""
     sd = _load_state_dict(path)
-    # HAT first, then Swin2SR: both share SwinIR's residual_group.blocks
-    # spine, so the SwinIR detector comes last of the three
-    if is_hat_state_dict(sd):
-        net, cfg = hat_from_state_dict(sd, device=device)
-        return net, cfg, "HAT"
-    if is_swin2sr_state_dict(sd):
-        net, cfg = swin2sr_from_state_dict(sd, device=device)
-        # not in the reference's atanh list: the logit reversal
-        return net, cfg, "Swin2SR"
-    if is_swinir_state_dict(sd):
-        net, cfg = swinir_from_state_dict(sd, device=device)
-        return net, cfg, "SwinIR"
-    family = _unported_family(sd)
-    if family is not None:
-        raise NotImplementedError(
-            f"{family} checkpoint: this family is not yet ported to "
-            "hdrvae_torch (the JAX package hdrvae runs it); the port runs "
-            f"{_PORTED}")
+    for detect, load, arch in _FAMILIES:
+        if detect(sd):
+            try:
+                net, cfg = load(sd, device=device)
+            except KeyError as e:
+                raise ValueError(f"incomplete {arch} checkpoint: missing "
+                                 f"{e}") from None
+            return net, cfg, arch
     if "body.0.rdb1.conv1.weight" in sd or \
             "model.1.sub.0.RDB1.conv1.0.weight" in sd:
         arch = ("ESRGAN" if detect_architecture(sd) == "esrgan-old"
                 else "RealESRGAN")
         net, cfg = rrdbnet_from_state_dict(sd, device=device)
         return net, cfg, arch
-    raise ValueError(f"unsupported upscaler checkpoint schema (first keys: "
-                     f"{', '.join(sorted(sd)[:3])}); the port runs "
-                     f"{_PORTED}")
+    raise ValueError(
+        f"unsupported upscaler checkpoint schema ({_guess_architecture(sd)})"
+        "; supported architectures: ESRGAN/RealESRGAN (RRDBNet), SwinIR, "
+        "Swin2SR, HAT, Compact (SRVGGNetCompact), SPAN, RealPLKSR")
 
 
 def upscaler_apply(model: nn.Module, x: torch.Tensor, *,
@@ -108,6 +125,12 @@ def upscaler_apply(model: nn.Module, x: torch.Tensor, *,
         return swinir_apply(model, x, precision=precision)
     if isinstance(model, Swin2SR):
         return swin2sr_apply(model, x, precision=precision)
+    if isinstance(model, SPAN):
+        return span_apply(model, x, precision=precision)
+    if isinstance(model, RealPLKSR):
+        return realplksr_apply(model, x, precision=precision)
+    if isinstance(model, SRVGG):
+        return srvgg_apply(model, x, precision=precision)
     if isinstance(model, RRDBNet):
         return rrdbnet_apply(model, x, precision=precision)
     raise TypeError(f"unknown upscale model {type(model).__name__}")
@@ -129,5 +152,14 @@ def working_set_bytes_per_pixel(cfg: ModelConfig,
         # qkv (3x dim) + MLP hidden, live beside the token stream
         width = cfg.embed_dim * (3 + cfg.mlp_ratio)
         return float(width * 2 * elsize + out_bytes)
+    if isinstance(cfg, SRVGGConfig):
+        # a plain conv stack: two num_feat activations live at a time
+        return float(cfg.num_feat * 2 * elsize + out_bytes)
+    if isinstance(cfg, SPANConfig):
+        # the conv stack plus the 4x num_feat concat before conv_cat
+        return float(cfg.num_feat * 6 * elsize + out_bytes)
+    if isinstance(cfg, RealPLKSRConfig):
+        # DCCM's 2x dim hidden beside the block's skip
+        return float(cfg.dim * 3 * elsize + out_bytes)
     # RRDBNet: the densest RRDB concat (nf + 4 * gc channels) live twice
     return float((cfg.nf + 4 * cfg.gc) * 2 * elsize + out_bytes)

@@ -1135,7 +1135,8 @@ def test_swin_chain_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("precision", f32_dot.PRECISIONS)
 @pytest.mark.parametrize("m,k,n", [(64, 32, 64), (192, 96, 128),
-                                   (1024, 256, 256)])
+                                   (1024, 256, 256), (320, 96, 192),
+                                   (192, 32, 448), (8192, 256, 256)])
 def test_f32_dot(dev, m, k, n, precision):
     """K12 against its plain version within 1e-5 * max|ref| (float32 sums
     in another order), and within its class of a float64 product: highest
@@ -1153,6 +1154,20 @@ def test_f32_dot(dev, m, k, n, precision):
     bound = {"highest": 1e-5, "high": 1e-4, "default": 2e-2}[precision]
     assert (y.double() - exact).abs().max().item() <= \
         bound * exact.abs().max().item()
+
+
+@pytest.mark.parametrize("precision", f32_dot.PRECISIONS)
+def test_f32_dot_splits_w_once_a_call(dev, precision):
+    """The tensor-core modes split w once a call (two parts for high, one
+    for default), bit-equal to the plain split; highest reads w itself."""
+    x = _rand(dev, (128, 64), 1.0, torch.float32, seed=1)
+    w = _rand(dev, (64, 192), 0.05, torch.float32, seed=2)
+    before = f32_dot.split_w.launches
+    f32_dot.f32_dot(x, w, precision=precision)
+    assert f32_dot.split_w.launches == before + (precision != "highest")
+    lo = precision == "high"
+    parts = f32_dot.split_w(w, lo=lo)
+    assert torch.equal(parts, f32_dot.split_w_reference(w, lo=lo))
 
 
 def test_f32_dot_refuses_what_it_does_not_take(dev):

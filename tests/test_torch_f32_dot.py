@@ -126,14 +126,39 @@ def test_f32_dot_refuses_and_never_falls_back():
     assert tdot.f32_dot.launches == before == 0
 
 
+@pytest.mark.parametrize("lo", [True, False])
+def test_split_w_plain_version(lo):
+    """split_w's plain version: w^T's bf16 hi (and lo) parts, [2 | 1, N,
+    K]; the high mode's three products of x's parts and these are its
+    plain version's."""
+    x, w = _operands(64, 32, 128, seed=3)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    parts = tdot.split_w(wt, lo=lo)
+    assert parts.shape == (2 if lo else 1, 128, 32)
+    assert parts.dtype == torch.bfloat16 and parts.is_contiguous()
+    hi, low = tdot.split_bf16(wt.t())
+    assert torch.equal(parts[0], hi)
+    if lo:
+        assert torch.equal(parts[1], low)
+        xh, xl = tdot.split_bf16(xt)
+        wh, wl = (p.float().t() for p in parts)
+        three = xh.float() @ wh + xh.float() @ wl + xl.float() @ wh
+        assert torch.equal(three, tdot.f32_dot(xt, wt, precision="high"))
+
+
 def test_new_port_modules_never_import_jax():
-    """A fresh interpreter imports K12, the Swin chain and the probe tool
-    and runs both on the CPU without JAX or the JAX package entering
-    sys.modules."""
+    """A fresh interpreter imports K12, the Swin chain, the probe tool and
+    the zoo with its Compact, SPAN and RealPLKSR families, and runs them on
+    the CPU without JAX or the JAX package entering sys.modules."""
     code = (
         "import sys, torch, runpy\n"
         "from hdrvae_torch.kernels import f32_dot, swin_attention\n"
-        "from hdrvae_torch.models import swinir\n"
+        "from hdrvae_torch.models import plksr, span, srvgg, swinir, zoo\n"
+        "x = torch.rand(1, 8, 8, 3)\n"
+        "for m, c in ((srvgg.init_srvgg, srvgg.SRVGGConfig),\n"
+        "             (span.init_span, span.SPANConfig),\n"
+        "             (plksr.init_realplksr, plksr.RealPLKSRConfig)):\n"
+        "    zoo.upscaler_apply(m(c().with_small(), device='cpu'), x)\n"
         "runpy.run_path('tools/f32_dot_probe_torch.py')\n"
         "f32_dot.f32_dot(torch.ones(64, 32), torch.ones(32, 64),\n"
         "                precision='high')\n"

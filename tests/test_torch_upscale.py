@@ -326,17 +326,15 @@ def test_load_upscale_model_pth_round_trip(tmp_path, wrap):
     ("Compact", ["body.0.weight", "body.1.weight"]),
 ])
 def test_unported_families_raise(tmp_path, family, keys):
-    """Families the JAX package runs and the port does not yet are named
-    and refused, never run as another model.  HAT, Swin2SR and SwinIR are
-    ported: their fingerprint alone is detected as that family and refused
-    as an incomplete checkpoint of it (tests/test_torch_swin.py and
-    tests/test_torch_swin2sr.py load whole ones)."""
+    """Every family the JAX package runs is ported: a family's fingerprint
+    alone is detected as that family and refused as an incomplete
+    checkpoint of it, never run as another model (tests/test_torch_swin.py,
+    tests/test_torch_swin2sr.py and tests/test_torch_upscale_families.py
+    load whole ones)."""
     sd = {k: torch.zeros(4, 3, 3, 3) for k in keys}
     path = tmp_path / "m.pth"
     torch.save(sd, path)
-    error = (ValueError if family in ("HAT", "Swin2SR", "SwinIR")
-             else NotImplementedError)
-    with pytest.raises(error, match=family):
+    with pytest.raises(ValueError, match=family):
         tzoo.load_upscale_model(str(path), device="cpu")
 
 

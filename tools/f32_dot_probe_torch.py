@@ -11,7 +11,9 @@ the CUDA cores (highest), the bf16x3 split that the mixed tier's 3-pass
 contractions compute (high), and one bf16 pass (default).  For each mode:
 the kernel's and its plain version's device ms, the kernel's max-abs
 against the plain version and, with the relative error, against a float64
-product of the same operands.  Beside them the library rows, which the
+product of the same operands.  For high and default also the two launches
+of a call apart: w's split alone (``split_ms``) and the tensor-core kernel
+alone on parts split beforehand (``main_ms``).  Beside them the library rows, which the
 port never calls: ``torch.matmul`` in float32 with TF32 off and on, and in
 bf16.  Prints one JSON object; writes nothing.
 
@@ -36,8 +38,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
+from hdrvae_torch.kernels import _build  # noqa: E402
 from hdrvae_torch.kernels.f32_dot import (PRECISIONS, f32_dot,  # noqa: E402
-                                          f32_dot_reference)
+                                          f32_dot_reference, split_w)
 
 M, K, N = 8192, 256, 256
 COPIES = 4                 # operand copies the timed launches rotate over
@@ -71,6 +74,16 @@ def device_ms(fn, iters: int = 100, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _main(x: torch.Tensor, parts: torch.Tensor, y: torch.Tensor,
+          mode: str) -> None:
+    """The tensor-core kernel alone on parts ``split_w`` wrote."""
+    (m, k), n = x.shape, y.shape[1]
+    _build.check(_build.library().hdrvae_f32_dot(
+        x.data_ptr(), parts.data_ptr(), y.data_ptr(), m, n, k,
+        PRECISIONS.index(mode), torch.cuda.current_stream().cuda_stream),
+        "hdrvae_f32_dot")
+
+
 def _err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return (got.double() - ref.double()).abs().max().item()
 
@@ -99,6 +112,15 @@ def measure(m: int = M, k: int = K, n: int = N, *, seed: int = 0,
             "max_abs_vs_plain": _err(y, ref),
             "plain_max_abs": ref.abs().max().item(),
             "max_abs_vs_exact": e, "rel_vs_exact": e / scale}
+        if mode != "highest":
+            lo = mode == "high"
+            parts = [split_w(t, lo=lo) for t in ws]
+            ys = [torch.empty_like(y) for _ in range(COPIES)]
+            modes[mode]["split_ms"] = device_ms(
+                lambda i: split_w(ws[i % COPIES], lo=lo), iters)
+            modes[mode]["main_ms"] = device_ms(lambda i: _main(
+                xs[i % COPIES], parts[i % COPIES], ys[i % COPIES], mode),
+                iters)
     library = {}
     for name, tf32, dtype in (("matmul_f32", False, torch.float32),
                               ("matmul_tf32", True, torch.float32),

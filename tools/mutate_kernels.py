@@ -233,6 +233,33 @@ names (an older tree's earlier mma.sync kernels: as-is only):
 - no-gelu (K11): fc1 + b1 passed on without the GELU;
 - one-warpgroup (K11): one warpgroup a block instead of two.
 
+    python3 tools/mutate_kernels.py --time-k12 [--tree DIR] [as-is|...]
+
+times K12 (``f32_dot.cu``, built alone) through the probe's measurement
+(``tools/f32_dot_probe_torch.py`` at 8192 x 256 x 256: CUDA events over
+100 launches queued behind a sleeping kernel, operands rotating over four
+copies): each mode's call, and for high and default the split alone and
+the tensor-core kernel alone, in the tree at DIR (default: this one):
+
+- as-is: the kernels as they are;
+- no-x-loads, no-w-loads, no-loads: the tensor-core kernel copies no x
+  chunks, no w part tiles, or neither (their barriers still complete; the
+  slots keep stale bytes);
+- no-split: the tensor-core kernel's threads do not split x (its atoms
+  keep stale bytes; the waits remain);
+- no-products: no wgmma issued (the groups are still committed and
+  waited for);
+- no-stores: y is staged in shared memory but not stored;
+- no-pdl: the tensor-core kernel launched as a plain launch after the
+  split, not beside it;
+- ffma-tn16: highest with 8 x 16 outputs a thread (128 threads): 96
+  shared wavefronts a k an SM against 128 FFMA cycles, not 128;
+- ffma-bk16: highest on 16-deep slices through four stages;
+- ffma-eighth: highest with an eighth of its FFMAs (every shared load
+  still feeds one): what the loads, barriers and copies cost;
+- ffma-no-loads: highest with no cp.async copies (its FFMAs on stale
+  slices).
+
 It prints the card's name and power limit first.
 """
 
@@ -1594,6 +1621,82 @@ for _ in range(2):
         print(f"  {k} over K7_SHAPES: {t:.3f} ms", flush=True)
 """
 
+# --time-k12: variant -> alternatives, as for --time-k4
+FD = "f32_dot.cu"
+K12_VARIANTS = {
+    "as-is": [[]],
+    "no-x-loads": [[
+        (FD, "    hopper::mbar_expect_tx(bar, XB);\n"
+             "    hopper::tma_load_2d(base + L::X + (c % NCH) * XB, &xmap, bar, c * BK, m0);",
+         "    hopper::mbar_arrive(bar);")]],
+    "no-w-loads": [[
+        (FD, "    hopper::mbar_expect_tx(bar, L::NP * wrows * BK * 2);\n#pragma unroll\n"
+             "    for (int p = 0; p < L::NP; ++p)",
+         "    hopper::mbar_arrive(bar);\n#pragma unroll\n    for (int p = 0; p < 0; ++p)")]],
+    "no-loads": [[
+        (FD, "    hopper::mbar_expect_tx(bar, XB);\n"
+             "    hopper::tma_load_2d(base + L::X + (c % NCH) * XB, &xmap, bar, c * BK, m0);",
+         "    hopper::mbar_arrive(bar);"),
+        (FD, "    hopper::mbar_expect_tx(bar, L::NP * wrows * BK * 2);\n#pragma unroll\n"
+             "    for (int p = 0; p < L::NP; ++p)",
+         "    hopper::mbar_arrive(bar);\n#pragma unroll\n    for (int p = 0; p < 0; ++p)")]],
+    "no-split": [[
+        (FD, "    for (int q = 0; q < 4; ++q) {\n      const int e = tid + NT * q;",
+         "    for (int q = 0; q < 0; ++q) {\n      const int e = tid + NT * q;")]],
+    "no-products": [[
+        (FD, "    for (int ks = 0; ks < BK / 16; ++ks) {",
+         "    for (int ks = 0; ks < 0; ++ks) {")]],
+    "no-stores": [[
+        (FD, "    for (int bx = 0; bx < BN / 32 && n0 + 32 * bx < N; ++bx)",
+         "    for (int bx = 0; bx < 0; ++bx)")]],
+    # the tensor-core kernel launched after the split as a plain launch
+    "no-pdl": [[
+        (FD, "  pdl[0].val.programmaticStreamSerializationAllowed = 1;",
+         "  pdl[0].val.programmaticStreamSerializationAllowed = 0;")]],
+    # highest: 16 outputs a thread along N (128 threads, one warp an SM
+    # sub-partition), fewer shared loads an FFMA
+    "ffma-tn16": [[
+        (FD, "constexpr int TN = 8;        // outputs a thread along N (8 along M)",
+         "constexpr int TN = 16;        // outputs a thread along N (8 along M)")]],
+    # highest: 16-deep slices through four stages
+    "ffma-bk16": [[
+        (FD, "constexpr int BK = 32;              // k slice",
+         "constexpr int BK = 16;              // k slice"),
+        (FD, "constexpr int NS = 3;        // ring stages",
+         "constexpr int NS = 4;        // ring stages")]],
+    # highest: an eighth of the FFMAs (every shared load still feeds one)
+    "ffma-eighth": [[
+        (FD, "        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);",
+         "        acc[i][i] = fmaf(av, bv[i], acc[i][i]);")]],
+    # highest: no cp.async copies (the FFMAs run on stale slices)
+    "ffma-no-loads": [[
+        (FD, "    if (s < nk) load(smem, x, w, M, N, K, m0, n0, s);",
+         "    if (s < 0) load(smem, x, w, M, N, K, m0, n0, s);"),
+        (FD, "    if (kt + NS - 1 < nk) load(smem, x, w, M, N, K, m0, n0, kt + NS - 1);",
+         "    if (kt < 0) load(smem, x, w, M, N, K, m0, n0, kt + NS - 1);")]],
+}
+
+# K12 through the probe's measurement, built from f32_dot.cu alone
+K12_TIME = r"""
+import importlib.util
+import json
+import sys
+sys.path.insert(0, ".")
+""" + ONE_SOURCE.format(sources=("f32_dot.cu",)) + r"""
+spec = importlib.util.spec_from_file_location("probe", PROBE)
+probe = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(probe)
+rows = probe.measure()
+for mode, r in rows["modes"].items():
+    parts = [f"{k} {r[k] * 1e3:.2f} us" for k in ("ms", "split_ms", "main_ms")
+             if k in r]
+    print(f"  K12 {mode}: " + ", ".join(parts)
+          + f"; vs float64 {r['rel_vs_exact']:.3e}", flush=True)
+for name, r in rows["library"].items():
+    print(f"  {name}: {r['ms'] * 1e3:.2f} us", flush=True)
+""".replace("PROBE", repr(os.path.join(REPO, "tools",
+                                      "f32_dot_probe_torch.py")))
+
 # the timing modes: flag -> (CUDA source, variants, timing script)
 TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k3": ("attention.cu", K3_VARIANTS, K3_TIME),
@@ -1605,7 +1708,8 @@ TIMINGS = {"--time-k6": ("dense_conv.cu", K6_VARIANTS, K6_TIME),
            "--time-k4": (None, K4_VARIANTS, K4_TIME),
            "--time-k9": (None, K9_VARIANTS, K9_TIME),
            "--time-k10": (None, K10_VARIANTS, CHAIN_TIME),
-           "--time-k11": (None, K11_VARIANTS, CHAIN_TIME)}
+           "--time-k11": (None, K11_VARIANTS, CHAIN_TIME),
+           "--time-k12": (None, K12_VARIANTS, K12_TIME)}
 
 
 @contextlib.contextmanager
