@@ -124,6 +124,22 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    layers (K3 3-pass); every rank's image the same, held to the
    large-frame phase's whole-image decode of its tier, each rank's device
    ms and peak printed (two ranks on one card: no multi-GPU speedup);
+7b. tile grid across ranks (its own limit, TILED_BUDGET_S): the
+   2048^2 latent through ``sharded_tiled_decode`` (tile 64, overlap 8, the
+   fused epilogue), fast ``per_tile`` (the K1 / K2 / K3 bf16 chain and K4
+   per tile) and ``global`` (a GroupNorm tape collected on rank 0 and
+   broadcast; the layers with K3 bf16, and K4) on two gloo ranks sharing
+   the card and on one NCCL rank, mixed ``global`` on the two ranks; every
+   rank's image the same, one rank against two, each against the
+   large-frame phase's whole-image decode of its tier (the seam error's
+   mean and p99.9 inside TILED_SEAM's bands; global below per_tile), each
+   rank's device ms beside the whole-image decode's and a profiled fast
+   request's top-5 kernels per rank; the fast x4 ESRGAN and SwinIR-M
+   ``sharded_hdr_upscale`` of the 1024^2 image on the two ranks bit-equal
+   to ``hdr_upscale`` in this process (K6, K7); ``cli decode --tiled
+   --mesh 2 --size 2048`` and ``cli upscale --sharded`` (one rank a card,
+   its file bit-equal to ``hdr_upscale``'s float16) in phase 4c's style,
+   with the ranks' launches from the CLI's log;
 8. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
 9. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
    seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
@@ -168,7 +184,9 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
    fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR upscale,
    K8 in the fast HAT upscale, K9-K11 in the Swin chain phase, K12 and
-   its split in the probe; every kernel of the table ran.
+   its split in the probe; every kernel of the table ran (phase 7b checks
+   its ranks' counts itself: K1 / K2 / K3 bf16 / K4 in the fast per_tile
+   tiled decodes, K6 and K7 in the sharded upscales).
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -181,6 +199,7 @@ from __future__ import annotations
 import functools
 import importlib.util
 import json
+import logging
 import os
 import re
 import subprocess
@@ -310,6 +329,21 @@ OWNED_PARTITION = 1e-5
 SLAB_RANKS = 2
 SLAB_FAST = 5e-2
 SLAB_MIXED = (1e-4, 1e-3)
+# the tiled phase: its own time limit (1.5x its 122.3 s on the card's
+# first run, one H100 80GB HBM3 at 700 W), ranks sharing the card (and one
+# NCCL rank), the tile grid in latent pixels (512-pixel tiles, a 64-pixel
+# halo)
+TILED_BUDGET_S = 180.0
+TILED_RANKS = 2
+TILED_TILE, TILED_OVERLAP = 64, 8
+# the tiled decode's seam error against the whole-image decode of its tier
+# (rgb, 2048^2, seed-made weights and latent): (mean, p99.9) as both card
+# runs read them (H100 80GB HBM3, 700 W), each held inside [1/2, 2] x of
+# its reading: a wrong stitch or tape replay moves it out
+TILED_SEAM = {"fast per_tile": (6.5776e-3, 3.5156e-2),
+              "fast global": (2.6611e-3, 1.5625e-2),
+              "mixed global": (9.0786e-4, 1.4038e-2)}
+TILED_SEAM_BAND = 2.0
 ATTN_BUDGET = {"parity": 1e-5, "mixed": 1e-4}
 # K3's key_valid mode at K3's N = 16,384 (a 128 x 128 grid): the live
 # region of the bucketed phase's latent, 121 x 100 of its 128 x 128 bucket;
@@ -3146,6 +3180,301 @@ def phase_slab(dec, refs):
     return fast, records
 
 
+def _close(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """|got - ref|'s max, mean and p99.9, and max|ref|, on the host."""
+    d = (got.float().cpu() - ref.float().cpu()).abs()
+    return {"max": d.max().item(), "mean": d.mean().item(), "p999": p999(d),
+            "ref_max": ref.float().abs().max().item()}
+
+
+def _short(kernel: str) -> str:
+    """A profiler kernel name without its return type, anonymous
+    namespace and arguments."""
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", kernel)
+    return name.split("(")[0][:80]
+
+
+class _RankRecords(logging.Handler):
+    """The rank records that the CLI logs (``rank_record``), in order."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        if hasattr(record, "rank_record"):
+            self.records.append(record.rank_record)
+
+    def take(self) -> list:
+        out, self.records = self.records, []
+        return out
+
+
+def _rank_counts(recs) -> dict:
+    """The launch counts of ranks' records, summed; nonzero ones."""
+    counts = {}
+    for r in recs:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_tiled(dec, image: torch.Tensor, refs, lf_records, card) -> dict:
+    """The tile grid across ranks (its own limit, TILED_BUDGET_S): the
+    full-width decoder's ``sharded_tiled_decode`` of the large-frame
+    phase's 2048^2 latent (tile 64, overlap 8, conservative, the fused
+    epilogue), fast ``per_tile`` (K1 / K2 / K3 bf16 chain, K4) and
+    ``global`` (the GroupNorm tape, the layers, K3 bf16, K4) on 2 gloo
+    ranks sharing the card and on 1 NCCL rank, and mixed ``global`` on the
+    2 ranks; each held to the whole-image decode of its tier (``refs``:
+    its seam error's mean and p99.9 inside ``TILED_SEAM``'s bands) with
+    the ranks agreeing; one fast per_tile request profiled on each rank.
+    The fast x4 ESRGAN and SwinIR-M ``sharded_hdr_upscale`` of the 1024^2
+    image on the 2 ranks, bit-equal to ``hdr_upscale`` in this process.
+    Then ``cli decode --tiled --mesh 2`` and ``cli upscale --sharded`` (one
+    rank a card), the ranks' records read from the CLI's log.  Returns the
+    phase's record."""
+    from hdrvae_torch.core.config import (HDRDecodeConfig, Precision,
+                                          UpscaleConfig)
+    from hdrvae_torch.io import exr
+    from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet
+    from hdrvae_torch.models.swinir import SwinIRConfig, init_swinir
+    from hdrvae_torch.models.zoo import upscaler_state_dict
+    from hdrvae_torch.sharding import multihost
+
+    t_phase = time.perf_counter()
+    record = {"card": card}
+    cons = HDRDecodeConfig(hdr_mode="conservative", use_fused_epilogue=True)
+    fast, mixed = Precision.fast(), Precision.mixed()
+    z = _latent(256).cpu()
+    grid = dict(latent_tile=TILED_TILE, latent_overlap=TILED_OVERLAP)
+
+    def tiled(name, prec, ns, **kw):
+        return multihost.TiledCase(name, "flux", z, cons, prec,
+                                   norm_stats=ns, **grid, **kw)
+
+    decodes = [tiled("fast per_tile", fast, "per_tile", requests=2),
+               tiled("fast global", fast, "global", requests=2),
+               tiled("mixed global", mixed, "global", requests=2),
+               tiled("fast per_tile profiled", fast, "per_tile",
+                     profile=True)]
+    nets = {"ESRGAN": init_rrdbnet(RRDBNetConfig(), seed=2, device="cuda"),
+            "SwinIR": init_swinir(SwinIRConfig(), seed=3, device="cuda")}
+    upscales = [multihost.UpscaleCase(name, name, image.cpu(),
+                                      UpscaleConfig(), fast, requests=2)
+                for name in nets]
+    sd = {k: v.cpu() for k, v in dec.state_dict().items()}
+    ups = {name: (name, upscaler_state_dict(net))
+           for name, net in nets.items()}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = multihost.RankGroup(TILED_RANKS, {"flux": (dec.cfg, sd)},
+                              decodes + upscales, upscalers=ups,
+                              device="cuda").wait(timeout=600)
+    t_two = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = multihost.RankGroup(1, {"flux": (dec.cfg, sd)}, decodes[:2],
+                              device="cuda").wait(timeout=300)
+    t_one = time.perf_counter() - t0
+    log(f"tiled: {TILED_RANKS} ranks ({two[0][0]['backend']}) in "
+        f"{t_two:.1f} s, 1 rank ({one[0][0]['backend']}) in {t_one:.1f} s")
+    check(two[0][0]["backend"] == "gloo" and one[0][0]["backend"] == "nccl",
+          f"backends {two[0][0]['backend']} / {one[0][0]['backend']}, want "
+          "gloo / nccl")
+    whole_ms = {t: lf_records[f"{t} 2048^2 whole-image"]["device_ms"]
+                for t in ("fast", "mixed")}
+    record["decode"] = {}
+    seam = {}
+    for group, ranks in ((f"{TILED_RANKS} ranks", two), ("1 rank", one)):
+        for i, case in enumerate(decodes if ranks is two else decodes[:2]):
+            recs = [r[i] for r in ranks]
+            got = recs[0]
+            check(len({r["digest"] for r in recs}) == 1,
+                  f"tiled {case.name} on {group}: ranks disagree")
+            check(tuple(got["image"].shape) == (1, 2048, 2048, 3)
+                  and torch.isfinite(got["image"]).all().item(),
+                  f"tiled {case.name} on {group}: image "
+                  f"{tuple(got['image'].shape)}, non-finite or wrong shape")
+            tier = case.name.split()[0]
+            std, img, _ = refs[tier]
+            e_rgb = _close(got["standard"], std)
+            e_img = _close(got["image"], img)
+            counts = _rank_counts(recs)
+            rec = {"device_ms": [r["device_ms"] for r in recs],
+                   "wall_ms": [r["wall_ms"] for r in recs],
+                   "peak_gib": [r["peak_bytes"] / 2 ** 30 for r in recs],
+                   "whole_image_device_ms": whole_ms[tier],
+                   "rgb_vs_whole": e_rgb, "conservative_vs_whole": e_img,
+                   "launches": counts}
+            if case.profile:
+                rec["top5"] = [[(_short(n), c, ms) for n, c, ms in r["top"]]
+                               for r in recs]
+                rec["kernel_ms"] = [r["kernel_ms"] for r in recs]
+            record["decode"][f"{case.name}, {group}"] = rec
+            seam[(case.name, group)] = e_rgb["max"] / max(
+                1.0, e_rgb["ref_max"])
+            for stat, want in zip(("mean", "p999"), TILED_SEAM[
+                    case.name.replace(" profiled", "")]):
+                check(want / TILED_SEAM_BAND <= e_rgb[stat]
+                      <= want * TILED_SEAM_BAND,
+                      f"tiled {case.name} on {group}: seam {stat} "
+                      f"{e_rgb[stat]} outside [{want / TILED_SEAM_BAND}, "
+                      f"{want * TILED_SEAM_BAND}]")
+            log(f"tiled[{case.name}, {group}] vs whole-image: rgb max-abs "
+                f"{e_rgb['max']:.4e} (mean {e_rgb['mean']:.4e}, p99.9 "
+                f"{e_rgb['p999']:.4e}), conservative max-abs "
+                f"{e_img['max']:.4e}; device ms by rank "
+                f"{[round(r['device_ms'], 3) for r in recs]} (whole-image "
+                f"{whole_ms[tier]:.3f}), peak GiB "
+                f"{[round(r['peak_bytes'] / 2 ** 30, 3) for r in recs]}; "
+                f"launches summed {counts}")
+            if case.profile:
+                for r, top in zip(recs, rec["top5"]):
+                    log(f"tiled[{case.name}] rank {r['rank']} kernels "
+                        f"{r['kernel_ms']:.3f} device ms in all; top-5 "
+                        "(launches): " + ", ".join(
+                            f"{n} {ms:.3f} ({c})" for n, c, ms in top))
+            if tier == "fast" and "per_tile" in case.name:
+                for k in ("fused_conv3x3.launches",
+                          "upsample_conv3x3.launches",
+                          "flash_attention_bf16.launches",
+                          "collapse_and_stats_fused.launches"):
+                    check(counts.get(k, 0) > 0,
+                          f"tiled {case.name} on {group} never ran {k}")
+            if case.name == "fast global":
+                check(counts.get("flash_attention_bf16.launches", 0) > 0
+                      and counts.get("collapse_and_stats_fused.launches",
+                                     0) > 0
+                      and "fused_conv3x3.launches" not in counts,
+                      f"tiled fast global on {group}: {counts}, want K3 "
+                      "bf16 and K4 on the layers, no K1")
+            if case.name == "mixed global":
+                check(counts.get("flash_attention_3pass.launches", 0) > 0,
+                      f"tiled mixed global never ran K3 3-pass: {counts}")
+    for name in ("fast per_tile", "fast global"):
+        a = two[0][[c.name for c in decodes].index(name)]["image"]
+        b = one[0][[c.name for c in decodes].index(name)]["image"]
+        e = _close(a, b)
+        record["decode"][f"{name}, 2 ranks vs 1"] = e
+        bar = CONV_BUDGET * max(1.0, e["ref_max"])
+        check(e["max"] <= bar, f"tiled {name}: 2 ranks vs 1 max-abs "
+              f"{e['max']} > {bar}")
+        log(f"tiled[{name}] {TILED_RANKS} ranks vs 1: max-abs "
+            f"{e['max']:.4e}")
+    g, t = (seam[(n, f"{TILED_RANKS} ranks")]
+            for n in ("fast global", "fast per_tile"))
+    check(g < t, f"tiled fast: global seam {g} not below per_tile's {t}")
+
+    # the sharded upscales against hdr_upscale in this process
+    record["upscale"] = {}
+    for j, case in enumerate(upscales):
+        recs = [r[len(decodes) + j] for r in two]
+        check(len({r["digest"] for r in recs}) == 1,
+              f"sharded {case.name} upscale: ranks disagree")
+        for _ in range(2):
+            ref, dev_ms, wall_ms, peak = _upscale_request(
+                nets[case.name], image, UpscaleConfig(), fast,
+                architecture=case.name)
+        e = _close(recs[0]["image"], ref.image)
+        counts = _rank_counts(recs)
+        kernel = {"ESRGAN": "dense_conv3x3.launches",
+                  "SwinIR": "swin_block_fused.launches"}[case.name]
+        check(counts.get(kernel, 0) > 0,
+              f"sharded {case.name} upscale never ran {kernel}")
+        # the same tiles through the same kernels: bit-equal
+        check(e["max"] == 0 and recs[0]["digest"] == multihost.digest(
+                  ref.image),
+              f"sharded {case.name} vs single-rank: max-abs {e['max']}, "
+              "not bit-equal")
+        record["upscale"][case.name] = {
+            "device_ms": [r["device_ms"] for r in recs],
+            "single_rank_device_ms": dev_ms, "vs_single_rank": e,
+            "bit_equal": True,
+            "peak_gib": [r["peak_bytes"] / 2 ** 30 for r in recs],
+            "launches": counts}
+        log(f"sharded upscale[{case.name} x4 fast, {TILED_RANKS} ranks] "
+            f"device ms by rank {[round(r['device_ms'], 3) for r in recs]}"
+            f" (single rank {dev_ms:.3f}); vs single rank max-abs "
+            f"{e['max']:.4e}, mean {e['mean']:.4e}, p99.9 {e['p999']:.4e}; "
+            f"launches summed {counts}")
+        del ref
+    del nets
+    torch.cuda.empty_cache()
+
+    # the CLI: decode --tiled --mesh 2, upscale --sharded (one rank a card);
+    # each rank's record comes from the CLI's log
+    rank_log = _RankRecords()
+    cli_log = logging.getLogger("hdrvae_torch.cli")
+    cli_level = cli_log.level
+    cli_log.setLevel(logging.INFO)
+    cli_log.addHandler(rank_log)
+    env = os.environ.get("HDRVAE_OUTPUT_DIR")
+    with tempfile.TemporaryDirectory() as out_dir:
+        os.environ["HDRVAE_OUTPUT_DIR"] = out_dir
+        try:
+            outs, wall = _cli(["decode", "--tiled", "--mesh", "2", "--size",
+                               "2048", "--bit-depth", "16bit",
+                               "--compression", "piz", "--prefix", "tiled"])
+            recs = rank_log.take()
+            counts = _rank_counts(recs)
+            check(len(outs) == 2 and "used_fallback" in outs[0]
+                  and len(recs) == 2
+                  and counts.get("fused_conv3x3.owned_launches", 0) > 0,
+                  f"cli decode --tiled: lines {outs}, launches {counts}")
+            back = exr.read_exr(outs[1]["filepath"])
+            check(back.shape == (2048, 2048, 3) and np.isfinite(back).all(),
+                  f"cli decode --tiled: file {back.shape}")
+            record["cli_decode_tiled"] = {"wall_s": wall,
+                                          "launches": counts}
+            log(f"cli decode --tiled --mesh 2 --size 2048: {wall:.2f} s, "
+                f"{outs[1]['filepath']} reads back {back.shape}; launches "
+                f"summed over the ranks {counts}")
+            ckpt = os.path.join(out_dir, "esrgan.pth")
+            net = init_rrdbnet(RRDBNetConfig(), seed=2, device="cuda")
+            torch.save(net.state_dict(), ckpt)
+            npy = os.path.join(out_dir, "image.npy")
+            np.save(npy, image[0].cpu().numpy())
+            outs, wall = _cli(["upscale", "--sharded", "--image", npy,
+                               "--model", ckpt, "--precision", "fast",
+                               "--bit-depth", "16bit", "--compression",
+                               "piz", "--prefix", "sharded"])
+            recs = rank_log.take()
+            counts = _rank_counts(recs)
+            check(len(outs) == 2 and outs[0]["sharded"] is True
+                  and outs[0]["out_shape"] == [1, 4096, 4096, 3]
+                  and len(recs) == torch.cuda.device_count()
+                  and counts.get("dense_conv3x3.launches", 0) > 0,
+                  f"cli upscale --sharded: lines {outs}, launches {counts}")
+            ref = _upscale_request(net, image, UpscaleConfig(), fast)[0]
+            back = torch.from_numpy(exr.read_exr(outs[1]["filepath"]))
+            e = _close(back, ref.image[0].half())
+            # the file holds hdr_upscale's image in float16, bit for bit
+            check(e["max"] == 0,
+                  f"cli upscale --sharded vs hdr_upscale: {e}")
+            record["cli_upscale_sharded"] = {"wall_s": wall,
+                                             "vs_single_rank": e,
+                                             "launches": counts}
+            log(f"cli upscale --sharded ({len(recs)} rank, "
+                f"{recs[0]['backend']}): {wall:.2f} s; the "
+                f"file vs hdr_upscale's float16 max-abs {e['max']:.4e}, "
+                f"mean {e['mean']:.4e}; launches {counts}")
+            del net, ref, back
+        finally:
+            cli_log.removeHandler(rank_log)
+            cli_log.setLevel(cli_level)
+            if env is None:
+                os.environ.pop("HDRVAE_OUTPUT_DIR", None)
+            else:
+                os.environ["HDRVAE_OUTPUT_DIR"] = env
+    torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    check(record["phase_s"] <= TILED_BUDGET_S,
+          f"tiled phase {record['phase_s']:.1f} s > {TILED_BUDGET_S} s")
+    log(f"tiled phase {record['phase_s']:.1f} s (<= {TILED_BUDGET_S} s); "
+        f"{card}")
+    return record
+
+
 def phase_exr(image: torch.Tensor) -> None:
     from hdrvae_torch.io.exr import read_exr, write_exr
     img = image[0].cpu().numpy()
@@ -3617,8 +3946,9 @@ def main() -> int:
     log(f"large-frame phase {time.perf_counter() - t_lf:.1f} s")
     t_sl = time.perf_counter()
     slab_counts, slab_records = phase_slab(dec, slab_refs)
-    del dec, slab_refs
     log(f"slab phase {time.perf_counter() - t_sl:.1f} s")
+    tiled_record = phase_tiled(dec, image, slab_refs, lf_records, card)
+    del dec, slab_refs
     phase_exr(image)
     t_up = time.perf_counter()
     up_counts, up_times = phase_upscale(image)
@@ -3707,6 +4037,7 @@ def main() -> int:
                       "bucketed_decode": bucket_records,
                       "large_frames": lf_records,
                       "slab_sharded": slab_records,
+                      "tiled": tiled_record,
                       "swin_chain_vs_k7": chain_ab,
                       "swin_chain": chain_record,
                       "f32_dot_probe": probe_rows}))

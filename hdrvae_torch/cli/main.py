@@ -2,32 +2,51 @@
 
 Subcommands:
   decode   latent (.npy / .safetensors, or a random one) -> HDR decode ->
-           EXR / HDR file (a single-frame EXR streamed off the card)
-  upscale  EXR / HDR / .npy image -> HDR upscale -> EXR / HDR file
+           EXR / HDR file (a single-frame EXR streamed off the card);
+           ``--tiled`` the exact slab-sharded decode across ``--mesh``
+           ranks
+  upscale  EXR / HDR / .npy image -> HDR upscale -> EXR / HDR file;
+           ``--sharded`` its tiles dealt across ranks
   export   re-export an image file through the export pipeline
+  convert  torch VAE / upscaler checkpoint -> safetensors of the port's
+           modules (host only)
+  inspect  print a checkpoint's or the built-in decoder's structure (host
+           only)
   run      execute a workflow JSON graph (``api/graph.py``)
   serve    HTTP decode service (POST .npy latents to /v1/decode, get
            EXR / HDR / npy back), over one ServeEngine on one card
 
 Every subcommand takes the JAX CLI's flags, defaults and choices, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
-versions), and prints the same JSON lines.  The JAX CLI's ``decode
---tiled / --mesh`` and ``upscale --sharded`` (the mesh paths) are not
-here, nor ``convert``, ``inspect`` and ``bench``.
+versions), and prints the same JSON lines.  ``--tiled`` and ``--sharded``
+start their ranks from this one command (``sharding/multihost.py``):
+one a visible card, as JAX's mesh takes every device (one on the CPU),
+or ``decode --mesh`` of them, ranks beyond the card count sharing a card
+on gloo, and with ``--device cpu`` gloo ranks on the CPU.  Rank 0 alone
+writes the files and prints the JSON lines; a failed rank fails the
+command; each rank's record is logged at INFO.  Not here: JAX's
+``bench`` (it starts the JAX package's harness) and ``serve
+--sharded``.
 
     python -m hdrvae_torch.cli.main decode --size 1024 --bit-depth 16bit
+    python -m hdrvae_torch.cli.main decode --tiled --mesh 2 --size 2048
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
+import os
 import sys
 
 import numpy as np
 
 logger = logging.getLogger("hdrvae_torch.cli")
+
+# the longest a command's ranks may run before the group is stopped
+RANK_TIMEOUT_S = 3600.0
 
 
 def _load_latent(path: str) -> np.ndarray:
@@ -107,12 +126,15 @@ def _print_export(res) -> str:
     return res.last
 
 
-def _export(image, args) -> str:
+def _output_dir() -> str:
     from hdrvae_torch.api import folders
+    return folders.get_output_directory()
+
+
+def _export(image, args) -> str:
     from hdrvae_torch.io.export import export_linear
     return _print_export(export_linear(
-        image, _export_cfg(args),
-        default_output_dir=folders.get_output_directory()))
+        image, _export_cfg(args), default_output_dir=_output_dir()))
 
 
 def _vae(args, precision=None):
@@ -139,86 +161,278 @@ def _latent(args, cfg, batch: int) -> np.ndarray:
     return latent[None] if latent.ndim == 3 else latent
 
 
-def cmd_decode(args) -> int:
-    import torch
-
-    from hdrvae_torch.api import folders
+def _hdr_cfg(args):
     from hdrvae_torch.core.config import HDRDecodeConfig
-    from hdrvae_torch.decode.pipeline import decode_summary, hdr_decode
+    return HDRDecodeConfig(hdr_mode=args.mode,
+                           conservative_ev_multiplier=args.ev_multiplier)
 
-    precision = _parse_precision(args)
-    vae = _vae(args, precision)
-    latent = _latent(args, vae.config, args.batch)
-    hdr_cfg = HDRDecodeConfig(
-        hdr_mode=args.mode,
-        conservative_ev_multiplier=args.ev_multiplier)
-    if args.pipelined:
-        # a frame sequence: frame N+1 decodes on the card while frame N
-        # is fetched and frame N-1 encodes and writes (io/pipeline.py)
-        from hdrvae_torch.io.pipeline import export_stream
 
-        def make_frame(i):
-            def f():
-                one = torch.from_numpy(latent[i:i + 1]).to(vae.device)
-                return hdr_decode(vae.decoder, one, hdr_cfg,
-                                  precision).image[0]
-            return f
-
-        res = export_stream(
-            [make_frame(i) for i in range(latent.shape[0])],
-            _export_cfg(args, frame_sequence=latent.shape[0] > 1),
-            default_output_dir=folders.get_output_directory())
-        if res.error:
-            raise SystemExit(res.error)
-        print(json.dumps({"frames": len(res.filepaths),
-                          "last": res.last, **res.verify_stats}))
-        return 0
-    result = hdr_decode(vae.decoder,
-                        torch.from_numpy(latent).to(vae.device), hdr_cfg,
-                        precision)
+def _finish_decode(result, args) -> None:
+    """Print a decode's summary and export its image: a single-frame EXR
+    streamed off the card in scanline bands while earlier bands encode
+    (the same file as the serial export), anything else serially."""
+    from hdrvae_torch.decode.pipeline import decode_summary
     print(json.dumps(decode_summary(result)))
     if result.image.shape[0] == 1 and args.format == "exr":
-        # a single-frame EXR: scanline bands copied off the card while
-        # earlier bands encode (the same file as the serial export)
         from hdrvae_torch.io.pipeline import export_frame_streamed
         _print_export(export_frame_streamed(
             result.image[0], _export_cfg(args),
-            default_output_dir=folders.get_output_directory()))
+            default_output_dir=_output_dir()))
     else:
         _export(result.image, args)
+
+
+def _export_frames(decode_frame, n: int, args) -> None:
+    """A frame sequence: frame N+1 decodes on the card while frame N is
+    fetched and frame N-1 encodes and writes (io/pipeline.py);
+    ``decode_frame(i)`` is frame i's [H, W, 3] image."""
+    from hdrvae_torch.io.pipeline import export_stream
+
+    def make_frame(i):
+        return lambda: decode_frame(i)
+
+    res = export_stream([make_frame(i) for i in range(n)],
+                        _export_cfg(args, frame_sequence=n > 1),
+                        default_output_dir=_output_dir())
+    if res.error:
+        raise SystemExit(res.error)
+    print(json.dumps({"frames": len(res.filepaths),
+                      "last": res.last, **res.verify_stats}))
+
+
+def _device_type(args) -> str:
+    import torch
+    return torch.device(args.device).type
+
+
+def _mesh_size(args) -> int:
+    """``decode --mesh``, else one rank a visible card (one on the
+    CPU)."""
+    if getattr(args, "mesh", None) is not None:
+        if args.mesh < 1:
+            raise SystemExit(f"--mesh must be >= 1, got {args.mesh}")
+        return args.mesh
+    if _device_type(args) == "cpu":
+        return 1
+    import torch
+    return max(torch.cuda.device_count(), 1)
+
+
+def _on_ranks(args, data, decoders=None, upscalers=None) -> int:
+    """Run this command's work on :func:`_mesh_size` ranks started here
+    (``sharding/multihost.py``), print what rank 0 printed, and fail with
+    the ranks' logs if any rank failed.  Each rank's record (backend,
+    times, kernel launches) is logged at INFO, the record itself in the
+    log record's ``rank_record``."""
+    from hdrvae_torch.sharding import multihost
+    fields = {k: v for k, v in vars(args).items() if k != "func"}
+    case = multihost.CommandCase("cli", args.command, fields, data, "cli")
+    try:
+        # the ranks in this directory: relative output paths stay the
+        # user's
+        ranks = multihost.RankGroup(
+            _mesh_size(args), decoders or {}, [case], upscalers=upscalers,
+            device=_device_type(args), cwd=os.getcwd()
+        ).wait(timeout=RANK_TIMEOUT_S)
+    except RuntimeError as e:
+        raise SystemExit(f"{args.command} on ranks failed: {e}") from None
+    for rank, (rec,) in enumerate(ranks):
+        logger.info("rank %d (%s): %.1f ms, launches %s", rank,
+                    rec["backend"], rec["wall_ms"],
+                    {k: v for k, v in rec["counts"].items() if v},
+                    extra={"rank_record": rec})
+    sys.stdout.write(ranks[0][0]["lines"])
     return 0
+
+
+def run_on_rank(case, model, mesh) -> None:
+    """A :class:`multihost.CommandCase` on one rank: the decode (the slab
+    decode across the ranks, a frame sequence frame by frame with
+    ``--pipelined``) or the sharded upscale of ``case.data`` with
+    ``model``; rank 0 alone prints and writes the files."""
+    from hdrvae_torch.sharding.mesh import (sharded_hdr_upscale,
+                                            sharded_slab_decode)
+    args = argparse.Namespace(**case.args)
+    lead = mesh.rank == 0
+    precision = _parse_precision(args)
+    if case.command == "upscale":
+        net, arch = model
+        result = sharded_hdr_upscale(net, case.data.to(mesh.device),
+                                     _upscale_cfg(args), architecture=arch,
+                                     mesh=mesh, precision=precision)
+        if lead:
+            _finish_upscale(result, arch, net.cfg.scale, True, args)
+        return
+    latent = case.data.to(mesh.device)
+    hdr_cfg = _hdr_cfg(args)
+
+    def decode(z):
+        return sharded_slab_decode(model, z, hdr_cfg, mesh=mesh,
+                                   precision=precision)
+
+    if args.pipelined:
+        done = []
+
+        def decode_frame(i):
+            done.append(i)
+            return decode(latent[i:i + 1]).image[0]
+        try:
+            if lead:
+                _export_frames(decode_frame, latent.shape[0], args)
+        finally:
+            # every frame on every rank, also after a failed write on rank
+            # 0: the other ranks wait on it in their collectives
+            for i in range(len(done), latent.shape[0]):
+                decode_frame(i)
+        return
+    result = decode(latent)
+    if lead:
+        _finish_decode(result, args)
+
+
+def cmd_decode(args) -> int:
+    import torch
+
+    from hdrvae_torch.decode.pipeline import hdr_decode
+
+    precision = _parse_precision(args)
+    if args.tiled:
+        # the exact slab decode across ranks: the weights on the host,
+        # written once for the ranks
+        vae = _vae(argparse.Namespace(**{**vars(args), "device": "cpu"}),
+                   precision)
+        latent = torch.from_numpy(_latent(args, vae.config, args.batch))
+        return _on_ranks(args, latent, decoders={
+            "cli": (vae.config, vae.decoder.state_dict())})
+    vae = _vae(args, precision)
+    latent = _latent(args, vae.config, args.batch)
+    hdr_cfg = _hdr_cfg(args)
+    if args.pipelined:
+        def decode_frame(i):
+            one = torch.from_numpy(latent[i:i + 1]).to(vae.device)
+            return hdr_decode(vae.decoder, one, hdr_cfg, precision).image[0]
+        _export_frames(decode_frame, latent.shape[0], args)
+        return 0
+    _finish_decode(hdr_decode(vae.decoder,
+                              torch.from_numpy(latent).to(vae.device),
+                              hdr_cfg, precision), args)
+    return 0
+
+
+def _upscale_cfg(args):
+    from hdrvae_torch.core.config import TilingConfig, UpscaleConfig
+    return UpscaleConfig(small_blur=args.small_blur,
+                         local_fix=args.local_fix,
+                         upscale_method=args.upscale_method,
+                         tiling=TilingConfig(tile=args.tile,
+                                             overlap=args.overlap))
+
+
+def _finish_upscale(result, arch: str, scale: int, sharded: bool,
+                    args) -> None:
+    print(json.dumps({"architecture": arch, "scale": scale,
+                      "sharded": sharded,
+                      "out_shape": list(result.image.shape)}))
+    _export(result.image, args)
 
 
 def cmd_upscale(args) -> int:
     import torch
 
-    from hdrvae_torch.core.config import TilingConfig, UpscaleConfig
-    from hdrvae_torch.models.zoo import load_upscale_model
+    from hdrvae_torch.models.zoo import (load_upscale_model,
+                                         upscaler_state_dict)
     from hdrvae_torch.upscale.pipeline import hdr_upscale
 
-    net, model_cfg, arch = load_upscale_model(args.model,
-                                              device=args.device)
     # the batch axis added by torch: numpy's new axis has stride 0
     image = torch.from_numpy(np.asarray(_load_image(args.image),
                                         np.float32))
     if image.dim() == 3:
         image = image[None]
-    cfg = UpscaleConfig(small_blur=args.small_blur,
-                        local_fix=args.local_fix,
-                        upscale_method=args.upscale_method,
-                        tiling=TilingConfig(tile=args.tile,
-                                            overlap=args.overlap))
-    result = hdr_upscale(net, image.to(args.device), cfg,
+    if args.sharded:
+        # the tiles dealt across ranks: the weights on the host, written
+        # once for the ranks with their family
+        net, _, arch = load_upscale_model(args.model, device="cpu")
+        return _on_ranks(args, image, upscalers={
+            "cli": (arch, upscaler_state_dict(net))})
+    net, model_cfg, arch = load_upscale_model(args.model,
+                                              device=args.device)
+    result = hdr_upscale(net, image.to(args.device), _upscale_cfg(args),
                          architecture=arch, precision=_parse_precision(args))
-    print(json.dumps({"architecture": arch, "scale": model_cfg.scale,
-                      "sharded": False,
-                      "out_shape": list(result.image.shape)}))
-    _export(result.image, args)
+    _finish_upscale(result, arch, model_cfg.scale, False, args)
     return 0
 
 
 def cmd_export(args) -> int:
     _export(_load_image(args.image), args)
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """A torch checkpoint as safetensors of the port's modules: ``vae``
+    writes ``decoder.`` + the decoder's state dict (the JAX CLI's keys and
+    arrays), ``upscaler`` the loaded module's state dict
+    (``zoo.upscaler_state_dict``), which the port's zoo loads back (JAX's
+    writes its own parameter paths instead)."""
+    import torch
+    from safetensors.torch import save_file
+
+    if args.kind == "vae":
+        from hdrvae_torch.models.params import (decoder_from_state_dict,
+                                                decoder_weights,
+                                                infer_decoder_config)
+        if args.input.endswith(".safetensors"):
+            from safetensors.torch import load_file
+            sd = load_file(args.input)
+        else:
+            sd = torch.load(args.input, map_location="cpu",
+                            weights_only=True)
+        # nested containers (an ldm .ckpt keeps its weights under
+        # 'state_dict'), unwrapped as ``inspect`` unwraps them
+        for container in ("params_ema", "params", "state_dict"):
+            if isinstance(sd.get(container), dict):
+                sd = sd[container]
+                break
+        cfg = infer_decoder_config(sd)
+        print(json.dumps({"inferred_config": {
+            "z_channels": cfg.z_channels, "ch": cfg.ch,
+            "ch_mult": list(cfg.ch_mult),
+            "num_res_blocks": cfg.num_res_blocks,
+            "attn_mid": cfg.attn_mid,
+            "scale_factor": cfg.scale_factor,
+            "shift_factor": cfg.shift_factor}}))
+        dec = decoder_from_state_dict(decoder_weights(sd, cfg), cfg,
+                                      device="cpu")
+        save_file({f"decoder.{k}": v.contiguous()
+                   for k, v in dec.state_dict().items()}, args.output)
+    else:   # any family of the zoo
+        from hdrvae_torch.models.zoo import (load_upscale_model,
+                                             upscaler_state_dict)
+        net, cfg, arch = load_upscale_model(args.input, device="cpu")
+        save_file({k: v.contiguous()
+                   for k, v in upscaler_state_dict(net).items()},
+                  args.output)
+        print(json.dumps({"architecture": arch, "scale": cfg.scale,
+                          "config": {k: v for k, v in
+                                     dataclasses.asdict(cfg).items()
+                                     if isinstance(v, (int, float, str,
+                                                       bool))}}))
+    print(json.dumps({"output": args.output}))
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    from hdrvae_torch.utils.introspect import (describe_params,
+                                               describe_state_dict)
+    if args.path:
+        print(describe_state_dict(args.path))
+    else:
+        import torch
+
+        from hdrvae_torch.core.config import DecoderConfig
+        from hdrvae_torch.models.decoder import Decoder
+        with torch.device("meta"):     # shapes alone
+            dec = Decoder(DecoderConfig())
+        print(describe_params(dec, name="flux1-vae-decoder"))
     return 0
 
 
@@ -320,9 +534,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(exact f32)")
     p.add_argument("--batch", type=int, default=1,
                    help="frames when generating a random latent")
+    p.add_argument("--tiled", action="store_true",
+                   help="exact slab-sharded decode across --mesh ranks "
+                        "started by this command")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="ranks for --tiled (default: one a visible card)")
     p.add_argument("--pipelined", action="store_true",
                    help="overlap decode, device->host fetch, and EXR "
-                        "write across the frame sequence")
+                        "write across the frame sequence (composes "
+                        "with --tiled)")
     _add_export_args(p)
     _add_device_arg(p)
     p.set_defaults(func=cmd_decode)
@@ -338,6 +558,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "bislerp"))
     p.add_argument("--tile", type=int, default=512)
     p.add_argument("--overlap", type=int, default=64)
+    p.add_argument("--sharded", action="store_true",
+                   help="deal the tile grid across ranks started by this "
+                        "command, one a visible card")
     p.add_argument("--precision", default="parity",
                    choices=("fast", "mixed", "parity"),
                    help="numerics tier (default parity, the float32 "
@@ -350,6 +573,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image", required=True)
     _add_export_args(p)
     p.set_defaults(func=cmd_export)
+
+    p = sub.add_parser("convert",
+                       help="torch checkpoint -> safetensors of the port's "
+                            "modules")
+    p.add_argument("kind", choices=("vae", "upscaler"))
+    p.add_argument("input")
+    p.add_argument("output")
+    p.set_defaults(func=cmd_convert)
+
+    p = sub.add_parser("inspect", help="describe a model/checkpoint")
+    p.add_argument("--path", help="checkpoint to describe (default: "
+                                  "built-in Flux.1 decoder topology)")
+    p.set_defaults(func=cmd_inspect)
 
     p = sub.add_parser("serve", help="HTTP decode service (POST .npy "
                                      "latents to /v1/decode, get EXR/HDR)")

@@ -15,6 +15,16 @@ def srgb_to_linear(srgb: torch.Tensor) -> torch.Tensor:
     return torch.sign(srgb) * out
 
 
+def linear_to_srgb(linear: torch.Tensor) -> torch.Tensor:
+    """Sign-preserving forward sRGB OETF, the inverse of
+    :func:`srgb_to_linear`."""
+    a = torch.abs(linear)
+    lin_part = a * 12.92
+    gamma_part = 1.055 * torch.pow(a, 1.0 / 2.4) - 0.055
+    out = torch.where(a <= 0.0031308, lin_part, gamma_part)
+    return torch.sign(linear) * out
+
+
 # BT.601 YCbCr offset of kornia and of the upscale node's own inverse.
 _YCBCR_DELTA = 0.5
 

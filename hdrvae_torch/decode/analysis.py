@@ -7,6 +7,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from hdrvae_torch.core.stats import tensor_stats
 from hdrvae_torch.decode.modes import NORM_CUSTOM, NORM_SIGMOID, NORM_TANH
 
 NORM_NAMES = {NORM_SIGMOID: "SIGMOID", NORM_TANH: "TANH",
@@ -30,3 +31,14 @@ def classify_normalization(post_stats: Dict[str, torch.Tensor],
     kind = torch.where(is_sigmoid, NORM_SIGMOID,
                        torch.where(is_tanh, NORM_TANH, NORM_CUSTOM))
     return kind.to(torch.int32)
+
+
+def analyze_conv_out(rgb: torch.Tensor,
+                     pre_conv_out: torch.Tensor) -> ConvOutAnalysis:
+    """The conv_out transformation from one forward's outputs: the pre
+    map's and the image's statistics and the normalization they show, all
+    device tensors (``core.stats.stats_to_host`` fetches them)."""
+    pre_stats = tensor_stats(pre_conv_out)
+    post_stats = tensor_stats(rgb)
+    return ConvOutAnalysis(pre_stats=pre_stats, post_stats=post_stats,
+                           norm_kind=classify_normalization(post_stats))

@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -145,3 +147,21 @@ def library() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+# Open scopes of ``utils.profiling.debug_nans``.  While one is open, every
+# wrapper checks what its kernel wrote: a launch through ctypes is no
+# PyTorch op, so the scope's dispatch hook never sees its outputs.
+NAN_SCOPES = 0
+
+
+def nan_check(name: str, *outputs) -> None:
+    """Raise ``FloatingPointError`` if a debug_nans scope is open and an
+    output of kernel ``name`` holds a NaN (synchronizes; nothing when no
+    scope is open)."""
+    if not NAN_SCOPES:
+        return
+    for t in outputs:
+        if t is not None and t.is_floating_point() and \
+                bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"{name}: the kernel wrote a NaN")

@@ -169,6 +169,7 @@ def flash_attention_bf16(q: torch.Tensor, k: torch.Tensor,
     out = _launch("flash_attention_bf16", q, k, v, torch.bfloat16, key_valid)
     flash_attention_bf16.launches += 1
     flash_attention_bf16.launches_masked += key_valid is not None
+    _build.nan_check("flash_attention_bf16", out)
     return out
 
 
@@ -202,6 +203,7 @@ def split_qkv(q: torch.Tensor, k: torch.Tensor,
         q.numel(), float(q.shape[-1] ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream), "split_qkv")
     split_qkv.launches += 1
+    _build.nan_check("split_qkv", parts)
     return parts
 
 
@@ -254,6 +256,7 @@ def flash_attention_3pass(q: torch.Tensor, k: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream), name)
     flash_attention_3pass.launches += 1
     flash_attention_3pass.launches_masked += key_valid is not None
+    _build.nan_check("flash_attention_3pass", out)
     return out
 
 
@@ -273,6 +276,7 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
     out = _launch("flash_attention_f32", q, k, v, torch.float32, key_valid)
     flash_attention_f32.launches += 1
     flash_attention_f32.launches_masked += key_valid is not None
+    _build.nan_check("flash_attention_f32", out)
     return out
 
 

@@ -387,6 +387,7 @@ def fused_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         "hdrvae_fused_conv3x3")
     fused_conv3x3.launches += 1
     fused_conv3x3.owned_launches += owned_rows is not None
+    _build.nan_check("fused_conv3x3", y)
     if emit_stats:
         return y, _group_stats(partial, num_groups)
     return y
@@ -465,8 +466,10 @@ def upsample_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     upsample_conv3x3.owned_launches += owned_rows is not None
     if stats_only:
         upsample_conv3x3.stats_only_launches += 1
+        _build.nan_check("upsample_conv3x3", partial)
         return _group_stats(partial, num_groups)
     upsample_conv3x3.launches += 1
+    _build.nan_check("upsample_conv3x3", y)
     if emit_stats:
         return y, _group_stats(partial, num_groups)
     return y
@@ -553,6 +556,7 @@ def upconv_gn_conv3x3(x: torch.Tensor, up_kernel: torch.Tensor,
         None if partial is None else partial.data_ptr(), b, h, w, cin, cm,
         cout, _stream(x)), "hdrvae_upconv_gn_conv3x3")
     upconv_gn_conv3x3.launches += 1
+    _build.nan_check("upconv_gn_conv3x3", y)
     if emit_stats:
         return y, _group_stats(partial, num_groups)
     return y

@@ -268,6 +268,7 @@ def dense_conv3x3(inputs: Sequence[torch.Tensor],
         torch.cuda.current_stream(x0.device).cuda_stream),
         "hdrvae_dense_conv3x3")
     dense_conv3x3.launches += 1
+    _build.nan_check("dense_conv3x3", y)
     return y
 
 

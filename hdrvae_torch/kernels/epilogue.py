@@ -65,6 +65,7 @@ def collapse_and_stats_fused(pre: torch.Tensor
         torch.cuda.current_stream(pre.device).cuda_stream),
         "hdrvae_collapse_and_stats")
     collapse_and_stats_fused.launches += 1
+    _build.nan_check("collapse_and_stats_fused", collapsed, out)
     return collapsed, {"min": out[0], "max": out[1], "mean": out[2],
                        "std": out[3]}
 

@@ -92,6 +92,7 @@ def split_w(w: torch.Tensor, *, lo: bool = True) -> torch.Tensor:
         torch.cuda.current_stream(w.device).cuda_stream),
         "hdrvae_f32_dot_split_w")
     split_w.launches += 1
+    _build.nan_check("split_w", parts)
     return parts
 
 
@@ -129,6 +130,7 @@ def f32_dot(x: torch.Tensor, w: torch.Tensor, *,
         x.data_ptr(), wk.data_ptr(), y.data_ptr(), m, n, k, mode,
         torch.cuda.current_stream(x.device).cuda_stream), "hdrvae_f32_dot")
     f32_dot.launches += 1
+    _build.nan_check("f32_dot", y)
     return y
 
 

@@ -113,7 +113,9 @@ def ocab_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream),
         "hdrvae_ocab_attention")
     ocab_attention.launches += 1
-    return out[:, :, :nq] if pq else out
+    out = out[:, :, :nq] if pq else out
+    _build.nan_check("ocab_attention", out)
+    return out
 
 
 ocab_attention.launches = 0

@@ -404,6 +404,7 @@ def swin_block_fused(img: torch.Tensor, w: BlockWeights, *, ws: int,
         torch.cuda.current_stream(img.device).cuda_stream),
         "hdrvae_swin_block")
     swin_block_fused.launches += 1
+    _build.nan_check("swin_block_fused", y)
     return y
 
 
@@ -468,6 +469,7 @@ def ln_qkv(img: torch.Tensor, w: BlockWeights, *, ws: int,
         w.be1.data_ptr(), qkv.data_ptr(), b, hh, ww, c, w.heads, ws,
         _stream(img)), "hdrvae_swin_ln_qkv")
     ln_qkv.launches += 1
+    _build.nan_check("ln_qkv", qkv)
     return qkv
 
 
@@ -530,6 +532,7 @@ def window_attention_core(qkv: torch.Tensor, bias: torch.Tensor, *,
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), nwb, heads, ws,
         shift, nwh, nww, _stream(qkv)), "hdrvae_swin_attn_core")
     window_attention_core.launches += 1
+    _build.nan_check("window_attention_core", out)
     return out
 
 
@@ -589,6 +592,7 @@ def proj_mlp(attn_out: torch.Tensor, img: torch.Tensor, w: BlockWeights, *,
         hh, ww, c, w.heads, w.hidden, ws, _stream(img)),
         "hdrvae_swin_proj_mlp")
     proj_mlp.launches += 1
+    _build.nan_check("proj_mlp", y)
     return y
 
 

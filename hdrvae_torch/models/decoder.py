@@ -21,8 +21,10 @@ tier and in a mixed head with ``fast_head_levels``.
 A ``tape`` (``layers.PadMask``) makes a zero-padded latent decode as the
 unpadded one would, where the JAX decoder masks: the latent after its
 prescale, every GroupNorm's statistics and output, each ResNet block's
-``x + h``, and the mid attention's keys.  A taped decode runs on the
-layers in every tier, as the JAX package keeps it off its Pallas chain.
+``x + h``, and the mid attention's keys.  A ``layers.GNTape`` records the
+GroupNorm statistics of a decode or replays them into another (the tiled
+decode's whole-image statistics).  A taped decode runs on the layers in
+every tier, as the JAX package keeps it off its Pallas chain.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from torch import nn
 
 from hdrvae_torch.core.config import DecoderConfig, Precision
 from hdrvae_torch.kernels.attention import spatial_attention
-from hdrvae_torch.models.layers import (EPS, Moments, PadMask, conv2d,
+from hdrvae_torch.models.layers import (EPS, Moments, Tape, conv2d,
                                         group_norm, group_norm_silu,
                                         nearest_upsample_2x)
 
@@ -125,7 +127,7 @@ class Decoder(nn.Module):
 
 def resnet_block(x: torch.Tensor, blk: ResnetBlock, *, num_groups: int,
                  precision: Precision,
-                 tape: Optional[PadMask] = None) -> torch.Tensor:
+                 tape: Optional[Tape] = None) -> torch.Tensor:
     """One ResNet block on the layers' own ops, whole image: x [B, H, W,
     Cin] -> [B, H, W, Cout] (the staged decode runs the head's last level
     through it).  With a tape, x + h is zeroed on the pad region: the conv
@@ -146,7 +148,7 @@ def resnet_block(x: torch.Tensor, blk: ResnetBlock, *, num_groups: int,
 
 def attn_block(x: torch.Tensor, attn: AttnBlock, *, num_groups: int,
                precision: Precision,
-               tape: Optional[PadMask] = None) -> torch.Tensor:
+               tape: Optional[Tape] = None) -> torch.Tensor:
     """Single-head spatial self-attention with residual; plain GroupNorm
     (no SiLU) before the 1x1 q/k/v projections.  With a tape the pad
     tokens are no keys; x + h is not masked (the next GroupNorm is)."""
@@ -168,7 +170,7 @@ def attn_block(x: torch.Tensor, attn: AttnBlock, *, num_groups: int,
 
 def _up_level(dec: Decoder, x: torch.Tensor, level: int,
               precision: Precision,
-              tape: Optional[PadMask] = None) -> torch.Tensor:
+              tape: Optional[Tape] = None) -> torch.Tensor:
     """Up level ``level``: its ResNet blocks, then (above level 0) the
     nearest 2x upsample and its conv (not masked: the next GroupNorm
     is)."""
@@ -203,7 +205,7 @@ def tail_receptive_radius(cfg: DecoderConfig, tail_levels: int) -> int:
 def decoder_head(dec: Decoder, z: torch.Tensor, *,
                  precision: Precision = Precision(),
                  tail_levels: int = 0,
-                 tape: Optional[PadMask] = None) -> torch.Tensor:
+                 tape: Optional[Tape] = None) -> torch.Tensor:
     """Latent prescale, conv_in, the mid (with the global attention) and
     the up levels above ``tail_levels``, on the layers' own ops.  With the
     default 0 that is every level: the pre-norm_out map.  Output
@@ -238,7 +240,7 @@ def decoder_tail(dec: Decoder, x: torch.Tensor, *,
                  tail_levels: int = 0,
                  apply_conv_out: bool = True,
                  moments: Optional[Moments] = None,
-                 tape: Optional[PadMask] = None) -> DecodeOutput:
+                 tape: Optional[Tape] = None) -> DecodeOutput:
     """Up levels ``tail_levels - 1 .. 0`` (none by default), each at
     ``precision.for_level(level)``, and norm_out + SiLU (+ conv_out and the
     output mapping) at ``precision``, on a :func:`decoder_head` output of
@@ -267,7 +269,7 @@ def decoder_tail(dec: Decoder, x: torch.Tensor, *,
 def decoder_apply(dec: Decoder, z: torch.Tensor, *,
                   precision: Precision = Precision(),
                   apply_conv_out: bool = True,
-                  tape: Optional[PadMask] = None) -> DecodeOutput:
+                  tape: Optional[Tape] = None) -> DecodeOutput:
     """Decode a latent ``z`` [B, h, w, z_channels] (NHWC) to
     ``DecodeOutput(rgb, pre_conv_out)`` in one forward.
 
@@ -280,9 +282,10 @@ def decoder_apply(dec: Decoder, z: torch.Tensor, *,
     every tier.  "pallas": the fused chain, which takes only the fast tier
     and no tape (on a CPU tensor its kernels' plain versions run).
 
-    ``tape``: a ``layers.PadMask`` for a zero-padded latent; the decode
-    then runs on the layers whatever ``upstack`` says, except "pallas",
-    which raises.
+    ``tape``: a ``layers.PadMask`` for a zero-padded latent, or a
+    ``layers.GNTape`` collecting or replaying the GroupNorm statistics;
+    the decode then runs on the layers whatever ``upstack`` says, except
+    "pallas", which raises.
     """
     if precision.upstack == "pallas" and (precision.mode != "fast"
                                           or tape is not None):
@@ -299,3 +302,17 @@ def decoder_apply(dec: Decoder, z: torch.Tensor, *,
     x = decoder_head(dec, z, precision=precision, tape=tape)
     return decoder_tail(dec, x, precision=precision,
                         apply_conv_out=apply_conv_out, tape=tape)
+
+
+def gn_call_count(cfg: DecoderConfig) -> int:
+    """GroupNorm calls of one :func:`decoder_apply`: the entries of a
+    collected ``GNTape`` (two a ResNet block, the mid attention's, and
+    norm_out)."""
+    blocks = 2 + cfg.num_levels * (cfg.num_res_blocks + 1)
+    return 2 * blocks + int(cfg.attn_mid) + 1
+
+
+def param_count(dec: Decoder) -> int:
+    """Parameters of a :class:`Decoder`, as the JAX package's
+    ``param_count`` of its pytree."""
+    return sum(p.numel() for p in dec.parameters())

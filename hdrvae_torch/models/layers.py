@@ -14,7 +14,7 @@ statistics, operands rounded to ``precision.compute_dtype`` and outputs to
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -156,15 +156,72 @@ class PadMask:
         return mean, var
 
 
+class GNTape:
+    """Records or replays the GroupNorm statistics of a decoder forward,
+    as ``hdrvae/models/layers.py::GNTape``: a tape "collect"ed from a
+    whole-image decode and "inject"ed into each tile's decode makes every
+    tile normalize with the whole image's statistics (the tiled decode's
+    ``norm_stats="global"``).  "off" computes and records nothing.
+
+    ``stats`` holds (mean, var) pairs, each [B, G] float32, in the order
+    the decoder calls its GroupNorms; "collect" computes them by the
+    tier's rule (two-pass in parity, one-pass otherwise) and appends
+    them, "inject" hands them out in turn in place of the map's own.  The
+    decoder's tape hooks: :meth:`reduce_stats`; :meth:`mask_output`,
+    :meth:`zero_pad_` and :meth:`key_valid` mask nothing."""
+
+    def __init__(self, mode: str = "off", stats=None):
+        if mode not in ("off", "collect", "inject"):
+            raise ValueError(f"GNTape mode must be 'off', 'collect' or "
+                             f"'inject', got {mode!r}")
+        self.mode = mode
+        self.stats = list(stats) if stats is not None else []
+        self._idx = 0
+
+    def record(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.mode == "collect":
+            self.stats.append((mean, var))
+
+    def next_override(self) -> Optional[Moments]:
+        """The next recorded pair in "inject" mode, else None."""
+        if self.mode != "inject":
+            return None
+        entry = self.stats[self._idx]
+        self._idx += 1
+        return entry
+
+    def reduce_stats(self, xf: torch.Tensor, num_groups: int,
+                     two_pass: bool) -> Moments:
+        override = self.next_override()
+        if override is not None:
+            return override[0].float(), override[1].float()
+        moments = group_moments(xf, num_groups, two_pass=two_pass)
+        self.record(*moments)
+        return moments
+
+    def mask_output(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def zero_pad_(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def key_valid(self, x: torch.Tensor) -> None:
+        return None
+
+
+Tape = Union[PadMask, GNTape]
+
+
 def _normalize(x: torch.Tensor, norm: nn.GroupNorm, num_groups: int,
                precision: Precision, moments: Optional[Moments],
-               tape: Optional[PadMask] = None,
+               tape: Optional[Tape] = None,
                eps: float = EPS) -> torch.Tensor:
     """x * gamma + beta in float32, as a new tensor.  The moments are
     ``moments`` when the caller already has them (the fused chain hands its
-    output's moments to ``norm_out`` this way), else those of the valid
-    region when a ``tape`` is given, else computed here: two-pass in
-    parity, one-pass otherwise.
+    output's moments to ``norm_out`` this way), else the ``tape``'s when
+    one is given (a ``PadMask``: those of the valid region; a ``GNTape``:
+    recorded or replayed), else computed here: two-pass in parity,
+    one-pass otherwise.
 
     The affine runs in place on one float32 copy of x, so a full-resolution
     map costs one float32 temporary here, not three (the same products and
@@ -180,7 +237,7 @@ def _normalize(x: torch.Tensor, norm: nn.GroupNorm, num_groups: int,
 
 
 def _store(y: torch.Tensor, precision: Precision,
-           tape: Optional[PadMask]) -> torch.Tensor:
+           tape: Optional[Tape]) -> torch.Tensor:
     """The float32 norm output y, its pad region zeroed in place when a
     tape is given, rounded to the storage dtype."""
     if tape is not None:
@@ -190,7 +247,7 @@ def _store(y: torch.Tensor, precision: Precision,
 
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
                eps: float = EPS, precision: Precision = Precision(),
-               tape: Optional[PadMask] = None) -> torch.Tensor:
+               tape: Optional[Tape] = None) -> torch.Tensor:
     """GroupNorm over NHWC; the output is rounded to the storage dtype."""
     return _store(_normalize(x, norm, num_groups, precision, None, tape,
                              eps), precision, tape)
@@ -199,7 +256,7 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
 def group_norm_silu(x: torch.Tensor, norm: nn.GroupNorm, *, num_groups: int,
                     precision: Precision = Precision(),
                     moments: Optional[Moments] = None,
-                    tape: Optional[PadMask] = None) -> torch.Tensor:
+                    tape: Optional[Tape] = None) -> torch.Tensor:
     """GroupNorm followed by SiLU, rounded to the storage dtype; y * sigmoid
     (y) in place, so only the sigmoid is live beside y."""
     y = _normalize(x, norm, num_groups, precision, moments, tape)

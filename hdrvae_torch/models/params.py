@@ -135,13 +135,21 @@ def load_decoder(path: str, cfg: DecoderConfig | None = None, *,
     prefix is stripped, and keys outside the decoder (the encoder, the
     quant convs) are left out."""
     from safetensors.torch import load_file
-    sd = _strip_prefix(load_file(path))
+    sd = load_file(path)
     if cfg is None:
         cfg = infer_decoder_config(sd)
+    return decoder_from_state_dict(decoder_weights(sd, cfg), cfg,
+                                   device=device)
+
+
+def decoder_weights(state_dict: Mapping[str, Any],
+                    cfg: DecoderConfig) -> Dict[str, Any]:
+    """The decoder's entries of a checkpoint's state dict: the prefix
+    stripped, keys outside the decoder (the encoder, the quant convs) left
+    out."""
     with torch.device("meta"):
         keys = set(Decoder(cfg).state_dict())
-    return decoder_from_state_dict({k: v for k, v in sd.items() if k in keys},
-                                   cfg, device=device)
+    return {k: v for k, v in _strip_prefix(state_dict).items() if k in keys}
 
 
 def init_decoder(cfg: DecoderConfig = DecoderConfig(), seed: int = 0, *,

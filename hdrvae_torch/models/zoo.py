@@ -12,7 +12,7 @@ ValueError that names it where its keys say what it is.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import torch
 from torch import nn
@@ -33,6 +33,7 @@ from hdrvae_torch.models.srvgg import (SRVGG, SRVGGConfig,
                                        is_srvgg_state_dict, srvgg_apply,
                                        srvgg_from_state_dict)
 from hdrvae_torch.models.swin2sr import (Swin2SR, Swin2SRConfig,
+                                         geometry_buffers,
                                          is_swin2sr_state_dict, swin2sr_apply,
                                          swin2sr_from_state_dict)
 from hdrvae_torch.models.swinir import (SwinIR, SwinIRConfig,
@@ -57,6 +58,13 @@ def _load_state_dict(path: str) -> Mapping[str, Any]:
     return sd
 
 
+def _is_span(sd: Mapping[str, Any]) -> bool:
+    """SPAN's official layout, or the fused one a loaded :class:`SPAN`
+    holds (``*.eval_conv`` alone)."""
+    return is_span_state_dict(sd) or (
+        "block_1.c1_r.eval_conv.weight" in sd and "conv_cat.weight" in sd)
+
+
 # (detector, loader, architecture name) in the JAX package's order: HAT
 # and Swin2SR before SwinIR (both share its residual_group.blocks spine).
 # The name picks the reversal of hdr_upscale; Swin2SR, RealPLKSR, SPAN and
@@ -66,7 +74,7 @@ _FAMILIES = (
     (is_swin2sr_state_dict, swin2sr_from_state_dict, "Swin2SR"),
     (is_swinir_state_dict, swinir_from_state_dict, "SwinIR"),
     (is_realplksr_state_dict, realplksr_from_state_dict, "RealPLKSR"),
-    (is_span_state_dict, span_from_state_dict, "SPAN"),
+    (_is_span, span_from_state_dict, "SPAN"),
     (is_srvgg_state_dict, srvgg_from_state_dict, "Compact"),
 )
 
@@ -95,7 +103,15 @@ def load_upscale_model(path: str, *, device: torch.device | str = "cuda"
     ``params_ema`` / ``params`` wrappers unwrapped) onto ``device``.
     Returns (model, config, architecture name); the name picks the
     reversal of :func:`hdrvae_torch.upscale.pipeline.hdr_upscale`."""
-    sd = _load_state_dict(path)
+    return upscaler_from_state_dict(_load_state_dict(path), device=device)
+
+
+def upscaler_from_state_dict(sd: Mapping[str, Any], *,
+                             device: torch.device | str = "cuda"
+                             ) -> Tuple[UpscaleModel, ModelConfig, str]:
+    """:func:`load_upscale_model` of a state dict in memory: its family
+    detected from its keys.  A loaded module's own ``state_dict()`` loads
+    back as the same family (``cli convert upscaler`` writes it)."""
     for detect, load, arch in _FAMILIES:
         if detect(sd):
             try:
@@ -114,6 +130,20 @@ def load_upscale_model(path: str, *, device: torch.device | str = "cuda"
         f"unsupported upscaler checkpoint schema ({_guess_architecture(sd)})"
         "; supported architectures: ESRGAN/RealESRGAN (RRDBNet), SwinIR, "
         "Swin2SR, HAT, Compact (SRVGGNetCompact), SPAN, RealPLKSR")
+
+
+def upscaler_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A loaded upscaler's weights as a state dict that
+    :func:`upscaler_from_state_dict` loads back as the same family and
+    configuration: the module's own ``state_dict()`` (SPAN's fused
+    Conv3XC), with Swin2SR's geometry buffers of its first block, which
+    carry the window size, as an official checkpoint has them.  (Loaders
+    read a RealPLKSR's GroupNorm groups as 4, which no shape records.)"""
+    sd = dict(model.state_dict())
+    if isinstance(model, Swin2SR):
+        for name, buf in geometry_buffers(model.cfg.window_size).items():
+            sd[f"layers.0.residual_group.blocks.0.attn.{name}"] = buf
+    return sd
 
 
 def upscaler_apply(model: nn.Module, x: torch.Tensor, *,

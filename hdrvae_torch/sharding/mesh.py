@@ -26,6 +26,25 @@ default process group and this rank's device, its size checked against a
    stitched, and the HDR epilogue runs once on the whole image, on every
    rank: every rank returns the same result.
 
+The tile grid, as the JAX package's other two executors:
+
+- :func:`sharded_tiled_decode` deals the overlap tiles of ``plan_tiles``
+  out to the ranks (tile i to rank i mod N, so a tile count that is no
+  multiple of the ranks needs no padding).  Each rank decodes its tiles
+  one at a time and keeps of each only the box it owns
+  (:func:`_crop_boxes`: the pixels ``blend_tiles(mode="crop")`` pastes,
+  which partition the image): rgb, the collapsed pre map and, for the
+  ``first3`` fallback, the pre map's first three channels, with the box's
+  pre-map statistics as (n, mean, M2, min, max).  The boxes are gathered
+  and stitched and the statistics merged on every rank, then the HDR
+  epilogue runs once on every rank.  With ``norm_stats="global"`` rank 0
+  first collects a ``GNTape`` from a whole-image decode and broadcasts it,
+  and every tile replays it.
+- :func:`sharded_hdr_upscale` is ``hdr_upscale`` with the tiles of both
+  its passes (unclamped and clamped) on one axis, dealt out the same way
+  and gathered back before its blends, so it returns ``hdr_upscale``'s
+  result.
+
 The collectives take the tensors where they lie: NCCL on the cards,
 gloo on the CPU or, for ranks that share one card, through host copies
 of its own (its CUDA all_reduce and all_gather were checked on an H100
@@ -41,14 +60,19 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from hdrvae_torch.core.config import HDRDecodeConfig, MeshConfig, Precision
+from hdrvae_torch.core.config import (HDRDecodeConfig, MeshConfig, Precision,
+                                      UpscaleConfig)
 from hdrvae_torch.decode.formatting import collapse_channels_maxpool
 from hdrvae_torch.decode.pipeline import (HDRDecodeResult, _to_nhwc,
                                           result_from_parts)
+from hdrvae_torch.kernels.epilogue import collapse_and_stats
 from hdrvae_torch.models import fused_tail
-from hdrvae_torch.models.decoder import (Decoder, decoder_head,
-                                         decoder_tail, tail_receptive_radius)
-from hdrvae_torch.models.layers import Moments, PadMask
+from hdrvae_torch.models.decoder import (Decoder, decoder_apply, decoder_head,
+                                         decoder_tail, gn_call_count,
+                                         tail_receptive_radius)
+from hdrvae_torch.models.layers import GNTape, Moments, PadMask
+from hdrvae_torch.tiling.tiled import TilePlan, plan_tiles
+from hdrvae_torch.upscale.pipeline import UpscaleResult, hdr_upscale
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
 
@@ -84,6 +108,13 @@ class Mesh:
         out = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(out, t)
         return out
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` written into ``t`` on every rank (the same
+        shape and dtype on each); returns ``t``."""
+        if self.joined:
+            dist.broadcast(t, src)
+        return t
 
 
 # ---------------------------------------------------------------------------
@@ -378,3 +409,269 @@ def sharded_slab_decode(dec: Decoder, latent: torch.Tensor,
             pre3 = pre3[:, :orig_h * s, :orig_w * s]
     return result_from_parts(dec, rgb, pre_c, pre_stats, orig_latent, cfg,
                              pre3)
+
+
+# ---------------------------------------------------------------------------
+# The tile grid: geometry
+# ---------------------------------------------------------------------------
+
+
+def _ownership_intervals(starts, tile_px: int, out_px: int, half: int):
+    """Per-axis pixel intervals each tile owns under ``blend_tiles(mode=
+    "crop")``'s overwrite order: tile k's interior is clipped where the next
+    tile's interior begins (later tiles are pasted over earlier ones), so
+    the intervals partition the axis, also where a clamped last tile
+    breaks the regular stride.  ``starts`` are pixel positions."""
+    intervals = []
+    n = len(starts)
+    for i, sp in enumerate(starts):
+        int_start = 0 if sp == 0 else sp + half
+        int_end = out_px if sp + tile_px >= out_px else sp + tile_px - half
+        if i + 1 < n:
+            nxt = starts[i + 1]
+            int_end = min(int_end, 0 if nxt == 0 else nxt + half)
+        intervals.append((int_start, int_end))
+    return intervals
+
+
+def _crop_boxes(plan: TilePlan, scale: int):
+    """Each tile's owned (top, bottom, left, right) in its own pixels at
+    ``scale`` x the plan: exactly the pixels it contributes to the image
+    stitched by ``blend_tiles(mode="crop")``."""
+    th, tw = plan.tile_h * scale, plan.tile_w * scale
+    out_h, out_w = plan.height * scale, plan.width * scale
+    half = (plan.overlap * scale) // 2
+    ys = sorted({y * scale for y, _ in plan.positions})
+    xs = sorted({x * scale for _, x in plan.positions})
+    y_int = dict(zip(ys, _ownership_intervals(ys, th, out_h, half)))
+    x_int = dict(zip(xs, _ownership_intervals(xs, tw, out_w, half)))
+    boxes = []
+    for y, x0 in plan.positions:
+        ya, yb = y_int[y * scale]
+        xa, xb = x_int[x0 * scale]
+        boxes.append((ya - y * scale, yb - y * scale,
+                      xa - x0 * scale, xb - x0 * scale))
+    return boxes
+
+
+def _dealt(n: int, mesh: Mesh) -> List[int]:
+    """The indices of n items this rank takes: i with i mod size = rank."""
+    return list(range(mesh.rank, n, mesh.size))
+
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+
+
+def _gather_dealt(pieces: List[torch.Tensor], n: int, mesh: Mesh, *,
+                  batch: int, k: int) -> List[torch.Tensor]:
+    """All n items in order on every rank, from this rank's ``pieces`` (its
+    :func:`_dealt` items, in order, possibly none): [batch, h, w, k]
+    tensors of one floating dtype whose (h, w) may differ, sent flat (in
+    float32, exact for the 16-bit dtypes) at the longest rank's pixel
+    count, beside a table of their shapes and dtype."""
+    if not mesh.joined:
+        return pieces
+    most = len(range(0, n, mesh.size))
+    table = torch.full((most, 3), -1, dtype=torch.int64, device=mesh.device)
+    for j, p in enumerate(pieces):
+        table[j] = torch.tensor([p.shape[1], p.shape[2],
+                                 _DTYPES.index(p.dtype)])
+    tables = [t.tolist() for t in mesh.all_gather(table)]
+    longest = max(sum(h * w for h, w, c in t if c >= 0) for t in tables)
+    dtype = _DTYPES[max(c for t in tables for _, _, c in t)]
+    wire = torch.float64 if dtype == torch.float64 else torch.float32
+    flat = torch.cat([p.reshape(batch, -1, k).to(wire) for p in pieces]
+                     + [torch.zeros(batch, 0, k, dtype=wire,
+                                    device=mesh.device)], dim=1)
+    flat = F.pad(flat, (0, 0, 0, longest - flat.shape[1]))
+    out: List[Optional[torch.Tensor]] = [None] * n
+    for r, (g, t) in enumerate(zip(mesh.all_gather(flat), tables)):
+        off = 0
+        for j, i in enumerate(range(r, n, mesh.size)):
+            h, w, _ = t[j]
+            out[i] = g[:, off:off + h * w].reshape(batch, h, w, k).to(dtype)
+            off += h * w
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The tile-grid decode
+# ---------------------------------------------------------------------------
+
+
+def _global_tape(dec: Decoder, latent: torch.Tensor, precision: Precision,
+                 mesh: Mesh) -> List[Moments]:
+    """The whole image's GroupNorm statistics, the same on every rank: rank
+    0 collects them from a whole-image decode (``GNTape("collect")``, no
+    conv_out) and broadcasts them."""
+    cfg = dec.cfg
+    shape = (gn_call_count(cfg), 2, latent.shape[0], cfg.num_groups)
+    if mesh.rank == 0:
+        tape = GNTape("collect")
+        decoder_apply(dec, latent, precision=precision, apply_conv_out=False,
+                      tape=tape)
+        if len(tape.stats) != shape[0]:
+            raise AssertionError(f"collected {len(tape.stats)} GroupNorm "
+                                 f"entries, expected {shape[0]}")
+        packed = torch.stack([torch.stack(e) for e in tape.stats])
+    else:
+        packed = torch.empty(shape, device=latent.device)
+    packed = mesh.broadcast(packed.float().contiguous())
+    return [(e[0], e[1]) for e in packed]
+
+
+def _box_moments(st: Dict[str, torch.Tensor], n: int) -> torch.Tensor:
+    """A box's (n, mean, M2, min, max) in float64 from its min / max /
+    mean / std (ddof = 1)."""
+    std = st["std"].double()
+    return torch.stack([torch.tensor(float(n), dtype=torch.float64,
+                                     device=std.device),
+                        st["mean"].double(), std * std * max(n - 1, 0),
+                        st["min"].double(), st["max"].double()])
+
+
+def _merged_stats(parts: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """min / max / mean / std (ddof = 1) of the union of boxes from their
+    (n, mean, M2, min, max) rows [T, 5], merged in float64 in row order
+    (Chan's combine), as 0-d float32 tensors."""
+    n_i, mean_i, m2_i = parts[:, 0], parts[:, 1], parts[:, 2]
+    n = n_i.sum()
+    mean = (n_i * mean_i).sum() / n
+    m2 = (m2_i + n_i * torch.square(mean_i - mean)).sum()
+    std = torch.sqrt(m2 / torch.clamp(n - 1.0, min=1.0))
+    return {"min": parts[:, 3].min().float(), "max": parts[:, 4].max().float(),
+            "mean": mean.float(), "std": std.float()}
+
+
+def _tiled_result(dec: Decoder, latent: torch.Tensor,
+                  cfg: HDRDecodeConfig, mesh: Mesh, latent_tile: int,
+                  latent_overlap: int, norm_stats: str,
+                  precision: Precision) -> HDRDecodeResult:
+    """:func:`sharded_tiled_decode` with its whole result (the summary and
+    the fallback flag beside the image)."""
+    dcfg = dec.cfg
+    scale = dcfg.spatial_scale
+    plan = plan_tiles(latent.shape[1], latent.shape[2], latent_tile,
+                      latent_overlap)
+    boxes = _crop_boxes(plan, scale)
+    tape = (_global_tape(dec, latent, precision, mesh)
+            if norm_stats == "global" else None)
+    want_first3 = cfg.fallback_collapse == "first3"
+    crops, moments = [], []
+    for i in _dealt(plan.num_tiles, mesh):
+        y, x0 = plan.positions[i]
+        tile = latent[:, y:y + plan.tile_h, x0:x0 + plan.tile_w]
+        out = decoder_apply(dec, tile, precision=precision,
+                            tape=None if tape is None
+                            else GNTape("inject", tape))
+        t, b, l, r = boxes[i]
+        # the owned box alone, contiguous: the collapse and the statistics
+        # (K4 with cfg.use_fused_epilogue) never see the halo
+        pre = out.pre_conv_out[:, t:b, l:r].contiguous()
+        collapsed, st = collapse_and_stats(pre,
+                                           use_fused=cfg.use_fused_epilogue)
+        moments.append(_box_moments(st, pre.numel()))
+        pieces = [out.rgb[:, t:b, l:r], collapsed.float()]
+        if want_first3:
+            pieces.append(pre[..., :3].float())
+        crops.append(torch.cat(pieces, dim=-1))
+        del out, pre
+    b, k = latent.shape[0], 9 if want_first3 else 6
+    crops = _gather_dealt(crops, plan.num_tiles, mesh, batch=b, k=k)
+    parts = _gather_dealt([m.reshape(1, 1, 1, 5) for m in moments],
+                          plan.num_tiles, mesh, batch=1, k=5)
+    pre_stats = _merged_stats(torch.cat(parts).reshape(plan.num_tiles, 5))
+    whole = torch.empty(b, plan.height * scale,
+                        plan.width * scale, k, device=latent.device)
+    for (y, x0), (t, b, l, r), c in zip(plan.positions, boxes, crops):
+        ys, xs = y * scale, x0 * scale
+        whole[:, ys + t:ys + b, xs + l:xs + r] = c
+    rgb, pre_c = whole[..., :3].contiguous(), whole[..., 3:6].contiguous()
+    pre3 = whole[..., 6:9].contiguous() if want_first3 else None
+    return result_from_parts(dec, rgb, pre_c, pre_stats, latent, cfg, pre3)
+
+
+@torch.no_grad()
+def sharded_tiled_decode(dec: Decoder, latent: torch.Tensor,
+                         cfg: HDRDecodeConfig = HDRDecodeConfig(), *,
+                         mesh: Optional[Mesh] = None,
+                         latent_tile: int = 64, latent_overlap: int = 8,
+                         norm_stats: str = "global",
+                         precision: Precision = Precision()
+                         ) -> torch.Tensor:
+    """The overlap-tiled HDR decode across the ranks of ``mesh`` (default
+    ``Mesh()``, on the card), as JAX's ``sharded_tiled_decode``: every
+    rank calls it with the same latent [B, h, w, z_channels] (or NCHW) and
+    weights and returns the same image [B, H, W, 3].  ``latent_tile`` /
+    ``latent_overlap`` are latent pixels (64 / 8: 512-pixel tiles with a
+    64-pixel halo).  For an exact sharded decode prefer
+    :func:`sharded_slab_decode`; this executor is the reference semantics
+    of tiling.
+
+    The seams: the halo-crop is exact for the convs; the GroupNorm
+    statistics follow ``norm_stats``:
+
+    - "global": rank 0 collects a ``GNTape`` from a whole-image decode and
+      broadcasts it, and every tile replays it, so tiles share the whole
+      image's statistics and only the tile-local mid attention is left at
+      the seams.  Tiles run on the layers (the mid attention on the
+      tier's K3).
+    - "per_tile": each tile normalizes with its own statistics, the
+      memory-bounded mode, with a larger seam error.  A tile runs
+      ``decoder_apply``'s own route: in the fast tier the fused chain
+      (K1 / K2 / K3 bf16).  The JAX package forces its XLA layers here on
+      a mesh of more than one device because its SPMD partitioner cannot
+      take its kernels; the port's ranks are processes of their own, so
+      that reason does not carry over.
+
+    The box statistics come from ``collapse_and_stats`` (K4 with
+    ``cfg.use_fused_epilogue``), summed there in double and merged in
+    double, where JAX sums float32 partials: the pre-map statistics agree
+    to float32 rounding (~1e-6 relative).
+    """
+    if norm_stats not in ("global", "per_tile"):
+        raise ValueError(f"norm_stats must be 'global' or 'per_tile', "
+                         f"got {norm_stats!r}")
+    latent = _to_nhwc(latent, dec.cfg.z_channels)
+    mesh = mesh or Mesh()
+    return _tiled_result(dec, latent.to(mesh.device), cfg, mesh,
+                         latent_tile, latent_overlap, norm_stats,
+                         precision).image
+
+
+# ---------------------------------------------------------------------------
+# The sharded two-pass upscale
+# ---------------------------------------------------------------------------
+
+
+def _run_dealt(fn, tiles: List[torch.Tensor],
+               mesh: Mesh) -> List[torch.Tensor]:
+    """``fn`` of every tile in ``tiles`` ([B, h, w, 3] -> [B, sh, sw, 3]),
+    each computed on one rank (:func:`_dealt`) and gathered to every rank,
+    in order."""
+    mine = [fn(tiles[i]) for i in _dealt(len(tiles), mesh)]
+    return _gather_dealt(mine, len(tiles), mesh, batch=tiles[0].shape[0],
+                         k=3)
+
+
+def sharded_hdr_upscale(model, image: torch.Tensor,
+                        cfg: Optional[UpscaleConfig] = None, *,
+                        architecture: str = "ESRGAN",
+                        mesh: Optional[Mesh] = None,
+                        precision: Precision = Precision()
+                        ) -> UpscaleResult:
+    """The two-pass HDR upscale with its tiles dealt across the ranks of
+    ``mesh`` (default ``Mesh()``), as JAX's ``sharded_hdr_upscale``:
+    ``upscale.pipeline.hdr_upscale`` itself, every rank with the same
+    image, its ``tile_map`` the dealing.  The upscaler has no statistics
+    across tiles, so the tiles of both passes (the unclamped and the
+    clamped input) go on one axis; each rank maps its share through the
+    model and the architecture's reversal, the outputs are gathered, and
+    every rank blends and recombines them as ``hdr_upscale`` does.
+    ``model`` is a loaded upscaler (``models/zoo.py``) on the rank's
+    device; the result is the same on every rank."""
+    mesh = mesh or Mesh()
+    return hdr_upscale(model, image.to(mesh.device), cfg or UpscaleConfig(),
+                       architecture=architecture, precision=precision,
+                       tile_map=lambda fn, tiles: _run_dealt(fn, tiles,
+                                                             mesh))

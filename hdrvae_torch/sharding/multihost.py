@@ -1,23 +1,28 @@
-"""Process groups for the sharded decode, as ``hdrvae/sharding/multihost.py``.
+"""Process groups for the sharded decode and upscale, as
+``hdrvae/sharding/multihost.py``.
 
 The JAX package runs one program over a global device mesh; the port runs
 one process a rank, joined by ``torch.distributed``.  Each rank needs three
 things: :func:`initialize` the process group (an explicit backend: NCCL
 where every rank has a card of its own, gloo where ranks share one card or
-run on the CPU), the same weights and the same latent.  Then
-``sharding.mesh.sharded_slab_decode`` runs unchanged on every rank.
+run on the CPU), the same weights and the same input.  Then the executors
+of ``sharding/mesh.py`` run unchanged on every rank.
 
 :class:`RankGroup` starts N real OS processes on this host (the worker is
 ``python -m hdrvae_torch.sharding.multihost JOB_DIR RANK``), each running
-every :class:`SlabCase` of one job through ``sharded_slab_decode``, and
-returns each rank's results with its kernel launch counts.  The launcher
-writes the decoders' state dicts and the latents once, into a temporary
-job directory, and each rank loads them onto its own device.  The ranks
-meet through a ``file://`` store in that directory, so concurrent
-launchers never contend for a port.  With ``device="cuda"`` the CUDA
-library is built in the launcher before any rank starts, so ranks never
-race ``nvcc``.  A rank that fails or outlives the timeout fails the whole
-group: every rank is killed and :meth:`RankGroup.wait` raises.
+every case of one job, in order, and returns each rank's records with its
+kernel launch counts.  The cases: :class:`SlabCase`
+(``sharded_slab_decode``), :class:`TiledCase` (``sharded_tiled_decode``),
+:class:`UpscaleCase` (``sharded_hdr_upscale``) and :class:`CommandCase`
+(a CLI command's work on the ranks, ``cli/main.py``).  The launcher writes
+the decoders' state dicts, the upscalers' state dicts with their zoo
+families, and the inputs once, into a temporary job directory, and each
+rank loads them onto its own device.  The ranks meet through a
+``file://`` store in that directory, so concurrent launchers never contend
+for a port.  With ``device="cuda"`` the CUDA library is built in the
+launcher before any rank starts, so ranks never race ``nvcc``.  A rank
+that fails or outlives the timeout fails the whole group: every rank is
+killed and :meth:`RankGroup.wait` raises.
 
 :func:`launch_localhost_dryrun` is the no-cluster check of JAX's dryrun: a
 small decoder decoded across N processes, which must agree.
@@ -25,7 +30,10 @@ small decoder decoded across N processes, which must agree.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import io
 import os
 import shutil
 import subprocess
@@ -33,13 +41,13 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
-                                      MeshConfig, Precision)
+                                      MeshConfig, Precision, UpscaleConfig)
 
 _REPO = Path(__file__).resolve().parent.parent.parent
 
@@ -80,13 +88,67 @@ class SlabCase:
     requests: int = 1
 
 
+@dataclasses.dataclass
+class TiledCase:
+    """One ``sharded_tiled_decode`` every rank runs, as :class:`SlabCase`;
+    rank 0's record holds the image, every record its digest.  With
+    ``profile`` each request runs under ``torch.profiler`` and the record
+    holds the top 5 kernels of the last by device time ("top") and the
+    time of all its kernels ("kernel_ms"): its times are the profiled
+    ones."""
+
+    name: str
+    decoder: str
+    latent: torch.Tensor                  # on the CPU
+    cfg: HDRDecodeConfig = HDRDecodeConfig()
+    precision: Precision = Precision()
+    latent_tile: int = 64
+    latent_overlap: int = 8
+    norm_stats: str = "global"
+    requests: int = 1
+    profile: bool = False     # each request under torch.profiler
+
+
+@dataclasses.dataclass
+class UpscaleCase:
+    """One ``sharded_hdr_upscale`` every rank runs: ``model`` names one of
+    the job's upscalers (its zoo family picks the reversal); rank 0's
+    record holds the image, every record its digest."""
+
+    name: str
+    model: str
+    image: torch.Tensor                   # [B, H, W, 3] on the CPU
+    cfg: UpscaleConfig = UpscaleConfig()
+    precision: Precision = Precision()
+    requests: int = 1
+
+
+@dataclasses.dataclass
+class CommandCase:
+    """A CLI command's work on every rank (``cli.main.run_on_rank``):
+    ``command`` "decode" or "upscale", ``args`` its parsed arguments,
+    ``data`` the latent or image, ``model`` the job's decoder or upscaler.
+    Rank 0 alone writes the files; its record holds the lines it
+    printed."""
+
+    name: str
+    command: str
+    args: Dict[str, Any]
+    data: torch.Tensor
+    model: str
+    requests: int = 1
+
+
 def _wrappers():
-    """The kernel wrappers the decode can launch."""
-    from hdrvae_torch.kernels import attention, conv3x3, epilogue
+    """The kernel wrappers the sharded paths can launch."""
+    from hdrvae_torch.kernels import (attention, conv3x3, dense_conv,
+                                      epilogue, ocab, swin_attention)
     return (conv3x3.fused_conv3x3, conv3x3.upsample_conv3x3,
             conv3x3.upconv_gn_conv3x3, attention.flash_attention_bf16,
             attention.flash_attention_3pass, attention.flash_attention_f32,
-            attention.split_qkv, epilogue.collapse_and_stats_fused)
+            attention.split_qkv, epilogue.collapse_and_stats_fused,
+            dense_conv.dense_conv3x3, swin_attention.swin_block_fused,
+            ocab.ocab_attention)
 
 
 _COUNTERS = ("launches", "launches_masked", "stats_only_launches",
@@ -94,7 +156,7 @@ _COUNTERS = ("launches", "launches_masked", "stats_only_launches",
 
 
 def kernel_counts() -> Dict[str, int]:
-    """Every launch counter of the decode's kernels, as
+    """Every launch counter of the sharded paths' kernels, as
     ``{"<wrapper>.<counter>": n}``."""
     return {f"{fn.__name__}.{c}": getattr(fn, c) for fn in _wrappers()
             for c in _COUNTERS if hasattr(fn, c)}
@@ -107,13 +169,19 @@ def reset_kernel_counts() -> None:
                 setattr(fn, c, 0)
 
 
-def _decode(dec, z, case: SlabCase, mesh, cuda: bool) -> dict:
-    """One timed request of ``case``: its result on the CPU, the launches
-    it made, its wall ms and (on a card) device ms and peak bytes."""
-    from hdrvae_torch.decode.pipeline import decode_summary
-    from hdrvae_torch.sharding.mesh import sharded_slab_decode
-    kw = dict(mesh=mesh, tail_levels=case.tail_levels, pad_to=case.pad_to,
-              precision=case.precision)
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's dtype, shape and bytes: equal on two ranks iff
+    their tensors are bit-equal."""
+    t = t.detach().cpu().contiguous()
+    h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+    h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    return h.hexdigest()
+
+
+def _timed(fn, cuda: bool) -> Tuple[Any, dict]:
+    """``fn()`` once with the launch counters reset before it: its result
+    and a record of the launches it made, its wall ms and (on a card)
+    device ms and peak bytes."""
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -122,23 +190,90 @@ def _decode(dec, z, case: SlabCase, mesh, cuda: bool) -> dict:
         start.record()
     reset_kernel_counts()
     t0 = time.perf_counter()
-    res = sharded_slab_decode(dec, z, case.cfg, **kw)
+    out = fn()
     if cuda:
         end.record()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    return {
-        "name": case.name, "image": res.image.cpu(),
-        "standard": None if res.standard is None else res.standard.cpu(),
-        "summary": decode_summary(res), "counts": kernel_counts(),
-        "wall_ms": wall_ms,
+    return out, {
+        "counts": kernel_counts(), "wall_ms": wall_ms,
         "device_ms": start.elapsed_time(end) if cuda else None,
         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
 
 
+def _decode_record(res, name: str, rank: int, full: bool) -> dict:
+    """A decode result's record: the summary and the image's digest; the
+    image and the standard decode on every rank with ``full``, else on rank
+    0 alone."""
+    from hdrvae_torch.decode.pipeline import decode_summary
+    keep = full or rank == 0
+    return {"name": name, "summary": decode_summary(res),
+            "digest": digest(res.image),
+            "image": res.image.cpu() if keep else None,
+            "standard": (None if res.standard is None or not keep
+                         else res.standard.cpu())}
+
+
+def _run_case(case, models: dict, mesh, rank: int, cuda: bool) -> dict:
+    """One timed request of ``case`` on this rank: its record."""
+    from hdrvae_torch.sharding import mesh as shard
+    if isinstance(case, SlabCase):
+        z = case.latent.to(mesh.device)
+        res, rec = _timed(lambda: shard.sharded_slab_decode(
+            models[case.decoder], z, case.cfg, mesh=mesh,
+            tail_levels=case.tail_levels, pad_to=case.pad_to,
+            precision=case.precision), cuda)
+        return {**_decode_record(res, case.name, rank, True), **rec}
+    if isinstance(case, TiledCase):
+        z = case.latent.to(mesh.device)
+        run = lambda: shard._tiled_result(  # noqa: E731
+            models[case.decoder], z, case.cfg, mesh, case.latent_tile,
+            case.latent_overlap, case.norm_stats, case.precision)
+        if not case.profile:
+            res, rec = _timed(run, cuda)
+            return {**_decode_record(res, case.name, rank, False), **rec}
+        from hdrvae_torch.utils.profiling import kernel_rows
+        with torch.profiler.profile() as prof:
+            res, rec = _timed(run, cuda)
+        rows = kernel_rows(prof, top=None)
+        return {**_decode_record(res, case.name, rank, False), **rec,
+                "top": rows[:5], "kernel_ms": sum(ms for _, _, ms in rows)}
+    if isinstance(case, UpscaleCase):
+        net, arch = models[case.model]
+        image = case.image.to(mesh.device)
+        res, rec = _timed(lambda: shard.sharded_hdr_upscale(
+            net, image, case.cfg, architecture=arch, mesh=mesh,
+            precision=case.precision), cuda)
+        return {"name": case.name, "digest": digest(res.image),
+                "image": res.image.cpu() if rank == 0 else None, **rec}
+    from hdrvae_torch.cli.main import run_on_rank
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        _, rec = _timed(lambda: run_on_rank(case, models[case.model], mesh),
+                        cuda)
+    return {"name": case.name, "lines": text.getvalue(), **rec}
+
+
+def _load_models(job: dict, device: torch.device) -> dict:
+    """The job's decoders (by name) and upscalers (by name: the module and
+    its architecture name) on ``device``."""
+    from hdrvae_torch.models.params import decoder_from_state_dict
+    from hdrvae_torch.models.zoo import upscaler_from_state_dict
+    models: Dict[str, Any] = {
+        name: decoder_from_state_dict(sd, cfg, device=device)
+        for name, (cfg, sd) in job["decoders"].items()}
+    for name, (family, sd) in job["upscalers"].items():
+        net, _, arch = upscaler_from_state_dict(sd, device=device)
+        # an ESRGAN checkpoint's module holds RealESRGAN's key schema
+        if arch != family and {arch, family} != {"ESRGAN", "RealESRGAN"}:
+            raise ValueError(f"upscaler {name!r} written as {family} loads "
+                             f"as {arch}")
+        models[name] = (net, family)
+    return models
+
+
 def _run_rank(job_dir: Path, rank: int) -> None:
     """Run every case of the job on this rank; save the records."""
-    from hdrvae_torch.models.params import decoder_from_state_dict
     from hdrvae_torch.sharding.mesh import Mesh
     job = torch.load(job_dir / "job.pt", weights_only=False)
     torch.set_num_threads(1)
@@ -151,14 +286,12 @@ def _run_rank(job_dir: Path, rank: int) -> None:
     initialize((job_dir / "store").as_uri(), job["world_size"], rank,
                job["backend"])
     try:
-        decoders = {name: decoder_from_state_dict(sd, cfg, device=device)
-                    for name, (cfg, sd) in job["decoders"].items()}
+        models = _load_models(job, device)
         mesh = Mesh(device, MeshConfig(num_devices=job["world_size"]))
         records = []
         for case in job["cases"]:
-            z = case.latent.to(device)
             for _ in range(case.requests):
-                rec = _decode(decoders[case.decoder], z, case, mesh, cuda)
+                rec = _run_case(case, models, mesh, rank, cuda)
             records.append({**rec, "rank": rank, "device": str(device),
                             "backend": job["backend"],
                             "world_size": job["world_size"]})
@@ -169,13 +302,18 @@ def _run_rank(job_dir: Path, rank: int) -> None:
 
 class RankGroup:
     """N worker processes on this host running one job (module
-    docstring); :meth:`wait` returns each rank's records, rank 0 first.
+    docstring): ``decoders`` {name: (config, state dict)}, ``upscalers``
+    {name: (zoo family, state dict)}, ``cases`` run in order on every rank
+    (in ``cwd``, default the repository).
+    :meth:`wait` returns each rank's records, rank 0 first.
     Use it as a context manager, or call :meth:`close`: every process it
     started is killed and its job directory removed."""
 
     def __init__(self, num_processes: int,
                  decoders: Dict[str, Tuple[DecoderConfig, dict]],
-                 cases: List[SlabCase], *, device: str = "cuda"):
+                 cases: list, *,
+                 upscalers: Optional[Dict[str, Tuple[str, dict]]] = None,
+                 device: str = "cuda", cwd: Optional[str] = None):
         if device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got "
                              f"{device!r}")
@@ -190,7 +328,11 @@ class RankGroup:
             "device": device, "cases": list(cases),
             "decoders": {name: (cfg, {k: v.detach().cpu()
                                       for k, v in sd.items()})
-                         for name, (cfg, sd) in decoders.items()}},
+                         for name, (cfg, sd) in decoders.items()},
+            "upscalers": {name: (family, {k: v.detach().cpu()
+                                          for k, v in sd.items()})
+                          for name, (family, sd) in
+                          (upscalers or {}).items()}},
             self.dir / "job.pt")
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
@@ -205,7 +347,7 @@ class RankGroup:
                         [sys.executable, "-m",
                          "hdrvae_torch.sharding.multihost", str(self.dir),
                          str(rank)], env=env, stdout=log,
-                        stderr=subprocess.STDOUT, cwd=_REPO))
+                        stderr=subprocess.STDOUT, cwd=cwd or _REPO))
         except BaseException:
             self.close()
             raise
@@ -294,4 +436,7 @@ def launch_localhost_dryrun(num_processes: int = 2, *,
 
 
 if __name__ == "__main__":
-    _run_rank(Path(sys.argv[1]), int(sys.argv[2]))
+    # the cases were pickled with this module's classes under its package
+    # name; run under that name, so that isinstance sees them
+    from hdrvae_torch.sharding import multihost
+    multihost._run_rank(Path(sys.argv[1]), int(sys.argv[2]))

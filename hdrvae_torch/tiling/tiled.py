@@ -21,7 +21,7 @@ Seam modes:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, List, Tuple
+from typing import Callable, Iterable, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -155,16 +155,19 @@ def tiled_apply_comfy(fn: Callable[[torch.Tensor], torch.Tensor],
                       scale: int = 1, pbar=None) -> torch.Tensor:
     """Apply ``fn`` over [B, H, W, C] with ComfyUI ``tiled_scale``'s grid
     and blend, one tile at a time in emission order."""
-    plan = plan_tiles_comfy(x.shape[1], x.shape[2], tile, overlap)
+    return tiled_apply(fn, x, tile=tile, overlap=overlap, scale=scale,
+                       mode="comfy", pbar=pbar)
 
-    def outs():
-        for y, x0, th, tw in plan.tiles:
-            out = fn(x[:, y:y + th, x0:x0 + tw, :])
-            if pbar is not None:
-                pbar.update(1)
-            yield out
 
-    return blend_tiles_comfy(outs(), plan, scale=scale)
+def _tile_views(x: torch.Tensor, plan: TilePlan) -> List[torch.Tensor]:
+    return [x[:, y:y + plan.tile_h, x0:x0 + plan.tile_w, :]
+            for y, x0 in plan.positions]
+
+
+def extract_tiles(x: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """[B, H, W, C] -> [T, B, th, tw, C]: the plan's tiles stacked, in
+    ``plan.positions`` order."""
+    return torch.stack(_tile_views(x, plan), dim=0)
 
 
 def _feather_mask(tile_h: int, tile_w: int, feather: int) -> np.ndarray:
@@ -226,19 +229,49 @@ def tiled_apply(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     """Apply ``fn`` ([B, th, tw, C] -> [B, s*th, s*tw, C']) tile by tile
     over [B, H, W, C] with the seam ``mode``; ``pbar`` (an object with
     ``update(n)``) is advanced once per tile."""
+    tiles, blend = tile_grid(x, tile=tile, overlap=overlap, scale=scale,
+                             mode=mode)
+    return blend(map_tiles(fn, tiles, pbar))
+
+
+def tile_grid(x: torch.Tensor, *, tile: int = 512, overlap: int = 64,
+              scale: int = 1, mode: str = "feather"
+              ) -> Tuple[List[torch.Tensor],
+                         Callable[[Iterable[torch.Tensor]], torch.Tensor]]:
+    """:func:`tiled_apply` split at its tile calls: the tiles of
+    [B, H, W, C] under the seam ``mode`` (views, in the plan's order) and
+    the blend that takes their outputs ([B, s*th, s*tw, C'], in the same
+    order, any iterable) to [B, s*H, s*W, C'].  A grid of one tile blends
+    to that tile's output as it is."""
     if mode == "comfy":
-        return tiled_apply_comfy(fn, x, tile=tile, overlap=overlap,
-                                 scale=scale, pbar=pbar)
+        plan_c = plan_tiles_comfy(x.shape[1], x.shape[2], tile, overlap)
+        tiles = [x[:, y:y + th, x0:x0 + tw, :]
+                 for y, x0, th, tw in plan_c.tiles]
+        return tiles, lambda outs: blend_tiles_comfy(outs, plan_c,
+                                                     scale=scale)
     plan = plan_tiles(x.shape[1], x.shape[2], tile, overlap)
-    outs = []
-    for y, x0 in plan.positions:
-        outs.append(fn(x[:, y:y + plan.tile_h, x0:x0 + plan.tile_w, :]))
+
+    def blend(outs: Iterable[torch.Tensor]) -> torch.Tensor:
+        outs = list(outs)
+        if plan.num_tiles == 1:
+            return outs[0]
+        return blend_tiles(torch.stack(outs, dim=0), plan, scale=scale,
+                           mode=mode)
+
+    return _tile_views(x, plan), blend
+
+
+def map_tiles(fn: Callable[[torch.Tensor], torch.Tensor],
+              tiles: Iterable[torch.Tensor], pbar=None
+              ) -> Iterator[torch.Tensor]:
+    """``fn`` of each tile, here, lazily and in order (a blend that takes
+    the outputs as they come keeps one live); ``pbar`` (an object with
+    ``update(n)``) is advanced once per tile."""
+    for t in tiles:
+        out = fn(t)
         if pbar is not None:
             pbar.update(1)
-    if plan.num_tiles == 1:
-        return outs[0]
-    return blend_tiles(torch.stack(outs, dim=0), plan, scale=scale,
-                       mode=mode)
+        yield out
 
 
 def num_tiles(height: int, width: int, tile: int, overlap: int,

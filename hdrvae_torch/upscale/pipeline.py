@@ -10,11 +10,13 @@
   local_fix (dark areas pulled back to the clamped result).
 
 Each pass is a host loop over the tiles (``tiling/tiled.py``); the model
-runs per tile on the input's device.
+runs per tile on the input's device, or on the rank a ``tile_map`` deals
+the tile to (``sharding/mesh.py``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, NamedTuple
 
 import torch
@@ -24,7 +26,8 @@ from hdrvae_torch.core.config import Precision, UpscaleConfig
 from hdrvae_torch.decode.modes import inverse_sigmoid, inverse_tanh
 from hdrvae_torch.models.zoo import (ModelConfig, upscaler_apply,
                                      working_set_bytes_per_pixel)
-from hdrvae_torch.tiling.tiled import num_tiles, select_tile_size, tiled_apply
+from hdrvae_torch.tiling.tiled import (map_tiles, num_tiles, select_tile_size,
+                                       tile_grid)
 from hdrvae_torch.upscale.filters import gaussian_blur, median_blur
 from hdrvae_torch.upscale.resize import common_upscale
 
@@ -59,17 +62,6 @@ def _select_pass_tile(x: torch.Tensor, model_cfg: ModelConfig,
     return tile
 
 
-def _run_pass(model, x: torch.Tensor, cfg: UpscaleConfig,
-              architecture: str, precision: Precision,
-              pbar) -> torch.Tensor:
-    reverse = get_reversal_fn(architecture)
-    return tiled_apply(
-        lambda t: reverse(upscaler_apply(model, t, precision=precision)),
-        x, tile=_select_pass_tile(x, model.cfg, cfg, precision),
-        overlap=cfg.tiling.overlap, scale=model.cfg.scale,
-        mode=cfg.tiling.seam_mode, pbar=pbar)
-
-
 def _recombine(unclamped: torch.Tensor, clamped: torch.Tensor,
                original: torch.Tensor, cfg: UpscaleConfig) -> torch.Tensor:
     y_stab = median_blur(torch.clamp(luma(unclamped), 0.0, cfg.luma_max),
@@ -102,13 +94,17 @@ def hdr_upscale(model, image: torch.Tensor,
                 cfg: UpscaleConfig = UpscaleConfig(), *,
                 architecture: str = "ESRGAN",
                 precision: Precision = Precision(),
-                pbar=None) -> UpscaleResult:
+                pbar=None, tile_map=None) -> UpscaleResult:
     """Upscale an HDR float image [B, H, W, 3] (NHWC) on its device.
 
     ``model`` is a loaded upscaler (``models/zoo.py``) on the same device;
     tile and overlap come from ``cfg.tiling`` (512 / 64 by default).  With
     ``pbar`` (``update(n)``; size it with :func:`upscale_progress_total`)
-    each tile advances the bar by one.
+    each tile advances the bar by one.  ``tile_map(fn, tiles)`` returns
+    ``fn`` of every tile of both passes (the unclamped pass's, then the
+    clamped pass's, in one list) in order; by default the tiles run here
+    one by one (``tiling.tiled.map_tiles``), and
+    ``sharding.mesh.sharded_hdr_upscale`` deals them across ranks.
     """
     if image.dim() != 4 or image.shape[-1] != 3:
         raise ValueError(f"expected [B, H, W, 3] image, got "
@@ -119,10 +115,22 @@ def hdr_upscale(model, image: torch.Tensor,
         in_filtered = gaussian_blur(image, kernel_size=3, sigma=0.1)
     clamped_in = torch.clamp(in_filtered, cfg.color_stable_min,
                              cfg.color_stable_max)
-    s_unclamped = _run_pass(model, in_filtered, cfg, architecture,
-                            precision, pbar)
-    s_clamped = _run_pass(model, clamped_in, cfg, architecture, precision,
-                          pbar)
+    grid = dict(tile=_select_pass_tile(in_filtered, model.cfg, cfg,
+                                       precision),
+                overlap=cfg.tiling.overlap, scale=model.cfg.scale,
+                mode=cfg.tiling.seam_mode)
+    tiles_u, blend_u = tile_grid(in_filtered, **grid)
+    tiles_c, blend_c = tile_grid(clamped_in, **grid)
+    reverse = get_reversal_fn(architecture)
+
+    def fn(t: torch.Tensor) -> torch.Tensor:
+        return reverse(upscaler_apply(model, t, precision=precision))
+
+    outs = iter(map_tiles(fn, tiles_u + tiles_c, pbar) if tile_map is None
+                else tile_map(fn, tiles_u + tiles_c))
+    # pass 1's outputs are blended before pass 2's are computed here
+    s_unclamped = blend_u(itertools.islice(outs, len(tiles_u)))
+    s_clamped = blend_c(outs)
     s_final = _recombine(s_unclamped, s_clamped, in_filtered, cfg)
     return UpscaleResult(image=s_final.float(), unclamped=s_unclamped,
                          clamped=s_clamped)

@@ -2,10 +2,10 @@
 (``hdrvae/cli/main.py``), driven in-process on the CPU (``--device cpu``)
 at tiny sizes.
 
-The parsers of decode, upscale, export, run and serve must take the JAX
-flags with the same defaults, choices and types, except what the port
-leaves out (``decode --tiled / --mesh``, ``upscale --sharded``, ``serve
---sharded``: the mesh paths) and adds (``--device``).  ``export`` writes
+The parsers of decode, upscale, export, convert, inspect, run and serve
+must take the JAX flags with the same defaults, choices and types, except
+what the port leaves out (``serve --sharded``) and adds (``--device``).
+``export`` writes
 the JAX CLI's bytes; ``upscale`` its image within ``test_torch_upscale.py``'s
 bounds; ``decode`` and ``run`` print the same JSON lines.
 """
@@ -26,8 +26,7 @@ from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LEFT_OUT = {"decode": {"tiled", "mesh"}, "upscale": {"sharded"},
-            "serve": {"sharded"}}
+LEFT_OUT = {"serve": {"sharded"}}
 
 
 def _subparsers(parser):
@@ -43,14 +42,14 @@ def _actions(parser):
 
 
 @pytest.mark.parametrize("command", ["decode", "upscale", "export", "run",
-                                     "serve"])
+                                     "serve", "convert", "inspect"])
 def test_parser_matches_jax(command):
     ref = _actions(_subparsers(jcli.build_parser())[command])
     got = _actions(_subparsers(tcli.build_parser())[command])
     for dest in LEFT_OUT.get(command, ()):
         del ref[dest]
     device = got.pop("device", None)
-    if command != "export":
+    if command not in ("export", "convert", "inspect"):
         assert device == (("--device",), "cuda", None, None, False, None,
                           "_StoreAction")
     assert got == ref
@@ -241,12 +240,15 @@ def test_front_end_never_imports_jax():
         "from hdrvae_torch.cli import main\n"
         "from hdrvae_torch.api import nodes, graph, comfy, folders\n"
         "from hdrvae_torch.io import pipeline, native_build, exr\n"
-        "from hdrvae_torch.utils import progress\n"
+        "from hdrvae_torch.utils import progress, introspect, profiling\n"
+        "from hdrvae_torch.sharding import mesh, multihost\n"
         "assert list(hdrvae_torch.NODE_CLASS_MAPPINGS) == "
         "['HDRVAEDecode', 'LinearEXRExport', 'HDRUpscaleWithModel']\n"
         "p = main.build_parser()\n"
         "for cmd in ('decode', 'upscale --image a --model b', 'export "
-        "--image a', 'run w.json', 'serve'):\n"
+        "--image a', 'run w.json', 'serve', 'decode --tiled --mesh 2', "
+        "'upscale --sharded --image a --model b', 'convert vae a b', "
+        "'inspect'):\n"
         "    p.parse_args(cmd.split())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'hdrvae' or m.startswith('hdrvae.') "

@@ -1178,3 +1178,39 @@ def test_f32_dot_refuses_what_it_does_not_take(dev):
         f32_dot.f32_dot(x.double(), torch.zeros(32, 64, device=dev).double())
     with pytest.raises(ValueError, match="contiguous"):
         f32_dot.f32_dot(x, torch.zeros(64, 32, device=dev).t())
+
+
+def test_debug_nans_sees_a_kernel_nan(dev):
+    """K6 writes a NaN (zero inputs times inf weights) through its ctypes
+    launch, which the scope's dispatch hook never sees: its wrapper raises
+    inside ``utils.profiling.debug_nans``; outside it the NaN comes
+    back."""
+    from hdrvae_torch.utils.profiling import debug_nans
+    w = dense_conv.prepare_weights(
+        torch.full((3, 3, 64, 64), float("inf"), device=dev,
+                   dtype=torch.bfloat16),
+        torch.zeros(64, device=dev), (64,))
+    x = torch.zeros(1, 16, 16, 64, device=dev, dtype=torch.bfloat16)
+    assert torch.isnan(dense_conv.dense_conv3x3([x], w)).any()
+    with debug_nans():
+        with pytest.raises(FloatingPointError, match="dense_conv3x3"):
+            dense_conv.dense_conv3x3([x], w)
+
+
+def test_op_profile_rows_are_kernels(dev):
+    """On the card ``op_profile``'s rows are device kernels alone, which
+    partition the device time (an op's device time is its kernels', so
+    counting both would count it twice): K6's kernel is among them and no
+    ``aten::`` op is."""
+    from hdrvae_torch.utils.profiling import op_profile
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = dense_conv.prepare_weights(
+        0.05 * torch.randn(3, 3, 64, 64, device=dev, generator=g)
+        .to(torch.bfloat16), torch.zeros(64, device=dev), (64,))
+    x = torch.randn(1, 32, 32, 64, device=dev, generator=g) \
+        .to(torch.bfloat16)
+    rows = op_profile(lambda: dense_conv.dense_conv3x3([x], w).float() * 2,
+                      top=50)
+    names = [n for n, _, _ in rows]
+    assert any("dense_wgmma_kernel" in n for n in names), names
+    assert not any(n.startswith("aten::") for n in names), names
