@@ -140,6 +140,25 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    --mesh 2 --size 2048`` and ``cli upscale --sharded`` (one rank a card,
    its file bit-equal to ``hdr_upscale``'s float16) in phase 4c's style,
    with the ranks' launches from the CLI's log;
+7c. serving across ranks (its own limit, SERVE_RANKS_BUDGET_S):
+   ``ServeEngine(mesh=)`` on rank 0 of two gloo ranks sharing the card
+   (``multihost.ServeCase``: two client threads; the other rank in
+   ``serve.ranks.follow``), the full-width decoder: a fast engine without
+   a bucket on four 2048^2 latents (the chain: K1 / K2 owned_rows, K3
+   bf16), a fast engine with bucket 64 on two [1, 121, 100, 16] latents
+   (pad_to: the layers, K3 bf16 masked), a mixed engine on two 1024^2
+   latents (K3 3-pass, split_qkv); each response bit-equal to the same
+   ranks' direct ``sharded_slab_decode`` of its latent (earlier in the
+   same job) and within SLAB_FAST / SLAB_MIXED of the whole-image decode
+   of its tier, each engine's launches checked on every rank; one fast
+   2048^2 slab request profiled on each rank (kernel rows, top 5, all
+   kernels' ms and the collectives' host ms against the request's); one
+   NCCL rank serving two fast 2048^2 requests (the worker thread's
+   collectives on NCCL); ``cli serve --sharded --mesh 2`` as a
+   subprocess: a 2048^2 32-bit EXR response equal to the fast engine's
+   image, ``/healthz`` with two devices, SIGTERM, exit 0 and no rank
+   left; each engine's latency p50 / p95, MP/s and overhead over the
+   direct slab call beside phase 4b's one-rank engine;
 8. EXR: the parity image written as a 32-bit EXR and read back bit-exact;
 9. upscale: the full-width ESRGAN x4 (RRDBNet, random weights from a numpy
    seed) through ``hdr_upscale`` on the parity image, 1024^2 -> 4096^2 in
@@ -184,9 +203,10 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    low-memory fast 2048^2 decode, K6 in the fast ESRGAN upscale, K7 in the
    fast SwinIR and HAT upscales, its v2 body in the fast Swin2SR upscale,
    K8 in the fast HAT upscale, K9-K11 in the Swin chain phase, K12 and
-   its split in the probe; every kernel of the table ran (phase 7b checks
-   its ranks' counts itself: K1 / K2 / K3 bf16 / K4 in the fast per_tile
-   tiled decodes, K6 and K7 in the sharded upscales).
+   its split in the probe; every kernel of the table ran (phases 7b and 7c
+   check their ranks' counts themselves: K1 / K2 / K3 bf16 / K4 in the
+   fast per_tile tiled decodes, K6 and K7 in the sharded upscales; K1 /
+   K2 owned_rows and K3 in each served tier on every rank).
 
 The last two lines of standard output are a JSON object describing each
 kernel and the JSON result ``{"ok": true, "device": {...}}``.  Without a
@@ -202,10 +222,12 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -344,6 +366,10 @@ TILED_SEAM = {"fast per_tile": (6.5776e-3, 3.5156e-2),
               "fast global": (2.6611e-3, 1.5625e-2),
               "mixed global": (9.0786e-4, 1.4038e-2)}
 TILED_SEAM_BAND = 2.0
+# the served slab decode across ranks: its own time limit, ranks sharing
+# the card
+SERVE_RANKS_BUDGET_S = 120.0
+SERVE_RANKS = 2
 ATTN_BUDGET = {"parity": 1e-5, "mixed": 1e-4}
 # K3's key_valid mode at K3's N = 16,384 (a 128 x 128 grid): the live
 # region of the bucketed phase's latent, 121 x 100 of its 128 x 128 bucket;
@@ -3475,6 +3501,294 @@ def phase_tiled(dec, image: torch.Tensor, refs, lf_records, card) -> dict:
     return record
 
 
+def _start_cli_serve(argv, cwd) -> tuple:
+    """``cli serve`` started as a subprocess in ``cwd``, its standard error
+    into ``cwd/err.log``: (the process, the list of (arrival s, line) its
+    reader thread fills with its standard output)."""
+    import threading
+    t0 = time.perf_counter()
+    with open(os.path.join(cwd, "err.log"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "hdrvae_torch.cli.main", "serve", *argv],
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=cwd)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line))
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines
+
+
+def _stop_cli_serve(proc, cwd) -> tuple:
+    """SIGTERM to a ``cli serve`` subprocess, killed if it outlives 120 s:
+    (its exit code, seconds to exit, its standard error)."""
+    import signal
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=120)
+    finally:
+        proc.kill()
+        proc.wait()
+    with open(os.path.join(cwd, "err.log")) as f:
+        return proc.returncode, time.perf_counter() - t0, f.read()
+
+
+def _http(port: int, method: str, path: str, body=None) -> tuple:
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def phase_serve_ranks(dec, card: str, one_rank: dict) -> dict:
+    """Serving across ranks (its own limit, SERVE_RANKS_BUDGET_S): the
+    full-width decoder's ``ServeEngine(mesh=)`` on rank 0 of
+    SERVE_RANKS gloo ranks sharing the card (``multihost.ServeCase``, two
+    client threads, the followers in ``serve.ranks.follow``): a fast engine
+    without a bucket taking four 2048^2 latents at their shape (the chain:
+    K1 / K2 owned_rows, K3 bf16), a fast engine with bucket 64 two
+    [1, 121, 100, 16] latents (pad_to: the layers, K3 bf16 masked), a
+    mixed engine two 1024^2 latents (K3 3-pass, split_qkv); each response
+    bit-equal to the same ranks' direct ``sharded_slab_decode`` of its
+    latent and within SLAB_FAST / SLAB_MIXED of this process's
+    whole-image decode; one fast 2048^2 slab request profiled on each
+    rank.  One NCCL rank serving two fast 2048^2 requests.  ``cli serve
+    --sharded --mesh 2`` as a subprocess: one 32-bit EXR response equal to
+    the fast engine's image, /healthz with 2 devices, SIGTERM and no rank
+    left.  Latency p50 / p95 and MP/s of each engine beside phase 4b's
+    one-rank engine (``one_rank``).  Returns the phase's record."""
+    import io
+
+    from hdrvae_torch.core.config import HDRDecodeConfig, Precision
+    from hdrvae_torch.decode.pipeline import hdr_decode
+    from hdrvae_torch.io import exr
+    from hdrvae_torch.sharding import multihost
+
+    t_phase = time.perf_counter()
+    record = {"card": card}
+    cons = HDRDecodeConfig(hdr_mode="conservative")
+    fast = Precision.fast()
+    zc = dec.cfg.z_channels
+
+    def latent(seed, h, w):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (1, h, w, zc)).astype(np.float32))
+
+    # engine: (tier, latents, bucket, the direct call's pad_to)
+    engines = {
+        "fast": (fast, [latent(130 + i, 256, 256) for i in range(4)],
+                 "default", None),
+        "fast bucket 64": (fast, [latent(140 + i, *BUCKET_LATENT)
+                                  for i in range(2)], 64, (128, 128)),
+        "mixed": (Precision.mixed(), [latent(150 + i, 128, 128)
+                                      for i in range(2)], "default", None)}
+    S, R = multihost.SlabCase, multihost.ServeRequest
+    cases = [S(f"direct {name} {i}", "flux", z, cons, prec, pad_to=pad_to,
+               requests=2 if i == 0 else 1)
+             for name, (prec, zs, _, pad_to) in engines.items()
+             for i, z in enumerate(zs)]
+    big = engines["fast"][1]
+    cases.append(S("profiled", "flux", big[0], cons, fast, profile=True))
+    cases += [multihost.ServeCase(name, "flux", [R(z, cons) for z in zs],
+                                  prec, bucket=bucket,
+                                  warmup=(tuple(zs[0].shape[1:3]),))
+              for name, (prec, zs, bucket, _) in engines.items()]
+    nccl_cases = [S("direct nccl 0", "flux", big[0], cons, fast, requests=2),
+                  S("direct nccl 1", "flux", big[1], cons, fast),
+                  multihost.ServeCase("nccl", "flux",
+                                      [R(z, cons) for z in big[:2]], fast,
+                                      warmup=((256, 256),))]
+    sd = {k: v.cpu() for k, v in dec.state_dict().items()}
+    torch.cuda.empty_cache()
+    # cli serve --sharded starts now (random weights from seed 0: the
+    # phase's decoder), beside the two groups, and is checked after them
+    cli_dir = tempfile.mkdtemp(prefix="hdrvae_serve_")
+    cli, lines = _start_cli_serve(["--sharded", "--mesh", str(SERVE_RANKS),
+                                   "--port", "0"], cli_dir)
+    try:
+        t0 = time.perf_counter()
+        two = multihost.RankGroup(SERVE_RANKS, {"flux": (dec.cfg, sd)}, cases,
+                                  device="cuda").wait(timeout=300)
+        t_two = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = multihost.RankGroup(1, {"flux": (dec.cfg, sd)}, nccl_cases,
+                                  device="cuda").wait(timeout=300)
+        t_one = time.perf_counter() - t0
+        by_name = {}
+        for ranks in (two, one):
+            for i, rec in enumerate(ranks[0]):
+                by_name[rec["name"]] = [r[i] for r in ranks]
+        check(by_name["fast"][0]["backend"] == "gloo"
+              and by_name["nccl"][0]["backend"] == "nccl",
+              f"serve ranks: backends {by_name['fast'][0]['backend']} / "
+              f"{by_name['nccl'][0]['backend']}, want gloo / nccl")
+        log(f"serve ranks: {SERVE_RANKS} gloo ranks in {t_two:.1f} s, 1 NCCL "
+            f"rank in {t_one:.1f} s")
+
+        record["engines"] = {}
+        for name in (*engines, "nccl"):
+            prec, zs, _, pad_to = engines["fast" if name == "nccl" else name]
+            zs = zs[:2] if name == "nccl" else zs
+            recs = by_name[name]
+            rank0 = recs[0]
+            check("refused" not in rank0 and all(r["ok"] for r in
+                                                 rank0["responses"]),
+                  f"serve ranks[{name}]: {rank0.get('refused')} "
+                  f"{[r.get('error') for r in rank0['responses']]}")
+            check(all(r["served"] == len(zs) + 1 for r in recs[1:]),
+                  f"serve ranks[{name}]: the followers served "
+                  f"{[r['served'] for r in recs[1:]]}, want {len(zs) + 1} "
+                  "(the warm-up and the requests)")
+            errs, bars, direct_ms = [], [], []
+            for i, (z, resp) in enumerate(zip(zs, rank0["responses"])):
+                direct = by_name[f"direct {name} {i}"]
+                check(len({r["digest"] for r in direct}) == 1
+                      and resp["digest"] == direct[0]["digest"],
+                      f"serve ranks[{name} {i}]: not bit-equal to the same "
+                      "ranks' direct slab decode")
+                direct_ms.append(direct[0]["wall_ms"])
+                whole = hdr_decode(dec, z.cuda(), cons, prec).image.cpu()
+                e = (resp["image"] - whole).abs().max().item()
+                if prec.mode == "fast":
+                    bar = SLAB_FAST * max(1.0, whole.abs().max().item())
+                else:
+                    bar = SLAB_MIXED[1]
+                check(e <= bar, f"serve ranks[{name} {i}] vs whole-image: "
+                      f"max-abs {e} > {bar}")
+                errs.append(e)
+                bars.append(bar)
+            counts = [{k: v for k, v in r["counts"].items() if v}
+                      for r in recs]
+            n = len(zs)
+            rec = {**_latency_record(
+                       [types.SimpleNamespace(**r)
+                        for r in rank0["responses"]], rank0["burst_s"]),
+                   "direct_wall_ms": direct_ms,
+                   "overhead_ms": 1e3 * rank0["burst_s"] / n
+                   - sum(direct_ms) / n,
+                   "vs_whole_image_max_abs": errs,
+                   "vs_whole_image_bar": bars, "launches": counts,
+                   "stats": rank0["stats"]}
+            record["engines"][name] = rec
+            log(f"serve ranks[{name}] {n} responses bit-equal to the direct "
+                f"slab decode; vs whole-image max-abs "
+                f"{[f'{e:.3e}' for e in errs]} (bars "
+                f"{[f'{b:.3e}' for b in bars]}); "
+                f"latency p50 {1e3 * rec['latency_p50_s']:.3f} ms, p95 "
+                f"{1e3 * rec['latency_p95_s']:.3f} ms, {rec['mp_per_s']:.3f} "
+                f"MP/s (burst {1e3 * rec['wall_s']:.3f} ms; direct slab wall "
+                f"ms {[round(t, 3) for t in direct_ms]}; engine overhead "
+                f"{rec['overhead_ms']:.3f} ms a request); launches by rank "
+                f"{counts}; {card}")
+        for name, kernels in (("fast", ("fused_conv3x3.owned_launches",
+                                        "upsample_conv3x3.owned_launches",
+                                        "flash_attention_bf16.launches")),
+                              ("nccl", ("fused_conv3x3.owned_launches",
+                                        "flash_attention_bf16.launches")),
+                              ("fast bucket 64",
+                               ("flash_attention_bf16.launches_masked",)),
+                              ("mixed", ("flash_attention_3pass.launches",
+                                         "split_qkv.launches"))):
+            for r in by_name[name]:
+                for k in kernels:
+                    check(r["counts"].get(k, 0) > 0, f"serve ranks[{name}] "
+                          f"rank {r['rank']} never ran {k}")
+        for r in by_name["fast bucket 64"]:
+            check(r["counts"].get("fused_conv3x3.launches", 0) == 0,
+                  f"serve ranks[fast bucket 64] rank {r['rank']} ran the "
+                  "chain")
+        d1 = one_rank["depth2"]
+        log(f"serve ranks beside phase 4b's one-rank engine (fast 1024^2 x6, "
+            f"depth 2): p50 {1e3 * d1['latency_p50_s']:.3f} ms, p95 "
+            f"{1e3 * d1['latency_p95_s']:.3f} ms, {d1['mp_per_s']:.3f} MP/s; "
+            f"{card}")
+
+        # the fast 2048^2 slab request profiled on each rank
+        record["profiled"] = []
+        for r in by_name["profiled"]:
+            top = [(_short(n), c, ms) for n, c, ms in r["top"]]
+            coll = [(n, c, ms) for n, c, ms in r["collectives"]]
+            record["profiled"].append({
+                "rank": r["rank"], "wall_ms": r["wall_ms"],
+                "device_ms": r["device_ms"], "kernel_ms": r["kernel_ms"],
+                "top5": top, "collectives": coll})
+            log(f"serve ranks[profiled fast 2048^2 slab request] rank "
+                f"{r['rank']}: wall {r['wall_ms']:.3f} ms, device "
+                f"{r['device_ms']:.3f} ms, kernels {r['kernel_ms']:.3f} ms in "
+                "all; top-5 (launches): " + ", ".join(
+                    f"{n} {ms:.3f} ({c})" for n, c, ms in top)
+                + "; collectives (host ms, wait included): " + ", ".join(
+                    f"{n} {ms:.3f} ({c})" for n, c, ms in coll))
+
+        # cli serve --sharded --mesh 2 (started with the phase): one 32-bit EXR
+        # response, /healthz, stop
+        deadline = time.perf_counter() + 120
+        while len(lines) < 2:
+            check(cli.poll() is None and time.perf_counter() < deadline,
+                  f"cli serve --sharded did not start: {lines}")
+            time.sleep(0.05)
+        (_, group), (t_start, serving) = ((t, json.loads(x))
+                                          for t, x in lines[:2])
+        port = int(serving["serving"].rsplit(":", 1)[1])
+        buf = io.BytesIO()
+        np.save(buf, big[0].numpy())
+        t0 = time.perf_counter()
+        status, data = _http(port, "POST", "/v1/decode?format=exr&mode="
+                             "conservative&bit_depth=32bit&compression=zip",
+                             buf.getvalue())
+        t_post = time.perf_counter() - t0
+        check(status == 200, f"cli serve --sharded: {status} {data[:300]}")
+        path = os.path.join(cli_dir, "served.exr")
+        with open(path, "wb") as f:
+            f.write(data)
+        want = by_name["fast"][0]["responses"][0]["image"][0].numpy()
+        check(np.array_equal(exr.read_exr(path), want), "cli serve --sharded: "
+              "the EXR is not the fast engine's image")
+        status, data = _http(port, "GET", "/healthz")
+        health = json.loads(data)
+        check(status == 200 and health["ok"] is True
+              and health["device_count"] == SERVE_RANKS
+              and health["device"] == torch.cuda.get_device_name(0),
+              f"cli serve --sharded: /healthz {status} {health}")
+        code, t_stop, err = _stop_cli_serve(cli, cli_dir)
+        check(code == 0, f"cli serve --sharded exited {code}: {err[-3000:]}")
+        alive = []
+        for pid in group["pids"]:
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        check(not alive, f"cli serve --sharded left ranks {alive}")
+        ranks_line = [x for x in err.splitlines() if "): served" in x]
+        record["cli_serve_sharded"] = {
+            "start_s": t_start, "post_exr_s": t_post, "stop_s": t_stop,
+            "health": health, "ranks": ranks_line}
+        log(f"cli serve --sharded --mesh {SERVE_RANKS}: serving "
+            f"{t_start:.2f} s after its start (beside the rank groups above), "
+            f"a 2048^2 32-bit zip EXR response in {t_post:.3f} s equal to the "
+            f"fast engine's image; /healthz {health}; SIGTERM to exit 0 in "
+            f"{t_stop:.2f} s, no rank left; {ranks_line}")
+        record["phase_s"] = time.perf_counter() - t_phase
+        check(record["phase_s"] <= SERVE_RANKS_BUDGET_S,
+              f"serve ranks phase {record['phase_s']:.1f} s > "
+              f"{SERVE_RANKS_BUDGET_S} s")
+        log(f"serve ranks phase {record['phase_s']:.1f} s (<= "
+            f"{SERVE_RANKS_BUDGET_S} s); {card}")
+        return record
+    finally:
+        if cli.poll() is None:
+            _stop_cli_serve(cli, cli_dir)
+        shutil.rmtree(cli_dir, ignore_errors=True)
+
+
 def phase_exr(image: torch.Tensor) -> None:
     from hdrvae_torch.io.exr import read_exr, write_exr
     img = image[0].cpu().numpy()
@@ -3948,6 +4262,7 @@ def main() -> int:
     slab_counts, slab_records = phase_slab(dec, slab_refs)
     log(f"slab phase {time.perf_counter() - t_sl:.1f} s")
     tiled_record = phase_tiled(dec, image, slab_refs, lf_records, card)
+    serve_ranks_record = phase_serve_ranks(dec, card, serve_record)
     del dec, slab_refs
     phase_exr(image)
     t_up = time.perf_counter()
@@ -4038,6 +4353,7 @@ def main() -> int:
                       "large_frames": lf_records,
                       "slab_sharded": slab_records,
                       "tiled": tiled_record,
+                      "serve_ranks": serve_ranks_record,
                       "swin_chain_vs_k7": chain_ab,
                       "swin_chain": chain_record,
                       "f32_dot_probe": probe_rows}))

@@ -14,22 +14,28 @@ Subcommands:
            only)
   run      execute a workflow JSON graph (``api/graph.py``)
   serve    HTTP decode service (POST .npy latents to /v1/decode, get
-           EXR / HDR / npy back), over one ServeEngine on one card
+           EXR / HDR / npy back), over one ServeEngine on one card;
+           ``--sharded`` the exact slab-sharded decode on ``--mesh`` ranks,
+           this process rank 0 and the HTTP front end
 
 Every subcommand takes the JAX CLI's flags, defaults and choices, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
 versions), and prints the same JSON lines.  ``--tiled`` and ``--sharded``
 start their ranks from this one command (``sharding/multihost.py``):
 one a visible card, as JAX's mesh takes every device (one on the CPU),
-or ``decode --mesh`` of them, ranks beyond the card count sharing a card
-on gloo, and with ``--device cpu`` gloo ranks on the CPU.  Rank 0 alone
-writes the files and prints the JSON lines; a failed rank fails the
-command; each rank's record is logged at INFO.  Not here: JAX's
-``bench`` (it starts the JAX package's harness) and ``serve
---sharded``.
+or ``--mesh`` of them (decode, serve), ranks beyond the card count sharing
+a card on gloo, and with ``--device cpu`` gloo ranks on the CPU.  Rank 0
+alone writes the files and prints the JSON lines; a failed rank fails the
+command; each rank's record is logged at INFO.  ``serve`` stops on SIGINT
+or SIGTERM: the engine drains, tells the other ranks to stop and waits
+for them.  ``serve --bucket`` omitted takes the engine's default: 64, and
+no bucket with ``--sharded`` (the JAX CLI passes 64 there too, which
+bypasses its engine's mesh default).  Not here: JAX's ``bench`` (it starts
+the JAX package's harness).
 
     python -m hdrvae_torch.cli.main decode --size 1024 --bit-depth 16bit
     python -m hdrvae_torch.cli.main decode --tiled --mesh 2 --size 2048
+    python -m hdrvae_torch.cli.main serve --sharded --mesh 2 --port 8475
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import dataclasses
 import json
 import logging
 import os
+import signal
 import sys
 
 import numpy as np
@@ -206,8 +213,8 @@ def _device_type(args) -> str:
 
 
 def _mesh_size(args) -> int:
-    """``decode --mesh``, else one rank a visible card (one on the
-    CPU)."""
+    """``--mesh`` (decode, serve), else one rank a visible card (one on
+    the CPU)."""
     if getattr(args, "mesh", None) is not None:
         if args.mesh < 1:
             raise SystemExit(f"--mesh must be >= 1, got {args.mesh}")
@@ -485,23 +492,87 @@ def cmd_run(args) -> int:
     return 0
 
 
+def _sigterm_stops() -> None:
+    """SIGTERM stops ``serve`` as SIGINT does (``serve_forever`` closes
+    the engine on KeyboardInterrupt)."""
+    def stop(signum, frame):
+        raise KeyboardInterrupt
+    signal.signal(signal.SIGTERM, stop)
+
+
+def _warmup(engine, args, scale: int) -> None:
+    if args.warmup:
+        sizes = [int(s) // scale for s in args.warmup.split(",") if s]
+        logger.info("warming up latent sizes %s ...", sizes)
+        engine.warmup([(s, s) for s in sizes])
+
+
 def cmd_serve(args) -> int:
     from hdrvae_torch.core.config import HDRDecodeConfig
     from hdrvae_torch.serve.engine import ServeEngine
     from hdrvae_torch.serve.http import serve_forever
 
     vae = _vae(args, _parse_precision(args))
-    engine = ServeEngine(
-        vae, hdr_cfg=HDRDecodeConfig(hdr_mode=args.mode),
-        bucket=args.bucket if args.bucket > 0 else None,
-        max_pending=args.max_pending,
-        deadline_s=args.deadline if args.deadline > 0 else None)
-    if args.warmup:
-        scale = vae.config.spatial_scale
-        sizes = [int(s) // scale for s in args.warmup.split(",") if s]
-        logger.info("warming up latent sizes %s ...", sizes)
-        engine.warmup([(s, s) for s in sizes])
+    kw = dict(hdr_cfg=HDRDecodeConfig(hdr_mode=args.mode),
+              max_pending=args.max_pending,
+              deadline_s=args.deadline if args.deadline > 0 else None)
+    if args.bucket is not None:      # else the engine's default
+        kw["bucket"] = args.bucket if args.bucket > 0 else None
+    _sigterm_stops()
+    if args.sharded:
+        return _serve_on_ranks(args, vae, kw)
+    engine = ServeEngine(vae, **kw)
+    _warmup(engine, args, vae.config.spatial_scale)
     serve_forever(engine, args.host, args.port)
+    return 0
+
+
+def _serve_on_ranks(args, vae, engine_kw: dict) -> int:
+    """``serve --sharded``: this process is rank 0 of :func:`_mesh_size`
+    ranks started here (the others run ``serve.ranks.follow`` on the same
+    weights) and serves HTTP over ``ServeEngine(mesh=)``.  It prints the
+    group's backend and the other ranks' process ids, logs each one's
+    record at INFO once it stopped, and fails if one failed or the group
+    broke (then the other ranks are killed)."""
+    import torch.distributed as dist
+
+    from hdrvae_torch.core.config import MeshConfig
+    from hdrvae_torch.serve.engine import ServeEngine
+    from hdrvae_torch.serve.http import serve_forever
+    from hdrvae_torch.sharding import multihost
+    from hdrvae_torch.sharding.mesh import Mesh
+
+    n = _mesh_size(args)
+    sd = {k: v.cpu() for k, v in vae.decoder.state_dict().items()}
+    with multihost.RankGroup(
+            n, {"cli": (vae.config, sd)}, [multihost.ServeCase("cli", "cli")],
+            device=_device_type(args), cwd=os.getcwd(), lead=True) as group:
+        try:
+            group.join()
+            engine = ServeEngine(
+                vae, mesh=Mesh(vae.device, MeshConfig(num_devices=n)),
+                heartbeat_s=group.timeout_s / 4, **engine_kw)
+            logger.info("serving through the exact slab-sharded decode on "
+                        "%d %s ranks", n, group.backend)
+            print(json.dumps({"ranks": n, "backend": group.backend,
+                              "pids": [p.pid for p in group.procs]}),
+                  flush=True)
+            _warmup(engine, args, vae.config.spatial_scale)
+            serve_forever(engine, args.host, args.port)
+            if not engine.healthy:
+                # the ranks are out of step: stop them, do not wait
+                raise RuntimeError("the rank group broke")
+            ranks = group.wait(timeout=group.timeout_s)
+        except RuntimeError as e:
+            raise SystemExit(f"serve on ranks failed: {e}") from None
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    for rank, (rec,) in zip(group.ranks, ranks):
+        logger.info("rank %d (%s): served %s, launches %s", rank,
+                    rec["backend"], rec.get("served"),
+                    {k: v for k, v in rec["counts"].items() if v},
+                    extra={"rank_record": rec})
     return 0
 
 
@@ -602,10 +673,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="numerics tier: fast (bf16), mixed (f32 "
                         "activations + 3-pass attention dots), parity "
                         "(exact f32)")
-    p.add_argument("--bucket", type=int, default=64,
-                   help="latent shape-bucket multiple (0 = no buckets)")
+    p.add_argument("--bucket", type=int, default=None,
+                   help="latent shape-bucket multiple (0 = no buckets; "
+                        "default 64, none with --sharded, with which an "
+                        "explicit bucket composes)")
     p.add_argument("--max-pending", type=int, default=32,
                    help="request-queue bound (503 beyond it)")
+    p.add_argument("--sharded", action="store_true",
+                   help="serve the exact slab-sharded decode from --mesh "
+                        "ranks started by this command")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="ranks for --sharded (default: one a visible "
+                        "card)")
     p.add_argument("--deadline", type=float, default=0.0,
                    help="per-request queue deadline in seconds (0 = "
                         "none); expired-in-queue requests fail fast "

@@ -17,6 +17,13 @@ the request-level executor for it:
     for N+1's kernels, and the device does not idle behind N's fetch.
   - **Backpressure**: a bounded queue; ``submit(block=False)`` raises
     :class:`EngineOverloaded` instead of letting requests pile up.
+  - **A rank group** (``mesh=``): every request runs the exact
+    slab-sharded decode (``sharding/mesh.py::sharded_slab_decode``) on
+    every rank of the process group, the worker thread sending each one to
+    the other ranks first (``serve/ranks.py``, which says why the ranks
+    stay in step).  A failure after a request went out breaks the group:
+    that request, every queued one and every later submit fail
+    (:class:`GroupBroken`), and :attr:`ServeEngine.healthy` turns false.
 
 Requests are not batched together: the decode's analysis and acceptance
 statistics span the whole request tensor, so stacking two users' latents
@@ -39,10 +46,14 @@ import torch
 
 from hdrvae_torch.core.config import HDRDecodeConfig, Precision
 from hdrvae_torch.decode.buckets import BucketPolicy
-from hdrvae_torch.decode.pipeline import (hdr_decode, pack_summary,
-                                          summary_from_host)
+from hdrvae_torch.decode.pipeline import (_to_nhwc, hdr_decode,
+                                          pack_summary, summary_from_host)
+from hdrvae_torch.serve.ranks import (HEARTBEAT, REQUEST, STOP, GroupBroken,
+                                      Link, check_request, check_weights)
+from hdrvae_torch.sharding.mesh import Mesh, sharded_slab_decode
 
-__all__ = ["EngineOverloaded", "ServeEngine", "ServeResponse"]
+__all__ = ["EngineOverloaded", "GroupBroken", "ServeEngine",
+           "ServeResponse"]
 
 
 class EngineOverloaded(RuntimeError):
@@ -85,16 +96,21 @@ class ServeEngine:
     """Queued decode executor over one loaded :class:`api.vae.VAE`.
 
     Thread-safe: any number of threads may ``submit``; one worker thread
-    owns the device.  Use as a context manager or call :meth:`close`.
+    owns the device (and, with a mesh, calls every collective).  Use as a
+    context manager or call :meth:`close`.
     """
+
+    _DEFAULT_BUCKET = object()   # 64 without a mesh, None with one
 
     def __init__(self, vae, *,
                  hdr_cfg: HDRDecodeConfig = HDRDecodeConfig(),
                  precision: Optional[Precision] = None,
-                 bucket: Union[BucketPolicy, int, None] = 64,
+                 bucket: Union[BucketPolicy, int, None] = _DEFAULT_BUCKET,
                  max_pending: int = 32,
                  depth: int = 2,
-                 deadline_s: Optional[float] = None):
+                 mesh: Optional[Mesh] = None,
+                 deadline_s: Optional[float] = None,
+                 heartbeat_s: float = 30.0):
         """
         Args:
           vae: a loaded :class:`hdrvae_torch.api.vae.VAE` handle; every
@@ -103,14 +119,27 @@ class ServeEngine:
             ``submit(cfg=...)``.
           precision: defaults to the VAE handle's precision.
           bucket: a :class:`BucketPolicy`, a plain multiple (int, latent
-            pixels), or None for no buckets.
+            pixels), or None for no buckets.  Defaults to 64 without a
+            mesh and to None with one, as the JAX engine's; an explicit
+            bucket composes with the mesh (``pad_to``: the layers with
+            ``SlabPadGNReducer``).
           max_pending: the request queue's bound (backpressure).
           depth: decodes kept launched ahead of the host fetch (2 =
             double buffering).
+          mesh: a :class:`hdrvae_torch.sharding.mesh.Mesh` on this
+            process's rank, which must be rank 0 of its group while every
+            other rank runs ``serve.ranks.follow`` with the same weights
+            (checked at start: :class:`serve.ranks.WeightsDiffer`).  Every
+            request then runs ``sharded_slab_decode`` on all the ranks.
           deadline_s: the default per-request deadline.  A request still
             queued when its deadline expires fails with TimeoutError
             instead of dispatching; one already dispatched is kept.
+          heartbeat_s: with a mesh, the worker sends the other ranks a
+            heartbeat whenever its queue has been empty this long; keep it
+            well under the process group's timeout.
         """
+        if bucket is ServeEngine._DEFAULT_BUCKET:
+            bucket = None if mesh is not None else 64
         self._vae = vae
         self.hdr_cfg = hdr_cfg
         self._precision = precision if precision is not None \
@@ -119,6 +148,11 @@ class ServeEngine:
         self._deadline_s = deadline_s
         self._depth = max(1, depth)
         self._device = torch.device(vae.device)
+        if mesh is not None and mesh.device.type != self._device.type:
+            raise ValueError(f"mesh on {mesh.device}, VAE on {self._device}")
+        self._mesh = mesh
+        self._heartbeat_s = heartbeat_s
+        self._link: Optional[Link] = None
         if self._device.type == "cuda":
             self._compute = torch.cuda.Stream(self._device)
             self._copy = torch.cuda.Stream(self._device)
@@ -130,15 +164,23 @@ class ServeEngine:
         # notifies after every get, and waiters wake in wait() order
         self._space = threading.Condition(self._lock)
         self._closed = False
+        self._broken: Optional[BaseException] = None
         self._n_done = 0
         self._n_errors = 0
         self._megapixels = 0.0
         self._latencies: deque = deque(maxlen=256)
         self._shape_counts: Counter = Counter()
         self._started = time.monotonic()
+        self._ready = threading.Event()
+        self._start_error: Optional[BaseException] = None
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="hdrvae-serve")
         self._worker.start()
+        # with a mesh the worker first compares the ranks' weights
+        self._ready.wait()
+        if self._start_error is not None:
+            self._worker.join()
+            raise self._start_error
 
     # -- client side --------------------------------------------------
 
@@ -190,6 +232,9 @@ class ServeEngine:
             while True:
                 if self._closed:
                     raise RuntimeError("engine is closed")
+                if self._broken is not None:
+                    raise GroupBroken(
+                        f"the rank group is broken: {self._broken}")
                 try:
                     self._queue.put_nowait(item)
                     return fut
@@ -214,6 +259,16 @@ class ServeEngine:
     def device(self) -> torch.device:
         """The device every request runs on (the VAE handle's)."""
         return self._device
+
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The rank group's mesh, or None for a one-device engine."""
+        return self._mesh
+
+    @property
+    def healthy(self) -> bool:
+        """False once the engine's rank group broke (with a mesh)."""
+        return self._broken is None
 
     @property
     def z_channels(self) -> int:
@@ -258,7 +313,8 @@ class ServeEngine:
         }
 
     def close(self, timeout: float = 30.0) -> None:
-        """Drain in-flight work and stop the worker."""
+        """Drain in-flight work and stop the worker (with a mesh, after it
+        sent the other ranks STOP)."""
         with self._space:
             if self._closed:
                 return
@@ -317,8 +373,11 @@ class ServeEngine:
         # anyway, to bound its XLA compiles; eager PyTorch compiles
         # nothing.  padded_hw still reports the bucket.
         pad_to = target if target is not None and target != (h, w) else None
-        result = hdr_decode(self._vae.decoder, self._to_device(latent), cfg,
-                            self._precision, pad_to=pad_to)
+        if self._link is None:
+            result = hdr_decode(self._vae.decoder, self._to_device(latent),
+                                cfg, self._precision, pad_to=pad_to)
+        else:
+            result = self._sharded(latent, cfg, pad_to)
         image = result.image
         if fetch_dtype is not None:
             image = image.to(_torch_dtype(fetch_dtype))
@@ -328,6 +387,27 @@ class ServeEngine:
             done = torch.cuda.Event()
             done.record(self._compute)
         return _Launched(image, stats, layout, target or (h, w), done)
+
+    def _sharded(self, latent, cfg: HDRDecodeConfig,
+                 pad_to: Optional[Tuple[int, int]]):
+        """The slab decode of one request on every rank: validated here,
+        sent to the other ranks, then decoded on this one.  A failure after
+        the send raises :class:`GroupBroken`."""
+        if not isinstance(latent, torch.Tensor):
+            latent = torch.from_numpy(np.ascontiguousarray(latent,
+                                                           np.float32))
+        z = _to_nhwc(latent.float(), self._vae.config.z_channels)
+        check_request(z, cfg, self._precision, pad_to,
+                      self._vae.config.num_levels)
+        self._link.send(REQUEST, z, cfg, self._precision, pad_to)
+        try:
+            return sharded_slab_decode(self._vae.decoder,
+                                       z.to(self._device), cfg,
+                                       mesh=self._mesh, pad_to=pad_to,
+                                       precision=self._precision)
+        except Exception as e:
+            raise GroupBroken(f"the slab decode failed after the request "
+                              f"went to the ranks: {e}") from e
 
     def _fetch(self, work: _Launched):
         """The image and the packed summary on the host.  On a card: on
@@ -372,12 +452,56 @@ class ServeEngine:
                 self._n_errors += 1
             fut.set_exception(e)
 
-    def _run(self) -> None:
+    def _fail(self, fut: cf.Future, e: BaseException) -> None:
+        with self._lock:
+            self._n_errors += 1
+        fut.set_exception(e)
+
+    def _break(self, e: GroupBroken) -> None:
+        """The group is out of step: refuse every later submit, and fail
+        every queued request (each was queued under the lock before the
+        flag turned)."""
+        with self._space:
+            self._broken = e
+            self._space.notify_all()
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if item is not _STOP and item[0].set_running_or_notify_cancel():
+                self._fail(item[0], GroupBroken(
+                    f"the rank group broke before this request: {e}"))
+
+    def _idle_get(self):
+        """The next queue item, blocking; with a mesh, a heartbeat to the
+        ranks whenever none came for ``heartbeat_s``."""
+        if self._link is None:
+            return self._queue.get()
+        while True:
+            try:
+                return self._queue.get(timeout=self._heartbeat_s)
+            except queue.Empty:
+                self._link.send(HEARTBEAT)
+
+    def _start(self) -> None:
         if self._compute is not None:
             # the current device and stream are per thread: this thread
             # launches every decode on its own compute stream
             torch.cuda.set_device(self._device)
             torch.cuda.set_stream(self._compute)
+        if self._mesh is not None:
+            check_weights(self._vae.decoder, self._mesh)
+            self._link = Link(self._mesh)
+
+    def _run(self) -> None:
+        try:
+            self._start()
+        except Exception as e:
+            self._start_error = e
+            return
+        finally:
+            self._ready.set()
         inflight: deque = deque()
         stopping = False
         while True:
@@ -390,9 +514,18 @@ class ServeEngine:
                 if inflight:
                     self._finalize(inflight.popleft())
                     continue
-                if stopping:
+                if stopping or self._broken is not None:
+                    if self._link is not None and self._broken is None:
+                        try:
+                            self._link.send(STOP)
+                        except GroupBroken as e:
+                            self._broken = e
                     return
-                item = self._queue.get()   # idle: block for work
+                try:
+                    item = self._idle_get()
+                except GroupBroken as e:
+                    self._break(e)
+                    continue
             with self._space:
                 self._space.notify()   # one queue slot freed
             if item is _STOP:
@@ -403,10 +536,9 @@ class ServeEngine:
                 continue   # client cancelled while queued
             if drop_at is not None and time.monotonic() > drop_at:
                 # expired while queued: fail fast instead of spending the
-                # device on a result nobody waits for
-                with self._lock:
-                    self._n_errors += 1
-                fut.set_exception(TimeoutError(
+                # device on a result nobody waits for (with a mesh it was
+                # never sent to the other ranks)
+                self._fail(fut, TimeoutError(
                     "request deadline expired before dispatch"))
                 continue
             try:
@@ -419,10 +551,12 @@ class ServeEngine:
                     latent.record_stream(
                         torch.cuda.current_stream(latent.device))
                 work = self._dispatch(latent, cfg, fetch_dtype)
+            except GroupBroken as e:
+                self._fail(fut, e)
+                self._break(e)
+                continue
             except Exception as e:
-                with self._lock:
-                    self._n_errors += 1
-                fut.set_exception(e)
+                self._fail(fut, e)
                 continue
             inflight.append((fut, work, t0))
             while len(inflight) > self._depth:

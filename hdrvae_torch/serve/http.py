@@ -4,7 +4,9 @@ as ``hdrvae/serve/http.py``.
 Endpoints:
 
   GET  /healthz      -> {"ok": true, "backend": "cuda" | "cpu", "device":
-                        the card's name, "device_count": N}
+                        the card's name, "device_count": N (a rank
+                        group's size with a mesh)}; 503 with "ok": false
+                        once the engine's rank group broke
   GET  /v1/stats     -> engine.stats()
   POST /v1/decode    -> body: one ``.npy`` array (the latent, [h,w,z] /
                         [B,h,w,z] NHWC or [B,z,h,w] NCHW, float).
@@ -115,15 +117,17 @@ def _encode_image(image: np.ndarray, fmt: str, bit_depth: str,
 
 def _device_info(engine: ServeEngine) -> dict:
     """The engine's device for /healthz: its backend, the card's name and
-    the card count (a CPU engine reports one CPU device)."""
+    the device count: a mesh engine's ranks, else the card count (a CPU
+    engine reports one CPU device)."""
     import torch
     device = engine.device
-    if device.type == "cuda":
-        return {"backend": "cuda",
-                "device": torch.cuda.get_device_name(device),
-                "device_count": torch.cuda.device_count()}
-    return {"backend": device.type, "device": device.type,
-            "device_count": 1}
+    if engine.mesh is not None:
+        count = engine.mesh.size
+    else:
+        count = torch.cuda.device_count() if device.type == "cuda" else 1
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+    return {"backend": device.type, "device": name, "device_count": count}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -171,7 +175,9 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         path = urllib.parse.urlparse(self.path).path
         if path == "/healthz":
-            self._reply_json(200, {"ok": True, **_device_info(self.engine)})
+            ok = self.engine.healthy
+            self._reply_json(200 if ok else 503,
+                             {"ok": ok, **_device_info(self.engine)})
         elif path == "/v1/stats":
             self._reply_json(200, self.engine.stats())
         else:
@@ -288,7 +294,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(503, json.dumps({"error": str(e)}).encode(),
                         "application/json", {"Retry-After": "1"})
             return
-        except RuntimeError as e:   # engine closed = shutting down, retryable
+        except RuntimeError as e:   # engine closed (shutting down) or its
+            #                         rank group broken
             self._reply(503, json.dumps({"error": str(e)}).encode(),
                         "application/json", {"Retry-After": "1"})
             return

@@ -6,7 +6,8 @@
   - :class:`StageTimer`: wall-clock stage times that synchronize once at
     each stage's end, opt-in;
   - :func:`op_profile` / :func:`kernel_rows`: one run's device time per
-    kernel (per op on the CPU), summed by name;
+    kernel (per op on the CPU), summed by name; :func:`collective_rows`:
+    its process-group collectives, each with its wait for the other ranks;
   - :func:`debug_nans`: a scope that raises ``FloatingPointError`` at the
     first NaN an op or a kernel of the port writes.
 """
@@ -129,6 +130,18 @@ def kernel_rows(prof: torch.profiler.profile,
     rows = sorted(((k, n, ms) for k, (n, ms) in agg.items()),
                   key=lambda r: -r[2])
     return rows if top is None else rows[:top]
+
+
+def collective_rows(prof: torch.profiler.profile) -> list:
+    """(name, count, total ms) rows of a finished profile's process-group
+    collectives (the ``gloo:`` / ``nccl:`` host events), sorted by time.
+    A gloo event lasts from the collective's start on this rank to its
+    end, so its time includes the wait for the other ranks."""
+    rows = [(e.key, e.count, e.cpu_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU
+            and e.key.startswith(("gloo:", "nccl:"))]
+    return sorted(rows, key=lambda r: -r[2])
 
 
 class _NanMode(TorchDispatchMode):

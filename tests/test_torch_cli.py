@@ -4,7 +4,10 @@ at tiny sizes.
 
 The parsers of decode, upscale, export, convert, inspect, run and serve
 must take the JAX flags with the same defaults, choices and types, except
-what the port leaves out (``serve --sharded``) and adds (``--device``).
+what the port adds (``--device``, ``serve --mesh``) and ``serve
+--bucket``'s default (None: the engine's own, 64 alone and no bucket with
+``--sharded``, where the JAX CLI's 64 bypasses its engine's mesh
+default).
 ``export`` writes
 the JAX CLI's bytes; ``upscale`` its image within ``test_torch_upscale.py``'s
 bounds; ``decode`` and ``run`` print the same JSON lines.
@@ -26,7 +29,9 @@ from hdrvae_torch.models.rrdbnet import RRDBNetConfig, init_rrdbnet
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LEFT_OUT = {"serve": {"sharded"}}
+# what the port adds beyond --device, and the defaults it changes
+ADDED = {"serve": {"mesh"}}
+DEFAULTS = {"serve": {"bucket": None}}
 
 
 def _subparsers(parser):
@@ -46,8 +51,11 @@ def _actions(parser):
 def test_parser_matches_jax(command):
     ref = _actions(_subparsers(jcli.build_parser())[command])
     got = _actions(_subparsers(tcli.build_parser())[command])
-    for dest in LEFT_OUT.get(command, ()):
-        del ref[dest]
+    for dest in ADDED.get(command, ()):
+        assert got.pop(dest)[1] is None
+    for dest, default in DEFAULTS.get(command, {}).items():
+        assert got[dest][1] == default
+        got[dest] = got[dest][:1] + ref[dest][1:2] + got[dest][2:]
     device = got.pop("device", None)
     if command not in ("export", "convert", "inspect"):
         assert device == (("--device",), "cuda", None, None, False, None,

@@ -768,16 +768,18 @@ def test_http_16bit_exr_uses_half_fetch(server, vae, tmp_path, monkeypatch):
 
 
 def test_cli_serve_parser_matches_jax():
-    """`serve`'s options and defaults are the JAX CLI's, without
-    --sharded and with --device (default: the card)."""
+    """`serve`'s options and defaults are the JAX CLI's, with --device
+    (default: the card) and --mesh, and with --bucket omitted meaning the
+    engine's default (JAX's 64 bypasses its engine's mesh default)."""
     from hdrvae.cli.main import build_parser as jparser
     from hdrvae_torch.cli.main import _parse_precision, build_parser
     got = vars(build_parser().parse_args(["serve"]))
     want = vars(jparser().parse_args(["serve"]))
     for d in (got, want):
         d.pop("func")
-    assert want.pop("sharded") is False
     assert got.pop("device") == "cuda"
+    assert got.pop("mesh") is None
+    assert got.pop("bucket") is None and want.pop("bucket") == 64
     assert got == want
     args = build_parser().parse_args(["serve", "--parity"])
     assert _parse_precision(args) == Precision.parity()
@@ -786,8 +788,9 @@ def test_cli_serve_parser_matches_jax():
     with pytest.raises(SystemExit):
         _parse_precision(build_parser().parse_args(
             ["serve", "--parity", "--precision", "mixed"]))
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["serve", "--sharded"])
+    args = build_parser().parse_args(["serve", "--sharded", "--mesh", "2",
+                                      "--bucket", "0"])
+    assert (args.sharded, args.mesh, args.bucket) == (True, 2, 0)
 
 
 def test_served_path_never_imports_jax(tmp_path):

@@ -1,7 +1,8 @@
 """The served decode on the card: ``ServeEngine`` responses against the
-direct ``hdr_decode`` of the same latent on the same route, and the order
-of the worker's streams (a request's fetch does not wait for the decode
-launched behind it).
+direct ``hdr_decode`` of the same latent on the same route, the order of
+the worker's streams (a request's fetch does not wait for the decode
+launched behind it), and a rank-group engine (``mesh=``, two gloo ranks
+sharing the card) against the same ranks' direct slab decode.
 
 Every test needs an NVIDIA GPU and skips without one.  The card's host has
 no JAX, so run this file there without the suite's conftest:
@@ -132,3 +133,32 @@ def test_packed_stats_on_the_card(dev):
                 (float(v) if v.is_floating_point() else int(v))
                 for k, v in stats.items()}
     assert stats_to_host(res.stats) == per_scalar(res.stats)
+
+
+def test_rank_group_engine_equals_direct_slab_decode(dev):
+    """Two gloo ranks sharing this card: a fast ``ServeEngine(mesh=)``
+    serving one full-width 2048^2 request (latent 256^2, at its shape: the
+    fused chain with K1 / K2 ``owned_rows`` on both ranks), bit-equal to
+    the same ranks' direct ``sharded_slab_decode`` of the latent."""
+    from hdrvae_torch.models.params import init_decoder
+    from hdrvae_torch.sharding import multihost
+    cfg = DecoderConfig()
+    sd = init_decoder(cfg, seed=0, device="cpu").state_dict()
+    z = torch.from_numpy(_latent(4, 256, 256, cfg.z_channels))
+    cases = [multihost.SlabCase("direct", "flux", z, CONS, Precision.fast(),
+                                requests=2),
+             multihost.ServeCase("served", "flux",
+                                 [multihost.ServeRequest(z, CONS)],
+                                 Precision.fast())]
+    ranks = multihost.RankGroup(2, {"flux": (cfg, sd)}, cases,
+                                device="cuda").wait(timeout=600)
+    direct, served = ([r[i] for r in ranks] for i in range(2))
+    assert all(r["backend"] == "gloo" for r in served)
+    (resp,) = served[0]["responses"]
+    assert resp["ok"], resp
+    assert resp["padded_hw"] == (256, 256)
+    assert resp["digest"] == direct[0]["digest"] == direct[1]["digest"]
+    assert served[1]["served"] == 1
+    for r in served:
+        assert r["counts"]["fused_conv3x3.owned_launches"] > 0
+        assert r["counts"]["upsample_conv3x3.owned_launches"] > 0
