@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py bench decode # the named phases (and the ones they
+                                       # need: PHASES, NEEDS)
 
 No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
-``nvcc`` on first use.  Phases, each of which raises on failure:
+``nvcc`` on first use.  Phases, each of which raises on failure (the device
+and the build always run; a named subset prints its phases' records
+instead of the kernel table, then the result line):
 
 1. device: the card's name and power limit, as the line nvidia-smi prints;
 2. build: compile the kernels, print the build time and ptxas' register
@@ -194,6 +198,14 @@ No other set-up: the CUDA kernels are built from ``hdrvae_torch/csrc`` by
    the tensor-core kernel apart) and error against a float64 product,
    held to its class, beside ``torch.matmul`` in float32 (TF32 off and on)
    and bf16;
+12b. bench (its own limit, BENCH_BUDGET_S): ``bench_torch.main`` in this
+   process with ``--quick`` (fast) and ``--quick --precision mixed``, their
+   launches counted (K1, K2, K3 bf16; K3 3-pass and ``split_qkv``), the
+   fast headline under BENCH_CEILING x the rate of phase 4's best fast
+   1024^2 device time (timed here when phase 4 is left out); then
+   ``python -m hdrvae_torch.cli.main bench --size 1024`` as a subprocess
+   (the 4096^2 rows off): exit 0, one JSON line holding every default row
+   with a positive value;
 13. launch counts: K1, K2 and K3 bf16 ran in the fast decode, K1 and K2
    with owned_rows in the fast slab decode, K3's 3-pass
    mode in mixed (and ``split_qkv`` once a 3-pass launch, in no other
@@ -217,6 +229,7 @@ non-zero before printing a result.
 from __future__ import annotations
 
 import functools
+import gc
 import importlib.util
 import json
 import logging
@@ -403,6 +416,25 @@ STAGED_RGB, STAGED_CONS, STAGED_PRE = 1e-4, 1e-3, 1e-4
 # the exact float32 kernel: device ms and peak GiB on one H100 80GB HBM3 at
 # 700 W, as PERF.md records them; printed beside this run's
 F32_AUTO_ROUTED = (13897.0, 13.500)
+# the bench phase: its own time limit; the in-process fast headline may
+# not beat 1.1x the rate of phase 4's best fast 1024^2 device time (a
+# faster reading is a timer that did not wait for the card); cli bench's
+# --size and the rows it must print (the 4096^2 rows off)
+BENCH_BUDGET_S = 240.0
+BENCH_CEILING = 1.1
+BENCH_EDGE, BENCH_BIG = 1024, 2048
+BENCH_ROWS = [f"hdr_decode_mp_per_s_{BENCH_EDGE}",
+              f"hdr_decode_mp_per_s_{BENCH_BIG}",
+              f"hdr_decode_mp_per_s_{BENCH_BIG}_slab",
+              f"hdr_decode_export_mp_per_s_{BENCH_BIG}",
+              f"hdr_decode_export_serial_mp_per_s_{BENCH_BIG}",
+              f"hdr_decode_export_pipelined_mp_per_s_{BENCH_BIG}",
+              f"hdr_decode_mixed_mp_per_s_{BENCH_EDGE}",
+              f"hdr_decode_mixed_mp_per_s_{BENCH_BIG}",
+              f"hdr_decode_mixed_export_mp_per_s_{BENCH_BIG}",
+              f"serve_decode_mp_per_s_{BENCH_EDGE}",
+              f"serve_decode_mixed_mp_per_s_{BENCH_EDGE}",
+              f"serve_decode_mixed_mp_per_s_{BENCH_BIG}"]
 # K12 at the probe's shape (M, K, N): each precision against its plain
 # version (float32 sums in another order), and its class against a
 # float64 product, relative to max|exact|; bf16 passes a precision makes
@@ -559,6 +591,7 @@ def phase_build() -> None:
     for line in compiler_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
+    sass = dump_sass(str(path))
     for name, kernel in (("K1/K2", "conv_wgmma_kernel"),
                          ("K5", "upconv_wgmma_kernel"),
                          ("K6", "dense_wgmma_kernel"),
@@ -569,7 +602,7 @@ def phase_build() -> None:
                          ("K9", "attn_core_kernel"),
                          ("K10", "ln_qkv_kernel"),
                          ("K11", "proj_mlp_kernel")):
-        n, funcs = hgmma_count(path, kernel)
+        n, funcs = hgmma_count(sass, kernel)
         log(f"SASS: {n} HGMMA instructions in {name}'s {kernel} "
             f"({funcs} instances)")
         check(n > 0, f"{name}'s kernel issues no wgmma (no HGMMA in its "
@@ -618,9 +651,9 @@ def ptxas_report(compiler_log: str, kernel: str) -> list:
     return rows
 
 
-def hgmma_count(lib: str, kernel: str) -> tuple:
-    """(HGMMA instructions, functions) in the SASS of every instance of
-    ``kernel`` in the built library, from ``cuobjdump --dump-sass``."""
+def dump_sass(lib: str) -> str:
+    """The built library's SASS (``cuobjdump --dump-sass``, ~20 s: taken
+    once for every kernel's count)."""
     import shutil
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin",
@@ -628,8 +661,14 @@ def hgmma_count(lib: str, kernel: str) -> tuple:
     sass = subprocess.run([tool, "--dump-sass", str(lib)],
                           capture_output=True, text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    return sass.stdout
+
+
+def hgmma_count(sass: str, kernel: str) -> tuple:
+    """(HGMMA instructions, functions) in ``sass`` (:func:`dump_sass`) of
+    every instance of ``kernel``."""
     n, funcs, inside = 0, 0, False
-    for line in sass.stdout.splitlines():
+    for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
             funcs += inside
@@ -4234,7 +4273,192 @@ def phase_f32_probe(entry: dict):
     return counts, rows
 
 
-def main() -> int:
+def _fast_decode_ms() -> float:
+    """The best of three fast 1024^2 ``hdr_decode`` requests' device ms
+    (CUDA events), phase 4's measure, for the bench phase when phase 4 is
+    left out."""
+    from hdrvae_torch.core.config import (DecoderConfig, HDRDecodeConfig,
+                                          Precision)
+    from hdrvae_torch.decode.pipeline import hdr_decode
+    from hdrvae_torch.models.params import init_decoder
+    cfg = DecoderConfig()
+    dec = init_decoder(cfg, seed=0, device="cuda")
+    z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, BENCH_EDGE // cfg.spatial_scale, BENCH_EDGE // cfg.spatial_scale,
+         cfg.z_channels)).astype(np.float32)).cuda()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        hdr_decode(dec, z, HDRDecodeConfig(), Precision.fast())
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del dec, z
+    torch.cuda.empty_cache()
+    return min(times)
+
+
+def _bench_line(text: str) -> dict:
+    """The harness's one JSON line: the last of its standard output, and
+    the only one starting with '{'."""
+    found = [ln for ln in text.splitlines() if ln.startswith("{")]
+    check(len(found) == 1, f"bench printed {len(found)} JSON lines, want 1")
+    line = json.loads(found[0])
+    return {r["metric"]: r for r in
+            [{k: v for k, v in line.items() if k != "extra_metrics"}]
+            + line.get("extra_metrics", [])}
+
+
+def phase_bench(fast_ms, card: str) -> dict:
+    """The benchmark harness (its own limit, BENCH_BUDGET_S):
+    ``bench_torch.main(["--quick"])`` and ``(["--quick", "--precision",
+    "mixed"])`` in this process, their launches counted (fast: K1, K2, K3
+    bf16 and no 3-pass; mixed: K3 3-pass, ``split_qkv`` once a launch), the
+    fast headline held under BENCH_CEILING x the rate of ``fast_ms`` (phase
+    4's best fast 1024^2 device ms; None: timed here); then ``python -m
+    hdrvae_torch.cli.main bench --size 1024`` as a user runs it (the
+    4096^2 rows off): exit 0, one JSON line, every BENCH_ROWS row in it
+    with a positive value.  Returns the phase's record."""
+    import contextlib
+    import io
+    import signal
+
+    import bench_torch
+
+    t_phase = time.perf_counter()
+    record = {"card": card}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fast_ms is None:
+        fast_ms = _fast_decode_ms()
+        log(f"bench: fast {BENCH_EDGE}^2 decode {fast_ms:.3f} device ms "
+            "(phase 4 left out: timed here)")
+    ceiling = BENCH_CEILING * (BENCH_EDGE ** 2 / 1e6) / (fast_ms / 1e3)
+    record["fast_decode_ms"] = fast_ms
+    # this process holds the card already: no probe subprocess
+    probe = os.environ.get("HDRVAE_BENCH_PROBE_TIMEOUT")
+    os.environ["HDRVAE_BENCH_PROBE_TIMEOUT"] = "0"
+    try:
+        for tier, argv in (("fast", ["--quick"]),
+                           ("mixed", ["--quick", "--precision", "mixed"])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            _reset_counts()
+            with contextlib.redirect_stdout(out):
+                rc = bench_torch.main(argv)
+            counts = _counts()
+            check(rc == 0, f"bench_torch.main({argv}) returned {rc}")
+            (row,) = _bench_line(out.getvalue()).values()
+            record[tier] = {**row, "launches": {k: v for k, v in
+                                                counts.items() if v},
+                            "wall_s": time.perf_counter() - t0}
+            log(f"bench[{tier} --quick] {row['metric']} {row['value']} MP/s "
+                f"in {record[tier]['wall_s']:.1f} s; launches "
+                f"{record[tier]['launches']}")
+    finally:
+        if probe is None:
+            os.environ.pop("HDRVAE_BENCH_PROBE_TIMEOUT")
+        else:
+            os.environ["HDRVAE_BENCH_PROBE_TIMEOUT"] = probe
+    fast, mixed = record["fast"]["launches"], record["mixed"]["launches"]
+    for name in ("fused_conv3x3", "upsample_conv3x3", "flash_attention_bf16"):
+        check(fast.get(name, 0) > 0, f"bench --quick never ran {name}")
+    check(not fast.get("flash_attention_3pass"),
+          "bench --quick (fast) ran flash_attention_3pass")
+    check(mixed.get("flash_attention_3pass", 0) > 0
+          and mixed.get("split_qkv") == mixed["flash_attention_3pass"],
+          f"bench --quick --precision mixed: 3-pass launches "
+          f"{mixed.get('flash_attention_3pass')}, split_qkv "
+          f"{mixed.get('split_qkv')} (want once a 3-pass launch)")
+    ratio = record["fast"]["value"] / (ceiling / BENCH_CEILING)
+    record["fast"]["vs_phase4_rate"] = ratio
+    log(f"bench: fast headline {record['fast']['value']} MP/s = "
+        f"{ratio:.4f} x phase 4's rate (1.048576 MP / {fast_ms:.3f} ms; "
+        f"ceiling {BENCH_CEILING} x); {card}")
+    check(record["fast"]["value"] <= ceiling,
+          f"bench fast headline {record['fast']['value']} MP/s above "
+          f"{BENCH_CEILING} x phase 4's rate ({ceiling:.3f}): the timer did "
+          "not wait for the card")
+
+    # as a user runs it: the CLI starts the harness in a process of its
+    # own, which needs the card's memory this one cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget = BENCH_BUDGET_S - (time.perf_counter() - t_phase)
+    env = dict(os.environ, HDRVAE_BENCH_4K="0")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hdrvae_torch.cli.main", "bench", "--size",
+         str(BENCH_EDGE)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=max(budget, 1.0))
+    except subprocess.TimeoutExpired:
+        # the CLI and the harness it started: its process group
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"cli bench outlived the phase's "
+                             f"{BENCH_BUDGET_S} s") from None
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"cli bench exited {proc.returncode}:\n{err[-3000:]}")
+    rows = _bench_line(out)
+    missing = [n for n in BENCH_ROWS
+               if n not in rows or not rows[n]["value"] > 0]
+    check(not missing, f"cli bench: rows missing or not positive: {missing}"
+          f"\n{err[-3000:]}")
+    record["cli"] = {"wall_s": wall, "rows": list(rows.values())}
+    for r in rows.values():
+        log(f"bench[cli] {r['metric']} {r['value']} MP/s"
+            + (f" p50 {r['p50_s']} s p95 {r['p95_s']} s" if "p50_s" in r
+               else ""))
+    log(f"bench: cli bench --size {BENCH_EDGE} {wall:.1f} s, "
+        f"{len(rows)} rows; {card}")
+    record["phase_s"] = time.perf_counter() - t_phase
+    check(record["phase_s"] <= BENCH_BUDGET_S,
+          f"bench phase {record['phase_s']:.1f} s > {BENCH_BUDGET_S} s")
+    log(f"bench phase {record['phase_s']:.1f} s (<= {BENCH_BUDGET_S} s); "
+        f"{card}")
+    return record
+
+
+# The phases a run may name (``python3 chip_smoke.py [phase ...]``), in
+# order, and what each needs from an earlier one: a named phase runs with
+# the phases it needs; no name runs every phase.
+PHASES = ("kernels", "decode", "serve", "frontend", "bucketed",
+          "large_frames", "slab", "tiled", "serve_ranks", "exr", "upscale",
+          "swin_upscale", "zoo_upscale", "swin_chain", "f32_probe", "bench")
+NEEDS = {"serve": ("decode",), "frontend": ("decode",),
+         "bucketed": ("decode",), "large_frames": ("decode",),
+         "slab": ("large_frames",), "tiled": ("large_frames",),
+         "serve_ranks": ("serve",), "exr": ("decode",),
+         "upscale": ("decode",), "swin_upscale": ("decode",),
+         "zoo_upscale": ("decode",), "swin_chain": ("decode",),
+         "f32_probe": ("kernels",)}
+
+
+def selected_phases(names) -> list:
+    """The phases to run, in order: ``names`` and what they need, or every
+    phase for none; an unknown name exits."""
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {unknown}; the "
+                         f"phases: {' '.join(PHASES)}")
+    want, todo = set(), list(names or PHASES)
+    while todo:
+        name = todo.pop()
+        if name not in want:
+            want.add(name)
+            todo.extend(NEEDS.get(name, ()))
+    return [p for p in PHASES if p in want]
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4242,47 +4466,95 @@ def main() -> int:
         print("chip_smoke: hdrvae_torch/ is not beside this script",
               file=sys.stderr)
         return 1
+    run = selected_phases(sys.argv[1:] if argv is None else argv)
     sys.path.insert(0, REPO)
     torch.backends.cudnn.benchmark = False
     t_start = time.perf_counter()
 
     card = phase_device()
-    phase_build()
-    entries, chain_ab = phase_kernels()
-    image, counts, per_tier, times, epi_counts, dec = phase_decode()
-    serve_record = phase_serve(dec, card)
-    front_record = phase_frontend(dec, image, card)
+    log(f"phases: {' '.join(run)}")
     t_b = time.perf_counter()
-    bucket_masked, bucket_records = phase_bucketed(dec)
-    log(f"bucketed phase {time.perf_counter() - t_b:.1f} s")
-    t_lf = time.perf_counter()
-    lf_counts, lf_records, slab_refs = phase_large_frames(dec)
-    log(f"large-frame phase {time.perf_counter() - t_lf:.1f} s")
-    t_sl = time.perf_counter()
-    slab_counts, slab_records = phase_slab(dec, slab_refs)
-    log(f"slab phase {time.perf_counter() - t_sl:.1f} s")
-    tiled_record = phase_tiled(dec, image, slab_refs, lf_records, card)
-    serve_ranks_record = phase_serve_ranks(dec, card, serve_record)
-    del dec, slab_refs
-    phase_exr(image)
-    t_up = time.perf_counter()
-    up_counts, up_times = phase_upscale(image)
-    log(f"upscale phase {time.perf_counter() - t_up:.1f} s")
-    swin_counts = {}
-    for family in ("SwinIR", "HAT", "Swin2SR"):
+    phase_build()
+    log(f"build phase {time.perf_counter() - t_b:.1f} s")
+    summary = {}
+    if "kernels" in run:
+        t_k = time.perf_counter()
+        entries, summary["swin_chain_vs_k7"] = phase_kernels()
+        log(f"kernels phase {time.perf_counter() - t_k:.1f} s")
+    if "decode" in run:
+        t_d = time.perf_counter()
+        image, counts, per_tier, times, epi_counts, dec = phase_decode()
+        log(f"decode phase {time.perf_counter() - t_d:.1f} s")
+        summary["decode_ms"] = {k: v[-1][0] for k, v in times.items()}
+    if "serve" in run:
+        summary["serve"] = phase_serve(dec, card)
+    if "frontend" in run:
+        summary["frontend"] = phase_frontend(dec, image, card)
+    if "bucketed" in run:
+        t_b = time.perf_counter()
+        bucket_masked, summary["bucketed_decode"] = phase_bucketed(dec)
+        log(f"bucketed phase {time.perf_counter() - t_b:.1f} s")
+    if "large_frames" in run:
+        t_lf = time.perf_counter()
+        lf_counts, lf_records, slab_refs = phase_large_frames(dec)
+        summary["large_frames"] = lf_records
+        log(f"large-frame phase {time.perf_counter() - t_lf:.1f} s")
+    if "slab" in run:
+        t_sl = time.perf_counter()
+        slab_counts, summary["slab_sharded"] = phase_slab(dec, slab_refs)
+        log(f"slab phase {time.perf_counter() - t_sl:.1f} s")
+    if "tiled" in run:
+        summary["tiled"] = phase_tiled(dec, image, slab_refs, lf_records,
+                                       card)
+    if "serve_ranks" in run:
+        summary["serve_ranks"] = phase_serve_ranks(dec, card,
+                                                   summary["serve"])
+    dec = slab_refs = None
+    if "exr" in run:
+        phase_exr(image)
+    up_times = {}
+    if "upscale" in run:
         t_up = time.perf_counter()
-        swin_counts[family], up_times[family] = phase_swin_upscale(image,
-                                                                   family)
-        log(f"{family} upscale phase {time.perf_counter() - t_up:.1f} s")
-    t_zoo = time.perf_counter()
-    up_times.update(phase_zoo_upscale(image))
-    log(f"Compact / SPAN / RealPLKSR upscale phase "
-        f"{time.perf_counter() - t_zoo:.1f} s")
-    t_ch = time.perf_counter()
-    chain_counts, chain_record = phase_swin_chain(image)
-    log(f"swin chain phase {time.perf_counter() - t_ch:.1f} s")
-    by_name = {e["name"]: e for e in entries}
-    probe_counts, probe_rows = phase_f32_probe(by_name["f32_dot"])
+        up_counts, up_times = phase_upscale(image)
+        log(f"upscale phase {time.perf_counter() - t_up:.1f} s")
+    swin_counts = {}
+    if "swin_upscale" in run:
+        for family in ("SwinIR", "HAT", "Swin2SR"):
+            t_up = time.perf_counter()
+            swin_counts[family], up_times[family] = phase_swin_upscale(
+                image, family)
+            log(f"{family} upscale phase {time.perf_counter() - t_up:.1f} s")
+    if "zoo_upscale" in run:
+        t_zoo = time.perf_counter()
+        up_times.update(phase_zoo_upscale(image))
+        log(f"Compact / SPAN / RealPLKSR upscale phase "
+            f"{time.perf_counter() - t_zoo:.1f} s")
+    summary["upscale_ms"] = {k: v[-1][0] if k in ("fast", "parity")
+                             else {t: r[0] for t, r in v.items()}
+                             for k, v in up_times.items()}
+    if "swin_chain" in run:
+        t_ch = time.perf_counter()
+        chain_counts, summary["swin_chain"] = phase_swin_chain(image)
+        log(f"swin chain phase {time.perf_counter() - t_ch:.1f} s")
+    if "f32_probe" in run:
+        by_name = {e["name"]: e for e in entries}
+        probe_counts, summary["f32_dot_probe"] = phase_f32_probe(
+            by_name["f32_dot"])
+    image = None
+    if "bench" in run:
+        summary["bench"] = phase_bench(
+            min(d for d, _ in times["fast"]) if "decode" in run else None,
+            card)
+
+    if run != list(PHASES):
+        # a named subset: no kernel table (its launches come from every
+        # phase), the records of the phases that ran
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phases": run, **summary}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     log(f"launches in the decode phase: {counts}")
     for name in ("fused_conv3x3", "upsample_conv3x3",
@@ -4342,21 +4614,7 @@ def main() -> int:
             entry["key_valid"]["launches"] = bucket_masked[
                 entry["tiers"][0]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": entries,
-                      "decode_ms": {k: v[-1][0] for k, v in times.items()},
-                      "upscale_ms": {k: v[-1][0] if k in ("fast", "parity")
-                                     else {t: r[0] for t, r in v.items()}
-                                     for k, v in up_times.items()},
-                      "serve": serve_record,
-                      "frontend": front_record,
-                      "bucketed_decode": bucket_records,
-                      "large_frames": lf_records,
-                      "slab_sharded": slab_records,
-                      "tiled": tiled_record,
-                      "serve_ranks": serve_ranks_record,
-                      "swin_chain_vs_k7": chain_ab,
-                      "swin_chain": chain_record,
-                      "f32_dot_probe": probe_rows}))
+    print(json.dumps({"kernels": entries, **summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,8 @@ Subcommands:
            EXR / HDR / npy back), over one ServeEngine on one card;
            ``--sharded`` the exact slab-sharded decode on ``--mesh`` ranks,
            this process rank 0 and the HTTP front end
+  bench    the benchmark harness ``bench_torch.py`` (repository root,
+           ``bench.py``'s rows on the card), one JSON line
 
 Every subcommand takes the JAX CLI's flags, defaults and choices, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
@@ -30,12 +32,12 @@ command; each rank's record is logged at INFO.  ``serve`` stops on SIGINT
 or SIGTERM: the engine drains, tells the other ranks to stop and waits
 for them.  ``serve --bucket`` omitted takes the engine's default: 64, and
 no bucket with ``--sharded`` (the JAX CLI passes 64 there too, which
-bypasses its engine's mesh default).  Not here: JAX's ``bench`` (it starts
-the JAX package's harness).
+bypasses its engine's mesh default).
 
     python -m hdrvae_torch.cli.main decode --size 1024 --bit-depth 16bit
     python -m hdrvae_torch.cli.main decode --tiled --mesh 2 --size 2048
     python -m hdrvae_torch.cli.main serve --sharded --mesh 2 --port 8475
+    python -m hdrvae_torch.cli.main bench --size 1024
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ import sys
 import numpy as np
 
 logger = logging.getLogger("hdrvae_torch.cli")
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 # the longest a command's ranks may run before the group is stopped
 RANK_TIMEOUT_S = 3600.0
@@ -576,6 +581,16 @@ def _serve_on_ranks(args, vae, engine_kw: dict) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Start the benchmark harness (``bench_torch.py``) with ``--size`` and
+    ``--device``; its exit code."""
+    import subprocess
+    cmd = [sys.executable, os.path.join(_REPO, "bench_torch.py")]
+    if args.size:
+        cmd += ["--size", str(args.size)]
+    return subprocess.call(cmd + ["--device", args.device])
+
+
 _MODES = ("conservative", "exposure", "adaptive_recovery",
           "mathematical_recovery")
 
@@ -657,6 +672,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--path", help="checkpoint to describe (default: "
                                   "built-in Flux.1 decoder topology)")
     p.set_defaults(func=cmd_inspect)
+
+    p = sub.add_parser("bench", help="run the benchmark harness")
+    p.add_argument("--size", type=int)
+    _add_device_arg(p)
+    p.set_defaults(func=cmd_bench)
 
     p = sub.add_parser("serve", help="HTTP decode service (POST .npy "
                                      "latents to /v1/decode, get EXR/HDR)")

@@ -2,8 +2,8 @@
 (``hdrvae/cli/main.py``), driven in-process on the CPU (``--device cpu``)
 at tiny sizes.
 
-The parsers of decode, upscale, export, convert, inspect, run and serve
-must take the JAX flags with the same defaults, choices and types, except
+The parsers of decode, upscale, export, convert, inspect, run, serve and
+bench must take the JAX flags with the same defaults, choices and types, except
 what the port adds (``--device``, ``serve --mesh``) and ``serve
 --bucket``'s default (None: the engine's own, 64 alone and no bucket with
 ``--sharded``, where the JAX CLI's 64 bypasses its engine's mesh
@@ -47,7 +47,7 @@ def _actions(parser):
 
 
 @pytest.mark.parametrize("command", ["decode", "upscale", "export", "run",
-                                     "serve", "convert", "inspect"])
+                                     "serve", "convert", "inspect", "bench"])
 def test_parser_matches_jax(command):
     ref = _actions(_subparsers(jcli.build_parser())[command])
     got = _actions(_subparsers(tcli.build_parser())[command])
@@ -234,6 +234,27 @@ def test_parity_flag_and_latent_files(tmp_path):
         tcli._load_latent(str(tmp_path / "two.safetensors"))
 
 
+def test_bench_starts_the_harness(monkeypatch):
+    """``cli bench`` starts ``bench_torch.py`` (repository root) with
+    ``--size`` and ``--device`` and returns its exit code, as the JAX CLI
+    starts ``bench.py``."""
+    import subprocess
+    import sys
+    calls = []
+
+    def call(cmd):
+        calls.append(cmd)
+        return 3
+    monkeypatch.setattr(subprocess, "call", call)
+    assert tcli.main(["bench", "--size", "64", "--device", "cpu"]) == 3
+    assert tcli.main(["bench"]) == 3
+    harness = os.path.join(REPO, "bench_torch.py")
+    assert os.path.isfile(harness)
+    assert calls == [[sys.executable, harness, "--size", "64", "--device",
+                      "cpu"],
+                     [sys.executable, harness, "--device", "cuda"]]
+
+
 def test_front_end_never_imports_jax():
     """A fresh interpreter imports the front end, reads the registry and
     parses every subcommand without JAX or the JAX package entering
@@ -250,13 +271,14 @@ def test_front_end_never_imports_jax():
         "from hdrvae_torch.io import pipeline, native_build, exr\n"
         "from hdrvae_torch.utils import progress, introspect, profiling\n"
         "from hdrvae_torch.sharding import mesh, multihost\n"
+        "import bench_torch\n"
         "assert list(hdrvae_torch.NODE_CLASS_MAPPINGS) == "
         "['HDRVAEDecode', 'LinearEXRExport', 'HDRUpscaleWithModel']\n"
         "p = main.build_parser()\n"
         "for cmd in ('decode', 'upscale --image a --model b', 'export "
         "--image a', 'run w.json', 'serve', 'decode --tiled --mesh 2', "
         "'upscale --sharded --image a --model b', 'convert vae a b', "
-        "'inspect'):\n"
+        "'inspect', 'bench --size 64'):\n"
         "    p.parse_args(cmd.split())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'hdrvae' or m.startswith('hdrvae.') "
