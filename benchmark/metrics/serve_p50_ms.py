@@ -1,0 +1,13 @@
+"""The median (nearest rank), over every request due in the traced run's
+window, of the time from when it was due to when its response was
+ready; a failed request counts as infinitely late."""
+
+import math
+
+
+def read(ctx):
+    lat = ctx["latencies_ms"]
+    if ctx["kind"] != "serve" or not lat:
+        return None
+    s = sorted(lat)
+    return s[max(0, math.ceil(0.5 * len(s)) - 1)]
